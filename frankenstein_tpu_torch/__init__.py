@@ -1,0 +1,20 @@
+"""frankenstein_tpu_torch — the PyTorch + CUDA port of frankenstein_tpu.
+
+The port serves the flagship Franky chain (a 768x256 brain window through
+the slab-causal encoder and Perceiver, then GPT-2 124M with KV-cached top-k
+decode) on one NVIDIA H100. Plain tensor code is PyTorch; the two kernels
+the JAX package wrote in Pallas on this path are hand-written CUDA C++ for
+Hopper (``csrc/``):
+
+- K1 ``ops/cuda/slab_attention.py``: slab-causal attention with in-kernel
+  RoPE (the encoder);
+- K2 ``ops/cuda/fused_decode.py``: one GPT-2 token through all blocks.
+
+Each kernel's wrapper runs a plain PyTorch twin for CPU tensors, so the CPU
+tests hold the port to the JAX package. The package imports torch and
+numpy, never jax or frankenstein_tpu.
+"""
+
+__version__ = "0.1.0"
+
+from frankenstein_tpu_torch import config as config

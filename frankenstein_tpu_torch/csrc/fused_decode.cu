@@ -1,0 +1,498 @@
+// K2: one GPT-2 token through all L transformer blocks.
+//
+// Replaces frankenstein_tpu/ops/pallas/fused_decode.py:fused_decode_blocks
+// (the math of _chunk_math, shared by the grid kernel _kernel and the
+// manually pipelined _fused_decode_pipelined). Per layer:
+//   LN(eps 1e-5) -> qkv (+bias) -> attention over cache rows < length plus
+//   the token's own K/V -> proj (+bias) -> residual -> LN -> fc (+bias) ->
+//   exact-erf GELU -> fc2 (+bias) -> residual.
+// The residual stays f32 across all layers and is cast to x's dtype at the
+// end. The new K/V rows are written IN PLACE at row `length` of the caches.
+// Weights are [L, in, out], bf16 or int8 (w8a16: the [L, 1, out] f32 scale
+// multiplies the f32 dot output before the bias).
+//
+// What bounds it on an H100: decode at small batch moves every weight byte
+// and the whole KV cache once per token for a few FLOPs per byte, so it is
+// bound by bytes, and at these sizes by how many bytes are in flight. The
+// design:
+//   * each [B, in] x [in, out] product is split over its depth (split-K)
+//     so that a few hundred CTAs stream disjoint weight tiles at once; each
+//     CTA reads its tile once per 32 batch rows, int8 weights as int8 (half
+//     the bytes of bf16) widened exactly to bf16 in shared memory, and runs
+//     nvcuda::wmma bf16 tiles with f32 accumulation into its own partial;
+//   * one "finalize" pass per product sums the partials in a fixed order
+//     (deterministic) and applies the w8 scale, bias, GELU or residual add;
+//     the residual finalize also computes the next LayerNorm, and the
+//     attention kernel finalizes q, k, v itself, so no activation makes an
+//     extra round trip;
+//   * one attention CTA per (batch, head) reads its cache rows once and
+//     writes the new row in the same pass.
+// The host loop below issues 8 launches per layer on the caller's stream.
+// Fusing all layers into one persistent kernel, as the TPU kernel does, is
+// later work.
+//
+// The int8 KV-cache mode of the TPU kernel is not ported yet: the Python
+// wrapper raises NotImplementedError for int8 caches.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int GEMM_BM = 32;    // batch rows per CTA
+constexpr int GEMM_BN = 64;    // output lanes per CTA
+constexpr int GEMM_BK = 128;   // depth per shared-memory stage
+constexpr int GEMM_THREADS = 128;
+constexpr int TARGET_CTAS = 4 * 132;   // ~4 CTAs per SM of an H100
+constexpr int ROW_THREADS = 256;
+constexpr int ATTN_THREADS = 128;
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float gelu_erf(float z) {
+  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum over the block (blockDim.x a multiple of 32, at most 1024).
+__device__ float block_sum(float v) {
+  __shared__ float part[32];
+  __shared__ float total;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) part[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float t = lane < int(blockDim.x >> 5) ? part[lane] : 0.f;
+    t = warp_sum(t);
+    if (lane == 0) total = t;
+  }
+  __syncthreads();
+  const float out = total;
+  __syncthreads();  // part/total are reused by the next call
+  return out;
+}
+
+// LayerNorm of the f32 row held in xr (shared or global), rounded to bf16:
+// ((x - mu) * rsqrt(var + eps)) * w + b. Called by a whole block.
+__device__ void layer_norm_row(const float* xr, const float* __restrict__ w,
+                               const float* __restrict__ b,
+                               bf16* __restrict__ out, int E) {
+  float s = 0.f;
+  for (int i = threadIdx.x; i < E; i += blockDim.x) s += xr[i];
+  const float mu = block_sum(s) / E;
+  float sq = 0.f;
+  for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    const float d = xr[i] - mu;
+    sq += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(sq) / E + 1e-5f);
+  for (int i = threadIdx.x; i < E; i += blockDim.x)
+    out[i] = __float2bfloat16((xr[i] - mu) * rstd * w[i] + b[i]);
+}
+
+// 16 bytes of weights -> bf16 in shared memory (int8 codes widen exactly).
+__device__ __forceinline__ void stage_weights(const bf16* src, bf16* dst) {
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+}
+
+__device__ __forceinline__ void stage_weights(const int8_t* src, bf16* dst) {
+  uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const int8_t* w = reinterpret_cast<const int8_t*>(&raw);
+  __align__(16) bf16 out[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) out[i] = __float2bfloat16(float(w[i]));
+  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(out)[0];
+  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(out)[1];
+}
+
+// part[z, B, N] = A[B, kz] (bf16) @ W[kz, N] for the depth slice kz of
+// split z = blockIdx.z (K / gridDim.z rows), f32 accumulation.
+template <typename WT>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_partial(const bf16* __restrict__ A, const WT* __restrict__ W,
+             float* __restrict__ part, int B, int K, int N) {
+  constexpr int LDA = GEMM_BK + 8, LDW = GEMM_BN + 8, LDC = GEMM_BN + 4;
+  constexpr int VEC = 16 / sizeof(WT);       // weights per 16-byte load
+  constexpr int CPR = GEMM_BN / VEC;         // 16-byte loads per tile row
+  __shared__ __align__(128) bf16 sA[GEMM_BM * LDA];
+  __shared__ __align__(128) bf16 sW[GEMM_BK * LDW];
+  __shared__ __align__(128) float sC[GEMM_BM * LDC];
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int n0 = blockIdx.x * GEMM_BN, m0 = blockIdx.y * GEMM_BM;
+  const int kc = K / gridDim.z, kbeg = blockIdx.z * kc;
+  const int wm = warp >> 1, wn = warp & 1;   // 2 x 2 warps of 16 x 32
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+
+  for (int k0 = kbeg; k0 < kbeg + kc; k0 += GEMM_BK) {
+    // every 16-byte load of the stage is issued before any is waited on
+    for (int idx = tid; idx < GEMM_BM * GEMM_BK / 8; idx += GEMM_THREADS) {
+      const int r = idx / (GEMM_BK / 8), c = (idx % (GEMM_BK / 8)) * 8;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + r < B)
+        val = *reinterpret_cast<const uint4*>(A + size_t(m0 + r) * K + k0 + c);
+      *reinterpret_cast<uint4*>(sA + r * LDA + c) = val;
+    }
+    for (int idx = tid; idx < GEMM_BK * CPR; idx += GEMM_THREADS) {
+      const int r = idx / CPR, c = (idx % CPR) * VEC;
+      stage_weights(W + size_t(k0 + r) * N + n0 + c, sW + r * LDW + c);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GEMM_BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+      wmma::load_matrix_sync(fa, sA + wm * 16 * LDA + kk, LDA);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, sW + kk * LDW + wn * 32 + j * 16, LDW);
+        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(sC + wm * 16 * LDC + wn * 32 + j * 16, acc[j], LDC,
+                            wmma::mem_row_major);
+  __syncthreads();
+  float* pz = part + size_t(blockIdx.z) * B * N;
+  for (int idx = tid; idx < GEMM_BM * GEMM_BN; idx += GEMM_THREADS) {
+    const int r = idx / GEMM_BN, c = idx % GEMM_BN;
+    if (m0 + r < B) pz[size_t(m0 + r) * N + n0 + c] = sC[r * LDC + c];
+  }
+}
+
+// sum_z part[z, row, col] in split order, then * scale (w8a16): the
+// product's f32 dot output as the JAX chain scales it.
+// The caller adds the bias where the JAX chain does.
+__device__ __forceinline__ float finalize(const float* __restrict__ part,
+                                          int splits, size_t plane,
+                                          size_t off, const float* scale,
+                                          int col) {
+  float y = 0.f;
+  for (int z = 0; z < splits; ++z) y += part[z * plane + off];
+  return scale == nullptr ? y : y * scale[col];
+}
+
+// x_res = float(x_in) and h = LN(x_res) with layer 0's ln_1; one block/row.
+__global__ void __launch_bounds__(ROW_THREADS)
+start_rows(const bf16* __restrict__ x_in, float* __restrict__ x_res,
+           const float* __restrict__ w, const float* __restrict__ b,
+           bf16* __restrict__ h, int E) {
+  const size_t r = size_t(blockIdx.x) * E;
+  for (int i = threadIdx.x; i < E; i += blockDim.x)
+    x_res[r + i] = __bfloat162float(x_in[r + i]);
+  __syncthreads();
+  layer_norm_row(x_res + r, w, b, h + r, E);
+}
+
+// x_res = (x_res + y) + bias for y the finalized product, then either the
+// next LayerNorm (ln_w != null) into h, or the output cast into x_out.
+__global__ void __launch_bounds__(ROW_THREADS)
+residual_rows(const float* __restrict__ part, int splits,
+              const float* __restrict__ scale, const float* __restrict__ bias,
+              float* __restrict__ x_res, const float* __restrict__ ln_w,
+              const float* __restrict__ ln_b, bf16* __restrict__ h,
+              bf16* __restrict__ x_out, int B, int E) {
+  const size_t r = size_t(blockIdx.x) * E;
+  const size_t plane = size_t(B) * E;
+  for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    const float y = finalize(part, splits, plane, r + i, scale, i);
+    const float x = (x_res[r + i] + y) + bias[i];
+    x_res[r + i] = x;
+    if (ln_w == nullptr) x_out[r + i] = __float2bfloat16(x);
+  }
+  if (ln_w == nullptr) return;
+  __syncthreads();
+  layer_norm_row(x_res + r, ln_w, ln_b, h + r, E);
+}
+
+// hh = gelu(y + bias) rounded to bf16, elementwise over [B, N].
+__global__ void gelu_rows(const float* __restrict__ part, int splits,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ hh, int B, int N) {
+  const size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= size_t(B) * N) return;
+  const int col = int(i % N);
+  const float y = finalize(part, splits, size_t(B) * N, i, scale, col);
+  hh[i] = __float2bfloat16(gelu_erf(y + bias[col]));
+}
+
+// Attention of one (head, batch row) over cache rows < length plus the
+// token's own K/V, then the new rows are written at row `length`. q, k, v
+// are finalized here from the qkv partials (f32). Cached-row scores take q
+// rounded to bf16; the own score and own-value term stay f32; the
+// probabilities round to bf16 before the AV sum (JAX's rounding points).
+// Cache rows are staged through shared memory ATTN_ROWS at a time with
+// 16-byte loads, all issued before any is used. kc/vc point at this layer's
+// [B, S, E] cache; o is [B, E] bf16. Needs D % 8 == 0 and D <= 128.
+constexpr int ATTN_ROWS = 64;
+
+__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
+                                           bf16* dst, int rows, int D,
+                                           int E) {
+  const int chunks = D / 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    *reinterpret_cast<uint4*>(dst + r * D + c) =
+        *reinterpret_cast<const uint4*>(src + size_t(r) * E + c);
+  }
+}
+
+__global__ void __launch_bounds__(ATTN_THREADS)
+decode_attention(const float* __restrict__ part, int splits,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias, bf16* __restrict__ kc,
+                 bf16* __restrict__ vc, bf16* __restrict__ o, int B, int S,
+                 int E, int D, int length, float att_scale) {
+  // [3 * D] f32 q, k_new, v_new | [S] f32 scores | [ATTN_ROWS * D] bf16
+  // rows, 16-byte aligned (attention_smem_bytes)
+  extern __shared__ float smem[];
+  float* sq = smem;
+  float* sk = smem + D;
+  float* sv = smem + 2 * D;
+  float* sp = smem + 3 * D;
+  bf16* rows = reinterpret_cast<bf16*>(smem + ((3 * D + S + 3) & ~3));
+  __shared__ float s_own, w_own;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nwarps = blockDim.x >> 5;
+  const size_t plane = size_t(B) * 3 * E;
+  for (int i = tid; i < 3 * D; i += blockDim.x) {
+    const int col = (i / D) * E + h * D + i % D;
+    smem[i] = finalize(part, splits, plane, size_t(b) * 3 * E + col, scale,
+                       col) + bias[col];
+  }
+  __syncthreads();
+  bf16* kb = kc + size_t(b) * S * E + size_t(h) * D;
+  bf16* vb = vc + size_t(b) * S * E + size_t(h) * D;
+
+  for (int j0 = 0; j0 < length; j0 += ATTN_ROWS) {
+    const int n = min(ATTN_ROWS, length - j0);
+    __syncthreads();   // previous chunk consumed
+    stage_rows(kb + size_t(j0) * E, rows, n, D, E);
+    __syncthreads();
+    for (int j = warp; j < n; j += nwarps) {
+      float acc = 0.f;
+      for (int d = lane; d < D; d += 32)
+        acc += round_bf16(sq[d]) * __bfloat162float(rows[j * D + d]);
+      acc = warp_sum(acc);
+      if (lane == 0) sp[j0 + j] = acc * att_scale;
+    }
+  }
+  if (warp == nwarps - 1) {
+    float acc = 0.f;
+    for (int d = lane; d < D; d += 32) acc += sq[d] * sk[d];
+    acc = warp_sum(acc);
+    if (lane == 0) s_own = acc * att_scale;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float mx = s_own;
+    for (int j = lane; j < length; j += 32) mx = fmaxf(mx, sp[j]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int j = lane; j < length; j += 32) {
+      const float e = expf(sp[j] - mx);
+      sp[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    const float p_own = expf(s_own - mx);
+    const float denom = sum + p_own;
+    for (int j = lane; j < length; j += 32) sp[j] = round_bf16(sp[j] / denom);
+    if (lane == 0) w_own = p_own / denom;
+  }
+  // o[d] = sum_j p_j v_j[d]: thread (d, part) sums rows part, part + P, ...
+  // of each staged chunk; the P partial sums meet in shared memory.
+  __shared__ float osum[ATTN_THREADS];
+  const int parts = max(1, int(blockDim.x) / D);
+  const int d = tid % D, pi = tid / D;
+  float acc = 0.f;
+  for (int j0 = 0; j0 < length; j0 += ATTN_ROWS) {
+    const int n = min(ATTN_ROWS, length - j0);
+    __syncthreads();   // probabilities ready / previous chunk consumed
+    stage_rows(vb + size_t(j0) * E, rows, n, D, E);
+    __syncthreads();
+    if (pi < parts && d < D)
+      for (int j = pi; j < n; j += parts)
+        acc += sp[j0 + j] * __bfloat162float(rows[j * D + d]);
+  }
+  __syncthreads();
+  osum[tid] = acc;
+  __syncthreads();
+  if (tid < D) {
+    float total = 0.f;
+    for (int q = 0; q < parts; ++q) total += osum[q * D + tid];
+    total += w_own * sv[tid];
+    o[size_t(b) * E + size_t(h) * D + tid] = __float2bfloat16(total);
+    kb[size_t(length) * E + tid] = __float2bfloat16(sk[tid]);
+    vb[size_t(length) * E + tid] = __float2bfloat16(sv[tid]);
+  }
+}
+
+size_t attention_smem_bytes(int D, int S) {
+  return size_t((3 * D + S + 3) & ~3) * sizeof(float) +
+         size_t(ATTN_ROWS) * D * sizeof(bf16);
+}
+
+// Depth splits of a [B, K] x [K, N] product: the largest divisor of the
+// K / GEMM_BK depth steps that keeps the grid near TARGET_CTAS.
+int splits_for(int B, int K, int N) {
+  const int tiles = (N / GEMM_BN) * ((B + GEMM_BM - 1) / GEMM_BM);
+  const int want = (TARGET_CTAS + tiles - 1) / tiles;
+  const int steps = K / GEMM_BK;
+  int best = 1;
+  for (int s = 1; s <= steps && s <= want; ++s)
+    if (steps % s == 0) best = s;
+  return best;
+}
+
+size_t workspace_floats(int B, int E) {
+  size_t most = 0;
+  const int shapes[4][2] = {{E, 3 * E}, {E, E}, {E, 4 * E}, {4 * E, E}};
+  for (const auto& kn : shapes) {
+    const size_t n = size_t(splits_for(B, kn[0], kn[1])) * B * kn[1];
+    if (n > most) most = n;
+  }
+  return most;
+}
+
+template <typename WT>
+cudaError_t gemm(const bf16* A, const void* W, size_t w_off, float* part,
+                 int splits, int B, int K, int N, cudaStream_t st) {
+  const dim3 grid(N / GEMM_BN, (B + GEMM_BM - 1) / GEMM_BM, splits);
+  gemm_partial<WT><<<grid, GEMM_THREADS, 0, st>>>(
+      A, static_cast<const WT*>(W) + w_off, part, B, K, N);
+  return cudaGetLastError();
+}
+
+#define FK_TRY(expr)                              \
+  do {                                            \
+    cudaError_t fk_err_ = (expr);                 \
+    if (fk_err_ != cudaSuccess) return fk_err_;   \
+  } while (0)
+
+struct Weights {
+  const float *ln1_w, *ln1_b, *qkv_b, *proj_b, *ln2_w, *ln2_b, *fc_b, *fc2_b;
+  const void *qkv_w, *proj_w, *fc_w, *fc2_w;
+  const float *qkv_s, *proj_s, *fc_s, *fc2_s;   // null unless w8a16
+};
+
+template <typename WT>
+cudaError_t run_layers(const bf16* x_in, bf16* x_out, float* x_res,
+                       bf16* hbuf, bf16* hh, float* part, const Weights& w,
+                       bf16* k_cache, bf16* v_cache, int L, int B, int S,
+                       int E, int H, int length, cudaStream_t st) {
+  const int D = E / H;
+  const float att_scale = 1.f / sqrtf(float(D));
+  const size_t cache_layer = size_t(B) * S * E;
+  const int s_qkv = splits_for(B, E, 3 * E), s_proj = splits_for(B, E, E);
+  const int s_fc = splits_for(B, E, 4 * E), s_fc2 = splits_for(B, 4 * E, E);
+  auto at = [](const float* p, size_t off) {
+    return p == nullptr ? nullptr : p + off;
+  };
+  start_rows<<<B, ROW_THREADS, 0, st>>>(x_in, x_res, w.ln1_w, w.ln1_b, hbuf,
+                                        E);
+  FK_TRY(cudaGetLastError());
+  for (int l = 0; l < L; ++l) {
+    const size_t e1 = size_t(l) * E, e3 = 3 * e1, e4 = 4 * e1;
+    FK_TRY(gemm<WT>(hbuf, w.qkv_w, e1 * 3 * E, part, s_qkv, B, E, 3 * E, st));
+    decode_attention<<<dim3(H, B), ATTN_THREADS,
+                       attention_smem_bytes(D, S), st>>>(
+        part, s_qkv, at(w.qkv_s, e3), w.qkv_b + e3,
+        k_cache + l * cache_layer, v_cache + l * cache_layer, hbuf, B, S, E,
+        D, length, att_scale);
+    FK_TRY(cudaGetLastError());
+    FK_TRY(gemm<WT>(hbuf, w.proj_w, e1 * E, part, s_proj, B, E, E, st));
+    residual_rows<<<B, ROW_THREADS, 0, st>>>(
+        part, s_proj, at(w.proj_s, e1), w.proj_b + e1, x_res, w.ln2_w + e1,
+        w.ln2_b + e1, hbuf, nullptr, B, E);
+    FK_TRY(cudaGetLastError());
+    FK_TRY(gemm<WT>(hbuf, w.fc_w, e1 * 4 * E, part, s_fc, B, E, 4 * E, st));
+    const int n_fc = B * 4 * E;
+    gelu_rows<<<(n_fc + 255) / 256, 256, 0, st>>>(
+        part, s_fc, at(w.fc_s, e4), w.fc_b + e4, hh, B, 4 * E);
+    FK_TRY(cudaGetLastError());
+    FK_TRY(gemm<WT>(hh, w.fc2_w, e4 * E, part, s_fc2, B, 4 * E, E, st));
+    const bool last = l == L - 1;
+    residual_rows<<<B, ROW_THREADS, 0, st>>>(
+        part, s_fc2, at(w.fc2_s, e1), w.fc2_b + e1, x_res,
+        last ? nullptr : w.ln1_w + e1 + E, last ? nullptr : w.ln1_b + e1 + E,
+        hbuf, x_out, B, E);
+    FK_TRY(cudaGetLastError());
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Bytes of f32 workspace fk_fused_decode_blocks needs for batch B, width E.
+extern "C" long long fk_fused_decode_workspace_bytes(int B, int E) {
+  return static_cast<long long>(workspace_floats(B, E) * sizeof(float));
+}
+
+// All pointers are device pointers checked by the Python wrapper
+// (ops/cuda/fused_decode.py): bf16 x [B, E] and caches [L, B, S, E];
+// scratch: f32 x_res [B, E], bf16 hbuf [B, E] and hh [B, 4E], f32
+// workspace of fk_fused_decode_workspace_bytes(B, E); f32 LN params and
+// biases [L, D]; weights [L, in, out] bf16, or int8 (w_int8 = 1) with f32
+// scales [L, 1, out]. E % 128 == 0, head_dim % 8 == 0 and <= 128,
+// 0 <= length < S, S small enough for the attention's shared memory.
+extern "C" int fk_fused_decode_blocks(
+    const void* x_in, void* x_out, void* x_res, void* hbuf, void* hh,
+    void* workspace, const void* ln1_w, const void* ln1_b, const void* qkv_w,
+    const void* qkv_b, const void* proj_w, const void* proj_b,
+    const void* ln2_w, const void* ln2_b, const void* fc_w, const void* fc_b,
+    const void* fc2_w, const void* fc2_b, const void* qkv_s,
+    const void* proj_s, const void* fc_s, const void* fc2_s, void* k_cache,
+    void* v_cache, int L, int B, int S, int E, int H, int length, int w_int8,
+    void* stream) {
+  if (E % GEMM_BK != 0 || E % H != 0 || (E / H) % 8 != 0 ||
+      E / H > ATTN_THREADS || length < 0 || length >= S ||
+      attention_smem_bytes(E / H, S) > 48 * 1024)
+    return int(cudaErrorInvalidValue);
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const Weights w{f(ln1_w), f(ln1_b), f(qkv_b), f(proj_b), f(ln2_w),
+                  f(ln2_b), f(fc_b),  f(fc2_b), qkv_w,     proj_w,
+                  fc_w,     fc2_w,    f(qkv_s), f(proj_s), f(fc_s),
+                  f(fc2_s)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto tag) {
+    using WT = decltype(tag);
+    return run_layers<WT>(
+        static_cast<const bf16*>(x_in), static_cast<bf16*>(x_out),
+        static_cast<float*>(x_res), static_cast<bf16*>(hbuf),
+        static_cast<bf16*>(hh), static_cast<float*>(workspace), w,
+        static_cast<bf16*>(k_cache), static_cast<bf16*>(v_cache), L, B, S, E,
+        H, length, st);
+  };
+  return int(w_int8 ? run(int8_t{}) : run(bf16{}));
+}

@@ -1,0 +1,245 @@
+"""GPT-2 decoder LM with brain-prefix conditioning
+(``frankenstein_tpu/models/gpt2.py``).
+
+- ``forward(idx, prefix, targets)``: soft-prompt ``prefix`` vectors before the
+  token embeddings, learned positions over the full length, shifted CE over
+  text positions ignoring -100.
+- Decode uses a fixed-shape KV cache with heads folded, ``[L, B, S, E]``
+  (``init_cache`` / ``prefill`` / ``decode_step``). ``decode_step`` runs all
+  blocks through kernel K2 (``ops/cuda/fused_decode.py``) on the card.
+- ``lm_head`` is tied to ``transformer.wte``.
+
+Dropout and the MoE MLP are not ported: the port serves, it does not train.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from frankenstein_tpu_torch.config import GPTConfig, IGNORE_INDEX
+from frankenstein_tpu_torch.models.layers import LayerNorm, linear
+from frankenstein_tpu_torch.ops import attention as attn_ops
+from frankenstein_tpu_torch.ops.cuda import fused_decode
+
+
+class CausalSelfAttention(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        e = cfg.n_embd
+        self.c_attn = nn.Linear(e, 3 * e, bias=cfg.bias, device=device)
+        self.c_proj = nn.Linear(e, e, bias=cfg.bias, device=device)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        e = cfg.n_embd
+        self.c_fc = nn.Linear(e, 4 * e, bias=cfg.bias, device=device)
+        self.c_proj = nn.Linear(4 * e, e, bias=cfg.bias, device=device)
+
+
+class GPTBlock(nn.Module):
+    """One pre-LN block run against a KV cache segment."""
+
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln_1 = LayerNorm(cfg.n_embd, bias=cfg.bias, device=device)
+        self.attn = CausalSelfAttention(cfg, device)
+        self.ln_2 = LayerNorm(cfg.n_embd, bias=cfg.bias, device=device)
+        self.mlp = MLP(cfg, device)
+
+    def forward(self, x, k_cache, v_cache, length: int):
+        """x: [B, t, E]; k_cache/v_cache: this layer's [B, S, E], updated in
+        place at rows [length, length + t)."""
+        c = self.cfg
+        b, t, e = x.shape
+        s = k_cache.shape[1]
+        q, k, v = linear(self.ln_1(x), self.attn.c_attn).split(e, dim=-1)
+        k_cache[:, length:length + t] = k.to(k_cache.dtype)
+        v_cache[:, length:length + t] = v.to(v_cache.dtype)
+        heads = (b, s, c.n_head, c.head_dim)
+        y = attn_ops.cached_attention(q.reshape(b, t, c.n_head, c.head_dim),
+                                      k_cache.reshape(heads),
+                                      v_cache.reshape(heads), length + 1)
+        x = x + linear(y.reshape(b, t, e), self.attn.c_proj)
+        h = F.gelu(linear(self.ln_2(x), self.mlp.c_fc), approximate="none")
+        return x + linear(h, self.mlp.c_proj)
+
+
+def init_cache(cfg: GPTConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None):
+    """Fixed-shape stacked KV cache: ([L, B, S, E], [L, B, S, E]) zeros."""
+    shape = (cfg.n_layer, batch, max_len, cfg.n_embd)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def stack_decode_weights(gpt: "GPT", cdt=None) -> dict:
+    """The stacked-[L] dict kernel K2 consumes (``_stack_decode_weights``):
+    matmul weights in [in, out] layout in the compute dtype ``cdt`` (the
+    model's dtype by default); LayerNorm params and biases in f32, which is
+    lossless since the kernel lifts them to f32 anyway. Also ``lm_head_t``,
+    the tied head [E, V] in the model's dtype widened to f32, so decode
+    steps do not re-widen it. Build it once per predictor, not per step."""
+    blocks = list(gpt.transformer["h"])
+    cdt = cdt or gpt.dtype
+    e = gpt.cfg.n_embd
+
+    def vec(get, width):
+        return torch.stack([
+            get(b).detach().float() if get(b) is not None
+            else torch.zeros(width, device=gpt.device) for b in blocks
+        ]).contiguous()
+
+    def mat(get):
+        return torch.stack([get(b).detach().t().to(cdt)
+                            for b in blocks]).contiguous()
+
+    return {
+        "ln1_w": vec(lambda b: b.ln_1.weight, e),
+        "ln1_b": vec(lambda b: b.ln_1.bias, e),
+        "qkv_w": mat(lambda b: b.attn.c_attn.weight),
+        "qkv_b": vec(lambda b: b.attn.c_attn.bias, 3 * e),
+        "proj_w": mat(lambda b: b.attn.c_proj.weight),
+        "proj_b": vec(lambda b: b.attn.c_proj.bias, e),
+        "ln2_w": vec(lambda b: b.ln_2.weight, e),
+        "ln2_b": vec(lambda b: b.ln_2.bias, e),
+        "fc_w": mat(lambda b: b.mlp.c_fc.weight),
+        "fc_b": vec(lambda b: b.mlp.c_fc.bias, 4 * e),
+        "fc2_w": mat(lambda b: b.mlp.c_proj.weight),
+        "fc2_b": vec(lambda b: b.mlp.c_proj.bias, e),
+        "lm_head_t": gpt.lm_head_table(),
+    }
+
+
+def quantize_decode_weights(gpt: "GPT", cdt=torch.bfloat16) -> dict:
+    """w8a16 serving mode: the stacked dict with int8 matmul weights and
+    per-(layer, out-lane) scales (``fused_decode.quantize_weights``)."""
+    return fused_decode.quantize_weights(stack_decode_weights(gpt, cdt))
+
+
+def cross_entropy_ignore(logits, targets, ignore_index: int = IGNORE_INDEX):
+    """Mean CE over non-ignored positions."""
+    logits = logits.float()
+    mask = targets != ignore_index
+    safe = torch.where(mask, targets, torch.zeros_like(targets))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)
+
+
+class GPT(nn.Module):
+    def __init__(self, cfg: GPTConfig, device=None):
+        super().__init__()
+        if cfg.moe_experts:
+            raise NotImplementedError("the MoE MLP is not ported yet")
+        self.cfg = cfg
+        self.transformer = nn.ModuleDict({
+            "wte": nn.Embedding(cfg.vocab_size, cfg.n_embd, device=device),
+            "wpe": nn.Embedding(cfg.block_size, cfg.n_embd, device=device),
+            "h": nn.ModuleList(GPTBlock(cfg, device)
+                               for _ in range(cfg.n_layer)),
+            "ln_f": LayerNorm(cfg.n_embd, bias=cfg.bias, device=device),
+        })
+        self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False,
+                                 device=device)
+        self.lm_head.weight = self.transformer["wte"].weight   # tied
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.transformer["wte"].weight.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.transformer["wte"].weight.device
+
+    def init_decode_cache(self, batch: int, max_len: int):
+        return init_cache(self.cfg, batch, max_len, self.dtype, self.device)
+
+    def lm_head_table(self) -> torch.Tensor:
+        """The tied head as [E, V] f32 (exact widening of the weights)."""
+        return self.transformer["wte"].weight.detach().float().t()
+
+    def _lm_head(self, x, table=None):
+        """Tied head: f32 logits, products of compute-dtype values summed in
+        f32. ``table``: a precomputed ``lm_head_table()``."""
+        if table is None:
+            table = self.lm_head_table()
+        return x.float() @ table
+
+    def _embed(self, idx, prefix):
+        tok = self.transformer["wte"](idx)
+        if prefix is not None:
+            tok = torch.cat([prefix.to(tok.dtype), tok], dim=1)
+        return tok + self.transformer["wpe"].weight[:tok.shape[1]][None]
+
+    def _run_blocks(self, x, cache, length: int):
+        for l, block in enumerate(self.transformer["h"]):
+            x = block(x, cache[0][l], cache[1][l], length)
+        return x
+
+    def forward(self, idx, prefix=None, targets=None):
+        """idx: [B, Tw]; prefix: [B, Tc, E] or None. Returns (loss, logits):
+        logits over text positions (last position only without targets)."""
+        t_words = idx.shape[1]
+        x = self._embed(idx, prefix)
+        cache = init_cache(self.cfg, x.shape[0], x.shape[1], x.dtype,
+                           x.device)
+        x = self._run_blocks(x, cache, 0)[:, -t_words:]
+        x = self.transformer["ln_f"](x)
+        if targets is not None:
+            logits = self._lm_head(x)
+            return cross_entropy_ignore(logits[:, :-1], targets[:, 1:]), logits
+        return None, self._lm_head(x[:, -1:])
+
+    @torch.no_grad()
+    def prefill(self, idx, prefix, cache):
+        """Run the prefix + initial tokens once, filling rows [0, t) of
+        ``cache`` IN PLACE (the rest stays as given, zeros from
+        ``init_cache``). Returns (logits_last [B, vocab] f32, cache, t)."""
+        x = self._embed(idx, prefix)
+        t = x.shape[1]
+        x = self._run_blocks(x, cache, 0)
+        x = self.transformer["ln_f"](x[:, -1:])
+        return self._lm_head(x)[:, 0], cache, t
+
+    @torch.no_grad()
+    def decode_step(self, token, cache, length: int,
+                    qweights: Optional[dict] = None):
+        """One decode step. token: [B] ids at absolute position ``length``.
+
+        All blocks run in kernel K2 (its plain twin on the CPU); the new K/V
+        rows land in ``cache`` IN PLACE. ``qweights``: the stacked decode
+        weights (``stack_decode_weights`` or ``quantize_decode_weights``),
+        built once by the caller; None stacks them for this call.
+        Returns (logits [B, vocab] f32, cache, length + 1)."""
+        if qweights is None:
+            qweights = stack_decode_weights(self)
+        x = (self.transformer["wte"](token)
+             + self.transformer["wpe"].weight[length][None])
+        x, k, v = fused_decode.fused_decode_blocks(
+            x, qweights, cache[0], cache[1], length, n_head=self.cfg.n_head)
+        x = self.transformer["ln_f"](x)
+        return self._lm_head(x, qweights.get("lm_head_t")), (k, v), length + 1
+
+
+def init_gpt_(gpt: GPT, generator: torch.Generator) -> None:
+    """Random weights at the JAX initialisers' scales (normal(0.02), the
+    residual projections at 0.02/sqrt(2L), zero biases, unit norms)."""
+    std_proj = 0.02 / math.sqrt(2 * gpt.cfg.n_layer)
+    for name, p in gpt.named_parameters():
+        if name.endswith("bias"):
+            nn.init.zeros_(p)
+        elif ".ln_" in name or name.startswith("transformer.ln_f"):
+            nn.init.ones_(p)
+        else:
+            std = std_proj if name.endswith("c_proj.weight") else 0.02
+            with torch.no_grad():
+                p.normal_(0.0, std, generator=generator)

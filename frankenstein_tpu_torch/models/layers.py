@@ -1,0 +1,158 @@
+"""Shared transformer blocks (``frankenstein_tpu/models/layers.py``).
+
+Module and parameter names are the reference's torch names, so the JAX
+package's exporter (``models/import_reference.py:export_franky``) is the
+weight bridge. The compute dtype is the parameters' dtype: a model cast to
+bf16 computes in bf16, with norms, softmax and score accumulation in f32 as
+in the JAX package.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from frankenstein_tpu_torch.ops import attention as attn_ops
+from frankenstein_tpu_torch.ops import norms
+from frankenstein_tpu_torch.ops import rope as rope_ops
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``nn.Dense(dtype=param dtype)``: input cast to the weight's dtype."""
+    return F.linear(x.to(layer.weight.dtype), layer.weight, layer.bias)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-5, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = (nn.Parameter(torch.zeros(dim, device=device))
+                     if bias else None)
+
+    def forward(self, x):
+        return norms.layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+
+    def forward(self, x):
+        return norms.rms_norm(x, self.weight, self.eps)
+
+
+def _linear(i: int, o: int, bias: bool, device) -> nn.Linear:
+    return nn.Linear(i, o, bias=bias, device=device)
+
+
+class SwiGLU(nn.Module):
+    """w2(silu(w1 x) * w3 x), no bias (``fused_mlp.swiglu_fn``)."""
+
+    def __init__(self, dim: int, hidden_dim: int, device=None):
+        super().__init__()
+        self.w1 = _linear(dim, hidden_dim, False, device)
+        self.w2 = _linear(hidden_dim, dim, False, device)
+        self.w3 = _linear(dim, hidden_dim, False, device)
+
+    def forward(self, x):
+        h = x.to(self.w1.weight.dtype)
+        g = F.silu(linear(h, self.w1)) * linear(h, self.w3)
+        return linear(g, self.w2)
+
+
+class SelfAttention(nn.Module):
+    """MHA with RoPE. The slab-causal mode with a shared rope table runs
+    kernel K1 (``ops.attention.slab_attention_rope_fused``); other modes run
+    ``apply_rope`` + ``dot_product_attention``."""
+
+    def __init__(self, dim: int, n_heads: int, head_dim: int, device=None):
+        super().__init__()
+        self.n_heads, self.head_dim = n_heads, head_dim
+        inner = n_heads * head_dim
+        self.qw = _linear(dim, inner, False, device)
+        self.kw = _linear(dim, inner, False, device)
+        self.vw = _linear(dim, inner, False, device)
+        self.project = _linear(inner, dim, False, device)
+
+    def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
+                rope=None):
+        b, t, _ = x.shape
+        qf, kf, vf = linear(x, self.qw), linear(x, self.kw), linear(x, self.vw)
+        if mask_mode == "slab" and rope is not None:
+            out = attn_ops.slab_attention_rope_fused(
+                qf, kf, vf, n_heads=self.n_heads, tok_per_time=tok_per_time,
+                rope_cache=rope)
+            return linear(out, self.project)
+        shape = (b, t, self.n_heads, self.head_dim)
+        q, k, v = qf.reshape(shape), kf.reshape(shape), vf.reshape(shape)
+        if rope is not None:
+            q = rope_ops.apply_rope(q, rope)
+            k = rope_ops.apply_rope(k, rope)
+        out = attn_ops.dot_product_attention(q, k, v, mask_mode=mask_mode,
+                                             tok_per_time=tok_per_time)
+        return linear(out.reshape(b, t, -1), self.project)
+
+
+class CrossAttention(nn.Module):
+    """Queries read from a (longer) context."""
+
+    def __init__(self, dim: int, n_heads: int, head_dim: int, device=None):
+        super().__init__()
+        self.n_heads, self.head_dim = n_heads, head_dim
+        inner = n_heads * head_dim
+        self.qw = _linear(dim, inner, False, device)
+        self.kw = _linear(dim, inner, False, device)
+        self.vw = _linear(dim, inner, False, device)
+        self.project = _linear(inner, dim, False, device)
+
+    def forward(self, x, context):
+        b, t, _ = x.shape
+        tk = context.shape[1]
+        q = linear(x, self.qw).reshape(b, t, self.n_heads, self.head_dim)
+        k = linear(context, self.kw).reshape(b, tk, self.n_heads,
+                                             self.head_dim)
+        v = linear(context, self.vw).reshape(b, tk, self.n_heads,
+                                             self.head_dim)
+        out = attn_ops.dot_product_attention(q, k, v)
+        return linear(out.reshape(b, t, -1), self.project)
+
+
+class Block(nn.Module):
+    """Pre-norm residual block with LayerNorm."""
+
+    def __init__(self, dim: int, n_heads: int, head_dim: int,
+                 hidden_dim: int, device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(dim, device=device)
+        self.attn = SelfAttention(dim, n_heads, head_dim, device)
+        self.ln_2 = LayerNorm(dim, device=device)
+        self.mlp = SwiGLU(dim, hidden_dim, device)
+
+    def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
+                rope=None):
+        x = x + self.attn(self.ln_1(x), mask_mode=mask_mode,
+                          tok_per_time=tok_per_time, rope=rope)
+        return x + self.mlp(self.ln_2(x))
+
+
+class CrossBlock(nn.Module):
+    """cross-attn + MLP, then a self-attn Block."""
+
+    def __init__(self, dim: int, n_heads: int, head_dim: int,
+                 hidden_dim: int, device=None):
+        super().__init__()
+        self.ln_1 = LayerNorm(dim, device=device)
+        self.cross_attn = CrossAttention(dim, n_heads, head_dim, device)
+        self.ln_2 = LayerNorm(dim, device=device)
+        self.mlp = SwiGLU(dim, hidden_dim, device)
+        self.sa_block = Block(dim, n_heads, head_dim, hidden_dim, device)
+
+    def forward(self, x, context, *, sa_rope=None):
+        x = x + self.cross_attn(self.ln_1(x), context)
+        x = x + self.mlp(self.ln_2(x))
+        return self.sa_block(x, rope=sa_rope)

@@ -1,0 +1,79 @@
+"""Scaled dot-product attention (``frankenstein_tpu/ops/attention.py``).
+
+Shapes follow the JAX package: [B, T, H, D]. Scores and softmax are float32
+whatever the input dtype; the probabilities are cast to v's dtype before the
+AV product, which accumulates in float32 and rounds to q's dtype.
+``mask_mode``: None (dense), "causal" (suffix-aligned) or "slab"
+(slab(j) <= slab(i) over time slabs of ``tok_per_time`` tokens).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from frankenstein_tpu_torch.ops import masks as mask_lib
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+
+
+def _softmax_av(logits, v, out_dtype):
+    """float32 softmax over the last axis, then probs (in v's dtype) @ v."""
+    weights = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(),
+                       v.float())
+    return out.to(out_dtype)
+
+
+def dot_product_attention(q, k, v, *, mask_mode: Optional[str] = None,
+                          tok_per_time: int = 0) -> torch.Tensor:
+    """Attention over [B, T, H, D] tensors. Returns [B, Tq, H, D]."""
+    tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
+    scale = 1.0 / float(d) ** 0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+
+    if mask_mode == "causal":
+        allowed = mask_lib.causal_mask(tq, tk, q.device)
+    elif mask_mode == "slab":
+        if tok_per_time <= 0:
+            raise ValueError("mask_mode='slab' needs tok_per_time > 0")
+        allowed = mask_lib.block_causal_mask(tk, tok_per_time,
+                                             q.device)[-tq:, -tk:]
+    elif mask_mode is None:
+        allowed = None
+    else:
+        raise ValueError(f"unknown mask_mode {mask_mode!r}")
+    if allowed is not None:
+        logits = logits.masked_fill(~allowed, NEG_INF)
+    return _softmax_av(logits, v, q.dtype)
+
+
+def cached_attention(q, k_cache, v_cache, length: int) -> torch.Tensor:
+    """Attention against a fixed-shape KV cache.
+
+    q: [B, T, H, D]; k_cache/v_cache: [B, S, H, D]; length: the number of
+    cache entries visible to query row 0 (prior context + 1 for its own
+    key). Row i sees positions j < length + i.
+    """
+    b, t, _, d = q.shape
+    s = k_cache.shape[1]
+    scale = 1.0 / float(d) ** 0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k_cache.float()) * scale
+    kj = torch.arange(s, device=q.device)[None, :]
+    qi = torch.arange(t, device=q.device)[:, None]
+    logits = logits.masked_fill(~(kj < qi + length), NEG_INF)
+    return _softmax_av(logits, v_cache, q.dtype)
+
+
+def slab_attention_rope_fused(q, k, v, *, n_heads: int, tok_per_time: int,
+                              rope_cache) -> torch.Tensor:
+    """Slab-causal attention over UNROTATED folded [B, T, E] q/k/v with RoPE
+    (suffix-aligned) applied inside kernel K1
+    (``ops/cuda/slab_attention.py``). Returns [B, T, E]."""
+    from frankenstein_tpu_torch.ops import rope
+    from frankenstein_tpu_torch.ops.cuda import slab_attention
+    cos, sin = rope.folded_tables(rope_cache[-q.shape[1]:], 1)
+    out, _ = slab_attention.slab_rope_attention(
+        q, k, v, cos, sin, n_heads=n_heads, tok_per_time=tok_per_time)
+    return out

@@ -1,0 +1,187 @@
+"""K2: one GPT-2 token through all transformer blocks.
+
+Replaces ``frankenstein_tpu/ops/pallas/fused_decode.py:fused_decode_blocks``.
+The kernels are CUDA C++ in ``frankenstein_tpu_torch/csrc/fused_decode.cu``
+(a split-K decode product, finalize passes that apply the w8 scale, bias,
+GELU, residual and the next LayerNorm, and a per-(batch, head) cached
+attention); its source note says what bounds them on an H100 and how the
+design answers that.
+
+``fused_decode_blocks`` launches the kernels for CUDA tensors and runs the
+plain PyTorch twin ``fused_decode_blocks_ref`` for CPU tensors, never one in
+place of the other. Modes: bf16 weights, or int8 w8a16 weights
+(``quantize_weights``), each with a bf16 cache. The int8 KV-cache mode of the
+TPU kernel is not ported yet and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from frankenstein_tpu_torch.ops.cuda import build
+
+launches = 0   # wrapper calls that ran the CUDA kernels (one per token step)
+
+WEIGHT_KEYS = ("qkv_w", "proj_w", "fc_w", "fc2_w")
+SCALE_KEYS = ("qkv_s", "proj_s", "fc_s", "fc2_s")
+
+
+def quantize_weights(stacked: dict) -> dict:
+    """w8a16: int8 matrices with per-(layer, out-lane) scales.
+
+    Each ``*_w`` [L, in, out] becomes int8 codes
+    ``clip(round(w / s), -127, 127)`` with ``s = max(absmax_in, 1e-8) / 127``
+    stored as ``*_s`` [L, 1, out] f32 — the rounding of the JAX package's
+    ``quantize_weights`` (round half to even)."""
+    out = dict(stacked)
+    for key in WEIGHT_KEYS:
+        w = stacked[key].float()
+        absmax = w.abs().amax(dim=1)
+        s = (torch.clamp(absmax, min=1e-8) / 127.0)[:, None, :]
+        out[key] = torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+        out[key[:-1] + "s"] = s
+    return out
+
+
+def _layer_norm_f32(x, w, b, eps: float = 1e-5):
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mu).mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * w + b
+
+
+def _gelu_exact(x):
+    return 0.5 * x * (1.0 + torch.special.erf(x * (1.0 / math.sqrt(2.0))))
+
+
+def fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length: int, *,
+                            n_head: int):
+    """Plain PyTorch twin of the kernels, following the JAX ``_chunk_math``:
+    f32 residual across layers, f32 LayerNorm, every product accumulated in
+    f32 from compute-dtype operands, exact-erf GELU. Writes the new K/V rows
+    at row ``length`` of the caches IN PLACE and returns
+    (x_out, k_cache, v_cache)."""
+    w8 = stacked["qkv_w"].dtype == torch.int8
+    cdt = k_cache.dtype if w8 else stacked["qkv_w"].dtype
+    n_layer = stacked["qkv_w"].shape[0]
+    b, e = x.shape
+    d = e // n_head
+    scale = 1.0 / math.sqrt(d)
+    to_c = lambda a: a.to(cdt).float()
+
+    def dot(a, key, l):
+        y = to_c(a) @ to_c(stacked[key][l])
+        return y * stacked[key[:-1] + "s"][l] if w8 else y
+
+    xf = x.float()
+    for l in range(n_layer):
+        vec = lambda key: stacked[key][l].float()
+        h = _layer_norm_f32(xf, vec("ln1_w"), vec("ln1_b"))
+        qkv = dot(h, "qkv_w", l) + vec("qkv_b")
+        q, k_new, v_new = qkv.split(e, dim=-1)
+        kc = to_c(k_cache[l, :, :length]).reshape(b, length, n_head, d)
+        vc = to_c(v_cache[l, :, :length]).reshape(b, length, n_head, d)
+        s = torch.einsum("bhd,bjhd->bhj", to_c(q).reshape(b, n_head, d),
+                         kc) * scale
+        s_own = (q * k_new).reshape(b, n_head, d).sum(-1) * scale
+        m = s_own if length == 0 else torch.maximum(s.amax(-1), s_own)
+        p = torch.exp(s - m[..., None])
+        p_own = torch.exp(s_own - m)
+        denom = p.sum(-1) + p_own
+        p = to_c(p / denom[..., None])
+        o = torch.einsum("bhj,bjhd->bhd", p, vc)
+        o = o + (p_own / denom)[..., None] * v_new.reshape(b, n_head, d)
+        xf = (xf + dot(o.reshape(b, e), "proj_w", l)) + vec("proj_b")
+        h2 = _layer_norm_f32(xf, vec("ln2_w"), vec("ln2_b"))
+        hh = _gelu_exact(dot(h2, "fc_w", l) + vec("fc_b"))
+        xf = (xf + dot(hh, "fc2_w", l)) + vec("fc2_b")
+        k_cache[l, :, length] = k_new.to(k_cache.dtype)
+        v_cache[l, :, length] = v_new.to(v_cache.dtype)
+    return xf.to(x.dtype), k_cache, v_cache
+
+
+def _check(x, stacked, k_cache, v_cache, length: int, n_head: int):
+    b, e = x.shape
+    n_layer, _, s, _ = k_cache.shape
+    dev = x.device
+    if x.dtype != torch.bfloat16 or not x.is_contiguous():
+        raise ValueError(f"x: need contiguous bf16 [B, E], got {x.dtype}")
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if (c.dtype != torch.bfloat16 or c.shape != (n_layer, b, s, e)
+                or not c.is_contiguous() or c.device != dev):
+            raise ValueError(f"{name}: need contiguous bf16 "
+                             f"[{n_layer}, {b}, {s}, {e}] on {dev}")
+    if e % 128 or e % n_head or (e // n_head) % 8 or e // n_head > 128:
+        raise ValueError(f"E={e}, n_head={n_head}: the kernels need "
+                         "E % 128 == 0 and a head_dim that is a multiple of "
+                         "8, at most 128")
+    if not 0 <= length < s:
+        raise ValueError(f"length {length} outside the cache [0, {s})")
+    w8 = stacked["qkv_w"].dtype == torch.int8
+    shapes = {"ln1_w": (e,), "ln1_b": (e,), "qkv_b": (3 * e,),
+              "proj_b": (e,), "ln2_w": (e,), "ln2_b": (e,),
+              "fc_b": (4 * e,), "fc2_b": (e,),
+              "qkv_w": (e, 3 * e), "proj_w": (e, e), "fc_w": (e, 4 * e),
+              "fc2_w": (4 * e, e)}
+    if w8:
+        shapes.update({"qkv_s": (1, 3 * e), "proj_s": (1, e),
+                       "fc_s": (1, 4 * e), "fc2_s": (1, e)})
+    for key, shape in shapes.items():
+        a = stacked[key]
+        want = (torch.int8 if w8 else torch.bfloat16) \
+            if key in WEIGHT_KEYS else torch.float32
+        if (a.dtype != want or a.shape != (n_layer, *shape)
+                or not a.is_contiguous() or a.device != dev):
+            raise ValueError(f"stacked[{key!r}]: need contiguous {want} "
+                             f"{(n_layer, *shape)} on {dev}, got {a.dtype} "
+                             f"{tuple(a.shape)} on {a.device}")
+
+
+def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
+                        k_scale=None, v_scale=None, *, n_head: int):
+    """Run all transformer blocks for ONE token position.
+
+    x: [B, E] embedded token; stacked: dict of [L, ...] tensors from
+    ``models.gpt2.stack_decode_weights`` (optionally through
+    ``quantize_weights``), built once per predictor; k_cache/v_cache:
+    [L, B, S, E]; length: the number of valid cache rows (a host int).
+
+    Returns (x_out [B, E], k_cache, v_cache). The caches are updated IN
+    PLACE: the new K/V rows are written at row ``length`` and the returned
+    caches are the same tensors."""
+    global launches
+    if k_cache.dtype == torch.int8 or k_scale is not None \
+            or v_scale is not None:
+        raise NotImplementedError(
+            "int8 KV cache: the int8-KV mode of K2 is not ported yet "
+            "(ROADMAP.md, kernel queue: K2 int8 KV)")
+    length = int(length)
+    if not x.is_cuda:
+        return fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length,
+                                       n_head=n_head)
+    _check(x, stacked, k_cache, v_cache, length, n_head)
+    n_layer, b, s, e = k_cache.shape
+    w8 = stacked["qkv_w"].dtype == torch.int8
+    dev = x.device
+    lib = build.library()
+    x_out = torch.empty_like(x)
+    x_res = torch.empty(b, e, dtype=torch.float32, device=dev)
+    hbuf = torch.empty(b, e, dtype=torch.bfloat16, device=dev)
+    hh = torch.empty(b, 4 * e, dtype=torch.bfloat16, device=dev)
+    workspace = torch.empty(lib.fk_fused_decode_workspace_bytes(b, e) // 4,
+                            dtype=torch.float32, device=dev)
+    p = lambda key: stacked[key].data_ptr()
+    scales = [p(k) if w8 else None for k in SCALE_KEYS]
+    rc = lib.fk_fused_decode_blocks(
+        x.data_ptr(), x_out.data_ptr(), x_res.data_ptr(), hbuf.data_ptr(),
+        hh.data_ptr(), workspace.data_ptr(),
+        p("ln1_w"), p("ln1_b"), p("qkv_w"), p("qkv_b"), p("proj_w"),
+        p("proj_b"), p("ln2_w"), p("ln2_b"), p("fc_w"), p("fc_b"),
+        p("fc2_w"), p("fc2_b"), *scales,
+        k_cache.data_ptr(), v_cache.data_ptr(),
+        n_layer, b, s, e, n_head, length, int(w8),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(rc, "fused_decode_blocks")
+    launches += 1
+    return x_out, k_cache, v_cache

@@ -1,0 +1,42 @@
+"""The port imports torch and numpy, never jax or the JAX package: every
+module of ``frankenstein_tpu_torch`` (and ``chip_smoke.py``) imports in a
+subprocess where ``import jax`` and ``import frankenstein_tpu`` fail."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["frankenstein_tpu"] = None
+import frankenstein_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+          or m == "frankenstein_tpu" or m.startswith("frankenstein_tpu.")]
+assert not [m for m in loaded if sys.modules[m] is not None], loaded
+print(len(names))
+"""
+
+
+def test_port_never_imports_jax():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_port_sources_never_name_jax():
+    for path in (ROOT / "frankenstein_tpu_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(("import jax", "from jax",
+                                            "import frankenstein_tpu.",
+                                            "from frankenstein_tpu.",
+                                            "from frankenstein_tpu ")), \
+                f"{path}: {line}"
