@@ -14,9 +14,19 @@ nvcc (sm_90a) and then, one line per phase:
 3. kernel K2 (all-layer GPT-2 decode step) against its twin at GPT-2 124M
    width, bf16 and w8a16 weights, with both times;
 4. the flagship Franky served end to end through ``make_franky_predictor``
-   (random weights from a seed, bf16, w8a16 decode), with the launch counts
-   of both kernels, output checks, an f32 CPU cross-check of the chain, and
-   encode / decode times at batch 128.
+   (random weights from a seed, bf16, w8a16 decode, top-k 10), with the
+   launch counts of the kernels, output checks, an f32 CPU cross-check of
+   the chain, and encode / decode times at batch 128;
+5. kernel K3 (beam-search cache reorder) against its twin at the flagship
+   beam shape, bf16 and int8, bitwise, with both times;
+6. kernel K2's int8-KV mode against its twin at GPT-2 124M width, B*W=160
+   and B=8, bf16 and w8a16 weights, with both times;
+7. the beam path: the same flagship served through ``make_franky_predictor
+   (beam_width=5, int8_kv=True, int8_weights=True)`` at batch 32, with the
+   launch counts of K1, K2 (int8-KV mode) and K3, beam width 1 against
+   greedy, the int8-KV logits against the bf16 cache's,
+   ``evaluate_franky_wer`` over a synthetic set, the submission writer,
+   and encode / beam decode / request times.
 
 Then one JSON line with the kernels' results, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit and no
@@ -35,6 +45,8 @@ SEED = 0
 K1_TOL = 3e-2     # bf16 kernel vs f32 twin: rotated q/k and p round to bf16
 K2_TOL = 2e-2     # relative to max |twin|: same roundings, other f32 order
 SLICE_TOL = 1e-1  # bf16 card chain vs f32 CPU twins, relative to max |ref|
+CODE_WINDOW = 1e-3  # how near a .5 tie a value counts as a tie
+INT8_KV_TOL = 5e-2  # int8 vs bf16 cache logits, relative to the logit range
 
 
 def _card() -> str:
@@ -227,36 +239,57 @@ def _cpu_cross_check(model, xs) -> dict:
     return errs
 
 
-def phase_slice(card: str) -> dict:
+def _flagship():
+    """The flagship Franky on the card: random weights from SEED, bf16."""
     import torch
-    from frankenstein_tpu_torch.config import FrankyConfig, GPT2_EOT
-    from frankenstein_tpu_torch.data.tokenizers import ByteTokenizer
-    from frankenstein_tpu_torch.decode import pipeline, sampling
+    from frankenstein_tpu_torch.config import FrankyConfig
+    from frankenstein_tpu_torch.decode import pipeline
     from frankenstein_tpu_torch.models.franky import Franky
     from frankenstein_tpu_torch.models.weights import init_franky_
+    model = init_franky_(Franky(FrankyConfig(), device=torch.device("cuda")),
+                         seed=SEED)
+    return pipeline.cast_params_for_inference(model)
+
+
+def _reset_launches() -> None:
+    from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
     from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    k1.launches = k2.launches = k2.launches_int8_kv = k3.launches = 0
+
+
+def _read_launches() -> dict:
+    from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
+    from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    return {"K1": k1.launches, "K2": k2.launches,
+            "K2-int8": k2.launches_int8_kv, "K3": k3.launches}
+
+
+def phase_slice(card: str, model) -> dict:
+    import torch
+    from frankenstein_tpu_torch.config import GPT2_EOT
+    from frankenstein_tpu_torch.data.tokenizers import ByteTokenizer
+    from frankenstein_tpu_torch.decode import pipeline, sampling
 
     dev = torch.device("cuda")
-    cfg = FrankyConfig()
+    cfg = model.cfg
     enc = cfg.brain.encoder
-    model = init_franky_(Franky(cfg, device=dev), seed=SEED)
-    model = pipeline.cast_params_for_inference(model)
     predict = pipeline.make_franky_predictor(model, ByteTokenizer(),
                                              int8_weights=True)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     xs = torch.randn(8, enc.window_size, enc.n_electrodes, generator=gen,
                      device=dev)
 
-    k1.launches, k2.launches = 0, 0
+    _reset_launches()
     out = predict(xs)
     torch.cuda.synchronize()
-    launches = {"K1": k1.launches, "K2": k2.launches}
+    launches = _read_launches()
 
     _check(len(out) == 8 and all(isinstance(s, str) for s in out),
            f"predictor returned {out!r}")
-    _check(launches["K1"] == enc.n_layers, f"K1 launches {launches}")
-    _check(launches["K2"] == cfg.max_tokens, f"K2 launches {launches}")
+    _check(launches == {"K1": enc.n_layers, "K2": cfg.max_tokens,
+                        "K2-int8": 0, "K3": 0}, f"launches {launches}")
     prefix = model.encode(xs)
     idx0 = torch.full((8, 1), GPT2_EOT, dtype=torch.long, device=dev)
     cache = model.init_decode_cache(8, sampling._round_cache_len(
@@ -295,6 +328,237 @@ def phase_slice(card: str) -> dict:
             "decode_ms_b128": decode_ms, "request_ms_b8": request_ms}
 
 
+def phase_k3(card: str) -> dict:
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
+    n_layer, w, bw, s, e = 12, 5, 160, 64, 768
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    results = {}
+    for mode in ("bf16", "int8"):
+        shape = (n_layer, bw, s, e)
+        if mode == "int8":
+            k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                  dtype=torch.int8) for _ in range(2))
+        else:
+            k, v = (torch.randn(*shape, generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+        parent = torch.randint(0, w, (bw,), generator=gen, device=dev)
+        want = [k3.beam_reorder_ref(c, parent, w=w) for c in (k, v)]
+        k3.beam_reorder(k, v, parent, w=w)
+        torch.cuda.synchronize()
+        equal = torch.equal(k, want[0]) and torch.equal(v, want[1])
+        ms = _time_ms(lambda: k3.beam_reorder(k, v, parent, w=w))
+        plain_ms = _time_ms(lambda: [k3.beam_reorder_ref(c, parent, w=w)
+                                     for c in (k, v)])
+        moved = 2 * k.numel() * k.element_size()
+        print(f"phase 5 K3 beam_reorder {mode} [{n_layer}, {bw}, {s}, {e}] "
+              f"w={w}, both sides: bitwise equal to twin {equal} | kernel "
+              f"{ms:.4f} ms ({2 * moved / ms / 1e6:.0f} GB/s if every row "
+              f"moved), plain {plain_ms:.4f} ms | {card}", flush=True)
+        _check(equal, f"K3 {mode} differs from its twin")
+        results[mode] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms}
+    return results
+
+
+def _code_check(got, want, pre) -> dict:
+    """Codes the kernel wrote ([L, B, E]) against the twin's: how many
+    differ, the largest difference, and how many differ although the twin's
+    pre-rounding value is more than CODE_WINDOW away from a .5 tie, in all
+    layers and in layer 0 (where both sides start from the same x)."""
+    diff = (got.int() - want.int()).abs()
+    off = (diff > 0) & (((pre.abs() % 1.0) - 0.5).abs() > CODE_WINDOW)
+    return {"differ": int((diff > 0).sum()), "max_diff": int(diff.max()),
+            "off_tie": int(off.sum()), "off_tie_layer0": int(off[0].sum())}
+
+
+def _k2_int8_exact(x, st, kc, vc, length: int, n_head: int) -> dict:
+    """The rounding rule where the new K/V are known exactly: with qkv_w = 0
+    the new rows are the qkv bias, set to t * scale for power-of-two scales
+    and t on .5 ties, off ties and past +-127, so every code is
+    clamp(round-half-to-even(t)). Returns how many of the kernel's and the
+    twin's codes differ from that, over all layers and both sides."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
+    n_layer, _, _, e = kc.shape
+    st = dict(st, qkv_w=torch.zeros_like(st["qkv_w"]),
+              qkv_b=st["qkv_b"].clone())
+    lane = torch.arange(e, device=x.device)
+    frac = torch.tensor([0.5, -0.5, 0.25, 0.0], device=x.device)
+    t = torch.stack([((lane * 7 + l * 13) % 301 - 150).float()
+                     + frac[lane % 4] for l in range(n_layer)])     # [L, E]
+    scale = torch.stack([torch.full((1, e), 2.0 ** -(3 + l % 3),
+                                    device=x.device)
+                         for l in range(n_layer)])                  # [L, 1, E]
+    st["qkv_b"][:, e:2 * e] = t * scale[:, 0]
+    st["qkv_b"][:, 2 * e:] = -t * scale[:, 0]
+    want = torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+    wrong = {}
+    for name, fn in (("kernel", k2.fused_decode_blocks),
+                     ("twin", k2.fused_decode_blocks_ref)):
+        k, v = kc.clone(), vc.clone()
+        fn(x, st, k, v, length, scale, scale, n_head=n_head)
+        wrong[name] = int((k[:, :, length] != want[:, None]).sum()
+                          + (v[:, :, length] != -want[:, None]).sum())
+    return wrong
+
+
+def phase_k2_int8(card: str) -> dict:
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
+    length, n_head = 33, 12
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    results = {}
+    for mode, w8 in (("bf16", False), ("w8a16", True)):
+        for b in (160, 8):
+            x, st, kf, vf = _k2_inputs(b, gen, w8)
+            kc, ks = k2.quantize_cache_side(kf)
+            vc, vs = k2.quantize_cache_side(vf)
+            kc_k, vc_k = kc.clone(), vc.clone()
+            kc_r, vc_r = kc.clone(), vc.clone()
+            xo, _, _ = k2.fused_decode_blocks(x, st, kc_k, vc_k, length, ks,
+                                              vs, n_head=n_head)
+            rows = []
+            xr, _, _ = k2.fused_decode_blocks_ref(
+                x, st, kc_r, vc_r, length, ks, vs, n_head=n_head,
+                new_rows=rows)
+            torch.cuda.synchronize()
+            scale = float(xr.float().abs().max())
+            err_x = _max_err(xo, xr)
+            codes = [_code_check(got[:, :, length], want[:, :, length],
+                                 torch.stack([r[i] for r in rows]) / sc)
+                     for i, (got, want, sc) in enumerate(
+                         ((kc_k, kc_r, ks), (vc_k, vc_r, vs)))]
+            others = [r for r in range(kc.shape[2]) if r != length]
+            untouched = (torch.equal(kc_k[:, :, others], kc[:, :, others])
+                         and torch.equal(vc_k[:, :, others],
+                                         vc[:, :, others]))
+            exact = _k2_int8_exact(x, st, kc, vc, length, n_head)
+            ms = _time_ms(lambda: k2.fused_decode_blocks(
+                x, st, kc_k, vc_k, length, ks, vs, n_head=n_head))
+            plain_ms = _time_ms(lambda: k2.fused_decode_blocks_ref(
+                x, st, kc_r, vc_r, length, ks, vs, n_head=n_head))
+            print(f"phase 6 K2 fused_decode_blocks int8 KV, {mode} weights, "
+                  f"L=12 E=768 H=12 S=64 B={b} length={length}: x_out "
+                  f"max_abs_err {err_x:.3e} (max|x| {scale:.3f}), tol "
+                  f"{K2_TOL} x max | new-row codes vs twin k {codes[0]} v "
+                  f"{codes[1]} (tie window {CODE_WINDOW}) | exact-row "
+                  f"codes wrong {exact} | other rows untouched {untouched} "
+                  f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms | {card}",
+                  flush=True)
+            _check(torch.isfinite(xo).all(), f"K2 int8 {mode} not finite")
+            _check(err_x <= K2_TOL * scale,
+                   f"K2 int8 {mode} B={b} disagrees with its twin: {err_x}")
+            # the twin's f32 K/V drift from the kernel's through the bf16
+            # chain (other summation orders), so a code may round the other
+            # way; the rounding rule itself is held exactly by the exact rows
+            _check(all(c["max_diff"] <= 1 for c in codes),
+                   f"K2 int8 {mode} B={b} codes: {codes}")
+            _check(exact == {"kernel": 0, "twin": 0},
+                   f"K2 int8 {mode} B={b} exact-row codes: {exact}")
+            _check(untouched, f"K2 int8 {mode} wrote outside row {length}")
+            results[(mode, b)] = {"max_abs_err": err_x, "ms": ms,
+                                  "plain_ms": plain_ms}
+    return results
+
+
+def _int8_logit_drift(model, xs, qw, steps: int = 5) -> float:
+    """Teacher-forced decode from one prefill, bf16 cache against its int8
+    copy: the largest |logit difference| over the steps, relative to the
+    bf16 logits' range (max - min)."""
+    import torch
+    from frankenstein_tpu_torch.config import GPT2_EOT
+    from frankenstein_tpu_torch.models import gpt2
+    b = xs.shape[0]
+    prefix = model.encode(xs)
+    idx0 = torch.full((b, 1), GPT2_EOT, dtype=torch.long, device=xs.device)
+    logits, cache, length = model.prefill(idx0, prefix,
+                                          model.init_decode_cache(b, 64))
+    qcache = gpt2.quantize_cache(cache)
+    q_logits, q_length = logits, length
+    drift = 0.0
+    for _ in range(steps):
+        tok = torch.argmax(logits, dim=-1)
+        logits, cache, length = model.decode_step(tok, cache, length, qw)
+        q_logits, qcache, q_length = model.decode_step(tok, qcache, q_length,
+                                                       qw)
+        span = float(logits.max() - logits.min())
+        drift = max(drift, _max_err(q_logits, logits) / span)
+    return drift
+
+
+def phase_beams(card: str, model) -> dict:
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch.config import GPT2_EOT
+    from frankenstein_tpu_torch.data.datasets import BrainDataset
+    from frankenstein_tpu_torch.data.tokenizers import ByteTokenizer
+    from frankenstein_tpu_torch.decode import pipeline, sampling
+    from frankenstein_tpu_torch.eval.evaluate import evaluate_franky_wer
+    from frankenstein_tpu_torch.eval.submission import (create_string_file,
+                                                        make_predictions)
+
+    dev = torch.device("cuda")
+    cfg = model.cfg
+    enc = cfg.brain.encoder
+    b, w, steps = 32, 5, cfg.max_tokens
+    predict = pipeline.make_franky_predictor(
+        model, ByteTokenizer(), beam_width=w, int8_kv=True,
+        int8_weights=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    xs = torch.randn(b, enc.window_size, enc.n_electrodes, generator=gen,
+                     device=dev)
+
+    _reset_launches()
+    out = predict(xs)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    _check(len(out) == b and all(isinstance(s, str) for s in out),
+           f"beam predictor returned {out!r}")
+    _check(launches == {"K1": enc.n_layers, "K2": steps, "K2-int8": steps,
+                        "K3": steps}, f"beam path launches {launches}")
+
+    qw = sampling.quantize_serving_weights(model)
+    prefix = model.encode(xs)
+    idx0 = torch.full((b, 1), GPT2_EOT, dtype=torch.long, device=dev)
+    kw = dict(max_new_tokens=steps, int8_kv=True, qweights=qw)
+    beam1, _ = sampling.beam_search(model, idx0, prefix, beam_width=1, **kw)
+    greedy = sampling.generate(model, idx0, prefix, greedy=True, **kw)
+    _check(torch.equal(beam1, greedy), "beam width 1 differs from greedy")
+    drift = _int8_logit_drift(model, xs, qw)
+    _check(drift <= INT8_KV_TOL, f"int8-KV logit drift {drift}")
+
+    ds = BrainDataset.synthetic(64, seed=SEED)
+    wer, preds = evaluate_franky_wer(model, ds, ByteTokenizer(),
+                                     batch_size=b, beam_width=w)
+    _check(len(preds) == 64 and wer == wer and wer != float("inf"),
+           f"WER {wer} over {len(preds)} predictions")
+    with tempfile.TemporaryDirectory() as tmp:
+        sub = create_string_file(Path(tmp) / "sub.txt",
+                                 make_predictions(ds, predict, batch_size=b))
+        lines = sub.read_text().splitlines()
+    _check(len(lines) == 64, f"submission has {len(lines)} lines")
+
+    encode_ms = _time_ms(lambda: model.encode(xs), iters=3, warmup=1)
+    decode_ms = _time_ms(lambda: sampling.beam_search(
+        model, idx0, prefix, beam_width=w, eos_id=GPT2_EOT,
+        length_penalty=1.0, **kw), iters=3, warmup=1)
+    request_ms = _time_ms(lambda: predict(xs), iters=3, warmup=1)
+    print(f"phase 7 beams: Franky flagship, beam width {w}, int8 KV, w8a16, "
+          f"{steps} tokens, B={b}: {len(out)} strings, launches {launches} "
+          f"(K1 = {enc.n_layers} per encode, K2 and K3 = {steps} per "
+          f"request), beam width 1 == greedy, int8-KV logit drift "
+          f"{drift:.3e} of the range (tol {INT8_KV_TOL}), synthetic WER "
+          f"{wer:.4f} over {len(preds)} trials, submission {len(lines)} "
+          f"lines | B={b} encode {encode_ms:.1f} ms, beam decode "
+          f"{decode_ms:.1f} ms, request {request_ms:.1f} ms | {card}",
+          flush=True)
+    return {"launches": launches, "encode_ms": encode_ms,
+            "decode_ms": decode_ms, "request_ms": request_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -307,7 +571,11 @@ def main() -> int:
     phase_card(card)
     k1 = phase_k1(card)
     k2 = phase_k2(card)
-    sl = phase_slice(card)
+    model = _flagship()
+    sl = phase_slice(card, model)
+    k3 = phase_k3(card)
+    k2q = phase_k2_int8(card)
+    bm = phase_beams(card, model)
     kernels = [
         {"name": "slab_rope_attention_fwd", "route": "cuda",
          "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
@@ -320,6 +588,19 @@ def main() -> int:
          "launches": sl["launches"]["K2"],
          "max_abs_err": k2["w8a16"]["max_abs_err"], "ms": k2["w8a16"]["ms"],
          "plain_ms": k2["w8a16"]["plain_ms"]},
+        {"name": "fused_decode_blocks_int8_kv", "route": "cuda",
+         "source": "frankenstein_tpu_torch/csrc/fused_decode.cu",
+         "replaces": "frankenstein_tpu/ops/pallas/fused_decode.py:99",
+         "launches": bm["launches"]["K2-int8"],
+         "max_abs_err": k2q[("w8a16", 160)]["max_abs_err"],
+         "ms": k2q[("w8a16", 160)]["ms"],
+         "plain_ms": k2q[("w8a16", 160)]["plain_ms"]},
+        {"name": "beam_reorder", "route": "cuda",
+         "source": "frankenstein_tpu_torch/csrc/beam_reorder.cu",
+         "replaces": "frankenstein_tpu/ops/pallas/beam_reorder.py:71",
+         "launches": bm["launches"]["K3"],
+         "max_abs_err": k3["int8"]["max_abs_err"], "ms": k3["int8"]["ms"],
+         "plain_ms": k3["int8"]["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,16 @@
 
 The port serves the flagship Franky chain (a 768x256 brain window through
 the slab-causal encoder and Perceiver, then GPT-2 124M with KV-cached top-k
-decode) on one NVIDIA H100. Plain tensor code is PyTorch; the two kernels
-the JAX package wrote in Pallas on this path are hand-written CUDA C++ for
-Hopper (``csrc/``):
+or beam-search decode, bf16 or int8 KV cache) on one NVIDIA H100, through
+the predictor, the WER evaluation and the submission writer. Plain tensor
+code is PyTorch; the kernels the JAX package wrote in Pallas on this path
+are hand-written CUDA C++ for Hopper (``csrc/``):
 
 - K1 ``ops/cuda/slab_attention.py``: slab-causal attention with in-kernel
   RoPE (the encoder);
-- K2 ``ops/cuda/fused_decode.py``: one GPT-2 token through all blocks.
+- K2 ``ops/cuda/fused_decode.py``: one GPT-2 token through all blocks,
+  with a bf16 or an int8 KV cache;
+- K3 ``ops/cuda/beam_reorder.py``: the in-place beam-search cache reorder.
 
 Each kernel's wrapper runs a plain PyTorch twin for CPU tensors, so the CPU
 tests hold the port to the JAX package. The package imports torch and

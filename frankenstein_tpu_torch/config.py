@@ -12,7 +12,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+MAX_INPUT_LEN = 768   # time bins per trial at 50 Hz (~15.4 s)
 MAX_TOKENS = 25       # GPT-2 tokens per sentence incl. bos/eos
+N_ELECTRODES = 256    # Utah-array channels (spikePow features)
 IGNORE_INDEX = -100   # label padding ignored by the CE loss
 GPT2_EOT = 50256      # <|endoftext|>
 

@@ -9,7 +9,12 @@
 // The residual stays f32 across all layers and is cast to x's dtype at the
 // end. The new K/V rows are written IN PLACE at row `length` of the caches.
 // Weights are [L, in, out], bf16 or int8 (w8a16: the [L, 1, out] f32 scale
-// multiplies the f32 dot output before the bias).
+// multiplies the f32 dot output before the bias). The caches are bf16, or
+// int8 codes with fixed [L, 1, E] f32 scales (the int8-KV mode of
+// _chunk_math: q * k_scale rounds to bf16 before it meets the codes, the AV
+// sum is multiplied by v_scale, the token's own K/V terms stay float, and
+// the new row is written as rintf(k / k_scale) clamped to +-127, rounding
+// half to even as jnp.round does).
 //
 // What bounds it on an H100: decode at small batch moves every weight byte
 // and the whole KV cache once per token for a few FLOPs per byte, so it is
@@ -26,13 +31,12 @@
 //     attention kernel finalizes q, k, v itself, so no activation makes an
 //     extra round trip;
 //   * one attention CTA per (batch, head) reads its cache rows once and
-//     writes the new row in the same pass.
+//     writes the new row in the same pass; an int8 cache moves half the
+//     bytes of a bf16 one, and its codes widen exactly to float in
+//     registers.
 // The host loop below issues 8 launches per layer on the caller's stream.
 // Fusing all layers into one persistent kernel, as the TPU kernel does, is
 // later work.
-//
-// The int8 KV-cache mode of the TPU kernel is not ported yet: the Python
-// wrapper raises NotImplementedError for int8 caches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -248,61 +252,81 @@ __global__ void gelu_rows(const float* __restrict__ part, int splits,
 // Attention of one (head, batch row) over cache rows < length plus the
 // token's own K/V, then the new rows are written at row `length`. q, k, v
 // are finalized here from the qkv partials (f32). Cached-row scores take q
-// rounded to bf16; the own score and own-value term stay f32; the
-// probabilities round to bf16 before the AV sum (JAX's rounding points).
-// Cache rows are staged through shared memory ATTN_ROWS at a time with
-// 16-byte loads, all issued before any is used. kc/vc point at this layer's
-// [B, S, E] cache; o is [B, E] bf16. Needs D % 8 == 0 and D <= 128.
+// (times k_scale for an int8 cache) rounded to bf16; the own score and
+// own-value term stay f32; the probabilities round to bf16 before the AV
+// sum (JAX's rounding points). Cache rows (CT = bf16 or int8 codes) are
+// staged through shared memory ATTN_ROWS at a time with 16-byte loads, all
+// issued before any is used. kc/vc point at this layer's [B, S, E] cache,
+// ks/vs at its [E] scales (null for bf16); o is [B, E] bf16. Needs
+// D * sizeof(CT) % 16 == 0 and D <= 128.
 constexpr int ATTN_ROWS = 64;
 
-__device__ __forceinline__ void stage_rows(const bf16* __restrict__ src,
-                                           bf16* dst, int rows, int D,
-                                           int E) {
-  const int chunks = D / 8;
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(int8_t v) { return float(v); }
+
+// The new cache entry: bf16, or the int8 code of v at scale s.
+__device__ __forceinline__ void put(bf16* dst, float v, float) {
+  *dst = __float2bfloat16(v);
+}
+__device__ __forceinline__ void put(int8_t* dst, float v, float s) {
+  *dst = static_cast<int8_t>(fminf(fmaxf(rintf(v / s), -127.f), 127.f));
+}
+
+template <typename CT>
+__device__ __forceinline__ void stage_rows(const CT* __restrict__ src,
+                                           CT* dst, int rows, int D, int E) {
+  constexpr int VEC = 16 / sizeof(CT);
+  const int chunks = D / VEC;
   for (int i = threadIdx.x; i < rows * chunks; i += blockDim.x) {
-    const int r = i / chunks, c = (i % chunks) * 8;
+    const int r = i / chunks, c = (i % chunks) * VEC;
     *reinterpret_cast<uint4*>(dst + r * D + c) =
         *reinterpret_cast<const uint4*>(src + size_t(r) * E + c);
   }
 }
 
+template <typename CT>
 __global__ void __launch_bounds__(ATTN_THREADS)
 decode_attention(const float* __restrict__ part, int splits,
                  const float* __restrict__ scale,
-                 const float* __restrict__ bias, bf16* __restrict__ kc,
-                 bf16* __restrict__ vc, bf16* __restrict__ o, int B, int S,
-                 int E, int D, int length, float att_scale) {
-  // [3 * D] f32 q, k_new, v_new | [S] f32 scores | [ATTN_ROWS * D] bf16
-  // rows, 16-byte aligned (attention_smem_bytes)
+                 const float* __restrict__ bias, CT* __restrict__ kc,
+                 CT* __restrict__ vc, const float* __restrict__ ks,
+                 const float* __restrict__ vs, bf16* __restrict__ o, int B,
+                 int S, int E, int D, int length, float att_scale) {
+  // [4 * D] f32 q, k_new, v_new, bf16-rounded (scaled) q | [S] f32 scores
+  // | [ATTN_ROWS * D] cache rows, 16-byte aligned (attention_smem_bytes)
   extern __shared__ float smem[];
   float* sq = smem;
   float* sk = smem + D;
   float* sv = smem + 2 * D;
-  float* sp = smem + 3 * D;
-  bf16* rows = reinterpret_cast<bf16*>(smem + ((3 * D + S + 3) & ~3));
+  float* sqc = smem + 3 * D;
+  float* sp = smem + 4 * D;
+  CT* rows = reinterpret_cast<CT*>(smem + ((4 * D + S + 3) & ~3));
   __shared__ float s_own, w_own;
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = blockDim.x >> 5;
+  const int col0 = h * D;
   const size_t plane = size_t(B) * 3 * E;
   for (int i = tid; i < 3 * D; i += blockDim.x) {
-    const int col = (i / D) * E + h * D + i % D;
+    const int col = (i / D) * E + col0 + i % D;
     smem[i] = finalize(part, splits, plane, size_t(b) * 3 * E + col, scale,
                        col) + bias[col];
   }
   __syncthreads();
-  bf16* kb = kc + size_t(b) * S * E + size_t(h) * D;
-  bf16* vb = vc + size_t(b) * S * E + size_t(h) * D;
+  for (int i = tid; i < D; i += blockDim.x)
+    sqc[i] = round_bf16(ks == nullptr ? sq[i] : sq[i] * ks[col0 + i]);
+  CT* kb = kc + size_t(b) * S * E + col0;
+  CT* vb = vc + size_t(b) * S * E + col0;
 
   for (int j0 = 0; j0 < length; j0 += ATTN_ROWS) {
     const int n = min(ATTN_ROWS, length - j0);
-    __syncthreads();   // previous chunk consumed
+    __syncthreads();   // sqc written / previous chunk consumed
     stage_rows(kb + size_t(j0) * E, rows, n, D, E);
     __syncthreads();
     for (int j = warp; j < n; j += nwarps) {
       float acc = 0.f;
       for (int d = lane; d < D; d += 32)
-        acc += round_bf16(sq[d]) * __bfloat162float(rows[j * D + d]);
+        acc += sqc[d] * widen(rows[j * D + d]);
       acc = warp_sum(acc);
       if (lane == 0) sp[j0 + j] = acc * att_scale;
     }
@@ -343,7 +367,7 @@ decode_attention(const float* __restrict__ part, int splits,
     __syncthreads();
     if (pi < parts && d < D)
       for (int j = pi; j < n; j += parts)
-        acc += sp[j0 + j] * __bfloat162float(rows[j * D + d]);
+        acc += sp[j0 + j] * widen(rows[j * D + d]);
   }
   __syncthreads();
   osum[tid] = acc;
@@ -351,16 +375,19 @@ decode_attention(const float* __restrict__ part, int splits,
   if (tid < D) {
     float total = 0.f;
     for (int q = 0; q < parts; ++q) total += osum[q * D + tid];
+    if (vs != nullptr) total *= vs[col0 + tid];
     total += w_own * sv[tid];
-    o[size_t(b) * E + size_t(h) * D + tid] = __float2bfloat16(total);
-    kb[size_t(length) * E + tid] = __float2bfloat16(sk[tid]);
-    vb[size_t(length) * E + tid] = __float2bfloat16(sv[tid]);
+    o[size_t(b) * E + col0 + tid] = __float2bfloat16(total);
+    put(kb + size_t(length) * E + tid, sk[tid],
+        ks == nullptr ? 1.f : ks[col0 + tid]);
+    put(vb + size_t(length) * E + tid, sv[tid],
+        vs == nullptr ? 1.f : vs[col0 + tid]);
   }
 }
 
-size_t attention_smem_bytes(int D, int S) {
-  return size_t((3 * D + S + 3) & ~3) * sizeof(float) +
-         size_t(ATTN_ROWS) * D * sizeof(bf16);
+size_t attention_smem_bytes(int D, int S, int cache_bytes) {
+  return size_t((4 * D + S + 3) & ~3) * sizeof(float) +
+         size_t(ATTN_ROWS) * D * cache_bytes;
 }
 
 // Depth splits of a [B, K] x [K, N] product: the largest divisor of the
@@ -406,11 +433,12 @@ struct Weights {
   const float *qkv_s, *proj_s, *fc_s, *fc2_s;   // null unless w8a16
 };
 
-template <typename WT>
+template <typename WT, typename CT>
 cudaError_t run_layers(const bf16* x_in, bf16* x_out, float* x_res,
                        bf16* hbuf, bf16* hh, float* part, const Weights& w,
-                       bf16* k_cache, bf16* v_cache, int L, int B, int S,
-                       int E, int H, int length, cudaStream_t st) {
+                       CT* k_cache, CT* v_cache, const float* k_scale,
+                       const float* v_scale, int L, int B, int S, int E,
+                       int H, int length, cudaStream_t st) {
   const int D = E / H;
   const float att_scale = 1.f / sqrtf(float(D));
   const size_t cache_layer = size_t(B) * S * E;
@@ -425,11 +453,12 @@ cudaError_t run_layers(const bf16* x_in, bf16* x_out, float* x_res,
   for (int l = 0; l < L; ++l) {
     const size_t e1 = size_t(l) * E, e3 = 3 * e1, e4 = 4 * e1;
     FK_TRY(gemm<WT>(hbuf, w.qkv_w, e1 * 3 * E, part, s_qkv, B, E, 3 * E, st));
-    decode_attention<<<dim3(H, B), ATTN_THREADS,
-                       attention_smem_bytes(D, S), st>>>(
+    decode_attention<CT><<<dim3(H, B), ATTN_THREADS,
+                           attention_smem_bytes(D, S, sizeof(CT)), st>>>(
         part, s_qkv, at(w.qkv_s, e3), w.qkv_b + e3,
-        k_cache + l * cache_layer, v_cache + l * cache_layer, hbuf, B, S, E,
-        D, length, att_scale);
+        k_cache + l * cache_layer, v_cache + l * cache_layer,
+        at(k_scale, e1), at(v_scale, e1), hbuf, B, S, E, D, length,
+        att_scale);
     FK_TRY(cudaGetLastError());
     FK_TRY(gemm<WT>(hbuf, w.proj_w, e1 * E, part, s_proj, B, E, E, st));
     residual_rows<<<B, ROW_THREADS, 0, st>>>(
@@ -464,8 +493,10 @@ extern "C" long long fk_fused_decode_workspace_bytes(int B, int E) {
 // scratch: f32 x_res [B, E], bf16 hbuf [B, E] and hh [B, 4E], f32
 // workspace of fk_fused_decode_workspace_bytes(B, E); f32 LN params and
 // biases [L, D]; weights [L, in, out] bf16, or int8 (w_int8 = 1) with f32
-// scales [L, 1, out]. E % 128 == 0, head_dim % 8 == 0 and <= 128,
-// 0 <= length < S, S small enough for the attention's shared memory.
+// scales [L, 1, out]; caches bf16, or int8 codes (kv_int8 = 1) with f32
+// scales k_scale/v_scale [L, 1, E]. E % 128 == 0, head_dim * cache bytes a
+// multiple of 16 and head_dim <= 128, 0 <= length < S, S small enough for
+// the attention's shared memory.
 extern "C" int fk_fused_decode_blocks(
     const void* x_in, void* x_out, void* x_res, void* hbuf, void* hh,
     void* workspace, const void* ln1_w, const void* ln1_b, const void* qkv_w,
@@ -473,11 +504,13 @@ extern "C" int fk_fused_decode_blocks(
     const void* ln2_w, const void* ln2_b, const void* fc_w, const void* fc_b,
     const void* fc2_w, const void* fc2_b, const void* qkv_s,
     const void* proj_s, const void* fc_s, const void* fc2_s, void* k_cache,
-    void* v_cache, int L, int B, int S, int E, int H, int length, int w_int8,
-    void* stream) {
-  if (E % GEMM_BK != 0 || E % H != 0 || (E / H) % 8 != 0 ||
+    void* v_cache, const void* k_scale, const void* v_scale, int L, int B,
+    int S, int E, int H, int length, int w_int8, int kv_int8, void* stream) {
+  const int cache_bytes = kv_int8 ? 1 : 2;
+  if (E % GEMM_BK != 0 || E % H != 0 || (E / H) * cache_bytes % 16 != 0 ||
       E / H > ATTN_THREADS || length < 0 || length >= S ||
-      attention_smem_bytes(E / H, S) > 48 * 1024)
+      attention_smem_bytes(E / H, S, cache_bytes) > 48 * 1024 ||
+      (kv_int8 && (k_scale == nullptr || v_scale == nullptr)))
     return int(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   const Weights w{f(ln1_w), f(ln1_b), f(qkv_b), f(proj_b), f(ln2_w),
@@ -485,14 +518,21 @@ extern "C" int fk_fused_decode_blocks(
                   fc_w,     fc2_w,    f(qkv_s), f(proj_s), f(fc_s),
                   f(fc2_s)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto tag) {
-    using WT = decltype(tag);
-    return run_layers<WT>(
+  auto run = [&](auto wtag, auto ctag) {
+    using WT = decltype(wtag);
+    using CT = decltype(ctag);
+    return run_layers<WT, CT>(
         static_cast<const bf16*>(x_in), static_cast<bf16*>(x_out),
         static_cast<float*>(x_res), static_cast<bf16*>(hbuf),
         static_cast<bf16*>(hh), static_cast<float*>(workspace), w,
-        static_cast<bf16*>(k_cache), static_cast<bf16*>(v_cache), L, B, S, E,
-        H, length, st);
+        static_cast<CT*>(k_cache), static_cast<CT*>(v_cache),
+        kv_int8 ? f(k_scale) : nullptr, kv_int8 ? f(v_scale) : nullptr, L, B,
+        S, E, H, length, st);
   };
-  return int(w_int8 ? run(int8_t{}) : run(bf16{}));
+  cudaError_t err;
+  if (kv_int8)
+    err = w_int8 ? run(int8_t{}, int8_t{}) : run(bf16{}, int8_t{});
+  else
+    err = w_int8 ? run(int8_t{}, bf16{}) : run(bf16{}, bf16{});
+  return int(err);
 }

@@ -1,9 +1,10 @@
 """Brain -> text prediction: signal window in, sentence out
 (``frankenstein_tpu/decode/pipeline.py``).
 
-Seeds each sentence with <|endoftext|>, encodes the window, samples up to
-25 tokens with top-k 10 on the KV-cached decode, and trims at the stop
-token. Beams and rescoring are not ported yet.
+Seeds each sentence with <|endoftext|>, encodes the window, decodes up to
+25 tokens on the KV-cached decode (top-k 10 sampling, or EOS-aware beams
+with length penalty 1.0), and trims at the stop token. LLaMA rescoring is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -30,17 +31,17 @@ def make_franky_predictor(model, tokenizer, *, max_new_tokens: int = 25,
     """Returns predict(xs [B, T, C]) -> list[str] (length B).
 
     ``model`` is used as given: cast it with ``cast_params_for_inference``
-    first to serve in bf16. ``int8_weights=True`` streams w8a16 decode
-    weights, quantized once here. Each call draws from its own generator,
+    first to serve in bf16. ``beam_width > 1`` decodes with EOS-aware beams
+    (``sampling.beam_search``, length penalty 1.0) instead of top-k
+    sampling. ``int8_weights=True`` streams w8a16 decode weights, quantized
+    once here; ``int8_kv=True`` quantizes each request's prefilled KV cache
+    to int8, on both branches. Each call draws from its own generator,
     seeded from ``seed`` and the call count."""
-    if beam_width > 1 or rescorer is not None:
+    if rescorer is not None:
         raise NotImplementedError(
-            "beam search and rescoring are not ported yet (beams need kernel "
-            "K3; ROADMAP.md, modules to port: beams and predictor)")
-    if int8_kv:
-        raise NotImplementedError(
-            "int8_kv: the int8-KV mode of K2 is not ported yet "
-            "(ROADMAP.md, kernel queue: K2 int8 KV)")
+            "rescorer: LLaMA n-best rescoring is not ported yet; it comes "
+            "with the FrankyLlama slice and its decode kernel K5 "
+            "(ROADMAP.md, modules to port: FrankyLlama)")
     qweights = sampling.decode_weights(model, int8_weights)
     calls = 0
 
@@ -54,10 +55,16 @@ def make_franky_predictor(model, tokenizer, *, max_new_tokens: int = 25,
                           device=model.device)
         gen = torch.Generator(device=model.device).manual_seed(
             seed * 1_000_003 + calls)
-        toks = sampling.generate(model, idx0, prefix, gen,
-                                 max_new_tokens=max_new_tokens,
-                                 temperature=temperature, top_k=top_k,
-                                 qweights=qweights)
+        if beam_width > 1:
+            toks, _ = sampling.beam_search(
+                model, idx0, prefix, max_new_tokens=max_new_tokens,
+                beam_width=beam_width, eos_id=eot_id, length_penalty=1.0,
+                qweights=qweights, int8_kv=int8_kv)
+        else:
+            toks = sampling.generate(model, idx0, prefix, gen,
+                                     max_new_tokens=max_new_tokens,
+                                     temperature=temperature, top_k=top_k,
+                                     qweights=qweights, int8_kv=int8_kv)
         return [tokenizer.decode(t, skip_special_tokens=True)
                 for t in sampling.trim_at_eot(toks, eot_id)]
 

@@ -56,3 +56,7 @@ class Franky(nn.Module):
     def decode_step(self, token, cache, length: int,
                     qweights: Optional[dict] = None):
         return self.llm_model.decode_step(token, cache, length, qweights)
+
+    @staticmethod
+    def reorder_cache(cache, flat_idx, group: int = 0):
+        return GPT.reorder_cache(cache, flat_idx, group=group)

@@ -5,8 +5,11 @@
   token embeddings, learned positions over the full length, shifted CE over
   text positions ignoring -100.
 - Decode uses a fixed-shape KV cache with heads folded, ``[L, B, S, E]``
-  (``init_cache`` / ``prefill`` / ``decode_step``). ``decode_step`` runs all
-  blocks through kernel K2 (``ops/cuda/fused_decode.py``) on the card.
+  (``init_cache`` / ``prefill`` / ``decode_step``), or its int8 form
+  ``QuantCache`` (``quantize_cache`` after prefill). ``decode_step`` runs
+  all blocks through kernel K2 (``ops/cuda/fused_decode.py``) on the card;
+  ``reorder_cache`` gathers beams, through kernel K3
+  (``ops/cuda/beam_reorder.py``) when the beams are grouped.
 - ``lm_head`` is tied to ``transformer.wte``.
 
 Dropout and the MoE MLP are not ported: the port serves, it does not train.
@@ -15,7 +18,7 @@ Dropout and the MoE MLP are not ported: the port serves, it does not train.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,7 +27,24 @@ from torch import nn
 from frankenstein_tpu_torch.config import GPTConfig, IGNORE_INDEX
 from frankenstein_tpu_torch.models.layers import LayerNorm, linear
 from frankenstein_tpu_torch.ops import attention as attn_ops
-from frankenstein_tpu_torch.ops.cuda import fused_decode
+from frankenstein_tpu_torch.ops.cuda import beam_reorder, fused_decode
+
+
+class QuantCache(NamedTuple):
+    """int8 KV cache: codes plus fixed per-(layer, lane) dequant scales.
+    Indexing [0]/[1] gives the sides, as for the float (k, v) tuple."""
+
+    k: torch.Tensor        # [L, B, S, E] int8
+    v: torch.Tensor        # [L, B, S, E] int8
+    k_scale: torch.Tensor  # [L, 1, E] f32
+    v_scale: torch.Tensor  # [L, 1, E] f32
+
+
+def quantize_cache(cache) -> QuantCache:
+    """(k, v) float caches -> QuantCache (symmetric absmax int8)."""
+    k8, ks = fused_decode.quantize_cache_side(cache[0])
+    v8, vs = fused_decode.quantize_cache_side(cache[1])
+    return QuantCache(k8, v8, ks, vs)
 
 
 class CausalSelfAttention(nn.Module):
@@ -216,18 +236,43 @@ class GPT(nn.Module):
         """One decode step. token: [B] ids at absolute position ``length``.
 
         All blocks run in kernel K2 (its plain twin on the CPU); the new K/V
-        rows land in ``cache`` IN PLACE. ``qweights``: the stacked decode
-        weights (``stack_decode_weights`` or ``quantize_decode_weights``),
-        built once by the caller; None stacks them for this call.
+        rows land in ``cache`` IN PLACE. ``cache`` may be a ``QuantCache``:
+        K2 then runs its int8-KV mode and the scales stay as they are.
+        ``qweights``: the stacked decode weights (``stack_decode_weights``
+        or ``quantize_decode_weights``), built once by the caller; None
+        stacks them for this call.
         Returns (logits [B, vocab] f32, cache, length + 1)."""
         if qweights is None:
             qweights = stack_decode_weights(self)
+        quant = isinstance(cache, QuantCache)
         x = (self.transformer["wte"](token)
              + self.transformer["wpe"].weight[length][None])
         x, k, v = fused_decode.fused_decode_blocks(
-            x, qweights, cache[0], cache[1], length, n_head=self.cfg.n_head)
+            x, qweights, cache[0], cache[1], length,
+            cache.k_scale if quant else None,
+            cache.v_scale if quant else None, n_head=self.cfg.n_head)
+        cache = (QuantCache(k, v, cache.k_scale, cache.v_scale) if quant
+                 else (k, v))
         x = self.transformer["ln_f"](x)
-        return self._lm_head(x, qweights.get("lm_head_t")), (k, v), length + 1
+        return self._lm_head(x, qweights.get("lm_head_t")), cache, length + 1
+
+    @staticmethod
+    def reorder_cache(cache, flat_idx, group: int = 0):
+        """Gather cache rows to a new (beam) order; batch is axis 1.
+        ``QuantCache`` scales have no batch axis and are never gathered.
+
+        ``group > 0`` asserts the beam-search contract that row g*w + n
+        takes row g*w + p with p < w (w = ``group``): then kernel K3
+        permutes both sides IN PLACE (its twin on the CPU). Otherwise a
+        plain ``index_select`` returns new tensors."""
+        k, v = cache[0], cache[1]
+        if group > 0:
+            k, v = beam_reorder.beam_reorder(k, v, flat_idx % group, w=group)
+        else:
+            k, v = k.index_select(1, flat_idx), v.index_select(1, flat_idx)
+        if isinstance(cache, QuantCache):
+            return QuantCache(k, v, cache.k_scale, cache.v_scale)
+        return k, v
 
 
 def init_gpt_(gpt: GPT, generator: torch.Generator) -> None:

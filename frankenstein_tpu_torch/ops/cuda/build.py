@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``*.cu`` file under ``frankenstein_tpu_torch/csrc`` is compiled by
-``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a plain C
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and the objects are linked into ONE shared library with a plain C
 interface, loaded with ``ctypes``. The build runs at first use, never at
 import, into ``frankenstein_tpu_torch/build/`` (listed in ``.gitignore``),
 and is keyed on a hash of the sources and flags: a changed source builds a
@@ -23,7 +24,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -62,14 +63,50 @@ def _declare(lib) -> None:
     lib.fk_fused_decode_blocks.argtypes = (
         [p] * 6                     # x_in, x_out, x_res, h, hh, workspace
         + [p] * 16                  # 12 weight arrays + 4 scales
-        + [p] * 2                   # k_cache, v_cache
-        + [i] * 7                   # L, B, S, E, H, length, w_int8
+        + [p] * 4                   # k_cache, v_cache, k_scale, v_scale
+        + [i] * 8                   # L, B, S, E, H, length, w_int8, kv_int8
         + [p])                      # stream
     lib.fk_fused_decode_blocks.restype = i
     lib.fk_fused_decode_workspace_bytes.argtypes = [i, i]
     lib.fk_fused_decode_workspace_bytes.restype = ctypes.c_longlong
+    lib.fk_beam_reorder.argtypes = (
+        [p] * 3                     # k_cache, v_cache, parent_local
+        + [i] * 4                   # L, groups, W, row bytes
+        + [p])                      # stream
+    lib.fk_beam_reorder.restype = i
     lib.fk_error_string.argtypes = [i]
     lib.fk_error_string.restype = ctypes.c_char_p
+
+
+def _run(cmds, log) -> None:
+    """Run the commands in parallel; log them all, raise if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    with open(log, "a") as f:
+        for c, out in zip(cmds, outs):
+            f.write(" ".join(c) + "\n" + out)
+    for c, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed (rc={p.returncode}) on "
+                               f"{c[-1]}:\n{out[-4000:]}")
+
+
+def _compile(target: Path) -> None:
+    """One nvcc per source, started together, then one link."""
+    log = BUILD_DIR / "build.log"
+    log.write_text("")
+    tag = f"{target.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    nvcc = _nvcc()
+    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+          for o, src in zip(objs, _sources())], log)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]], log)
+    for o in objs:
+        o.unlink()
+    os.replace(tmp, target)
 
 
 def library():
@@ -81,19 +118,9 @@ def library():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         target = BUILD_DIR / f"libfk_kernels_{_digest()}.so"
         if not target.exists():
-            tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in _sources()]]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            _compile(target)
             build_seconds = time.perf_counter() - t0
-            build_log = proc.stdout + proc.stderr
-            (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n"
-                                                 + build_log)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                                   f"{build_log[-4000:]}")
-            os.replace(tmp, target)
         lib = ctypes.CDLL(str(target))
         _declare(lib)
         _lib = lib

@@ -10,19 +10,24 @@ design answers that.
 ``fused_decode_blocks`` launches the kernels for CUDA tensors and runs the
 plain PyTorch twin ``fused_decode_blocks_ref`` for CPU tensors, never one in
 place of the other. Modes: bf16 weights, or int8 w8a16 weights
-(``quantize_weights``), each with a bf16 cache. The int8 KV-cache mode of the
-TPU kernel is not ported yet and raises ``NotImplementedError``.
+(``quantize_weights``), each with a bf16 cache or an int8 cache with fixed
+per-(layer, lane) f32 scales (``quantize_cache_side``): the k-scale folds
+into q, the v-scale multiplies the AV sum, the token's own K/V terms stay
+float, and the new row is requantized in the kernel.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
 from frankenstein_tpu_torch.ops.cuda import build
 
-launches = 0   # wrapper calls that ran the CUDA kernels (one per token step)
+launches = 0          # wrapper calls that ran the CUDA kernels (one per
+                      # token step), in either cache mode
+launches_int8_kv = 0  # the same, counting only the int8-KV mode
 
 WEIGHT_KEYS = ("qkv_w", "proj_w", "fc_w", "fc2_w")
 SCALE_KEYS = ("qkv_s", "proj_s", "fc_s", "fc2_s")
@@ -45,6 +50,39 @@ def quantize_weights(stacked: dict) -> dict:
     return out
 
 
+def _codes(values, scales):
+    """int8 codes ``clip(round(values / scales), -127, 127)``, rounding half
+    to even as ``jnp.round`` does."""
+    return torch.clamp(torch.round(values.float() / scales), -127,
+                       127).to(torch.int8)
+
+
+def quantize_cache_side(cache):
+    """[L, B, S, E] float -> (int8 codes, f32 scales [L, 1, E]): symmetric
+    per-(layer, lane) scales ``max(absmax over (batch, position), 1e-6) /
+    127``, fixed from then on (decode steps reuse them and clip)."""
+    c = cache.float()
+    absmax = c.abs().amax(dim=(1, 2))
+    scales = (torch.clamp(absmax, min=1e-6) / 127.0)[:, None, :]
+    return _codes(c, scales[:, :, None, :]), scales
+
+
+def quantize_rows(rows, scales):
+    """New K/V rows [L, B, E] -> int8 with the cache's fixed scales."""
+    return _codes(rows, scales)
+
+
+def quantize_with_scales(cache, scales):
+    """Full cache [L, B, S, E] -> int8 with fixed scales [L, 1, E]; values
+    from ``dequantize_cache_side`` round-trip to their codes."""
+    return _codes(cache, scales[:, :, None, :])
+
+
+def dequantize_cache_side(codes, scales, dtype):
+    """Inverse of ``quantize_cache_side``."""
+    return (codes.float() * scales[:, :, None, :]).to(dtype)
+
+
 def _layer_norm_f32(x, w, b, eps: float = 1e-5):
     mu = x.mean(dim=-1, keepdim=True)
     var = torch.square(x - mu).mean(dim=-1, keepdim=True)
@@ -55,15 +93,29 @@ def _gelu_exact(x):
     return 0.5 * x * (1.0 + torch.special.erf(x * (1.0 / math.sqrt(2.0))))
 
 
-def fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length: int, *,
-                            n_head: int):
+def _compute_dtype(stacked, k_cache):
+    """The JAX kernel's compute dtype: the weights' dtype, or for int8
+    weights the cache's dtype (bf16 when the cache is int8 too)."""
+    if stacked["qkv_w"].dtype != torch.int8:
+        return stacked["qkv_w"].dtype
+    return torch.bfloat16 if k_cache.dtype == torch.int8 else k_cache.dtype
+
+
+def fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length: int,
+                            k_scale=None, v_scale=None, *, n_head: int,
+                            new_rows: Optional[list] = None):
     """Plain PyTorch twin of the kernels, following the JAX ``_chunk_math``:
     f32 residual across layers, f32 LayerNorm, every product accumulated in
-    f32 from compute-dtype operands, exact-erf GELU. Writes the new K/V rows
-    at row ``length`` of the caches IN PLACE and returns
-    (x_out, k_cache, v_cache)."""
+    f32 from compute-dtype operands, exact-erf GELU. With an int8 cache the
+    scaled q ``q * k_scale`` rounds to the compute dtype before it meets the
+    codes, the AV sum is multiplied by ``v_scale``, and the new rows are
+    ``quantize_rows`` of the float K/V. Writes the new K/V rows at row
+    ``length`` of the caches IN PLACE and returns (x_out, k_cache, v_cache).
+    ``new_rows``: a list that receives each layer's f32 (k_new, v_new)
+    before they are cast or quantized."""
     w8 = stacked["qkv_w"].dtype == torch.int8
-    cdt = k_cache.dtype if w8 else stacked["qkv_w"].dtype
+    quant = k_cache.dtype == torch.int8
+    cdt = _compute_dtype(stacked, k_cache)
     n_layer = stacked["qkv_w"].shape[0]
     b, e = x.shape
     d = e // n_head
@@ -82,7 +134,8 @@ def fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length: int, *,
         q, k_new, v_new = qkv.split(e, dim=-1)
         kc = to_c(k_cache[l, :, :length]).reshape(b, length, n_head, d)
         vc = to_c(v_cache[l, :, :length]).reshape(b, length, n_head, d)
-        s = torch.einsum("bhd,bjhd->bhj", to_c(q).reshape(b, n_head, d),
+        q_k = q * k_scale[l] if quant else q
+        s = torch.einsum("bhd,bjhd->bhj", to_c(q_k).reshape(b, n_head, d),
                          kc) * scale
         s_own = (q * k_new).reshape(b, n_head, d).sum(-1) * scale
         m = s_own if length == 0 else torch.maximum(s.amax(-1), s_own)
@@ -90,32 +143,52 @@ def fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length: int, *,
         p_own = torch.exp(s_own - m)
         denom = p.sum(-1) + p_own
         p = to_c(p / denom[..., None])
-        o = torch.einsum("bhj,bjhd->bhd", p, vc)
-        o = o + (p_own / denom)[..., None] * v_new.reshape(b, n_head, d)
-        xf = (xf + dot(o.reshape(b, e), "proj_w", l)) + vec("proj_b")
+        o = torch.einsum("bhj,bjhd->bhd", p, vc).reshape(b, e)
+        if quant:
+            o = o * v_scale[l]
+        o = o + ((p_own / denom)[..., None]
+                 * v_new.reshape(b, n_head, d)).reshape(b, e)
+        xf = (xf + dot(o, "proj_w", l)) + vec("proj_b")
         h2 = _layer_norm_f32(xf, vec("ln2_w"), vec("ln2_b"))
         hh = _gelu_exact(dot(h2, "fc_w", l) + vec("fc_b"))
         xf = (xf + dot(hh, "fc2_w", l)) + vec("fc2_b")
-        k_cache[l, :, length] = k_new.to(k_cache.dtype)
-        v_cache[l, :, length] = v_new.to(v_cache.dtype)
+        if new_rows is not None:
+            new_rows.append((k_new, v_new))
+        if quant:
+            k_cache[l, :, length] = quantize_rows(k_new, k_scale[l])
+            v_cache[l, :, length] = quantize_rows(v_new, v_scale[l])
+        else:
+            k_cache[l, :, length] = k_new.to(k_cache.dtype)
+            v_cache[l, :, length] = v_new.to(v_cache.dtype)
     return xf.to(x.dtype), k_cache, v_cache
 
 
-def _check(x, stacked, k_cache, v_cache, length: int, n_head: int):
+def _check(x, stacked, k_cache, v_cache, length: int, n_head: int,
+           k_scale, v_scale):
     b, e = x.shape
     n_layer, _, s, _ = k_cache.shape
     dev = x.device
+    quant = k_cache.dtype == torch.int8
     if x.dtype != torch.bfloat16 or not x.is_contiguous():
         raise ValueError(f"x: need contiguous bf16 [B, E], got {x.dtype}")
     for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if (c.dtype != torch.bfloat16 or c.shape != (n_layer, b, s, e)
+        if (c.dtype not in (torch.bfloat16, torch.int8)
+                or c.dtype != k_cache.dtype or c.shape != (n_layer, b, s, e)
                 or not c.is_contiguous() or c.device != dev):
-            raise ValueError(f"{name}: need contiguous bf16 "
-                             f"[{n_layer}, {b}, {s}, {e}] on {dev}")
-    if e % 128 or e % n_head or (e // n_head) % 8 or e // n_head > 128:
+            raise ValueError(f"{name}: need contiguous bf16 or int8 (both "
+                             f"sides alike) [{n_layer}, {b}, {s}, {e}] on "
+                             f"{dev}")
+    if quant:
+        for name, a in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if (a.dtype != torch.float32 or a.shape != (n_layer, 1, e)
+                    or not a.is_contiguous() or a.device != dev):
+                raise ValueError(f"{name}: need contiguous f32 "
+                                 f"[{n_layer}, 1, {e}] on {dev}")
+    step = 16 if quant else 8       # 16-byte row loads of the cache
+    if e % 128 or e % n_head or (e // n_head) % step or e // n_head > 128:
         raise ValueError(f"E={e}, n_head={n_head}: the kernels need "
-                         "E % 128 == 0 and a head_dim that is a multiple of "
-                         "8, at most 128")
+                         f"E % 128 == 0 and a head_dim that is a multiple of "
+                         f"{step}, at most 128")
     if not 0 <= length < s:
         raise ValueError(f"length {length} outside the cache [0, {s})")
     w8 = stacked["qkv_w"].dtype == torch.int8
@@ -145,22 +218,23 @@ def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
     x: [B, E] embedded token; stacked: dict of [L, ...] tensors from
     ``models.gpt2.stack_decode_weights`` (optionally through
     ``quantize_weights``), built once per predictor; k_cache/v_cache:
-    [L, B, S, E]; length: the number of valid cache rows (a host int).
+    [L, B, S, E], bf16 or int8 codes; k_scale/v_scale: the int8 caches'
+    [L, 1, E] f32 scales (``quantize_cache_side``), None for a float cache;
+    length: the number of valid cache rows (a host int).
 
     Returns (x_out [B, E], k_cache, v_cache). The caches are updated IN
     PLACE: the new K/V rows are written at row ``length`` and the returned
     caches are the same tensors."""
-    global launches
-    if k_cache.dtype == torch.int8 or k_scale is not None \
-            or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV cache: the int8-KV mode of K2 is not ported yet "
-            "(ROADMAP.md, kernel queue: K2 int8 KV)")
+    global launches, launches_int8_kv
+    quant = k_cache.dtype == torch.int8
+    if quant != (k_scale is not None) or quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale go with an int8 cache, and "
+                         "only with one")
     length = int(length)
     if not x.is_cuda:
         return fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length,
-                                       n_head=n_head)
-    _check(x, stacked, k_cache, v_cache, length, n_head)
+                                       k_scale, v_scale, n_head=n_head)
+    _check(x, stacked, k_cache, v_cache, length, n_head, k_scale, v_scale)
     n_layer, b, s, e = k_cache.shape
     w8 = stacked["qkv_w"].dtype == torch.int8
     dev = x.device
@@ -180,8 +254,11 @@ def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
         p("proj_b"), p("ln2_w"), p("ln2_b"), p("fc_w"), p("fc_b"),
         p("fc2_w"), p("fc2_b"), *scales,
         k_cache.data_ptr(), v_cache.data_ptr(),
-        n_layer, b, s, e, n_head, length, int(w8),
+        k_scale.data_ptr() if quant else None,
+        v_scale.data_ptr() if quant else None,
+        n_layer, b, s, e, n_head, length, int(w8), int(quant),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "fused_decode_blocks")
     launches += 1
+    launches_int8_kv += int(quant)
     return x_out, k_cache, v_cache

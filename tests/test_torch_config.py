@@ -21,7 +21,8 @@ def test_fields_and_defaults(name):
     assert dataclasses.asdict(tcls()) == dataclasses.asdict(jcls())
 
 
-@pytest.mark.parametrize("const", ["GPT2_EOT", "IGNORE_INDEX", "MAX_TOKENS"])
+@pytest.mark.parametrize("const", ["GPT2_EOT", "IGNORE_INDEX", "MAX_TOKENS",
+                                   "MAX_INPUT_LEN", "N_ELECTRODES"])
 def test_constants(const):
     assert getattr(tconfig, const) == getattr(jconfig, const)
 

@@ -1,6 +1,7 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch twins, at small
-shapes that reach the kernels' edge cases (slabs that do not divide the
-tiles, a batch that does not fill a tile, an empty cache).
+"""Kernels K1, K2 (bf16 and int8 KV caches) and K3 on the card against
+their plain PyTorch twins, at small shapes that reach the kernels' edge
+cases (slabs that do not divide the tiles, a batch that does not fill a
+tile, an empty cache, one beam and the widest group).
 
 The kernels have no CPU mode, so without a CUDA device these tests skip.
 On the card: ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from frankenstein_tpu_torch.ops import rope
+from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
 from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
 from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
 
@@ -59,21 +61,24 @@ def test_k1_refuses_what_it_does_not_take(dev):
                                tok_per_time=8)
 
 
+def _k2_weights(gen, dev, n_layer, e, w8):
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev) * 0.05
+    st = {key: rnd(n_layer, n) for key, n in (
+        ("ln1_w", e), ("ln1_b", e), ("qkv_b", 3 * e), ("proj_b", e),
+        ("ln2_w", e), ("ln2_b", e), ("fc_b", 4 * e), ("fc2_b", e))}
+    for key, shape in (("qkv_w", (e, 3 * e)), ("proj_w", (e, e)),
+                       ("fc_w", (e, 4 * e)), ("fc2_w", (4 * e, e))):
+        st[key] = rnd(n_layer, *shape).to(torch.bfloat16)
+    return k2.quantize_weights(st) if w8 else st
+
+
 @pytest.mark.parametrize("w8", [False, True])
 @pytest.mark.parametrize("b,length", [(8, 5), (40, 0), (3, 15)])
 def test_k2_matches_twin(dev, w8, b, length):
     n_layer, h, e, s = 2, 4, 128, 16
     gen = torch.Generator(device=dev).manual_seed(b + length)
-    rnd = lambda *shape, sc=1.0: torch.randn(*shape, generator=gen,
-                                             device=dev) * sc
-    st = {key: rnd(n_layer, n, sc=0.05) for key, n in (
-        ("ln1_w", e), ("ln1_b", e), ("qkv_b", 3 * e), ("proj_b", e),
-        ("ln2_w", e), ("ln2_b", e), ("fc_b", 4 * e), ("fc2_b", e))}
-    for key, shape in (("qkv_w", (e, 3 * e)), ("proj_w", (e, e)),
-                       ("fc_w", (e, 4 * e)), ("fc2_w", (4 * e, e))):
-        st[key] = rnd(n_layer, *shape, sc=0.05).to(torch.bfloat16)
-    if w8:
-        st = k2.quantize_weights(st)
+    st = _k2_weights(gen, dev, n_layer, e, w8)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
     kc = rnd(n_layer, b, s, e).to(torch.bfloat16)
     vc = rnd(n_layer, b, s, e).to(torch.bfloat16)
     x = rnd(b, e).to(torch.bfloat16)
@@ -91,3 +96,102 @@ def test_k2_matches_twin(dev, w8, b, length):
     others = [r for r in range(s) if r != length]
     assert torch.equal(kc_k[:, :, others], kc[:, :, others])
     assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("b,length", [(8, 5), (40, 0), (3, 15)])
+def test_k2_int8_kv_matches_twin(dev, w8, b, length):
+    """int8 caches: x within K2's tolerance; the codes written at ``length``
+    within one code of the twin's (the twin's f32 K/V differ from the
+    kernel's in summation order, so a value near a .5 boundary may round
+    the other way); every other row untouched."""
+    n_layer, h, e, s = 2, 2, 128, 16
+    gen = torch.Generator(device=dev).manual_seed(100 + b + length)
+    st = _k2_weights(gen, dev, n_layer, e, w8)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    kc, ks = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+    vc, vs = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+    x = rnd(b, e).to(torch.bfloat16)
+    kc_k, vc_k, kc_r, vc_r = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = k2.launches
+    xo, _, _ = k2.fused_decode_blocks(x, st, kc_k, vc_k, length, ks, vs,
+                                      n_head=h)
+    assert k2.launches == before + 1
+    xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc_r, vc_r, length, ks, vs,
+                                          n_head=h)
+    assert _err(xo, xr) <= 2e-2 * float(xr.float().abs().max())
+    for got, want in ((kc_k, kc_r), (vc_k, vc_r)):
+        assert _err(got[:, :, length], want[:, :, length]) <= 1
+    others = [r for r in range(s) if r != length]
+    assert torch.equal(kc_k[:, :, others], kc[:, :, others])
+    assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("w8", [False, True])
+def test_k2_int8_kv_rounds_half_to_even(dev, w8):
+    """With qkv_w = 0 the new rows are the qkv bias exactly: the kernel's
+    codes equal clamp(round-half-to-even(bias / scale)), ties included."""
+    n_layer, h, e, s, b = 2, 2, 128, 16, 8
+    st = _k2_weights(torch.Generator(device=dev).manual_seed(5), dev,
+                     n_layer, e, w8)
+    st["qkv_w"] = torch.zeros_like(st["qkv_w"])
+    t = torch.tensor([0.5, 1.5, 2.5, -0.5, -3.5, 126.5, 127.5, -200.0,
+                      3.25] * 15, device=dev)[:e].repeat(n_layer, 1)
+    scale = torch.full((n_layer, 1, e), 0.125, device=dev)
+    st["qkv_b"][:, e:2 * e] = t * 0.125
+    st["qkv_b"][:, 2 * e:] = -t * 0.125
+    kc = torch.zeros(n_layer, b, s, e, dtype=torch.int8, device=dev)
+    vc = torch.zeros_like(kc)
+    x = torch.ones(b, e, dtype=torch.bfloat16, device=dev)
+    k2.fused_decode_blocks(x, st, kc, vc, 4, scale, scale, n_head=h)
+    want = torch.clamp(torch.round(t), -127, 127).to(torch.int8)
+    assert torch.equal(kc[:, :, 4], want[:, None].expand(n_layer, b, e))
+    assert torch.equal(vc[:, :, 4], -want[:, None].expand(n_layer, b, e))
+
+
+def test_k2_int8_kv_refuses_what_it_does_not_take(dev):
+    st = _k2_weights(torch.Generator(device=dev).manual_seed(0), dev, 1, 128,
+                     False)
+    kc = torch.zeros(1, 2, 8, 128, dtype=torch.int8, device=dev)
+    scales = torch.ones(1, 1, 128, device=dev)
+    x = torch.zeros(2, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        k2.fused_decode_blocks(x, st, kc, kc.clone(), 1, scales, scales,
+                               n_head=16)          # head_dim 8
+    with pytest.raises(ValueError, match="k_scale"):
+        k2.fused_decode_blocks(x, st, kc, kc.clone(), 1, scales[..., :64],
+                               scales, n_head=2)
+
+
+@pytest.mark.parametrize("w,bw,s,dtype", [(5, 40, 16, torch.bfloat16),
+                                          (4, 16, 8, torch.float32),
+                                          (5, 40, 16, torch.int8),
+                                          (1, 3, 8, torch.bfloat16),
+                                          (16, 32, 8, torch.int8)])
+def test_k3_matches_twin(dev, w, bw, s, dtype):
+    """In place and bitwise equal to the twin, both sides in one launch."""
+    gen = torch.Generator(device=dev).manual_seed(w * bw)
+    shape = (2, bw, s, 128)
+    if dtype == torch.int8:
+        k, v = (torch.randint(-127, 128, shape, generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+    else:
+        k, v = (torch.randn(*shape, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+    parent = torch.randint(0, w, (bw,), generator=gen, device=dev)
+    want_k = k3.beam_reorder_ref(k, parent, w=w)
+    want_v = k3.beam_reorder_ref(v, parent, w=w)
+    before = k3.launches
+    k_out, v_out = k3.beam_reorder(k, v, parent, w=w)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    assert k_out is k and v_out is v
+    assert torch.equal(k, want_k) and torch.equal(v, want_v)
+
+
+def test_k3_refuses_what_it_does_not_take(dev):
+    k = torch.zeros(1, 34, 8, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="w <= 16"):
+        k3.beam_reorder(k, k.clone(), torch.zeros(34, device=dev), w=17)
+    with pytest.raises(ValueError, match="w <= 16"):
+        k3.beam_reorder(k, k.clone(), torch.zeros(34, device=dev), w=5)

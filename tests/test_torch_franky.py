@@ -21,7 +21,8 @@ from frankenstein_tpu_torch.data.tokenizers import ByteTokenizer
 from frankenstein_tpu_torch.decode import pipeline, sampling
 from frankenstein_tpu_torch.models.franky import Franky
 from frankenstein_tpu_torch.models.weights import init_franky_, load_franky
-from frankenstein_tpu_torch.ops.cuda import fused_decode, slab_attention
+from frankenstein_tpu_torch.ops.cuda import (beam_reorder, fused_decode,
+                                             slab_attention)
 
 torch.set_num_threads(1)
 
@@ -157,9 +158,22 @@ def test_topk_sampling_stays_in_topk(pair):
                                 {"rescorer": (object(), None)},
                                 {"int8_kv": True}])
 def test_predictor_refuses_unported_flags(pair, kw):
-    model = pair[2]
-    with pytest.raises(NotImplementedError):
-        pipeline.make_franky_predictor(model, ByteTokenizer(), **kw)
+    """Only LLaMA rescoring is still refused (it waits for kernel K5).
+    Beams and the int8 KV cache serve strings through the kernels' twins
+    on the CPU, counting no kernel launch."""
+    model, x = pair[2], pair[3]
+    if "rescorer" in kw:
+        with pytest.raises(NotImplementedError, match="K5"):
+            pipeline.make_franky_predictor(model, ByteTokenizer(), **kw)
+        return
+    before = (slab_attention.launches, fused_decode.launches,
+              beam_reorder.launches)
+    predict = pipeline.make_franky_predictor(
+        model, ByteTokenizer(), max_new_tokens=N_STEPS, eot_id=511, **kw)
+    out = predict(x)
+    assert len(out) == B and all(isinstance(s, str) for s in out)
+    assert (slab_attention.launches, fused_decode.launches,
+            beam_reorder.launches) == before
 
 
 def test_qk_int8_refused():

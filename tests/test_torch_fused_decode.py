@@ -104,12 +104,25 @@ def test_length_zero_attends_to_own_row_only():
 
 
 def test_int8_cache_refused_and_cpu_not_counted():
+    """An int8 cache without its scales (or scales with a float cache) is
+    refused; with them it is served, and on the CPU, in either mode, the
+    twin runs and no kernel launch is counted."""
     p = {k: torch.from_numpy(v) for k, v in _weights(7).items()}
     kc = torch.zeros(L, B, S, E, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="int8"):
+    scales = torch.full((L, 1, E), 0.01)
+    with pytest.raises(ValueError, match="int8"):
         tfd.fused_decode_blocks(torch.zeros(B, E), p, kc, kc.clone(), 3,
                                 n_head=H)
+    with pytest.raises(ValueError, match="int8"):
+        tfd.fused_decode_blocks(torch.zeros(B, E), p, torch.zeros(L, B, S, E),
+                                torch.zeros(L, B, S, E), 3, scales, scales,
+                                n_head=H)
     before = tfd.launches
+    x, kc_out, _ = tfd.fused_decode_blocks(torch.ones(B, E), p, kc,
+                                           kc.clone(), 3, scales, scales,
+                                           n_head=H)
+    assert kc_out is kc and kc_out.dtype == torch.int8
+    assert torch.isfinite(x).all() and kc[:, :, 3].abs().sum() > 0
     tfd.fused_decode_blocks(torch.zeros(B, E), p, torch.zeros(L, B, S, E),
                             torch.zeros(L, B, S, E), 3, n_head=H)
     assert tfd.launches == before
