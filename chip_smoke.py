@@ -26,7 +26,20 @@ nvcc (sm_90a) and then, one line per phase:
    launch counts of K1, K2 (int8-KV mode) and K3, beam width 1 against
    greedy, the int8-KV logits against the bf16 cache's,
    ``evaluate_franky_wer`` over a synthetic set, the submission writer,
-   and encode / beam decode / request times.
+   and encode / beam decode / request times;
+8. kernel K4 (the backward of K1) against its twin at the flagship encoder
+   shape: dq, dk, dv, the probability rows it recomputes (each sums to 1
+   against K1's lse), two launches bitwise equal, both times, and the
+   kernel at B=32;
+9. training: the flagship Franky (f32 parameters, bf16 compute) trained
+   for 30 steps at B=32 on synthetic trials through the train CLI
+   (``python -m frankenstein_tpu_torch.train --config configs/franky.yaml``,
+   called in-process), with an eval and a checkpoint: finite, falling
+   losses, the launch counts of K1 and K4, one step's gradients against an
+   f32 CPU twin at B=1, the checkpoint restored bitwise, the run served
+   by ``python -m frankenstein_tpu_torch.submit --run-dir`` over 8
+   synthetic windows; then the step time, samples/s and peak memory at
+   B=32, and one step at the YAML's batch 256 with grad_accum 8.
 
 Then one JSON line with the kernels' results, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: non-zero exit and no
@@ -37,6 +50,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,6 +61,10 @@ K2_TOL = 2e-2     # relative to max |twin|: same roundings, other f32 order
 SLICE_TOL = 1e-1  # bf16 card chain vs f32 CPU twins, relative to max |ref|
 CODE_WINDOW = 1e-3  # how near a .5 tie a value counts as a tie
 INT8_KV_TOL = 5e-2  # int8 vs bf16 cache logits, relative to the logit range
+K4_TOL = 2e-2     # relative to max |twin|: ds, p, dq, dk round to bf16
+ROWSUM_TOL = 1e-2   # |sum of a recomputed probability row - 1|
+GRAD_TOL = 5e-2   # bf16 card step vs f32 CPU twin, relative (norms)
+TRAIN_STEPS = 30
 
 
 def _card() -> str:
@@ -255,7 +273,8 @@ def _reset_launches() -> None:
     from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
     from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
-    k1.launches = k2.launches = k2.launches_int8_kv = k3.launches = 0
+    k1.launches = k1.launches_bwd = 0
+    k2.launches = k2.launches_int8_kv = k3.launches = 0
 
 
 def _read_launches() -> dict:
@@ -263,7 +282,8 @@ def _read_launches() -> dict:
     from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
     return {"K1": k1.launches, "K2": k2.launches,
-            "K2-int8": k2.launches_int8_kv, "K3": k3.launches}
+            "K2-int8": k2.launches_int8_kv, "K3": k3.launches,
+            "K4": k1.launches_bwd}
 
 
 def phase_slice(card: str, model) -> dict:
@@ -289,7 +309,8 @@ def phase_slice(card: str, model) -> dict:
     _check(len(out) == 8 and all(isinstance(s, str) for s in out),
            f"predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": cfg.max_tokens,
-                        "K2-int8": 0, "K3": 0}, f"launches {launches}")
+                        "K2-int8": 0, "K3": 0, "K4": 0},
+           f"launches {launches}")
     prefix = model.encode(xs)
     idx0 = torch.full((8, 1), GPT2_EOT, dtype=torch.long, device=dev)
     cache = model.init_decode_cache(8, sampling._round_cache_len(
@@ -518,7 +539,8 @@ def phase_beams(card: str, model) -> dict:
     _check(len(out) == b and all(isinstance(s, str) for s in out),
            f"beam predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": steps, "K2-int8": steps,
-                        "K3": steps}, f"beam path launches {launches}")
+                        "K3": steps, "K4": 0},
+           f"beam path launches {launches}")
 
     qw = sampling.quantize_serving_weights(model)
     prefix = model.encode(xs)
@@ -559,6 +581,219 @@ def phase_beams(card: str, model) -> dict:
             "decode_ms": decode_ms, "request_ms": request_ms}
 
 
+def _k4_inputs(b: int, gen, dout=None):
+    """Flagship encoder attention: bf16 q, k, v (and dout), K1's out, lse."""
+    import torch
+    from frankenstein_tpu_torch.ops import rope
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    t, h, d, p = 6144, 8, 32, 256
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(b, t, h * d, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    if dout is None:
+        dout = torch.randn(b, t, h * d, generator=gen,
+                           device=dev).to(torch.bfloat16)
+    cos, sin = rope.folded_tables(rope.build_rope_cache(d, t, device=dev),
+                                  1)
+    kw = dict(n_heads=h, tok_per_time=p)
+    out, lse = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+    return (q, k, v, cos, sin, out, lse, dout), kw
+
+
+def phase_k4(card: str) -> dict:
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    b, t, h, d = 2, 6144, 8, 32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    args, kw = _k4_inputs(b, gen)
+    got = k1.slab_rope_attention_bwd(*args, **kw)
+    again = k1.slab_rope_attention_bwd(*args, **kw)
+    want = k1.slab_rope_attention_bwd_ref(*(x.float() for x in args), **kw)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(g, a) for g, a in zip(got, again))
+    errs = [_max_err(g, w) for g, w in zip(got, want)]
+    rels = [e / float(w.abs().max()) for e, w in zip(errs, want)]
+
+    # dout one-hot on (query i_c, lane c) of every head: column c of dv is
+    # then row i_c of the probabilities K4 recomputes from K1's lse
+    rows = torch.arange(d, device="cuda") * 191 % t
+    onehot = torch.zeros(b, t, h * d, dtype=torch.bfloat16, device="cuda")
+    for head in range(h):
+        onehot[:, rows, head * d + torch.arange(d, device="cuda")] = 1.0
+    pargs, _ = _k4_inputs(b, gen, dout=onehot)
+    _, _, dv = k1.slab_rope_attention_bwd(*pargs, **kw)
+    rowsum = float((dv.float().reshape(b, t, h, d).sum(dim=1) - 1.0)
+                   .abs().max())
+
+    ms = _time_ms(lambda: k1.slab_rope_attention_bwd(*args, **kw))
+    plain_ms = _time_ms(lambda: k1.slab_rope_attention_bwd_ref(*args, **kw),
+                        iters=3)
+    bargs, _ = _k4_inputs(32, gen)
+    ms_b32 = _time_ms(lambda: k1.slab_rope_attention_bwd(*bargs, **kw),
+                      iters=5)
+    print(f"phase 8 K4 slab_rope_attention_bwd B={b} T={t} E={h * d} H={h} "
+          f"P=256 bf16: dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
+          f"{errs[2]:.3e} (rel {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e}, "
+          f"tol {K4_TOL} x max|twin|), probability rows sum to 1 within "
+          f"{rowsum:.3e} (tol {ROWSUM_TOL}), two launches bitwise equal "
+          f"{bitwise} | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms | "
+          f"kernel at B=32 {ms_b32:.3f} ms | {card}", flush=True)
+    _check(all(bool(torch.isfinite(g).all()) for g in got),
+           "K4 output not finite")
+    _check(max(rels) <= K4_TOL, f"K4 disagrees with its twin: {rels}")
+    _check(rowsum <= ROWSUM_TOL, f"K4 probability rows off by {rowsum}")
+    _check(bitwise, "K4 is not deterministic")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "ms_b32": ms_b32}
+
+
+def _grad_check(state, tcfg, ds) -> dict:
+    """One step's gradients on the card (bf16 compute) against the same
+    weights as f32 on the CPU (the kernels' twins), at B=1: relative error
+    of the global norm and of each encoder attention weight."""
+    import torch
+    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.train import trainer
+    x, y, _ = ds[0]
+    batch = (torch.from_numpy(x[None]), torch.from_numpy(y[None]))
+    state.optimizer.zero_grad(set_to_none=True)
+    trainer.loss_and_grads(state, tuple(a.cuda() for a in batch),
+                           tcfg.replace(grad_accum=1, p_augs=0.0))
+    ref = Franky(state.model.cfg)
+    ref.load_state_dict({k: v.cpu() for k, v in
+                         state.model.state_dict().items()})
+    ref(*batch)[0].backward()
+    card = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+    cpu = {n: p.grad for n, p in ref.named_parameters()}
+    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum()
+                                          for v in g.values())))
+    errs = {"global_norm": abs(norm(card) - norm(cpu)) / norm(cpu)}
+    for n in cpu:
+        if n.startswith("brain_model.encoder.") and ".attn." in n:
+            errs[n] = float((card[n] - cpu[n]).norm() / cpu[n].norm())
+    state.optimizer.zero_grad(set_to_none=True)
+    return errs
+
+
+def _time_steps(state, tcfg, ds, batch_size: int, steps: int):
+    """(ms per step, peak GiB) of ``steps`` train steps after one warm-up."""
+    import torch
+    from frankenstein_tpu_torch.data.datasets import batch_iterator
+    from frankenstein_tpu_torch.train import trainer
+    from frankenstein_tpu_torch.train.schedule import make_lr_schedule
+    it = batch_iterator(ds, batch_size, shuffle=True, seed=SEED)
+    batches = [tuple(torch.from_numpy(a).cuda() for a in next(it))[:2]
+               for _ in range(steps + 1)]
+    sched = make_lr_schedule(tcfg)
+    gen = torch.Generator(device="cuda")
+    trainer.train_step(state, batches[0], tcfg, sched, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for batch in batches[1:]:
+        trainer.train_step(state, batch, tcfg, sched, gen)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000 / steps
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_train(card: str) -> dict:
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch import submit
+    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+    from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+    from frankenstein_tpu_torch.train import trainer
+
+    repo = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_launches()
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--config", str(repo / "configs" / "franky.yaml"),
+            "--data", "synthetic", "--synthetic-trials", "256",
+            "--steps", str(TRAIN_STEPS), "--batch-size", "32",
+            "--warmup", "5", "--eval-interval", str(TRAIN_STEPS),
+            "--exp-name", "smoke", "--save-folder", tmp])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _read_launches()
+        run_dir = Path(tmp) / "smoke"
+        records = [json.loads(line) for line in
+                   (run_dir / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["train/loss"] for r in records if "train/loss" in r]
+        rate = [r["samples_per_sec"] for r in records
+                if "samples_per_sec" in r]
+        val = [r["val/loss"] for r in records if "val/loss" in r]
+        cfg = state.model.cfg
+        n_layers = cfg.brain.encoder.n_layers
+        _check(state.step == TRAIN_STEPS, f"stopped at step {state.step}")
+        _check(len(losses) >= 2 and all(map(math.isfinite, losses + val)),
+               f"losses {losses}, val {val}")
+        _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        # one eval batch: 32 validation trials at batch 32
+        _check(launches["K4"] == n_layers * TRAIN_STEPS
+               and launches["K1"] == n_layers * (TRAIN_STEPS + 1)
+               and launches["K2"] == launches["K3"] == 0,
+               f"training launches {launches}")
+
+        best = ckpt_lib.best_checkpoint(run_dir)
+        fresh = Franky(cfg, device=torch.device("cuda"),
+                       dtype=torch.bfloat16)
+        tcfg = _train_config(run_dir)
+        restored = ckpt_lib.restore_checkpoint(best, trainer.TrainState(
+            fresh, trainer.make_optimizer(tcfg, fresh)[0]))
+        same = (restored.step == state.step and all(
+            torch.equal(a, b) for a, b in zip(
+                state.model.state_dict().values(),
+                fresh.state_dict().values())))
+        opt_a = state.optimizer.state_dict()["state"]
+        opt_b = restored.optimizer.state_dict()["state"]
+        same = same and all(torch.equal(opt_a[i][key], opt_b[i][key])
+                            for i in opt_a for key in opt_a[i])
+        _check(same, f"checkpoint {best.name} does not restore bitwise")
+        del fresh, restored
+
+        sub = submit.main(["--run-dir", str(run_dir), "--data", "synthetic",
+                           "--synthetic-trials", "8", "--out",
+                           str(Path(tmp) / "sub.txt")])
+        lines = sub.read_text().splitlines()
+        _check(len(lines) == 8, f"submission has {len(lines)} lines")
+
+        ds = train_cli.build_datasets("synthetic", 768, 256, 256)[0]
+        grad_errs = _grad_check(state, tcfg, ds)
+        step_ms, peak = _time_steps(state, tcfg, ds, 32, 5)
+        big = tcfg.replace(batch_size=256, grad_accum=8)
+        big_ms, big_peak = _time_steps(state, big, ds, 256, 1)
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"phase 9 training: Franky flagship (768x256 window, 6144 tokens, "
+          f"GPT-2 124M, f32 params, bf16 compute), {TRAIN_STEPS} steps at "
+          f"B=32 through the train CLI in {run_s:.1f} s: train loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (logged {len(losses)}), val "
+          f"{val[-1]:.4f}, samples/s in the log {rate[-1]:.1f}, launches "
+          f"{launches} (K4 = {n_layers} per step, K1 = {n_layers} per "
+          f"forward), checkpoint {best.name} restored bitwise, submit "
+          f"--run-dir wrote {len(lines)} lines | B=1 card vs f32 CPU twin "
+          f"gradients: global norm rel err {grad_errs['global_norm']:.3e}, "
+          f"worst encoder attention weight {worst} {grad_errs[worst]:.3e} "
+          f"(tol {GRAD_TOL}) | B=32 step {step_ms:.1f} ms, "
+          f"{32e3 / step_ms:.1f} samples/s, peak {peak:.2f} GiB | B=256 "
+          f"grad_accum 8 step {big_ms:.1f} ms, peak {big_peak:.2f} GiB | "
+          f"{card}", flush=True)
+    _check(max(grad_errs.values()) <= GRAD_TOL,
+           f"card vs CPU gradients: {grad_errs}")
+    return {"launches": launches, "step_ms": step_ms, "peak_gib": peak,
+            "big_ms": big_ms, "big_peak_gib": big_peak, "grad": grad_errs}
+
+
+def _train_config(run_dir):
+    from frankenstein_tpu_torch.config import TrainConfig
+    return TrainConfig.from_json((run_dir / "train_config.json").read_text())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -576,6 +811,9 @@ def main() -> int:
     k3 = phase_k3(card)
     k2q = phase_k2_int8(card)
     bm = phase_beams(card, model)
+    del model
+    k4 = phase_k4(card)
+    tr = phase_train(card)
     kernels = [
         {"name": "slab_rope_attention_fwd", "route": "cuda",
          "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
@@ -601,6 +839,11 @@ def main() -> int:
          "launches": bm["launches"]["K3"],
          "max_abs_err": k3["int8"]["max_abs_err"], "ms": k3["int8"]["ms"],
          "plain_ms": k3["int8"]["plain_ms"]},
+        {"name": "slab_rope_attention_bwd", "route": "cuda",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention_bwd.cu",
+         "replaces": "frankenstein_tpu/ops/pallas/block_attention.py:658",
+         "launches": tr["launches"]["K4"], "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

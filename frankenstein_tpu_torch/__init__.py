@@ -1,14 +1,18 @@
 """frankenstein_tpu_torch — the PyTorch + CUDA port of frankenstein_tpu.
 
-The port serves the flagship Franky chain (a 768x256 brain window through
-the slab-causal encoder and Perceiver, then GPT-2 124M with KV-cached top-k
-or beam-search decode, bf16 or int8 KV cache) on one NVIDIA H100, through
-the predictor, the WER evaluation and the submission writer. Plain tensor
-code is PyTorch; the kernels the JAX package wrote in Pallas on this path
-are hand-written CUDA C++ for Hopper (``csrc/``):
+The port serves and trains the flagship Franky on one NVIDIA H100: a
+768x256 brain window through the slab-causal encoder and Perceiver, then
+GPT-2 124M. Serving: KV-cached top-k or beam-search decode, bf16 or int8 KV
+cache, through the predictor, the WER evaluation and the submission writer
+(``python -m frankenstein_tpu_torch.submit``). Training: f32 parameters and
+bf16 compute, AdamW with a value clip and the warmup-cosine schedule,
+checkpoints and resume (``python -m frankenstein_tpu_torch.train``). Plain
+tensor code is PyTorch; the kernels the JAX package wrote in Pallas on these
+paths are hand-written CUDA C++ for Hopper (``csrc/``):
 
 - K1 ``ops/cuda/slab_attention.py``: slab-causal attention with in-kernel
-  RoPE (the encoder);
+  RoPE (the encoder), and K4 beside it, its backward, joined in the
+  autograd Function ``SlabRopeAttention``;
 - K2 ``ops/cuda/fused_decode.py``: one GPT-2 token through all blocks,
   with a bf16 or an int8 KV cache;
 - K3 ``ops/cuda/beam_reorder.py``: the in-place beam-search cache reorder.

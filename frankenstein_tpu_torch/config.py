@@ -1,16 +1,55 @@
-"""Configuration dataclasses of the serving slice.
+"""Configuration dataclasses of the ported slices.
 
 Field-for-field copies of ``frankenstein_tpu/config.py`` (``MAEConfig``,
-``PerceiverConfig``, ``GPTConfig``, ``FrankyConfig`` and the constants the
-slice uses). JSON serialization is not ported yet. The port cannot import
-that module, because the JAX package's ``__init__`` pulls in jax;
-``tests/test_torch_config.py`` holds the copies to the originals' fields
-and defaults.
+``PerceiverConfig``, ``GPTConfig``, ``FrankyConfig``, ``TrainConfig``, the
+JSON mixin that lets YAML sections and ``model_config.json`` round-trip, and
+the constants the slices use). The port cannot import that module, because
+the JAX package's ``__init__`` pulls in jax; ``tests/test_torch_config.py``
+holds the copies to the originals' fields, defaults and serialization.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import typing
 from dataclasses import dataclass, field
+from typing import Optional
+
+
+class _SerializableMixin:
+    """JSON (de)serialization for nested frozen config dataclasses."""
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @classmethod
+    def from_dict(cls, d: dict):
+        # ``from __future__ import annotations`` stringifies f.type: resolve
+        # the real classes so nested configs rebuild as dataclasses
+        hints = typing.get_type_hints(cls)
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name not in d:
+                continue
+            v = d[f.name]
+            t = hints.get(f.name, f.type)
+            if isinstance(v, dict) and dataclasses.is_dataclass(t):
+                v = t.from_dict(v)
+            elif isinstance(v, list):
+                v = tuple(v)      # JSON/YAML lists: keep configs hashable
+            kwargs[f.name] = v
+        return cls(**kwargs)
+
+    @classmethod
+    def from_json(cls, s: str):
+        return cls.from_dict(json.loads(s))
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
 
 MAX_INPUT_LEN = 768   # time bins per trial at 50 Hz (~15.4 s)
 MAX_TOKENS = 25       # GPT-2 tokens per sentence incl. bos/eos
@@ -20,7 +59,7 @@ GPT2_EOT = 50256      # <|endoftext|>
 
 
 @dataclass(frozen=True)
-class MAEConfig:
+class MAEConfig(_SerializableMixin):
     """BrainFormer encoder geometry."""
 
     window_size: int = 1024
@@ -61,7 +100,7 @@ class MAEConfig:
 
 
 @dataclass(frozen=True)
-class PerceiverConfig:
+class PerceiverConfig(_SerializableMixin):
     """Perceiver resampler on top of the encoder."""
 
     encoder: MAEConfig = field(default_factory=MAEConfig)
@@ -79,7 +118,7 @@ class PerceiverConfig:
 
 
 @dataclass(frozen=True)
-class GPTConfig:
+class GPTConfig(_SerializableMixin):
     block_size: int = 1024
     vocab_size: int = 50304   # padded to a multiple of 64 (HF ckpt uses 50257)
     n_layer: int = 12
@@ -100,7 +139,7 @@ class GPTConfig:
 
 
 @dataclass(frozen=True)
-class FrankyConfig:
+class FrankyConfig(_SerializableMixin):
     """Brain prefix -> GPT-2 composite (the flagship serving model)."""
 
     brain: PerceiverConfig = field(
@@ -113,3 +152,54 @@ class FrankyConfig:
     gpt: GPTConfig = field(default_factory=GPTConfig)
     max_tokens: int = MAX_TOKENS
     pad_token_id: int = GPT2_EOT
+
+
+@dataclass(frozen=True)
+class TrainConfig(_SerializableMixin):
+    """The trainer's settings (``frankenstein_tpu/config.py:TrainConfig``).
+    In the port: ``steps_per_dispatch`` is k optimizer steps per host group
+    (same numerics as k single steps); ``fsdp`` and a ``mesh_shape`` wider
+    than one device raise ``NotImplementedError`` (parallel modes are not
+    ported); ``remat`` checkpoints each block."""
+
+    exp_name: str = "default"
+
+    batch_size: int = 256          # GLOBAL batch
+    grad_accum: int = 1
+
+    # per-sample probability of the time-masking augmentation
+    # (train/trainer.py:augment_batch)
+    p_augs: float = 0.0
+
+    learning_rate: float = 1e-3
+    weight_decay: float = 1e-5
+    adam_b1: float = 0.9
+    adam_b2: float = 0.999
+    # True => decay only params with ndim >= 2 (matmul weights +
+    # embeddings), never biases / norm scales; False => decay everything
+    weight_decay_mask: bool = False
+
+    max_steps: int = 100_000
+    eval_interval: int = 1_000
+
+    use_scheduler: bool = True
+    warmup_iters: int = 2_000
+    lr_decay_iters: int = 50_000
+
+    grad_clip: float = 1.0         # clip by VALUE
+    # f32 parameters, bf16 compute: float batch inputs are cast to bf16 and
+    # the model is built with a bf16 compute dtype
+    mixed_precision: bool = True
+
+    seed: int = 42
+    log_interval: int = 10
+    keep_checkpoints: int = 3
+
+    steps_per_dispatch: int = 1
+
+    # mesh geometry: data x model
+    mesh_shape: Optional[tuple] = None   # None => one device
+
+    remat: bool = False
+
+    fsdp: bool = False

@@ -1,0 +1,76 @@
+// Device helpers shared by K1 (slab_rope_attention.cu) and K4
+// (slab_rope_attention_bwd.cu): the bf16 mma.sync tile product, bf16 packing,
+// and the RoPE rotation both kernels apply while they load q/k tiles. The
+// rotation must be the same code in both: K4 recomputes K1's scores from
+// K1's lse, so its rotated q/k must round exactly as K1's did.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace fk {
+
+typedef __nv_bfloat16 bf16;
+
+// d = a (16x16 bf16, row) * b (16x8 bf16, col) + d, f32 accumulators.
+// Fragments (g = lane / 4, t = lane % 4):
+//   a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}
+//   b = {B[2t..][g], B[2t+8..][g]}, c = {C[g][2t], C[g][2t+1],
+//   C[g+8][2t], C[g+8][2t+1]}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A-fragment of key step kk from the f32 C-fragments of the score tiles
+// 2kk and 2kk+1, rounded to bf16 (the flash-attention-2 register re-pack).
+__device__ __forceinline__ void repack_a(uint32_t (&a)[4], const float (&s0)[4],
+                                         const float (&s1)[4]) {
+  a[0] = pack_bf16(s0[0], s0[1]);
+  a[1] = pack_bf16(s0[2], s0[3]);
+  a[2] = pack_bf16(s1[0], s1[1]);
+  a[3] = pack_bf16(s1[2], s1[3]);
+}
+
+// Load 8 bf16 lanes, rotate the 4 adjacent pairs in f32 with the position's
+// table row, round to bf16. Same expression as the plain twin
+// (rope.apply_rope_folded): x*cos + (-x_odd | x_even)*sin, unfused.
+__device__ __forceinline__ uint4 load_rotate8(const bf16* __restrict__ src,
+                                              const float* __restrict__ cos_row,
+                                              const float* __restrict__ sin_row) {
+  uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const bf16* x = reinterpret_cast<const bf16*>(&raw);
+  float4 c0 = *reinterpret_cast<const float4*>(cos_row);
+  float4 c1 = *reinterpret_cast<const float4*>(cos_row + 4);
+  float4 s0 = *reinterpret_cast<const float4*>(sin_row);
+  float4 s1 = *reinterpret_cast<const float4*>(sin_row + 4);
+  const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  uint4 out;
+  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const float x0 = __bfloat162float(x[2 * p]);
+    const float x1 = __bfloat162float(x[2 * p + 1]);
+    o[p] = pack_bf16(
+        __fadd_rn(__fmul_rn(x0, c[2 * p]), __fmul_rn(-x1, s[2 * p])),
+        __fadd_rn(__fmul_rn(x1, c[2 * p + 1]), __fmul_rn(x0, s[2 * p + 1])));
+  }
+  return out;
+}
+
+}  // namespace fk

@@ -39,61 +39,20 @@
 #include <math.h>
 #include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "mma_bf16.cuh"
 
 namespace {
+
+using fk::bf16;
+using fk::lds32;
+using fk::load_rotate8;
+using fk::mma_bf16;
+using fk::pack_bf16;
 
 constexpr int BQ = 128;              // query rows per CTA
 constexpr int BK = 64;               // keys per tile
 constexpr int NWARPS = BQ / 16;      // 16 query rows per warp
 constexpr int NTHREADS = NWARPS * 32;
-
-// d = a (16x16 bf16, row) * b (16x8 bf16, col) + d, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Load 8 bf16 lanes, rotate the 4 adjacent pairs in f32 with the position's
-// table row, round to bf16. Same expression as the plain twin:
-// x*cos + (-x_odd | x_even)*sin, unfused.
-__device__ __forceinline__ uint4 load_rotate8(const bf16* __restrict__ src,
-                                              const float* __restrict__ cos_row,
-                                              const float* __restrict__ sin_row) {
-  uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const bf16* x = reinterpret_cast<const bf16*>(&raw);
-  float4 c0 = *reinterpret_cast<const float4*>(cos_row);
-  float4 c1 = *reinterpret_cast<const float4*>(cos_row + 4);
-  float4 s0 = *reinterpret_cast<const float4*>(sin_row);
-  float4 s1 = *reinterpret_cast<const float4*>(sin_row + 4);
-  const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-  const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
-  uint4 out;
-  uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const float x0 = __bfloat162float(x[2 * p]);
-    const float x1 = __bfloat162float(x[2 * p + 1]);
-    o[p] = pack_bf16(
-        __fadd_rn(__fmul_rn(x0, c[2 * p]), __fmul_rn(-x1, s[2 * p])),
-        __fadd_rn(__fmul_rn(x1, c[2 * p + 1]), __fmul_rn(x0, s[2 * p + 1])));
-  }
-  return out;
-}
 
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
@@ -226,10 +185,8 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // O += P V: the score tiles 2kk, 2kk+1 are the A-fragment of key step kk
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      fk::repack_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int n = 0; n < OT; ++n) {
         const bf16* vrow = sVt + (n * 8 + g) * LDV + kk * 16 + 2 * t;

@@ -2,8 +2,10 @@
 (``frankenstein_tpu/models/brainformer.py``: ``to_patches``, ``Encoder``,
 ``BrainEncoder``).
 
-The 6144-token slab-causal encoder attention runs kernel K1 on the card.
-The MAE pretrainer and ``forward_subset`` are not ported yet.
+The 6144-token slab-causal encoder attention runs kernel K1 on the card,
+and its backward kernel K4. ``dtype`` is the compute dtype
+(``models/layers.py``). The MAE pretrainer and ``forward_subset`` are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +15,8 @@ from torch import nn
 
 from frankenstein_tpu_torch.config import MAEConfig, PerceiverConfig
 from frankenstein_tpu_torch.models.layers import (Block, CrossBlock,
-                                                  LayerNorm, linear)
+                                                  LayerNorm, linear,
+                                                  run_block)
 from frankenstein_tpu_torch.ops import rope as rope_ops
 
 
@@ -28,7 +31,7 @@ class Encoder(nn.Module):
     """Patch + embed + space embedding + slab-causal transformer. Submodules
     sit under ``transformer`` as in the reference's state dict."""
 
-    def __init__(self, cfg: MAEConfig, device=None):
+    def __init__(self, cfg: MAEConfig, device=None, dtype=None):
         super().__init__()
         if cfg.qk_int8:
             raise NotImplementedError(
@@ -38,28 +41,31 @@ class Encoder(nn.Module):
             raise NotImplementedError(
                 "n_sessions > 0: the session embedding is not ported yet")
         self.cfg = cfg
+        self.compute_dtype = dtype
         self.transformer = nn.ModuleDict({
             "emb": nn.Linear(cfg.patch_size, cfg.dim, device=device),
             "h": nn.ModuleList(
                 Block(cfg.dim, cfg.n_heads, cfg.head_dim, cfg.hidden_dim,
-                      device) for _ in range(cfg.n_layers)),
+                      device, dtype) for _ in range(cfg.n_layers)),
             "ln_f": LayerNorm(cfg.dim, device=device),
         })
         self.space_embedding = nn.Parameter(
             torch.zeros(1, cfg.n_electrodes, cfg.dim, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, T, C] signal -> [B, n_tokens, dim] context."""
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+        """x: [B, T, C] signal -> [B, n_tokens, dim] context. ``remat``
+        recomputes each block's activations in the backward."""
         c = self.cfg
         tr = self.transformer
-        tok = linear(to_patches(x, c.patch_size), tr["emb"])
+        tok = linear(to_patches(x, c.patch_size), tr["emb"],
+                     self.compute_dtype)
         space = self.space_embedding.repeat(1, c.n_patches_per_channel, 1)
         tok = tok + space.to(tok.dtype)[:, -tok.shape[1]:]
         rope = rope_ops.build_rope_cache(c.head_dim, c.block_size,
                                          c.rope_theta, device=x.device)
         for block in tr["h"]:
-            tok = block(tok, mask_mode="slab", tok_per_time=c.n_electrodes,
-                        rope=rope)
+            tok = run_block(block, tok, remat=remat, mask_mode="slab",
+                            tok_per_time=c.n_electrodes, rope=rope)
         return tr["ln_f"](tok)
 
 
@@ -67,11 +73,11 @@ class Perceiver(nn.Module):
     """The resampler's blocks, final norm and output head (``perceiver.*``
     in the reference's state dict)."""
 
-    def __init__(self, cfg: PerceiverConfig, device=None):
+    def __init__(self, cfg: PerceiverConfig, device=None, dtype=None):
         super().__init__()
         self.h = nn.ModuleList(
             CrossBlock(cfg.dim, cfg.n_heads, cfg.head_dim, cfg.hidden_dim,
-                       device) for _ in range(cfg.n_layers))
+                       device, dtype) for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.dim, device=device)
         self.to_words = nn.Linear(cfg.dim, cfg.output_dim, device=device)
 
@@ -80,22 +86,24 @@ class BrainEncoder(nn.Module):
     """Encoder + Perceiver resampler -> n_output_tokens vectors of
     output_dim."""
 
-    def __init__(self, cfg: PerceiverConfig, device=None):
+    def __init__(self, cfg: PerceiverConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Encoder(cfg.encoder, device)
+        self.compute_dtype = dtype
+        self.encoder = Encoder(cfg.encoder, device, dtype)
         self.learnable_queries = nn.Parameter(
             torch.zeros(1, cfg.n_output_tokens, cfg.dim, device=device))
-        self.perceiver = Perceiver(cfg, device)
+        self.perceiver = Perceiver(cfg, device, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
         """x: [B, T, C] -> [B, n_output_tokens, output_dim]."""
         c = self.cfg
-        context = self.encoder(x)
-        q = self.learnable_queries.to(context.dtype).expand(
-            x.shape[0], -1, -1)
+        cdt = self.compute_dtype or self.learnable_queries.dtype
+        context = self.encoder(x, remat)
+        q = self.learnable_queries.to(cdt).expand(x.shape[0], -1, -1)
         rope = rope_ops.build_rope_cache(c.head_dim, c.n_output_tokens,
                                          c.rope_theta, device=x.device)
         for block in self.perceiver.h:
-            q = block(q, context, sa_rope=rope)
-        return linear(self.perceiver.ln_f(q), self.perceiver.to_words)
+            q = run_block(block, q, context, remat=remat, sa_rope=rope)
+        return linear(self.perceiver.ln_f(q), self.perceiver.to_words,
+                      self.compute_dtype)

@@ -2,6 +2,8 @@
 
 The 32 Perceiver output vectors are a soft prompt for GPT-2. Module names
 (``brain_model``, ``llm_model``) follow the reference's state dict.
+``dtype`` is the compute dtype (``models/layers.py``); ``remat``, read at
+each forward, recomputes every block's activations in the backward.
 """
 
 from __future__ import annotations
@@ -17,13 +19,14 @@ from frankenstein_tpu_torch.models.gpt2 import GPT
 
 
 class Franky(nn.Module):
-    def __init__(self, cfg: FrankyConfig, device=None):
+    def __init__(self, cfg: FrankyConfig, device=None, dtype=None):
         super().__init__()
         if cfg.brain.output_dim != cfg.gpt.n_embd:
             raise ValueError("Perceiver output_dim must equal the GPT n_embd")
         self.cfg = cfg
-        self.brain_model = BrainEncoder(cfg.brain, device)
-        self.llm_model = GPT(cfg.gpt, device)
+        self.remat = False
+        self.brain_model = BrainEncoder(cfg.brain, device, dtype)
+        self.llm_model = GPT(cfg.gpt, device, dtype)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -33,14 +36,19 @@ class Franky(nn.Module):
     def device(self) -> torch.device:
         return self.llm_model.device
 
-    def forward(self, x, targets):
+    def forward(self, x, targets, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         """x: [B, 768, 256] signal; targets: [B, 25] ids with -100 padding.
-        Returns (loss, logits)."""
-        features = self.brain_model(x)
+        Returns (loss, logits), the trainer's uniform contract. ``train``
+        turns GPT dropout on, drawn from ``generator`` (a generator on the
+        model's device)."""
+        features = self.brain_model(x, self.remat)
         idx = torch.where(targets == IGNORE_INDEX,
                           torch.full_like(targets, self.cfg.pad_token_id),
                           targets)
-        return self.llm_model(idx, prefix=features, targets=targets)
+        return self.llm_model(idx, prefix=features, targets=targets,
+                              train=train, generator=generator,
+                              remat=self.remat)
 
     @torch.no_grad()
     def encode(self, x):

@@ -1,9 +1,13 @@
 """GPT-2 decoder LM with brain-prefix conditioning
 (``frankenstein_tpu/models/gpt2.py``).
 
-- ``forward(idx, prefix, targets)``: soft-prompt ``prefix`` vectors before the
-  token embeddings, learned positions over the full length, shifted CE over
-  text positions ignoring -100.
+- ``forward(idx, prefix, targets, train, generator)``: soft-prompt ``prefix``
+  vectors before the token embeddings, learned positions over the full
+  length, shifted CE over text positions ignoring -100. With ``train`` and
+  ``cfg.dropout > 0``, dropout on the embedding, the attention
+  probabilities, after ``c_proj`` and after the MLP, drawn from
+  ``generator``. The head is the live tied ``wte``, so it gets its share of
+  the gradient.
 - Decode uses a fixed-shape KV cache with heads folded, ``[L, B, S, E]``
   (``init_cache`` / ``prefill`` / ``decode_step``), or its int8 form
   ``QuantCache`` (``quantize_cache`` after prefill). ``decode_step`` runs
@@ -11,8 +15,9 @@
   ``reorder_cache`` gathers beams, through kernel K3
   (``ops/cuda/beam_reorder.py``) when the beams are grouped.
 - ``lm_head`` is tied to ``transformer.wte``.
+- ``dtype`` is the compute dtype (``models/layers.py``).
 
-Dropout and the MoE MLP are not ported: the port serves, it does not train.
+The MoE MLP is not ported.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from frankenstein_tpu_torch.config import GPTConfig, IGNORE_INDEX
-from frankenstein_tpu_torch.models.layers import LayerNorm, linear
+from frankenstein_tpu_torch.models.layers import LayerNorm, linear, run_block
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops.cuda import beam_reorder, fused_decode
 
@@ -63,16 +68,29 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(4 * e, e, bias=cfg.bias, device=device)
 
 
-class GPTBlock(nn.Module):
-    """One pre-LN block run against a KV cache segment."""
+def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+    return (None if seed is None
+            else torch.Generator(device=device).manual_seed(seed))
 
-    def __init__(self, cfg: GPTConfig, device=None):
+
+class GPTBlock(nn.Module):
+    """One pre-LN block, run against a KV cache segment (``forward``) or
+    over a whole sequence (``forward_full``, the training forward)."""
+
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dtype
         self.ln_1 = LayerNorm(cfg.n_embd, bias=cfg.bias, device=device)
         self.attn = CausalSelfAttention(cfg, device)
         self.ln_2 = LayerNorm(cfg.n_embd, bias=cfg.bias, device=device)
         self.mlp = MLP(cfg, device)
+
+    def _mlp(self, x):
+        cdt = self.compute_dtype
+        h = F.gelu(linear(self.ln_2(x), self.mlp.c_fc, cdt),
+                   approximate="none")
+        return linear(h, self.mlp.c_proj, cdt)
 
     def forward(self, x, k_cache, v_cache, length: int):
         """x: [B, t, E]; k_cache/v_cache: this layer's [B, S, E], updated in
@@ -80,16 +98,35 @@ class GPTBlock(nn.Module):
         c = self.cfg
         b, t, e = x.shape
         s = k_cache.shape[1]
-        q, k, v = linear(self.ln_1(x), self.attn.c_attn).split(e, dim=-1)
+        q, k, v = linear(self.ln_1(x), self.attn.c_attn,
+                         self.compute_dtype).split(e, dim=-1)
         k_cache[:, length:length + t] = k.to(k_cache.dtype)
         v_cache[:, length:length + t] = v.to(v_cache.dtype)
         heads = (b, s, c.n_head, c.head_dim)
         y = attn_ops.cached_attention(q.reshape(b, t, c.n_head, c.head_dim),
                                       k_cache.reshape(heads),
                                       v_cache.reshape(heads), length + 1)
-        x = x + linear(y.reshape(b, t, e), self.attn.c_proj)
-        h = F.gelu(linear(self.ln_2(x), self.mlp.c_fc), approximate="none")
-        return x + linear(h, self.mlp.c_proj)
+        x = x + linear(y.reshape(b, t, e), self.attn.c_proj,
+                       self.compute_dtype)
+        return x + self._mlp(x)
+
+    def forward_full(self, x, rate: float = 0.0, seed: Optional[int] = None):
+        """Causal attention of x [B, T, E] over itself: the cache forward
+        with S = T from row 0, without a cache. Dropout at ``rate`` draws
+        from a generator made from ``seed`` here, so a recomputation
+        (``remat``) draws the same masks."""
+        c = self.cfg
+        b, t, e = x.shape
+        gen = _generator(seed, x.device)
+        heads = lambda y: y.reshape(b, t, c.n_head, c.head_dim)
+        q, k, v = linear(self.ln_1(x), self.attn.c_attn,
+                         self.compute_dtype).split(e, dim=-1)
+        y = attn_ops.cached_attention(heads(q), heads(k), heads(v), 1,
+                                      probs_dropout_rate=rate,
+                                      generator=gen)
+        y = linear(y.reshape(b, t, e), self.attn.c_proj, self.compute_dtype)
+        x = x + attn_ops.dropout(y, rate, gen)
+        return x + attn_ops.dropout(self._mlp(x), rate, gen)
 
 
 def init_cache(cfg: GPTConfig, batch: int, max_len: int,
@@ -156,15 +193,18 @@ def cross_entropy_ignore(logits, targets, ignore_index: int = IGNORE_INDEX):
 
 
 class GPT(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
         if cfg.moe_experts:
-            raise NotImplementedError("the MoE MLP is not ported yet")
+            raise NotImplementedError(
+                "the MoE MLP is not ported yet (ROADMAP.md, modules to "
+                "port, item 11)")
         self.cfg = cfg
+        self.compute_dtype = dtype
         self.transformer = nn.ModuleDict({
             "wte": nn.Embedding(cfg.vocab_size, cfg.n_embd, device=device),
             "wpe": nn.Embedding(cfg.block_size, cfg.n_embd, device=device),
-            "h": nn.ModuleList(GPTBlock(cfg, device)
+            "h": nn.ModuleList(GPTBlock(cfg, device, dtype)
                                for _ in range(cfg.n_layer)),
             "ln_f": LayerNorm(cfg.n_embd, bias=cfg.bias, device=device),
         })
@@ -184,7 +224,8 @@ class GPT(nn.Module):
         return init_cache(self.cfg, batch, max_len, self.dtype, self.device)
 
     def lm_head_table(self) -> torch.Tensor:
-        """The tied head as [E, V] f32 (exact widening of the weights)."""
+        """The tied head as [E, V] f32 (exact widening of the weights),
+        detached: a serving table, never used in training."""
         return self.transformer["wte"].weight.detach().float().t()
 
     def _lm_head(self, x, table=None):
@@ -194,30 +235,57 @@ class GPT(nn.Module):
             table = self.lm_head_table()
         return x.float() @ table
 
+    def _lm_head_live(self, x):
+        """The training head: x @ wte^T on the live tied weight (cast to x's
+        dtype, as the JAX package does), f32 logits, so ``wte`` gets the
+        head's share of the gradient."""
+        w = self.transformer["wte"].weight
+        return (x @ w.to(x.dtype).t()).float()
+
     def _embed(self, idx, prefix):
-        tok = self.transformer["wte"](idx)
+        cdt = self.compute_dtype or self.dtype
+        tok = self.transformer["wte"](idx).to(cdt)
         if prefix is not None:
-            tok = torch.cat([prefix.to(tok.dtype), tok], dim=1)
-        return tok + self.transformer["wpe"].weight[:tok.shape[1]][None]
+            tok = torch.cat([prefix.to(cdt), tok], dim=1)
+        pos = self.transformer["wpe"].weight[:tok.shape[1]]
+        return tok + pos[None].to(cdt)
+
+    def _dropout_seeds(self, rate: float, generator) -> list:
+        """One seed per block and one for the embedding, drawn from
+        ``generator`` (one device-to-host read per forward, only while
+        dropout is on)."""
+        n = self.cfg.n_layer + 1
+        if rate <= 0.0:
+            return [None] * n
+        if generator is None:
+            raise ValueError("dropout > 0 in training needs a generator")
+        return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                             device=generator.device).tolist()
 
     def _run_blocks(self, x, cache, length: int):
         for l, block in enumerate(self.transformer["h"]):
             x = block(x, cache[0][l], cache[1][l], length)
         return x
 
-    def forward(self, idx, prefix=None, targets=None):
+    def forward(self, idx, prefix=None, targets=None, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                remat: bool = False):
         """idx: [B, Tw]; prefix: [B, Tc, E] or None. Returns (loss, logits):
-        logits over text positions (last position only without targets)."""
+        logits over text positions (last position only without targets).
+        ``train`` turns dropout on (``cfg.dropout``, drawn from
+        ``generator``); ``remat`` recomputes each block in the backward."""
         t_words = idx.shape[1]
-        x = self._embed(idx, prefix)
-        cache = init_cache(self.cfg, x.shape[0], x.shape[1], x.dtype,
-                           x.device)
-        x = self._run_blocks(x, cache, 0)[:, -t_words:]
-        x = self.transformer["ln_f"](x)
+        rate = self.cfg.dropout if train else 0.0
+        seeds = self._dropout_seeds(rate, generator)
+        x = attn_ops.dropout(self._embed(idx, prefix), rate,
+                             _generator(seeds[0], idx.device))
+        for block, seed in zip(self.transformer["h"], seeds[1:]):
+            x = run_block(block.forward_full, x, rate, seed, remat=remat)
+        x = self.transformer["ln_f"](x[:, -t_words:])
         if targets is not None:
-            logits = self._lm_head(x)
+            logits = self._lm_head_live(x)
             return cross_entropy_ignore(logits[:, :-1], targets[:, 1:]), logits
-        return None, self._lm_head(x[:, -1:])
+        return None, self._lm_head_live(x[:, -1:])
 
     @torch.no_grad()
     def prefill(self, idx, prefix, cache):

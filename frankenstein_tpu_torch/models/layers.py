@@ -2,25 +2,47 @@
 
 Module and parameter names are the reference's torch names, so the JAX
 package's exporter (``models/import_reference.py:export_franky``) is the
-weight bridge. The compute dtype is the parameters' dtype: a model cast to
-bf16 computes in bf16, with norms, softmax and score accumulation in f32 as
-in the JAX package.
+weight bridge.
+
+Every module takes ``dtype``, the compute dtype (flax's ``dtype``), apart
+from the parameters' dtype (flax's ``param_dtype``): ``linear`` casts its
+input, weight and bias to it. None computes in the parameters' dtype, so a
+model cast whole to bf16 for serving computes in bf16. Training keeps f32
+parameters and computes in bf16, as the JAX package does. Norms, softmax and
+score accumulation stay f32 either way, and LayerNorm keeps its rounding
+point (``ops/norms.py``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops import norms
 from frankenstein_tpu_torch.ops import rope as rope_ops
 
 
-def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
-    """``nn.Dense(dtype=param dtype)``: input cast to the weight's dtype."""
-    return F.linear(x.to(layer.weight.dtype), layer.weight, layer.bias)
+def linear(x: torch.Tensor, layer: nn.Linear,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``nn.Dense(dtype=dtype)``: input, weight and bias cast to the compute
+    dtype (the weight's own dtype when None)."""
+    cdt = dtype or layer.weight.dtype
+    bias = None if layer.bias is None else layer.bias.to(cdt)
+    return F.linear(x.to(cdt), layer.weight.to(cdt), bias)
+
+
+def run_block(block, *args, remat: bool = False, **kwargs):
+    """``block(*args, **kwargs)``; with ``remat`` (and autograd on) its
+    activations are recomputed in the backward instead of kept
+    (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False, **kwargs)
+    return block(*args, **kwargs)
 
 
 class LayerNorm(nn.Module):
@@ -53,16 +75,17 @@ def _linear(i: int, o: int, bias: bool, device) -> nn.Linear:
 class SwiGLU(nn.Module):
     """w2(silu(w1 x) * w3 x), no bias (``fused_mlp.swiglu_fn``)."""
 
-    def __init__(self, dim: int, hidden_dim: int, device=None):
+    def __init__(self, dim: int, hidden_dim: int, device=None, dtype=None):
         super().__init__()
+        self.compute_dtype = dtype
         self.w1 = _linear(dim, hidden_dim, False, device)
         self.w2 = _linear(hidden_dim, dim, False, device)
         self.w3 = _linear(dim, hidden_dim, False, device)
 
     def forward(self, x):
-        h = x.to(self.w1.weight.dtype)
-        g = F.silu(linear(h, self.w1)) * linear(h, self.w3)
-        return linear(g, self.w2)
+        cdt = self.compute_dtype
+        g = (F.silu(linear(x, self.w1, cdt)) * linear(x, self.w3, cdt))
+        return linear(g, self.w2, cdt)
 
 
 class SelfAttention(nn.Module):
@@ -70,9 +93,11 @@ class SelfAttention(nn.Module):
     kernel K1 (``ops.attention.slab_attention_rope_fused``); other modes run
     ``apply_rope`` + ``dot_product_attention``."""
 
-    def __init__(self, dim: int, n_heads: int, head_dim: int, device=None):
+    def __init__(self, dim: int, n_heads: int, head_dim: int, device=None,
+                 dtype=None):
         super().__init__()
         self.n_heads, self.head_dim = n_heads, head_dim
+        self.compute_dtype = dtype
         inner = n_heads * head_dim
         self.qw = _linear(dim, inner, False, device)
         self.kw = _linear(dim, inner, False, device)
@@ -82,12 +107,14 @@ class SelfAttention(nn.Module):
     def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
                 rope=None):
         b, t, _ = x.shape
-        qf, kf, vf = linear(x, self.qw), linear(x, self.kw), linear(x, self.vw)
+        cdt = self.compute_dtype
+        qf, kf, vf = (linear(x, self.qw, cdt), linear(x, self.kw, cdt),
+                      linear(x, self.vw, cdt))
         if mask_mode == "slab" and rope is not None:
             out = attn_ops.slab_attention_rope_fused(
                 qf, kf, vf, n_heads=self.n_heads, tok_per_time=tok_per_time,
                 rope_cache=rope)
-            return linear(out, self.project)
+            return linear(out, self.project, cdt)
         shape = (b, t, self.n_heads, self.head_dim)
         q, k, v = qf.reshape(shape), kf.reshape(shape), vf.reshape(shape)
         if rope is not None:
@@ -95,15 +122,17 @@ class SelfAttention(nn.Module):
             k = rope_ops.apply_rope(k, rope)
         out = attn_ops.dot_product_attention(q, k, v, mask_mode=mask_mode,
                                              tok_per_time=tok_per_time)
-        return linear(out.reshape(b, t, -1), self.project)
+        return linear(out.reshape(b, t, -1), self.project, cdt)
 
 
 class CrossAttention(nn.Module):
     """Queries read from a (longer) context."""
 
-    def __init__(self, dim: int, n_heads: int, head_dim: int, device=None):
+    def __init__(self, dim: int, n_heads: int, head_dim: int, device=None,
+                 dtype=None):
         super().__init__()
         self.n_heads, self.head_dim = n_heads, head_dim
+        self.compute_dtype = dtype
         inner = n_heads * head_dim
         self.qw = _linear(dim, inner, False, device)
         self.kw = _linear(dim, inner, False, device)
@@ -113,25 +142,25 @@ class CrossAttention(nn.Module):
     def forward(self, x, context):
         b, t, _ = x.shape
         tk = context.shape[1]
-        q = linear(x, self.qw).reshape(b, t, self.n_heads, self.head_dim)
-        k = linear(context, self.kw).reshape(b, tk, self.n_heads,
-                                             self.head_dim)
-        v = linear(context, self.vw).reshape(b, tk, self.n_heads,
-                                             self.head_dim)
+        cdt = self.compute_dtype
+        heads = lambda y, n: y.reshape(b, n, self.n_heads, self.head_dim)
+        q = heads(linear(x, self.qw, cdt), t)
+        k = heads(linear(context, self.kw, cdt), tk)
+        v = heads(linear(context, self.vw, cdt), tk)
         out = attn_ops.dot_product_attention(q, k, v)
-        return linear(out.reshape(b, t, -1), self.project)
+        return linear(out.reshape(b, t, -1), self.project, cdt)
 
 
 class Block(nn.Module):
     """Pre-norm residual block with LayerNorm."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int,
-                 hidden_dim: int, device=None):
+                 hidden_dim: int, device=None, dtype=None):
         super().__init__()
         self.ln_1 = LayerNorm(dim, device=device)
-        self.attn = SelfAttention(dim, n_heads, head_dim, device)
+        self.attn = SelfAttention(dim, n_heads, head_dim, device, dtype)
         self.ln_2 = LayerNorm(dim, device=device)
-        self.mlp = SwiGLU(dim, hidden_dim, device)
+        self.mlp = SwiGLU(dim, hidden_dim, device, dtype)
 
     def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
                 rope=None):
@@ -144,13 +173,14 @@ class CrossBlock(nn.Module):
     """cross-attn + MLP, then a self-attn Block."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int,
-                 hidden_dim: int, device=None):
+                 hidden_dim: int, device=None, dtype=None):
         super().__init__()
         self.ln_1 = LayerNorm(dim, device=device)
-        self.cross_attn = CrossAttention(dim, n_heads, head_dim, device)
+        self.cross_attn = CrossAttention(dim, n_heads, head_dim, device, dtype)
         self.ln_2 = LayerNorm(dim, device=device)
-        self.mlp = SwiGLU(dim, hidden_dim, device)
-        self.sa_block = Block(dim, n_heads, head_dim, hidden_dim, device)
+        self.mlp = SwiGLU(dim, hidden_dim, device, dtype)
+        self.sa_block = Block(dim, n_heads, head_dim, hidden_dim, device,
+                              dtype)
 
     def forward(self, x, context, *, sa_rope=None):
         x = x + self.cross_attn(self.ln_1(x), context)

@@ -18,12 +18,24 @@ from frankenstein_tpu_torch.ops import masks as mask_lib
 NEG_INF = float(torch.finfo(torch.float32).min)
 
 
-def _softmax_av(logits, v, out_dtype):
-    """float32 softmax over the last axis, then probs (in v's dtype) @ v."""
-    weights = torch.softmax(logits, dim=-1)
+def _softmax_av(logits, v, out_dtype, rate: float = 0.0, generator=None):
+    """float32 softmax over the last axis (dropout at ``rate``), then probs
+    (in v's dtype) @ v."""
+    weights = dropout(torch.softmax(logits, dim=-1), rate, generator)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(),
                        v.float())
     return out.to(out_dtype)
+
+
+def dropout(x, rate: float, generator: Optional[torch.Generator]):
+    """Inverted dropout (flax ``nn.Dropout``): keep with probability
+    1 - rate, scale the kept values by 1 / (1 - rate). The mask is drawn
+    from ``generator``, on x's device; rate 0 returns x."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 def dot_product_attention(q, k, v, *, mask_mode: Optional[str] = None,
@@ -49,12 +61,17 @@ def dot_product_attention(q, k, v, *, mask_mode: Optional[str] = None,
     return _softmax_av(logits, v, q.dtype)
 
 
-def cached_attention(q, k_cache, v_cache, length: int) -> torch.Tensor:
+def cached_attention(q, k_cache, v_cache, length: int, *,
+                     probs_dropout_rate: float = 0.0,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
     """Attention against a fixed-shape KV cache.
 
     q: [B, T, H, D]; k_cache/v_cache: [B, S, H, D]; length: the number of
     cache entries visible to query row 0 (prior context + 1 for its own
-    key). Row i sees positions j < length + i.
+    key). Row i sees positions j < length + i. ``probs_dropout_rate``
+    applies inverted dropout to the f32 probabilities, drawn from
+    ``generator`` (training only).
     """
     b, t, _, d = q.shape
     s = k_cache.shape[1]
@@ -63,17 +80,18 @@ def cached_attention(q, k_cache, v_cache, length: int) -> torch.Tensor:
     kj = torch.arange(s, device=q.device)[None, :]
     qi = torch.arange(t, device=q.device)[:, None]
     logits = logits.masked_fill(~(kj < qi + length), NEG_INF)
-    return _softmax_av(logits, v_cache, q.dtype)
+    return _softmax_av(logits, v_cache, q.dtype, probs_dropout_rate,
+                       generator)
 
 
 def slab_attention_rope_fused(q, k, v, *, n_heads: int, tok_per_time: int,
                               rope_cache) -> torch.Tensor:
     """Slab-causal attention over UNROTATED folded [B, T, E] q/k/v with RoPE
-    (suffix-aligned) applied inside kernel K1
-    (``ops/cuda/slab_attention.py``). Returns [B, T, E]."""
+    (suffix-aligned) applied inside kernel K1, differentiable through kernel
+    K4 (``ops/cuda/slab_attention.py:SlabRopeAttention``). Returns
+    [B, T, E]."""
     from frankenstein_tpu_torch.ops import rope
     from frankenstein_tpu_torch.ops.cuda import slab_attention
     cos, sin = rope.folded_tables(rope_cache[-q.shape[1]:], 1)
-    out, _ = slab_attention.slab_rope_attention(
-        q, k, v, cos, sin, n_heads=n_heads, tok_per_time=tok_per_time)
-    return out
+    return slab_attention.SlabRopeAttention.apply(q, k, v, cos, sin, n_heads,
+                                                  tok_per_time)

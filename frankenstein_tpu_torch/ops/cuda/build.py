@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``*.cu`` file under ``frankenstein_tpu_torch/csrc`` is compiled by
+Every ``*.cu`` file under ``frankenstein_tpu_torch/csrc`` (with the
+``*.cuh`` headers they share) is compiled by
 ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
 together, and the objects are linked into ONE shared library with a plain C
 interface, loaded with ``ctypes``. The build runs at first use, never at
@@ -47,7 +48,7 @@ def _sources():
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -60,6 +61,10 @@ def _declare(lib) -> None:
     lib.fk_slab_rope_attention_fwd.argtypes = (
         [p] * 7 + [i] * 5 + [f, p])
     lib.fk_slab_rope_attention_fwd.restype = i
+    lib.fk_slab_rope_attention_bwd.argtypes = (
+        [p] * 12                    # q k v cos sin out dout lse delta dq dk dv
+        + [i] * 5 + [f, p])         # B T H D P, scale, stream
+    lib.fk_slab_rope_attention_bwd.restype = i
     lib.fk_fused_decode_blocks.argtypes = (
         [p] * 6                     # x_in, x_out, x_res, h, hh, workspace
         + [p] * 16                  # 12 weight arrays + 4 scales

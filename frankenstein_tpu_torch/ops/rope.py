@@ -2,7 +2,8 @@
 
 Real cos/sin tables; adjacent elements (2i, 2i+1) form the rotated pairs.
 ``align`` picks the suffix (decode semantics) or the prefix of a longer table.
-Rotation runs in float32 and rounds back to the input dtype.
+Rotation runs in float32 (float64 for float64 input) and rounds back to the
+input dtype.
 """
 
 from __future__ import annotations
@@ -53,9 +54,10 @@ def apply_rope_folded(x: torch.Tensor, cos_e: torch.Tensor,
     out[2i] = x[2i] cos_i - x[2i+1] sin_i, out[2i+1] = x[2i] sin_i + x[2i+1] cos_i.
     """
     t = x.shape[-2]
-    cos_e = _slice(cos_e, t, align).float()
-    sin_e = _slice(sin_e, t, align).float()
-    xf = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)   # f64 stays f64
+    cos_e = _slice(cos_e, t, align).to(acc)
+    sin_e = _slice(sin_e, t, align).to(acc)
+    xf = x.to(acc)
     pairs = xf.unflatten(-1, (-1, 2))
     swapped = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).flatten(-2)
     return (xf * cos_e + swapped * sin_e).to(x.dtype)

@@ -1,0 +1,106 @@
+"""eval.ai submission (the port of ``examples/submit_data.py``): decode every
+held-out trial with a trained Franky and write one normalized line per trial
+to sub.txt.
+
+  python -m frankenstein_tpu_torch.submit --run-dir logs/<exp> \\
+      --data /data/competitionData
+
+Two ways to point at a model:
+  --run-dir logs/<exp>   the run's model_config.json (written by
+                         ``python -m frankenstein_tpu_torch.train``) and its
+                         best-by-val-loss checkpoint
+  --checkpoint <dir>     an explicit step_*_loss_* directory (the flagship
+                         geometry unless --run-dir gives the config)
+
+``--data synthetic`` decodes ``--synthetic-trials`` synthetic windows
+instead of a competitionData split. The model serves in bf16 through
+``decode/pipeline.py:make_franky_predictor`` (beams of ``--beam-width``) on
+the GPU when there is one, else on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+
+def build_from_run_dir(run_dir: Path):
+    """(FrankyConfig, best checkpoint path) from a training run directory."""
+    from frankenstein_tpu_torch.config import FrankyConfig
+    from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+
+    doc = json.loads((Path(run_dir) / "model_config.json").read_text())
+    if doc["model"] != "franky":
+        raise SystemExit(f"--run-dir decoding serves franky runs, not "
+                         f"{doc['model']}")
+    best = ckpt_lib.best_checkpoint(run_dir)
+    if best is None:
+        raise SystemExit(f"no step_*_loss_* checkpoint under {run_dir}")
+    return FrankyConfig.from_dict(doc["model_config"]), best
+
+
+def main(argv=None) -> Path:
+    """Run the CLI; returns the path of the written file."""
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("--data", required=True,
+                    help="competitionData root, or 'synthetic'")
+    ap.add_argument("--split", default="test")
+    ap.add_argument("--run-dir", default=None,
+                    help="training run dir (model_config.json + "
+                         "checkpoints)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="step_*_loss_* dir; defaults to the run dir's best")
+    ap.add_argument("--out", default="sub.txt")
+    ap.add_argument("--beam-width", type=int, default=5)
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--synthetic-trials", type=int, default=8)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from frankenstein_tpu_torch.config import FrankyConfig
+    from frankenstein_tpu_torch.data import datasets, tokenizers
+    from frankenstein_tpu_torch.decode.pipeline import (
+        cast_params_for_inference, make_franky_predictor)
+    from frankenstein_tpu_torch.eval.submission import (create_string_file,
+                                                        make_predictions)
+    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+
+    ckpt = Path(args.checkpoint) if args.checkpoint else None
+    if args.run_dir:
+        cfg, best = build_from_run_dir(Path(args.run_dir))
+        ckpt = ckpt or best
+    elif ckpt is None:
+        raise SystemExit("pass --run-dir or --checkpoint")
+    else:
+        cfg = FrankyConfig()
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    model = Franky(cfg, device=device)
+    model.load_state_dict(ckpt_lib.load_raw_checkpoint(
+        ckpt, map_location=device)["model"])
+    model = cast_params_for_inference(model)
+
+    enc = cfg.brain.encoder
+    tok = tokenizers.best_available_tokenizer()
+    if args.data == "synthetic":
+        ds = datasets.BrainDataset.synthetic(
+            n_trials=args.synthetic_trials, seed=2,
+            n_electrodes=enc.n_electrodes, max_input_len=enc.window_size)
+    else:
+        ds = datasets.BrainDataset(
+            Path(args.data) / args.split,
+            tokenize_function=tokenizers.get_tokenizer(tok),
+            max_input_len=enc.window_size)
+    predict = make_franky_predictor(model, tok, max_new_tokens=cfg.max_tokens,
+                                    beam_width=args.beam_width)
+    sentences = make_predictions(ds, predict, batch_size=args.batch_size)
+    out = create_string_file(args.out, sentences)
+    print(f"wrote {len(sentences)} predictions to {out}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

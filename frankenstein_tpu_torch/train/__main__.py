@@ -1,0 +1,201 @@
+"""Train the flagship Franky (the port of ``train.py --model franky``).
+
+Examples:
+  # end-to-end Franky on synthetic data (no dataset needed)
+  python -m frankenstein_tpu_torch.train --config configs/franky.yaml \\
+      --data synthetic --steps 50 --batch-size 32
+
+  # on the competition data; then serve the run
+  python -m frankenstein_tpu_torch.train --config configs/franky.yaml \\
+      --data /data/competitionData --exp-name franky
+  python -m frankenstein_tpu_torch.submit --run-dir logs/franky \\
+      --data /data/competitionData
+
+With ``--config`` the YAML's ``train`` section is the base and only the
+flags typed on the command line override it. The run directory
+(``<save-folder>/<exp-name>``) gets ``model_config.json``,
+``train_config.json``, ``metrics.jsonl`` and ``step_*_loss_*`` checkpoints.
+The model trains on the GPU when there is one, else on the CPU: f32
+parameters, bf16 compute unless ``--no-bf16``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+# models of the JAX package's train.py that the port does not train yet,
+# and the ROADMAP.md item ("modules to port") that brings each
+NOT_PORTED = {
+    "mae": "item 8 (MAE pretraining)",
+    "simple_mae": "item 8 (MAE pretraining)",
+    "vqvae": "item 10 (VQ-VAE and the rest)",
+    "franky-llama": "item 7 (FrankyLlama)",
+    "moe-gpt": "item 11 (parallel modes: the MoE MLP)",
+    "brainformer": "item 12 (BrainFormer regression)",
+}
+
+# CLI flag -> TrainConfig field, for flags that override the YAML
+FLAG_TO_FIELD = {
+    "exp_name": "exp_name", "batch_size": "batch_size",
+    "grad_accum": "grad_accum", "steps_per_dispatch": "steps_per_dispatch",
+    "lr": "learning_rate", "weight_decay": "weight_decay",
+    "wd_mask": "weight_decay_mask", "p_augs": "p_augs", "steps": "max_steps",
+    "eval_interval": "eval_interval", "warmup": "warmup_iters",
+    "decay_iters": "lr_decay_iters", "bf16": "mixed_precision",
+    "no_bf16": "mixed_precision", "mesh": "mesh_shape"}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--config", default=None,
+                   help="YAML config (see configs/); explicitly passed CLI "
+                        "flags override its train section")
+    p.add_argument("--model", default="franky",
+                   choices=["franky", *NOT_PORTED])
+    p.add_argument("--data", default="synthetic",
+                   help="'synthetic' or path to competitionData/")
+    p.add_argument("--exp-name", default=None)
+    p.add_argument("--steps", type=int, default=100_000)
+    p.add_argument("--batch-size", type=int, default=256)
+    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="optimizer steps per host group (no host read "
+                        "inside a group; same numerics as single steps)")
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight-decay", type=float, default=1e-5)
+    p.add_argument("--wd-mask", action="store_true",
+                   help="decay only ndim>=2 params (nanoGPT grouping)")
+    p.add_argument("--dropout", type=float, default=0.0,
+                   help="GPT dropout rate (without --config)")
+    p.add_argument("--p-augs", type=float, default=0.0,
+                   help="per-sample probability of time-mask augmentation")
+    p.add_argument("--eval-interval", type=int, default=1000)
+    p.add_argument("--warmup", type=int, default=2000)
+    p.add_argument("--decay-iters", type=int, default=50_000)
+    p.add_argument("--window", type=int, default=768)
+    p.add_argument("--patch", type=int, default=32)
+    p.add_argument("--channels", type=int, default=256)
+    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--synthetic-trials", type=int, default=512)
+    p.add_argument("--save-folder", default="logs")
+    p.add_argument("--init-encoder-from", default=None, metavar="CKPT",
+                   help="graft an MAE checkpoint's encoder (not ported yet)")
+    p.add_argument("--mesh", default=None,
+                   help="data,model mesh shape; the port trains on one "
+                        "device")
+    return p.parse_args(argv)
+
+
+def _refuse(name: str):
+    raise SystemExit(f"--model {name} is not ported to PyTorch yet: "
+                     f"ROADMAP.md, modules to port, {NOT_PORTED[name]}")
+
+
+def model_config(args):
+    """(FrankyConfig, YAML train section) from --config or the flags."""
+    from frankenstein_tpu_torch.config import (FrankyConfig, GPTConfig,
+                                               MAEConfig, PerceiverConfig)
+    if args.config:
+        import yaml
+        doc = yaml.safe_load(Path(args.config).read_text())
+        args.model = doc["model"]
+        if args.model != "franky":
+            _refuse(args.model)
+        return (FrankyConfig.from_dict(doc.get("model_config", {})),
+                doc.get("train", {}))
+    if args.model != "franky":
+        _refuse(args.model)
+    enc = MAEConfig(window_size=args.window, n_electrodes=args.channels,
+                    patch_size=args.patch)
+    return (FrankyConfig(brain=PerceiverConfig(encoder=enc,
+                                               n_output_tokens=32,
+                                               output_dim=768),
+                         gpt=GPTConfig(dropout=args.dropout)), None)
+
+
+def train_config(args, yaml_train, argv):
+    """TrainConfig: the YAML section as the base and the typed flags over
+    it, or the flags alone without --config."""
+    from frankenstein_tpu_torch.config import TrainConfig
+    mesh = (tuple(int(s) for s in args.mesh.split(",")) if args.mesh
+            else None)
+    cli = dict(
+        exp_name=args.exp_name or f"{args.model}_{args.data.split('/')[-1]}",
+        batch_size=args.batch_size, grad_accum=args.grad_accum,
+        steps_per_dispatch=args.steps_per_dispatch, learning_rate=args.lr,
+        weight_decay=args.weight_decay, weight_decay_mask=args.wd_mask,
+        p_augs=args.p_augs, max_steps=args.steps,
+        eval_interval=args.eval_interval, warmup_iters=args.warmup,
+        lr_decay_iters=args.decay_iters, mixed_precision=args.bf16,
+        mesh_shape=mesh)
+    if yaml_train is None:
+        return TrainConfig(**cli)
+    typed = {a.split("=")[0].lstrip("-").replace("-", "_")
+             for a in argv if a.startswith("--")}
+    overrides = {field: cli[field] for flag, field in FLAG_TO_FIELD.items()
+                 if flag in typed}
+    if "exp_name" not in yaml_train and "exp_name" not in overrides:
+        overrides["exp_name"] = cli["exp_name"]
+    return TrainConfig.from_dict(yaml_train).replace(**overrides)
+
+
+def build_datasets(data: str, window: int, channels: int,
+                   synthetic_trials: int):
+    """(train, val): synthetic trials, or competitionData's train/ and
+    test/."""
+    from frankenstein_tpu_torch.data import datasets, tokenizers
+    tok_fn = tokenizers.get_tokenizer(tokenizers.best_available_tokenizer())
+    if data == "synthetic":
+        kw = dict(tokenize_function=tok_fn, n_electrodes=channels,
+                  max_input_len=window)
+        return (datasets.BrainDataset.synthetic(n_trials=synthetic_trials,
+                                                seed=0, **kw),
+                datasets.BrainDataset.synthetic(
+                    n_trials=max(synthetic_trials // 8, 8), seed=1, **kw))
+    root = Path(data)
+    return tuple(datasets.BrainDataset(root / split, tokenize_function=tok_fn,
+                                       max_input_len=window)
+                 for split in ("train", "test"))
+
+
+def main(argv=None):
+    """Run the CLI; returns the final ``trainer.TrainState``."""
+    import torch
+
+    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.models.weights import init_franky_
+    from frankenstein_tpu_torch.train.trainer import run_train_model
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.init_encoder_from:
+        from frankenstein_tpu_torch.train import checkpoints
+        checkpoints.graft_encoder_from_mae(args.init_encoder_from, None)
+    cfg, yaml_train = model_config(args)
+    tcfg = train_config(args, yaml_train, argv)
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    enc = cfg.brain.encoder
+    data = build_datasets(args.data, enc.window_size, enc.n_electrodes,
+                          args.synthetic_trials)
+    dtype = torch.bfloat16 if tcfg.mixed_precision else None
+    model = init_franky_(Franky(cfg, device=device, dtype=dtype),
+                         seed=tcfg.seed)
+
+    save = Path(args.save_folder)
+    run_dir = save / tcfg.exp_name
+    run_dir.mkdir(parents=True, exist_ok=True)
+    # the model config beside the run, so the submission CLI rebuilds it
+    (run_dir / "model_config.json").write_text(json.dumps(
+        {"model": args.model, "model_config": cfg.to_dict()}, indent=1))
+    state = run_train_model(model, data, tcfg, save_folder=save)
+    print(f"done at step {state.step}; logs in {run_dir}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """The port's config dataclasses are copies of the JAX package's (the port
-cannot import those without jax): same fields, defaults and derived
-properties."""
+cannot import those without jax): same fields, defaults, derived
+properties and JSON round trip."""
 
 import dataclasses
 
@@ -9,7 +9,8 @@ import pytest
 from frankenstein_tpu import config as jconfig
 from frankenstein_tpu_torch import config as tconfig
 
-NAMES = ["MAEConfig", "PerceiverConfig", "GPTConfig", "FrankyConfig"]
+NAMES = ["MAEConfig", "PerceiverConfig", "GPTConfig", "FrankyConfig",
+         "TrainConfig"]
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -37,3 +38,18 @@ def test_derived_properties():
         assert (tconfig.GPTConfig(**gpt).head_dim
                 == jconfig.GPTConfig(**gpt).head_dim)
 
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_json_round_trip_matches_jax(name):
+    """Each side reads the other's JSON (nested configs rebuild as
+    dataclasses, lists as tuples) and writes the same dict."""
+    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    changed = {"TrainConfig": {"mesh_shape": (1, 1), "batch_size": 32},
+               "FrankyConfig": {"max_tokens": 9},
+               "GPTConfig": {"n_layer": 2}}.get(name, {})
+    j, t = jcls(**changed), tcls(**changed)
+    assert tcls.from_json(j.to_json()) == t
+    assert jcls.from_json(t.to_json()) == j
+    assert t.to_dict() == j.to_dict()
+    assert t.replace(**changed) == t

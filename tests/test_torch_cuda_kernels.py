@@ -1,7 +1,8 @@
-"""Kernels K1, K2 (bf16 and int8 KV caches) and K3 on the card against
+"""Kernels K1, K2 (bf16 and int8 KV caches), K3 and K4 on the card against
 their plain PyTorch twins, at small shapes that reach the kernels' edge
 cases (slabs that do not divide the tiles, a batch that does not fill a
-tile, an empty cache, one beam and the widest group).
+tile, an empty cache, one beam and the widest group), and the gradient of
+an encoder through K1 and K4 against its f32 CPU twin.
 
 The kernels have no CPU mode, so without a CUDA device these tests skip.
 On the card: ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
@@ -59,6 +60,123 @@ def test_k1_refuses_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match="bf16"):
         k1.slab_rope_attention(q.float(), q, q, cos, cos, n_heads=2,
                                tok_per_time=8)
+
+
+K4_TOL = 2e-2   # relative to max |twin|: ds, p, dq and dk round to bf16
+
+
+def _k4_case(dev, b, t, h, d, p, seed, dout=None):
+    """bf16 q, k, v and dout; out and lse from K1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h * d, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    if dout is None:
+        dout = torch.randn(b, t, h * d, generator=gen,
+                           device=dev).to(torch.bfloat16)
+    cos, sin = rope.folded_tables(rope.build_rope_cache(d, t + 3,
+                                                        device=dev)[-t:], 1)
+    kw = dict(n_heads=h, tok_per_time=p)
+    out, lse = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+    return (q, k, v, cos, sin, out, lse, dout), kw
+
+
+@pytest.mark.parametrize("b,t,h,d,p", [(1, 256, 2, 32, 64),
+                                       (2, 384, 3, 32, 100),
+                                       (1, 256, 2, 64, 16),
+                                       (2, 512, 2, 32, 512)])
+def test_k4_matches_twin_and_is_deterministic(dev, b, t, h, d, p):
+    """bf16 kernel vs the twin in f32 on the same bf16 inputs and the same
+    K1 residuals; two launches bitwise equal."""
+    args, kw = _k4_case(dev, b, t, h, d, p, seed=b * t + p)
+    before = k1.launches_bwd
+    got = k1.slab_rope_attention_bwd(*args, **kw)
+    again = k1.slab_rope_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert k1.launches_bwd == before + 2
+    want = k1.slab_rope_attention_bwd_ref(*(x.float() for x in args), **kw)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), name
+        assert _err(g, w) <= K4_TOL * float(w.abs().max()), name
+
+
+@pytest.mark.parametrize("d,p", [(32, 64), (64, 100)])
+def test_k4_probability_rows_sum_to_one(dev, d, p):
+    """dout one-hot on (query i_c, lane c) turns column c of dv into row
+    i_c of the probabilities K4 recomputes from K1's lse: each sums to 1."""
+    b, t, h = 2, 512, 2
+    rows = torch.arange(d, device=dev) * 13 % t
+    dout = torch.zeros(b, t, h * d, dtype=torch.bfloat16, device=dev)
+    for head in range(h):
+        dout[:, rows, head * d + torch.arange(d, device=dev)] = 1.0
+    args, kw = _k4_case(dev, b, t, h, d, p, seed=7, dout=dout)
+    _, _, dv = k1.slab_rope_attention_bwd(*args, **kw)
+    sums = dv.float().reshape(b, t, h, d).sum(dim=1)
+    assert float((sums - 1.0).abs().max()) < 1e-2
+
+
+def test_k4_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 200, 64, dtype=torch.bfloat16, device=dev)
+    cos = torch.zeros(200, 32, device=dev)
+    lse = torch.zeros(1, 2, 200, device=dev)
+    with pytest.raises(ValueError, match="T % 128"):
+        k1.slab_rope_attention_bwd(x, x, x, cos, cos, x, lse, x, n_heads=2,
+                                   tok_per_time=8)
+    x = torch.zeros(1, 256, 64, dtype=torch.bfloat16, device=dev)
+    cos = torch.zeros(256, 32, device=dev)
+    with pytest.raises(ValueError, match="lse"):
+        k1.slab_rope_attention_bwd(x, x, x, cos, cos, x, lse, x, n_heads=2,
+                                   tok_per_time=8)
+
+
+def test_encoder_attention_gradients_match_twin(dev):
+    """Every encoder attention weight gets a gradient through K1 and K4
+    that matches the f32 CPU twin's (a kernel call without autograd would
+    leave qw, kw, vw with none)."""
+    from frankenstein_tpu_torch.config import MAEConfig
+    from frankenstein_tpu_torch.models.brainformer import Encoder
+    cfg = MAEConfig(window_size=64, n_electrodes=64, patch_size=16, dim=64,
+                    n_layers=2, head_dim=32, hidden_dim=128, n_heads=2)
+    torch.manual_seed(0)
+    ref = Encoder(cfg)                                  # f32, CPU
+    card = Encoder(cfg, device=dev, dtype=torch.bfloat16)   # f32 params
+    card.load_state_dict(ref.state_dict())
+    x = torch.randn(2, 64, 64)
+    w = torch.randn(2, cfg.block_size, cfg.dim)
+    (ref(x) * w).sum().backward()
+    before = (k1.launches, k1.launches_bwd)
+    (card(x.to(dev).to(torch.bfloat16)).float() * w.to(dev)).sum().backward()
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_bwd) == (before[0] + 2, before[1] + 2)
+    for (name, pr), pc in zip(ref.named_parameters(), card.parameters()):
+        if ".attn." not in name:
+            continue
+        assert pc.grad is not None, name
+        rel = float((pc.grad.cpu() - pr.grad).norm() / pr.grad.norm())
+        assert rel < 5e-2, (name, rel)
+
+
+def test_encoder_remat_recomputes_through_the_kernels(dev):
+    """With remat each block's forward (K1 included) runs again in the
+    backward; the gradients are those of the plain run."""
+    from frankenstein_tpu_torch.config import MAEConfig
+    from frankenstein_tpu_torch.models.brainformer import Encoder
+    cfg = MAEConfig(window_size=64, n_electrodes=64, patch_size=16, dim=64,
+                    n_layers=2, head_dim=32, hidden_dim=128, n_heads=2)
+    torch.manual_seed(1)
+    enc = Encoder(cfg, device=dev, dtype=torch.bfloat16)
+    x = torch.randn(2, 64, 64, device=dev).to(torch.bfloat16)
+    w = torch.randn(2, cfg.block_size, cfg.dim, device=dev)
+    grads, counts = [], []
+    for remat in (False, True):
+        enc.zero_grad()
+        before = (k1.launches, k1.launches_bwd)
+        (enc(x, remat).float() * w).sum().backward()
+        torch.cuda.synchronize()
+        counts.append((k1.launches - before[0], k1.launches_bwd - before[1]))
+        grads.append([p.grad.clone() for p in enc.parameters()])
+    assert counts == [(2, 2), (4, 2)]
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
 
 
 def _k2_weights(gen, dev, n_layer, e, w8):

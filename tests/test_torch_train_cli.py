@@ -1,0 +1,68 @@
+"""The day-1 dress rehearsal against the port: train -> checkpoint ->
+decode -> sub.txt through the port's public CLIs
+(``python -m frankenstein_tpu_torch.train`` and
+``python -m frankenstein_tpu_torch.submit --run-dir``), in fresh processes
+on the CPU, over a directory of synthetic .mat sessions laid out like
+competitionData, with the tiny Franky of ``tests/test_dress_rehearsal.py``.
+"""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+from tests.test_data import _write_synthetic_mat
+from tests.test_dress_rehearsal import TINY_YAML
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _run(args, timeout=300):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    p = subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    assert p.returncode == 0, (
+        f"{' '.join(args)} rc={p.returncode}\n--- stdout\n{p.stdout[-3000:]}"
+        f"\n--- stderr\n{p.stderr[-3000:]}")
+    return p
+
+
+def test_train_then_submit_on_competition_layout(tmp_path):
+    data = tmp_path / "competitionData"
+    (data / "train").mkdir(parents=True)
+    (data / "test").mkdir()
+    _write_synthetic_mat(data / "train" / "t12.2022.04.28.mat", n_trials=6,
+                         seed=41)
+    _write_synthetic_mat(data / "train" / "t12.2022.05.05.mat", n_trials=5,
+                         seed=42)
+    _write_synthetic_mat(data / "test" / "t12.2022.05.18.mat", n_trials=4,
+                         seed=43)
+    cfg = tmp_path / "tiny_franky.yaml"
+    cfg.write_text(TINY_YAML)
+    logs = tmp_path / "logs"
+
+    out = _run(["frankenstein_tpu_torch.train", "--config", str(cfg),
+                "--data", str(data), "--exp-name", "dress",
+                "--save-folder", str(logs)])
+    assert "done at step 3" in out.stdout
+
+    run_dir = logs / "dress"
+    doc = json.loads((run_dir / "model_config.json").read_text())
+    assert doc["model"] == "franky"
+    assert doc["model_config"]["gpt"]["n_embd"] == 16
+    assert json.loads((run_dir / "train_config.json").read_text())[
+        "max_steps"] == 3
+    records = [json.loads(line) for line in
+               (run_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in records if "train/loss" in r] == [1, 2, 3]
+    assert [r["step"] for r in records if "val/loss" in r] == [2]
+    ckpts = list(run_dir.glob("step_*_loss_*"))
+    assert [c.name.split("_loss_")[0] for c in ckpts] == ["step_2"]
+    assert (ckpts[0] / "state.pt").exists()
+
+    sub = tmp_path / "sub.txt"
+    _run(["frankenstein_tpu_torch.submit", "--data", str(data), "--split",
+          "test", "--run-dir", str(run_dir), "--out", str(sub),
+          "--beam-width", "2", "--batch-size", "4"])
+    assert len(sub.read_text().splitlines()) == 4   # one per held-out trial
