@@ -3,8 +3,10 @@
 Field-for-field copies of ``frankenstein_tpu/config.py`` (``MAEConfig``,
 ``PerceiverConfig``, ``GPTConfig``, ``FrankyConfig``, ``TrainConfig``, the
 JSON mixin that lets YAML sections and ``model_config.json`` round-trip, and
-the constants the slices use). The port cannot import that module, because
-the JAX package's ``__init__`` pulls in jax; ``tests/test_torch_config.py``
+the constants the slices use), and of ``LlamaConfig``,
+``tiny_llama_config`` (``models/llama.py``) and ``FrankyLlamaConfig``
+(``models/franky.py``). The port cannot import those modules, because the
+JAX package's ``__init__`` pulls in jax; ``tests/test_torch_config.py``
 holds the copies to the originals' fields, defaults and serialization.
 """
 
@@ -150,6 +152,60 @@ class FrankyConfig(_SerializableMixin):
         )
     )
     gpt: GPTConfig = field(default_factory=GPTConfig)
+    max_tokens: int = MAX_TOKENS
+    pad_token_id: int = GPT2_EOT
+
+
+@dataclass(frozen=True)
+class LlamaConfig(_SerializableMixin):
+    """LLaMA-family decoder (``frankenstein_tpu/models/llama.py``)."""
+
+    vocab_size: int = 128256        # llama-3 defaults
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    hidden_dim: int = 14336
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    max_seq_len: int = 8192
+    tie_embeddings: bool = False
+
+    # Mixture-of-Experts MLP; the port's Llama refuses moe_experts > 0
+    moe_experts: int = 0
+    moe_k: int = 2
+    moe_capacity: float = 1.25
+    moe_aux_weight: float = 0.01
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
+def tiny_llama_config(**kw) -> LlamaConfig:
+    base = dict(vocab_size=128, dim=32, n_layers=2, n_heads=4, n_kv_heads=2,
+                hidden_dim=64, max_seq_len=64)
+    base.update(kw)
+    return LlamaConfig(**base)
+
+
+@dataclass(frozen=True)
+class FrankyLlamaConfig(_SerializableMixin):
+    """Brain prefix -> LLaMA composite (``frankenstein_tpu/models/franky.py``):
+    a ~110M LLaMA over GPT-2 BPE ids by default."""
+
+    brain: PerceiverConfig = field(
+        default_factory=lambda: PerceiverConfig(
+            encoder=MAEConfig(window_size=768, patch_size=32),
+            n_output_tokens=32,
+            output_dim=1024,
+        )
+    )
+    lm: LlamaConfig = field(
+        default_factory=lambda: LlamaConfig(
+            vocab_size=50304, dim=1024, n_layers=8, n_heads=16,
+            n_kv_heads=8, hidden_dim=2816, rope_theta=10000.0,
+            max_seq_len=128, tie_embeddings=True))
     max_tokens: int = MAX_TOKENS
     pad_token_id: int = GPT2_EOT
 

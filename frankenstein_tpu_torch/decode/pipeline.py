@@ -3,8 +3,9 @@
 
 Seeds each sentence with <|endoftext|>, encodes the window, decodes up to
 25 tokens on the KV-cached decode (top-k 10 sampling, or EOS-aware beams
-with length penalty 1.0), and trims at the stop token. LLaMA rescoring is
-not ported yet.
+with length penalty 1.0, optionally re-ranked by an LM's n-best
+rescoring), and trims at the stop token. Serves Franky (GPT-2, kernel K2)
+and FrankyLlama (LLaMA, kernel K5) alike.
 """
 
 from __future__ import annotations
@@ -30,18 +31,19 @@ def make_franky_predictor(model, tokenizer, *, max_new_tokens: int = 25,
                           int8_kv: bool = False) -> Callable:
     """Returns predict(xs [B, T, C]) -> list[str] (length B).
 
-    ``model`` is used as given: cast it with ``cast_params_for_inference``
-    first to serve in bf16. ``beam_width > 1`` decodes with EOS-aware beams
-    (``sampling.beam_search``, length penalty 1.0) instead of top-k
-    sampling. ``int8_weights=True`` streams w8a16 decode weights, quantized
-    once here; ``int8_kv=True`` quantizes each request's prefilled KV cache
-    to int8, on both branches. Each call draws from its own generator,
-    seeded from ``seed`` and the call count."""
-    if rescorer is not None:
-        raise NotImplementedError(
-            "rescorer: LLaMA n-best rescoring is not ported yet; it comes "
-            "with the FrankyLlama slice and its decode kernel K5 "
-            "(ROADMAP.md, modules to port: FrankyLlama)")
+    ``model`` (a Franky or a FrankyLlama) is used as given: cast it with
+    ``cast_params_for_inference`` first to serve in bf16. ``beam_width > 1``
+    decodes with EOS-aware beams (``sampling.beam_search``, length penalty
+    1.0) instead of top-k sampling. ``rescorer``: ``(lm_module,)`` or
+    ``(lm_module, alpha)`` (alpha 0.5 by default), a ``Llama`` or a
+    FrankyLlama; with beams, the whole n-best list is re-ranked by
+    ``alpha`` * the LM's length-normalised log-probability (no brain
+    prefix) + (1 - alpha) * the beam score (``models/llama.py:
+    rescore_candidates``). ``int8_weights=True`` streams w8a16 decode
+    weights, quantized once here; ``int8_kv=True`` quantizes each request's
+    prefilled KV cache to int8, on both branches. Each call draws from its
+    own generator, seeded from ``seed`` and the call count."""
+    from frankenstein_tpu_torch.models import llama
     qweights = sampling.decode_weights(model, int8_weights)
     calls = 0
 
@@ -56,10 +58,17 @@ def make_franky_predictor(model, tokenizer, *, max_new_tokens: int = 25,
         gen = torch.Generator(device=model.device).manual_seed(
             seed * 1_000_003 + calls)
         if beam_width > 1:
-            toks, _ = sampling.beam_search(
+            toks, scores = sampling.beam_search(
                 model, idx0, prefix, max_new_tokens=max_new_tokens,
                 beam_width=beam_width, eos_id=eot_id, length_penalty=1.0,
-                qweights=qweights, int8_kv=int8_kv)
+                qweights=qweights, int8_kv=int8_kv,
+                n_best=rescorer is not None)
+            if rescorer is not None:
+                alpha = rescorer[1] if len(rescorer) > 1 else 0.5
+                cands = llama.candidates_from_beams(toks, eot_id)
+                best, _ = llama.rescore_candidates(
+                    rescorer[0], cands, decoder_scores=scores, alpha=alpha)
+                toks = toks[torch.arange(b, device=toks.device), best]
         else:
             toks = sampling.generate(model, idx0, prefix, gen,
                                      max_new_tokens=max_new_tokens,

@@ -2,9 +2,10 @@
 (``frankenstein_tpu/decode/sampling.py``).
 
 One prefill fills a fixed-shape cache, then each token costs one
-``decode_step`` (kernel K2 on the card). Beams are vectorized into the
-batch: a W-beam search over B sentences is one [B*W] decode whose cache
-rows are regathered by parent beam every step (kernel K3 on the card).
+``decode_step`` (kernel K2 for GPT-2, K5 for a LLaMA, on the card).
+Beams are vectorized into the batch: a W-beam search over B sentences is
+one [B*W] decode whose cache rows are regathered by parent beam every step
+(kernel K3 on the card).
 ``int8_kv=True`` quantizes the cache to int8 right after prefill.
 
 Randomness comes from a ``torch.Generator``; top-k is exact (the JAX
@@ -30,13 +31,16 @@ def _round_cache_len(n: int, mult: int = 16) -> int:
 
 
 def decode_weights(model, int8_weights: bool) -> dict:
-    """The stacked decode weights K2 streams: bf16 in the model's dtype, or
-    w8a16 int8 codes with per-(layer, out-lane) scales."""
-    from frankenstein_tpu_torch.models import gpt2
-    gpt = model.llm_model if hasattr(model, "llm_model") else model
+    """The stacked decode weights the model's decode kernel streams (K2 for
+    a GPT, K5 for a LLaMA, either possibly under a composite's
+    ``llm_model``): in the model's dtype, or w8a16 int8 codes with
+    per-(layer, out-lane) scales."""
+    from frankenstein_tpu_torch.models import gpt2, llama
+    lm = model.llm_model if hasattr(model, "llm_model") else model
+    family = llama if isinstance(lm, llama.Llama) else gpt2
     if int8_weights:
-        return gpt2.quantize_decode_weights(gpt, gpt.dtype)
-    return gpt2.stack_decode_weights(gpt)
+        return family.quantize_decode_weights(lm, lm.dtype)
+    return family.stack_decode_weights(lm)
 
 
 def quantize_serving_weights(model) -> dict:

@@ -22,7 +22,8 @@ def evaluate_franky_wer(model, dataset, tokenizer, *,
     """Decode every trial through ``make_franky_predictor``, normalize,
     return (corpus WER, predictions). The final partial batch is padded
     with copies of its last trial, so every call sees ``batch_size`` rows.
-    ``rescorer`` is not ported yet (the predictor raises)."""
+    ``rescorer`` (``(lm_module[, alpha])``) re-ranks the beams' n-best
+    lists, as in ``make_franky_predictor``."""
     from frankenstein_tpu_torch.decode.pipeline import make_franky_predictor
     predict = make_franky_predictor(model, tokenizer,
                                     max_new_tokens=max_new_tokens,

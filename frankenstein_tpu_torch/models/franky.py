@@ -1,9 +1,11 @@
-"""Franky: BrainEncoder prefix -> GPT-2 (``frankenstein_tpu/models/franky.py``).
+"""Franky: BrainEncoder prefix -> GPT-2, and FrankyLlama: the same brain
+prefix -> a LLaMA (``frankenstein_tpu/models/franky.py``).
 
-The 32 Perceiver output vectors are a soft prompt for GPT-2. Module names
+The 32 Perceiver output vectors are a soft prompt for the LM. Module names
 (``brain_model``, ``llm_model``) follow the reference's state dict.
 ``dtype`` is the compute dtype (``models/layers.py``); ``remat``, read at
-each forward, recomputes every block's activations in the backward.
+each forward, recomputes every block's activations in the backward
+(Franky).
 """
 
 from __future__ import annotations
@@ -13,20 +15,27 @@ from typing import Optional
 import torch
 from torch import nn
 
-from frankenstein_tpu_torch.config import FrankyConfig, IGNORE_INDEX
+from frankenstein_tpu_torch.config import (FrankyConfig, FrankyLlamaConfig,
+                                           IGNORE_INDEX)
 from frankenstein_tpu_torch.models.brainformer import BrainEncoder
 from frankenstein_tpu_torch.models.gpt2 import GPT
+from frankenstein_tpu_torch.models.llama import Llama
 
 
-class Franky(nn.Module):
-    def __init__(self, cfg: FrankyConfig, device=None, dtype=None):
+class _BrainPrefixLM(nn.Module):
+    """A BrainEncoder whose Perceiver output is an LM's soft prompt: the
+    decode surface that the generic loops in ``decode/`` call, written once
+    for both composites. Both LMs keep an [L, B, S, E] cache with batch at
+    axis 1, so GPT's beam reorder (kernel K3) serves both."""
+
+    def __init__(self, cfg, lm: nn.Module, lm_width: int, device, dtype):
         super().__init__()
-        if cfg.brain.output_dim != cfg.gpt.n_embd:
-            raise ValueError("Perceiver output_dim must equal the GPT n_embd")
+        if cfg.brain.output_dim != lm_width:
+            raise ValueError(f"Perceiver output_dim ({cfg.brain.output_dim})"
+                             f" must equal the LM's width ({lm_width})")
         self.cfg = cfg
-        self.remat = False
         self.brain_model = BrainEncoder(cfg.brain, device, dtype)
-        self.llm_model = GPT(cfg.gpt, device, dtype)
+        self.llm_model = lm
 
     @property
     def dtype(self) -> torch.dtype:
@@ -36,23 +45,15 @@ class Franky(nn.Module):
     def device(self) -> torch.device:
         return self.llm_model.device
 
-    def forward(self, x, targets, train: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """x: [B, 768, 256] signal; targets: [B, 25] ids with -100 padding.
-        Returns (loss, logits), the trainer's uniform contract. ``train``
-        turns GPT dropout on, drawn from ``generator`` (a generator on the
-        model's device)."""
-        features = self.brain_model(x, self.remat)
-        idx = torch.where(targets == IGNORE_INDEX,
-                          torch.full_like(targets, self.cfg.pad_token_id),
-                          targets)
-        return self.llm_model(idx, prefix=features, targets=targets,
-                              train=train, generator=generator,
-                              remat=self.remat)
+    def _padded(self, targets):
+        """targets with -100 replaced by the pad id: the LM's input ids."""
+        return torch.where(targets == IGNORE_INDEX,
+                           torch.full_like(targets, self.cfg.pad_token_id),
+                           targets)
 
     @torch.no_grad()
     def encode(self, x):
-        """Brain window -> prefix vectors (decode-time entry)."""
+        """Brain window -> prefix vectors in the LM's embedding space."""
         return self.brain_model(x)
 
     def init_decode_cache(self, batch: int, max_len: int):
@@ -65,6 +66,46 @@ class Franky(nn.Module):
                     qweights: Optional[dict] = None):
         return self.llm_model.decode_step(token, cache, length, qweights)
 
-    @staticmethod
-    def reorder_cache(cache, flat_idx, group: int = 0):
-        return GPT.reorder_cache(cache, flat_idx, group=group)
+    reorder_cache = staticmethod(GPT.reorder_cache)
+
+
+class Franky(_BrainPrefixLM):
+    def __init__(self, cfg: FrankyConfig, device=None, dtype=None):
+        super().__init__(cfg, GPT(cfg.gpt, device, dtype), cfg.gpt.n_embd,
+                         device, dtype)
+        self.remat = False
+
+    def forward(self, x, targets, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """x: [B, 768, 256] signal; targets: [B, 25] ids with -100 padding.
+        Returns (loss, logits), the trainer's uniform contract. ``train``
+        turns GPT dropout on, drawn from ``generator`` (a generator on the
+        model's device)."""
+        features = self.brain_model(x, self.remat)
+        return self.llm_model(self._padded(targets), prefix=features,
+                              targets=targets, train=train,
+                              generator=generator, remat=self.remat)
+
+
+class FrankyLlama(_BrainPrefixLM):
+    """BrainEncoder prefix -> LLaMA: the north-star composite.
+    ``sequence_logprob`` lets it rescore its own n-best list, conditioned
+    on the brain prefix."""
+
+    def __init__(self, cfg: FrankyLlamaConfig, device=None, dtype=None):
+        super().__init__(cfg, Llama(cfg.lm, device, dtype), cfg.lm.dim,
+                         device, dtype)
+
+    def forward(self, x, targets):
+        """x: [B, T, C] signal; targets: [B, max_tokens] ids with -100
+        padding. Returns (loss, logits)."""
+        return self.llm_model(self._padded(targets),
+                              prefix=self.brain_model(x), targets=targets)
+
+    @torch.no_grad()
+    def sequence_logprob(self, idx, prefix=None,
+                         ignore_index: int = IGNORE_INDEX):
+        return self.llm_model.sequence_logprob(idx, prefix,
+                                               ignore_index=ignore_index)
+
+    expand_cache = staticmethod(Llama.expand_cache)

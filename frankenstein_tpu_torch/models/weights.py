@@ -1,9 +1,12 @@
-"""Weights for the port's Franky.
+"""Weights for the port's Franky and FrankyLlama.
 
-``load_franky`` takes the dict of numpy arrays that the JAX package's
+``load_strict`` loads a dict of numpy arrays under the port's state-dict
+names with ``strict=True``. For Franky that is the dict the JAX package's
 ``models/import_reference.py:export_franky`` writes (the reference's torch
-state-dict names and layouts) and loads it with ``strict=True``, so the
-exporter is the bridge from any JAX checkpoint. ``init_franky_`` draws
+names and layouts), so the exporter is the bridge from any JAX checkpoint;
+for FrankyLlama it is the brain's ``export_brain_encoder(...,
+prefix="brain_model.")`` merged with the LLaMA's ``llama_state_from_flax(...,
+prefix="llm_model.")``. ``init_franky_`` and ``init_franky_llama_`` draw
 random weights from a seed at the JAX initialisers' scales (not the same
 draws: the two frameworks' generators differ).
 """
@@ -17,14 +20,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from frankenstein_tpu_torch.models.franky import Franky
+from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
 from frankenstein_tpu_torch.models.gpt2 import init_gpt_
 
 
-def load_franky(model: Franky, state: Mapping[str, np.ndarray]) -> Franky:
-    """Copy an ``export_franky`` dict into ``model`` (strict: every tensor
-    must map, and every parameter must be given). ``lm_head.weight`` stays
-    tied to ``transformer.wte.weight``."""
+def load_strict(model: nn.Module, state: Mapping[str, np.ndarray]):
+    """Copy ``state`` into ``model`` (strict: every tensor must map, and
+    every parameter must be given), each in its parameter's dtype. A tied
+    head (GPT-2's ``lm_head.weight``) stays tied to its embedding."""
     ref = model.state_dict()
     tensors = {}
     for name, value in state.items():
@@ -37,12 +40,41 @@ def load_franky(model: Franky, state: Mapping[str, np.ndarray]) -> Franky:
     return model
 
 
-def init_franky_(model: Franky, seed: int) -> Franky:
-    """Random weights from ``seed``: linear kernels at lecun-normal scale
-    (std 1/sqrt(fan_in)), the space embedding at std 1, learnable queries at
-    zero, unit norms, zero biases; GPT-2 at normal(0.02)."""
-    gen = torch.Generator(device=model.device).manual_seed(seed)
-    brain = model.brain_model
+def llama_state_from_flax(tree: Mapping, prefix: str = "") -> dict:
+    """The JAX package's flax ``Llama`` params as the port's state dict.
+
+    ``tree``: ``embed`` [V, E], ``layers`` (``input_norm``, ``q_proj``, ...,
+    ``post_attn_norm``, ..., ``down_proj``, each stacked [L, ...]),
+    ``norm_f`` and, untied, ``lm_head`` [V, E], as numpy arrays. Dense
+    kernels [in, out] become ``weight`` [out, in]; no RoPE permutation (the
+    port rotates adjacent pairs, as the JAX package does). A tied head is
+    given as ``lm_head.weight`` = the embedding."""
+    layers = tree["layers"]
+    n_layers = int(np.asarray(layers["input_norm"]["weight"]).shape[0])
+    out = {f"{prefix}model.embed_tokens.weight": np.asarray(tree["embed"])}
+    dense = {"self_attn.q_proj": "q_proj", "self_attn.k_proj": "k_proj",
+             "self_attn.v_proj": "v_proj", "self_attn.o_proj": "o_proj",
+             "mlp.gate_proj": "gate_proj", "mlp.up_proj": "up_proj",
+             "mlp.down_proj": "down_proj"}
+    norms = {"input_layernorm": "input_norm",
+             "post_attention_layernorm": "post_attn_norm"}
+    for i in range(n_layers):
+        bp = f"{prefix}model.layers.{i}."
+        for name, flax in dense.items():
+            out[f"{bp}{name}.weight"] = np.asarray(
+                layers[flax]["kernel"])[i].T
+        for name, flax in norms.items():
+            out[f"{bp}{name}.weight"] = np.asarray(layers[flax]["weight"])[i]
+    out[f"{prefix}model.norm.weight"] = np.asarray(tree["norm_f"]["weight"])
+    out[f"{prefix}lm_head.weight"] = np.asarray(tree.get("lm_head",
+                                                         tree["embed"]))
+    return out
+
+
+def _init_brain_(brain: nn.Module, gen: torch.Generator) -> None:
+    """Linear kernels at lecun-normal scale (std 1/sqrt(fan_in)), the space
+    embedding at std 1, learnable queries at zero, unit norms, zero
+    biases."""
     with torch.no_grad():
         for name, p in brain.named_parameters():
             if name.endswith("bias") or name == "learnable_queries":
@@ -53,5 +85,26 @@ def init_franky_(model: Franky, seed: int) -> Franky:
                 p.normal_(0.0, 1.0, generator=gen)
             else:
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+
+
+def init_franky_(model: Franky, seed: int) -> Franky:
+    """Random weights from ``seed``: the brain as ``_init_brain_``, GPT-2
+    at normal(0.02)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    _init_brain_(model.brain_model, gen)
     init_gpt_(model.llm_model, gen)
+    return model
+
+
+def init_franky_llama_(model: FrankyLlama, seed: int) -> FrankyLlama:
+    """Random weights from ``seed``: the brain as ``_init_brain_``; the
+    LLaMA's embedding, projections and head at normal(0.02), unit norms."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    _init_brain_(model.brain_model, gen)
+    with torch.no_grad():
+        for name, p in model.llm_model.named_parameters():
+            if name.endswith("norm.weight"):        # the RMSNorm weights
+                nn.init.ones_(p)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)
     return model

@@ -21,6 +21,13 @@ def build_rope_cache(dim: int, seq_len: int, theta: float = 10000.0,
     return torch.stack([torch.cos(angles), torch.sin(angles)], dim=-1)
 
 
+def rope_for_positions(cache: torch.Tensor,
+                       positions: torch.Tensor) -> torch.Tensor:
+    """Gather per-token rope entries: positions [..., T] ->
+    [..., T, dim//2, 2]."""
+    return cache[positions]
+
+
 def _slice(table: torch.Tensor, t: int, align: str) -> torch.Tensor:
     return table[-t:] if align == "suffix" else table[:t]
 

@@ -15,7 +15,8 @@ Two ways to point at a model:
 ``--data synthetic`` decodes ``--synthetic-trials`` synthetic windows
 instead of a competitionData split. The model serves in bf16 through
 ``decode/pipeline.py:make_franky_predictor`` (beams of ``--beam-width``) on
-the GPU when there is one, else on the CPU.
+the GPU (``--device cuda``, the default; without a usable GPU the CLI
+exits) or, when asked, on the CPU (``--device cpu``).
 """
 
 from __future__ import annotations
@@ -56,9 +57,9 @@ def main(argv=None) -> Path:
     ap.add_argument("--beam-width", type=int, default=5)
     ap.add_argument("--batch-size", type=int, default=32)
     ap.add_argument("--synthetic-trials", type=int, default=8)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cuda (default; exits without a usable GPU) or cpu")
     args = ap.parse_args(argv)
-
-    import torch
 
     from frankenstein_tpu_torch.config import FrankyConfig
     from frankenstein_tpu_torch.data import datasets, tokenizers
@@ -68,7 +69,9 @@ def main(argv=None) -> Path:
                                                         make_predictions)
     from frankenstein_tpu_torch.models.franky import Franky
     from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+    from frankenstein_tpu_torch.utils.device import cli_device
 
+    device = cli_device(args.device)
     ckpt = Path(args.checkpoint) if args.checkpoint else None
     if args.run_dir:
         cfg, best = build_from_run_dir(Path(args.run_dir))
@@ -77,7 +80,6 @@ def main(argv=None) -> Path:
         raise SystemExit("pass --run-dir or --checkpoint")
     else:
         cfg = FrankyConfig()
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     model = Franky(cfg, device=device)
     model.load_state_dict(ckpt_lib.load_raw_checkpoint(
         ckpt, map_location=device)["model"])

@@ -15,8 +15,9 @@ With ``--config`` the YAML's ``train`` section is the base and only the
 flags typed on the command line override it. The run directory
 (``<save-folder>/<exp-name>``) gets ``model_config.json``,
 ``train_config.json``, ``metrics.jsonl`` and ``step_*_loss_*`` checkpoints.
-The model trains on the GPU when there is one, else on the CPU: f32
-parameters, bf16 compute unless ``--no-bf16``.
+The model trains on the GPU (``--device cuda``, the default; without a
+usable GPU the CLI exits) or, when asked, on the CPU (``--device cpu``):
+f32 parameters, bf16 compute unless ``--no-bf16``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ NOT_PORTED = {
     "mae": "item 8 (MAE pretraining)",
     "simple_mae": "item 8 (MAE pretraining)",
     "vqvae": "item 10 (VQ-VAE and the rest)",
-    "franky-llama": "item 7 (FrankyLlama)",
+    "franky-llama": "item 7 (FrankyLlama training)",
     "moe-gpt": "item 11 (parallel modes: the MoE MLP)",
     "brainformer": "item 12 (BrainFormer regression)",
 }
@@ -85,6 +86,8 @@ def parse_args(argv=None):
     p.add_argument("--save-folder", default="logs")
     p.add_argument("--init-encoder-from", default=None, metavar="CKPT",
                    help="graft an MAE checkpoint's encoder (not ported yet)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (default; exits without a usable GPU) or cpu")
     p.add_argument("--mesh", default=None,
                    help="data,model mesh shape; the port trains on one "
                         "device")
@@ -170,6 +173,7 @@ def main(argv=None):
     from frankenstein_tpu_torch.models.franky import Franky
     from frankenstein_tpu_torch.models.weights import init_franky_
     from frankenstein_tpu_torch.train.trainer import run_train_model
+    from frankenstein_tpu_torch.utils.device import cli_device
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
@@ -178,7 +182,7 @@ def main(argv=None):
         checkpoints.graft_encoder_from_mae(args.init_encoder_from, None)
     cfg, yaml_train = model_config(args)
     tcfg = train_config(args, yaml_train, argv)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = cli_device(args.device)
     enc = cfg.brain.encoder
     data = build_datasets(args.data, enc.window_size, enc.n_electrodes,
                           args.synthetic_trials)

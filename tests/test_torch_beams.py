@@ -22,7 +22,7 @@ from frankenstein_tpu_torch.data.tokenizers import ByteTokenizer
 from frankenstein_tpu_torch.decode import pipeline, sampling
 from frankenstein_tpu_torch.models import gpt2
 from frankenstein_tpu_torch.models.franky import Franky
-from frankenstein_tpu_torch.models.weights import load_franky
+from frankenstein_tpu_torch.models.weights import load_strict
 
 torch.set_num_threads(1)
 
@@ -35,7 +35,7 @@ def tiny_gpt():
     jmodel = jgpt2.GPT(jconfig.GPTConfig(**GPT_KW))
     idx0 = np.random.default_rng(9).integers(0, 96, (B, 4)).astype(np.int32)
     params = jmodel.init(jax.random.key(0), jnp.asarray(idx0))
-    model = load_franky(gpt2.GPT(tconfig.GPTConfig(**GPT_KW)),
+    model = load_strict(gpt2.GPT(tconfig.GPTConfig(**GPT_KW)),
                         export_gpt(params))
     # a token the best beams emit early, so EOS freezing is exercised
     toks, _ = jsampling.beam_search(jmodel, params, jnp.asarray(idx0), None,
@@ -112,7 +112,7 @@ def test_beam_from_prefill_equals_beam_search(tiny_gpt):
     """A batch-B prefill expanded to B*W beams decodes as the B*W prefill
     of ``beam_search``."""
     jmodel, params, _, idx0, eos = tiny_gpt
-    model = load_franky(_ExpandGPT(tconfig.GPTConfig(**GPT_KW)),
+    model = load_strict(_ExpandGPT(tconfig.GPTConfig(**GPT_KW)),
                         export_gpt(params))
     idx = torch.from_numpy(idx0).long()
     logits, cache, length = sampling._prefill(model, idx, None, STEPS, False)
@@ -168,7 +168,7 @@ def tiny_franky():
     params = jax.tree_util.tree_map(
         lambda a: a + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
         params)
-    model = load_franky(Franky(_tiny_franky_cfg(tconfig)),
+    model = load_strict(Franky(_tiny_franky_cfg(tconfig)),
                         export_franky(params))
     return jmodel, params, model, x
 

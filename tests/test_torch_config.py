@@ -7,15 +7,23 @@ import dataclasses
 import pytest
 
 from frankenstein_tpu import config as jconfig
+from frankenstein_tpu.models import franky as jfranky
+from frankenstein_tpu.models import llama as jllama
 from frankenstein_tpu_torch import config as tconfig
 
 NAMES = ["MAEConfig", "PerceiverConfig", "GPTConfig", "FrankyConfig",
-         "TrainConfig"]
+         "TrainConfig", "LlamaConfig", "FrankyLlamaConfig"]
+# where the JAX package keeps each class
+JAX_HOME = {"LlamaConfig": jllama, "FrankyLlamaConfig": jfranky}
+
+
+def _classes(name):
+    return getattr(JAX_HOME.get(name, jconfig), name), getattr(tconfig, name)
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_fields_and_defaults(name):
-    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    jcls, tcls = _classes(name)
     jf = [(f.name, str(f.type)) for f in dataclasses.fields(jcls)]
     tf = [(f.name, str(f.type)) for f in dataclasses.fields(tcls)]
     assert tf == jf
@@ -37,6 +45,15 @@ def test_derived_properties():
     for gpt in ({}, {"n_embd": 128, "n_head": 4}):
         assert (tconfig.GPTConfig(**gpt).head_dim
                 == jconfig.GPTConfig(**gpt).head_dim)
+    for lm in ({}, {"dim": 1024, "n_heads": 16}):
+        assert (tconfig.LlamaConfig(**lm).head_dim
+                == jllama.LlamaConfig(**lm).head_dim)
+
+
+@pytest.mark.parametrize("kw", [{}, {"vocab_size": 300, "n_kv_heads": 4}])
+def test_tiny_llama_config(kw):
+    assert (dataclasses.asdict(tconfig.tiny_llama_config(**kw))
+            == dataclasses.asdict(jllama.tiny_llama_config(**kw)))
 
 
 
@@ -44,10 +61,11 @@ def test_derived_properties():
 def test_json_round_trip_matches_jax(name):
     """Each side reads the other's JSON (nested configs rebuild as
     dataclasses, lists as tuples) and writes the same dict."""
-    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    jcls, tcls = _classes(name)
     changed = {"TrainConfig": {"mesh_shape": (1, 1), "batch_size": 32},
                "FrankyConfig": {"max_tokens": 9},
-               "GPTConfig": {"n_layer": 2}}.get(name, {})
+               "GPTConfig": {"n_layer": 2}, "LlamaConfig": {"n_layers": 3},
+               "FrankyLlamaConfig": {"pad_token_id": 7}}.get(name, {})
     j, t = jcls(**changed), tcls(**changed)
     assert tcls.from_json(j.to_json()) == t
     assert jcls.from_json(t.to_json()) == j

@@ -1,8 +1,9 @@
-"""Kernels K1, K2 (bf16 and int8 KV caches), K3 and K4 on the card against
-their plain PyTorch twins, at small shapes that reach the kernels' edge
-cases (slabs that do not divide the tiles, a batch that does not fill a
-tile, an empty cache, one beam and the widest group), and the gradient of
-an encoder through K1 and K4 against its f32 CPU twin.
+"""Kernels K1, K2 (bf16 and int8 KV caches), K3, K4 and K5 (bf16 and int8
+KV caches, one to four query heads per KV head) on the card against their
+plain PyTorch twins, at small shapes that reach the kernels' edge cases
+(slabs that do not divide the tiles, a batch that does not fill a tile, an
+empty cache, one beam and the widest group), and the gradient of an
+encoder through K1 and K4 against its f32 CPU twin.
 
 The kernels have no CPU mode, so without a CUDA device these tests skip.
 On the card: ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
@@ -14,6 +15,7 @@ import torch
 from frankenstein_tpu_torch.ops import rope
 from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
 from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
+from frankenstein_tpu_torch.ops.cuda import fused_llama_decode as k5
 from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
 
 pytestmark = pytest.mark.cuda
@@ -313,3 +315,94 @@ def test_k3_refuses_what_it_does_not_take(dev):
         k3.beam_reorder(k, k.clone(), torch.zeros(34, device=dev), w=17)
     with pytest.raises(ValueError, match="w <= 16"):
         k3.beam_reorder(k, k.clone(), torch.zeros(34, device=dev), w=5)
+
+
+K5_TOL = 2e-2   # relative to max |twin|: bf16 roundings, other f32 order
+
+
+def _k5_case(dev, seed, n_layers, b, s, e, h, kv, f, w8, int8):
+    """bf16 x and weights (or w8a16), f32 norms, a bf16 or int8 cache."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    d = e // h
+    st = {k: 1.0 + 0.1 * rnd(n_layers, e) for k in ("norm1_w", "norm2_w")}
+    for key, shape in (("wq", (e, e)), ("wk", (e, kv * d)),
+                       ("wv", (e, kv * d)), ("wo", (e, e)), ("wg", (e, f)),
+                       ("wu", (e, f)), ("wd", (f, e))):
+        st[key] = (0.05 * rnd(n_layers, *shape)).to(torch.bfloat16)
+    if w8:
+        st = k5.quantize_weights(st)
+    if int8:
+        kc, ks = k2.quantize_cache_side(rnd(n_layers, b, s, kv * d))
+        vc, vs = k2.quantize_cache_side(rnd(n_layers, b, s, kv * d))
+    else:
+        kc, vc = (rnd(n_layers, b, s, kv * d).to(torch.bfloat16)
+                  for _ in range(2))
+        ks = vs = None
+    return rnd(b, e).to(torch.bfloat16), st, kc, vc, ks, vs
+
+
+@pytest.mark.parametrize("w8,int8", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+@pytest.mark.parametrize("b,length,e,h,kv", [(8, 5, 256, 4, 2),
+                                             (40, 0, 256, 4, 2),
+                                             (3, 33, 256, 4, 4),
+                                             (5, 17, 512, 4, 1),
+                                             (2, 9, 128, 4, 2)])
+def test_k5_matches_twin(dev, w8, int8, b, length, e, h, kv):
+    """x within K5_TOL of max |twin|; the rows written at ``length`` within
+    K5_TOL of the twin's (bf16) or one code (int8: the twin's f32 K/V may
+    sit on the other side of a .5); every other row untouched; two launches
+    bitwise equal. Head dims 64, 128 and 32; 1, 2 and 4 query heads per
+    KV head; an empty cache and a batch that does not fill a tile."""
+    n_layers, s, f = 2, 48, 256
+    x, st, kc, vc, ks, vs = _k5_case(dev, b * 100 + length, n_layers, b, s,
+                                     e, h, kv, f, w8, int8)
+    table = rope.build_rope_cache(e // h, s, device=dev)
+    cos_e, sin_e = rope.folded_tables(table, h)
+    cos, sin = cos_e[length:length + 1], sin_e[length:length + 1]
+    kw = dict(n_heads=h, n_kv_heads=kv, eps=1e-5)
+    outs = []
+    before = (k5.launches, k5.launches_int8_kv)
+    for _ in range(2):
+        kc_k, vc_k = kc.clone(), vc.clone()
+        xo, _, _ = k5.fused_llama_decode_blocks(x, st, kc_k, vc_k, length,
+                                                cos, sin, ks, vs, **kw)
+        outs.append((xo, kc_k, vc_k))
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.launches_int8_kv) == (before[0] + 2,
+                                                  before[1] + 2 * int8)
+    assert all(torch.equal(a, c) for a, c in zip(*outs))
+    xo, kc_k, vc_k = outs[0]
+    kc_r, vc_r = kc.clone(), vc.clone()
+    xr, _, _ = k5.fused_llama_decode_blocks_ref(x, st, kc_r, vc_r, length,
+                                                cos, sin, ks, vs, **kw)
+    assert _err(xo, xr) <= K5_TOL * float(xr.float().abs().max())
+    for got, want in ((kc_k, kc_r), (vc_k, vc_r)):
+        row = want[:, :, length]
+        tol = 1 if int8 else K5_TOL * float(row.float().abs().max())
+        assert _err(got[:, :, length], row) <= tol
+    others = [r for r in range(s) if r != length]
+    assert torch.equal(kc_k[:, :, others], kc[:, :, others])
+    assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+def test_k5_refuses_what_it_does_not_take(dev):
+    x, st, kc, vc, ks, vs = _k5_case(dev, 0, 1, 2, 16, 256, 32, 16, 256,
+                                     False, True)
+    cos = torch.zeros(1, 256, device=dev)
+    kw = dict(n_kv_heads=16, eps=1e-5)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        k5.fused_llama_decode_blocks(x, st, kc, vc, 1, cos, cos, ks, vs,
+                                     n_heads=32, **kw)      # head_dim 8
+    x, st, kc, vc, ks, vs = _k5_case(dev, 0, 1, 2, 16, 256, 4, 2, 256,
+                                     False, False)
+    with pytest.raises(ValueError, match="length"):
+        k5.fused_llama_decode_blocks(x, st, kc, vc, 16, cos, cos, n_heads=4,
+                                     n_kv_heads=2, eps=1e-5)
+    with pytest.raises(ValueError, match="H % KV"):
+        k5.fused_llama_decode_blocks(x, st, kc, vc, 1, cos, cos, n_heads=4,
+                                     n_kv_heads=3, eps=1e-5)
+    with pytest.raises(ValueError, match="cos_row"):
+        k5.fused_llama_decode_blocks(x, st, kc, vc, 1, cos.double(), cos,
+                                     n_heads=4, n_kv_heads=2, eps=1e-5)

@@ -25,7 +25,7 @@ from frankenstein_tpu_torch import config as tconfig
 from frankenstein_tpu_torch.data import datasets, native, text, tokenizers
 from frankenstein_tpu_torch.eval import evaluate, submission, wer
 from frankenstein_tpu_torch.models.franky import Franky
-from frankenstein_tpu_torch.models.weights import load_franky
+from frankenstein_tpu_torch.models.weights import load_strict
 
 torch.set_num_threads(1)
 
@@ -190,7 +190,7 @@ def test_evaluate_franky_wer_matches_jax():
     params = jax.tree_util.tree_map(
         lambda a: a + 0.05 * rng.standard_normal(a.shape).astype(np.float32),
         params)
-    model = load_franky(Franky(_tiny_cfg(tconfig)), export_franky(params))
+    model = load_strict(Franky(_tiny_cfg(tconfig)), export_franky(params))
     kw = dict(batch_size=4, max_new_tokens=6, beam_width=2, eot_id=299)
     ds_kw = dict(n_electrodes=8, max_input_len=32)
     want_wer, want = jevaluate.evaluate_franky_wer(

@@ -1,7 +1,7 @@
 """The port's Franky slice against the JAX package's, on a tiny geometry:
 the ``_flagship(tiny=True)`` encoder and Perceiver, with a GPT of width 128
 so the same model also drives kernel K2's twin. Weights go JAX ->
-``export_franky`` -> ``load_franky`` (strict). float32 on both sides; on the
+``export_franky`` -> ``load_strict``. float32 on both sides; on the
 CPU the JAX package decodes with its scanned XLA blocks and the port with
 K2's twin."""
 
@@ -12,16 +12,23 @@ import pytest
 import torch
 
 from frankenstein_tpu import config as jconfig
+from frankenstein_tpu.data import tokenizers as jtokenizers
+from frankenstein_tpu.decode import pipeline as jpipeline
 from frankenstein_tpu.decode import sampling as jsampling
 from frankenstein_tpu.models import gpt2 as jgpt2
+from frankenstein_tpu.models import llama as jllama
 from frankenstein_tpu.models.franky import Franky as JFranky
 from frankenstein_tpu.models.import_reference import export_franky
 from frankenstein_tpu_torch import config as tconfig
 from frankenstein_tpu_torch.data.tokenizers import ByteTokenizer
 from frankenstein_tpu_torch.decode import pipeline, sampling
+from frankenstein_tpu_torch.models import llama as tllama
 from frankenstein_tpu_torch.models.franky import Franky
-from frankenstein_tpu_torch.models.weights import init_franky_, load_franky
+from frankenstein_tpu_torch.models.weights import (init_franky_,
+                                                   llama_state_from_flax,
+                                                   load_strict)
 from frankenstein_tpu_torch.ops.cuda import (beam_reorder, fused_decode,
+                                             fused_llama_decode,
                                              slab_attention)
 
 torch.set_num_threads(1)
@@ -59,7 +66,7 @@ def pair():
     params = jax.tree_util.tree_map(
         lambda a: a + 0.02 * rng.standard_normal(a.shape).astype(np.float32),
         params)
-    model = load_franky(Franky(tiny_cfg(tconfig)), export_franky(params))
+    model = load_strict(Franky(tiny_cfg(tconfig)), export_franky(params))
     return jmodel, params, model, x, y
 
 
@@ -155,16 +162,30 @@ def test_topk_sampling_stays_in_topk(pair):
 
 
 @pytest.mark.parametrize("kw", [{"beam_width": 4},
-                                {"rescorer": (object(), None)},
+                                {"rescorer": "llama"},
                                 {"int8_kv": True}])
 def test_predictor_refuses_unported_flags(pair, kw):
-    """Only LLaMA rescoring is still refused (it waits for kernel K5).
-    Beams and the int8 KV cache serve strings through the kernels' twins
-    on the CPU, counting no kernel launch."""
-    model, x = pair[2], pair[3]
+    """No flag is refused any more. Beams and the int8 KV cache serve
+    strings through the kernels' twins on the CPU, counting no kernel
+    launch; Franky's beams rescored by a LLaMA (K5's twin) give the JAX
+    predictor's strings."""
+    jmodel, params, model, x, _ = pair
     if "rescorer" in kw:
-        with pytest.raises(NotImplementedError, match="K5"):
-            pipeline.make_franky_predictor(model, ByteTokenizer(), **kw)
+        lcfg = dict(vocab_size=512, dim=32, n_layers=2, n_heads=4,
+                    n_kv_heads=2, hidden_dim=64, max_seq_len=64)
+        jlm = jllama.Llama(jllama.LlamaConfig(**lcfg))
+        lparams = jlm.init(jax.random.key(1), jnp.zeros((1, 4), jnp.int32))
+        lm = load_strict(tllama.Llama(tconfig.LlamaConfig(**lcfg)),
+                         llama_state_from_flax(jax.tree_util.tree_map(
+                             np.asarray, lparams["params"])))
+        opts = dict(max_new_tokens=N_STEPS, eot_id=511, beam_width=3)
+        want = jpipeline.make_franky_predictor(
+            jmodel, params, jtokenizers.ByteTokenizer(eot_id=511),
+            rescorer=(jlm, lparams, 0.7), **opts)(x)
+        before = fused_llama_decode.launches
+        got = pipeline.make_franky_predictor(
+            model, ByteTokenizer(eot_id=511), rescorer=(lm, 0.7), **opts)(x)
+        assert got == want and fused_llama_decode.launches == before
         return
     before = (slab_attention.launches, fused_decode.launches,
               beam_reorder.launches)

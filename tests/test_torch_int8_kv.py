@@ -17,7 +17,7 @@ from frankenstein_tpu.ops.pallas import fused_decode as jfd
 from frankenstein_tpu_torch.config import GPTConfig
 from frankenstein_tpu_torch.decode import sampling
 from frankenstein_tpu_torch.models import gpt2
-from frankenstein_tpu_torch.models.weights import load_franky
+from frankenstein_tpu_torch.models.weights import load_strict
 from frankenstein_tpu_torch.ops.cuda import fused_decode as tfd
 
 torch.set_num_threads(1)
@@ -178,7 +178,7 @@ def tiny_gpt():
     jmodel = jgpt2.GPT(JGPTConfig(**cfg))
     idx0 = np.random.default_rng(12).integers(0, 96, (4, 5)).astype(np.int32)
     params = jmodel.init(jax.random.key(0), jnp.asarray(idx0))
-    model = load_franky(gpt2.GPT(GPTConfig(**cfg)), export_gpt(params))
+    model = load_strict(gpt2.GPT(GPTConfig(**cfg)), export_gpt(params))
     return jmodel, params, model, idx0
 
 

@@ -41,6 +41,16 @@ def test_build_rope_cache():
         np.asarray(jrope.build_rope_cache(32, 96, 10000.0)), atol=1e-6)
 
 
+def test_rope_for_positions():
+    rng = np.random.default_rng(2)
+    cache = jrope.build_rope_cache(16, 40)
+    pos = rng.integers(0, 40, size=(3, 7))
+    np.testing.assert_array_equal(
+        trope.rope_for_positions(torch.tensor(np.asarray(cache)),
+                                 torch.from_numpy(pos)).numpy(),
+        np.asarray(jrope.rope_for_positions(cache, jnp.asarray(pos))))
+
+
 @pytest.mark.parametrize("align", ["suffix", "prefix"])
 def test_apply_rope(align):
     rng = np.random.default_rng(0)

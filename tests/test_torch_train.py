@@ -20,7 +20,7 @@ from frankenstein_tpu.models.import_reference import export_franky
 from frankenstein_tpu_torch import config as tconfig
 from frankenstein_tpu_torch.data import datasets, tokenizers
 from frankenstein_tpu_torch.models.franky import Franky
-from frankenstein_tpu_torch.models.weights import init_franky_, load_franky
+from frankenstein_tpu_torch.models.weights import init_franky_, load_strict
 from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
 from frankenstein_tpu_torch.train import trainer
 from frankenstein_tpu_torch.train.__main__ import NOT_PORTED
@@ -96,7 +96,7 @@ def test_every_gradient_matches_jax_tied_wte_included():
 
     jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
     want = export_franky(jgrads)
-    model = load_franky(Franky(tiny_cfg(tconfig)), export_franky(params))
+    model = load_strict(Franky(tiny_cfg(tconfig)), export_franky(params))
     loss, _ = model(torch.from_numpy(x), torch.from_numpy(y))
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)

@@ -18,11 +18,11 @@ from tests.test_dress_rehearsal import TINY_YAML
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _run(args, timeout=300):
+def _run(args, timeout=300, rc=0):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
     p = subprocess.run([sys.executable, "-m", *args], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=timeout)
-    assert p.returncode == 0, (
+    assert (p.returncode == 0) == (rc == 0), (
         f"{' '.join(args)} rc={p.returncode}\n--- stdout\n{p.stdout[-3000:]}"
         f"\n--- stderr\n{p.stderr[-3000:]}")
     return p
@@ -44,7 +44,7 @@ def test_train_then_submit_on_competition_layout(tmp_path):
 
     out = _run(["frankenstein_tpu_torch.train", "--config", str(cfg),
                 "--data", str(data), "--exp-name", "dress",
-                "--save-folder", str(logs)])
+                "--save-folder", str(logs), "--device", "cpu"])
     assert "done at step 3" in out.stdout
 
     run_dir = logs / "dress"
@@ -64,5 +64,18 @@ def test_train_then_submit_on_competition_layout(tmp_path):
     sub = tmp_path / "sub.txt"
     _run(["frankenstein_tpu_torch.submit", "--data", str(data), "--split",
           "test", "--run-dir", str(run_dir), "--out", str(sub),
-          "--beam-width", "2", "--batch-size", "4"])
+          "--beam-width", "2", "--batch-size", "4", "--device", "cpu"])
     assert len(sub.read_text().splitlines()) == 4   # one per held-out trial
+
+
+def test_clis_need_a_gpu_unless_asked_for_the_cpu(tmp_path):
+    """Without a usable GPU and without ``--device``, both CLIs exit
+    non-zero and name ``--device cpu``; they never fall back on their own."""
+    for args in (["frankenstein_tpu_torch.train", "--data", "synthetic",
+                  "--steps", "1", "--save-folder", str(tmp_path)],
+                 ["frankenstein_tpu_torch.submit", "--data", "synthetic",
+                  "--checkpoint", str(tmp_path), "--out",
+                  str(tmp_path / "sub.txt")]):
+        p = _run(args, rc=1)
+        assert "--device cpu" in p.stderr, p.stderr[-2000:]
+    assert not (tmp_path / "sub.txt").exists()
