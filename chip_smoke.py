@@ -15,8 +15,10 @@ nvcc (sm_90a) and then, one line per phase:
    width, bf16 and w8a16 weights, with both times;
 4. the flagship Franky served end to end through ``make_franky_predictor``
    (random weights from a seed, bf16, w8a16 decode, top-k 10), with the
-   launch counts of the kernels, output checks, an f32 CPU cross-check of
-   the chain, and encode / decode times at batch 128;
+   launch counts of the kernels (K9 = 4 encoder blocks + 2 Perceiver
+   self-attention blocks per encode), output checks, an f32 CPU
+   cross-check of the chain, and encode / decode times at batch 128, the
+   encode also with K9 off (``fused_mlp.ENABLED``), with its peak memory;
 5. kernel K3 (beam-search cache reorder) against its twin at the flagship
    beam shape, bf16 and int8, and at FrankyLlama's int8 beam cache
    [8, 160, 64, 512], bitwise, with both times;
@@ -24,7 +26,7 @@ nvcc (sm_90a) and then, one line per phase:
    and B=8, bf16 and w8a16 weights, with both times;
 7. the beam path: the same flagship served through ``make_franky_predictor
    (beam_width=5, int8_kv=True, int8_weights=True)`` at batch 32, with the
-   launch counts of K1, K2 (int8-KV mode) and K3, beam width 1 against
+   launch counts of K1, K2 (int8-KV mode), K3 and K9, beam width 1 against
    greedy, the int8-KV logits against the bf16 cache's,
    ``evaluate_franky_wer`` over a synthetic set, the submission writer,
    and encode / beam decode / request times;
@@ -36,11 +38,12 @@ nvcc (sm_90a) and then, one line per phase:
    for 30 steps at B=32 on synthetic trials through the train CLI
    (``python -m frankenstein_tpu_torch.train --config configs/franky.yaml``,
    called in-process), with an eval and a checkpoint: finite, falling
-   losses, the launch counts of K1 and K4, one step's gradients against an
-   f32 CPU twin at B=1, the checkpoint restored bitwise, the run served
+   losses, the launch counts of K1, K4 and K9, one step's gradients against
+   an f32 CPU twin at B=1, the checkpoint restored bitwise, the run served
    by ``python -m frankenstein_tpu_torch.submit --run-dir`` over 8
    synthetic windows; then the step time, samples/s and peak memory at
-   B=32, and one step at the YAML's batch 256 with grad_accum 8;
+   B=32, with K9 on and off in turns, and one step at the YAML's batch 256
+   with grad_accum 8;
 10. kernel K5 (all-layer LLaMA decode step, GQA over the unexpanded cache)
     against its twin in all four modes: at FrankyLlama width (L=8, E=1024,
     16 heads on 8 KV heads, F=2816, S=64) with B*W=160 and an int8 cache
@@ -53,7 +56,7 @@ nvcc (sm_90a) and then, one line per phase:
     a 2-layer Perceiver into a ~110M LLaMA) served end to end through
     ``make_franky_predictor(beam_width=5, int8_kv=True, int8_weights=True,
     rescorer=(fl,))`` at batch 32 (random weights from a seed, bf16): the
-    launch counts of K1, K5 (int8-KV mode) and K3, whether the rescorer
+    launch counts of K1, K5 (int8-KV mode), K3 and K9, whether the rescorer
     moved a row off its first beam, beam width 1 against greedy, the int8-KV
     logits against a bf16 cache's, an f32 CPU cross-check, the top-k path,
     and the median and range over 5 runs of encode / beam decode / rescore
@@ -69,18 +72,32 @@ nvcc (sm_90a) and then, one line per phase:
 13. MAE pretraining: ``configs/mae.yaml``'s MAE (f32 parameters, bf16
     compute) trained for 30 steps at B=32 through the train CLI, with an
     eval and a checkpoint: finite, falling losses, the launch counts of K6
-    and K7 (4 forward per forward pass, 4 backward per step), K1-K5 and the
-    twins idle, the checkpoint restored bitwise, ``return_preds`` shaped as
+    and K7 (4 forward per forward pass, 4 backward per step) and K9 (4 per
+    forward pass: the encoder's blocks; the decoder's residual stream is
+    f32, which K9's gate refuses), K1-K5 and the twins idle, the checkpoint
+    restored bitwise, ``return_preds`` shaped as
     the window, one step's gradients against an f32 CPU twin at B=1 with the
     same mask (at the seeded initial weights, and after training, where
     each attention weight is held to what bf16 compute on the CPU gives
     it) and that step's K6 / K7 backward launches against their twins on
-    the same tensors, the step time, samples/s and peak memory at B=32 and
-    one step at B=256 with grad_accum 8; then ``configs/franky.yaml``
+    the same tensors, the step time, samples/s and peak memory at B=32
+    (with K9 on and off in turns) and one step at B=256 with grad_accum 8;
+    then ``configs/franky.yaml``
     trained for 2 steps with ``--init-encoder-from`` the MAE run, its
     encoder equal to the MAE checkpoint's bitwise before the first step;
     last, a torch.profiler split of the MAE's and the grafted Franky's B=32
-    step by kernel family.
+    step by kernel family;
+14. kernel K9 (the fused pre-norm SwiGLU MLP) against its twin, LayerNorm
+    and RMSNorm, at the flagship encoder's shape (B=2, T=6144, E=256,
+    hidden 1024) and the Perceiver's (B=128, T=32, hidden 512): out and the
+    update out - x, two launches bitwise equal, the kernel's, the twin's
+    and the eager module chain's times (no one library call computes the
+    function), and the kernel at B=32;
+15. the routes the kernels do not take, through the train CLI at B=1: one
+    ``--no-bf16`` step of Franky and of the MAE (f32: no kernel launches,
+    plain attention at T=6144, the MLPs' module chain) and one bf16 step of
+    an MAE of ``--channels 100`` (2400 tokens, 600 kept: K6 and K7 refuse
+    them, K9 runs); finite losses, the launch counts and the plain calls.
 
 Then one JSON line with the kernels' results (each with its bound, the least
 time the card could take for the same bytes and operations, and the time of
@@ -117,6 +134,9 @@ K5_TOL = 2e-2     # relative to max |twin|: the same bf16 roundings, other
                   # f32 summation order
 FLASH_TOL = 2e-2  # K6 / K7, relative to max |twin|: p, ds, dq, dk and dv
                   # round to bf16
+K9_TOL = 2e-2     # relative to max |twin|: a, b and g round to bf16 after
+                  # f32 sums taken in another order
+AB_TURNS = (True, False, False, True)   # K9 on / off, in turns
 PROFILE_STEPS = 3   # profiled B=32 train steps (phase 13)
 PROFILE_TOP = 4     # kernels named in a profile line
 # kernel name -> family, first match wins
@@ -126,6 +146,7 @@ PROFILE_FAMILIES = [
     ("K6/K7 bwd dk/dv", r"flash_attn_bwd_dkv"),
     ("K1", r"slab_rope_attn_fwd"),
     ("K4", r"slab_rope_attn_bwd"),
+    ("K9", r"fused_norm_swiglu"),
     ("cuBLAS", r"gemm|xmma|nvjet|cutlass|sm90_"),
     ("AdamW", r"multi_tensor"),
     ("reductions", r"reduce|norm"),
@@ -445,21 +466,64 @@ def _reset_launches() -> None:
     from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
     from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
     from frankenstein_tpu_torch.ops.cuda import fused_llama_decode as k5
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
     k1.launches = k1.launches_bwd = 0
     k2.launches = k2.launches_int8_kv = k3.launches = 0
-    k5.launches = k5.launches_int8_kv = 0
+    k5.launches = k5.launches_int8_kv = k9.launches = 0
 
 
 def _read_launches() -> dict:
     from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
     from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
     from frankenstein_tpu_torch.ops.cuda import fused_llama_decode as k5
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
     return {"K1": k1.launches, "K2": k2.launches,
             "K2-int8": k2.launches_int8_kv, "K3": k3.launches,
             "K4": k1.launches_bwd, "K5": k5.launches,
-            "K5-int8": k5.launches_int8_kv}
+            "K5-int8": k5.launches_int8_kv, "K9": k9.launches}
+
+
+def _k9_blocks(cfg) -> int:
+    """K9 launches per encode of a Franky or FrankyLlama: the encoder's
+    blocks and each Perceiver layer's self-attention block (its
+    cross-attention MLP is the module chain, as in the JAX package)."""
+    return cfg.brain.encoder.n_layers + cfg.brain.n_layers
+
+
+def _k9_ab(measure) -> dict:
+    """``measure()`` -> (ms, peak GiB) with K9 on and off
+    (``fused_mlp.ENABLED``) in the turns AB_TURNS: the mean ms of each
+    setting's turns and its larger peak."""
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+    ms = {True: [], False: []}
+    peak = {True: 0.0, False: 0.0}
+    try:
+        for on in AB_TURNS:
+            k9.ENABLED = on
+            t, p = measure()
+            ms[on].append(t)
+            peak[on] = max(peak[on], p)
+    finally:
+        k9.ENABLED = True
+    return {"on_ms": sum(ms[True]) / len(ms[True]),
+            "off_ms": sum(ms[False]) / len(ms[False]),
+            "on_gib": peak[True], "off_gib": peak[False]}
+
+
+def _ms_and_peak(fn) -> tuple:
+    """(mean device ms of 3 calls of fn() after one, peak GiB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _time_ms(fn, iters=3, warmup=1)
+    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _ab_note(ab: dict) -> str:
+    return (f"K9 on {ab['on_ms']:.1f} ms (peak {ab['on_gib']:.2f} GiB), off "
+            f"{ab['off_ms']:.1f} ms (peak {ab['off_gib']:.2f} GiB)")
 
 
 def phase_slice(card: str, model) -> dict:
@@ -486,7 +550,7 @@ def phase_slice(card: str, model) -> dict:
            f"predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": cfg.max_tokens,
                         "K2-int8": 0, "K3": 0, "K4": 0, "K5": 0,
-                        "K5-int8": 0},
+                        "K5-int8": 0, "K9": _k9_blocks(cfg)},
            f"launches {launches}")
     prefix = model.encode(xs)
     idx0 = torch.full((8, 1), GPT2_EOT, dtype=torch.long, device=dev)
@@ -505,7 +569,8 @@ def phase_slice(card: str, model) -> dict:
     # batch-128 timings (the bench's headline batch)
     xb = torch.randn(128, enc.window_size, enc.n_electrodes, generator=gen,
                      device=dev)
-    encode_ms = _time_ms(lambda: model.encode(xb), iters=3, warmup=1)
+    ab = _k9_ab(lambda: _ms_and_peak(lambda: model.encode(xb)))
+    encode_ms = ab["on_ms"]
     pb = model.encode(xb)
     idx_b = torch.full((128, 1), GPT2_EOT, dtype=torch.long, device=dev)
     qw = sampling.quantize_serving_weights(model)
@@ -516,14 +581,17 @@ def phase_slice(card: str, model) -> dict:
     print(f"phase 4 slice: Franky flagship (768x256 window, 6144 tokens, "
           f"GPT-2 124M, bf16, w8a16 decode, top-k 10, 25 tokens): "
           f"{len(out)} strings, launches {launches} (K1 = {enc.n_layers} per "
-          f"encode, K2 = {cfg.max_tokens} per request), prefill logits "
+          f"encode, K2 = {cfg.max_tokens} per request, K9 = "
+          f"{_k9_blocks(cfg)} per encode), prefill logits "
           f"finite, token ids in [0, {cfg.gpt.vocab_size}), card vs f32 CPU "
           f"twins rel err prefix {errs['prefix']:.3e} logits "
           f"{errs['logits']:.3e} (tol {SLICE_TOL}) | B=128 encode "
           f"{encode_ms:.1f} ms, decode {decode_ms:.1f} ms | B=8 request "
-          f"{request_ms:.1f} ms | {card}", flush=True)
+          f"{request_ms:.1f} ms | B=128 encode {_ab_note(ab)} | {card}",
+          flush=True)
     return {"launches": launches, "encode_ms_b128": encode_ms,
-            "decode_ms_b128": decode_ms, "request_ms_b8": request_ms}
+            "decode_ms_b128": decode_ms, "request_ms_b8": request_ms,
+            "encode_ab": ab}
 
 
 def phase_k3(card: str) -> dict:
@@ -746,7 +814,8 @@ def phase_beams(card: str, model) -> dict:
     _check(len(out) == b and all(isinstance(s, str) for s in out),
            f"beam predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": steps, "K2-int8": steps,
-                        "K3": steps, "K4": 0, "K5": 0, "K5-int8": 0},
+                        "K3": steps, "K4": 0, "K5": 0, "K5-int8": 0,
+                        "K9": _k9_blocks(cfg)},
            f"beam path launches {launches}")
 
     qw = sampling.quantize_serving_weights(model)
@@ -777,8 +846,9 @@ def phase_beams(card: str, model) -> dict:
     request_ms = _time_ms(lambda: predict(xs), iters=3, warmup=1)
     print(f"phase 7 beams: Franky flagship, beam width {w}, int8 KV, w8a16, "
           f"{steps} tokens, B={b}: {len(out)} strings, launches {launches} "
-          f"(K1 = {enc.n_layers} per encode, K2 and K3 = {steps} per "
-          f"request), beam width 1 == greedy, int8-KV logit drift "
+          f"(K1 = {enc.n_layers} and K9 = {_k9_blocks(cfg)} per encode, K2 "
+          f"and K3 = {steps} per request), beam width 1 == greedy, int8-KV "
+          f"logit drift "
           f"{drift:.3e} of the range (tol {INT8_KV_TOL}), synthetic WER "
           f"{wer:.4f} over {len(preds)} trials, submission {len(lines)} "
           f"lines | B={b} encode {encode_ms:.1f} ms, beam decode "
@@ -1020,6 +1090,7 @@ def phase_train(card: str) -> dict:
         # one eval batch: 32 validation trials at batch 32
         _check(launches["K4"] == n_layers * TRAIN_STEPS
                and launches["K1"] == n_layers * (TRAIN_STEPS + 1)
+               and launches["K9"] == _k9_blocks(cfg) * (TRAIN_STEPS + 1)
                and launches["K2"] == launches["K3"] == launches["K5"] == 0,
                f"training launches {launches}")
 
@@ -1049,6 +1120,7 @@ def phase_train(card: str) -> dict:
         ds = train_cli.build_datasets("synthetic", 768, 256, 256)[0]
         grad_errs = _grad_check(state, tcfg, ds)
         step_ms, peak = _time_steps(state, tcfg, ds, 32, 5)
+        ab = _k9_ab(lambda: _time_steps(state, tcfg, ds, 32, 3))
         big = tcfg.replace(batch_size=256, grad_accum=8)
         big_ms, big_peak = _time_steps(state, big, ds, 256, 1)
     worst = max(grad_errs, key=grad_errs.get)
@@ -1057,19 +1129,21 @@ def phase_train(card: str) -> dict:
           f"B=32 through the train CLI in {run_s:.1f} s: train loss "
           f"{losses[0]:.4f} -> {losses[-1]:.4f} (logged {len(losses)}), val "
           f"{val[-1]:.4f}, samples/s in the log {rate[-1]:.1f}, launches "
-          f"{launches} (K4 = {n_layers} per step, K1 = {n_layers} per "
-          f"forward), checkpoint {best.name} restored bitwise, submit "
+          f"{launches} (K4 = {n_layers} per step, K1 = {n_layers} and K9 = "
+          f"{_k9_blocks(cfg)} per forward), checkpoint {best.name} restored "
+          f"bitwise, submit "
           f"--run-dir wrote {len(lines)} lines | B=1 card vs f32 CPU twin "
           f"gradients: global norm rel err {grad_errs['global_norm']:.3e}, "
           f"worst encoder attention weight {worst} {grad_errs[worst]:.3e} "
           f"(tol {GRAD_TOL}) | B=32 step {step_ms:.1f} ms, "
-          f"{32e3 / step_ms:.1f} samples/s, peak {peak:.2f} GiB | B=256 "
-          f"grad_accum 8 step {big_ms:.1f} ms, peak {big_peak:.2f} GiB | "
-          f"{card}", flush=True)
+          f"{32e3 / step_ms:.1f} samples/s, peak {peak:.2f} GiB; in turns "
+          f"{_ab_note(ab)} | B=256 grad_accum 8 step {big_ms:.1f} ms, peak "
+          f"{big_peak:.2f} GiB | {card}", flush=True)
     _check(max(grad_errs.values()) <= GRAD_TOL,
            f"card vs CPU gradients: {grad_errs}")
     return {"launches": launches, "step_ms": step_ms, "peak_gib": peak,
-            "big_ms": big_ms, "big_peak_gib": big_peak, "grad": grad_errs}
+            "big_ms": big_ms, "big_peak_gib": big_peak, "grad": grad_errs,
+            "step_ab": ab}
 
 
 def _train_config(run_dir):
@@ -1282,7 +1356,7 @@ def phase_franky_llama(card: str, model) -> dict:
            f"FrankyLlama predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": 0, "K2-int8": 0,
                         "K3": steps, "K4": 0, "K5": steps,
-                        "K5-int8": steps},
+                        "K5-int8": steps, "K9": _k9_blocks(cfg)},
            f"FrankyLlama beam path launches {launches}")
 
     qw = sampling.quantize_serving_weights(model)
@@ -1311,7 +1385,8 @@ def phase_franky_llama(card: str, model) -> dict:
     torch.cuda.synchronize()
     top_launches = _read_launches()
     _check(len(top_out) == b and top_launches["K5"] == steps
-           and top_launches["K5-int8"] == 0 and top_launches["K3"] == 0,
+           and top_launches["K5-int8"] == 0 and top_launches["K3"] == 0
+           and top_launches["K9"] == _k9_blocks(cfg),
            f"FrankyLlama top-k path: {len(top_out)} strings, launches "
            f"{top_launches}")
 
@@ -1342,8 +1417,9 @@ def phase_franky_llama(card: str, model) -> dict:
           f"KV={cfg.lm.n_kv_heads} F={cfg.lm.hidden_dim} V="
           f"{cfg.lm.vocab_size}, bf16, beams of {w}, int8 KV, w8a16, "
           f"{steps} tokens, n-best LLaMA rescoring, B={b}: {len(out)} "
-          f"strings, launches {launches} (K1 = {enc.n_layers} per encode, "
-          f"K5 int8-KV and K3 = {steps} per request), rescorer moved "
+          f"strings, launches {launches} (K1 = {enc.n_layers} and K9 = "
+          f"{_k9_blocks(cfg)} per encode, K5 int8-KV and K3 = {steps} per "
+          f"request), rescorer moved "
           f"{moved} of {b} rows off the first beam, beam width 1 == greedy, "
           f"int8-KV logit drift {drift:.3e} of the range (tol "
           f"{INT8_KV_TOL}), card vs f32 CPU twins rel err prefix "
@@ -1614,6 +1690,7 @@ def phase_mae(card: str) -> dict:
     from frankenstein_tpu_torch.models.weights import init_mae_
     from frankenstein_tpu_torch.ops import attention as tattn
     from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
     from frankenstein_tpu_torch.train import __main__ as train_cli
     from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
@@ -1622,7 +1699,8 @@ def phase_mae(card: str) -> dict:
     repo = Path(__file__).resolve().parent
     plain = [(k67, "flash_attention_ref"), (k67, "flash_attention_bwd_ref"),
              (k1, "slab_rope_attention_ref"),
-             (k1, "slab_rope_attention_bwd_ref"), (tattn, "_softmax_av")]
+             (k1, "slab_rope_attention_bwd_ref"),
+             (k9, "fused_norm_swiglu_ref"), (tattn, "_softmax_av")]
     with tempfile.TemporaryDirectory() as tmp:
         _reset_launches()
         _reset_flash()
@@ -1658,6 +1736,9 @@ def phase_mae(card: str) -> dict:
                 "K7-bwd": cfg.n_dec_layers * TRAIN_STEPS, "K7-slab": 0,
                 "K7-slab-bwd": 0}
         _check(flash == want, f"MAE launches {flash}, want {want}")
+        k9_want = cfg.n_layers * passes     # the encoder's blocks only
+        _check(launches.pop("K9") == k9_want,
+               f"K9 launched {k9.launches} times, want {k9_want}")
         _check(not any(launches.values()), f"K1-K5 launched: {launches}")
         _check(not any(twins.calls.values()),
                f"plain twins ran on the card: {twins.calls}")
@@ -1703,6 +1784,7 @@ def phase_mae(card: str) -> dict:
         del init
         trained = _mae_grad_check(state.model, ds, witness=True)
         step_ms, peak = _time_steps(state, tcfg, ds, 32, 5)
+        ab = _k9_ab(lambda: _time_steps(state, tcfg, ds, 32, 3))
         big = tcfg.replace(batch_size=256, grad_accum=8)
         big_ms, big_peak = _time_steps(state, big, ds, 256, 1)
         profiles = {"MAE": _profile_steps(state, tcfg, ds, "MAE", card)}
@@ -1756,8 +1838,10 @@ def phase_mae(card: str) -> dict:
           f"{losses[-1]:.4f} (logged {len(losses)}), val {val[-1]:.4f}, "
           f"samples/s in the log {rate[-1]:.1f}, launches {flash} (K6 and "
           f"K7 = {cfg.n_layers} per forward, K6-bwd and K7-bwd = "
-          f"{cfg.n_dec_layers} per step), K1-K5 0, plain twins and the plain "
-          f"attention path 0 calls, checkpoint {best.name} restored bitwise, "
+          f"{cfg.n_dec_layers} per step), K9 {k9_want} ({cfg.n_layers} per "
+          f"forward: the decoder's f32 stream keeps the module chain), K1-K5 "
+          f"0, plain twins and the plain attention path 0 calls, checkpoint "
+          f"{best.name} restored bitwise, "
           f"return_preds {tuple(recon.shape)} with {masked_share:.4f} masked "
           f"| B=1 card vs f32 CPU twin gradients at the seeded initial "
           f"weights ({at_init['s']:.1f} s): global norm rel err "
@@ -1775,7 +1859,8 @@ def phase_mae(card: str) -> dict:
           f"{tightest} {trained_errs[tightest]:.3e} vs {witness[tightest]:.3e}"
           f" | B=32 "
           f"step {step_ms:.1f} ms, {32e3 / step_ms:.1f} samples/s, peak "
-          f"{peak:.2f} GiB | B=256 grad_accum 8 step {big_ms:.1f} ms, peak "
+          f"{peak:.2f} GiB; in turns {_ab_note(ab)} | B=256 grad_accum 8 "
+          f"step {big_ms:.1f} ms, peak "
           f"{big_peak:.2f} GiB | graft: Franky (configs/franky.yaml) with "
           f"--init-encoder-from the MAE run, encoder equal to the MAE "
           f"checkpoint's bitwise before step 1, 2 steps, val "
@@ -1788,9 +1873,144 @@ def phase_mae(card: str) -> dict:
     _check(max(at_init["kernel_rel"], trained["kernel_rel"]) <= FLASH_TOL,
            f"K6/K7 backward vs twins on the MAE's own tensors: "
            f"{at_init['kernel_rel']}, trained {trained['kernel_rel']}")
-    return {"launches": flash, "step_ms": step_ms, "peak_gib": peak,
-            "big_ms": big_ms, "big_peak_gib": big_peak, "grad": grad_errs,
-            "profiles": profiles}
+    return {"launches": flash, "k9_launches": k9_want, "step_ms": step_ms,
+            "peak_gib": peak, "big_ms": big_ms, "big_peak_gib": big_peak,
+            "grad": grad_errs, "profiles": profiles, "step_ab": ab}
+
+
+def _k9_inputs(b: int, t: int, hidden: int, kind: str, gen):
+    """bf16 x [B, T, 256] and serving weights (bf16 nn.Linear layout), f32
+    norm parameters, no bias for RMSNorm."""
+    import torch
+    e = 256
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    nb = 0.1 * rnd(e) if kind == "layernorm" else None
+    w = lambda o, i: (rnd(o, i) / i ** 0.5).to(torch.bfloat16)
+    return (rnd(b, t, e).to(torch.bfloat16), 1.0 + 0.1 * rnd(e), nb,
+            w(hidden, e), w(hidden, e), w(e, hidden))
+
+
+def phase_k9(card: str) -> dict:
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    results = {}
+    for kind in ("layernorm", "rmsnorm"):
+        for shape, b, t, hidden in (("encoder", 2, 6144, 1024),
+                                    ("Perceiver", 128, 32, 512)):
+            args = _k9_inputs(b, t, hidden, kind, gen)
+            run = lambda: k9.fused_norm_swiglu(*args, kind=kind)
+            out, again = run(), run()
+            ref = k9.fused_norm_swiglu_ref(*args, kind=kind)
+            torch.cuda.synchronize()
+            bitwise = torch.equal(out, again)
+            err = _max_err(out, ref)
+            rel = err / float(ref.float().abs().max())
+            upd = ref.float() - args[0].float()
+            upd_rel = (_max_err(out.float() - args[0].float(), upd)
+                       / float(upd.abs().max()))
+            ms = _time_ms(run)
+            plain_ms = _time_ms(lambda: k9.fused_norm_swiglu_ref(
+                *args, kind=kind), iters=3)
+            chain_ms = _time_ms(lambda: k9.reference_chain(*args, kind=kind))
+            rows, e = b * t, args[0].shape[-1]
+            bound = _bound(4 * rows * e + _nbytes(*args[1:]),
+                           6 * rows * e * hidden)
+            print(f"phase 14 K9 fused_norm_swiglu {kind} {shape} B={b} T={t} "
+                  f"E={e} hidden={hidden} bf16: out max_abs_err {err:.3e} "
+                  f"(rel {rel:.3e}), update out - x rel err {upd_rel:.3e}, "
+                  f"tol {K9_TOL} x max|twin|, two launches bitwise equal "
+                  f"{bitwise} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"eager module chain {chain_ms:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) | "
+                  f"{card}", flush=True)
+            _check(bool(torch.isfinite(out).all()), f"K9 {kind} not finite")
+            _check(max(rel, upd_rel) <= K9_TOL,
+                   f"K9 {kind} {shape} disagrees with its twin: {rel}, "
+                   f"update {upd_rel}")
+            _check(bitwise, f"K9 {kind} {shape} is not deterministic")
+            results[(kind, shape)] = {"max_abs_err": err, "ms": ms,
+                                      "plain_ms": plain_ms,
+                                      "library_ms": None, **bound}
+            del args, out, again, ref, upd
+        big = _k9_inputs(32, 6144, 1024, kind, gen)
+        ms_b32 = _time_ms(lambda: k9.fused_norm_swiglu(*big, kind=kind),
+                          iters=5)
+        chain_b32 = _time_ms(lambda: k9.reference_chain(*big, kind=kind),
+                             iters=5)
+        rows = 32 * 6144
+        bound_b32 = _bound(4 * rows * 256 + _nbytes(*big[1:]),
+                           6 * rows * 256 * 1024)
+        print(f"phase 14 K9 fused_norm_swiglu {kind} encoder B=32: kernel "
+              f"{ms_b32:.3f} ms, eager module chain {chain_b32:.3f} ms, "
+              f"bound {bound_b32['bound_ms']:.4f} ms "
+              f"({bound_b32['bound_by']}) | {card}", flush=True)
+        del big
+    return results
+
+
+def phase_repair(card: str) -> None:
+    """Inputs no kernel takes run the plain routes: one step (and one eval
+    over 8 trials) through the train CLI at B=1 of Franky and of the MAE in
+    f32 (``--no-bf16``), and of an MAE of 100 channels in bf16."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch.models import layers
+    from frankenstein_tpu_torch.ops import attention as tattn
+    from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+
+    repo = Path(__file__).resolve().parent
+    watched = [(tattn, "_softmax_av"), (layers.SwiGLU, "forward"),
+               (k67, "flash_attention_ref"), (k67, "flash_attention_bwd_ref"),
+               (k1, "slab_rope_attention_ref"),
+               (k1, "slab_rope_attention_bwd_ref"),
+               (k9, "fused_norm_swiglu_ref")]
+    runs = {"Franky f32": ["--config", str(repo / "configs" / "franky.yaml"),
+                           "--no-bf16"],
+            "MAE f32": ["--config", str(repo / "configs" / "mae.yaml"),
+                        "--no-bf16"],
+            "MAE 100 channels bf16": ["--model", "mae", "--channels", "100"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, args) in enumerate(runs.items()):
+            _reset_launches()
+            _reset_flash()
+            t0 = time.perf_counter()
+            with _CountCalls(watched) as calls:
+                train_cli.main([*args, "--data", "synthetic",
+                                "--synthetic-trials", "8", "--batch-size",
+                                "1", "--steps", "1", "--eval-interval", "1",
+                                "--exp-name", f"run{i}", "--save-folder",
+                                tmp])
+                torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launched = {k: n for k, n in {**_read_launches(),
+                                          **_read_flash()}.items() if n}
+            records = [json.loads(line) for line in (
+                Path(tmp) / f"run{i}" / "metrics.jsonl").read_text()
+                .splitlines()]
+            # the trainer raises on a non-finite train loss by itself
+            val = [r["val/loss"] for r in records if "val/loss" in r]
+            plain = {k: n for k, n in calls.calls.items() if n}
+            print(f"phase 15 repair: {name}, 1 step at B=1 and an eval over "
+                  f"8 trials through the train CLI in {run_s:.1f} s: train "
+                  f"loss finite, val loss {val}, kernel launches "
+                  f"{launched or 'none'}, plain calls {plain} | {card}",
+                  flush=True)
+            _check(len(val) == 1 and math.isfinite(val[0]),
+                   f"{name}: val losses {val}")
+            twins = [k for k in plain if k.endswith("_ref")]
+            _check(not twins, f"{name}: twins ran on the card: {twins}")
+            _check(plain.get("attention._softmax_av", 0) > 0,
+                   f"{name}: the plain attention path did not run")
+            # 4 encoder blocks over 1 training and 8 eval forwards
+            want = {} if "f32" in name else {"K9": 4 * 9}
+            _check(launched == want, f"{name}: launches {launched}, want "
+                   f"{want}")
 
 
 def _entry(r: dict) -> dict:
@@ -1827,6 +2047,8 @@ def main() -> int:
     del model
     fa = phase_flash(card)
     mae = phase_mae(card)
+    k9 = phase_k9(card)
+    phase_repair(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [
@@ -1883,6 +2105,15 @@ def main() -> int:
              "replaces": f"frankenstein_tpu/ops/pallas/block_attention.py:"
                          f"{bwd_at}",
              "launches": mae["launches"][f"{key}-bwd"], **_entry(bwd)}]
+    for kind in ("layernorm", "rmsnorm"):
+        # no ported model runs an RMSNorm Block yet: its launches are 0
+        kernels.append(
+            {"name": f"fused_norm_swiglu_{kind}", "route": "cuda",
+             "source": "frankenstein_tpu_torch/csrc/fused_mlp.cu",
+             "replaces": "frankenstein_tpu/ops/pallas/fused_mlp.py:125 "
+                         "(call :135)",
+             "launches": sl["launches"]["K9"] if kind == "layernorm" else 0,
+             **_entry(k9[(kind, "encoder")])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@
 - Decode uses a fixed-shape KV cache with heads folded, ``[L, B, S, E]``
   (``init_cache`` / ``prefill`` / ``decode_step``), or its int8 form
   ``QuantCache`` (``quantize_cache`` after prefill). ``decode_step`` runs
-  all blocks through kernel K2 (``ops/cuda/fused_decode.py``) on the card;
+  all blocks through kernel K2 (``ops/cuda/fused_decode.py``) where
+  ``fused_decode.supported`` holds, else the module blocks;
   ``reorder_cache`` gathers beams, through kernel K3
   (``ops/cuda/beam_reorder.py``) when the beams are grouped.
 - ``lm_head`` is tied to ``transformer.wte``.
@@ -50,6 +51,22 @@ def quantize_cache(cache) -> QuantCache:
     k8, ks = fused_decode.quantize_cache_side(cache[0])
     v8, vs = fused_decode.quantize_cache_side(cache[1])
     return QuantCache(k8, v8, ks, vs)
+
+
+def on_float_cache(cache, dtype, fn):
+    """fn(kv) on the float form of ``cache``: a float cache as it is, a
+    ``QuantCache`` dequantized to ``dtype`` around the call and its codes
+    then requantized IN PLACE with its own fixed scales (rows fn did not
+    write round-trip to their codes). Returns fn's result."""
+    if not isinstance(cache, QuantCache):
+        return fn(cache)
+    sides = ((cache.k, cache.k_scale), (cache.v, cache.v_scale))
+    kv = [fused_decode.dequantize_cache_side(codes, sc, dtype)
+          for codes, sc in sides]
+    out = fn(kv)
+    for (codes, sc), full in zip(sides, kv):
+        codes.copy_(fused_decode.quantize_with_scales(full, sc))
+    return out
 
 
 class CausalSelfAttention(nn.Module):
@@ -303,18 +320,27 @@ class GPT(nn.Module):
                     qweights: Optional[dict] = None):
         """One decode step. token: [B] ids at absolute position ``length``.
 
-        All blocks run in kernel K2 (its plain twin on the CPU); the new K/V
-        rows land in ``cache`` IN PLACE. ``cache`` may be a ``QuantCache``:
-        K2 then runs its int8-KV mode and the scales stay as they are.
-        ``qweights``: the stacked decode weights (``stack_decode_weights``
-        or ``quantize_decode_weights``), built once by the caller; None
-        stacks them for this call.
+        All blocks run in kernel K2 (its plain twin on the CPU) where
+        ``fused_decode.supported`` holds, else in ``_decode_blocks_plain``;
+        the new K/V rows land in ``cache`` IN PLACE either way. ``cache``
+        may be a ``QuantCache``: K2 then runs its int8-KV mode and the
+        scales stay as they are. ``qweights``: the stacked decode weights
+        (``stack_decode_weights`` or ``quantize_decode_weights``), built
+        once by the caller; None stacks them for this call.
         Returns (logits [B, vocab] f32, cache, length + 1)."""
-        if qweights is None:
-            qweights = stack_decode_weights(self)
         quant = isinstance(cache, QuantCache)
         x = (self.transformer["wte"](token)
              + self.transformer["wpe"].weight[length][None])
+        w_dtype = self.dtype if qweights is None else qweights["qkv_w"].dtype
+        if not fused_decode.supported(x.device, x.dtype, w_dtype,
+                                      cache[0].dtype, self.cfg.n_embd,
+                                      self.cfg.n_head):
+            x = self._decode_blocks_plain(x, cache, length, qweights)
+            table = None if qweights is None else qweights.get("lm_head_t")
+            x = self.transformer["ln_f"](x)
+            return self._lm_head(x, table), cache, length + 1
+        if qweights is None:
+            qweights = stack_decode_weights(self)
         x, k, v = fused_decode.fused_decode_blocks(
             x, qweights, cache[0], cache[1], length,
             cache.k_scale if quant else None,
@@ -323,6 +349,19 @@ class GPT(nn.Module):
                  else (k, v))
         x = self.transformer["ln_f"](x)
         return self._lm_head(x, qweights.get("lm_head_t")), cache, length + 1
+
+    def _decode_blocks_plain(self, x, cache, length: int, qweights):
+        """x [B, E] through the module blocks at row ``length`` (the JAX
+        package's scanned path), writing the new K/V rows into ``cache`` IN
+        PLACE (``on_float_cache``). int8 block weights need K2."""
+        if qweights is not None and qweights["qkv_w"].dtype == torch.int8:
+            raise NotImplementedError(
+                "int8 decode weights need kernel K2 (ops/cuda/"
+                "fused_decode.py), which does not take this step; serve "
+                "with int8_weights=False")
+        return on_float_cache(
+            cache, self.compute_dtype or self.dtype,
+            lambda kv: self._run_blocks(x[:, None], kv, length)[:, 0])
 
     @staticmethod
     def reorder_cache(cache, flat_idx, group: int = 0):

@@ -25,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops import norms
 from frankenstein_tpu_torch.ops import rope as rope_ops
+from frankenstein_tpu_torch.ops.cuda import fused_mlp, slab_attention
 
 
 def linear(x: torch.Tensor, layer: nn.Linear,
@@ -83,17 +84,18 @@ class SwiGLU(nn.Module):
         self.w3 = _linear(dim, hidden_dim, False, device)
 
     def forward(self, x):
-        cdt = self.compute_dtype
-        g = (F.silu(linear(x, self.w1, cdt)) * linear(x, self.w3, cdt))
-        return linear(g, self.w2, cdt)
+        return fused_mlp.swiglu_fn(x, self.w1.weight, self.w3.weight,
+                                   self.w2.weight, self.compute_dtype)
 
 
 class SelfAttention(nn.Module):
     """MHA with RoPE. The slab-causal mode with a shared rope table runs
-    kernel K1 (``ops.attention.slab_attention_rope_fused``); other modes run
+    kernel K1 (``ops.attention.slab_attention_rope_fused``) where
+    ``slab_attention.supported`` holds; otherwise, and in the other modes,
     ``apply_rope`` (a shared or a per-sample table) +
     ``dot_product_attention``, which routes the MAE's "gathered_slab"
-    encoder (with ``positions``) to K6 and its long dense decoder to K7."""
+    encoder (with ``positions``) to K6 and its long dense decoder to K7
+    where their kernels take the input."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int, device=None,
                  dtype=None):
@@ -112,7 +114,9 @@ class SelfAttention(nn.Module):
         cdt = self.compute_dtype
         qf, kf, vf = (linear(x, self.qw, cdt), linear(x, self.kw, cdt),
                       linear(x, self.vw, cdt))
-        if mask_mode == "slab" and rope is not None:
+        if (mask_mode == "slab" and rope is not None
+                and slab_attention.supported(x.device, qf.dtype, t,
+                                             qf.shape[-1], self.n_heads)):
             out = attn_ops.slab_attention_rope_fused(
                 qf, kf, vf, n_heads=self.n_heads, tok_per_time=tok_per_time,
                 rope_cache=rope)
@@ -154,15 +158,29 @@ class CrossAttention(nn.Module):
         return linear(out.reshape(b, t, -1), self.project, cdt)
 
 
+def make_norm(kind: str, dim: int, device=None) -> nn.Module:
+    """``Block``'s norm: "layernorm" or "rmsnorm"."""
+    if kind == "rmsnorm":
+        return RMSNorm(dim, device=device)
+    if kind == "layernorm":
+        return LayerNorm(dim, device=device)
+    raise ValueError(f"unknown norm {kind!r}: 'layernorm' or 'rmsnorm'")
+
+
 class Block(nn.Module):
-    """Pre-norm residual block with LayerNorm."""
+    """Pre-norm residual block, LayerNorm or RMSNorm (``norm``). Its MLP
+    sublayer runs kernel K9 (``ops/cuda/fused_mlp.py:FusedNormSwiGLU``)
+    when ``fused_mlp.ENABLED`` and ``fused_mlp.supported`` hold (x in the
+    compute dtype, a width the kernel takes), else the module chain."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int,
-                 hidden_dim: int, device=None, dtype=None):
+                 hidden_dim: int, device=None, dtype=None,
+                 norm: str = "layernorm"):
         super().__init__()
-        self.ln_1 = LayerNorm(dim, device=device)
+        self.norm = norm
+        self.ln_1 = make_norm(norm, dim, device)
         self.attn = SelfAttention(dim, n_heads, head_dim, device, dtype)
-        self.ln_2 = LayerNorm(dim, device=device)
+        self.ln_2 = make_norm(norm, dim, device)
         self.mlp = SwiGLU(dim, hidden_dim, device, dtype)
 
     def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
@@ -170,11 +188,19 @@ class Block(nn.Module):
         x = x + self.attn(self.ln_1(x), mask_mode=mask_mode,
                           tok_per_time=tok_per_time, rope=rope,
                           positions=positions)
-        return x + self.mlp(self.ln_2(x))
+        mlp = self.mlp
+        cdt = mlp.compute_dtype or mlp.w1.weight.dtype
+        if fused_mlp.ENABLED and fused_mlp.supported(
+                x.device, x.dtype, x.shape[-1], mlp.w1.out_features, cdt):
+            return fused_mlp.FusedNormSwiGLU.apply(
+                x, self.ln_2.weight, getattr(self.ln_2, "bias", None),
+                mlp.w1.weight, mlp.w3.weight, mlp.w2.weight, self.norm)
+        return x + mlp(self.ln_2(x))
 
 
 class CrossBlock(nn.Module):
-    """cross-attn + MLP, then a self-attn Block."""
+    """cross-attn + MLP (the module chain, as in the JAX package), then a
+    self-attn Block."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int,
                  hidden_dim: int, device=None, dtype=None):

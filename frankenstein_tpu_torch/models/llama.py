@@ -14,7 +14,8 @@ rescoring (``frankenstein_tpu/models/llama.py``).
   (``gpt2.QuantCache``). ``prefill`` runs the module blocks;
   ``decode_step`` runs all blocks through kernel K5
   (``ops/cuda/fused_llama_decode.py``) on the card, its plain twin on the
-  CPU. ``reorder_cache`` gathers beams through kernel K3.
+  CPU, where ``fused_llama_decode.supported`` holds, else the module
+  blocks. ``reorder_cache`` gathers beams through kernel K3.
 - ``dtype`` is the compute dtype (``models/layers.py``).
 
 The MoE MLP is not ported.
@@ -31,7 +32,8 @@ from torch import nn
 
 from frankenstein_tpu_torch.config import IGNORE_INDEX, LlamaConfig
 from frankenstein_tpu_torch.models.gpt2 import (GPT, QuantCache,
-                                                cross_entropy_ignore)
+                                                cross_entropy_ignore,
+                                                on_float_cache)
 from frankenstein_tpu_torch.models.layers import RMSNorm, linear
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops import rope as rope_ops
@@ -235,9 +237,13 @@ class Llama(nn.Module):
         t)."""
         x = self._embed_in(idx, prefix)
         t = x.shape[1]
-        for l, block in enumerate(self.model.layers):
-            x = block(x, cache[0][l], cache[1][l], 0)
+        x = self._run_blocks(x, cache, 0)
         return self._head(self.model.norm(x[:, -1:]))[:, 0], cache, t
+
+    def _run_blocks(self, x, cache, length: int):
+        for l, block in enumerate(self.model.layers):
+            x = block(x, cache[0][l], cache[1][l], length)
+        return x
 
     def _rope_row(self, s: int, length: int):
         """The folded [1, E] f32 cos/sin rows of position ``length`` from
@@ -256,19 +262,29 @@ class Llama(nn.Module):
                     qweights: Optional[dict] = None):
         """One decode step. token: [B] ids at absolute position ``length``.
 
-        All blocks run in kernel K5 (its plain twin on the CPU); the new K/V
-        rows land in ``cache`` IN PLACE. ``cache`` may be a ``QuantCache``:
-        K5 then runs its int8-KV mode and the scales stay as they are.
-        ``qweights``: the stacked decode weights (``stack_decode_weights``
-        or ``quantize_decode_weights``), built once by the caller; None
-        stacks them for this call.
+        All blocks run in kernel K5 (its plain twin on the CPU) where
+        ``fused_llama_decode.supported`` holds, else in
+        ``_decode_blocks_plain``; the new K/V rows land in ``cache`` IN
+        PLACE either way. ``cache`` may be a ``QuantCache``: K5 then runs
+        its int8-KV mode and the scales stay as they are. ``qweights``: the
+        stacked decode weights (``stack_decode_weights`` or
+        ``quantize_decode_weights``), built once by the caller; None stacks
+        them for this call.
         Returns (logits [B, vocab] f32, cache, length + 1)."""
         c = self.cfg
+        quant = isinstance(cache, QuantCache)
+        x = self.model.embed_tokens(token).to(self._cdt())
+        w_dtype = self._cdt() if qweights is None else qweights["wq"].dtype
+        if not fused_llama_decode.supported(
+                x.device, x.dtype, w_dtype, cache[0].dtype, c.dim,
+                c.n_heads, c.n_kv_heads, c.hidden_dim, cache[0].shape[2]):
+            x = self.model.norm(self._decode_blocks_plain(x, cache, length,
+                                                          qweights))
+            table = None if qweights is None else qweights.get("lm_head_t")
+            return self._head(x, table), cache, length + 1
         if qweights is None:
             qweights = stack_decode_weights(self)
-        quant = isinstance(cache, QuantCache)
         cos, sin = self._rope_row(cache[0].shape[2], length)
-        x = self.model.embed_tokens(token).to(self._cdt())
         x, k, v = fused_llama_decode.fused_llama_decode_blocks(
             x, qweights, cache[0], cache[1], length, cos, sin,
             cache.k_scale if quant else None,
@@ -278,6 +294,19 @@ class Llama(nn.Module):
                  else (k, v))
         x = self.model.norm(x)
         return self._head(x, qweights.get("lm_head_t")), cache, length + 1
+
+    def _decode_blocks_plain(self, x, cache, length: int, qweights):
+        """x [B, E] through the module blocks at row ``length`` (the JAX
+        package's scanned path), writing the new K/V rows into ``cache`` IN
+        PLACE (``gpt2.on_float_cache``). int8 block weights need K5."""
+        if qweights is not None and qweights["wq"].dtype == torch.int8:
+            raise NotImplementedError(
+                "int8 decode weights need kernel K5 (ops/cuda/"
+                "fused_llama_decode.py), which does not take this step; "
+                "serve with int8_weights=False")
+        return on_float_cache(
+            cache, self._cdt(),
+            lambda kv: self._run_blocks(x[:, None], kv, length)[:, 0])
 
     # the [L, B, S, E_kv] cache has GPT's layout (batch at axis 1), so GPT's
     # beam-order gather (kernel K3 when group > 0) serves it as it is

@@ -8,12 +8,13 @@ AV product, which accumulates in float32 and rounds to q's dtype.
 "gathered_slab" (the same over the original ``positions`` of a gathered
 token subset, the MAE's kept tokens).
 
-``dot_product_attention`` routes by mode and shape as the JAX package does
-on the TPU: "gathered_slab" always, "slab" with Tq == Tk, and dense with
-Tq == Tk >= ``DENSE_FLASH_MIN`` run kernels K6 / K7 (their twins on the
-CPU, ``ops/cuda/flash_attention.py``); everything else (causal, the
+``dot_product_attention`` routes as the JAX package does on the TPU:
+"gathered_slab", "slab" and dense attention over ``DENSE_FLASH_MIN`` tokens
+or more, each with Tq == Tk, run kernels K6 / K7 (their twins on the CPU,
+``ops/cuda/flash_attention.py``) where ``flash_attention.supported`` holds;
+everything else (an f32 or odd-length input on the card, causal, the
 Perceiver's short self-attention, cross-attention) runs the plain path
-here.
+here, "gathered_slab" with a [B, N, N] mask from ``positions``.
 """
 
 from __future__ import annotations
@@ -68,29 +69,33 @@ def dot_product_attention(q, k, v, *, mask_mode: Optional[str] = None,
     """Attention over [B, T, H, D] tensors. Returns [B, Tq, H, D].
     ``positions`` ([B, T] ints, the original token positions) is read by
     "gathered_slab" only."""
-    tq, tk, d = q.shape[1], k.shape[1], q.shape[-1]
-    if mask_mode == "gathered_slab":
-        if positions is None or tok_per_time <= 0:
-            raise ValueError("mask_mode='gathered_slab' needs positions and "
-                             "tok_per_time > 0")
-        slab_ids = (positions // tok_per_time).to(torch.int32).contiguous()
-        return _flash(q, k, v, "positions", slab_ids=slab_ids)
-    if mask_mode == "slab" and tq == tk:
-        if tok_per_time <= 0:
-            raise ValueError("mask_mode='slab' needs tok_per_time > 0")
-        return _flash(q, k, v, "slab", tok_per_time)
-    if mask_mode is None and tq == tk >= DENSE_FLASH_MIN:
-        return _flash(q, k, v, "dense")
+    tq, tk, h, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
+    if mask_mode == "gathered_slab" and (positions is None
+                                         or tok_per_time <= 0):
+        raise ValueError("mask_mode='gathered_slab' needs positions and "
+                         "tok_per_time > 0")
+    if mask_mode == "slab" and tok_per_time <= 0:
+        raise ValueError("mask_mode='slab' needs tok_per_time > 0")
+    if tq == tk and flash.supported(q.device, q.dtype, tq, h * d, h):
+        if mask_mode == "gathered_slab":
+            slab_ids = (positions // tok_per_time).to(torch.int32)
+            return _flash(q, k, v, "positions",
+                          slab_ids=slab_ids.contiguous())
+        if mask_mode == "slab":
+            return _flash(q, k, v, "slab", tok_per_time)
+        if mask_mode is None and tq >= DENSE_FLASH_MIN:
+            return _flash(q, k, v, "dense")
     scale = 1.0 / float(d) ** 0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
 
     if mask_mode == "causal":
         allowed = mask_lib.causal_mask(tq, tk, q.device)
     elif mask_mode == "slab":
-        if tok_per_time <= 0:
-            raise ValueError("mask_mode='slab' needs tok_per_time > 0")
         allowed = mask_lib.block_causal_mask(tk, tok_per_time,
                                              q.device)[-tq:, -tk:]
+    elif mask_mode == "gathered_slab":
+        allowed = mask_lib.block_causal_mask_from_positions(
+            positions, positions, tok_per_time)[:, None]
     elif mask_mode is None:
         allowed = None
     else:

@@ -99,6 +99,11 @@ def _declare(lib) -> None:
         + [i] * 4                   # L, groups, W, row bytes
         + [p])                      # stream
     lib.fk_beam_reorder.restype = i
+    lib.fk_fused_norm_swiglu.argtypes = (
+        [p] * 7                     # x nw nb w1 w3 w2 out
+        + [i] * 4                   # R E hidden kind
+        + [f, p])                   # eps, stream
+    lib.fk_fused_norm_swiglu.restype = i
     lib.fk_error_string.argtypes = [i]
     lib.fk_error_string.restype = ctypes.c_char_p
 

@@ -21,7 +21,9 @@ v, out, lse and the slab ids as the JAX package's custom VJPs do.
 ``flash_attention`` and ``flash_attention_bwd`` launch the kernels for CUDA
 tensors and run the plain PyTorch twins (``*_ref``) for CPU tensors. They
 never fall back from one to the other: a CUDA input the kernels do not take
-raises.
+raises. ``supported`` says which inputs they take;
+``ops/attention.py:dot_product_attention`` consults it and runs its plain
+path where it says no.
 """
 
 from __future__ import annotations
@@ -128,6 +130,17 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, n_heads: int,
                                      p.to(dout.dtype).to(acc), do[:, r0:r1])
     fold = lambda x, like: x.reshape(b, t, e).to(like.dtype)
     return fold(dq, q), fold(dk, k), fold(dv, v)
+
+
+def supported(device, dtype, t: int, e: int, n_heads: int) -> bool:
+    """Whether K6 and K7 take [B, T, E] q/k/v of ``dtype`` on ``device``
+    with ``n_heads`` heads, in any mode: on CUDA bf16, a head_dim of 32 or
+    64 and T % 128 == 0 (the limits ``_check`` raises on); the CPU twins
+    take any."""
+    if torch.device(device).type != "cuda":
+        return True
+    return (dtype == torch.bfloat16 and n_heads > 0 and e % n_heads == 0
+            and e // n_heads in (32, 64) and t > 0 and t % 128 == 0)
 
 
 def _check(q, k, v, n_heads: int, mode: str, tok_per_time: int, slab_ids,

@@ -13,7 +13,9 @@ place of the other. Modes: bf16 weights, or int8 w8a16 weights
 (``quantize_weights``), each with a bf16 cache or an int8 cache with fixed
 per-(layer, lane) f32 scales (``quantize_cache_side``): the k-scale folds
 into q, the v-scale multiplies the AV sum, the token's own K/V terms stay
-float, and the new row is requantized in the kernel.
+float, and the new row is requantized in the kernel. ``supported`` says
+which inputs the kernels take; ``models/gpt2.py:GPT.decode_step`` consults
+it and runs the module blocks where it says no.
 """
 
 from __future__ import annotations
@@ -161,6 +163,24 @@ def fused_decode_blocks_ref(x, stacked, k_cache, v_cache, length: int,
             k_cache[l, :, length] = k_new.to(k_cache.dtype)
             v_cache[l, :, length] = v_new.to(v_cache.dtype)
     return xf.to(x.dtype), k_cache, v_cache
+
+
+def supported(device, dtype, w_dtype, cache_dtype, e: int,
+              n_head: int) -> bool:
+    """Whether K2 takes a step of x [B, E] of ``dtype``, stacked weights of
+    ``w_dtype`` and a cache of ``cache_dtype`` on ``device``: on CUDA bf16
+    x, bf16 or int8 weights and cache, E % 128 == 0 and a head_dim that is
+    a multiple of 8 (16 with an int8 cache), at most 128 (the limits
+    ``_check`` raises on); the CPU twin takes any."""
+    if torch.device(device).type != "cuda":
+        return True
+    pair = (torch.bfloat16, torch.int8)
+    if (dtype != torch.bfloat16 or w_dtype not in pair
+            or cache_dtype not in pair or n_head <= 0 or e % n_head):
+        return False
+    d = e // n_head
+    step = 16 if cache_dtype == torch.int8 else 8
+    return e % 128 == 0 and d % step == 0 and d <= 128
 
 
 def _check(x, stacked, k_cache, v_cache, length: int, n_head: int,

@@ -24,6 +24,9 @@ w8a16 weights (``quantize_weights``), each with a bf16 cache or an int8
 cache with fixed per-(layer, lane) f32 scales: the k-scale multiplies q
 before it meets the codes, the v-scale multiplies the AV sum, the token's
 own K/V terms stay float, and the new row is requantized in the kernel.
+``supported`` says which inputs the kernels take;
+``models/llama.py:Llama.decode_step`` consults it and runs the module blocks
+where it says no.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ launches_int8_kv = 0  # the same, counting only the int8-KV mode
 WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 MAX_HEAD_DIM = 128
 MAX_SMEM = 227 * 1024      # shared memory one H100 block may opt in to
+ATTN_ROWS = 64             # cache rows staged at a time (decode_common.cuh)
 
 
 def quantize_weights(stacked: dict) -> dict:
@@ -176,6 +180,40 @@ def _need(name: str, a, dtype, shape, dev) -> None:
                else f"{a.dtype} {tuple(a.shape)} on {a.device}")
         raise ValueError(f"{name}: need contiguous {dtype} {tuple(shape)} on "
                          f"{dev}, got {got}")
+
+
+def attention_smem_bytes(d: int, r: int, s: int, cache_bytes: int) -> int:
+    """Shared memory of the attention kernel for head_dim ``d``, ``r`` query
+    heads per KV head and a cache of ``s`` rows of ``cache_bytes``-byte
+    values: ``llama_attention_smem_bytes`` of ``csrc/fused_llama_decode.cu``,
+    which ``_check`` asks the library for."""
+    return ((3 * r * d + 2 * d + r * s + 2 * r + 3) & ~3) * 4 \
+        + ATTN_ROWS * d * cache_bytes
+
+
+def supported(device, dtype, w_dtype, cache_dtype, e: int, n_heads: int,
+              n_kv_heads: int, f: int, s: int) -> bool:
+    """Whether K5 takes a step of x [B, E] of ``dtype``, stacked weights of
+    ``w_dtype`` and an [L, B, S, E_kv] cache of ``cache_dtype`` on
+    ``device``: on CUDA bf16 x, bf16 or int8 weights and cache, H % KV ==
+    0, a head_dim that is a multiple of 8 (16 with an int8 cache) and at
+    most 128, E and F multiples of 128, E_kv a multiple of 64 and the
+    scores of S rows within a block's shared memory (the limits ``_check``
+    raises on); the CPU twin takes any."""
+    if torch.device(device).type != "cuda":
+        return True
+    pair = (torch.bfloat16, torch.int8)
+    if (dtype != torch.bfloat16 or w_dtype not in pair
+            or cache_dtype not in pair or n_heads <= 0 or n_kv_heads <= 0
+            or n_heads % n_kv_heads or e % n_heads):
+        return False
+    d = e // n_heads
+    step = 16 if cache_dtype == torch.int8 else 8
+    cache_bytes = 1 if cache_dtype == torch.int8 else 2
+    return (d % step == 0 and d <= MAX_HEAD_DIM and e % 128 == 0
+            and f % 128 == 0 and (n_kv_heads * d) % 64 == 0
+            and attention_smem_bytes(d, n_heads // n_kv_heads, s,
+                                     cache_bytes) <= MAX_SMEM)
 
 
 def _check(x, stacked, k_cache, v_cache, length: int, cos_row, sin_row,

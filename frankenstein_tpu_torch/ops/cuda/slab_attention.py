@@ -15,7 +15,9 @@ forward K1 (saving the unrotated q, k, v, out and lse), backward K4.
 ``slab_rope_attention`` and ``slab_rope_attention_bwd`` launch the kernels
 for CUDA tensors and run the plain PyTorch twins (``*_ref``) for CPU
 tensors. They never fall back from one to the other: a CUDA input a kernel
-does not take raises.
+does not take raises. ``supported`` says which inputs they take;
+``models/layers.py:SelfAttention`` consults it and runs the plain path
+(``apply_rope`` + ``dot_product_attention``) where it says no.
 """
 
 from __future__ import annotations
@@ -95,6 +97,16 @@ def slab_rope_attention_bwd_ref(q, k, v, cos, sin, out, lse, dout, *,
     unrot = lambda x: rope.apply_rope_folded(x.reshape(b, t, e).to(q.dtype),
                                              cos_e, -sin_e)
     return unrot(dq), unrot(dk), dv.reshape(b, t, e).to(v.dtype)
+
+
+def supported(device, dtype, t: int, e: int, n_heads: int) -> bool:
+    """Whether K1 and K4 take [B, T, E] q/k/v of ``dtype`` on ``device``
+    with ``n_heads`` heads: on CUDA bf16, a head_dim of 32 or 64 and T % 128
+    == 0 (the limits ``_check`` raises on); the CPU twins take any."""
+    if torch.device(device).type != "cuda":
+        return True
+    return (dtype == torch.bfloat16 and n_heads > 0 and e % n_heads == 0
+            and e // n_heads in (32, 64) and t > 0 and t % 128 == 0)
 
 
 def _check(q, k, v, cos, sin, n_heads: int, tok_per_time: int, **more):

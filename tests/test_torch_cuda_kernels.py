@@ -1,15 +1,20 @@
 """Kernels K1, K2 (bf16 and int8 KV caches), K3, K4, K5 (bf16 and int8
-KV caches, one to four query heads per KV head) and K6 / K7 (the three mask
-modes of flash attention, forward and backward) on the card against their
-plain PyTorch twins, at small shapes that reach the kernels' edge cases
-(slabs that do not divide the tiles, a batch that does not fill a tile, an
-empty cache, one beam and the widest group, unsorted positions), and the
+KV caches, one to four query heads per KV head), K6 / K7 (the three mask
+modes of flash attention, forward and backward) and K9 (the fused pre-norm
+SwiGLU MLP, both norms) on the card against their plain PyTorch twins, at
+small shapes that reach the kernels' edge cases (slabs that do not divide
+the tiles, a batch that does not fill a tile, an empty cache, one beam and
+the widest group, unsorted positions, a ragged last row tile), the
 gradients of an encoder through K1 and K4 and of an MAE through K6 and K7
-against their f32 CPU twins.
+against their f32 CPU twins, and training steps through the train CLI that
+the kernels do not take (f32 compute, an MAE of 100 channels), which run
+the plain routes.
 
 The kernels have no CPU mode, so without a CUDA device these tests skip.
 On the card: ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 """
+
+import math
 
 import pytest
 import torch
@@ -19,6 +24,7 @@ from frankenstein_tpu_torch.ops.cuda import beam_reorder as k3
 from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
 from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
 from frankenstein_tpu_torch.ops.cuda import fused_llama_decode as k5
+from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
 from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
 
 pytestmark = pytest.mark.cuda
@@ -411,6 +417,15 @@ def test_k5_refuses_what_it_does_not_take(dev):
                                      n_heads=4, n_kv_heads=2, eps=1e-5)
 
 
+def test_k5_gate_counts_shared_memory_as_the_kernel_does(dev):
+    """``supported``'s shared-memory count is the library's own."""
+    from frankenstein_tpu_torch.ops.cuda import build
+    lib = build.library()
+    for d, r, s, nbytes in ((64, 2, 64, 1), (128, 4, 48, 2), (32, 1, 1000, 1)):
+        assert k5.attention_smem_bytes(d, r, s, nbytes) == \
+            lib.fk_fused_llama_decode_smem_bytes(d, r, s, nbytes)
+
+
 FLASH_TOL = 2e-2   # relative to max |twin|: p, ds, dq, dk, dv round to bf16
 
 
@@ -533,3 +548,184 @@ def test_mae_gradients_match_twin(dev):
     for (name, pr), pc in zip(ref.named_parameters(), card.parameters()):
         rel = float((pc.grad.cpu() - pr.grad).norm() / pr.grad.norm())
         assert rel < 5e-2, (name, rel)
+
+
+K9_TOL = 2e-2   # relative to max |twin|: a, b and g round to bf16 after f32
+                # sums taken in another order, so a value may round the
+                # other way
+
+
+def _k9_case(dev, b, t, e, hidden, kind, seed):
+    """bf16 x [B, T, E]; f32 norm parameters (no bias for RMSNorm) and f32
+    nn.Linear weights, which the wrapper casts to bf16."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    x = rnd(b, t, e).to(torch.bfloat16)
+    nw = 1.0 + 0.1 * rnd(e)
+    nb = 0.1 * rnd(e) if kind == "layernorm" else None
+    return (x, nw, nb, rnd(hidden, e) / e ** 0.5, rnd(hidden, e) / e ** 0.5,
+            rnd(e, hidden) / hidden ** 0.5)
+
+
+@pytest.mark.parametrize("kind", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("b,t,e,hidden", [(2, 256, 256, 1024),
+                                          (4, 32, 256, 512),
+                                          (1, 200, 128, 256),
+                                          (2, 77, 64, 192),
+                                          (1, 130, 192, 320)])
+def test_k9_matches_twin_and_is_deterministic(dev, kind, b, t, e, hidden):
+    """Out and the update out - x against the twin at the kernel's rounding
+    points, on the same bf16 inputs; two launches bitwise equal. Row counts
+    that leave the last 128-row tile ragged, and every width."""
+    args = _k9_case(dev, b, t, e, hidden, kind, seed=b * t + e)
+    before = k9.launches
+    out = k9.fused_norm_swiglu(*args, kind=kind)
+    again = k9.fused_norm_swiglu(*args, kind=kind)
+    torch.cuda.synchronize()
+    assert k9.launches == before + 2
+    assert torch.equal(out, again)
+    ref = k9.fused_norm_swiglu_ref(*args, kind=kind)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert _err(out, ref) <= K9_TOL * float(ref.float().abs().max())
+    x = args[0].float()
+    upd = ref.float() - x
+    assert _err(out.float() - x, upd) <= K9_TOL * float(upd.abs().max())
+
+
+def test_k9_refuses_what_it_does_not_take(dev):
+    x, nw, nb, w1, w3, w2 = _k9_case(dev, 1, 16, 256, 512, "layernorm", 0)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k9.fused_norm_swiglu(x.float(), nw, nb, w1, w3, w2)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        k9.fused_norm_swiglu(x[..., :96], nw[:96], nb[:96], w1[:, :96],
+                             w3[:, :96], w2[:96])
+    with pytest.raises(ValueError, match="multiples of 64"):
+        k9.fused_norm_swiglu(x, nw, nb, w1[:100], w3[:100], w2[:, :100])
+    wide = _k9_case(dev, 1, 16, 320, 512, "layernorm", 1)
+    with pytest.raises(ValueError, match="E <= 256"):
+        k9.fused_norm_swiglu(*wide)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.fused_norm_swiglu(x[:, ::2], nw, nb, w1, w3, w2)
+    with pytest.raises(ValueError, match="no bias"):
+        k9.fused_norm_swiglu(x, nw, nb, w1, w3, w2, kind="rmsnorm")
+
+
+@pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
+def test_k9_block_matches_module_chain(dev, monkeypatch, norm):
+    """A bf16 Block on the card: its MLP sublayer through K9 against the
+    module chain (``fused_mlp.ENABLED`` off), forward within K9_TOL, and
+    every gradient equal bitwise, since K9's backward is that chain's
+    autograd; under remat K9 runs again in the backward."""
+    from frankenstein_tpu_torch.models.layers import Block, run_block
+    torch.manual_seed(2)
+    block = Block(256, 8, 32, 1024, device=dev, dtype=torch.bfloat16,
+                  norm=norm)
+    x = torch.randn(2, 256, 256, device=dev).to(torch.bfloat16)
+    dy = torch.randn(2, 256, 256, device=dev).to(torch.bfloat16)
+    leaves = [x.requires_grad_(), *block.parameters()]
+
+    def run(remat=False):
+        before = k9.launches
+        out = run_block(block, x, remat=remat)
+        grads = torch.autograd.grad(out, leaves, dy)
+        torch.cuda.synchronize()
+        return out.detach(), grads, k9.launches - before
+
+    out, grads, n = run()
+    _, grads_remat, n_remat = run(remat=True)
+    monkeypatch.setattr(k9, "ENABLED", False)
+    want, want_grads, n_chain = run()
+    assert (n, n_remat, n_chain) == (1, 2, 0)
+    assert _err(out, want) <= K9_TOL * float(want.float().abs().max())
+    for g, r, w in zip(grads, grads_remat, want_grads):
+        assert torch.equal(g, w) and torch.equal(r, w)
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    counts = {"K1": k1.launches, "K4": k1.launches_bwd, "K2": k2.launches,
+              "K3": k3.launches, "K5": k5.launches, "K9": k9.launches}
+    for mode in k67.MODES:
+        counts[f"fwd {mode}"] = k67.launches[mode]
+        counts[f"bwd {mode}"] = k67.launches_bwd[mode]
+    return counts
+
+
+# A Franky and an MAE whose every kernel takes their bf16 inputs: head_dim
+# 32, width 64 with hidden 128; Franky's encoder over 1024 tokens (4 slabs
+# of 256), the MAE's decoder over 2048, the length from which dense
+# attention runs K7 (512 of them kept for its encoder)
+CARD_FRANKY_YAML = """\
+model: franky
+model_config:
+  brain:
+    encoder: {window_size: 768, n_electrodes: 256, patch_size: 192, dim: 64,
+              n_layers: 1, head_dim: 32, hidden_dim: 128, n_heads: 2,
+              n_kv_heads: 2, n_dec_layers: 1, decoder_dim: 64}
+    n_output_tokens: 4
+    output_dim: 128
+    dim: 64
+    n_layers: 1
+    head_dim: 32
+    hidden_dim: 128
+    n_heads: 2
+    n_kv_heads: 2
+  gpt: {block_size: 64, vocab_size: 50304, n_layer: 1, n_head: 2,
+        n_embd: 128}
+train: {batch_size: 1, max_steps: 1, eval_interval: 1, warmup_iters: 0,
+        use_scheduler: false, log_interval: 1}
+"""
+CARD_MAE_YAML = """\
+model: mae
+model_config: {window_size: 768, n_electrodes: 256, patch_size: 96,
+               dim: 64, n_layers: 1, head_dim: 32, hidden_dim: 128,
+               n_heads: 2, n_kv_heads: 2, n_dec_layers: 1, decoder_dim: 64}
+train: {batch_size: 1, max_steps: 1, eval_interval: 1, warmup_iters: 0,
+        use_scheduler: false, log_interval: 1}
+"""
+
+
+def _train_one_step(tmp_path, name, *args):
+    """One step (and one eval) through the train CLI in-process: (the
+    launches it made, its finite losses)."""
+    import json
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+    before = _launch_counts()
+    train_cli.main([*args, "--data", "synthetic", "--synthetic-trials", "8",
+                    "--exp-name", name, "--save-folder", str(tmp_path)])
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    records = [json.loads(line) for line in
+               (tmp_path / name / "metrics.jsonl").read_text().splitlines()]
+    losses = [r[k] for r in records for k in ("train/loss", "val/loss")
+              if k in r]
+    assert losses and all(map(math.isfinite, losses)), losses
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+@pytest.mark.parametrize("model", ["franky", "mae"])
+def test_f32_training_step_runs_the_plain_routes(dev, tmp_path, model):
+    """--no-bf16 computes in f32, which no kernel takes: a B=1 step runs
+    the plain routes and launches nothing; the same step in bf16 launches
+    the kernels (K1, K4 and K9 for Franky; K6, K7 and K9 for the MAE)."""
+    cfg = tmp_path / f"{model}.yaml"
+    cfg.write_text(CARD_FRANKY_YAML if model == "franky" else CARD_MAE_YAML)
+    assert _train_one_step(tmp_path, "f32", "--config", str(cfg),
+                           "--no-bf16") == {}
+    bf16 = _train_one_step(tmp_path, "bf16", "--config", str(cfg))
+    want = ({"K1", "K4", "K9"} if model == "franky" else
+            {"K9", "fwd positions", "bwd positions", "fwd dense",
+             "bwd dense"})
+    assert set(bf16) == want, bf16
+
+
+def test_mae_of_100_channels_runs_plain_attention(dev, tmp_path):
+    """--channels 100: 2400 tokens, 600 kept, which K6 and K7 do not take
+    (T % 128); the encoder's MLPs still run K9 (width 256, hidden 1024),
+    the decoder's (an f32 residual stream) the module chain."""
+    got = _train_one_step(tmp_path, "mae100", "--model", "mae",
+                          "--channels", "100", "--batch-size", "1",
+                          "--steps", "1", "--eval-interval", "1")
+    # 4 encoder blocks; one training forward and 8 eval forwards (the 8
+    # validation trials at B=1)
+    assert got == {"K9": 4 * 9}, got

@@ -2,8 +2,9 @@
 the JAX package's Pallas kernels they replace, in interpret mode:
 ``gathered_slab_attention`` (K6), ``dense_flash_attention`` and
 ``slab_causal_attention`` (K7), forward, lse and ``jax.grad``; the autograd
-Function around them against autograd through plain attention; and the
-routing of ``ops/attention.py:dot_product_attention``. float32 (float64
+Function around them against autograd through plain attention; the routing
+of ``ops/attention.py:dot_product_attention``, its gate and the plain
+routes it takes when the gate shuts. float32 (float64
 for gradcheck); inputs from numpy seeds. Tolerances are those of
 ``tests/test_attention.py``: 3e-5 forward, 1e-4 gradients."""
 
@@ -308,3 +309,41 @@ def test_wrapper_refuses_unknown_modes_and_missing_ids():
         flash._check(q, q, q, 2, "causal", 0, None)
     with pytest.raises(ValueError, match="slab_ids"):
         flash._check(q, q, q, 2, "positions", 8, None)
+
+
+def test_supported_rejects_what_k6_k7_do_not_take():
+    """On the card: f32, head_dim 16, T = 2400 and 600 kept tokens (an MAE
+    of 100 channels); the MAE's 1536 kept and 6144 tokens pass, and the CPU
+    twins take anything."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for t in (1536, 6144):
+        assert flash.supported("cuda", bf16, t, 256, 8)
+    assert not flash.supported("cuda", f32, 6144, 256, 8)
+    assert not flash.supported("cuda", bf16, 6144, 128, 8)
+    for t in (2400, 600):
+        assert not flash.supported("cuda", bf16, t, 256, 8)
+    assert flash.supported("cpu", f32, 12, 8, 2)
+
+
+@pytest.mark.parametrize("case", ["gathered_slab", "slab", "dense_long"])
+def test_plain_routes_match_jax_fallbacks(routes, monkeypatch, case):
+    """With the K6 / K7 gate shut every mode runs the plain path, the
+    "gathered_slab" mode with a [B, N, N] mask from the positions, and
+    matches the JAX package's XLA fallbacks."""
+    monkeypatch.setattr(flash, "supported", lambda *a: False)
+    b, h, d, p = 2, 2, 8, 16
+    t = 2048 if case == "dense_long" else 96
+    q, k, v = _qkv(15, b, t, h, d)
+    kw = jkw = {}
+    if case == "gathered_slab":
+        pos = _sorted_subset(15, b, 4 * t, t)
+        kw = dict(mask_mode="gathered_slab", tok_per_time=p)
+        jkw = dict(kw, positions=jnp.asarray(pos))
+        kw["positions"] = torch.from_numpy(pos).long()
+    elif case == "slab":
+        kw = jkw = dict(mask_mode="slab", tok_per_time=p)
+    got = tattn.dot_product_attention(*map(torch.from_numpy, (q, k, v)),
+                                      **kw)
+    assert routes == []
+    np.testing.assert_allclose(got.numpy(), _jax_route(q, k, v, **jkw),
+                               atol=FWD_TOL)

@@ -1,7 +1,10 @@
 """The int8 KV cache of the port against the JAX package: the quantization
 helpers of ``ops/cuda/fused_decode.py``, kernel K2's plain twin in its
 int8-KV mode against the Pallas ``fused_decode_blocks`` in interpret mode
-(float32), and ``QuantCache`` through ``decode_step`` and ``generate``."""
+(float32), ``QuantCache`` through ``decode_step`` and ``generate``, and K2's
+gate with the plain route ``decode_step`` takes where it shuts."""
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -219,3 +222,86 @@ def test_generate_int8_kv_greedy_matches_jax(tiny_gpt):
     got = sampling.generate(model, torch.from_numpy(idx0).long(), None,
                             max_new_tokens=6, greedy=True, int8_kv=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_supported_rejects_what_k2_does_not_take():
+    """On the card: E % 128 != 0, f32 x or cache, a head_dim that is not a
+    multiple of 16 with an int8 cache; GPT-2 124M passes in every mode, and
+    the CPU twin takes anything."""
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    for w, c in ((bf16, bf16), (i8, bf16), (bf16, i8), (i8, i8)):
+        assert tfd.supported("cuda", bf16, w, c, 768, 12)
+    assert not tfd.supported("cuda", bf16, bf16, bf16, 192, 3)
+    assert not tfd.supported("cuda", f32, f32, f32, 768, 12)
+    assert not tfd.supported("cuda", bf16, bf16, f32, 768, 12)
+    assert not tfd.supported("cuda", bf16, bf16, i8, 768, 96)
+    assert tfd.supported("cpu", f32, f32, f32, 32, 2)
+
+
+def _decode_chain(model, idx0, int8_kv: bool, toks=None, steps: int = 3):
+    """Prefill, then ``steps`` decode steps (greedy, or the tokens
+    ``toks``): (the logits of each step, the tokens fed, the final cache);
+    each step's cache is the tensors it was given (in place)."""
+    b = idx0.shape[0]
+    logits, cache, length = model.prefill(torch.from_numpy(idx0).long(),
+                                          None, model.init_decode_cache(b, 16))
+    if int8_kv:
+        cache = gpt2.quantize_cache(cache)
+    qw = sampling.decode_weights(model, int8_weights=False)
+    out, fed = [], []
+    for i in range(steps):
+        tok = torch.argmax(logits, dim=-1) if toks is None else toks[i]
+        logits, new, length = model.decode_step(tok, cache, length, qw)
+        assert new[0] is cache[0] and new[1] is cache[1]
+        if int8_kv:
+            assert new.k_scale is cache.k_scale
+        cache = new
+        out.append(logits)
+        fed.append(tok)
+    return out, fed, cache
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_step_plain_route_matches_twin(tiny_gpt, monkeypatch, kind):
+    """With K2's gate shut ``decode_step`` runs the module blocks (the JAX
+    package's scanned fallback; a ``QuantCache`` dequantized around them
+    and requantized in place with its own scales), fed the twin's tokens.
+    A bf16 model with a bf16 cache gives the twin's logits within 3e-2 of
+    their largest (bf16 rounding: the twin keeps an f32 residual, the
+    blocks a bf16 one); an f32 model with an int8 cache within 1e-4, code
+    for code."""
+    _, _, model, idx0 = tiny_gpt
+    if kind == "bf16":
+        model = copy.deepcopy(model).to(torch.bfloat16)
+    int8_kv = kind == "int8"
+    want, toks, want_cache = _decode_chain(model, idx0, int8_kv)
+    monkeypatch.setattr(tfd, "supported", lambda *a: False)
+    calls = []
+    real = tfd.fused_decode_blocks_ref
+    monkeypatch.setattr(tfd, "fused_decode_blocks_ref",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got, _, cache = _decode_chain(model, idx0, int8_kv, toks)
+    assert calls == []
+    for g, w in zip(got, want):
+        if int8_kv:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4)
+        else:
+            assert float((g - w).abs().max()) <= 3e-2 * float(w.abs().max())
+    for g, w in zip(cache[:2], want_cache[:2]):
+        if int8_kv:
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        else:
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       atol=3e-2, rtol=3e-2)
+
+
+def test_decode_step_plain_route_refuses_int8_weights(tiny_gpt, monkeypatch):
+    """int8 block weights need K2: off it ``decode_step`` raises, as the
+    JAX package does."""
+    _, _, model, idx0 = tiny_gpt
+    logits, cache, length = model.prefill(torch.from_numpy(idx0).long(), None,
+                                          model.init_decode_cache(4, 16))
+    qw = sampling.decode_weights(model, int8_weights=True)
+    monkeypatch.setattr(tfd, "supported", lambda *a: False)
+    with pytest.raises(NotImplementedError, match="K2"):
+        model.decode_step(torch.argmax(logits, dim=-1), cache, length, qw)

@@ -2,9 +2,12 @@
 on ``tiny_llama_config`` (4 query heads on 2 KV heads, so a swapped GQA
 mapping shows): forward loss and logits, ``sequence_logprob``, prefill
 plus cached decode steps (on the CPU the JAX package decodes with its
-scanned blocks and the port with kernel K5's twin), n-best candidates and
+scanned blocks and the port with kernel K5's twin), K5's gate and the plain
+route ``decode_step`` takes where it shuts, n-best candidates and
 rescoring, ``expand_cache``, and the HF import against
 ``transformers.LlamaForCausalLM``."""
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -218,3 +221,86 @@ def test_hf_import_reproduces_hf_logits(permute):
         assert diff < 1e-4, diff
     else:
         assert diff > 1e-2, diff
+
+
+def test_supported_rejects_what_k5_does_not_take():
+    """On the card: E % 128 != 0, f32, H % KV != 0, and a cache too long
+    for the scores' shared memory; FrankyLlama's LLaMA passes."""
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    ok = dict(e=1024, n_heads=16, n_kv_heads=8, f=2816, s=64)
+    assert fused_llama_decode.supported("cuda", bf16, i8, i8, **ok)
+    assert fused_llama_decode.supported("cuda", bf16, bf16, bf16, **ok)
+    for bad in (dict(e=1000, n_heads=8), dict(n_kv_heads=6),
+                dict(s=100_000)):
+        assert not fused_llama_decode.supported("cuda", bf16, bf16, bf16,
+                                                **dict(ok, **bad))
+    assert not fused_llama_decode.supported("cuda", f32, f32, f32, **ok)
+    assert fused_llama_decode.supported("cpu", f32, f32, f32, 32, 4, 2, 64,
+                                        16)
+
+
+def _llama_chain(model, int8_kv: bool, toks=None, steps: int = 3):
+    """Prefill with a prefix, then ``steps`` decode steps (greedy, or the
+    tokens ``toks``): (each step's logits, the tokens fed, the cache)."""
+    rng = np.random.default_rng(4)
+    idx0 = torch.from_numpy(rng.integers(0, 128, (2, 3)))
+    prefix = torch.from_numpy(rng.standard_normal((2, 2, 32)).astype(
+        np.float32))
+    logits, cache, length = model.prefill(idx0, prefix,
+                                          model.init_decode_cache(2, 16))
+    if int8_kv:
+        cache = gpt2.quantize_cache(cache)
+    qw = sampling.decode_weights(model, int8_weights=False)
+    out, fed = [], []
+    for i in range(steps):
+        tok = torch.argmax(logits, dim=-1) if toks is None else toks[i]
+        logits, new, length = model.decode_step(tok, cache, length, qw)
+        assert new[0] is cache[0] and new[1] is cache[1]
+        cache = new
+        out.append(logits)
+        fed.append(tok)
+    return out, fed, cache
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_decode_step_plain_route_matches_twin(pair, monkeypatch, kind):
+    """With K5's gate shut ``decode_step`` runs the module blocks (the JAX
+    package's scanned fallback; a ``QuantCache`` dequantized around them
+    and requantized in place with its own scales), fed the twin's tokens:
+    a bf16 model with a bf16 cache within 3e-2 of the twin's largest logit
+    (bf16 rounding: the twin keeps an f32 residual), an f32 model with an
+    int8 cache within 1e-4, code for code."""
+    _, _, model = pair
+    if kind == "bf16":
+        model = copy.deepcopy(model).to(torch.bfloat16)
+    int8_kv = kind == "int8"
+    want, toks, want_cache = _llama_chain(model, int8_kv)
+    monkeypatch.setattr(fused_llama_decode, "supported", lambda *a: False)
+    calls = []
+    real = fused_llama_decode.fused_llama_decode_blocks_ref
+    monkeypatch.setattr(fused_llama_decode, "fused_llama_decode_blocks_ref",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    got, _, cache = _llama_chain(model, int8_kv, toks)
+    assert calls == []
+    for g, w in zip(got, want):
+        if int8_kv:
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-4)
+        else:
+            assert float((g - w).abs().max()) <= 3e-2 * float(w.abs().max())
+    for g, w in zip(cache[:2], want_cache[:2]):
+        if int8_kv:
+            np.testing.assert_array_equal(g.numpy(), w.numpy())
+        else:
+            np.testing.assert_allclose(g.float().numpy(), w.float().numpy(),
+                                       atol=3e-2, rtol=3e-2)
+
+
+def test_decode_step_plain_route_refuses_int8_weights(pair, monkeypatch):
+    _, _, model = pair
+    logits, cache, length = model.prefill(
+        torch.zeros(2, 3, dtype=torch.long), None,
+        model.init_decode_cache(2, 16))
+    qw = sampling.decode_weights(model, int8_weights=True)
+    monkeypatch.setattr(fused_llama_decode, "supported", lambda *a: False)
+    with pytest.raises(NotImplementedError, match="K5"):
+        model.decode_step(torch.argmax(logits, dim=-1), cache, length, qw)
