@@ -18,7 +18,8 @@ nvcc (sm_90a) and then, one line per phase:
    launch counts of the kernels (K9 = 4 encoder blocks + 2 Perceiver
    self-attention blocks per encode), output checks, an f32 CPU
    cross-check of the chain, and encode / decode times at batch 128, the
-   encode also with K9 off (``fused_mlp.ENABLED``), with its peak memory;
+   encode with K9 on and off (``fused_mlp.ENABLED``) in turns, with its
+   peak memory;
 5. kernel K3 (beam-search cache reorder) against its twin at the flagship
    beam shape, bf16 and int8, and at FrankyLlama's int8 beam cache
    [8, 160, 64, 512], bitwise, with both times;
@@ -92,12 +93,40 @@ nvcc (sm_90a) and then, one line per phase:
     hidden 1024) and the Perceiver's (B=128, T=32, hidden 512): out and the
     update out - x, two launches bitwise equal, the kernel's, the twin's
     and the eager module chain's times (no one library call computes the
-    function), and the kernel at B=32;
+    function), and the three at B=32;
 15. the routes the kernels do not take, through the train CLI at B=1: one
     ``--no-bf16`` step of Franky and of the MAE (f32: no kernel launches,
     plain attention at T=6144, the MLPs' module chain) and one bf16 step of
     an MAE of ``--channels 100`` (2400 tokens, 600 kept: K6 and K7 refuse
-    them, K9 runs); finite losses, the launch counts and the plain calls.
+    them, K9 runs); finite losses, the launch counts and the plain calls;
+16. kernel K8 (the decode step's ln_f + tied head + top-k + logsumexp)
+    against its twin at GPT-2 124M width (E=768, V=50304), bf16, k=10, at
+    B=8, 32, 128 and 160 (beams' B*W): vals, logz, indices (a difference
+    only at a near-tie), two launches bitwise equal, a forced tie, the
+    kernel's, the twin's and the eager chain's times, and the port's dense
+    route at B=128;
+17. kernel K10 (K1 with int8 QK scores) against its twin and against K1
+    at the flagship encoder shape (B=2, T=6144, H=8, D=32, P=256): K codes
+    and scales, out (relative to max |twin|) and lse, the same check failed
+    by K1's output and by a K10 that reads chunk 0's K scale for every
+    tile, the drift of out from K1's, K10 + K4 gradients against the
+    twins' chain, two launches bitwise equal, K10's and K1's times in
+    turns, K10's kernel and K pre-pass alone, and both at B=32;
+18. the flagship served with bf16 block weights through
+    ``make_franky_predictor(top_k=10)`` at B=128 and B=8 with
+    ``sampling.COMPACT_TOPK`` and ``qk_int8`` on (K8 = 25 and K10 = 4 per
+    request, K1 = 0) and off (K8 = K10 = 0), and a B=8 request with both
+    on and ``int8_kv`` (K2's int8-KV mode = K8 = 25), under
+    FK_QK_INT8_STRICT=1: one decode step's K8 top-k against the dense
+    route's on the same bf16 cache and on the same int8 one, the B=8 encoder
+    context through K10 against K1's, the encode, the decode and the B=8
+    request timed in turns with each switch on and off (medians of 5 and
+    their ranges, sentences/s at B=128), and one Franky training step at
+    B=2 with ``qk_int8`` (K10 forward, K4 backward).
+
+Every on / off comparison (phases 4, 9, 13, 17 and 18) is timed by
+``_in_turns``: one warm-up each, then single calls alternating in turns,
+as medians and ranges of TIMING_REPEATS.
 
 Then one JSON line with the kernels' results (each with its bound, the least
 time the card could take for the same bytes and operations, and the time of
@@ -136,7 +165,6 @@ FLASH_TOL = 2e-2  # K6 / K7, relative to max |twin|: p, ds, dq, dk and dv
                   # round to bf16
 K9_TOL = 2e-2     # relative to max |twin|: a, b and g round to bf16 after
                   # f32 sums taken in another order
-AB_TURNS = (True, False, False, True)   # K9 on / off, in turns
 PROFILE_STEPS = 3   # profiled B=32 train steps (phase 13)
 PROFILE_TOP = 4     # kernels named in a profile line
 # kernel name -> family, first match wins
@@ -152,15 +180,29 @@ PROFILE_FAMILIES = [
     ("reductions", r"reduce|norm"),
     ("elementwise and copies", r"elementwise|vectorized|copy|fill|cat"),
 ]
+K8_TOL = 3e-3     # K8 vs its twin on the same bf16 inputs: h rounds to bf16
+                  # after f32 statistics summed in other orders
+ROUTE_TOL = 2e-2  # K8's top-k vs the dense route's on one decode state: the
+                  # two round h at different points (ops/norms.py)
+K10_OUT_TOL = 1e-2   # K10 vs its twin, out relative to max |twin|: out
+                     # rounds to bf16 (2^-9 relative), p to bf16 before AV
+K10_LSE_TOL = 1e-4   # K10 vs its twin, lse absolute: the same integer dots
+                     # dequantized in the same order, f32 sums in another
+QK_INT8_DRIFT = 1e-2  # K10 vs K1 out, max abs at unit-scale activations
+                      # (the JAX package's bound, tests/test_attention.py)
+ENCODE_DRIFT = 5e-2   # K10 vs K1 encoder context, max abs relative to
+                      # max |K1's|: 4 layers of that drift, rounded to bf16
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
+INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak, same source
 
 
-def _bound(n_bytes: float, n_ops: float) -> dict:
+def _bound(n_bytes: float, n_ops: float, int8_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the bf16 peak."""
+    the memory rate and the operations over their peaks (bf16 ``n_ops``,
+    int8 ``int8_ops``)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / BF16_OPS_PER_S * 1e3
+    t_ops = (n_ops / BF16_OPS_PER_S + int8_ops / INT8_OPS_PER_S) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -450,15 +492,24 @@ def _cpu_cross_check(model, xs) -> dict:
     return errs
 
 
-def _flagship():
-    """The flagship Franky on the card: random weights from SEED, bf16."""
+def _qk_int8_config(cfg):
+    """``cfg`` (a FrankyConfig) with ``qk_int8`` on in its encoder."""
+    import dataclasses
+    brain = cfg.brain
+    return dataclasses.replace(cfg, brain=dataclasses.replace(
+        brain, encoder=dataclasses.replace(brain.encoder, qk_int8=True)))
+
+
+def _flagship(qk_int8: bool = False):
+    """The flagship Franky on the card: random weights from SEED, bf16;
+    with ``qk_int8`` the same weights with the encoder's int8 QK scores."""
     import torch
     from frankenstein_tpu_torch.config import FrankyConfig
     from frankenstein_tpu_torch.decode import pipeline
     from frankenstein_tpu_torch.models.franky import Franky
     from frankenstein_tpu_torch.models.weights import init_franky_
-    model = init_franky_(Franky(FrankyConfig(), device=torch.device("cuda")),
-                         seed=SEED)
+    cfg = _qk_int8_config(FrankyConfig()) if qk_int8 else FrankyConfig()
+    model = init_franky_(Franky(cfg, device=torch.device("cuda")), seed=SEED)
     return pipeline.cast_params_for_inference(model)
 
 
@@ -467,10 +518,11 @@ def _reset_launches() -> None:
     from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
     from frankenstein_tpu_torch.ops.cuda import fused_llama_decode as k5
     from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
-    k1.launches = k1.launches_bwd = 0
+    k1.launches = k1.launches_bwd = k1.launches_int8 = 0
     k2.launches = k2.launches_int8_kv = k3.launches = 0
-    k5.launches = k5.launches_int8_kv = k9.launches = 0
+    k5.launches = k5.launches_int8_kv = k9.launches = k8.launches = 0
 
 
 def _read_launches() -> dict:
@@ -478,11 +530,13 @@ def _read_launches() -> dict:
     from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
     from frankenstein_tpu_torch.ops.cuda import fused_llama_decode as k5
     from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
     return {"K1": k1.launches, "K2": k2.launches,
             "K2-int8": k2.launches_int8_kv, "K3": k3.launches,
             "K4": k1.launches_bwd, "K5": k5.launches,
-            "K5-int8": k5.launches_int8_kv, "K9": k9.launches}
+            "K5-int8": k5.launches_int8_kv, "K8": k8.launches,
+            "K9": k9.launches, "K10": k1.launches_int8}
 
 
 def _k9_blocks(cfg) -> int:
@@ -492,38 +546,60 @@ def _k9_blocks(cfg) -> int:
     return cfg.brain.encoder.n_layers + cfg.brain.n_layers
 
 
-def _k9_ab(measure) -> dict:
-    """``measure()`` -> (ms, peak GiB) with K9 on and off
-    (``fused_mlp.ENABLED``) in the turns AB_TURNS: the mean ms of each
-    setting's turns and its larger peak."""
+def _in_turns(fns: dict, repeats: int = 0) -> dict:
+    """Each of ``fns`` (name -> thunk) called once to warm up, then timed one
+    call at a time between CUDA events, in turns whose order flips every
+    round: name -> {"ms": (median, min, max) over ``repeats``
+    (TIMING_REPEATS) calls, "gib": the peak GiB of those calls}. Every on /
+    off comparison of the phases is timed here."""
+    import torch
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    ms, gib = {name: [] for name in fns}, dict.fromkeys(fns, 0.0)
+    for i in range(repeats or TIMING_REPEATS):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            ms[name].append(start.elapsed_time(end))
+            gib[name] = max(gib[name],
+                            torch.cuda.max_memory_allocated() / 2 ** 30)
+    return {name: {"ms": _spread(ms[name]), "gib": gib[name]}
+            for name in fns}
+
+
+def _note(spread) -> str:
+    return f"{spread[0]:.1f} ({spread[1]:.1f}-{spread[2]:.1f})"
+
+
+def _k9_ab(fn) -> dict:
+    """``fn()`` with K9 on and off (``fused_mlp.ENABLED``), in turns
+    (``_in_turns``): {True: on, False: off}."""
     from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
-    ms = {True: [], False: []}
-    peak = {True: 0.0, False: 0.0}
-    try:
-        for on in AB_TURNS:
+
+    def setting(on):
+        def call():
             k9.ENABLED = on
-            t, p = measure()
-            ms[on].append(t)
-            peak[on] = max(peak[on], p)
+            return fn()
+        return call
+
+    try:
+        return _in_turns({True: setting(True), False: setting(False)})
     finally:
         k9.ENABLED = True
-    return {"on_ms": sum(ms[True]) / len(ms[True]),
-            "off_ms": sum(ms[False]) / len(ms[False]),
-            "on_gib": peak[True], "off_gib": peak[False]}
-
-
-def _ms_and_peak(fn) -> tuple:
-    """(mean device ms of 3 calls of fn() after one, peak GiB)."""
-    import torch
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ms = _time_ms(fn, iters=3, warmup=1)
-    return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
 def _ab_note(ab: dict) -> str:
-    return (f"K9 on {ab['on_ms']:.1f} ms (peak {ab['on_gib']:.2f} GiB), off "
-            f"{ab['off_ms']:.1f} ms (peak {ab['off_gib']:.2f} GiB)")
+    return (f"K9 on {_note(ab[True]['ms'])} ms (peak {ab[True]['gib']:.2f} "
+            f"GiB), off {_note(ab[False]['ms'])} ms (peak "
+            f"{ab[False]['gib']:.2f} GiB), medians (range) of "
+            f"{TIMING_REPEATS}")
 
 
 def phase_slice(card: str, model) -> dict:
@@ -550,7 +626,8 @@ def phase_slice(card: str, model) -> dict:
            f"predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": cfg.max_tokens,
                         "K2-int8": 0, "K3": 0, "K4": 0, "K5": 0,
-                        "K5-int8": 0, "K9": _k9_blocks(cfg)},
+                        "K5-int8": 0, "K8": 0, "K9": _k9_blocks(cfg),
+                        "K10": 0},
            f"launches {launches}")
     prefix = model.encode(xs)
     idx0 = torch.full((8, 1), GPT2_EOT, dtype=torch.long, device=dev)
@@ -569,8 +646,8 @@ def phase_slice(card: str, model) -> dict:
     # batch-128 timings (the bench's headline batch)
     xb = torch.randn(128, enc.window_size, enc.n_electrodes, generator=gen,
                      device=dev)
-    ab = _k9_ab(lambda: _ms_and_peak(lambda: model.encode(xb)))
-    encode_ms = ab["on_ms"]
+    ab = _k9_ab(lambda: model.encode(xb))
+    encode_ms = ab[True]["ms"][0]
     pb = model.encode(xb)
     idx_b = torch.full((128, 1), GPT2_EOT, dtype=torch.long, device=dev)
     qw = sampling.quantize_serving_weights(model)
@@ -815,7 +892,7 @@ def phase_beams(card: str, model) -> dict:
            f"beam predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": steps, "K2-int8": steps,
                         "K3": steps, "K4": 0, "K5": 0, "K5-int8": 0,
-                        "K9": _k9_blocks(cfg)},
+                        "K8": 0, "K9": _k9_blocks(cfg), "K10": 0},
            f"beam path launches {launches}")
 
     qw = sampling.quantize_serving_weights(model)
@@ -987,6 +1064,19 @@ def _time_steps(state, tcfg, ds, batch_size: int, steps: int):
     return ms, torch.cuda.max_memory_allocated() / 2 ** 30
 
 
+def _train_stepper(state, tcfg, ds, batch_size: int):
+    """A thunk that runs one train step on the next of four batches."""
+    import itertools
+
+    import torch
+    from frankenstein_tpu_torch.train import trainer
+    from frankenstein_tpu_torch.train.schedule import make_lr_schedule
+    batches = itertools.cycle(_batches(ds, batch_size, 4))
+    sched = make_lr_schedule(tcfg)
+    gen = torch.Generator(device="cuda")
+    return lambda: trainer.train_step(state, next(batches), tcfg, sched, gen)
+
+
 def _family(name: str) -> str:
     for family, pattern in PROFILE_FAMILIES:
         if re.search(pattern, name, re.IGNORECASE):
@@ -1091,7 +1181,8 @@ def phase_train(card: str) -> dict:
         _check(launches["K4"] == n_layers * TRAIN_STEPS
                and launches["K1"] == n_layers * (TRAIN_STEPS + 1)
                and launches["K9"] == _k9_blocks(cfg) * (TRAIN_STEPS + 1)
-               and launches["K2"] == launches["K3"] == launches["K5"] == 0,
+               and launches["K2"] == launches["K3"] == launches["K5"] == 0
+               and launches["K8"] == launches["K10"] == 0,
                f"training launches {launches}")
 
         best = ckpt_lib.best_checkpoint(run_dir)
@@ -1120,7 +1211,7 @@ def phase_train(card: str) -> dict:
         ds = train_cli.build_datasets("synthetic", 768, 256, 256)[0]
         grad_errs = _grad_check(state, tcfg, ds)
         step_ms, peak = _time_steps(state, tcfg, ds, 32, 5)
-        ab = _k9_ab(lambda: _time_steps(state, tcfg, ds, 32, 3))
+        ab = _k9_ab(_train_stepper(state, tcfg, ds, 32))
         big = tcfg.replace(batch_size=256, grad_accum=8)
         big_ms, big_peak = _time_steps(state, big, ds, 256, 1)
     worst = max(grad_errs, key=grad_errs.get)
@@ -1356,7 +1447,8 @@ def phase_franky_llama(card: str, model) -> dict:
            f"FrankyLlama predictor returned {out!r}")
     _check(launches == {"K1": enc.n_layers, "K2": 0, "K2-int8": 0,
                         "K3": steps, "K4": 0, "K5": steps,
-                        "K5-int8": steps, "K9": _k9_blocks(cfg)},
+                        "K5-int8": steps, "K8": 0, "K9": _k9_blocks(cfg),
+                        "K10": 0},
            f"FrankyLlama beam path launches {launches}")
 
     qw = sampling.quantize_serving_weights(model)
@@ -1739,7 +1831,8 @@ def phase_mae(card: str) -> dict:
         k9_want = cfg.n_layers * passes     # the encoder's blocks only
         _check(launches.pop("K9") == k9_want,
                f"K9 launched {k9.launches} times, want {k9_want}")
-        _check(not any(launches.values()), f"K1-K5 launched: {launches}")
+        _check(not any(launches.values()),
+               f"K1-K5, K8 or K10 launched: {launches}")
         _check(not any(twins.calls.values()),
                f"plain twins ran on the card: {twins.calls}")
 
@@ -1784,7 +1877,7 @@ def phase_mae(card: str) -> dict:
         del init
         trained = _mae_grad_check(state.model, ds, witness=True)
         step_ms, peak = _time_steps(state, tcfg, ds, 32, 5)
-        ab = _k9_ab(lambda: _time_steps(state, tcfg, ds, 32, 3))
+        ab = _k9_ab(_train_stepper(state, tcfg, ds, 32))
         big = tcfg.replace(batch_size=256, grad_accum=8)
         big_ms, big_peak = _time_steps(state, big, ds, 256, 1)
         profiles = {"MAE": _profile_steps(state, tcfg, ds, "MAE", card)}
@@ -1938,13 +2031,16 @@ def phase_k9(card: str) -> dict:
                           iters=5)
         chain_b32 = _time_ms(lambda: k9.reference_chain(*big, kind=kind),
                              iters=5)
+        plain_b32 = _time_ms(lambda: k9.fused_norm_swiglu_ref(*big,
+                                                              kind=kind),
+                             iters=2, warmup=1)
         rows = 32 * 6144
         bound_b32 = _bound(4 * rows * 256 + _nbytes(*big[1:]),
                            6 * rows * 256 * 1024)
         print(f"phase 14 K9 fused_norm_swiglu {kind} encoder B=32: kernel "
-              f"{ms_b32:.3f} ms, eager module chain {chain_b32:.3f} ms, "
-              f"bound {bound_b32['bound_ms']:.4f} ms "
-              f"({bound_b32['bound_by']}) | {card}", flush=True)
+              f"{ms_b32:.3f} ms, plain {plain_b32:.3f} ms, eager module "
+              f"chain {chain_b32:.3f} ms, bound {bound_b32['bound_ms']:.4f} "
+              f"ms ({bound_b32['bound_by']}) | {card}", flush=True)
         del big
     return results
 
@@ -2013,6 +2109,428 @@ def phase_repair(card: str) -> None:
                    f"{want}")
 
 
+def _k8_inputs(b: int, gen):
+    """GPT-2 124M's head: bf16 x [B, 768], f32 ln_f, the bf16 tied table
+    [50304, 768] at GPT-2's init scale."""
+    import torch
+    e, v = 768, 50304
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    return (rnd(b, e).to(torch.bfloat16), 1.0 + 0.1 * rnd(e), 0.1 * rnd(e),
+            (0.02 * rnd(v, e)).to(torch.bfloat16))
+
+
+def _k8_chain(x, w, bias, wte, k: int):
+    """The eager chain K8 stands beside: layer norm, the bf16 head, top-k
+    and logsumexp, four PyTorch calls."""
+    import torch
+    import torch.nn.functional as F
+    h = F.layer_norm(x.float(), (x.shape[-1],), w, bias, 1e-5).to(wte.dtype)
+    logits = (h @ wte.t()).float()
+    return torch.topk(logits, k), torch.logsumexp(logits, dim=-1)
+
+
+def _topk_gap(idx, ref_vals, ref_idx, logits) -> tuple:
+    """Chosen indices that differ from the reference's, and the largest
+    |reference logit at such a choice - reference value at its rank|: a
+    near-tie when small."""
+    import torch
+    differ = idx != ref_idx
+    if not bool(differ.any()):
+        return 0, 0.0
+    near = (torch.gather(logits, 1, idx) - ref_vals).abs()
+    return int(differ.sum()), float(near[differ].max())
+
+
+def phase_k8(card: str) -> dict:
+    import torch
+    from frankenstein_tpu_torch.ops import norms
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    k, e, v = 10, 768, 50304
+    results = {}
+    for b in (8, 32, 128, 160):
+        x, w, bias, wte = _k8_inputs(b, gen)
+        run = lambda: k8.lm_head_topk(x, w, bias, wte, k=k)
+        got, again = run(), run()
+        ref = k8.lm_head_topk_ref(x, w, bias, wte, k=k)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+        err_v, err_z = _max_err(got[0], ref[0]), _max_err(got[2], ref[2])
+        differ, gap = _topk_gap(got[1], ref[0], ref[1],
+                                k8.head_logits_ref(x, w, bias, wte))
+        ms = _time_ms(run)
+        plain_ms = _time_ms(lambda: k8.lm_head_topk_ref(x, w, bias, wte,
+                                                        k=k), iters=3)
+        chain_ms = _time_ms(lambda: _k8_chain(x, w, bias, wte, k))
+        outputs = b * k * (4 + 8) + b * 4
+        bound = _bound(_nbytes(x, w, bias, wte) + outputs, 2 * b * e * v)
+        dense, extra = "", {}
+        if b == 128:
+            # the port's dense route: ln_f on the bf16 model, the f32
+            # serving table, torch.topk (decode_step + sampling._pick)
+            table = wte.float().t()
+            wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+            extra["dense_ms"] = _time_ms(lambda: torch.topk(
+                norms.layer_norm(x, wb, bb).float() @ table, k))
+            dense = f", the port's dense route {extra['dense_ms']:.4f} ms"
+            del table
+        print(f"phase 16 K8 lm_head_topk B={b} E={e} V={v} k={k} bf16: vals "
+              f"max_abs_err {err_v:.3e}, logz {err_z:.3e}, indices off the "
+              f"twin's {differ} (largest near-tie gap {gap:.3e}), tol "
+              f"{K8_TOL}, two launches bitwise equal {bitwise} | kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, eager chain "
+              f"{chain_ms:.4f} ms{dense}, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) | {card}", flush=True)
+        _check(all(bool(torch.isfinite(a).all()) for a in (got[0], got[2])),
+               f"K8 B={b} not finite")
+        _check(max(err_v, err_z, gap) <= K8_TOL,
+               f"K8 B={b} disagrees with its twin: vals {err_v}, logz "
+               f"{err_z}, index gap {gap}")
+        _check(all(len(set(r.tolist())) == k for r in got[1]),
+               f"K8 B={b} repeats an index")
+        _check(bitwise, f"K8 B={b} is not deterministic")
+        results[b] = {"max_abs_err": max(err_v, err_z), "ms": ms,
+                      "plain_ms": plain_ms, "chain_ms": chain_ms,
+                      "library_ms": None, **bound, **extra}
+        del x, wte, got, again, ref
+
+    # ties: vocab rows 3 and 7 equal and aligned with row 0's h
+    x, w, bias, wte = _k8_inputs(8, gen)
+    h0 = torch.nn.functional.layer_norm(x[:1].float(), (e,)) * w + bias
+    wte[3] = wte[7] = (0.2 * h0[0]).to(torch.bfloat16)
+    ties = [(idx[0, :2].tolist(), float(vals[0, 0]) == float(vals[0, 1]))
+            for vals, idx, _ in (k8.lm_head_topk(x, w, bias, wte, k=4),
+                                 k8.lm_head_topk_ref(x, w, bias, wte, k=4))]
+    print(f"phase 16 K8 forced tie (vocab rows 3 and 7 equal): kernel top "
+          f"two {ties[0][0]} equal {ties[0][1]}, twin {ties[1][0]} equal "
+          f"{ties[1][1]} | {card}", flush=True)
+    _check(ties == [([3, 7], True)] * 2, f"K8 ties: {ties}")
+    return results
+
+
+def phase_k10(card: str) -> dict:
+    import torch
+    from frankenstein_tpu_torch.ops import rope
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    b, t, h, d, p = 2, 6144, 8, 32, 256
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    # activations at the JAX package's qk_int8 test scale (0.5)
+    act = lambda n: (0.5 * torch.randn(n, t, h * d, generator=gen,
+                                       device=dev)).to(torch.bfloat16)
+    q, k, v = act(b), act(b), act(b)
+    cos, sin = rope.folded_tables(rope.build_rope_cache(d, t, device=dev),
+                                  1)
+    kw = dict(n_heads=h, tok_per_time=p)
+    run = lambda: k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True,
+                                         **kw)
+    (out, lse), (out2, lse2) = run(), run()
+    codes, scales = k1.rope_quantize_k(k, cos, sin, n_heads=h)
+    ref_codes, ref_scales = k1.rope_quantize_k_ref(k, cos, sin, n_heads=h)
+    ref_out, ref_lse = k1.slab_rope_attention_int8_ref(q, k, v, cos, sin,
+                                                       **kw)
+    exact = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+    # a kernel that dequantized every key tile with chunk 0's K scale
+    chunk0 = k1.slab_rope_attention_fwd_int8(
+        q, codes, scales[..., :1].expand_as(scales).contiguous(), v, cos,
+        sin, **kw)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(out, out2) and torch.equal(lse, lse2)
+    # a code may differ from the twin's only on a .5 tie
+    rot = rope.apply_rope_folded(k, cos.repeat(1, h), sin.repeat(1, h))
+    per = ref_scales.transpose(1, 2).repeat_interleave(1024, dim=1)
+    pre = (rot.float().reshape(b, t, h, d) / per[..., None]).reshape(b, t,
+                                                                    -1)
+    off_tie = ((codes != ref_codes)
+               & ((((pre.abs() % 1.0) - 0.5).abs()) > CODE_WINDOW))
+    n_differ, n_off_tie = int((codes != ref_codes).sum()), int(off_tie.sum())
+    scales_equal = torch.equal(scales, ref_scales)
+    top = float(ref_out.abs().max())
+    errs = lambda o, l_: (_max_err(o, ref_out) / top, _max_err(l_, ref_lse))
+    passes = lambda e_: e_[0] <= K10_OUT_TOL and e_[1] <= K10_LSE_TOL
+    err = errs(out, lse)
+    # the check's power: K1's output and the chunk-0-scale kernel must fail
+    controls = {"K1": errs(*exact), "chunk-0 scale": errs(*chunk0)}
+    diff = (out.float() - exact[0].float()).abs()
+    drift, drift_mean = float(diff.max()), float(diff.mean())
+
+    # K10 forward + K4 backward through the autograd Function, against the
+    # twins' chain (K10's twin, then K4's on its out and lse)
+    dout = torch.randn(b, t, h * d, generator=gen,
+                       device=dev).to(torch.bfloat16)
+    leaves = [a.detach().requires_grad_() for a in (q, k, v)]
+    before = (k1.launches_int8, k1.launches_bwd)
+    k1.SlabRopeAttention.apply(*leaves, cos, sin, h, p, True).backward(dout)
+    torch.cuda.synchronize()
+    through = (k1.launches_int8 - before[0], k1.launches_bwd - before[1])
+    want = k1.slab_rope_attention_bwd_ref(
+        *(a.float() for a in (q, k, v, cos, sin, ref_out, ref_lse, dout)),
+        **kw)
+    grad_rel = [_max_err(a.grad, w_) / float(w_.abs().max())
+                for a, w_ in zip(leaves, want)]
+
+    main_ms = _time_ms(lambda: k1.slab_rope_attention_fwd_int8(
+        q, codes, scales, v, cos, sin, **kw))
+    pre_ms = _time_ms(lambda: k1.rope_quantize_k(k, cos, sin, n_heads=h))
+
+    def calls(qk_int8):   # ten back-to-back calls per timed turn
+        return lambda: [k1.slab_rope_attention(q, k, v, cos, sin,
+                                               qk_int8=qk_int8, **kw)
+                        for _ in range(10)]
+
+    turns = _in_turns({True: calls(True), False: calls(False)})
+    spread = {on: [x / 10 for x in turns[on]["ms"]] for on in turns}
+    ms, k1_ms = spread[True][0], spread[False][0]
+    plain_ms = _time_ms(lambda: k1.slab_rope_attention_int8_ref(
+        q, k, v, cos, sin, **kw), iters=3)
+    pairs = _slab_pairs(t, p)
+    bound = _bound(_nbytes(q, k, v, cos, sin, out, lse),
+                   2 * d * h * b * pairs, int8_ops=2 * d * h * b * pairs)
+    qb, kb, vb = act(32), act(32), act(32)
+    ms_b32 = _time_ms(lambda: k1.slab_rope_attention(
+        qb, kb, vb, cos, sin, qk_int8=True, **kw), iters=3)
+    k1_b32 = _time_ms(lambda: k1.slab_rope_attention(qb, kb, vb, cos, sin,
+                                                     **kw), iters=3)
+    note = lambda sp: f"{sp[0]:.4f} ({sp[1]:.4f}-{sp[2]:.4f})"
+    print(f"phase 17 K10 slab_rope_attention qk_int8 B={b} T={t} E={h * d} "
+          f"H={h} P={p} bf16: K codes off the twin's {n_differ} ({n_off_tie}"
+          f" off a .5 tie), scales equal {scales_equal}, out max_abs_err "
+          f"{err[0] * top:.3e} = {err[0]:.3e} of max |twin| {top:.3e} (tol "
+          f"{K10_OUT_TOL}), lse {err[1]:.3e} (tol {K10_LSE_TOL}); the same "
+          f"check on K1's output: out {controls['K1'][0]:.3e}, lse "
+          f"{controls['K1'][1]:.3e}; on a kernel that reads chunk 0's K "
+          f"scale for every tile: out {controls['chunk-0 scale'][0]:.3e}, "
+          f"lse {controls['chunk-0 scale'][1]:.3e}; drift from K1's out max "
+          f"{drift:.3e} mean {drift_mean:.3e} (tol {QK_INT8_DRIFT}), K10 + "
+          f"K4 gradients rel err "
+          f"{grad_rel[0]:.3e}/{grad_rel[1]:.3e}/{grad_rel[2]:.3e} (tol "
+          f"{K4_TOL}, launches K10 {through[0]} K4 {through[1]}), two "
+          f"launches bitwise equal {bitwise} | in turns, medians (range) of "
+          f"{TIMING_REPEATS}: K10 {note(spread[True])} ms, K1 "
+          f"{note(spread[False])} ms; K10's kernel alone {main_ms:.4f} ms, "
+          f"K pre-pass alone {pre_ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) | B=32: "
+          f"K10 {ms_b32:.3f} ms, K1 {k1_b32:.3f} ms | {card}", flush=True)
+    _check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+           "K10 output not finite")
+    _check(n_off_tie == 0 and scales_equal,
+           f"K10 codes off ties {n_off_tie}, scales equal {scales_equal}")
+    _check(passes(err), f"K10 disagrees with its twin: out {err[0]} of max "
+           f"|twin|, lse {err[1]}")
+    _check(not any(passes(e_) for e_ in controls.values()),
+           f"the K10 check cannot tell K10 from {controls}")
+    _check(0.0 < drift <= QK_INT8_DRIFT, f"K10 drift from K1 {drift}")
+    _check(max(grad_rel) <= K4_TOL and through == (1, 1),
+           f"K10 + K4 gradients {grad_rel}, launches {through}")
+    _check(bitwise, "K10 is not deterministic")
+    return {"max_abs_err": max(err[0] * top, err[1]), "ms": ms,
+            "main_ms": main_ms, "pre_ms": pre_ms, "k1_ms": k1_ms,
+            "plain_ms": plain_ms, "ms_b32": ms_b32, "k1_ms_b32": k1_b32,
+            "controls": controls, "library_ms": None, **bound}
+
+
+def _qk_int8_step(gen) -> dict:
+    """Path B in training: one Franky step at B=2 (f32 parameters, bf16
+    compute) with ``qk_int8`` (K10 forward, K4 backward on its out and lse)
+    and the same step without it; launches, finiteness and the relative
+    difference of the global gradient norm."""
+    import torch
+    from frankenstein_tpu_torch.config import FrankyConfig
+    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.models.weights import init_franky_
+    dev = torch.device("cuda")
+    cfg = FrankyConfig()
+    enc = cfg.brain.encoder
+    x = torch.randn(2, enc.window_size, enc.n_electrodes, generator=gen,
+                    device=dev)
+    y = torch.randint(0, cfg.gpt.vocab_size, (2, cfg.max_tokens),
+                      generator=gen, device=dev)
+    norms, launches = {}, {}
+    for int8 in (True, False):
+        model = init_franky_(Franky(_qk_int8_config(cfg) if int8 else cfg,
+                                    device=dev, dtype=torch.bfloat16),
+                             seed=SEED)
+        _reset_launches()
+        loss, _ = model(x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[int8] = _read_launches()
+        grads = [p.grad.float() for p in model.parameters()
+                 if p.grad is not None]
+        _check(math.isfinite(float(loss.detach()))
+               and all(bool(torch.isfinite(g).all()) for g in grads),
+               f"qk_int8={int8} training step not finite")
+        norms[int8] = float(torch.sqrt(sum((g * g).sum() for g in grads)))
+        del model, grads
+    got = {key: launches[True][key] for key in ("K1", "K4", "K10")}
+    want = {"K1": 0, "K4": enc.n_layers, "K10": enc.n_layers}
+    _check(got == want, f"qk_int8 step launches {got}, want {want}")
+    _check(launches[False]["K10"] == 0, "K10 ran without qk_int8")
+    rel = abs(norms[True] - norms[False]) / norms[False]
+    _check(rel <= GRAD_TOL, f"qk_int8 step's gradient norm off by {rel}")
+    return {"launches": got, "grad_norm_rel": rel}
+
+
+def _route_check(model, x, qw, int8_kv: bool) -> tuple:
+    """One decode step on one prefilled state (a ``QuantCache`` with
+    ``int8_kv``): K8's top-k and logz against the dense route's
+    (``decode_step``, ``exact_topk``, ``torch.logsumexp``) on a copy of the
+    same cache. Returns (max err, indices off, largest near-tie gap)."""
+    import torch
+    from frankenstein_tpu_torch.config import GPT2_EOT
+    from frankenstein_tpu_torch.decode import sampling
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    idx0 = torch.full((x.shape[0], 1), GPT2_EOT, dtype=torch.long,
+                      device=x.device)
+    logits, cache, length = sampling._prefill(
+        model, idx0, model.encode(x), model.cfg.max_tokens, int8_kv)
+    tok = torch.argmax(logits, dim=-1)
+    dense_cache = sampling._tree_map(torch.clone, cache)
+    vals, idx, logz, _, _ = model.decode_step_topk(tok, cache, length, qw,
+                                                   k=10)
+    dense, _, _ = model.decode_step(tok, dense_cache, length, qw)
+    dense_vals, dense_idx = k8.exact_topk(dense, 10)
+    err = max(_max_err(vals, dense_vals),
+              _max_err(logz, torch.logsumexp(dense, dim=-1)))
+    return (err, *_topk_gap(idx, dense_vals, dense_idx, dense))
+
+
+def phase_served(card: str) -> dict:
+    """Path A (compact top-k: ``sampling.COMPACT_TOPK``, K8) and path B (the
+    ``qk_int8`` encoder, K10) served end to end, under
+    FK_QK_INT8_STRICT=1."""
+    import os
+
+    import torch
+    from frankenstein_tpu_torch.config import GPT2_EOT
+    from frankenstein_tpu_torch.data.tokenizers import ByteTokenizer
+    from frankenstein_tpu_torch.decode import pipeline, sampling
+
+    dev = torch.device("cuda")
+    strict = os.environ.get("FK_QK_INT8_STRICT")
+    os.environ["FK_QK_INT8_STRICT"] = "1"
+    model, model8 = _flagship(), _flagship(qk_int8=True)
+    cfg = model.cfg
+    enc = cfg.brain.encoder
+    steps = cfg.max_tokens
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        # bf16 block weights: w8a16 requests keep the dense route
+        pred = {True: pipeline.make_franky_predictor(model8, ByteTokenizer(),
+                                                     top_k=10),
+                False: pipeline.make_franky_predictor(model, ByteTokenizer(),
+                                                      top_k=10)}
+        want = {True: {"K1": 0, "K2": steps, "K2-int8": 0, "K3": 0, "K4": 0,
+                       "K5": 0, "K5-int8": 0, "K8": steps,
+                       "K9": _k9_blocks(cfg), "K10": enc.n_layers}}
+        want[False] = dict(want[True], K1=enc.n_layers, K8=0, K10=0)
+        xs, launches = {}, {}
+        for b in (128, 8):
+            xs[b] = torch.randn(b, enc.window_size, enc.n_electrodes,
+                                generator=gen, device=dev)
+            for on in (True, False):
+                sampling.COMPACT_TOPK = on
+                _reset_launches()
+                out = pred[on](xs[b])
+                torch.cuda.synchronize()
+                launches[(b, on)] = _read_launches()
+                _check(len(out) == b and all(isinstance(s, str) for s in out),
+                       f"phase 18 B={b} predictor returned {out!r}")
+                _check(launches[(b, on)] == want[on],
+                       f"phase 18 B={b} switches {'on' if on else 'off'}: "
+                       f"launches {launches[(b, on)]}, want {want[on]}")
+
+        # the int8-KV request at B=8: K2's int8-KV mode, then K8
+        x8 = xs[8]
+        sampling.COMPACT_TOPK = True
+        pred_kv = pipeline.make_franky_predictor(model8, ByteTokenizer(),
+                                                 top_k=10, int8_kv=True)
+        _reset_launches()
+        out = pred_kv(x8)
+        torch.cuda.synchronize()
+        launches["int8_kv"] = _read_launches()
+        want_kv = dict(want[True], **{"K2-int8": steps})
+        _check(len(out) == 8 and all(isinstance(s, str) for s in out),
+               f"phase 18 int8-KV predictor returned {out!r}")
+        _check(launches["int8_kv"] == want_kv,
+               f"phase 18 int8 KV: launches {launches['int8_kv']}, want "
+               f"{want_kv}")
+
+        # one decode step's K8 top-k against the dense route's, same state,
+        # on the bf16 cache and on the int8 one
+        qw = sampling.decode_weights(model, int8_weights=False)
+        routes = {kv: _route_check(model, x8, qw, kv) for kv in (False, True)}
+
+        # one B=8 encode through K10 against K1's
+        with torch.no_grad():
+            ctx8, ctx = model8.brain_model.encoder(x8), \
+                model.brain_model.encoder(x8)
+        enc_drift = _max_err(ctx8, ctx) / float(ctx.float().abs().max())
+        prefix_drift = _max_err(model8.encode(x8), model.encode(x8))
+
+        # in turns: the encoder with qk_int8 on and off, the decode with
+        # COMPACT_TOPK on and off (bf16 weights), and the B=8 request with
+        # both on and both off
+        xb = xs[128]
+        idx_b = torch.full((128, 1), GPT2_EOT, dtype=torch.long, device=dev)
+        pb = model.encode(xb)
+
+        def decode(on):
+            sampling.COMPACT_TOPK = on
+            return sampling.generate(model, idx_b, pb, gen,
+                                     max_new_tokens=steps, top_k=10,
+                                     qweights=qw)
+
+        def request(on):
+            sampling.COMPACT_TOPK = on
+            return pred[on](x8)
+
+        enc_t = _in_turns({True: lambda: model8.encode(xb),
+                           False: lambda: model.encode(xb)})
+        dec_t = _in_turns({True: lambda: decode(True),
+                           False: lambda: decode(False)})
+        req_t = _in_turns({True: lambda: request(True),
+                           False: lambda: request(False)})
+        rate = {on: 128e3 / (enc_t[on]["ms"][0] + dec_t[on]["ms"][0])
+                for on in (True, False)}
+        train = _qk_int8_step(gen)
+    finally:
+        sampling.COMPACT_TOPK = False
+        if strict is None:
+            del os.environ["FK_QK_INT8_STRICT"]
+        else:
+            os.environ["FK_QK_INT8_STRICT"] = strict
+        del model, model8
+    route = lambda kv: (f"max err {routes[kv][0]:.3e}, indices off "
+                        f"{routes[kv][1]} (near-tie gap {routes[kv][2]:.3e})")
+    print(f"phase 18 served: Franky flagship, bf16 block weights, top-k 10, "
+          f"{steps} tokens, FK_QK_INT8_STRICT=1: launches per request with "
+          f"COMPACT_TOPK and qk_int8 on {launches[(128, True)]}, off "
+          f"{launches[(128, False)]} (the same at B=8), both on with int8 KV "
+          f"at B=8 {launches['int8_kv']}; one decode step's K8 top-k vs the "
+          f"dense route's: bf16 cache {route(False)}, int8 cache "
+          f"{route(True)} (tol {ROUTE_TOL}); B=8 encoder context K10 vs K1 "
+          f"rel drift {enc_drift:.3e} (tol {ENCODE_DRIFT}), prefix max drift "
+          f"{prefix_drift:.3e} | medians (range) of {TIMING_REPEATS}, in "
+          f"turns: B=128 encode qk_int8 on {_note(enc_t[True]['ms'])} ms, "
+          f"off {_note(enc_t[False]['ms'])} ms; B=128 decode COMPACT_TOPK on "
+          f"{_note(dec_t[True]['ms'])} ms, off {_note(dec_t[False]['ms'])} "
+          f"ms; {rate[True]:.1f} sentences/s both on, {rate[False]:.1f} both "
+          f"off; B=8 request both on {_note(req_t[True]['ms'])} ms, both off "
+          f"{_note(req_t[False]['ms'])} ms | training step B=2 with qk_int8: "
+          f"launches {train['launches']}, gradient norm vs exact rel "
+          f"{train['grad_norm_rel']:.3e} (tol {GRAD_TOL}) | {card}",
+          flush=True)
+    for kv, (err, _, gap) in routes.items():
+        _check(err <= ROUTE_TOL and gap <= ROUTE_TOL,
+               f"K8 vs the dense route (int8 KV {kv}): err {err}, index gap "
+               f"{gap}")
+    _check(0.0 < enc_drift <= ENCODE_DRIFT,
+           f"K10 vs K1 encoder context drift {enc_drift}")
+    return {"launches": launches, "encode": enc_t, "decode": dec_t,
+            "request": req_t, "rate": rate, "train": train}
+
+
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
     null where no one PyTorch call computes the same function."""
@@ -2033,12 +2551,12 @@ def main() -> int:
     phase_card(card)
     k1 = phase_k1(card)
     k2 = phase_k2(card)
-    model = _flagship()
-    sl = phase_slice(card, model)
+    franky = _flagship()
+    sl = phase_slice(card, franky)
     k3 = phase_k3(card)
     k2q = phase_k2_int8(card)
-    bm = phase_beams(card, model)
-    del model
+    bm = phase_beams(card, franky)
+    del franky
     k4 = phase_k4(card)
     tr = phase_train(card)
     k5 = phase_k5(card)
@@ -2049,6 +2567,9 @@ def main() -> int:
     mae = phase_mae(card)
     k9 = phase_k9(card)
     phase_repair(card)
+    k8 = phase_k8(card)
+    k10 = phase_k10(card)
+    served = phase_served(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [
@@ -2114,6 +2635,18 @@ def main() -> int:
                          "(call :135)",
              "launches": sl["launches"]["K9"] if kind == "layernorm" else 0,
              **_entry(k9[(kind, "encoder")])})
+    kernels += [
+        {"name": "lm_head_topk", "route": "cuda",
+         "source": "frankenstein_tpu_torch/csrc/lm_head_topk.cu",
+         "replaces": "frankenstein_tpu/ops/pallas/lm_head_topk.py:86",
+         "launches": served["launches"][(128, True)]["K8"],
+         **_entry(k8[128])},
+        {"name": "slab_rope_attention_fwd_int8", "route": "cuda",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
+         "replaces": "frankenstein_tpu/ops/pallas/block_attention.py:1334 "
+                     "(qk_int8)",
+         "launches": served["launches"][(128, True)]["K10"],
+         **_entry(k10)}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,13 @@ tensor code is PyTorch; the kernels the JAX package wrote in Pallas on these
 paths are hand-written CUDA C++ for Hopper (``csrc/``):
 
 - K1 ``ops/cuda/slab_attention.py``: slab-causal attention with in-kernel
-  RoPE (the encoder), and K4 beside it, its backward, joined in the
-  autograd Function ``SlabRopeAttention``;
+  RoPE (the encoder), K10 its int8-QK-score mode, and K4 beside them, the
+  backward, joined in the autograd Function ``SlabRopeAttention``;
 - K2 ``ops/cuda/fused_decode.py``: one GPT-2 token through all blocks,
   with a bf16 or an int8 KV cache;
-- K3 ``ops/cuda/beam_reorder.py``: the in-place beam-search cache reorder.
+- K3 ``ops/cuda/beam_reorder.py``: the in-place beam-search cache reorder;
+- K8 ``ops/cuda/lm_head_topk.py``: a decode step's head, top-k and
+  logsumexp without the [B, V] logits (``sampling.COMPACT_TOPK``).
 
 Each kernel's wrapper runs a plain PyTorch twin for CPU tensors, so the CPU
 tests hold the port to the JAX package. The package imports torch and

@@ -88,7 +88,7 @@ class MAEConfig(_SerializableMixin):
     # sequence mesh the JAX package computes the same single-device math
     seq_parallel: bool = False
 
-    # int8 QK scores (kernel K10); the port's encoder refuses it
+    # int8 QK scores in the encoder's slab attention (kernel K10)
     qk_int8: bool = False
 
     @property

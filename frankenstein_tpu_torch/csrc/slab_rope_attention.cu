@@ -1,7 +1,8 @@
-// K1: slab-causal flash attention with in-kernel RoPE, forward only.
+// K1 and K10: slab-causal flash attention with in-kernel RoPE, forward only;
+// K10 is K1 with int8 QK scores (a template parameter of the same kernel).
 //
-// Replaces frankenstein_tpu/ops/pallas/block_attention.py:_fwd_packed_rope_bte
-// (kernel body _fwd_packed_rope_kernel), reached from
+// K1 replaces frankenstein_tpu/ops/pallas/block_attention.py:
+// _fwd_packed_rope_bte (kernel body _fwd_packed_rope_kernel), reached from
 // slab_causal_attention_rope. Same contract:
 //   q, k, v   [B, T, E] bf16, UNROTATED, head h = columns [h*D, (h+1)*D)
 //   cos, sin  [T, D] f32, rope_cache[-T:] with each column repeated for the
@@ -13,6 +14,26 @@
 // unit, __expf: a few ulp, far below the bf16 rounding of the
 // probabilities); probabilities cast to bf16 before the AV product, as the
 // JAX kernel does.
+//
+// K10 replaces the same kernel's qk_int8=True mode (block_attention.py:
+// 1351-1356, 1370-1379, 1392-1403, 1411-1426), with its arithmetic:
+//   * rotated Q (rounded to bf16) per (row, head): s_q = max|q| / 127 +
+//     1e-12 in f32, codes round_half_even(q / s_q), an IEEE division;
+//   * rotated K per (1024-row key chunk, head): s_k the same over the
+//     chunk's rows and the head's lanes, codes round_half_even(k / s_k);
+//   * score = (float(int32 dot(q8, k8)) * (scale * s_k)) * s_q, in that
+//     order, then the slab mask and the online softmax; V, the
+//     probabilities and the AV product stay bf16 with f32 accumulation; lse
+//     from the dequantized scores (K4 runs on K10's out and lse).
+// The K scale is a max over 1024 rows, many of the main kernel's 64-key
+// tiles, so a pre-pass (rope_absmax_k, then rope_quantize_k, over small
+// row tiles) rotates K, takes each chunk's max and writes the codes
+// [B, T, E] int8 and the scales [B, H, T/1024] f32; since 1024 % 64 == 0
+// each K tile has one scale. The main kernel rotates Q once, takes each
+// row's max (row-local) and holds the int8 A-fragments in registers; QK is
+// mma.sync m16n8k32
+// s8 x s8 -> s32, one mma per 16x8 score tile at D=32, and the int32
+// accumulators convert in registers, after which the code is K1's.
 //
 // What bounds it on an H100: at D = 32 each score costs 2 x 32 MACs on the
 // tensor cores but one exp and several f32 ops of softmax, so the kernel is
@@ -47,27 +68,48 @@ using fk::bf16;
 using fk::lds32;
 using fk::load_rotate8;
 using fk::mma_bf16;
+using fk::mma_s8;
 using fk::pack_bf16;
 
 constexpr int BQ = 128;              // query rows per CTA
 constexpr int BK = 64;               // keys per tile
 constexpr int NWARPS = BQ / 16;      // 16 query rows per warp
 constexpr int NTHREADS = NWARPS * 32;
+constexpr int KCHUNK = 1024;         // rows per K scale (K10)
+static_assert(NTHREADS == 2 * BQ, "K10 quantizes Q with two threads a row");
+static_assert(KCHUNK % BK == 0, "a K tile must sit in one scale chunk");
 
-template <int D>
+// The int8 code of v at scale s: round half to even of the IEEE quotient.
+__device__ __forceinline__ int8_t quantize(float v, float s) {
+  return static_cast<int8_t>(__float2int_rn(__fdiv_rn(v, s)));
+}
+
+__device__ __forceinline__ float absmax_scale(float mx) {
+  return __fadd_rn(__fdiv_rn(mx, 127.f), 1e-12f);
+}
+
+// INT8 = false: K1 (k is the bf16 input, k8 and ks unused).
+// INT8 = true: K10 (k unused; k8 [B, T, E] and ks [B, H, T / KCHUNK] from
+// rope_quantize_k).
+template <int D, bool INT8>
 __global__ void __launch_bounds__(NTHREADS)
 slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v,
+                   const int8_t* __restrict__ k8,
+                   const float* __restrict__ ks, const bf16* __restrict__ v,
                    const float* __restrict__ cos_t,
                    const float* __restrict__ sin_t, bf16* __restrict__ out,
                    float* __restrict__ lse, int T, int H, int P, float scale) {
-  constexpr int CH = D / 8;      // 16-byte chunks per head row
+  constexpr int CH = D / 8;      // 16-byte chunks per bf16 head row
   constexpr int LDQ = D + 8;     // row stride of sQ/sK: conflict-free frags
+  constexpr int LD8 = D + 16;    // byte stride of int8 rows: conflict-free
   constexpr int LDV = BK + 8;    // row stride of the transposed V tile
   constexpr int NT = BK / 8;     // score n-tiles per K tile
   constexpr int OT = D / 8;      // output n-tiles
   __shared__ __align__(16) bf16 sQ[BQ * LDQ];
-  __shared__ __align__(16) bf16 sK[BK * LDQ];
+  __shared__ __align__(16) bf16 sK[INT8 ? 8 : BK * LDQ];
+  __shared__ __align__(16) int8_t sK8[INT8 ? BK * LD8 : 16];
+  __shared__ __align__(16) int8_t sQ8[INT8 ? BQ * LD8 : 16];
+  __shared__ float sQs[INT8 ? BQ : 1];
   __shared__ __align__(16) bf16 sVt[D * LDV];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -84,15 +126,46 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  // the warp's 16 rotated q rows as A-fragments, one per 16-wide d step
-  uint32_t qa[D / 16][4];
-  const bf16* sQ_w = sQ + warp * 16 * LDQ;
+  // the warp's 16 rotated q rows as A-fragments, one per 16-wide (bf16) or
+  // 32-wide (int8) d step; K10 also keeps its rows' Q scales
+  uint32_t qa[INT8 ? D / 32 : D / 16][4];
+  float sq0 = 1.f, sq1 = 1.f;
+  if constexpr (INT8) {
+    {
+      const int r = tid >> 1, half = tid & 1;
+      const bf16* src = sQ + r * LDQ + half * (D / 2);
+      float mx = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = lds32(sQ_w + g * LDQ + kk * 16 + 2 * t);
-    qa[kk][1] = lds32(sQ_w + (g + 8) * LDQ + kk * 16 + 2 * t);
-    qa[kk][2] = lds32(sQ_w + g * LDQ + kk * 16 + 8 + 2 * t);
-    qa[kk][3] = lds32(sQ_w + (g + 8) * LDQ + kk * 16 + 8 + 2 * t);
+      for (int c = 0; c < D / 2; ++c)
+        mx = fmaxf(mx, fabsf(__bfloat162float(src[c])));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float s = absmax_scale(mx);
+      int8_t* dst = sQ8 + r * LD8 + half * (D / 2);
+#pragma unroll
+      for (int c = 0; c < D / 2; ++c)
+        dst[c] = quantize(__bfloat162float(src[c]), s);
+      if (half == 0) sQs[r] = s;
+    }
+    __syncthreads();
+    const int8_t* w8 = sQ8 + warp * 16 * LD8;
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk) {
+      qa[kk][0] = lds32(w8 + g * LD8 + kk * 32 + 4 * t);
+      qa[kk][1] = lds32(w8 + (g + 8) * LD8 + kk * 32 + 4 * t);
+      qa[kk][2] = lds32(w8 + g * LD8 + kk * 32 + 16 + 4 * t);
+      qa[kk][3] = lds32(w8 + (g + 8) * LD8 + kk * 32 + 16 + 4 * t);
+    }
+    sq0 = sQs[warp * 16 + g];
+    sq1 = sQs[warp * 16 + g + 8];
+  } else {
+    const bf16* sQ_w = sQ + warp * 16 * LDQ;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][0] = lds32(sQ_w + g * LDQ + kk * 16 + 2 * t);
+      qa[kk][1] = lds32(sQ_w + (g + 8) * LDQ + kk * 16 + 2 * t);
+      qa[kk][2] = lds32(sQ_w + g * LDQ + kk * 16 + 8 + 2 * t);
+      qa[kk][3] = lds32(sQ_w + (g + 8) * LDQ + kk * 16 + 8 + 2 * t);
+    }
   }
 
   const int row_first = q0 + warp * 16;
@@ -100,6 +173,8 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kend = min(T, ((q0 + BQ - 1) / P + 1) * P);
   const int row0 = row_first + g, row1 = row0 + 8;   // this thread's rows
   const int slab0 = row0 / P, slab1 = row1 / P;
+  const float* ks_bh = INT8 ? ks + (size_t(b) * H + h) * (T / KCHUNK)
+                            : nullptr;
 
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float o[OT][4];
@@ -110,10 +185,17 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // previous K, V tile consumed
     for (int idx = tid; idx < BK * CH; idx += NTHREADS) {
       const int r = idx / CH, c = (idx % CH) * 8, pos = k0 + r;
-      *reinterpret_cast<uint4*>(sK + r * LDQ + c) =
-          load_rotate8(k + base + size_t(pos) * E + c,
-                       cos_t + size_t(pos) * D + c,
-                       sin_t + size_t(pos) * D + c);
+      if constexpr (INT8) {
+        if (c % 16 == 0)   // a 16-byte chunk of codes covers two bf16 chunks
+          *reinterpret_cast<uint4*>(sK8 + r * LD8 + c) =
+              *reinterpret_cast<const uint4*>(k8 + base + size_t(pos) * E +
+                                              c);
+      } else {
+        *reinterpret_cast<uint4*>(sK + r * LDQ + c) =
+            load_rotate8(k + base + size_t(pos) * E + c,
+                         cos_t + size_t(pos) * D + c,
+                         sin_t + size_t(pos) * D + c);
+      }
       uint4 raw = *reinterpret_cast<const uint4*>(v + base + size_t(pos) * E +
                                                    c);
       const bf16* vv = reinterpret_cast<const bf16*>(&raw);
@@ -123,16 +205,34 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     if (k0 >= kend_warp) continue;  // warp-uniform: tile is in a future slab
 
-    // S = Q K^T: rows (g, g+8), keys 8j + 2t + {0, 1}
+    // S = Q K^T, scaled: rows (g, g+8), keys 8j + 2t + {0, 1}
     float s[NT][4];
+    if constexpr (INT8) {
+      const float ssk = __fmul_rn(scale, ks_bh[k0 / KCHUNK]);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* krow = sK + (j * 8 + g) * LDQ + 2 * t;
+      for (int j = 0; j < NT; ++j) {
+        int si[4] = {0, 0, 0, 0};
+        const int8_t* krow = sK8 + (j * 8 + g) * LD8 + 4 * t;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_bf16(s[j], qa[kk], lds32(krow + kk * 16),
-                 lds32(krow + kk * 16 + 8));
+        for (int kk = 0; kk < D / 32; ++kk)
+          mma_s8(si, qa[kk], lds32(krow + kk * 32), lds32(krow + kk * 32 + 16));
+        s[j][0] = __fmul_rn(__fmul_rn(__int2float_rn(si[0]), ssk), sq0);
+        s[j][1] = __fmul_rn(__fmul_rn(__int2float_rn(si[1]), ssk), sq0);
+        s[j][2] = __fmul_rn(__fmul_rn(__int2float_rn(si[2]), ssk), sq1);
+        s[j][3] = __fmul_rn(__fmul_rn(__int2float_rn(si[3]), ssk), sq1);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        const bf16* krow = sK + (j * 8 + g) * LDQ + 2 * t;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_bf16(s[j], qa[kk], lds32(krow + kk * 16),
+                   lds32(krow + kk * 16 + 8));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+      }
     }
 
     const bool need_mask = (k0 + BK - 1) / P > row_first / P;
@@ -141,7 +241,7 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        float a = s[j][e] * scale, c = s[j][2 + e] * scale;
+        float a = s[j][e], c = s[j][2 + e];
         if (need_mask) {
           const int key_slab = (k0 + j * 8 + 2 * t + e) / P;
           if (key_slab > slab0) a = -FLT_MAX;
@@ -215,10 +315,92 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// K10's pre-pass, two kernels over tiles of ROWS K rows (one 8-lane piece
+// a thread): rope_absmax_k rotates K (the rotation K1 applies, rounded to
+// bf16) and folds each tile's max |k| into its chunk's max with an atomic
+// max on the float's bits (non-negative floats order as their bits do);
+// rope_quantize_k rotates again, takes the chunk's scale and writes the
+// codes, and the chunk's first tile writes the scale. K is read twice, the
+// second time mostly from L2.
+constexpr int QK_THREADS = 256;
+
+template <int D>
+struct QkTile {
+  static constexpr int CH = D / 8;              // pieces a row
+  static constexpr int ROWS = QK_THREADS / CH;  // 64 at D=32, 32 at D=64
+  static_assert(KCHUNK % ROWS == 0, "a tile must sit in one chunk");
+
+  // the chunk of this CTA's tile in the [B, H, T / KCHUNK] scale arrays
+  static __device__ __forceinline__ size_t slot(int T, int H) {
+    return (size_t(blockIdx.z) * H + blockIdx.y) * (T / KCHUNK) +
+           blockIdx.x * ROWS / KCHUNK;
+  }
+
+  // this thread's 8 rotated lanes; returns their offset in k
+  static __device__ __forceinline__ size_t rotated(const bf16* k,
+                                                   const float* cos_t,
+                                                   const float* sin_t, int T,
+                                                   int H, float (&f)[8]) {
+    const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
+    const int pos = blockIdx.x * ROWS + r;
+    const size_t off = (size_t(blockIdx.z) * T + pos) * (H * D) +
+                       size_t(blockIdx.y) * D + c;
+    uint4 rot = load_rotate8(k + off, cos_t + size_t(pos) * D + c,
+                             sin_t + size_t(pos) * D + c);
+    const bf16* rv = reinterpret_cast<const bf16*>(&rot);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(rv[i]);
+    return off;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(QK_THREADS)
+rope_absmax_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
+              const float* __restrict__ sin_t, unsigned* __restrict__ amax,
+              int T, int H) {
+  __shared__ float red[QK_THREADS / 32];
+  float f[8];
+  QkTile<D>::rotated(k, cos_t, sin_t, T, H, f);
+  float mx = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(f[i]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < QK_THREADS / 32; ++w) mx = fmaxf(mx, red[w]);
+    atomicMax(amax + QkTile<D>::slot(T, H), __float_as_uint(mx));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(QK_THREADS)
+rope_quantize_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
+                const float* __restrict__ sin_t,
+                const unsigned* __restrict__ amax, int8_t* __restrict__ k8,
+                float* __restrict__ ks, int T, int H) {
+  const size_t slot = QkTile<D>::slot(T, H);
+  const float s = absmax_scale(__uint_as_float(amax[slot]));
+  if (threadIdx.x == 0 && (blockIdx.x * QkTile<D>::ROWS) % KCHUNK == 0)
+    ks[slot] = s;
+  float f[8];
+  const size_t off = QkTile<D>::rotated(k, cos_t, sin_t, T, H, f);
+  uint2 codes;
+  int8_t* c8 = reinterpret_cast<int8_t*>(&codes);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c8[i] = quantize(f[i], s);
+  *reinterpret_cast<uint2*>(k8 + off) = codes;
+}
+
 }  // namespace
 
 // Shapes are checked by the Python wrapper (ops/cuda/slab_attention.py):
-// T % 128 == 0, D in {32, 64}, contiguous bf16 q/k/v, f32 [T, D] tables.
+// T % 128 == 0 (and T % 1024 == 0 for K10), D in {32, 64}, contiguous bf16
+// q/k/v, f32 [T, D] tables.
 extern "C" int fk_slab_rope_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* cos_t,
                                           const void* sin_t, void* out,
@@ -230,14 +412,63 @@ extern "C" int fk_slab_rope_attention_fwd(const void* q, const void* k,
   const dim3 grid(T / BQ, H, B);
   auto args = [&](auto kernel) {
     kernel<<<grid, NTHREADS, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const float*>(cos_t),
-        static_cast<const float*>(sin_t), static_cast<bf16*>(out),
-        static_cast<float*>(lse), T, H, P, scale);
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
+        nullptr, static_cast<const bf16*>(v),
+        static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+        static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P, scale);
     return int(cudaGetLastError());
   };
-  if (D == 32) return args(slab_rope_attn_fwd<32>);
-  if (D == 64) return args(slab_rope_attn_fwd<64>);
+  if (D == 32) return args(slab_rope_attn_fwd<32, false>);
+  if (D == 64) return args(slab_rope_attn_fwd<64, false>);
+  return int(cudaErrorInvalidValue);
+}
+
+// K10's pre-pass alone: codes k8 [B, T, E] int8, scales ks [B, H, T/1024];
+// amax [B, H, T/1024] u32 scratch, zero on entry.
+extern "C" int fk_slab_rope_k_quant(const void* k, const void* cos_t,
+                                    const void* sin_t, void* amax, void* k8,
+                                    void* ks, int B, int T, int H, int D,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T % KCHUNK != 0) return int(cudaErrorInvalidValue);
+  auto run = [&](auto absmax, auto quant, int rows) {
+    const dim3 grid(T / rows, H, B);
+    absmax<<<grid, QK_THREADS, 0, st>>>(
+        static_cast<const bf16*>(k), static_cast<const float*>(cos_t),
+        static_cast<const float*>(sin_t), static_cast<unsigned*>(amax), T, H);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    quant<<<grid, QK_THREADS, 0, st>>>(
+        static_cast<const bf16*>(k), static_cast<const float*>(cos_t),
+        static_cast<const float*>(sin_t), static_cast<const unsigned*>(amax),
+        static_cast<int8_t*>(k8), static_cast<float*>(ks), T, H);
+    return int(cudaGetLastError());
+  };
+  if (D == 32)
+    return run(rope_absmax_k<32>, rope_quantize_k<32>, QkTile<32>::ROWS);
+  if (D == 64)
+    return run(rope_absmax_k<64>, rope_quantize_k<64>, QkTile<64>::ROWS);
+  return int(cudaErrorInvalidValue);
+}
+
+// K10's main kernel on the pre-pass's codes and scales.
+extern "C" int fk_slab_rope_attention_fwd_int8(
+    const void* q, const void* k8, const void* ks, const void* v,
+    const void* cos_t, const void* sin_t, void* out, void* lse, int B, int T,
+    int H, int D, int P, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T % KCHUNK != 0 || P <= 0) return int(cudaErrorInvalidValue);
+  const dim3 grid(T / BQ, H, B);
+  auto args = [&](auto kernel) {
+    kernel<<<grid, NTHREADS, 0, st>>>(
+        static_cast<const bf16*>(q), nullptr, static_cast<const int8_t*>(k8),
+        static_cast<const float*>(ks), static_cast<const bf16*>(v),
+        static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
+        static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P, scale);
+    return int(cudaGetLastError());
+  };
+  if (D == 32) return args(slab_rope_attn_fwd<32, true>);
+  if (D == 64) return args(slab_rope_attn_fwd<64, true>);
   return int(cudaErrorInvalidValue);
 }
 

@@ -2,7 +2,9 @@
 (``frankenstein_tpu/decode/sampling.py``).
 
 One prefill fills a fixed-shape cache, then each token costs one
-``decode_step`` (kernel K2 for GPT-2, K5 for a LLaMA, on the card).
+``decode_step`` (kernel K2 for GPT-2, K5 for a LLaMA, on the card), or
+with ``COMPACT_TOPK`` one ``decode_step_topk`` (K2, then K8's head and
+top-k).
 Beams are vectorized into the batch: a W-beam search over B sentences is
 one [B*W] decode whose cache rows are regathered by parent beam every step
 (kernel K3 on the card).
@@ -22,6 +24,17 @@ import numpy as np
 import torch
 
 NEG_INF = -1e30
+
+# Route top-k sampling through the model's compact ``decode_step_topk``
+# (Franky: ln_f + the tied head + top-k + the exact logsumexp in kernel K8)
+# where it can: the [B, vocab] logits never exist in the loop. Read at each
+# call of ``generate``. Off by default, as in the JAX package, whose TPU
+# measurement found the compact route slightly slower there; the port's
+# default waits for its own measurement. A top-k request takes it when the
+# switch is on, top_k < vocab, not greedy, the model has the method, and
+# the decode weights are not int8 (``decode_step_topk`` has no w8a16
+# contract, so w8a16 requests keep the dense route).
+COMPACT_TOPK = False
 
 
 def _round_cache_len(n: int, mult: int = 16) -> int:
@@ -63,6 +76,15 @@ def _pick(logits, generator, *, temperature: float, top_k: Optional[int],
                              generator=generator)[:, 0]
 
 
+def _compact(model, logits, qweights: dict, top_k: Optional[int],
+             greedy: bool) -> bool:
+    """Whether ``_sample_scan`` takes the compact route (``COMPACT_TOPK``'s
+    conditions, the JAX ``_sample_scan``'s)."""
+    return (COMPACT_TOPK and top_k is not None and top_k < logits.shape[-1]
+            and not greedy and hasattr(type(model), "decode_step_topk")
+            and qweights["qkv_w"].dtype != torch.int8)
+
+
 @torch.no_grad()
 def _sample_scan(model, logits, cache, length: int, generator, *,
                  qweights: dict, max_new_tokens: int,
@@ -70,6 +92,11 @@ def _sample_scan(model, logits, cache, length: int, generator, *,
                  greedy: bool = False):
     """Draw a token from ``logits``, step the model, repeat. Returns
     [B, max_new_tokens] int64 ids."""
+    if _compact(model, logits, qweights, top_k, greedy):
+        return _sample_scan_topk(model, logits, cache, length, generator,
+                                 qweights=qweights,
+                                 max_new_tokens=max_new_tokens,
+                                 temperature=temperature, top_k=top_k)
     toks = []
     for _ in range(max_new_tokens):
         tok = _pick(logits, generator, temperature=temperature, top_k=top_k,
@@ -77,6 +104,27 @@ def _sample_scan(model, logits, cache, length: int, generator, *,
         toks.append(tok)
         logits, cache, length = model.decode_step(tok, cache, length,
                                                   qweights)
+    return torch.stack(toks, dim=1)
+
+
+def _sample_scan_topk(model, logits, cache, length: int, generator, *,
+                      qweights: dict, max_new_tokens: int,
+                      temperature: float, top_k: int):
+    """Top-k sampling over the model's compact (vals, idx) decode step: the
+    first draw from the prefill logits' exact top-k, then each step draws
+    ``multinomial(softmax(vals / temperature))`` and takes ``idx`` at the
+    choice, the same draw as ``_pick``'s (dividing by the temperature
+    commutes with taking the top-k)."""
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk
+    vals, idx = lm_head_topk.exact_topk(logits.float(), top_k)
+    toks = []
+    for _ in range(max_new_tokens):
+        choice = torch.multinomial(torch.softmax(vals / temperature, dim=-1),
+                                   1, generator=generator)
+        tok = torch.gather(idx, -1, choice)[:, 0]
+        toks.append(tok)
+        vals, idx, _, cache, length = model.decode_step_topk(
+            tok, cache, length, qweights, k=top_k)
     return torch.stack(toks, dim=1)
 
 

@@ -3,11 +3,11 @@
 ``from_patches``, ``Encoder``, ``masking_indices``, ``MAE``,
 ``BrainEncoder``).
 
-The 6144-token slab-causal encoder attention runs kernel K1 on the card,
-and its backward kernel K4. The MAE encodes only the tokens it keeps, in
-the "gathered_slab" mode (kernel K6), and decodes all tokens with dense
-attention (kernel K7), both forward and backward. ``dtype`` is the compute
-dtype (``models/layers.py``).
+The 6144-token slab-causal encoder attention runs kernel K1 on the card
+(K10, int8 QK scores, with ``qk_int8``), and its backward kernel K4. The
+MAE encodes only the tokens it keeps, in the "gathered_slab" mode (kernel
+K6), and decodes all tokens with dense attention (kernel K7), both forward
+and backward. ``dtype`` is the compute dtype (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -52,14 +52,14 @@ def _put(x: torch.Tensor, idx: torch.Tensor, rows) -> torch.Tensor:
 
 class Encoder(nn.Module):
     """Patch + embed + space embedding + slab-causal transformer. Submodules
-    sit under ``transformer`` as in the reference's state dict."""
+    sit under ``transformer`` as in the reference's state dict.
+    ``cfg.qk_int8`` reaches the blocks of ``forward`` (kernel K10), as the
+    JAX ``Encoder.__call__`` passes it; ``forward_subset``, the MAE's
+    kept-token path, passes nothing and computes exact attention, as the
+    JAX package's does."""
 
     def __init__(self, cfg: MAEConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.qk_int8:
-            raise NotImplementedError(
-                "qk_int8: int8 QK scores are kernel K10, not ported yet "
-                "(ROADMAP.md, kernel queue)")
         if cfg.n_sessions:
             raise NotImplementedError(
                 "n_sessions > 0: the session embedding is not ported yet")
@@ -97,7 +97,8 @@ class Encoder(nn.Module):
                                          c.rope_theta, device=x.device)
         for block in self.transformer["h"]:
             tok = run_block(block, tok, remat=remat, mask_mode="slab",
-                            tok_per_time=c.n_electrodes, rope=rope)
+                            tok_per_time=c.n_electrodes, rope=rope,
+                            qk_int8=c.qk_int8)
         return self.transformer["ln_f"](tok)
 
     def forward_subset(self, patches: torch.Tensor, positions: torch.Tensor,

@@ -75,6 +75,15 @@ class Franky(_BrainPrefixLM):
                          device, dtype)
         self.remat = False
 
+    def decode_step_topk(self, token, cache, length: int,
+                         qweights: Optional[dict] = None, *, k: int):
+        """``GPT.decode_step_topk`` (kernel K8 on the card): the compact
+        top-k route of ``sampling.generate``. FrankyLlama has no such
+        method, as in the JAX package, so its requests keep the dense
+        route."""
+        return self.llm_model.decode_step_topk(token, cache, length,
+                                               qweights, k=k)
+
     def forward(self, x, targets, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """x: [B, 768, 256] signal; targets: [B, 25] ids with -100 padding.

@@ -13,6 +13,8 @@
   ``QuantCache`` (``quantize_cache`` after prefill). ``decode_step`` runs
   all blocks through kernel K2 (``ops/cuda/fused_decode.py``) where
   ``fused_decode.supported`` holds, else the module blocks;
+  ``decode_step_topk`` returns the step's exact top-k and logsumexp instead
+  of its logits, the head in kernel K8 (``ops/cuda/lm_head_topk.py``);
   ``reorder_cache`` gathers beams, through kernel K3
   (``ops/cuda/beam_reorder.py``) when the beams are grouped.
 - ``lm_head`` is tied to ``transformer.wte``.
@@ -33,7 +35,8 @@ from torch import nn
 from frankenstein_tpu_torch.config import GPTConfig, IGNORE_INDEX
 from frankenstein_tpu_torch.models.layers import LayerNorm, linear, run_block
 from frankenstein_tpu_torch.ops import attention as attn_ops
-from frankenstein_tpu_torch.ops.cuda import beam_reorder, fused_decode
+from frankenstein_tpu_torch.ops.cuda import (beam_reorder, fused_decode,
+                                             lm_head_topk)
 
 
 class QuantCache(NamedTuple):
@@ -328,6 +331,50 @@ class GPT(nn.Module):
         (``stack_decode_weights`` or ``quantize_decode_weights``), built
         once by the caller; None stacks them for this call.
         Returns (logits [B, vocab] f32, cache, length + 1)."""
+        x, cache, qweights = self._decode_blocks(token, cache, length,
+                                                 qweights)
+        table = None if qweights is None else qweights.get("lm_head_t")
+        x = self.transformer["ln_f"](x)
+        return self._lm_head(x, table), cache, length + 1
+
+    @torch.no_grad()
+    def decode_step_topk(self, token, cache, length: int,
+                         qweights: Optional[dict] = None, *, k: int):
+        """One decode step returning the exact top-k instead of the logits
+        (the JAX ``GPT.decode_step_topk``): the blocks as in ``decode_step``,
+        then ln_f + the tied head + top-k + the full-vocab logsumexp in
+        kernel K8 (``ops/cuda/lm_head_topk.py``) where its gate holds, so the
+        [B, vocab] logits never exist; else ln_f, ``_lm_head``,
+        ``exact_topk`` and ``torch.logsumexp``. int8 ``qweights`` raise: the
+        JAX contract has no w8a16 here.
+
+        Returns (vals [B, k] f32 descending, idx [B, k] int64 with ties to
+        the lowest index, logz [B] f32, cache, length + 1); ``vals - logz``
+        are exact log-probabilities."""
+        if qweights is not None and qweights["qkv_w"].dtype == torch.int8:
+            raise NotImplementedError(
+                "decode_step_topk takes no int8 decode weights (the JAX "
+                "contract has no w8a16 here); serve with int8_weights=False")
+        x, cache, qweights = self._decode_blocks(token, cache, length,
+                                                 qweights)
+        ln = self.transformer["ln_f"]
+        wte = self.transformer["wte"].weight
+        (b, e), v = x.shape, wte.shape[0]
+        if lm_head_topk.supported(x.device, x.dtype, wte.dtype, b, e, v, k):
+            vals, idx, logz = lm_head_topk.lm_head_topk(
+                x, ln.weight, ln.bias, wte, k=k, eps=ln.eps)
+        else:
+            table = None if qweights is None else qweights.get("lm_head_t")
+            logits = self._lm_head(ln(x), table)
+            vals, idx = lm_head_topk.exact_topk(logits, k)
+            logz = torch.logsumexp(logits, dim=-1)
+        return vals, idx, logz, cache, length + 1
+
+    def _decode_blocks(self, token, cache, length: int, qweights):
+        """Embed ``token`` at ``length`` and run all blocks: K2 where
+        ``fused_decode.supported`` holds (stacking the weights when
+        ``qweights`` is None), else ``_decode_blocks_plain``. Returns
+        (x [B, E], cache, qweights)."""
         quant = isinstance(cache, QuantCache)
         x = (self.transformer["wte"](token)
              + self.transformer["wpe"].weight[length][None])
@@ -335,10 +382,8 @@ class GPT(nn.Module):
         if not fused_decode.supported(x.device, x.dtype, w_dtype,
                                       cache[0].dtype, self.cfg.n_embd,
                                       self.cfg.n_head):
-            x = self._decode_blocks_plain(x, cache, length, qweights)
-            table = None if qweights is None else qweights.get("lm_head_t")
-            x = self.transformer["ln_f"](x)
-            return self._lm_head(x, table), cache, length + 1
+            return (self._decode_blocks_plain(x, cache, length, qweights),
+                    cache, qweights)
         if qweights is None:
             qweights = stack_decode_weights(self)
         x, k, v = fused_decode.fused_decode_blocks(
@@ -347,8 +392,7 @@ class GPT(nn.Module):
             cache.v_scale if quant else None, n_head=self.cfg.n_head)
         cache = (QuantCache(k, v, cache.k_scale, cache.v_scale) if quant
                  else (k, v))
-        x = self.transformer["ln_f"](x)
-        return self._lm_head(x, qweights.get("lm_head_t")), cache, length + 1
+        return x, cache, qweights
 
     def _decode_blocks_plain(self, x, cache, length: int, qweights):
         """x [B, E] through the module blocks at row ``length`` (the JAX

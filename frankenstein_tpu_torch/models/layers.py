@@ -95,7 +95,12 @@ class SelfAttention(nn.Module):
     ``apply_rope`` (a shared or a per-sample table) +
     ``dot_product_attention``, which routes the MAE's "gathered_slab"
     encoder (with ``positions``) to K6 and its long dense decoder to K7
-    where their kernels take the input."""
+    where their kernels take the input.
+
+    ``qk_int8`` asks for int8 QK scores (kernel K10, serving-grade accuracy;
+    gradients approximately straight-through), as the JAX ``SelfAttention``
+    does: only the K1 route honours it, and any other route calls
+    ``ops.attention.qk_int8_fallback`` and computes exact scores."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int, device=None,
                  dtype=None):
@@ -109,7 +114,7 @@ class SelfAttention(nn.Module):
         self.project = _linear(inner, dim, False, device)
 
     def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
-                rope=None, positions=None):
+                rope=None, positions=None, qk_int8: bool = False):
         b, t, _ = x.shape
         cdt = self.compute_dtype
         qf, kf, vf = (linear(x, self.qw, cdt), linear(x, self.kw, cdt),
@@ -119,8 +124,12 @@ class SelfAttention(nn.Module):
                                              qf.shape[-1], self.n_heads)):
             out = attn_ops.slab_attention_rope_fused(
                 qf, kf, vf, n_heads=self.n_heads, tok_per_time=tok_per_time,
-                rope_cache=rope)
+                rope_cache=rope, qk_int8=qk_int8)
             return linear(out, self.project, cdt)
+        if qk_int8:
+            attn_ops.qk_int8_fallback(
+                f"SelfAttention's route is not K1's (mask_mode={mask_mode!r},"
+                f" b={b}, t={t}, dtype={qf.dtype}, device={x.device})")
         shape = (b, t, self.n_heads, self.head_dim)
         q, k, v = qf.reshape(shape), kf.reshape(shape), vf.reshape(shape)
         if rope is not None:
@@ -184,10 +193,10 @@ class Block(nn.Module):
         self.mlp = SwiGLU(dim, hidden_dim, device, dtype)
 
     def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
-                rope=None, positions=None):
+                rope=None, positions=None, qk_int8: bool = False):
         x = x + self.attn(self.ln_1(x), mask_mode=mask_mode,
                           tok_per_time=tok_per_time, rope=rope,
-                          positions=positions)
+                          positions=positions, qk_int8=qk_int8)
         mlp = self.mlp
         cdt = mlp.compute_dtype or mlp.w1.weight.dtype
         if fused_mlp.ENABLED and fused_mlp.supported(

@@ -19,6 +19,8 @@ here, "gathered_slab" with a [B, N, N] mask from ``positions``.
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Optional
 
 import torch
@@ -128,14 +130,34 @@ def cached_attention(q, k_cache, v_cache, length: int, *,
                        generator)
 
 
+def qk_int8_fallback(reason: str) -> None:
+    """Signal that ``qk_int8`` was asked for but this call computes exact
+    scores (the JAX package's ``qk_int8_fallback``): a speed switch must not
+    silently do nothing, so it warns, and raises ``ValueError`` under
+    ``FK_QK_INT8_STRICT=1``."""
+    msg = f"qk_int8 requested but computing exact scores: {reason}"
+    if os.environ.get("FK_QK_INT8_STRICT", "0") == "1":
+        raise ValueError(msg)
+    warnings.warn(msg, stacklevel=3)
+
+
 def slab_attention_rope_fused(q, k, v, *, n_heads: int, tok_per_time: int,
-                              rope_cache) -> torch.Tensor:
+                              rope_cache, qk_int8: bool = False
+                              ) -> torch.Tensor:
     """Slab-causal attention over UNROTATED folded [B, T, E] q/k/v with RoPE
-    (suffix-aligned) applied inside kernel K1, differentiable through kernel
-    K4 (``ops/cuda/slab_attention.py:SlabRopeAttention``). Returns
-    [B, T, E]."""
+    (suffix-aligned) applied inside kernel K1, or with ``qk_int8`` inside
+    K10 (int8 QK scores) where its gate holds, differentiable through kernel
+    K4 (``ops/cuda/slab_attention.py:SlabRopeAttention``). A ``qk_int8``
+    that K10's gate refuses (T % 1024 != 0) signals ``qk_int8_fallback``
+    and computes exact scores. Returns [B, T, E]."""
     from frankenstein_tpu_torch.ops import rope
     from frankenstein_tpu_torch.ops.cuda import slab_attention
-    cos, sin = rope.folded_tables(rope_cache[-q.shape[1]:], 1)
+    b, t, e = q.shape
+    if qk_int8 and not slab_attention.supported(q.device, q.dtype, t, e,
+                                                n_heads, True):
+        qk_int8_fallback(f"K10's gate rejected b={b} t={t} e={e} "
+                         f"h={n_heads} dtype={q.dtype} device={q.device}")
+        qk_int8 = False
+    cos, sin = rope.folded_tables(rope_cache[-t:], 1)
     return slab_attention.SlabRopeAttention.apply(q, k, v, cos, sin, n_heads,
-                                                  tok_per_time)
+                                                  tok_per_time, qk_int8)

@@ -61,6 +61,19 @@ def _declare(lib) -> None:
     lib.fk_slab_rope_attention_fwd.argtypes = (
         [p] * 7 + [i] * 5 + [f, p])
     lib.fk_slab_rope_attention_fwd.restype = i
+    lib.fk_slab_rope_k_quant.argtypes = (
+        [p] * 6                     # k cos sin amax k8 ks
+        + [i] * 4 + [p])            # B T H D, stream
+    lib.fk_slab_rope_k_quant.restype = i
+    lib.fk_slab_rope_attention_fwd_int8.argtypes = (
+        [p] * 8                     # q k8 ks v cos sin out lse
+        + [i] * 5 + [f, p])         # B T H D P, scale, stream
+    lib.fk_slab_rope_attention_fwd_int8.restype = i
+    lib.fk_lm_head_topk.argtypes = (
+        [p] * 12                    # x ln_w ln_b wte h cand_val cand_idx
+                                    # tile_m tile_se vals idx logz
+        + [i] * 4 + [f, p])         # B E V k, eps, stream
+    lib.fk_lm_head_topk.restype = i
     lib.fk_slab_rope_attention_bwd.argtypes = (
         [p] * 12                    # q k v cos sin out dout lse delta dq dk dv
         + [i] * 5 + [f, p])         # B T H D P, scale, stream

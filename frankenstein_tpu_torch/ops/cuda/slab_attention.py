@@ -1,16 +1,22 @@
-"""K1 and K4: slab-causal flash attention with in-kernel RoPE, forward and
-backward.
+"""K1, K10 and K4: slab-causal flash attention with in-kernel RoPE, forward
+(bf16 or int8 QK scores) and backward.
 
 - K1 replaces ``frankenstein_tpu/ops/pallas/block_attention.py:
   _fwd_packed_rope_bte``; CUDA C++ in ``csrc/slab_rope_attention.cu``.
+- K10 is the same kernel's ``qk_int8=True`` mode: rotated Q quantized per
+  (row, head) and rotated K per (1024-row chunk, head) to int8, the QK dot
+  in int8, dequantized in the convert; V and AV stay bf16. A template
+  parameter of K1's kernel plus a pre-pass that rotates and quantizes K,
+  in the same source.
 - K4 replaces ``block_attention.py:_bwd_packed`` (and the per-head ``_bwd``),
   reached from ``_slab_rope_attention_bwd``; CUDA C++ in
   ``csrc/slab_rope_attention_bwd.cu``. Delta and the rotations of q/k and
-  back of dq/dk run inside it.
+  back of dq/dk run inside it. After K10 it runs on K10's out and lse, as
+  the JAX package's backward does.
 
 Each source note says what bounds the kernel on an H100 and how the design
 answers that. ``SlabRopeAttention`` is the autograd Function around them:
-forward K1 (saving the unrotated q, k, v, out and lse), backward K4.
+forward K1 or K10 (saving the unrotated q, k, v, out and lse), backward K4.
 
 ``slab_rope_attention`` and ``slab_rope_attention_bwd`` launch the kernels
 for CUDA tensors and run the plain PyTorch twins (``*_ref``) for CPU
@@ -27,19 +33,44 @@ import torch
 from frankenstein_tpu_torch.ops import rope
 from frankenstein_tpu_torch.ops.cuda import build
 
+KCHUNK = 1024      # rows per K10 key scale (the JAX pack plan's chunk)
+
 launches = 0       # wrapper calls that ran K1
+launches_int8 = 0  # wrapper calls that ran K10 (its pre-pass and kernel)
 launches_bwd = 0   # wrapper calls that ran K4
 
 
-def slab_rope_attention_ref(q, k, v, cos, sin, *, n_heads: int,
-                            tok_per_time: int):
-    """Plain PyTorch twin of the kernel: ``apply_rope_folded`` (the
-    kernel's expression: x*cos + (-x_odd | x_even)*sin in f32, rounded to
-    the input dtype), then slab-masked softmax attention, one query slab at
-    a time (no T x T score matrix). Accumulates in f32 (f64 for f64 input).
+def _absmax_codes(x, dims):
+    """K10's symmetric int8 quantization over ``dims`` (kept): (codes, s)
+    with s = max|x| / 127 + 1e-12 and codes = round_half_even(x / s), the
+    codes as floats of x's dtype. The divisor 127 is a full tensor: PyTorch
+    on CUDA divides by a scalar as a product with its reciprocal, which can
+    differ from the quotient in the last bit."""
+    mx = x.abs().amax(dim=dims, keepdim=True)
+    s = mx / torch.full_like(mx, 127.0) + 1e-12
+    return torch.round(x / s), s
 
-    q, k, v: [B, T, E]; cos, sin: [T, D] f32. Returns (out [B, T, E] in q's
-    dtype, lse [B, H, T] f32)."""
+
+def rope_quantize_k_ref(k, cos, sin, *, n_heads: int):
+    """Plain twin of K10's pre-pass: k [B, T, E] rotated
+    (``apply_rope_folded``, rounded to k's dtype) and quantized per
+    (1024-row chunk, head). Returns (codes [B, T, E] int8, scales
+    [B, H, T / 1024] f32)."""
+    b, t, e = k.shape
+    d = e // n_heads
+    cos_e, sin_e = cos.repeat(1, n_heads), sin.repeat(1, n_heads)
+    kr = rope.apply_rope_folded(k, cos_e, sin_e).float()
+    codes, s = _absmax_codes(
+        kr.reshape(b, t // KCHUNK, KCHUNK, n_heads, d), (2, 4))
+    return (codes.reshape(b, t, e).to(torch.int8),
+            s.reshape(b, t // KCHUNK, n_heads).transpose(1, 2).contiguous())
+
+
+def _slab_rope_attention_ref(q, k, v, cos, sin, n_heads: int,
+                             tok_per_time: int, qk_int8: bool):
+    """K1's twin, or with ``qk_int8`` K10's: the scores of each query slab
+    are ``(dot(q8, k8) * (scale * s_k)) * s_q`` on the codes of
+    ``_absmax_codes`` (integer-valued, so their f32 sums are exact)."""
     b, t, e = q.shape
     d = e // n_heads
     scale = 1.0 / float(d) ** 0.5
@@ -47,19 +78,53 @@ def slab_rope_attention_ref(q, k, v, cos, sin, *, n_heads: int,
     cos_e, sin_e = cos.repeat(1, n_heads), sin.repeat(1, n_heads)
     heads = lambda x: x.reshape(b, t, n_heads, d)
     qr = heads(rope.apply_rope_folded(q, cos_e, sin_e).to(acc))
-    kr = heads(rope.apply_rope_folded(k, cos_e, sin_e).to(acc))
+    if qk_int8:
+        qr, s_q = _absmax_codes(qr, (3,))
+        s_q = s_q[..., 0].transpose(1, 2)                     # [B, H, T]
+        k8, s_k = rope_quantize_k_ref(k, cos, sin, n_heads=n_heads)
+        kr = heads(k8.to(acc))
+        s_k = (scale * s_k.to(acc)).repeat_interleave(KCHUNK, dim=-1)
+    else:
+        kr = heads(rope.apply_rope_folded(k, cos_e, sin_e).to(acc))
     vf = heads(v)
     out = torch.empty(b, t, n_heads, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, n_heads, t, dtype=acc, device=q.device)
     for r0 in range(0, t, tok_per_time):
         r1 = min(t, r0 + tok_per_time)
-        logits = torch.einsum("bqhd,bkhd->bhqk", qr[:, r0:r1],
-                              kr[:, :r1]) * scale
+        logits = torch.einsum("bqhd,bkhd->bhqk", qr[:, r0:r1], kr[:, :r1])
+        if qk_int8:
+            logits = (logits * s_k[:, :, None, :r1]) * s_q[:, :, r0:r1, None]
+        else:
+            logits = logits * scale
         lse[:, :, r0:r1] = torch.logsumexp(logits, dim=-1)
         probs = torch.softmax(logits, dim=-1).to(v.dtype).to(acc)
         out[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", probs,
                                      vf[:, :r1].to(acc)).to(q.dtype)
     return out.reshape(b, t, e), lse
+
+
+def slab_rope_attention_ref(q, k, v, cos, sin, *, n_heads: int,
+                            tok_per_time: int):
+    """Plain PyTorch twin of K1: ``apply_rope_folded`` (the kernel's
+    expression: x*cos + (-x_odd | x_even)*sin in f32, rounded to the input
+    dtype), then slab-masked softmax attention, one query slab at a time (no
+    T x T score matrix). Accumulates in f32 (f64 for f64 input).
+
+    q, k, v: [B, T, E]; cos, sin: [T, D] f32. Returns (out [B, T, E] in q's
+    dtype, lse [B, H, T] f32)."""
+    return _slab_rope_attention_ref(q, k, v, cos, sin, n_heads, tok_per_time,
+                                    False)
+
+
+def slab_rope_attention_int8_ref(q, k, v, cos, sin, *, n_heads: int,
+                                 tok_per_time: int):
+    """Plain PyTorch twin of K10, the JAX kernel's ``qk_int8`` arithmetic:
+    rotated q (rounded to q's dtype) quantized per (row, head), rotated k
+    per (1024-row chunk, head) (``rope_quantize_k_ref``), scores
+    ``(dot(q8, k8) * (scale * s_k)) * s_q``, then K1's softmax and AV.
+    T % 1024 == 0. Returns (out, lse) as ``slab_rope_attention_ref``."""
+    return _slab_rope_attention_ref(q, k, v, cos, sin, n_heads, tok_per_time,
+                                    True)
 
 
 def slab_rope_attention_bwd_ref(q, k, v, cos, sin, out, lse, dout, *,
@@ -99,10 +164,16 @@ def slab_rope_attention_bwd_ref(q, k, v, cos, sin, out, lse, dout, *,
     return unrot(dq), unrot(dk), dv.reshape(b, t, e).to(v.dtype)
 
 
-def supported(device, dtype, t: int, e: int, n_heads: int) -> bool:
+def supported(device, dtype, t: int, e: int, n_heads: int,
+              qk_int8: bool = False) -> bool:
     """Whether K1 and K4 take [B, T, E] q/k/v of ``dtype`` on ``device``
     with ``n_heads`` heads: on CUDA bf16, a head_dim of 32 or 64 and T % 128
-    == 0 (the limits ``_check`` raises on); the CPU twins take any."""
+    == 0 (the limits ``_check`` raises on); the CPU twins take any. With
+    ``qk_int8``, whether K10 takes them: K1's limits and, on every device,
+    T % 1024 == 0, since the K scale is taken per 1024-row chunk (the JAX
+    package's math, not its schedule)."""
+    if qk_int8 and (t <= 0 or t % KCHUNK):
+        return False
     if torch.device(device).type != "cuda":
         return True
     return (dtype == torch.bfloat16 and n_heads > 0 and e % n_heads == 0
@@ -136,26 +207,93 @@ def _check(q, k, v, cos, sin, n_heads: int, tok_per_time: int, **more):
                              f"{q.device}")
 
 
+def _check_int8(t: int) -> None:
+    if t % KCHUNK:
+        raise ValueError(f"T={t}: K10 needs T % {KCHUNK} == 0 (one K scale "
+                         f"per {KCHUNK}-row chunk)")
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def rope_quantize_k(k, cos, sin, *, n_heads: int):
+    """K10's pre-pass alone: k [B, T, E] rotated and quantized per
+    (1024-row chunk, head). Returns (codes [B, T, E] int8, scales
+    [B, H, T / 1024] f32). The pre-pass on CUDA tensors, the twin on CPU
+    tensors; ``slab_rope_attention(qk_int8=True)`` runs it before K10's
+    kernel."""
+    if not k.is_cuda:
+        return rope_quantize_k_ref(k, cos, sin, n_heads=n_heads)
+    b, t, e = k.shape
+    _check(k, k, k, cos, sin, n_heads, 1)
+    _check_int8(t)
+    k8 = torch.empty(b, t, e, dtype=torch.int8, device=k.device)
+    ks = torch.empty(b, n_heads, t // KCHUNK, dtype=torch.float32,
+                     device=k.device)
+    amax = torch.zeros(b, n_heads, t // KCHUNK, dtype=torch.int32,
+                       device=k.device)       # the chunks' max |k|, as bits
+    rc = build.library().fk_slab_rope_k_quant(
+        k.data_ptr(), cos.data_ptr(), sin.data_ptr(), amax.data_ptr(),
+        k8.data_ptr(), ks.data_ptr(), b, t, n_heads, e // n_heads,
+        _stream(k))
+    build.check(rc, "slab_rope_k_quant")
+    return k8, ks
+
+
+def slab_rope_attention_fwd_int8(q, k8, ks, v, cos, sin, *, n_heads: int,
+                                 tok_per_time: int):
+    """K10's kernel alone, on the codes and scales of ``rope_quantize_k``
+    (CUDA tensors only; it times the kernel without its pre-pass). Returns
+    (out, lse) as ``slab_rope_attention``."""
+    _check(q, q, v, cos, sin, n_heads, tok_per_time)
+    b, t, e = q.shape
+    _check_int8(t)
+    if (k8.dtype != torch.int8 or k8.shape != q.shape
+            or not k8.is_contiguous() or ks.dtype != torch.float32
+            or ks.shape != (b, n_heads, t // KCHUNK)
+            or not ks.is_contiguous()):
+        raise ValueError("k8, ks: need rope_quantize_k's codes and scales")
+    d = e // n_heads
+    out = torch.empty_like(q)
+    lse = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
+    rc = build.library().fk_slab_rope_attention_fwd_int8(
+        q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t,
+        n_heads, d, tok_per_time, 1.0 / float(d) ** 0.5, _stream(q))
+    build.check(rc, "slab_rope_attention_fwd_int8")
+    return out, lse
+
+
 def slab_rope_attention(q, k, v, cos, sin, *, n_heads: int,
-                        tok_per_time: int):
+                        tok_per_time: int, qk_int8: bool = False):
     """Slab-causal attention over UNROTATED [B, T, E] q/k/v with RoPE
     applied inside the kernel. cos, sin: [T, D] f32 lane tables
-    (``rope.folded_tables(rope_cache[-T:], 1)``). Returns (out [B, T, E], lse [B, H, T] f32)."""
-    global launches
+    (``rope.folded_tables(rope_cache[-T:], 1)``). ``qk_int8`` runs K10 (its
+    pre-pass, then its kernel; T % 1024 == 0) instead of K1. Returns
+    (out [B, T, E], lse [B, H, T] f32)."""
+    global launches, launches_int8
     if not q.is_cuda:
-        return slab_rope_attention_ref(q, k, v, cos, sin, n_heads=n_heads,
-                                       tok_per_time=tok_per_time)
+        ref = (slab_rope_attention_int8_ref if qk_int8
+               else slab_rope_attention_ref)
+        return ref(q, k, v, cos, sin, n_heads=n_heads,
+                   tok_per_time=tok_per_time)
     _check(q, k, v, cos, sin, n_heads, tok_per_time)
+    if qk_int8:
+        k8, ks = rope_quantize_k(k, cos, sin, n_heads=n_heads)
+        out, lse = slab_rope_attention_fwd_int8(
+            q, k8, ks, v, cos, sin, n_heads=n_heads,
+            tok_per_time=tok_per_time)
+        launches_int8 += 1
+        return out, lse
     b, t, e = q.shape
     d = e // n_heads
     out = torch.empty_like(q)
     lse = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
-    lib = build.library()
-    rc = lib.fk_slab_rope_attention_fwd(
+    rc = build.library().fk_slab_rope_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, n_heads, d,
-        tok_per_time, 1.0 / float(d) ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        tok_per_time, 1.0 / float(d) ** 0.5, _stream(q))
     build.check(rc, "slab_rope_attention_fwd")
     launches += 1
     return out, lse
@@ -164,8 +302,8 @@ def slab_rope_attention(q, k, v, cos, sin, *, n_heads: int,
 def slab_rope_attention_bwd(q, k, v, cos, sin, out, lse, dout, *,
                             n_heads: int, tok_per_time: int):
     """Gradients (dq, dk, dv) of ``slab_rope_attention`` with respect to the
-    UNROTATED q, k, v, from K1's out and lse and the gradient ``dout`` of
-    out. K4 on CUDA tensors, the twin on CPU tensors."""
+    UNROTATED q, k, v, from K1's (or K10's) out and lse and the gradient
+    ``dout`` of out. K4 on CUDA tensors, the twin on CPU tensors."""
     global launches_bwd
     if not q.is_cuda:
         return slab_rope_attention_bwd_ref(q, k, v, cos, sin, out, lse, dout,
@@ -184,22 +322,26 @@ def slab_rope_attention_bwd(q, k, v, cos, sin, out, lse, dout, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        n_heads, d, tok_per_time, 1.0 / float(d) ** 0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        n_heads, d, tok_per_time, 1.0 / float(d) ** 0.5, _stream(q))
     build.check(rc, "slab_rope_attention_bwd")
     launches_bwd += 1
     return dq, dk, dv
 
 
 class SlabRopeAttention(torch.autograd.Function):
-    """out = slab_rope_attention(q, k, v, cos, sin): K1 forward, K4 backward
-    (their twins on the CPU). Saves the unrotated q, k, v, out and lse, as
-    the JAX package's custom VJP does; cos and sin get no gradient."""
+    """out = slab_rope_attention(q, k, v, cos, sin, qk_int8=...): K1 or K10
+    forward, K4 backward on that forward's out and lse (their twins on the
+    CPU). With ``qk_int8`` the gradients are approximately straight-through,
+    as in the JAX package: K4 recomputes exact scores against the quantized
+    forward's out and lse. Saves the unrotated q, k, v, out and lse, as the
+    JAX package's custom VJP does; cos and sin get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, cos, sin, n_heads: int, tok_per_time: int):
+    def forward(ctx, q, k, v, cos, sin, n_heads: int, tok_per_time: int,
+                qk_int8: bool = False):
         out, lse = slab_rope_attention(q, k, v, cos, sin, n_heads=n_heads,
-                                       tok_per_time=tok_per_time)
+                                       tok_per_time=tok_per_time,
+                                       qk_int8=qk_int8)
         ctx.save_for_backward(q, k, v, cos, sin, out, lse)
         ctx.n_heads, ctx.tok_per_time = n_heads, tok_per_time
         return out
@@ -210,4 +352,4 @@ class SlabRopeAttention(torch.autograd.Function):
         dq, dk, dv = slab_rope_attention_bwd(
             q, k, v, cos, sin, out, lse, dout.contiguous(),
             n_heads=ctx.n_heads, tok_per_time=ctx.tok_per_time)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None

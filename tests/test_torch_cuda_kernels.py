@@ -1,7 +1,9 @@
 """Kernels K1, K2 (bf16 and int8 KV caches), K3, K4, K5 (bf16 and int8
 KV caches, one to four query heads per KV head), K6 / K7 (the three mask
-modes of flash attention, forward and backward) and K9 (the fused pre-norm
-SwiGLU MLP, both norms) on the card against their plain PyTorch twins, at
+modes of flash attention, forward and backward), K8 (the fused head and
+top-k, ragged vocab, ties), K9 (the fused pre-norm SwiGLU MLP, both norms)
+and K10 (int8 QK scores: K codes, scales, out and lse) on the card against
+their plain PyTorch twins, at
 small shapes that reach the kernels' edge cases (slabs that do not divide
 the tiles, a batch that does not fill a tile, an empty cache, one beam and
 the widest group, unsorted positions, a ragged last row tile), the
@@ -729,3 +731,152 @@ def test_mae_of_100_channels_runs_plain_attention(dev, tmp_path):
     # 4 encoder blocks; one training forward and 8 eval forwards (the 8
     # validation trials at B=1)
     assert got == {"K9": 4 * 9}, got
+
+
+# K8: the bf16 kernels against the twin on the same bf16 inputs. h rounds
+# to bf16 on both sides after f32 statistics summed in other orders, so a
+# rare lane rounds the other way: logits agree to about 1e-3.
+K8_TOL = 3e-3
+K8_E = 768
+
+
+def _k8_case(dev, b, v, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    return (rnd(b, K8_E).to(torch.bfloat16), 1.0 + 0.1 * rnd(K8_E),
+            0.1 * rnd(K8_E), (0.05 * rnd(v, K8_E)).to(torch.bfloat16))
+
+
+def _k8_agrees(got, want, logits, k: int) -> None:
+    """Values and logz within K8_TOL; each chosen index distinct and, where
+    it differs from the twin's, a token whose twin logit is within K8_TOL
+    of the twin's value at that rank (a near-tie)."""
+    (vals, idx, logz), (rv, ri, rz) = got, want
+    assert vals.shape == rv.shape and idx.dtype == torch.int64
+    assert _err(vals, rv) <= K8_TOL and _err(logz, rz) <= K8_TOL
+    assert all(len(set(row.tolist())) == k for row in idx)
+    picked = torch.gather(logits, 1, idx)
+    near = (picked - rv).abs()[idx != ri]
+    assert near.numel() == 0 or float(near.max()) <= K8_TOL
+
+
+@pytest.mark.parametrize("v", [50304, 50257])
+@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("b", [1, 8, 128, 160])
+def test_k8_matches_twin_and_is_deterministic(dev, b, k, v):
+    """GPT-2 width (E=768) with the full vocab and a ragged last slab
+    (50257); two launches bitwise equal."""
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    args = _k8_case(dev, b, v, seed=b * k + v)
+    before = k8.launches
+    got = k8.lm_head_topk(*args, k=k)
+    again = k8.lm_head_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    want = k8.lm_head_topk_ref(*args, k=k)
+    _k8_agrees(got, want, k8.head_logits_ref(*args), k)
+    assert int(got[1].max()) < v
+
+
+def test_k8_breaks_ties_to_the_lower_index(dev):
+    """Vocab rows 3 and 7 equal and aligned with row 0's h: row 0's top
+    two are (3, 7), equal values, in that order, on both sides."""
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    x, ln_w, ln_b, wte = _k8_case(dev, 8, 50304, seed=3)
+    xf = x[:1].float()
+    h0 = (xf - xf.mean()) / xf.std(unbiased=False)
+    wte[3] = wte[7] = (0.2 * h0[0]).to(torch.bfloat16)
+    for vals, idx, _ in (k8.lm_head_topk(x, ln_w, ln_b, wte, k=4),
+                         k8.lm_head_topk_ref(x, ln_w, ln_b, wte, k=4)):
+        assert idx[0, :2].tolist() == [3, 7]
+        assert float(vals[0, 0]) == float(vals[0, 1])
+
+
+def test_k8_refuses_what_it_does_not_take(dev):
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert k8.supported(dev, bf16, bf16, 128, 768, 50304, 10)
+    assert k8.supported(dev, bf16, bf16, 3, 768, 50257, 32)
+    assert not k8.supported(dev, f32, bf16, 128, 768, 50304, 10)
+    assert not k8.supported(dev, bf16, f32, 128, 768, 50304, 10)
+    assert not k8.supported(dev, bf16, bf16, 128, 768, 50304, 33)
+    assert not k8.supported(dev, bf16, bf16, 128, 772, 50304, 10)
+    x, ln_w, ln_b, wte = _k8_case(dev, 4, 1000, seed=1)
+    with pytest.raises(ValueError, match="K8 takes"):
+        k8.lm_head_topk(x.float(), ln_w, ln_b, wte, k=10)
+    with pytest.raises(ValueError, match="K8 takes"):
+        k8.lm_head_topk(x, ln_w, ln_b, wte, k=33)
+
+
+# K10: the int8 QK scores are the twin's exactly (integer dots, the same
+# dequantization order). out rounds to bf16 (2^-9 relative) and p to bf16
+# before AV: out within K10_OUT_TOL of max |twin|; lse differs only by the
+# order of f32 sums: within K10_LSE_TOL. K1's output, and a kernel that read
+# chunk 0's K scale for every tile, fail that check.
+K10_CASES = [(1, 1024, 2, 32, 256), (2, 6144, 8, 32, 256),
+             (1, 2048, 2, 64, 100)]
+K10_OUT_TOL = 1e-2
+K10_LSE_TOL = 1e-4
+
+
+def _k10_passes(out, lse, ref, ref_lse) -> bool:
+    return (_err(out, ref) <= K10_OUT_TOL * float(ref.abs().max())
+            and _err(lse, ref_lse) <= K10_LSE_TOL)
+
+
+def _k10_case(dev, b, t, h, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h * d, generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    cos, sin = rope.folded_tables(rope.build_rope_cache(d, t + 3,
+                                                        device=dev)[-t:], 1)
+    return q, k, v, cos, sin
+
+
+@pytest.mark.parametrize("b,t,h,d,p", K10_CASES)
+def test_k10_matches_twin_and_is_deterministic(dev, b, t, h, d, p):
+    """K codes and scales of the pre-pass equal to the twin's (codes off
+    .5 ties); out and lse within K10_OUT_TOL and K10_LSE_TOL of the twin run
+    on the same bf16 inputs, where K1's output (and, with two key chunks or
+    more, chunk 0's K scale read for every tile) fails; two launches
+    bitwise equal."""
+    q, k, v, cos, sin = _k10_case(dev, b, t, h, d, seed=b * t + p)
+    kw = dict(n_heads=h, tok_per_time=p)
+    k8, ks = k1.rope_quantize_k(k, cos, sin, n_heads=h)
+    r8, rs = k1.rope_quantize_k_ref(k, cos, sin, n_heads=h)
+    assert torch.equal(ks, rs)
+    rotated = rope.apply_rope_folded(k, cos.repeat(1, h), sin.repeat(1, h))
+    scale = rs.transpose(1, 2).repeat_interleave(1024, dim=1)   # [B, T, H]
+    pre = rotated.float().reshape(b, t, h, d) / scale[..., None]
+    tie = (((pre.abs() % 1.0) - 0.5).abs() <= 1e-3).reshape(b, t, h * d)
+    assert int(((k8 != r8) & ~tie).sum()) == 0
+    before = (k1.launches, k1.launches_int8)
+    out, lse = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
+    again = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_int8) == (before[0], before[1] + 2)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = k1.slab_rope_attention_int8_ref(q, k, v, cos, sin, **kw)
+    assert _k10_passes(out, lse, ref, ref_lse)
+    exact, exact_lse = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+    assert 0.0 < _err(out, exact) < 5e-2
+    assert not _k10_passes(exact, exact_lse, ref, ref_lse)
+    if t >= 2048:
+        chunk0 = ks[..., :1].expand_as(ks).contiguous()
+        wrong = k1.slab_rope_attention_fwd_int8(q, k8, chunk0, v, cos, sin,
+                                                **kw)
+        assert not _k10_passes(*wrong, ref, ref_lse)
+
+
+def test_k10_refuses_what_it_does_not_take(dev):
+    bf16 = torch.bfloat16
+    assert k1.supported(dev, bf16, 6144, 256, 8, True)
+    assert not k1.supported(dev, bf16, 6272, 256, 8, True)
+    assert not k1.supported(dev, torch.float32, 6144, 256, 8, True)
+    q, k, v, cos, sin = _k10_case(dev, 1, 1152, 2, 32, seed=0)
+    with pytest.raises(ValueError, match="1024"):
+        k1.slab_rope_attention(q, k, v, cos, sin, n_heads=2, tok_per_time=64,
+                               qk_int8=True)
+    with pytest.raises(ValueError, match="1024"):
+        k1.rope_quantize_k(k, cos, sin, n_heads=2)

@@ -197,11 +197,6 @@ def test_predictor_refuses_unported_flags(pair, kw):
             beam_reorder.launches) == before
 
 
-def test_qk_int8_refused():
-    with pytest.raises(NotImplementedError, match="K10"):
-        Franky(tiny_cfg(tconfig, qk_int8=True))
-
-
 def test_seeded_init_is_finite_and_deterministic():
     a = init_franky_(Franky(tiny_cfg(tconfig)), seed=3)
     b = init_franky_(Franky(tiny_cfg(tconfig)), seed=3)

@@ -124,7 +124,9 @@ def test_optimizer_matches_optax_on_the_same_gradients(mask):
                               lr_decay_iters=10, grad_clip=1.0)
     model = tiny_model()
     named = dict(model.named_parameters())
-    params = {n: jnp.asarray(p.detach().numpy()) for n, p in named.items()}
+    # jnp.array copies: jnp.asarray would alias the torch parameters, which
+    # the torch steps then update in place under JAX's async updates
+    params = {n: jnp.array(p.detach().numpy()) for n, p in named.items()}
     jcfg = jconfig.TrainConfig(**dataclasses.asdict(cfg))
     from frankenstein_tpu.train.trainer import make_optimizer as jmake
     tx, _ = jmake(jcfg)
