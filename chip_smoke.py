@@ -122,7 +122,15 @@ nvcc (sm_90a) and then, one line per phase:
     context through K10 against K1's, the encode, the decode and the B=8
     request timed in turns with each switch on and off (medians of 5 and
     their ranges, sentences/s at B=128), and one Franky training step at
-    B=2 with ``qk_int8`` (K10 forward, K4 backward).
+    B=2 with ``qk_int8`` (K10 forward, K4 backward);
+19. the packed-attention probes (``ops/cuda/slab_probe.py``, modes of K1 /
+    K10's kernel on unrotated q, k): every mode at B=2, T=6144, H=8, D=32
+    against its twin (P=8 and P=256; the int8 modes at P=256), ``kernel``
+    and ``int8_full`` bitwise equal to K1 and K10 run with identity rope
+    tables, ``no_kbd`` finite, repeatable and unlike ``kernel``; then the
+    two probe CLIs as a user runs them at B=128 (``attn_probe`` at P=8 and
+    P=256, ``int8_attr_probe`` at P=256), one line per variant with its
+    median time, its twin error at B=2, its bound and its issued TFLOP/s.
 
 Every on / off comparison (phases 4, 9, 13, 17 and 18) is timed by
 ``_in_turns``: one warm-up each, then single calls alternating in turns,
@@ -192,6 +200,8 @@ QK_INT8_DRIFT = 1e-2  # K10 vs K1 out, max abs at unit-scale activations
                       # (the JAX package's bound, tests/test_attention.py)
 ENCODE_DRIFT = 5e-2   # K10 vs K1 encoder context, max abs relative to
                       # max |K1's|: 4 layers of that drift, rounded to bf16
+PROBE_BATCH = 128         # the probes' timed shape, the JAX tools' B
+PROBE_TWIN_ROWS = 2       # batch rows of a probe output held to its twin
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak, same source
@@ -2531,6 +2541,178 @@ def phase_served(card: str) -> dict:
             "request": req_t, "rate": rate, "train": train}
 
 
+def _probe_bound(q, out, lse, p: int, variant: str) -> dict:
+    """Bound of one probe call: q, k, v in, out and lse out; QK and PV at
+    2*D operations per (query, key) pair of the function the mode computes
+    (the visit set for the unmasked modes, the slab pairs else), QK at the
+    int8 rate in the int8 modes."""
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    b, t, e = q.shape
+    ends = (sp.visit_ends if variant in sp.UNMASKED else sp.slab_ends)(t, p)
+    ops = 2 * sp.HEAD_DIM * b * (e // sp.HEAD_DIM) * int(ends.sum())
+    qk_int8 = sp.is_int8(variant)
+    return _bound(3 * _nbytes(q) + _nbytes(out, lse),
+                  ops * (1 if qk_int8 else 2),
+                  int8_ops=ops if qk_int8 else 0.0)
+
+
+def _probe_checks(q, k, v, h: int, twins: dict) -> dict:
+    """Every probe mode on [B, T, E] q, k, v against its twin, P=8 and 256
+    (the int8 modes at 256), each launch synchronised: (P, variant) ->
+    ``slab_probe.probe_error`` of the first rows of out and lse against the
+    twin of those rows, ``twins[(P, twin)]`` (computed there where absent);
+    ``no_kbd`` -> ``slab_probe.no_kbd_guard`` over all rows, against
+    ``kernel``'s twin on the first."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    from frankenstein_tpu_torch.tools import attn_probe, int8_attr_probe
+    checks = {}
+    for p in (8, 256):
+        variants = attn_probe.VARIANTS + (int8_attr_probe.VARIANTS[1:]
+                                          if p == 256 else ())
+        for variant in variants:
+            run = lambda: sp.slab_attention_probe(
+                q, k, v, n_heads=h, tok_per_time=p, variant=variant)
+            out, lse = run()
+            torch.cuda.synchronize()
+            twin = sp.TWINS.get(variant, sp.kernel_ref)
+            if (p, twin) not in twins:
+                twins[(p, twin)] = twin(
+                    *(x[:PROBE_TWIN_ROWS] for x in (q, k, v)), n_heads=h,
+                    tok_per_time=p)
+            ref, ref_lse = twins[(p, twin)]
+            rows = ref.shape[0]
+            if variant == "no_kbd":
+                again = run()
+                torch.cuda.synchronize()
+                checks[(p, variant)] = sp.no_kbd_guard(out, lse, again, ref)
+                continue
+            checks[(p, variant)] = sp.probe_error(variant, out[:rows],
+                                                  lse[:rows], ref, ref_lse)
+    return checks
+
+
+def _probe_checks_hold(checks: dict, where: str) -> None:
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    for (p, variant), err in checks.items():
+        if variant == "no_kbd":
+            _check(sp.guard_holds(err), f"no_kbd guard at P={p}, {where}: "
+                   f"{err}")
+        else:
+            _check(sp.agrees(variant, err), f"probe {variant} at P={p}, "
+                   f"{where}, disagrees with its twin: {err}")
+
+
+def phase_probes(card: str) -> dict:
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    from frankenstein_tpu_torch.tools import attn_probe, int8_attr_probe
+    b, t, h, d = PROBE_TWIN_ROWS, attn_probe.T, attn_probe.H, attn_probe.D
+    dev = torch.device("cuda")
+    # the probe CLIs' own inputs at B=128, and their first rows at B=2
+    qb, kb, vb = attn_probe.inputs(PROBE_BATCH, t, dev)
+    q, k, v = qb[:b], kb[:b], vb[:b]
+    twins = {}
+    checks = _probe_checks(q, k, v, h, twins)
+    # the ROPE=false modes are K1 and K10 with the rotation left out
+    cos, sin = torch.ones(t, d, device=dev), torch.zeros(t, d, device=dev)
+    identity = {}
+    for p in (8, 256):
+        kw = dict(n_heads=h, tok_per_time=p)
+        pairs = [(sp.slab_attention_probe(q, k, v, variant="kernel", **kw),
+                  k1.slab_rope_attention(q, k, v, cos, sin, **kw))]
+        if p == 256:
+            pairs.append((sp.slab_attention_probe(q, k, v,
+                                                  variant="int8_full", **kw),
+                          k1.slab_rope_attention(q, k, v, cos, sin,
+                                                 qk_int8=True, **kw)))
+        identity[p] = all(torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])
+                          for a, b_ in pairs)
+    _probe_checks_hold(checks, f"B={b}")
+    _check(all(identity.values()), f"identity-table K1 / K10: {identity}")
+
+    # the kernels line: kernel and int8_full at B=2, P=256, beside their
+    # twins, SDPA and their bounds
+    kw = dict(n_heads=h, tok_per_time=256)
+    entries = {}
+    for variant in ("kernel", "int8_full"):
+        out, lse = sp.slab_attention_probe(q, k, v, variant=variant, **kw)
+        ref, ref_lse = sp.TWINS[variant](q, k, v, **kw)
+        entries[variant] = {
+            "max_abs_err": max(_max_err(out, ref), _max_err(lse, ref_lse)),
+            "ms": _time_ms(lambda: sp.slab_attention_probe(
+                q, k, v, variant=variant, **kw)),
+            "plain_ms": _time_ms(lambda: sp.TWINS[variant](q, k, v, **kw),
+                                 iters=3),
+            "library_ms": None, **_probe_bound(q, out, lse, 256, variant)}
+    entries["kernel"]["library_ms"] = _time_ms(
+        _sdpa(_heads(q, h), _heads(k, h), _heads(v, h),
+              _slab_mask(t, 256, dev)), iters=3)
+
+    # the probes' own entry points at the JAX tools' shape
+    sp.launches = sp.launches_int8 = 0
+    runs = {}
+    for p in (8, 256):
+        runs[p] = attn_probe.main([str(TIMING_REPEATS), "--block", str(p),
+                                   "--batch", str(PROBE_BATCH)])
+    runs["int8"] = int8_attr_probe.main([str(TIMING_REPEATS), "--batch",
+                                         str(PROBE_BATCH)])
+    launches = (sp.launches, sp.launches_int8)
+    # every mode once more at the timed shape, on the CLIs' inputs: its
+    # first rows against the same twins
+    checks_b = _probe_checks(qb, kb, vb, h, twins)
+    lb = torch.empty(PROBE_BATCH, h, t, device=dev)
+    for key, res in runs.items():
+        p = res["block"]
+        for variant in res["variants"]:
+            mode = "kernel" if variant == "bf16" else variant
+            bound = _probe_bound(qb, qb, lb, p, variant)
+            alone = (f", kernel alone {res[variant + '_kernel_ms']:.3f} ms"
+                     if sp.is_int8(variant) else "")
+            twin = " | ".join(
+                f"B={rows} guard: finite {err[0]}, repeatable {err[1]}, max "
+                f"|out - kernel's twin| {err[2]:.3e}" if variant == "no_kbd"
+                else f"B={rows} vs twin: out {err[0]:.3e} of max |twin|, lse "
+                f"{err[1]:.3e}"
+                for rows, err in ((b, checks[(p, mode)]),
+                                  (PROBE_BATCH, checks_b[(p, mode)])))
+            lo, hi = res[f"{variant}_range_ms"]
+            print(f"phase 19 probe {'int8_attr' if key == 'int8' else 'attn'}"
+                  f" P={p} {variant}: B={PROBE_BATCH} T={t} H={h} D={d} "
+                  f"{res[variant + '_ms']:.3f} ms ({lo:.3f}-{hi:.3f}){alone}"
+                  f", issued {res[variant + '_issued_tflops']:.1f} TFLOP/s, "
+                  f"useful {res[variant + '_useful_tflops']:.1f} TFLOP/s, "
+                  f"bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}) "
+                  f"| {twin} | {card}", flush=True)
+    for p in (8, 256):
+        r = runs[p]
+        print(f"phase 19 probe attn P={p} references: production K1 (rope) "
+              f"{r['rope_ms']:.3f} ms, SDPA with the slab mask "
+              f"{r['sdpa_ms']:.3f} ms, 4096^2 bf16 matmul "
+              f"{r['matmul_tflops']:.1f} TFLOP/s; identity-table K1 / K10 "
+              f"bitwise equal to kernel / int8_full {identity[p]}; launches "
+              f"{launches[0]} bf16, {launches[1]} int8 | {card}", flush=True)
+    occ = {name: sp.occupancy(name) for name in sp.PROBE_VARIANTS
+           if name not in ("bf16", "mask_last")}
+    occ.update({"K1": sp.occupancy("kernel", rope=True),
+                "K10": sp.occupancy("int8_full", rope=True)})
+    print("phase 19 probe modes at D=32, registers a thread / resident CTAs "
+          "of 256 threads an SM: " + ", ".join(
+              f"{name} {r}/{c}" for name, (r, c) in occ.items())
+          + f" | {card}", flush=True)
+    _probe_checks_hold(checks_b, f"B={PROBE_BATCH} (rows 0-{b - 1})")
+    n_attn, n_int8 = len(attn_probe.VARIANTS), len(int8_attr_probe.VARIANTS)
+    want = (2 * n_attn + 1, n_int8 - 1)    # bf16 is K1's kernel mode
+    per_call = 1 + TIMING_REPEATS
+    _check(launches == (want[0] * per_call, want[1] * 2 * per_call),
+           f"probe launches {launches}, want {want} variants x {per_call} "
+           "calls (int8 twice: with and without the pre-pass)")
+    return {"launches": launches, "checks": checks,
+            "checks_b": checks_b, "runs": runs,
+            "occupancy": occ, **entries}
+
+
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
     null where no one PyTorch call computes the same function."""
@@ -2570,6 +2752,7 @@ def main() -> int:
     k8 = phase_k8(card)
     k10 = phase_k10(card)
     served = phase_served(card)
+    probes = phase_probes(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [
@@ -2646,7 +2829,15 @@ def main() -> int:
          "replaces": "frankenstein_tpu/ops/pallas/block_attention.py:1334 "
                      "(qk_int8)",
          "launches": served["launches"][(128, True)]["K10"],
-         **_entry(k10)}]
+         **_entry(k10)},
+        {"name": "slab_attention_probe", "route": "cuda",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
+         "replaces": "tools/attn_probe.py:137 (_variant_call, call :167)",
+         "launches": probes["launches"][0], **_entry(probes["kernel"])},
+        {"name": "slab_attention_probe_int8", "route": "cuda",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
+         "replaces": "tools/int8_attr_probe.py:165 (_call, call :197)",
+         "launches": probes["launches"][1], **_entry(probes["int8_full"])}]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

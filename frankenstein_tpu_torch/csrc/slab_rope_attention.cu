@@ -52,7 +52,33 @@
 //     ((row_last / P) + 1) * P: future slabs are never loaded, a warp skips
 //     the tiles past its rows' last slab, and only tiles that reach past a
 //     warp's first slab are masked.
-// wgmma, TMA and a pipelined K/V ring are later work.
+// wgmma, TMA and a pipelined K/V ring are later work. On an H100 the
+// probes below put about half of K1's time in the products and a fifth in
+// the registers its runtime mask branch holds (123 a thread: 2 CTAs an SM
+// where the branchless body fits 3); PERF.md has the split.
+//
+// The probes (fk_slab_attention_probe) replace tools/attn_probe.py:
+// _variant_call and tools/int8_attr_probe.py:_call, which price the
+// components of the packed TPU forward by timing variants with one
+// removed. Here each variant is a compile-time mode of this kernel
+// (template parameters ROPE and VARIANT; the production K1 and K10 are
+// ROPE = true, VARIANT = PROD, and every probe branch is behind
+// if constexpr), instantiated at D = 32 only:
+//   PROD with ROPE = false   K1 (K10 with INT8) on unrotated q, k
+//   DOTS_ONLY                scores * scale rounded to bf16 as PV's
+//                            A-fragments: no mask, max, exp, sum or
+//                            rescale; out = the accumulator, lse = 0
+//   NO_KBD                   V copied row-major as 16-byte chunks (the
+//                            layout step that plays the TPU's
+//                            block-diagonal staging; values wrong)
+//   NO_MASK, MASK_ALL        need_mask forced false, or true on every tile
+//   EXP2                     scale * log2(e) in the QK epilogue, exp2f,
+//                            lse = m * ln 2 + ln l
+//   INT8_DOTS_ONLY           cast-only codes round(8x), raw int32 scores
+//                            to bf16, DOTS_ONLY's PV
+//   INT8_CHEAP_DEQUANT       K10's codes, epilogue convert * scale only
+//   INT8_NOQUANT             cast-only codes round(8x) (no max reductions
+//                            in Q or the pre-pass), epilogue convert * scale
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,10 +114,43 @@ __device__ __forceinline__ float absmax_scale(float mx) {
   return __fadd_rn(__fdiv_rn(mx, 127.f), 1e-12f);
 }
 
+// The probes' cast-only int8 code: round half to even of 8 v (the JAX
+// probes' round(8 x); |v| < 15.9 keeps it in range).
+__device__ __forceinline__ int8_t cast_code(float v) {
+  return static_cast<int8_t>(__float2int_rn(8.f * v));
+}
+
+// Kernel modes; the numbers are fk_slab_attention_probe's `variant`
+// (ops/cuda/slab_probe.py:PROBE_VARIANTS).
+enum Variant : int {
+  PROD = 0,
+  DOTS_ONLY = 1,
+  NO_KBD = 2,
+  NO_MASK = 3,
+  MASK_ALL = 4,
+  EXP2 = 5,
+  INT8_FULL = 6,   // PROD with INT8 (K10's arithmetic)
+  INT8_DOTS_ONLY = 7,
+  INT8_CHEAP_DEQUANT = 8,
+  INT8_NOQUANT = 9,
+};
+
+// 8 bf16 lanes of x at src, rotated with the position's table rows (ROPE)
+// or as stored.
+template <bool ROPE>
+__device__ __forceinline__ uint4 stage8(const bf16* __restrict__ src,
+                                        const float* __restrict__ cos_row,
+                                        const float* __restrict__ sin_row) {
+  if constexpr (ROPE) return load_rotate8(src, cos_row, sin_row);
+  return *reinterpret_cast<const uint4*>(src);
+}
+
 // INT8 = false: K1 (k is the bf16 input, k8 and ks unused).
 // INT8 = true: K10 (k unused; k8 [B, T, E] and ks [B, H, T / KCHUNK] from
 // rope_quantize_k).
-template <int D, bool INT8>
+// ROPE = false (the probes): q and k tiles are staged as stored; cos_t and
+// sin_t are unused. VARIANT: a probe mode (enum Variant), PROD for K1/K10.
+template <int D, bool INT8, bool ROPE, int VARIANT>
 __global__ void __launch_bounds__(NTHREADS)
 slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const int8_t* __restrict__ k8,
@@ -99,18 +158,29 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const float* __restrict__ cos_t,
                    const float* __restrict__ sin_t, bf16* __restrict__ out,
                    float* __restrict__ lse, int T, int H, int P, float scale) {
+  constexpr bool DOTS = VARIANT == DOTS_ONLY || VARIANT == INT8_DOTS_ONLY;
+  constexpr bool CAST = VARIANT == INT8_DOTS_ONLY || VARIANT == INT8_NOQUANT;
+  constexpr bool SCALE_ONLY =
+      VARIANT == INT8_CHEAP_DEQUANT || VARIANT == INT8_NOQUANT;
+  static_assert(INT8 == (VARIANT >= INT8_FULL) || VARIANT == PROD,
+                "an int8 mode needs INT8, a bf16 mode needs !INT8");
   constexpr int CH = D / 8;      // 16-byte chunks per bf16 head row
   constexpr int LDQ = D + 8;     // row stride of sQ/sK: conflict-free frags
   constexpr int LD8 = D + 16;    // byte stride of int8 rows: conflict-free
   constexpr int LDV = BK + 8;    // row stride of the transposed V tile
   constexpr int NT = BK / 8;     // score n-tiles per K tile
   constexpr int OT = D / 8;      // output n-tiles
+  // NO_KBD stores V row-major (stride LDQ) in the same buffer and reads it
+  // with the transposed layout's fragment loads: it is zeroed once, so
+  // every word those loads reach holds a finite value.
+  constexpr int SV = VARIANT == NO_KBD ? BK * LDQ : D * LDV;
+  static_assert(SV >= D * LDV, "NO_KBD's reads stay inside the buffer");
   __shared__ __align__(16) bf16 sQ[BQ * LDQ];
   __shared__ __align__(16) bf16 sK[INT8 ? 8 : BK * LDQ];
   __shared__ __align__(16) int8_t sK8[INT8 ? BK * LD8 : 16];
   __shared__ __align__(16) int8_t sQ8[INT8 ? BQ * LD8 : 16];
   __shared__ float sQs[INT8 ? BQ : 1];
-  __shared__ __align__(16) bf16 sVt[D * LDV];
+  __shared__ __align__(16) bf16 sVt[SV];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // mma group / thread in group
@@ -118,10 +188,14 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int E = H * D;
   const size_t base = size_t(b) * T * E + size_t(h) * D;
 
+  if constexpr (VARIANT == NO_KBD) {
+    for (int idx = tid; idx < SV / 2; idx += NTHREADS)
+      reinterpret_cast<uint32_t*>(sVt)[idx] = 0u;
+  }
   for (int idx = tid; idx < BQ * CH; idx += NTHREADS) {
     const int r = idx / CH, c = (idx % CH) * 8, pos = q0 + r;
     *reinterpret_cast<uint4*>(sQ + r * LDQ + c) =
-        load_rotate8(q + base + size_t(pos) * E + c,
+        stage8<ROPE>(q + base + size_t(pos) * E + c,
                      cos_t + size_t(pos) * D + c, sin_t + size_t(pos) * D + c);
   }
   __syncthreads();
@@ -134,17 +208,24 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     {
       const int r = tid >> 1, half = tid & 1;
       const bf16* src = sQ + r * LDQ + half * (D / 2);
-      float mx = 0.f;
+      if constexpr (CAST) {
+        int8_t* dst = sQ8 + r * LD8 + half * (D / 2);
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c)
-        mx = fmaxf(mx, fabsf(__bfloat162float(src[c])));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      const float s = absmax_scale(mx);
-      int8_t* dst = sQ8 + r * LD8 + half * (D / 2);
+        for (int c = 0; c < D / 2; ++c)
+          dst[c] = cast_code(__bfloat162float(src[c]));
+      } else {
+        float mx = 0.f;
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c)
-        dst[c] = quantize(__bfloat162float(src[c]), s);
-      if (half == 0) sQs[r] = s;
+        for (int c = 0; c < D / 2; ++c)
+          mx = fmaxf(mx, fabsf(__bfloat162float(src[c])));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        const float s = absmax_scale(mx);
+        int8_t* dst = sQ8 + r * LD8 + half * (D / 2);
+#pragma unroll
+        for (int c = 0; c < D / 2; ++c)
+          dst[c] = quantize(__bfloat162float(src[c]), s);
+        if (half == 0) sQs[r] = s;
+      }
     }
     __syncthreads();
     const int8_t* w8 = sQ8 + warp * 16 * LD8;
@@ -155,8 +236,10 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       qa[kk][2] = lds32(w8 + g * LD8 + kk * 32 + 16 + 4 * t);
       qa[kk][3] = lds32(w8 + (g + 8) * LD8 + kk * 32 + 16 + 4 * t);
     }
-    sq0 = sQs[warp * 16 + g];
-    sq1 = sQs[warp * 16 + g + 8];
+    if constexpr (!CAST) {
+      sq0 = sQs[warp * 16 + g];
+      sq1 = sQs[warp * 16 + g + 8];
+    }
   } else {
     const bf16* sQ_w = sQ + warp * 16 * LDQ;
 #pragma unroll
@@ -176,6 +259,11 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* ks_bh = INT8 ? ks + (size_t(b) * H + h) * (T / KCHUNK)
                             : nullptr;
 
+  // exp of a score difference: base 2 under EXP2 (log2(e) in the scale)
+  const auto ex = [](float x) {
+    if constexpr (VARIANT == EXP2) return exp2f(x);
+    else return __expf(x);
+  };
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float o[OT][4];
 #pragma unroll
@@ -192,15 +280,19 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                               c);
       } else {
         *reinterpret_cast<uint4*>(sK + r * LDQ + c) =
-            load_rotate8(k + base + size_t(pos) * E + c,
+            stage8<ROPE>(k + base + size_t(pos) * E + c,
                          cos_t + size_t(pos) * D + c,
                          sin_t + size_t(pos) * D + c);
       }
       uint4 raw = *reinterpret_cast<const uint4*>(v + base + size_t(pos) * E +
                                                    c);
-      const bf16* vv = reinterpret_cast<const bf16*>(&raw);
+      if constexpr (VARIANT == NO_KBD) {
+        *reinterpret_cast<uint4*>(sVt + r * LDQ + c) = raw;
+      } else {
+        const bf16* vv = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) sVt[(c + i) * LDV + r] = vv[i];
+        for (int i = 0; i < 8; ++i) sVt[(c + i) * LDV + r] = vv[i];
+      }
     }
     __syncthreads();
     if (k0 >= kend_warp) continue;  // warp-uniform: tile is in a future slab
@@ -208,7 +300,8 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // S = Q K^T, scaled: rows (g, g+8), keys 8j + 2t + {0, 1}
     float s[NT][4];
     if constexpr (INT8) {
-      const float ssk = __fmul_rn(scale, ks_bh[k0 / KCHUNK]);
+      const float ssk =
+          VARIANT == PROD ? __fmul_rn(scale, ks_bh[k0 / KCHUNK]) : scale;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         int si[4] = {0, 0, 0, 0};
@@ -216,12 +309,21 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int kk = 0; kk < D / 32; ++kk)
           mma_s8(si, qa[kk], lds32(krow + kk * 32), lds32(krow + kk * 32 + 16));
-        s[j][0] = __fmul_rn(__fmul_rn(__int2float_rn(si[0]), ssk), sq0);
-        s[j][1] = __fmul_rn(__fmul_rn(__int2float_rn(si[1]), ssk), sq0);
-        s[j][2] = __fmul_rn(__fmul_rn(__int2float_rn(si[2]), ssk), sq1);
-        s[j][3] = __fmul_rn(__fmul_rn(__int2float_rn(si[3]), ssk), sq1);
+        if constexpr (VARIANT == PROD) {
+          s[j][0] = __fmul_rn(__fmul_rn(__int2float_rn(si[0]), ssk), sq0);
+          s[j][1] = __fmul_rn(__fmul_rn(__int2float_rn(si[1]), ssk), sq0);
+          s[j][2] = __fmul_rn(__fmul_rn(__int2float_rn(si[2]), ssk), sq1);
+          s[j][3] = __fmul_rn(__fmul_rn(__int2float_rn(si[3]), ssk), sq1);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[j][e] = SCALE_ONLY ? __fmul_rn(__int2float_rn(si[e]), ssk)
+                                 : __int2float_rn(si[e]);
+        }
       }
     } else {
+      // EXP2 folds log2(e) into the scale, so the softmax runs in base 2
+      const float sc = VARIANT == EXP2 ? scale * 1.44269504088896341f : scale;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -231,11 +333,27 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
           mma_bf16(s[j], qa[kk], lds32(krow + kk * 16),
                    lds32(krow + kk * 16 + 8));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+        for (int e = 0; e < 4; ++e) s[j][e] *= sc;
       }
     }
 
-    const bool need_mask = (k0 + BK - 1) / P > row_first / P;
+    if constexpr (DOTS) {   // the scores straight into PV, no softmax
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t pa[4];
+        fk::repack_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < OT; ++n) {
+          const bf16* vrow = sVt + (n * 8 + g) * LDV + kk * 16 + 2 * t;
+          mma_bf16(o[n], pa, lds32(vrow), lds32(vrow + 8));
+        }
+      }
+      continue;
+    }
+
+    const bool need_mask =
+        VARIANT == MASK_ALL ||
+        (VARIANT != NO_MASK && (k0 + BK - 1) / P > row_first / P);
     float mx0 = -FLT_MAX, mx1 = -FLT_MAX;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -258,7 +376,7 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float alpha0 = __expf(m0 - mn0), alpha1 = __expf(m1 - mn1);
+    const float alpha0 = ex(m0 - mn0), alpha1 = ex(m1 - mn1);
     m0 = mn0;
     m1 = mn1;
     float sum0 = 0.f, sum1 = 0.f;
@@ -266,8 +384,8 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        s[j][e] = __expf(s[j][e] - mn0);
-        s[j][2 + e] = __expf(s[j][2 + e] - mn1);
+        s[j][e] = ex(s[j][e] - mn0);
+        s[j][2 + e] = ex(s[j][2 + e] - mn1);
         sum0 += s[j][e];
         sum1 += s[j][2 + e];
       }
@@ -295,6 +413,20 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
+  if constexpr (DOTS) {   // the raw accumulator; lse 0
+    bf16* out0 = out + base + size_t(row0) * E + 2 * t;
+    bf16* out1 = out + base + size_t(row1) * E + 2 * t;
+#pragma unroll
+    for (int n = 0; n < OT; ++n) {
+      *reinterpret_cast<uint32_t*>(out0 + n * 8) = pack_bf16(o[n][0], o[n][1]);
+      *reinterpret_cast<uint32_t*>(out1 + n * 8) = pack_bf16(o[n][2], o[n][3]);
+    }
+    if (t == 0) {
+      float* lrow = lse + (size_t(b) * H + h) * T;
+      lrow[row0] = lrow[row1] = 0.f;
+    }
+    return;
+  }
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
@@ -310,8 +442,13 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   if (t == 0) {
     float* lrow = lse + (size_t(b) * H + h) * T;
-    lrow[row0] = m0 + logf(l0);
-    lrow[row1] = m1 + logf(l1);
+    if constexpr (VARIANT == EXP2) {   // m is in log2 units
+      lrow[row0] = m0 * 0.693147180559945309f + logf(l0);
+      lrow[row1] = m1 * 0.693147180559945309f + logf(l1);
+    } else {
+      lrow[row0] = m0 + logf(l0);
+      lrow[row1] = m1 + logf(l1);
+    }
   }
 }
 
@@ -321,7 +458,9 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // max on the float's bits (non-negative floats order as their bits do);
 // rope_quantize_k rotates again, takes the chunk's scale and writes the
 // codes, and the chunk's first tile writes the scale. K is read twice, the
-// second time mostly from L2.
+// second time mostly from L2. The probes run them with ROPE = false (K as
+// stored) and, for the cast-only modes, rope_quantize_k alone with CAST:
+// codes round(8 k), no chunk max and no scale.
 constexpr int QK_THREADS = 256;
 
 template <int D>
@@ -336,7 +475,9 @@ struct QkTile {
            blockIdx.x * ROWS / KCHUNK;
   }
 
-  // this thread's 8 rotated lanes; returns their offset in k
+  // this thread's 8 rotated (ROPE) or stored lanes; returns their offset
+  // in k
+  template <bool ROPE>
   static __device__ __forceinline__ size_t rotated(const bf16* k,
                                                    const float* cos_t,
                                                    const float* sin_t, int T,
@@ -345,7 +486,7 @@ struct QkTile {
     const int pos = blockIdx.x * ROWS + r;
     const size_t off = (size_t(blockIdx.z) * T + pos) * (H * D) +
                        size_t(blockIdx.y) * D + c;
-    uint4 rot = load_rotate8(k + off, cos_t + size_t(pos) * D + c,
+    uint4 rot = stage8<ROPE>(k + off, cos_t + size_t(pos) * D + c,
                              sin_t + size_t(pos) * D + c);
     const bf16* rv = reinterpret_cast<const bf16*>(&rot);
 #pragma unroll
@@ -354,14 +495,14 @@ struct QkTile {
   }
 };
 
-template <int D>
+template <int D, bool ROPE>
 __global__ void __launch_bounds__(QK_THREADS)
 rope_absmax_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
               const float* __restrict__ sin_t, unsigned* __restrict__ amax,
               int T, int H) {
   __shared__ float red[QK_THREADS / 32];
   float f[8];
-  QkTile<D>::rotated(k, cos_t, sin_t, T, H, f);
+  QkTile<D>::template rotated<ROPE>(k, cos_t, sin_t, T, H, f);
   float mx = 0.f;
 #pragma unroll
   for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(f[i]));
@@ -377,22 +518,27 @@ rope_absmax_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
   }
 }
 
-template <int D>
+template <int D, bool ROPE, bool CAST>
 __global__ void __launch_bounds__(QK_THREADS)
 rope_quantize_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
                 const float* __restrict__ sin_t,
                 const unsigned* __restrict__ amax, int8_t* __restrict__ k8,
                 float* __restrict__ ks, int T, int H) {
-  const size_t slot = QkTile<D>::slot(T, H);
-  const float s = absmax_scale(__uint_as_float(amax[slot]));
-  if (threadIdx.x == 0 && (blockIdx.x * QkTile<D>::ROWS) % KCHUNK == 0)
-    ks[slot] = s;
+  float s = 0.f;
+  if constexpr (!CAST) {
+    const size_t slot = QkTile<D>::slot(T, H);
+    s = absmax_scale(__uint_as_float(amax[slot]));
+    if (threadIdx.x == 0 && (blockIdx.x * QkTile<D>::ROWS) % KCHUNK == 0)
+      ks[slot] = s;
+  }
   float f[8];
-  const size_t off = QkTile<D>::rotated(k, cos_t, sin_t, T, H, f);
+  const size_t off =
+      QkTile<D>::template rotated<ROPE>(k, cos_t, sin_t, T, H, f);
   uint2 codes;
   int8_t* c8 = reinterpret_cast<int8_t*>(&codes);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) c8[i] = quantize(f[i], s);
+  for (int i = 0; i < 8; ++i)
+    c8[i] = CAST ? cast_code(f[i]) : quantize(f[i], s);
   *reinterpret_cast<uint2*>(k8 + off) = codes;
 }
 
@@ -418,8 +564,8 @@ extern "C" int fk_slab_rope_attention_fwd(const void* q, const void* k,
         static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P, scale);
     return int(cudaGetLastError());
   };
-  if (D == 32) return args(slab_rope_attn_fwd<32, false>);
-  if (D == 64) return args(slab_rope_attn_fwd<64, false>);
+  if (D == 32) return args(slab_rope_attn_fwd<32, false, true, PROD>);
+  if (D == 64) return args(slab_rope_attn_fwd<64, false, true, PROD>);
   return int(cudaErrorInvalidValue);
 }
 
@@ -445,9 +591,11 @@ extern "C" int fk_slab_rope_k_quant(const void* k, const void* cos_t,
     return int(cudaGetLastError());
   };
   if (D == 32)
-    return run(rope_absmax_k<32>, rope_quantize_k<32>, QkTile<32>::ROWS);
+    return run(rope_absmax_k<32, true>, rope_quantize_k<32, true, false>,
+               QkTile<32>::ROWS);
   if (D == 64)
-    return run(rope_absmax_k<64>, rope_quantize_k<64>, QkTile<64>::ROWS);
+    return run(rope_absmax_k<64, true>, rope_quantize_k<64, true, false>,
+               QkTile<64>::ROWS);
   return int(cudaErrorInvalidValue);
 }
 
@@ -467,9 +615,99 @@ extern "C" int fk_slab_rope_attention_fwd_int8(
         static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P, scale);
     return int(cudaGetLastError());
   };
-  if (D == 32) return args(slab_rope_attn_fwd<32, true>);
-  if (D == 64) return args(slab_rope_attn_fwd<64, true>);
+  if (D == 32) return args(slab_rope_attn_fwd<32, true, true, PROD>);
+  if (D == 64) return args(slab_rope_attn_fwd<64, true, true, PROD>);
   return int(cudaErrorInvalidValue);
+}
+
+// f(the D = 32 kernel of `variant`): with `rope`, production K1 (PROD) or
+// K10 (INT8_FULL); else the probe mode, on unrotated q and k.
+template <typename F>
+int with_mode(int variant, bool rope, F f) {
+  if (rope) {
+    return variant == INT8_FULL ? f(slab_rope_attn_fwd<32, true, true, PROD>)
+                                : f(slab_rope_attn_fwd<32, false, true, PROD>);
+  }
+  switch (variant) {
+    case PROD: return f(slab_rope_attn_fwd<32, false, false, PROD>);
+    case DOTS_ONLY: return f(slab_rope_attn_fwd<32, false, false, DOTS_ONLY>);
+    case NO_KBD: return f(slab_rope_attn_fwd<32, false, false, NO_KBD>);
+    case NO_MASK: return f(slab_rope_attn_fwd<32, false, false, NO_MASK>);
+    case MASK_ALL: return f(slab_rope_attn_fwd<32, false, false, MASK_ALL>);
+    case EXP2: return f(slab_rope_attn_fwd<32, false, false, EXP2>);
+    case INT8_FULL: return f(slab_rope_attn_fwd<32, true, false, PROD>);
+    case INT8_DOTS_ONLY:
+      return f(slab_rope_attn_fwd<32, true, false, INT8_DOTS_ONLY>);
+    case INT8_CHEAP_DEQUANT:
+      return f(slab_rope_attn_fwd<32, true, false, INT8_CHEAP_DEQUANT>);
+    default: return f(slab_rope_attn_fwd<32, true, false, INT8_NOQUANT>);
+  }
+}
+
+// The probes: `variant` is a mode of enum Variant, run on UNROTATED q, k
+// at D = 32 (no tables). `stages` & 1 runs an int8 mode's K pre-pass into
+// k8 and ks (amax [B, H, T/1024] u32 scratch, zero on entry; the cast-only
+// modes need neither amax nor ks), `stages` & 2 the attention kernel on
+// k8 and ks as they stand. A bf16 mode reads k and runs its kernel alone.
+extern "C" int fk_slab_attention_probe(const void* q, const void* k,
+                                       const void* v, void* amax, void* k8,
+                                       void* ks, void* out, void* lse, int B,
+                                       int T, int H, int D, int P,
+                                       float scale, int variant, int stages,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (T % BQ != 0 || P <= 0 || D != 32 || variant < PROD ||
+      variant > INT8_NOQUANT)
+    return int(cudaErrorInvalidValue);
+  const bool int8 = variant >= INT8_FULL;
+  if (int8 && T % KCHUNK != 0) return int(cudaErrorInvalidValue);
+  if (int8 && (stages & 1)) {
+    const dim3 grid(T / QkTile<32>::ROWS, H, B);
+    const bool cast = variant == INT8_DOTS_ONLY || variant == INT8_NOQUANT;
+    if (!cast) {
+      rope_absmax_k<32, false><<<grid, QK_THREADS, 0, st>>>(
+          static_cast<const bf16*>(k), nullptr, nullptr,
+          static_cast<unsigned*>(amax), T, H);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return int(err);
+    }
+    auto quant = cast ? rope_quantize_k<32, false, true>
+                      : rope_quantize_k<32, false, false>;
+    quant<<<grid, QK_THREADS, 0, st>>>(
+        static_cast<const bf16*>(k), nullptr, nullptr,
+        static_cast<const unsigned*>(amax), static_cast<int8_t*>(k8),
+        static_cast<float*>(ks), T, H);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  if (!(stages & 2)) return 0;
+  const dim3 grid(T / BQ, H, B);
+  return with_mode(variant, false, [&](auto kernel) {
+    kernel<<<grid, NTHREADS, 0, st>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const int8_t*>(k8), static_cast<const float*>(ks),
+        static_cast<const bf16*>(v), nullptr, nullptr,
+        static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P, scale);
+    return int(cudaGetLastError());
+  });
+}
+
+// Registers a thread and resident CTAs an SM of the D = 32 instance of a
+// mode: the probes' (rope = 0) or production K1 / K10's (rope = 1 with
+// PROD or INT8_FULL), from the CUDA runtime.
+extern "C" int fk_slab_attention_occupancy(int variant, int rope, int* regs,
+                                           int* ctas) {
+  if (variant < PROD || variant > INT8_NOQUANT ||
+      (rope && variant != PROD && variant != INT8_FULL))
+    return int(cudaErrorInvalidValue);
+  return with_mode(variant, rope != 0, [&](auto kernel) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return int(err);
+    *regs = attr.numRegs;
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel,
+                                                             NTHREADS, 0));
+  });
 }
 
 extern "C" const char* fk_error_string(int code) {

@@ -69,6 +69,14 @@ def _declare(lib) -> None:
         [p] * 8                     # q k8 ks v cos sin out lse
         + [i] * 5 + [f, p])         # B T H D P, scale, stream
     lib.fk_slab_rope_attention_fwd_int8.restype = i
+    lib.fk_slab_attention_probe.argtypes = (
+        [p] * 8                     # q k v amax k8 ks out lse
+        + [i] * 5 + [f]             # B T H D P, scale
+        + [i] * 2 + [p])            # variant stages, stream
+    lib.fk_slab_attention_probe.restype = i
+    lib.fk_slab_attention_occupancy.argtypes = (
+        [i] * 2 + [ctypes.POINTER(i)] * 2)   # variant rope, regs ctas
+    lib.fk_slab_attention_occupancy.restype = i
     lib.fk_lm_head_topk.argtypes = (
         [p] * 12                    # x ln_w ln_b wte h cand_val cand_idx
                                     # tile_m tile_se vals idx logz

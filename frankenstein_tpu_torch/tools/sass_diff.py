@@ -1,0 +1,100 @@
+"""Do two versions of a CUDA source compile their kernels to the same SASS?
+
+Compiles OLD and NEW with the port's own nvcc flags (``ops/cuda/build.py``,
+``sm_90a``) into cubins under the git-ignored ``build/``, dumps each with
+``cuobjdump -sass``, splits the dump into functions and compares every
+function of OLD with the function of NEW of the same mangled name,
+instruction by instruction. The anonymous namespace's hash, which differs
+between any two files, is taken out of names and instructions. A ``--map PATTERN=REPLACEMENT`` (a Python regex substitution, applied
+in turn) renames OLD's functions first, for a template that gained
+parameters. One JSON line on stdout: per OLD function ``same``, ``differs``
+(with the count of differing lines) or ``missing``, and how many functions
+only NEW has. Exits 1 unless every OLD function is ``same``.
+
+Run on a machine with the CUDA toolkit, e.g. for K1 / K10 against an older
+copy of their source::
+
+    python -m frankenstein_tpu_torch.tools.sass_diff OLD.cu \\
+        frankenstein_tpu_torch/csrc/slab_rope_attention.cu \\
+        --map '(slab_rope_attn_fwdILi\\d+ELb\\d)EEE=\\1ELb1ELi0EEE'
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from frankenstein_tpu_torch.ops.cuda import build
+
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+
+
+def sass(src: Path, workdir: Path) -> dict:
+    """{mangled name without the anonymous hash: [instruction lines]} of
+    ``src`` compiled as the port builds it (headers from ``csrc/``)."""
+    nvcc = Path(build._nvcc())
+    cubin = workdir / (src.stem + ".cubin")
+    flags = [f for f in build.NVCC_FLAGS
+             if f not in ("-Xptxas", "-v", "-Xcompiler", "-fPIC")]
+    subprocess.run([str(nvcc), *flags, "-cubin", "-I", str(src.parent),
+                    "-I", str(build.CSRC_DIR), "-o", str(cubin), str(src)],
+                   check=True)
+    dump = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass",
+                           str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    funcs, name = {}, None
+    for line in dump.splitlines():
+        line = ANON.sub("", line).strip()
+        if line.startswith("Function :"):
+            name = line.split(":", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None and line:
+            funcs[name].append(line)
+    return funcs
+
+
+def compare(old: dict, new: dict, maps) -> dict:
+    result = {}
+    for name, body in old.items():
+        renamed = name
+        for pattern, repl in maps:
+            renamed = re.sub(pattern, repl, renamed)
+        if renamed not in new:
+            result[name] = "missing"
+            continue
+        other = new[renamed]
+        diff = sum(a != b for a, b in zip(body, other)) + abs(
+            len(body) - len(other))
+        result[name] = "same" if diff == 0 else f"differs ({diff} lines)"
+    return result
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m frankenstein_tpu_torch.tools.sass_diff",
+        description=__doc__.split("\n\n")[0])
+    p.add_argument("old", type=Path)
+    p.add_argument("new", type=Path)
+    p.add_argument("--map", action="append", default=[],
+                   help="PATTERN=REPLACEMENT renaming OLD's functions")
+    args = p.parse_args(argv)
+    maps = [m.split("=", 1) for m in args.map]
+    out = build.BUILD_DIR / "sass_diff"
+    for side in ("old", "new"):
+        (out / side).mkdir(parents=True, exist_ok=True)
+    old = sass(args.old.resolve(), out / "old")
+    new = sass(args.new.resolve(), out / "new")
+    result = compare(old, new, maps)
+    matched = sum(s != "missing" for s in result.values())
+    ok = all(s == "same" for s in result.values())
+    print(json.dumps({"functions": result, "new_only": len(new) - matched,
+                      "ok": ok}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,7 +2,8 @@
 KV caches, one to four query heads per KV head), K6 / K7 (the three mask
 modes of flash attention, forward and backward), K8 (the fused head and
 top-k, ragged vocab, ties), K9 (the fused pre-norm SwiGLU MLP, both norms)
-and K10 (int8 QK scores: K codes, scales, out and lse) on the card against
+and K10 (int8 QK scores: K codes, scales, out and lse), and the probe modes
+of K1 / K10's kernel (ops/cuda/slab_probe.py), on the card against
 their plain PyTorch twins, at
 small shapes that reach the kernels' edge cases (slabs that do not divide
 the tiles, a batch that does not fill a tile, an empty cache, one beam and
@@ -880,3 +881,108 @@ def test_k10_refuses_what_it_does_not_take(dev):
                                qk_int8=True)
     with pytest.raises(ValueError, match="1024"):
         k1.rope_quantize_k(k, cos, sin, n_heads=2)
+
+
+# The probe modes of K1 / K10's kernel (ops/cuda/slab_probe.py) against
+# their twins on the same bf16 inputs, within the limits slab_probe states
+# (EXACT_TOL, DEFINED_TOL, LSE_TOL; ``probe_error``, ``agrees``).
+PROBE_EXACT = ("kernel", "mask_all", "exp2", "int8_full")
+PROBE_DEFINED = ("dots_only", "no_mask", "int8_dots_only",
+                 "int8_cheap_dequant", "int8_noquant")
+PROBE_CASES = [(2, 2048, 2, p) for p in (8, 100, 256)] + [(1, 6144, 8, 256)]
+
+
+def _probe_case(dev, b, t, h, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, t, h * 32, generator=gen, device=dev)
+            .to(torch.bfloat16) for _ in range(3)]
+
+
+@pytest.mark.parametrize("variant", PROBE_EXACT + PROBE_DEFINED)
+@pytest.mark.parametrize("b,t,h,p", PROBE_CASES)
+def test_probe_modes_match_twins_and_are_deterministic(dev, variant, b, t, h,
+                                                       p):
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    q, k, v = _probe_case(dev, b, t, h, seed=b * t + p)
+    kw = dict(n_heads=h, tok_per_time=p, variant=variant)
+    counter = "launches_int8" if sp.is_int8(variant) else "launches"
+    before = getattr(sp, counter)
+    out, lse = sp.slab_attention_probe(q, k, v, **kw)
+    again = sp.slab_attention_probe(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert getattr(sp, counter) == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = sp.TWINS[variant](q, k, v, n_heads=h, tok_per_time=p)
+    err = sp.probe_error(variant, out, lse, ref, ref_lse)
+    assert sp.agrees(variant, err), err
+
+
+@pytest.mark.parametrize("p", [8, 256])
+def test_probe_kernel_is_k1_and_k10_on_identity_tables(dev, p):
+    """The ROPE=false modes differ from production K1 / K10 only in the
+    rotation: ``kernel`` is bitwise K1 run with cos 1, sin 0 tables, and
+    ``int8_full`` bitwise K10 so run (its codes too); ``int8_full``'s
+    kernel alone on ``probe_quantize_k``'s codes is bitwise the pair."""
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    b, t, h = 2, 2048, 2
+    q, k, v = _probe_case(dev, b, t, h, seed=p)
+    cos = torch.ones(t, 32, device=dev)
+    sin = torch.zeros(t, 32, device=dev)
+    kw = dict(n_heads=h, tok_per_time=p)
+    got = sp.slab_attention_probe(q, k, v, variant="kernel", **kw)
+    want = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = sp.slab_attention_probe(q, k, v, variant="int8_full", **kw)
+    want = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    codes = sp.probe_quantize_k(k, n_heads=h, variant="int8_full")
+    want_codes = k1.rope_quantize_k(k, cos, sin, n_heads=h)
+    assert torch.equal(codes[0], want_codes[0])
+    assert torch.equal(codes[1], want_codes[1])
+    alone = sp.slab_attention_probe(q, codes, v, variant="int8_full",
+                                    with_prepass=False, **kw)
+    assert torch.equal(alone[0], got[0]) and torch.equal(alone[1], got[1])
+
+
+def test_probe_no_kbd_guard(dev):
+    """``no_kbd`` reads V in the wrong layout (timing only, no twin): its
+    values are finite, bitwise repeatable and differ from ``kernel``'s."""
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    q, k, v = _probe_case(dev, 2, 2048, 2, seed=7)
+    kw = dict(n_heads=2, tok_per_time=256)
+    out, lse = sp.slab_attention_probe(q, k, v, variant="no_kbd", **kw)
+    again = sp.slab_attention_probe(q, k, v, variant="no_kbd", **kw)
+    ref = sp.slab_attention_probe(q, k, v, variant="kernel", **kw)
+    torch.cuda.synchronize()
+    guard = sp.no_kbd_guard(out, lse, again, ref[0])
+    assert sp.guard_holds(guard), guard
+
+
+def test_probe_refuses_what_it_does_not_take(dev):
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    q64 = torch.zeros(1, 1024, 128, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="does not take"):   # head_dim 64
+        sp.slab_attention_probe(q64, q64, q64, n_heads=2, tok_per_time=8,
+                                variant="kernel")
+    q = torch.zeros(1, 1152, 64, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="does not take"):   # T % 1024
+        sp.slab_attention_probe(q, q, q, n_heads=2, tok_per_time=8,
+                                variant="int8_noquant")
+    with pytest.raises(ValueError, match="does not take"):
+        sp.slab_attention_probe(q.float(), q.float(), q.float(), n_heads=2,
+                                tok_per_time=8, variant="kernel")
+
+
+def test_probe_occupancy_reads_every_mode(dev):
+    """Registers and resident CTAs of each D=32 instance, production K1 and
+    K10 included, from the CUDA runtime; a rope instance other than K1 /
+    K10 is refused."""
+    from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
+    for name in sp.PROBE_VARIANTS:
+        regs, ctas = sp.occupancy(name)
+        assert 0 < regs <= 255 and ctas >= 1
+    for name in ("kernel", "int8_full"):
+        regs, ctas = sp.occupancy(name, rope=True)
+        assert 0 < regs <= 255 and ctas >= 1
+    with pytest.raises(RuntimeError, match="occupancy"):
+        sp.occupancy("exp2", rope=True)

@@ -4,12 +4,14 @@
 out, lse and gradients (K4's twin on the int8 forward's out and lse); its
 drift from exact attention; a Franky encoder built with ``qk_int8``; and
 the fallback signals of the paths K10 does not take (``qk_int8_fallback``).
-float32 inputs, as the JAX package's own qk_int8 tests use."""
+float32 inputs, as the JAX package's own qk_int8 tests use, and one case on
+the bf16 lattice against a float64 oracle of the documented math."""
 
 import warnings
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -65,6 +67,72 @@ def test_twin_matches_pallas_kernel_interpret(t):
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-5)
     np.testing.assert_allclose(lse.numpy(),
                                np.asarray(lse4).reshape(1, H, t), atol=1e-5)
+
+
+def _k10_oracle(q, k, v, cos, sin, t, jax_scale=False):
+    """numpy float64 oracle of K10's documented math on one batch of
+    [T, H*D] f32 arrays: the rotation x*cos + (-x_odd | x_even)*sin in
+    IEEE f32, rounded to bf16; s = max|x| / 127 + 1e-12 (an IEEE f32
+    quotient) per (row, head) for q and per (1024-row chunk, head) for k,
+    codes round_half_even(x / s); the integer dots dequantized,
+    (dot * (scale * s_k)) * s_q, and the slab softmax in float64. Returns
+    lse [H, T]. ``jax_scale`` takes s as the JAX interpret path gets it on
+    the CPU: fma(max|x|, fl(1/127), 1e-12)."""
+    f32 = np.float32
+
+    def rotate(x):
+        x = x.reshape(t, H, D // 2, 2)
+        sw = np.stack([-x[..., 1], x[..., 0]], -1).reshape(t, H, D)
+        r = x.reshape(t, H, D) * cos[:, None] + sw * sin[:, None]
+        return r.astype(ml_dtypes.bfloat16).astype(f32)
+
+    def codes(x, axes):
+        mx = np.abs(x).max(axis=axes, keepdims=True)
+        if jax_scale:
+            s = (mx.astype(np.float64) * np.float64(f32(1) / f32(127))
+                 + np.float64(f32(1e-12))).astype(f32)
+        else:
+            s = mx / f32(127) + f32(1e-12)
+        return np.round(x / s).astype(np.float64), s.astype(np.float64)
+
+    q8, sq = codes(rotate(q), (2,))                               # [T, H, 1]
+    k8, sk = codes(rotate(k).reshape(t // 1024, 1024, H, D), (1, 3))
+    k8 = k8.reshape(t, H, D)
+    sk = np.repeat(sk[:, 0, :, 0], 1024, axis=0)                  # [T, H]
+    i = np.arange(t)
+    seen = (i[None, :] // P) <= (i[:, None] // P)
+    lse = np.empty((H, t))
+    for h in range(H):
+        s = ((q8[:, h] @ k8[:, h].T) * ((1.0 / np.sqrt(D)) * sk[None, :, h])
+             * sq[:, h])
+        s[~seen] = -np.inf
+        m = s.max(-1)
+        lse[h] = m + np.log(np.exp(s - m[:, None]).sum(-1))
+    return lse
+
+
+def test_twin_matches_float64_oracle_on_the_bf16_lattice():
+    """Unit-scale draws on the bf16 lattice (the serving dtype), real rope,
+    t=2048: the twin's lse within 1e-5 of the float64 oracle of the
+    documented math. The f32 draws above never reach the lattice's exact
+    .5 ties in x / s; here a row whose max |x| is 127 * 2^e has the scale
+    2^e exactly (the 1e-12 is below its last bit), so ties are common. The same oracle with the JAX
+    interpret path's scale arithmetic (ROADMAP.md section 3) is more than
+    1e-4 off: the check sees a tie rounded the other way."""
+    t = 2048
+    rng = np.random.default_rng(63)
+    q, k, v = (rng.standard_normal((1, t, H * D)).astype(ml_dtypes.bfloat16)
+               .astype(np.float32) for _ in range(3))
+    cache = jrope.build_rope_cache(D, t)
+    cos, sin = trope.folded_tables(torch.tensor(np.asarray(cache)), 1)
+    bf = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    _, lse = slab_attention.slab_rope_attention_int8_ref(
+        bf(q), bf(k), bf(v), cos, sin, n_heads=H, tok_per_time=P)
+    args = (q[0], k[0], v[0], cos.numpy(), sin.numpy(), t)
+    np.testing.assert_allclose(lse[0].numpy(), _k10_oracle(*args), rtol=0,
+                               atol=1e-5)
+    assert np.abs(lse[0].numpy() - _k10_oracle(*args, jax_scale=True)
+                  ).max() > 1e-4
 
 
 def test_k_codes_and_scales():
