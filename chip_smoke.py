@@ -204,6 +204,8 @@ PROBE_BATCH = 128         # the probes' timed shape, the JAX tools' B
 PROBE_TWIN_ROWS = 2       # batch rows of a probe output held to its twin
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
+EXP2_PER_S = 132 * 16 * 1.83e9   # ex2 a second: 16 a clock an SM at the
+                                 # clock of the bf16 peak (K6 / K7 exp floor)
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak, same source
 
 
@@ -1587,7 +1589,35 @@ def _flash_mask(kw: dict, t: int, dev):
     return None
 
 
+def _sdpa_backends(qkv, dout) -> dict:
+    """The SDPA backward thunk of each backend that takes [B, H, T, D]
+    ``qkv`` unmasked (its forward run under that backend), by name."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    thunks = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                thunk = _sdpa(*qkv, None, dout)
+            thunk()
+        except (AttributeError, RuntimeError):
+            continue
+        thunks[f"SDPA {name.split('_')[0].lower()} bwd"] = thunk
+    return thunks
+
+
+def _ms_note(timed: dict, name: str) -> str:
+    med, lo, hi = timed[name]["ms"]
+    return f"{med:.3f} ({lo:.3f}-{hi:.3f})"
+
+
 def phase_flash(card: str) -> dict:
+    """K6 and K7 (modes positions, dense, slab) forward and backward at the
+    MAE's shapes against their twins; kernel and SDPA timed in turns
+    (``_in_turns``) at B=2 and, unmasked, B=32, and the kernels back to
+    back at B=2 (a single B=2 call also times the host's launch work);
+    each mode's exp floor (one ex2 a visible pair a pass at EXP2_PER_S),
+    issued TFLOP/s (4·D ops a pair forward, 14·D in the two backward
+    passes) and registers and resident CTAs an SM of each pass."""
     import torch
     from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
     b = 2
@@ -1621,29 +1651,52 @@ def phase_flash(card: str) -> dict:
         rowsum = float((dv.float().reshape(b, t, h, d).sum(dim=1) - 1.0)
                        .abs().max())
 
-        fwd_ms = _time_ms(lambda: k67.flash_attention(q, k, v, **kw))
-        bwd_ms = _time_ms(lambda: k67.flash_attention_bwd(
-            q, k, v, out, lse, dout, **kw))
+        qkv, mask = [_heads(x, h) for x in (q, k, v)], _flash_mask(kw, t,
+                                                                  q.device)
+        thunks = {
+            "fwd": lambda: k67.flash_attention(q, k, v, **kw),
+            "SDPA fwd": _sdpa(*qkv, mask),
+            "bwd": lambda: k67.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                   **kw),
+            "SDPA bwd": _sdpa(*qkv, mask, dout)}
+        if mode == "dense":
+            thunks.update(_sdpa_backends(qkv, dout))
+        timed = _in_turns(thunks)
+        fwd_ms, bwd_ms = timed["fwd"]["ms"][0], timed["bwd"]["ms"][0]
+        fwd_lib = timed["SDPA fwd"]["ms"][0]
+        bwd_lib = timed["SDPA bwd"]["ms"][0]
+        backends = ", ".join(f"{key[5:]} {_ms_note(timed, key)}"
+                             for key in timed if key.startswith("SDPA ")
+                             and key not in ("SDPA fwd", "SDPA bwd"))
+        fwd_b2b = _time_ms(thunks["fwd"])   # back to back: no host gaps
+        bwd_b2b = _time_ms(thunks["bwd"])
         fwd_plain = _time_ms(lambda: k67.flash_attention_ref(q, k, v, **kw),
                              iters=3)
         bwd_plain = _time_ms(lambda: k67.flash_attention_bwd_ref(
             q, k, v, out, lse, dout, **kw), iters=3)
-        qkv, mask = [_heads(x, h) for x in (q, k, v)], _flash_mask(kw, t,
-                                                                  q.device)
-        fwd_lib = _time_ms(_sdpa(*qkv, mask))
-        bwd_lib = _time_ms(_sdpa(*qkv, mask, dout))
         pairs = _flash_pairs(kw, b, t)
         sid = kw["slab_ids"]
         fwd_bound = _bound(_nbytes(q, k, v, sid, out, lse), 4 * d * h * pairs)
         bwd_bound = _bound(_nbytes(q, k, v, sid, out, lse, dout, *got),
                            10 * d * h * pairs)
+        exp_fwd = h * pairs / EXP2_PER_S * 1e3
+        occ = {pas: k67.occupancy(mode, pas, d) for pas in k67.PASSES}
+        b32 = {}
         (qb, kb, vb, db), kwb = _flash_inputs(mode, 32, gen)
         ob, lb = k67.flash_attention(qb, kb, vb, **kwb)
-        fwd_b32 = _time_ms(lambda: k67.flash_attention(qb, kb, vb, **kwb),
-                           iters=5)
-        bwd_b32 = _time_ms(lambda: k67.flash_attention_bwd(
-            qb, kb, vb, ob, lb, db, **kwb), iters=5)
-        del qb, kb, vb, db, ob, lb
+        big = {"fwd": lambda: k67.flash_attention(qb, kb, vb, **kwb),
+               "bwd": lambda: k67.flash_attention_bwd(qb, kb, vb, ob, lb, db,
+                                                      **kwb)}
+        if mode == "dense":
+            qkvb = [_heads(x, h) for x in (qb, kb, vb)]
+            big.update({"SDPA fwd": _sdpa(*qkvb, None),
+                        "SDPA bwd": _sdpa(*qkvb, None, db)})
+        b32 = _in_turns(big)
+        fwd_b32, bwd_b32 = b32["fwd"]["ms"][0], b32["bwd"]["ms"][0]
+        pairs32 = _flash_pairs(kwb, 32, t)
+        del qb, kb, vb, db, ob, lb, big
+        sdpa32 = (f", SDPA forward {_ms_note(b32, 'SDPA fwd')}, backward "
+                  f"{_ms_note(b32, 'SDPA bwd')}" if mode == "dense" else "")
         print(f"phase 12 {name} flash_attention mode={mode} B={b} T={t} "
               f"E={e} H={h}{' P=256' if mode != 'dense' else ''} bf16, "
               f"{pairs} visible pairs: out/lse rel err {fwd_rels[0]:.3e}/"
@@ -1651,14 +1704,25 @@ def phase_flash(card: str) -> dict:
               f"{bwd_rels[1]:.3e}/{bwd_rels[2]:.3e} (tol {FLASH_TOL} x "
               f"max|twin|), probability rows sum to 1 within {rowsum:.3e} "
               f"(tol {ROWSUM_TOL}), two backward launches bitwise equal "
-              f"{bitwise} | forward: kernel {fwd_ms:.3f} ms, plain "
+              f"{bitwise} | in turns, medians (range) of {TIMING_REPEATS}: "
+              f"forward kernel {_ms_note(timed, 'fwd')} ms, SDPA "
+              f"{_ms_note(timed, 'SDPA fwd')}; backward kernel "
+              f"{_ms_note(timed, 'bwd')} ms, SDPA "
+              f"{_ms_note(timed, 'SDPA bwd')}"
+              f"{' (' + backends + ')' if backends else ''}; back to back "
+              f"(10 calls) forward {fwd_b2b:.3f} ms, backward {bwd_b2b:.3f} "
+              f"ms | forward: plain "
               f"{fwd_plain:.3f} ms, bound {fwd_bound['bound_ms']:.4f} ms "
-              f"({fwd_bound['bound_by']}), SDPA {fwd_lib:.3f} ms | backward: "
-              f"kernel {bwd_ms:.3f} ms, plain {bwd_plain:.3f} ms, bound "
-              f"{bwd_bound['bound_ms']:.4f} ms ({bwd_bound['bound_by']}), "
-              f"SDPA backward {bwd_lib:.3f} ms | kernel at B=32 forward "
-              f"{fwd_b32:.3f} ms, backward {bwd_b32:.3f} ms | {card}",
-              flush=True)
+              f"({fwd_bound['bound_by']}), exp floor {exp_fwd:.4f} ms, issued "
+              f"{4 * d * h * pairs / fwd_ms / 1e9:.1f} TFLOP/s | backward: "
+              f"plain {bwd_plain:.3f} ms, bound {bwd_bound['bound_ms']:.4f} "
+              f"ms ({bwd_bound['bound_by']}), exp floor {2 * exp_fwd:.4f} ms, "
+              f"issued {14 * d * h * pairs / bwd_ms / 1e9:.1f} TFLOP/s | "
+              f"registers / CTAs an SM: " + ", ".join(
+                  f"{pas} {r} / {c}" for pas, (r, c) in occ.items()) +
+              f" | B=32 in turns: forward {_ms_note(b32, 'fwd')} ms (exp "
+              f"floor {h * pairs32 / EXP2_PER_S * 1e3:.3f}), backward "
+              f"{_ms_note(b32, 'bwd')} ms{sdpa32} | {card}", flush=True)
         _check(all(bool(torch.isfinite(x).all()) for x in (out, lse, *got)),
                f"{name} output not finite")
         _check(max(fwd_rels + bwd_rels) <= FLASH_TOL,
@@ -1673,7 +1737,7 @@ def phase_flash(card: str) -> dict:
             {"max_abs_err": max(_max_err(g, w) for g, w in zip(got, want)),
              "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
              "ms_b32": bwd_b32, **bwd_bound})
-        del q, k, v, dout, out, lse, got, again, ref, want, onehot
+        del q, k, v, dout, out, lse, got, again, ref, want, onehot, thunks
     return results
 
 
@@ -2788,7 +2852,6 @@ def main() -> int:
                      " (and :887, :812)",
          "launches": fl["launches"]["K5-int8"], **_entry(k5_beam)},
     ]
-    bwd_src = "frankenstein_tpu_torch/csrc/flash_attention_bwd.cu"
     for key, mode, fwd_at, bwd_at in (
             ("K6", "positions", "202 (_fwd with pos, call :260)",
              "396 (_bwd with pos, calls :436, :484)"),
@@ -2798,9 +2861,12 @@ def main() -> int:
              "_fwd :260)", "658 (_bwd_packed, calls :685, :721; and _bwd "
              ":396)")):
         fwd, bwd = fa[mode]
+        src = "frankenstein_tpu_torch/csrc/flash_attention"
+        fwd_src, bwd_src = ((src + "_dense.cu",) * 2 if mode == "dense"
+                            else (src + ".cu", src + "_bwd.cu"))
         kernels += [
             {"name": f"flash_attention_fwd_{mode}", "route": "cuda",
-             "source": "frankenstein_tpu_torch/csrc/flash_attention.cu",
+             "source": fwd_src,
              "replaces": f"frankenstein_tpu/ops/pallas/block_attention.py:"
                          f"{fwd_at}",
              "launches": mae["launches"][key], **_entry(fwd)},

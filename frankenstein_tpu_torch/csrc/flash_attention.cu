@@ -1,14 +1,14 @@
-// K6 and K7: flash attention over folded q/k/v with three mask modes,
-// forward only (the backward is flash_attention_bwd.cu).
+// K6 and K7 slab: flash attention over folded q/k/v with a mask, forward
+// only (the backward is flash_attention_bwd.cu). Mode dense (K7 unmasked)
+// runs the wgmma kernels of flash_attention_dense.cu; this file's C entry
+// point dispatches it there.
 //
 // Replaces, in frankenstein_tpu/ops/pallas/block_attention.py:
 //   K6  _fwd with ``pos`` (kernel _fwd_tri_kernel, pos=True), reached from
 //       gathered_slab_attention -> _gathered_attention: the MAE encoder's
 //       attention over the 25% of tokens it keeps;
 //   K7  _fwd / _fwd_packed (kernels _fwd_tri_kernel, _fwd_packed_kernel),
-//       reached from dense_flash_attention (unmasked: the MAE decoder's
-//       6144-token attention) and slab_causal_attention[_folded]
-//       (slab-causal, no RoPE).
+//       reached from slab_causal_attention[_folded] (slab-causal, no RoPE).
 // Contract:
 //   q, k, v   [B, T, E] bf16, head h = columns [h*D, (h+1)*D); q and k
 //             already rotated where the model uses RoPE
@@ -37,12 +37,12 @@
 //     exceeds the q tile's greatest (exact for any order; with sorted ids
 //     the loop ends at the staircase). A warp skips the tiles past its own
 //     rows' slabs, and only tiles that reach past a warp's least slab are
-//     masked. kDense walks every tile unmasked.
+//     masked.
 // Every row sees at least its own key, so no row's l is 0. A row whose
 // first tiles are all masked (kPositions in an unsorted order) accumulates
 // exp(0) terms at m = -FLT_MAX; the first visible score rescales them by
 // exp(-FLT_MAX - m) = 0, so they vanish exactly.
-// wgmma, TMA and a pipelined K/V ring are later work.
+// The wgmma / TMA design of flash_attention_dense.cu is later work here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,6 +50,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_host.cuh"
 #include "flash_mask.cuh"
 #include "mma_bf16.cuh"
 
@@ -153,7 +154,7 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (tid < BK) sKs[tid] = sid_b[k0 + tid];
     }
     __syncthreads();
-    if (MODE != fk::kDense && kr.x > warp_hi) continue;  // warp-uniform
+    if (kr.x > warp_hi) continue;  // warp-uniform
 
     // S = Q K^T: rows (g, g+8), keys 8j + 2t + {0, 1}
     float s[NT][4];
@@ -167,7 +168,7 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  lds32(krow + kk * 16 + 8));
     }
 
-    const bool need_mask = MODE != fk::kDense && kr.y > warp_lo;
+    const bool need_mask = kr.y > warp_lo;
     float mx0 = -FLT_MAX, mx1 = -FLT_MAX;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -253,10 +254,7 @@ template <int D>
 int launch_fwd(int mode, dim3 grid, cudaStream_t st, const bf16* q,
                const bf16* k, const bf16* v, const int* sid, bf16* out,
                float* lse, int T, int H, int P, float scale) {
-  if (mode == fk::kDense)
-    flash_attn_fwd<D, fk::kDense><<<grid, NTHREADS, 0, st>>>(
-        q, k, v, sid, out, lse, T, H, P, scale);
-  else if (mode == fk::kSlab)
+  if (mode == fk::kSlab)
     flash_attn_fwd<D, fk::kSlab><<<grid, NTHREADS, 0, st>>>(
         q, k, v, sid, out, lse, T, H, P, scale);
   else if (mode == fk::kPositions)
@@ -281,6 +279,8 @@ extern "C" int fk_flash_attention_fwd(const void* q, const void* k,
   if (T % BQ != 0 || (mode == fk::kSlab && P <= 0) ||
       (mode == fk::kPositions && sid == nullptr))
     return int(cudaErrorInvalidValue);
+  if (mode == fk::kDense)
+    return fk::flash_dense_fwd(q, k, v, out, lse, B, T, H, D, scale, st);
   const dim3 grid(T / BQ, H, B);
   auto run = [&](auto launch) {
     return launch(mode, grid, st, static_cast<const bf16*>(q),
@@ -292,3 +292,20 @@ extern "C" int fk_flash_attention_fwd(const void* q, const void* k,
   if (D == 64) return run(launch_fwd<64>);
   return int(cudaErrorInvalidValue);
 }
+
+namespace fk {
+
+int flash_masked_fwd_occupancy(int mode, int D, int* regs, int* ctas) {
+  auto read = [&](auto kernel) {
+    return kernel_occupancy(kernel, NTHREADS, 0, regs, ctas);
+  };
+  if (mode == kSlab && D == 32) return read(flash_attn_fwd<32, kSlab>);
+  if (mode == kSlab && D == 64) return read(flash_attn_fwd<64, kSlab>);
+  if (mode == kPositions && D == 32)
+    return read(flash_attn_fwd<32, kPositions>);
+  if (mode == kPositions && D == 64)
+    return read(flash_attn_fwd<64, kPositions>);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace fk

@@ -1,11 +1,12 @@
-// K6 and K7 backward: the gradients of flash_attention.cu's three mask
-// modes.
+// K6 and K7 slab backward: the gradients of flash_attention.cu's masked
+// modes. Mode dense (K7 unmasked) runs the wgmma passes of
+// flash_attention_dense.cu; this file's C entry point dispatches it there.
 //
 // Replaces frankenstein_tpu/ops/pallas/block_attention.py:_bwd (kernel
 // bodies _bwd_dq_tri_kernel and _bwd_dkv_tri_kernel, with ``pos`` for K6,
 // from _gathered_attention_bwd) and _bwd_packed (kernels
 // _bwd_dq_packed_kernel, _bwd_dkv_packed_kernel, from _slab_attention_bwd:
-// K7 dense and slab). Contract:
+// K7 slab). Contract:
 //   q, k, v   [B, T, E] bf16, as the forward took them (already rotated)
 //   sid       [B, T] int32 slab ids (kPositions only)
 //   out       [B, T, E] bf16, the forward's output
@@ -48,13 +49,15 @@
 // What bounds it on an H100: 3 products of D per visible (query, key) pair
 // in the dq pass and 4 in the dk/dv pass, against the forward's 2, plus an
 // exp in each pass; at D = 32 that is tensor-core throughput and f32 work
-// per score, not bytes. A pipelined wgmma / TMA version is later work.
+// per score, not bytes. The wgmma / TMA design of flash_attention_dense.cu
+// is later work here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_host.cuh"
 #include "flash_mask.cuh"
 #include "mma_bf16.cuh"
 
@@ -192,7 +195,7 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (tid < BN) sKs[tid] = sid_b[k0 + tid];
     }
     __syncthreads();
-    if (MODE != fk::kDense && kr.x > warp_hi) continue;  // warp-uniform
+    if (kr.x > warp_hi) continue;  // warp-uniform
 
     // S = Q K^T and dP = dO V^T: rows (g, g+8), keys 8j + 2t + {0, 1}
     float s[NT][4], dp[NT][4];
@@ -211,7 +214,7 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // ds = p * (dp - delta) * scale, in place of s
-    const bool need_mask = MODE != fk::kDense && kr.y > warp_lo;
+    const bool need_mask = kr.y > warp_lo;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -368,7 +371,7 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if constexpr (MODE == fk::kPositions) sQs[tid] = sid_b[q0 + tid];
     }
     __syncthreads();
-    if (MODE != fk::kDense && qr.y < warp_lo) continue;  // warp-uniform
+    if (qr.y < warp_lo) continue;  // warp-uniform
 
     // S^T = K Q^T and dP^T = V dO^T: keys (g, g+8), queries 8j + 2t + {0, 1}
     float st[NT][4], dpt[NT][4];
@@ -387,7 +390,7 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // p^T in place of st, ds^T = p^T * (dp^T - delta) * scale in place of dpt
-    const bool need_mask = MODE != fk::kDense && qr.x < warp_hi;
+    const bool need_mask = qr.x < warp_hi;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
@@ -457,9 +460,6 @@ int launch_bwd_mode(int mode, dim3 grid, cudaStream_t st, const bf16* q,
                     const bf16* out, const bf16* dout, const float* lse,
                     float* delta, bf16* dq, bf16* dk, bf16* dv, int T, int H,
                     int P, float scale) {
-  if (mode == fk::kDense)
-    return launch_bwd<D, fk::kDense>(grid, st, q, k, v, sid, out, dout, lse,
-                                     delta, dq, dk, dv, T, H, P, scale);
   if (mode == fk::kSlab)
     return launch_bwd<D, fk::kSlab>(grid, st, q, k, v, sid, out, dout, lse,
                                     delta, dq, dk, dv, T, H, P, scale);
@@ -485,6 +485,9 @@ extern "C" int fk_flash_attention_bwd(
   if (T % BM != 0 || (mode == fk::kSlab && P <= 0) ||
       (mode == fk::kPositions && sid == nullptr))
     return int(cudaErrorInvalidValue);
+  if (mode == fk::kDense)
+    return fk::flash_dense_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
+                               T, H, D, scale, st);
   const dim3 grid(T / BM, H, B);
   auto run = [&](auto launch) {
     return launch(mode, grid, st, static_cast<const bf16*>(q),
@@ -499,3 +502,30 @@ extern "C" int fk_flash_attention_bwd(
   if (D == 64) return run(launch_bwd_mode<64>);
   return int(cudaErrorInvalidValue);
 }
+
+namespace fk {
+
+int flash_masked_bwd_occupancy(int mode, int pass, int D, int* regs,
+                               int* ctas) {
+  auto read = [&](auto kernel) {
+    return kernel_occupancy(kernel, NTHREADS, 0, regs, ctas);
+  };
+  auto of_mode = [&](auto dq_kernel, auto dkv_kernel) {
+    if (pass == 1) return read(dq_kernel);
+    if (pass == 2) return read(dkv_kernel);
+    return int(cudaErrorInvalidValue);
+  };
+  if (mode == kSlab && D == 32)
+    return of_mode(flash_attn_bwd_dq<32, kSlab>, flash_attn_bwd_dkv<32, kSlab>);
+  if (mode == kSlab && D == 64)
+    return of_mode(flash_attn_bwd_dq<64, kSlab>, flash_attn_bwd_dkv<64, kSlab>);
+  if (mode == kPositions && D == 32)
+    return of_mode(flash_attn_bwd_dq<32, kPositions>,
+                   flash_attn_bwd_dkv<32, kPositions>);
+  if (mode == kPositions && D == 64)
+    return of_mode(flash_attn_bwd_dq<64, kPositions>,
+                   flash_attn_bwd_dkv<64, kPositions>);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace fk

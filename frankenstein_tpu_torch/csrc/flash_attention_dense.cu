@@ -1,0 +1,1051 @@
+// K7 dense: the MAE decoder's unmasked flash attention, forward and both
+// backward passes, redesigned for Hopper (sm_90a): TMA rings, wgmma, warp
+// specialisation and exp2. Modes slab and positions (K7 slab, K6) keep the
+// mma.sync kernels of flash_attention.cu / flash_attention_bwd.cu, whose C
+// entry points dispatch mode dense here (flash_host.cuh).
+//
+// Replaces, in frankenstein_tpu/ops/pallas/block_attention.py:
+//   forward   dense_flash_attention :1278 -> _slab_attention :746 -> _fwd
+//             :202 (call :260) or _fwd_packed :1017 -> :994 -> :945 (call
+//             :976), with the mask off;
+//   backward  :762 -> _bwd_packed :658 (calls :685, :721) or _bwd :396
+//             (calls :436, :484): the _bwd_dq / _bwd_dkv split, kept.
+// Contract (unchanged from the mma.sync kernels):
+//   q, k, v, dout  [B, T, E] bf16, head h = columns [h*D, (h+1)*D), D in
+//                  {32, 64}, T % 128 == 0
+//   out            [B, T, E] bf16; lse [B, H, T] f32, natural-log units
+//   delta          [B, H, T] f32 workspace: rowsum(f32(out) * f32(dout)),
+//                  written by the dq pass, read by the dk/dv pass
+//   dq, dk, dv     [B, T, E] bf16
+// Forward: scale 1/sqrt(D); scores and online softmax in f32, p rounded to
+// bf16 before PV, l sums the unrounded exps. Backward: p = exp(s - lse),
+// ds = bf16(p * (dp - delta) * scale), dv = bf16(p)^T dout, dq = ds k,
+// dk = ds^T q, each rounded once to bf16. No atomics and a fixed order of
+// every sum, so two backward launches are bitwise equal.
+//
+// The three floors at the MAE's shape (B=2, T=6144, H=8, D=32; B=32 x 16),
+// on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s, ex2 at 16 a clock an SM):
+//   products  forward 4*D ops a visible pair: 0.078 ms; backward 10*D
+//             (the two-pass design issues 14*D): 0.195 ms (0.27 issued);
+//   exps      one ex2 a pair a pass: 6.04e8 exps at 132 * 16 * 1.83 GHz =
+//             3.87e12/s is 0.156 ms forward, 0.31 ms backward; the floor
+//             that binds at D = 32;
+//   bytes     q, k, v, out once: under 0.02 ms; K/V tiles are re-read by
+//             every 128-row CTA of a head, from L2.
+// What the design does about them:
+//   * warp specialisation: in every CTA one producer warp keeps a ring of
+//     TMA tile loads in flight on mbarriers (no register or instruction
+//     cost for the copies, no transposed 2-byte shared stores), after the
+//     consumer warpgroups of 64 rows that run wgmma and the softmax;
+//   * every product is a wgmma m64nNk16: Q K^T and the like from shared
+//     memory as TMA stored them (K-major, 64-byte swizzle at D = 32,
+//     128-byte at D = 64); P V, dS K, P^T dO and dS^T Q take A from
+//     registers (the f32 accumulator rounded to bf16 in place) and B as
+//     stored ([rows, D], MN-major) through wgmma's transpose-B bit;
+//   * exps are ex2.approx of one FFMA, s * (scale * log2 e) - m, with the
+//     running max m (forward) or lse (backward) kept in log2 units; the
+//     forward writes lse = (m + log2 l) * ln 2 in natural units; the
+//     rescale exp is skipped where a row's max did not move;
+//   * the forward and the dq pass issue tile j's score products together
+//     with tile j-1's accumulating product and run tile j's exps while the
+//     latter is in flight;
+//   * the exp floor needs warps to issue exps while others wait on wgmma,
+//     and registers bound the warps: the shapes (FwdOf, DqOf, DkvOf) were
+//     settled on an H100 against their neighbours (PERF.md, section 6). At
+//     D = 32 the forward runs two CTAs an SM of two consumer warpgroups and
+//     64-key tiles (90 registers), the dq pass three consumer warpgroups
+//     (192 rows) of 64-key tiles, the dk/dv pass three of 64 keys each
+//     without the overlap, whose second set of live tiles would not fit
+//     in 128 registers; at D = 64 one CTA of two.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "flash_host.cuh"
+#include "flash_mask.cuh"
+#include "mma_bf16.cuh"
+
+namespace {
+
+using fk::bf16;
+using fk::pack_bf16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Warp specialisation of a CTA: warpgroups 0..NWG-1 are the consumers of
+// 64 rows each, the one warp after them the producer (its first lane
+// issues every TMA load). No setmaxnreg: ptxas compiles
+// the consumer path within the launch bound (at most 168 registers once a
+// sub-partition of the SM holds three warps) whatever setmaxnreg would
+// move at run time, so the register budget is set by the warps a CTA has
+// and the CTAs an SM runs.
+template <int NWG>
+struct Roles {
+  static constexpr int THREADS = 128 * NWG + 32;
+};
+
+// ---- shared memory, barriers, TMA ----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the phase of ``parity`` to complete. A wait that outlives any
+// real one (2^28 polls, seconds) traps, so a lost arrival fails the launch
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// One [rows, D] box of a [B, T, E] bf16 tensor (map dims {E, T, B}) at
+// column c0 = h * D, row c1, batch c2; rows past T arrive as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) contiguous bytes from global memory.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The calling thread's warpgroup, as a value the compiler knows to be
+// uniform across the warp (the role branches split on it).
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
+// Sync the 128 threads of one consumer warpgroup (ids 1, 2; 0 is
+// __syncthreads).
+__device__ __forceinline__ void warpgroup_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ---- wgmma ----------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Tell the compiler that an in-flight wgmma owns these registers: no read
+// or write of them moves across this point.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Shared-memory matrix descriptor of a tile of rows of D bf16 (2*D bytes,
+// one swizzle row: 64-byte swizzle at D = 32, 128-byte at D = 64) stored as
+// TMA wrote it, from a 1024-byte aligned base. K-major operands (rows are
+// M or N, the row's D values are K) step 8-row groups by SBO = 16*D bytes;
+// the leading offset is unused. MN-major operands (rows are K, the row's
+// D values are N = one swizzle atom) step 8-row K groups by the same
+// stride; both offsets carry it, so either reading of the two fields
+// addresses the same bytes.
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, bool mn_major) {
+  constexpr uint64_t kGroup = (8 * 2 * D) >> 4;   // 8 rows, 16-byte units
+  constexpr uint64_t kSwizzle = D == 32 ? 2 : 1;  // 64B : 128B
+  const uint64_t lead = mn_major ? kGroup : 1;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (lead << 16) | (kGroup << 32) |
+         (kSwizzle << 62);
+}
+
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<64> {
+  // d[32] (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  // d[64] (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<32> {
+  // d[16] += A (64 x 16, registers) * B (16 x 32, smem, MN-major)
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  // d[32] += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// ---- tile math shared by the three kernels ---------------------------------
+
+// s (64 x N, f32) = A (64 x D) * B (N x D)^T, both as TMA stored them at
+// shared addresses a and b: D / 16 k-steps of 32 bytes.
+template <int D, int N>
+__device__ __forceinline__ void mma_rows(float (&s)[N / 2], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    WgmmaSS<N>::mma(s, smem_desc<D>(a + kk * 32, false),
+                    smem_desc<D>(b + kk * 32, false), kk > 0);
+}
+
+// c (64 x D) += A (64 x K, bf16 A-fragments) * B (K x D), B's K rows of D
+// as TMA stored them at shared address b: K / 16 k-steps of 16 rows.
+template <int D, int K>
+__device__ __forceinline__ void mma_acc(float (&c)[D / 2],
+                                        const uint32_t (&a)[K / 16][4],
+                                        uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk)
+    WgmmaRS<D>::mma(c, a[kk], smem_desc<D>(b + kk * 16 * 2 * D, true));
+}
+
+// The f32 accumulator of a 64 x N product (thread: rows g and g + 8 of its
+// warp's 16, columns 8j + 2t + {0, 1}) rounded to bf16 as the A-fragments
+// of a product over those N columns: k-step kk takes column blocks 2kk and
+// 2kk + 1 (the mma.sync m16n8k16 re-pack, per warp).
+template <int N>
+__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
+                                     const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// Rows r0 and r0 + 8 of a warpgroup's 64 x D accumulator, times f0 / f1,
+// as bf16 at dst0 / dst1 (this thread's columns 8n + 2t + {0, 1}).
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst0, bf16* dst1,
+                                           const float (&c)[D / 2], float f0,
+                                           float f1) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(dst0 + 8 * n) =
+        pack_bf16(c[4 * n] * f0, c[4 * n + 1] * f0);
+    *reinterpret_cast<uint32_t*>(dst1 + 8 * n) =
+        pack_bf16(c[4 * n + 2] * f1, c[4 * n + 3] * f1);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Shared memory rounded up to the 1024-byte alignment of the 128-byte
+// swizzle (the launch asks for 1024 bytes more than it uses).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// ---- forward ----------------------------------------------------------------
+
+// NWG consumer warpgroups of 64 query rows, key tiles of BN in a ring of
+// STAGES.
+template <int D_, int NWG_, int BN_, int CTAS_>
+struct Fwd : Roles<NWG_> {
+  static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
+  static constexpr int BM = 64 * NWG, STAGES = 4;
+  static_assert(128 % BM == 0 && 128 % BN == 0,
+                "T % 128 == 0 must leave no partial row or key tile");
+  static constexpr int Q_BYTES = BM * D * 2, TILE = BN * D * 2;
+  static constexpr int OFF_K = (Q_BYTES + 1023) / 1024 * 1024;
+  static constexpr int OFF_V = OFF_K + STAGES * TILE;
+  static constexpr int OFF_BAR = OFF_V + STAGES * TILE;
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+// One tile's online softmax in log2 units, in place: s holds the raw
+// scores q.k of rows g and g + 8; on return their exps 2^(s*c - m) with
+// the new running max m, l holds the row sums so far (per thread;
+// quad-summed at the end) and a the factor the output rows must be
+// rescaled by (1 where the max did not move).
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float c,
+                                               float& m0, float& m1,
+                                               float& l0, float& l1,
+                                               float& a0, float& a1) {
+  // four independent max chains a row, then a tree: short dependencies
+  float r0[4], r1[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) r0[e] = r1[e] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    r0[2 * (j & 1)] = fmaxf(r0[2 * (j & 1)], s[4 * j]);
+    r0[2 * (j & 1) + 1] = fmaxf(r0[2 * (j & 1) + 1], s[4 * j + 1]);
+    r1[2 * (j & 1)] = fmaxf(r1[2 * (j & 1)], s[4 * j + 2]);
+    r1[2 * (j & 1) + 1] = fmaxf(r1[2 * (j & 1) + 1], s[4 * j + 3]);
+  }
+  const float x0 = fmaxf(fmaxf(r0[0], r0[1]), fmaxf(r0[2], r0[3]));
+  const float x1 = fmaxf(fmaxf(r1[0], r1[1]), fmaxf(r1[2], r1[3]));
+  const float n0 = fmaxf(m0, quad_max(x0) * c);
+  const float n1 = fmaxf(m1, quad_max(x1) * c);
+  a0 = n0 == m0 ? 1.f : ex2(m0 - n0);
+  a1 = n1 == m1 ? 1.f : ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -n0));
+      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], c, -n1));
+      sum0 += s[4 * j + e];
+      sum1 += s[4 * j + 2 + e];
+    }
+  }
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
+// One CTA per (BM query rows, head, batch row). Ring of STAGES (K, V)
+// tiles of BN keys: full_k / full_v complete when a tile has landed, empty
+// when every consumer warp is done with the stage.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_fwd_dense_wgmma(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               bf16* __restrict__ out,
+                               float* __restrict__ lse, int T, int H,
+                               float scale) {
+  constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + ST;
+  uint64_t* empty = full_v + ST;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * C::BM, h = blockIdx.y, b = blockIdx.z;
+  const int nk = T / BN;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 4 * C::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == C::NWG) {  // producer
+    if (tid == 128 * C::NWG) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+      tma_load(smem, &tq, bar_q, h * D, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % ST;
+        mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+        mbar_expect_tx(&full_k[s], C::TILE);
+        tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full_k[s], h * D,
+                 j * BN, b);
+        mbar_expect_tx(&full_v[s], C::TILE);
+        tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full_v[s], h * D,
+                 j * BN, b);
+      }
+    }
+  } else {  // consumers
+    const int cw = wg, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const float c = scale * kLog2e;
+    const uint32_t q_addr = smem_u32(smem) + cw * 64 * 2 * D;
+    const uint32_t k_base = smem_u32(smem + C::OFF_K);
+    const uint32_t v_base = smem_u32(smem + C::OFF_V);
+    float s[BN / 2], o[D / 2];
+    uint32_t p[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
+
+    mbar_wait(bar_q, 0);
+    mbar_wait(&full_k[0], 0);
+    wgmma_fence();
+    mma_rows<D, BN>(s, q_addr, k_base);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+    to_a<BN>(p, s);
+    // Tile j's scores are issued with tile j-1's PV; tile j's softmax runs
+    // while that PV is in flight, and rescales o once it has landed.
+    for (int j = 1; j < nk; ++j) {
+      const int sj = j % ST, sp = (j - 1) % ST;
+      mbar_wait(&full_k[sj], (j / ST) & 1);
+      mbar_wait(&full_v[sp], ((j - 1) / ST) & 1);
+      wgmma_fence();
+      mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+      wgmma_commit();
+      mma_acc<D, BN>(o, p, v_base + sp * C::TILE);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(p);
+      if (lane == 0) mbar_arrive(&empty[sp]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] *= a0;
+        o[4 * n + 1] *= a0;
+        o[4 * n + 2] *= a1;
+        o[4 * n + 3] *= a1;
+      }
+      to_a<BN>(p, s);
+    }
+    const int sl = (nk - 1) % ST;
+    mbar_wait(&full_v[sl], ((nk - 1) / ST) & 1);
+    wgmma_fence();
+    mma_acc<D, BN>(o, p, v_base + sl * C::TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const int E = H * D;
+    const int row0 = q0 + cw * 64 + warp * 16 + g, row1 = row0 + 8;
+    bf16* out0 = out + (size_t(b) * T + row0) * E + h * D + 2 * t;
+    store_rows<D>(out0, out0 + 8 * size_t(E), o, 1.f / l0, 1.f / l1);
+    if (t == 0) {
+      float* lrow = lse + (size_t(b) * H + h) * T;
+      lrow[row0] = (m0 + log2f(l0)) * kLn2;
+      lrow[row1] = (m1 + log2f(l1)) * kLn2;
+    }
+  }
+}
+
+// ---- backward: dq pass ------------------------------------------------------
+
+// NWG consumer warpgroups of 64 query rows, key tiles of BN in a ring of
+// STAGES.
+template <int D_, int NWG_, int BN_, int CTAS_>
+struct Dq : Roles<NWG_> {
+  static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
+  static constexpr int BM = 64 * NWG, STAGES = 4;
+  static_assert(128 % BN == 0, "T % 128 == 0 must leave no partial tile");
+  static constexpr int ROWS = BM * D * 2, TILE = BN * D * 2;
+  static constexpr int OFF_DO = (ROWS + 1023) / 1024 * 1024;
+  static constexpr int OFF_K = 2 * OFF_DO;
+  static constexpr int OFF_V = OFF_K + STAGES * TILE;
+  static constexpr int OFF_DELTA = OFF_V + STAGES * TILE;
+  static constexpr int OFF_BAR = OFF_DELTA + BM * 4;
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// One CTA per (BM query rows, head, batch row), warpgroups as the
+// forward's; ring of (K, V) tiles of BN keys. Each consumer first writes
+// delta for its 64 rows (two threads a row, f32 products summed in a
+// fixed order), then walks the keys: S = Q K^T and dP = dO V^T, then
+// ds = bf16(2^(s*c - lse*log2 e) * (dp - delta) * scale) in registers,
+// dQ += dS K. Tile j's S and dP are issued with tile j-1's dQ product.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dq_dense_wgmma(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const bf16* __restrict__ out,
+                                  const bf16* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  float* __restrict__ delta,
+                                  bf16* __restrict__ dq, int T, int H,
+                                  float scale) {
+  constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  float* s_delta = reinterpret_cast<float*>(smem + C::OFF_DELTA);
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * C::BM, h = blockIdx.y, b = blockIdx.z;
+  const int nk = T / BN;
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == C::NWG) {  // producer
+    if (tid == 128 * C::NWG) {
+      mbar_expect_tx(bar_q, 2 * C::ROWS);
+      tma_load(smem, &tq, bar_q, h * D, q0, b);
+      tma_load(smem + C::OFF_DO, &tdo, bar_q, h * D, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int s = j % ST;
+        mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::TILE);
+        tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full[s], h * D,
+                 j * BN, b);
+        tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full[s], h * D,
+                 j * BN, b);
+      }
+    }
+  } else {  // consumers
+    const int cw = wg, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int E = H * D;
+    const size_t lbase = (size_t(b) * H + h) * T + q0;
+    {  // delta = rowsum(out * dout) of rows [64 cw, 64 cw + 64)
+      const int r = cw * 64 + (tid % 128) / 2, half = tid % 2;
+      const size_t off = (size_t(b) * T + q0 + r) * E + h * D + half * (D / 2);
+      float acc = 0.f;
+#pragma unroll
+      for (int cc = 0; cc < D / 2 && q0 + r < T; cc += 8) {
+        const uint4 ro = *reinterpret_cast<const uint4*>(out + off + cc);
+        const uint4 rd = *reinterpret_cast<const uint4*>(dout + off + cc);
+        const bf16* o8 = reinterpret_cast<const bf16*>(&ro);
+        const bf16* d8 = reinterpret_cast<const bf16*>(&rd);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc = __fadd_rn(acc, __fmul_rn(__bfloat162float(o8[i]),
+                                         __bfloat162float(d8[i])));
+      }
+      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, 1));
+      if (half == 0) {
+        s_delta[r] = acc;
+        if (q0 + r < T) delta[lbase + r] = acc;
+      }
+      warpgroup_sync(cw);
+    }
+    const int rl0 = cw * 64 + warp * 16 + g, rl1 = rl0 + 8;
+    const float dl0 = s_delta[rl0], dl1 = s_delta[rl1];
+    const bool rows_in = q0 + rl1 < T;   // rows past T (T % BM != 0)
+    const float ls0 = rows_in ? lse[lbase + rl0] * kLog2e : 0.f;
+    const float ls1 = rows_in ? lse[lbase + rl1] * kLog2e : 0.f;
+    const float c = scale * kLog2e;
+    const uint32_t q_addr = smem_u32(smem) + cw * 64 * 2 * D;
+    const uint32_t do_addr = smem_u32(smem + C::OFF_DO) + cw * 64 * 2 * D;
+    const uint32_t k_base = smem_u32(smem + C::OFF_K);
+    const uint32_t v_base = smem_u32(smem + C::OFF_V);
+    float s[BN / 2], dp[BN / 2], acc[D / 2];
+    uint32_t ds[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // s <- ds = (p * (dp - delta)) * scale, p = 2^(s*c - lse2), in f32
+    auto grad = [&]() {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const bool lo = (i & 2) == 0;
+        const float p = ex2(fmaf(s[i], c, -(lo ? ls0 : ls1)));
+        s[i] = (p * (dp[i] - (lo ? dl0 : dl1))) * scale;
+      }
+    };
+
+    mbar_wait(bar_q, 0);
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    mma_rows<D, BN>(s, q_addr, k_base);
+    mma_rows<D, BN>(dp, do_addr, v_base);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    grad();
+    to_a<BN>(ds, s);
+    for (int j = 1; j < nk; ++j) {
+      const int sj = j % ST, sp = (j - 1) % ST;
+      mbar_wait(&full[sj], (j / ST) & 1);
+      wgmma_fence();
+      mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+      mma_rows<D, BN>(dp, do_addr, v_base + sj * C::TILE);
+      wgmma_commit();
+      mma_acc<D, BN>(acc, ds, k_base + sp * C::TILE);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      fence_regs(dp);
+      grad();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(ds);
+      if (lane == 0) mbar_arrive(&empty[sp]);
+      to_a<BN>(ds, s);
+    }
+    wgmma_fence();
+    mma_acc<D, BN>(acc, ds, k_base + ((nk - 1) % ST) * C::TILE);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+
+    bf16* dq0 = dq + (size_t(b) * T + q0 + rl0) * E + h * D + 2 * t;
+    if (rows_in) store_rows<D>(dq0, dq0 + 8 * size_t(E), acc, 1.f, 1.f);
+  }
+}
+
+// ---- backward: dk/dv pass ---------------------------------------------------
+
+// NWG consumer warpgroups of 64 keys, query tiles of BN in a ring of
+// STAGES.
+template <int D_, int NWG_, int BN_, int CTAS_>
+struct Dkv : Roles<NWG_> {
+  static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
+  static constexpr int BM = 64 * NWG, STAGES = 4;
+  static_assert(128 % BN == 0, "T % 128 == 0 must leave no partial tile");
+  static constexpr int ROWS = BM * D * 2, TILE = BN * D * 2, VEC = BN * 4;
+  static constexpr int OFF_V = (ROWS + 1023) / 1024 * 1024;
+  static constexpr int OFF_Q = 2 * OFF_V;
+  static constexpr int OFF_DO = OFF_Q + STAGES * TILE;
+  static constexpr int OFF_L = OFF_DO + STAGES * TILE;
+  static constexpr int OFF_DL = OFF_L + STAGES * VEC;
+  static constexpr int OFF_BAR = OFF_DL + STAGES * VEC;
+  static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// One CTA per (BM keys, head, batch row): the producer loads the K and V
+// rows once, then a ring of (Q, dO, lse, delta) tiles of BN queries.
+// Each consumer owns 64 keys: S^T = K Q^T and dP^T = V dO^T, then
+// p^T = 2^(s*c - lse*log2 e) and ds^T = bf16(p^T * (dp^T - delta) *
+// scale) in registers, dV += bf16(P^T) dO and dK += dS^T Q. Runs after
+// the dq pass on the same stream, which orders the delta it reads.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dkv_dense_wgmma(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv, int T, int H,
+                                   float scale) {
+  constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const float* s_lse = reinterpret_cast<const float*>(smem + C::OFF_L);
+  const float* s_dl = reinterpret_cast<const float*>(smem + C::OFF_DL);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + ST;
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * C::BM, h = blockIdx.y, b = blockIdx.z;
+  const int nq = T / BN;
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C::NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  if (wg == C::NWG) {  // producer
+    if (tid == 128 * C::NWG) {
+      const size_t lbase = (size_t(b) * H + h) * T;
+      mbar_expect_tx(bar_kv, 2 * C::ROWS);
+      tma_load(smem, &tk, bar_kv, h * D, j0, b);
+      tma_load(smem + C::OFF_V, &tv, bar_kv, h * D, j0, b);
+      for (int i = 0; i < nq; ++i) {
+        const int s = i % ST;
+        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::TILE + 2 * C::VEC);
+        tma_load(smem + C::OFF_Q + s * C::TILE, &tq, &full[s], h * D,
+                 i * BN, b);
+        tma_load(smem + C::OFF_DO + s * C::TILE, &tdo, &full[s], h * D,
+                 i * BN, b);
+        bulk_load(smem + C::OFF_L + s * C::VEC, lse + lbase + i * BN, C::VEC,
+                  &full[s]);
+        bulk_load(smem + C::OFF_DL + s * C::VEC, delta + lbase + i * BN,
+                  C::VEC, &full[s]);
+      }
+    }
+  } else {  // consumers
+    const int cw = wg, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const float c = scale * kLog2e;
+    const uint32_t k_addr = smem_u32(smem) + cw * 64 * 2 * D;
+    const uint32_t v_addr = smem_u32(smem + C::OFF_V) + cw * 64 * 2 * D;
+    const uint32_t q_base = smem_u32(smem + C::OFF_Q);
+    const uint32_t do_base = smem_u32(smem + C::OFF_DO);
+    float st[BN / 2], dpt[BN / 2], dka[D / 2], dva[D / 2];
+    uint32_t pa[BN / 16][4], dsa[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    // st <- p^T, dpt <- ds^T, in f32, for the query tile in stage s
+    auto grad = [&](int s) {
+      const float* lq = s_lse + s * BN + 2 * t;
+      const float* dlq = s_dl + s * BN + 2 * t;
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lq + 8 * jj);
+        const float2 d2 = *reinterpret_cast<const float2*>(dlq + 8 * jj);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ls = (e ? l2.y : l2.x) * kLog2e, dl = e ? d2.y : d2.x;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int i = 4 * jj + 2 * r + e;
+            const float p = ex2(fmaf(st[i], c, -ls));
+            st[i] = p;
+            dpt[i] = (p * (dpt[i] - dl)) * scale;
+          }
+        }
+      }
+    };
+
+    mbar_wait(bar_kv, 0);
+    for (int i = 0; i < nq; ++i) {
+      const int si = i % ST;
+      mbar_wait(&full[si], (i / ST) & 1);
+      wgmma_fence();
+      mma_rows<D, BN>(st, k_addr, q_base + si * C::TILE);
+      mma_rows<D, BN>(dpt, v_addr, do_base + si * C::TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      grad(si);
+      to_a<BN>(pa, st);
+      to_a<BN>(dsa, dpt);
+      wgmma_fence();
+      mma_acc<D, BN>(dva, pa, do_base + si * C::TILE);
+      mma_acc<D, BN>(dka, dsa, q_base + si * C::TILE);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(dsa);
+      if (lane == 0) mbar_arrive(&empty[si]);
+    }
+
+    const int E = H * D, key0 = j0 + cw * 64 + warp * 16 + g;
+    const size_t off = (size_t(b) * T + key0) * E + h * D + 2 * t;
+    if (key0 + 8 < T) {   // keys past T (T % BM != 0) are not written
+      store_rows<D>(dk + off, dk + off + 8 * size_t(E), dka, 1.f, 1.f);
+      store_rows<D>(dv + off, dv + off + 8 * size_t(E), dva, 1.f, 1.f);
+    }
+  }
+}
+
+// ---- host ---------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
+// library links no -lcuda.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a [B, T, E] bf16 tensor (dims {E, T, B}) read in boxes of
+// ``rows`` rows of D columns, swizzled as smem_desc reads them.
+bool tile_map(CUtensorMap* map, const void* base, int B, int T, int E, int D,
+              int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(E), cuuint64_t(T), cuuint64_t(B)};
+  const cuuint64_t strides[2] = {cuuint64_t(E) * 2, cuuint64_t(T) * E * 2};
+  const cuuint32_t box[3] = {cuuint32_t(D), cuuint32_t(rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Occupancy of a kernel at kThreads and ``smem`` bytes: registers a thread
+// and resident CTAs an SM, from the CUDA runtime.
+// The production instances: head_dim D, consumer warpgroups, tile, CTAs
+// an SM (settled on an H100; PERF.md).
+template <int D>
+using FwdOf = Fwd<D, 2, D == 32 ? 64 : 128, D == 32 ? 2 : 1>;
+template <int D>
+using DqOf = Dq<D, D == 32 ? 3 : 2, 64, 1>;
+template <int D>
+using DkvOf = Dkv<D, D == 32 ? 3 : 2, 64, 1>;
+
+// Before a launch of a kernel: its dynamic shared memory.
+template <class C, typename Kernel>
+cudaError_t prepare(Kernel kernel) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+}
+
+// Registers a thread and resident CTAs an SM of a kernel, from the CUDA
+// runtime.
+template <class C, typename Kernel>
+int occupancy(Kernel kernel, int* regs, int* ctas) {
+  cudaError_t err = prepare<C>(kernel);
+  if (err != cudaSuccess) return int(err);
+  return fk::kernel_occupancy(kernel, C::THREADS, C::SMEM, regs, ctas);
+}
+
+int grid_x(int T, int BM) { return (T + BM - 1) / BM; }
+
+template <class C>
+int dense_fwd(const void* q, const void* k, const void* v, void* out,
+              void* lse, int B, int T, int H, float scale, cudaStream_t st) {
+  constexpr int D = C::D;
+  CUtensorMap tq, tk, tv;
+  const int E = H * D;
+  if (!tile_map(&tq, q, B, T, E, D, C::BM) ||
+      !tile_map(&tk, k, B, T, E, D, C::BN) ||
+      !tile_map(&tv, v, B, T, E, D, C::BN))
+    return int(cudaErrorInvalidValue);
+  auto kernel = flash_attn_fwd_dense_wgmma<C>;
+  cudaError_t err = prepare<C>(kernel);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<dim3(grid_x(T, C::BM), H, B), C::THREADS, C::SMEM, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), T, H,
+      scale);
+  return int(cudaGetLastError());
+}
+
+template <class P, class R>
+int dense_bwd(const void* q, const void* k, const void* v, const void* out,
+              const void* dout, const void* lse, void* delta, void* dq,
+              void* dk, void* dv, int B, int T, int H, float scale,
+              cudaStream_t st) {
+  constexpr int D = P::D;
+  CUtensorMap tq, tk, tv, tdo;
+  const int E = H * D;
+  if (!tile_map(&tq, q, B, T, E, D, P::BM) ||
+      !tile_map(&tdo, dout, B, T, E, D, P::BM) ||
+      !tile_map(&tk, k, B, T, E, D, P::BN) ||
+      !tile_map(&tv, v, B, T, E, D, P::BN))
+    return int(cudaErrorInvalidValue);
+  auto dq_kernel = flash_attn_bwd_dq_dense_wgmma<P>;
+  cudaError_t err = prepare<P>(dq_kernel);
+  if (err != cudaSuccess) return int(err);
+  dq_kernel<<<dim3(grid_x(T, P::BM), H, B), P::THREADS, P::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(out),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<bf16*>(dq), T, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+
+  if (!tile_map(&tq, q, B, T, E, D, R::BN) ||
+      !tile_map(&tdo, dout, B, T, E, D, R::BN) ||
+      !tile_map(&tk, k, B, T, E, D, R::BM) ||
+      !tile_map(&tv, v, B, T, E, D, R::BM))
+    return int(cudaErrorInvalidValue);
+  auto dkv_kernel = flash_attn_bwd_dkv_dense_wgmma<R>;
+  err = prepare<R>(dkv_kernel);
+  if (err != cudaSuccess) return int(err);
+  dkv_kernel<<<dim3(grid_x(T, R::BM), H, B), R::THREADS, R::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), T, H, scale);
+  return int(cudaGetLastError());
+}
+
+template <int D>
+int dense_occupancy(int pass, int* regs, int* ctas) {
+  if (pass == 0)
+    return occupancy<FwdOf<D>>(flash_attn_fwd_dense_wgmma<FwdOf<D>>, regs,
+                               ctas);
+  if (pass == 1)
+    return occupancy<DqOf<D>>(flash_attn_bwd_dq_dense_wgmma<DqOf<D>>, regs,
+                              ctas);
+  if (pass == 2)
+    return occupancy<DkvOf<D>>(flash_attn_bwd_dkv_dense_wgmma<DkvOf<D>>,
+                               regs, ctas);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+namespace fk {
+
+int flash_dense_fwd(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int B, int T, int H, int D, float scale,
+                    cudaStream_t st) {
+  if (T % 128 != 0) return int(cudaErrorInvalidValue);
+  if (D == 32)
+    return dense_fwd<FwdOf<32>>(q, k, v, out, lse, B, T, H, scale, st);
+  if (D == 64)
+    return dense_fwd<FwdOf<64>>(q, k, v, out, lse, B, T, H, scale, st);
+  return int(cudaErrorInvalidValue);
+}
+
+int flash_dense_bwd(const void* q, const void* k, const void* v,
+                    const void* out, const void* dout, const void* lse,
+                    void* delta, void* dq, void* dk, void* dv, int B, int T,
+                    int H, int D, float scale, cudaStream_t st) {
+  if (T % 128 != 0) return int(cudaErrorInvalidValue);
+  if (D == 32)
+    return dense_bwd<DqOf<32>, DkvOf<32>>(q, k, v, out, dout, lse, delta, dq,
+                                          dk, dv, B, T, H, scale, st);
+  if (D == 64)
+    return dense_bwd<DqOf<64>, DkvOf<64>>(q, k, v, out, dout, lse, delta, dq,
+                                          dk, dv, B, T, H, scale, st);
+  return int(cudaErrorInvalidValue);
+}
+
+int flash_dense_occupancy(int pass, int D, int* regs, int* ctas) {
+  if (D == 32) return dense_occupancy<32>(pass, regs, ctas);
+  if (D == 64) return dense_occupancy<64>(pass, regs, ctas);
+  return int(cudaErrorInvalidValue);
+}
+
+}  // namespace fk
+
+// Registers a thread and resident CTAs an SM of one pass (0 forward, 1 dq,
+// 2 dk/dv) of a mode's kernel at head_dim D, from the CUDA runtime.
+extern "C" int fk_flash_attention_occupancy(int mode, int pass, int D,
+                                            int* regs, int* ctas) {
+  if (mode == fk::kDense) return fk::flash_dense_occupancy(pass, D, regs, ctas);
+  if (pass == 0) return fk::flash_masked_fwd_occupancy(mode, D, regs, ctas);
+  return fk::flash_masked_bwd_occupancy(mode, pass, D, regs, ctas);
+}
+

@@ -94,6 +94,9 @@ def _declare(lib) -> None:
         [p] * 11                    # q k v sid out dout lse delta dq dk dv
         + [i] * 6 + [f, p])         # B T H D mode P, scale, stream
     lib.fk_flash_attention_bwd.restype = i
+    lib.fk_flash_attention_occupancy.argtypes = (
+        [i] * 3 + [ctypes.POINTER(i)] * 2)   # mode pass D, regs ctas
+    lib.fk_flash_attention_occupancy.restype = i
     lib.fk_fused_decode_blocks.argtypes = (
         [p] * 6                     # x_in, x_out, x_res, h, hh, workspace
         + [p] * 16                  # 12 weight arrays + 4 scales

@@ -12,11 +12,14 @@ modes, forward and backward.
   replaces ``gathered_slab_attention``: the MAE encoder's attention over the
   tokens it keeps.
 
-CUDA C++ in ``csrc/flash_attention.cu`` (forward) and
-``csrc/flash_attention_bwd.cu`` (a dq pass, then a dk/dv pass); each source
-note says what bounds the kernel on an H100 and how the design answers
-that. ``FlashAttention`` is the autograd Function around them, saving q, k,
-v, out, lse and the slab ids as the JAX package's custom VJPs do.
+CUDA C++: mode ``"dense"`` in ``csrc/flash_attention_dense.cu`` (TMA
+rings, wgmma and warp-specialised warpgroups: a forward, a dq pass and a
+dk/dv pass), the masked modes in ``csrc/flash_attention.cu`` (forward) and
+``csrc/flash_attention_bwd.cu`` (a dq pass, then a dk/dv pass; mma.sync),
+whose C entry points dispatch all three modes. Each source note says what
+bounds the kernel on an H100 and how the design answers that.
+``FlashAttention`` is the autograd Function around them, saving q, k, v,
+out, lse and the slab ids as the JAX package's custom VJPs do.
 
 ``flash_attention`` and ``flash_attention_bwd`` launch the kernels for CUDA
 tensors and run the plain PyTorch twins (``*_ref``) for CPU tensors. They
@@ -27,6 +30,8 @@ path where it says no.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -39,6 +44,11 @@ TWIN_ROWS = 256   # query rows per step of the twins: no T x T matrix
 
 launches = dict.fromkeys(MODES, 0)       # wrapper calls that ran the forward
 launches_bwd = dict.fromkeys(MODES, 0)   # wrapper calls that ran the backward
+# The kernels mode "dense" launches, by symbol name (forward, dq, dk/dv):
+# a profile attributes device time by these names.
+DENSE_KERNELS = ("flash_attn_fwd_dense_wgmma", "flash_attn_bwd_dq_dense_wgmma",
+                 "flash_attn_bwd_dkv_dense_wgmma")
+PASSES = {"fwd": 0, "dq": 1, "dkv": 2}   # fk_flash_attention_occupancy
 
 
 def _visible(mode: str, r0: int, r1: int, kend: int, tok_per_time: int,
@@ -232,6 +242,18 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, n_heads: int, mode: str,
     build.check(rc, f"flash_attention_bwd ({mode})")
     launches_bwd[mode] += 1
     return dq, dk, dv
+
+
+def occupancy(mode: str, pass_: str, head_dim: int = 32) -> tuple:
+    """(registers a thread, resident CTAs an SM) of one pass ("fwd", "dq"
+    or "dkv") of a mode's kernel at ``head_dim``, on the current card, from
+    the CUDA runtime."""
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = build.library().fk_flash_attention_occupancy(
+        MODES[mode], PASSES[pass_], head_dim, ctypes.byref(regs),
+        ctypes.byref(ctas))
+    build.check(rc, f"flash_attention_occupancy[{mode}, {pass_}]")
+    return regs.value, ctas.value
 
 
 class FlashAttention(torch.autograd.Function):

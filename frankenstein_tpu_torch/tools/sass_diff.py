@@ -7,9 +7,11 @@ function of OLD with the function of NEW of the same mangled name,
 instruction by instruction. The anonymous namespace's hash, which differs
 between any two files, is taken out of names and instructions. A ``--map PATTERN=REPLACEMENT`` (a Python regex substitution, applied
 in turn) renames OLD's functions first, for a template that gained
-parameters. One JSON line on stdout: per OLD function ``same``, ``differs``
-(with the count of differing lines) or ``missing``, and how many functions
-only NEW has. Exits 1 unless every OLD function is ``same``.
+parameters; a ``--removed PATTERN`` (a Python regex) names OLD functions
+that NEW drops on purpose, each ``removed`` where NEW lacks it. One JSON
+line on stdout: per OLD function ``same``, ``differs`` (with the count of
+differing lines), ``missing`` or ``removed``, and how many functions only
+NEW has. Exits 1 unless every OLD function is ``same`` or ``removed``.
 
 Run on a machine with the CUDA toolkit, e.g. for K1 / K10 against an older
 copy of their source::
@@ -17,6 +19,12 @@ copy of their source::
     python -m frankenstein_tpu_torch.tools.sass_diff OLD.cu \\
         frankenstein_tpu_torch/csrc/slab_rope_attention.cu \\
         --map '(slab_rope_attn_fwdILi\\d+ELb\\d)EEE=\\1ELb1ELi0EEE'
+
+or for K6 / K7 slab, whose dense instances moved to
+``csrc/flash_attention_dense.cu``::
+
+    python -m frankenstein_tpu_torch.tools.sass_diff OLD.cu \\
+        frankenstein_tpu_torch/csrc/flash_attention.cu --removed 'ELi0EE'
 """
 
 from __future__ import annotations
@@ -57,14 +65,15 @@ def sass(src: Path, workdir: Path) -> dict:
     return funcs
 
 
-def compare(old: dict, new: dict, maps) -> dict:
+def compare(old: dict, new: dict, maps, removed=None) -> dict:
     result = {}
     for name, body in old.items():
         renamed = name
         for pattern, repl in maps:
             renamed = re.sub(pattern, repl, renamed)
         if renamed not in new:
-            result[name] = "missing"
+            gone = removed is not None and re.search(removed, name)
+            result[name] = "removed" if gone else "missing"
             continue
         other = new[renamed]
         diff = sum(a != b for a, b in zip(body, other)) + abs(
@@ -81,6 +90,8 @@ def main(argv=None) -> int:
     p.add_argument("new", type=Path)
     p.add_argument("--map", action="append", default=[],
                    help="PATTERN=REPLACEMENT renaming OLD's functions")
+    p.add_argument("--removed", default=None,
+                   help="PATTERN of OLD functions NEW drops on purpose")
     args = p.parse_args(argv)
     maps = [m.split("=", 1) for m in args.map]
     out = build.BUILD_DIR / "sass_diff"
@@ -88,9 +99,9 @@ def main(argv=None) -> int:
         (out / side).mkdir(parents=True, exist_ok=True)
     old = sass(args.old.resolve(), out / "old")
     new = sass(args.new.resolve(), out / "new")
-    result = compare(old, new, maps)
-    matched = sum(s != "missing" for s in result.values())
-    ok = all(s == "same" for s in result.values())
+    result = compare(old, new, maps, args.removed)
+    matched = sum(s not in ("missing", "removed") for s in result.values())
+    ok = all(s in ("same", "removed") for s in result.values())
     print(json.dumps({"functions": result, "new_only": len(new) - matched,
                       "ok": ok}), flush=True)
     return 0 if ok else 1

@@ -505,6 +505,67 @@ def test_k6_k7_probability_rows_sum_to_one(dev, mode, p):
     assert float((sums - 1.0).abs().max()) < 1e-2
 
 
+# K7 dense's wgmma kernels (csrc/flash_attention_dense.cu): forward key
+# tiles of 128, backward tiles of 64, 4-stage rings, 132 SMs.
+DENSE_CASES = [(1, 640, 2, 32, 1.0),    # 5 key tiles: the ring wraps unevenly
+               (1, 1024, 2, 64, 1.0),   # D=64, 128-byte swizzle
+               (2, 2304, 4, 32, 1.0),   # 144 CTAs: more than one wave
+               (2, 512, 2, 32, 8.0)]    # q, k x8: maxes move by hundreds
+
+
+@pytest.mark.parametrize("b,t,h,d,mag", DENSE_CASES)
+def test_k7_dense_matches_twin_and_is_deterministic(dev, b, t, h, d, mag):
+    """The wgmma forward (out, lse) and backward (dq, dk, dv) against the
+    twins in f32 on the same bf16 inputs, finite, two backward launches
+    bitwise equal."""
+    (q, k, v, dout), kw = _flash_case(dev, "dense", b, t, h, d, 0,
+                                      seed=t + d)
+    q, k = ((x.float() * mag).to(torch.bfloat16) for x in (q, k))
+    out, lse = k67.flash_attention(q, k, v, **kw)
+    got = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in (out, lse, *got))
+    ref, ref_lse = k67.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw)
+    assert _err(out, ref) <= FLASH_TOL * float(ref.abs().max())
+    assert _err(lse, ref_lse) <= FLASH_TOL * float(ref_lse.abs().max())
+    want = k67.flash_attention_bwd_ref(
+        *(x.float() for x in (q, k, v, out)), lse, dout.float(), **kw)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), name
+        assert _err(g, w) <= FLASH_TOL * float(w.abs().max()), name
+
+
+@pytest.mark.parametrize("t,d", [(640, 32), (1024, 64)])
+def test_k7_dense_probability_rows_sum_to_one(dev, t, d):
+    """As test_k6_k7_probability_rows_sum_to_one, for the wgmma kernels at
+    a ring that wraps unevenly and at D=64."""
+    b, h = 2, 2
+    rows = torch.arange(d, device=dev) * 13 % t
+    dout = torch.zeros(b, t, h * d, dtype=torch.bfloat16, device=dev)
+    for head in range(h):
+        dout[:, rows, head * d + torch.arange(d, device=dev)] = 1.0
+    (q, k, v, _), kw = _flash_case(dev, "dense", b, t, h, d, 0, seed=9,
+                                   dout=dout)
+    out, lse = k67.flash_attention(q, k, v, **kw)
+    _, _, dv = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    sums = dv.float().reshape(b, t, h, d).sum(dim=1)
+    assert float((sums - 1.0).abs().max()) < 1e-2
+
+
+def test_k6_k7_occupancy_reads_every_pass(dev):
+    """Registers and resident CTAs of every mode's three passes at both
+    head dims; the dense forward at D=32 keeps two CTAs an SM, the shape
+    its 64-key tiles were chosen for."""
+    for mode in k67.MODES:
+        for pass_ in k67.PASSES:
+            for d in (32, 64):
+                regs, ctas = k67.occupancy(mode, pass_, d)
+                assert 0 < regs <= 255 and ctas >= 1, (mode, pass_, d)
+    assert k67.occupancy("dense", "fwd", 32)[1] == 2
+
+
 def test_k6_k7_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 200, 64, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="T % 128"):
