@@ -31,10 +31,14 @@ nvcc (sm_90a) and then, one line per phase:
    greedy, the int8-KV logits against the bf16 cache's,
    ``evaluate_franky_wer`` over a synthetic set, the submission writer,
    and encode / beam decode / request times;
-8. kernel K4 (the backward of K1) against its twin at the flagship encoder
-   shape: dq, dk, dv, the probability rows it recomputes (each sums to 1
-   against K1's lse), two launches bitwise equal, both times, and the
-   kernel at B=32;
+8. kernel K4 (the backward of K1: a rotation pre-pass, a dq pass and a
+   dk/dv pass) against its twin at the flagship encoder shape, at P=256
+   (its unmasked instance) and P=96 (its masked one): dq, dk, dv, the
+   pre-pass's qr and kr (bitwise) and delta, the probability rows it
+   recomputes (each sums to 1 against K1's lse), two launches bitwise
+   equal; then at P=256 the kernel and SDPA's backward in turns at B=2
+   and B=32, the kernel back to back, its bound, exp floor, issued
+   TFLOP/s and each pass's registers and CTAs an SM;
 9. training: the flagship Franky (f32 parameters, bf16 compute) trained
    for 30 steps at B=32 on synthetic trials through the train CLI
    (``python -m frankenstein_tpu_torch.train --config configs/franky.yaml``,
@@ -947,12 +951,12 @@ def phase_beams(card: str, model) -> dict:
             "decode_ms": decode_ms, "request_ms": request_ms}
 
 
-def _k4_inputs(b: int, gen, dout=None):
+def _k4_inputs(b: int, gen, dout=None, p: int = 256):
     """Flagship encoder attention: bf16 q, k, v (and dout), K1's out, lse."""
     import torch
     from frankenstein_tpu_torch.ops import rope
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
-    t, h, d, p = 6144, 8, 32, 256
+    t, h, d = 6144, 8, 32
     dev = torch.device("cuda")
     q, k, v = (torch.randn(b, t, h * d, generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
@@ -966,58 +970,140 @@ def _k4_inputs(b: int, gen, dout=None):
     return (q, k, v, cos, sin, out, lse, dout), kw
 
 
-def phase_k4(card: str) -> dict:
+def _k4_checks(b: int, gen, p: int) -> dict:
+    """K4 at the flagship shape with slabs of ``p`` tokens against its twin
+    (dq, dk, dv relative to max |twin|), its pre-pass against the pre-pass
+    twin (qr, kr bitwise, delta relative to max |twin|), the probability
+    rows it recomputes (a one-hot dout makes column c of dv row i_c), and
+    two launches bitwise equal. Raises where a check fails."""
     import torch
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
-    b, t, h, d = 2, 6144, 8, 32
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    args, kw = _k4_inputs(b, gen)
+    args, kw = _k4_inputs(b, gen, p=p)
+    t, e = args[0].shape[1:]
+    h = kw["n_heads"]
+    d = e // h
     got = k1.slab_rope_attention_bwd(*args, **kw)
     again = k1.slab_rope_attention_bwd(*args, **kw)
     want = k1.slab_rope_attention_bwd_ref(*(x.float() for x in args), **kw)
+    q, k, _, cos, sin, out, _, dout = args
+    prep = k1.slab_rope_bwd_prep(q, k, cos, sin, out, dout, n_heads=h)
+    prep_ref = k1.slab_rope_bwd_prep_ref(q, k, cos, sin, out, dout,
+                                         n_heads=h)
     torch.cuda.synchronize()
     bitwise = all(torch.equal(g, a) for g, a in zip(got, again))
     errs = [_max_err(g, w) for g, w in zip(got, want)]
     rels = [e / float(w.abs().max()) for e, w in zip(errs, want)]
+    prep_bitwise = all(torch.equal(x, y) for x, y in zip(prep[:2],
+                                                         prep_ref[:2]))
+    delta_rel = _max_err(prep[2], prep_ref[2]) / float(
+        prep_ref[2].abs().max())
 
-    # dout one-hot on (query i_c, lane c) of every head: column c of dv is
-    # then row i_c of the probabilities K4 recomputes from K1's lse
     rows = torch.arange(d, device="cuda") * 191 % t
     onehot = torch.zeros(b, t, h * d, dtype=torch.bfloat16, device="cuda")
     for head in range(h):
         onehot[:, rows, head * d + torch.arange(d, device="cuda")] = 1.0
-    pargs, _ = _k4_inputs(b, gen, dout=onehot)
+    pargs, _ = _k4_inputs(b, gen, dout=onehot, p=p)
     _, _, dv = k1.slab_rope_attention_bwd(*pargs, **kw)
     rowsum = float((dv.float().reshape(b, t, h, d).sum(dim=1) - 1.0)
                    .abs().max())
+    where = f"K4 at P={p}"
+    _check(all(bool(torch.isfinite(g).all()) for g in got),
+           f"{where}: output not finite")
+    _check(max(rels) <= K4_TOL, f"{where} disagrees with its twin: {rels}")
+    _check(rowsum <= ROWSUM_TOL, f"{where}: probability rows off by "
+           f"{rowsum}")
+    _check(bitwise, f"{where} is not deterministic")
+    _check(prep_bitwise, f"{where}: pre-pass qr / kr differ from the twin")
+    _check(delta_rel <= 1e-6, f"{where}: pre-pass delta off by {delta_rel}")
+    return {"args": args, "kw": kw, "got": got, "errs": errs, "rels": rels,
+            "rowsum": rowsum, "bitwise": bitwise,
+            "prep_bitwise": prep_bitwise, "delta_rel": delta_rel}
 
-    ms = _time_ms(lambda: k1.slab_rope_attention_bwd(*args, **kw))
+
+def _k4_by_pass(fn, calls: int = 3) -> dict:
+    """Device ms a call of each K4 kernel (pre-pass, dq, dk/dv) over
+    ``calls`` calls of ``fn`` (torch.profiler), after one warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(r"slab_rope_attn_bwd_(prep|dkv|dq)(?![a-z_])", e.key)
+        if found:
+            pas = found.group(1)
+            out[pas] = out.get(pas, 0.0) + _device_us(e) / 1e3 / calls
+    _check(set(out) == {"prep", "dq", "dkv"},
+           f"the K4 profile lacks a pass: {sorted(out)}")
+    return out
+
+
+def phase_k4(card: str) -> dict:
+    """K4 against its twins at the flagship shape, at P=256 (the unmasked
+    instance) and P=96 (the masked one); then, at P=256, the kernel and
+    SDPA's backward timed in turns (``_in_turns``) at B=2 and B=32, the
+    kernel back to back at B=2, its bound, its exp floor (one ex2 a visible
+    pair a pass at EXP2_PER_S), issued TFLOP/s (14·D ops a visible pair in
+    the two passes) and registers and resident CTAs an SM of each pass."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    b, t, h, d, p = 2, 6144, 8, 32, 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    main = _k4_checks(b, gen, p)
+    masked = _k4_checks(b, gen, 96)
+    args, kw, got = main["args"], main["kw"], main["got"]
+    bwd = lambda a: (lambda: k1.slab_rope_attention_bwd(*a, **kw))
+    sdpa = lambda a: _sdpa(*_sdpa_heads(*a[:5], h),
+                           _slab_mask(t, p, a[0].device), a[-1])
+    timed = _in_turns({"K4": bwd(args), "SDPA bwd": sdpa(args)})
+    ms = _time_ms(bwd(args))
     plain_ms = _time_ms(lambda: k1.slab_rope_attention_bwd_ref(*args, **kw),
                         iters=3)
+    pairs = h * b * _slab_pairs(t, p)
     # five products of D per visible (query, key) pair against K1's two
-    bound = _bound(_nbytes(*args, *got), 10 * d * h * b * _slab_pairs(t, 256))
-    library_ms = _time_ms(_sdpa(*_sdpa_heads(*args[:5], h),
-                                _slab_mask(t, 256, args[0].device), args[-1]),
-                          iters=3)
+    bound = _bound(_nbytes(*args, *got), 10 * d * pairs)
+    exp_floor = 2 * pairs / EXP2_PER_S * 1e3
+    occ = {(pas, pp): k1.bwd_occupancy(pas, d, pp)
+           for pp in (p, 96) for pas in k1.BWD_PASSES}
     bargs, _ = _k4_inputs(32, gen)
-    ms_b32 = _time_ms(lambda: k1.slab_rope_attention_bwd(*bargs, **kw),
-                      iters=5)
+    big = _in_turns({"K4": bwd(bargs), "SDPA bwd": sdpa(bargs)})
+    ms_b32 = big["K4"]["ms"][0]
+    b2b_b32 = _time_ms(bwd(bargs), iters=5)
+    passes = _k4_by_pass(bwd(bargs))
+    del bargs
     print(f"phase 8 K4 slab_rope_attention_bwd B={b} T={t} E={h * d} H={h} "
-          f"P=256 bf16: dq/dk/dv max_abs_err {errs[0]:.3e}/{errs[1]:.3e}/"
-          f"{errs[2]:.3e} (rel {rels[0]:.3e}/{rels[1]:.3e}/{rels[2]:.3e}, "
-          f"tol {K4_TOL} x max|twin|), probability rows sum to 1 within "
-          f"{rowsum:.3e} (tol {ROWSUM_TOL}), two launches bitwise equal "
-          f"{bitwise} | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), SDPA backward "
-          f"{library_ms:.3f} ms | kernel at B=32 {ms_b32:.3f} ms | {card}",
-          flush=True)
-    _check(all(bool(torch.isfinite(g).all()) for g in got),
-           "K4 output not finite")
-    _check(max(rels) <= K4_TOL, f"K4 disagrees with its twin: {rels}")
-    _check(rowsum <= ROWSUM_TOL, f"K4 probability rows off by {rowsum}")
-    _check(bitwise, "K4 is not deterministic")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "ms_b32": ms_b32, "library_ms": library_ms, **bound}
+          f"bf16 | P={p} (unmasked instance): dq/dk/dv rel err "
+          f"{main['rels'][0]:.3e}/{main['rels'][1]:.3e}/"
+          f"{main['rels'][2]:.3e} (tol {K4_TOL} x max|twin|), probability "
+          f"rows sum to 1 within {main['rowsum']:.3e} (tol {ROWSUM_TOL}), "
+          f"two launches bitwise equal {main['bitwise']}, pre-pass qr/kr "
+          f"bitwise {main['prep_bitwise']}, delta rel err "
+          f"{main['delta_rel']:.3e} | P=96 (masked instance): dq/dk/dv rel "
+          f"err {masked['rels'][0]:.3e}/{masked['rels'][1]:.3e}/"
+          f"{masked['rels'][2]:.3e}, rows within {masked['rowsum']:.3e}, "
+          f"bitwise {masked['bitwise']}, pre-pass bitwise "
+          f"{masked['prep_bitwise']}, delta {masked['delta_rel']:.3e} | "
+          f"P={p} in turns, medians (range) of {TIMING_REPEATS}: kernel "
+          f"{_ms_note(timed, 'K4')} ms, SDPA backward "
+          f"{_ms_note(timed, 'SDPA bwd')} ms; back to back {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}), exp floor {exp_floor:.4f} ms, issued "
+          f"{14 * d * pairs / ms / 1e9:.1f} TFLOP/s | registers / CTAs an "
+          f"SM: " + ", ".join(f"{pas} P={pp} {r} / {c}" for (pas, pp), (r, c)
+                              in occ.items()) +
+          f" | B=32 in turns: kernel {_ms_note(big, 'K4')} ms, SDPA "
+          f"backward {_ms_note(big, 'SDPA bwd')} ms; kernel back to back "
+          f"{b2b_b32:.3f} ms, exp floor "
+          f"{16 * exp_floor:.3f} ms; by pass (torch.profiler, ms a call) "
+          + ", ".join(f"{pas} {ms_:.3f}" for pas, ms_ in passes.items()) +
+          f" | {card}", flush=True)
+    return {"max_abs_err": max(main["errs"]), "ms": ms, "plain_ms": plain_ms,
+            "ms_b32": ms_b32, "library_ms": timed["SDPA bwd"]["ms"][0],
+            **bound}
 
 
 def _grad_check(state, tcfg, ds) -> dict:
@@ -2839,7 +2925,9 @@ def main() -> int:
          "launches": bm["launches"]["K3"], **_entry(k3["int8"])},
         {"name": "slab_rope_attention_bwd", "route": "cuda",
          "source": "frankenstein_tpu_torch/csrc/slab_rope_attention_bwd.cu",
-         "replaces": "frankenstein_tpu/ops/pallas/block_attention.py:658",
+         "replaces": "frankenstein_tpu/ops/pallas/block_attention.py:658 "
+                     "(_bwd_packed, calls :685, :721; and _bwd :396), from "
+                     ":1595 with its rotations",
          "launches": tr["launches"]["K4"], **_entry(k4)},
         {"name": "fused_llama_decode_blocks", "route": "cuda",
          "source": "frankenstein_tpu_torch/csrc/fused_llama_decode.cu",

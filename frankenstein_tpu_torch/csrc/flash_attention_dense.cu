@@ -57,311 +57,17 @@
 //     (192 rows) of 64-key tiles, the dk/dv pass three of 64 keys each
 //     without the overlap, whose second set of live tiles would not fit
 //     in 128 registers; at D = 64 one CTA of two.
-
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// The blocks (barriers, TMA, wgmma descriptors and products, the re-pack,
+// tile maps) live in hopper_blocks.cuh, shared with K4.
 
 #include "flash_host.cuh"
 #include "flash_mask.cuh"
+#include "hopper_blocks.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using fk::bf16;
-using fk::pack_bf16;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// Warp specialisation of a CTA: warpgroups 0..NWG-1 are the consumers of
-// 64 rows each, the one warp after them the producer (its first lane
-// issues every TMA load). No setmaxnreg: ptxas compiles
-// the consumer path within the launch bound (at most 168 registers once a
-// sub-partition of the SM holds three warps) whatever setmaxnreg would
-// move at run time, so the register budget is set by the warps a CTA has
-// and the CTAs an SM runs.
-template <int NWG>
-struct Roles {
-  static constexpr int THREADS = 128 * NWG + 32;
-};
-
-// ---- shared memory, barriers, TMA ----------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait for the phase of ``parity`` to complete. A wait that outlives any
-// real one (2^28 polls, seconds) traps, so a lost arrival fails the launch
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// One [rows, D] box of a [B, T, E] bf16 tensor (map dims {E, T, B}) at
-// column c0 = h * D, row c1, batch c2; rows past T arrive as zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// ``bytes`` (a multiple of 16) contiguous bytes from global memory.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// The calling thread's warpgroup, as a value the compiler knows to be
-// uniform across the warp (the role branches split on it).
-__device__ __forceinline__ int warpgroup_index() {
-  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-}
-
-// Sync the 128 threads of one consumer warpgroup (ids 1, 2; 0 is
-// __syncthreads).
-__device__ __forceinline__ void warpgroup_sync(int cw) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// ---- wgmma ----------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Tell the compiler that an in-flight wgmma owns these registers: no read
-// or write of them moves across this point.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&r)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int R>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Shared-memory matrix descriptor of a tile of rows of D bf16 (2*D bytes,
-// one swizzle row: 64-byte swizzle at D = 32, 128-byte at D = 64) stored as
-// TMA wrote it, from a 1024-byte aligned base. K-major operands (rows are
-// M or N, the row's D values are K) step 8-row groups by SBO = 16*D bytes;
-// the leading offset is unused. MN-major operands (rows are K, the row's
-// D values are N = one swizzle atom) step 8-row K groups by the same
-// stride; both offsets carry it, so either reading of the two fields
-// addresses the same bytes.
-template <int D>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, bool mn_major) {
-  constexpr uint64_t kGroup = (8 * 2 * D) >> 4;   // 8 rows, 16-byte units
-  constexpr uint64_t kSwizzle = D == 32 ? 2 : 1;  // 64B : 128B
-  const uint64_t lead = mn_major ? kGroup : 1;
-  return uint64_t((addr & 0x3FFFF) >> 4) | (lead << 16) | (kGroup << 32) |
-         (kSwizzle << 62);
-}
-
-template <int N>
-struct WgmmaSS;
-
-template <>
-struct WgmmaSS<64> {
-  // d[32] (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <>
-struct WgmmaSS<128> {
-  // d[64] (+)= A (64 x 16, smem) * B (16 x 128, smem), both K-major
-  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t a,
-                                             uint64_t b, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
-  }
-};
-
-template <int N>
-struct WgmmaRS;
-
-template <>
-struct WgmmaRS<32> {
-  // d[16] += A (64 x 16, registers) * B (16 x 32, smem, MN-major)
-  static __device__ __forceinline__ void mma(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct WgmmaRS<64> {
-  // d[32] += A (64 x 16, registers) * B (16 x 64, smem, MN-major)
-  static __device__ __forceinline__ void mma(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-// ---- tile math shared by the three kernels ---------------------------------
-
-// s (64 x N, f32) = A (64 x D) * B (N x D)^T, both as TMA stored them at
-// shared addresses a and b: D / 16 k-steps of 32 bytes.
-template <int D, int N>
-__device__ __forceinline__ void mma_rows(float (&s)[N / 2], uint32_t a,
-                                         uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    WgmmaSS<N>::mma(s, smem_desc<D>(a + kk * 32, false),
-                    smem_desc<D>(b + kk * 32, false), kk > 0);
-}
-
-// c (64 x D) += A (64 x K, bf16 A-fragments) * B (K x D), B's K rows of D
-// as TMA stored them at shared address b: K / 16 k-steps of 16 rows.
-template <int D, int K>
-__device__ __forceinline__ void mma_acc(float (&c)[D / 2],
-                                        const uint32_t (&a)[K / 16][4],
-                                        uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk)
-    WgmmaRS<D>::mma(c, a[kk], smem_desc<D>(b + kk * 16 * 2 * D, true));
-}
-
-// The f32 accumulator of a 64 x N product (thread: rows g and g + 8 of its
-// warp's 16, columns 8j + 2t + {0, 1}) rounded to bf16 as the A-fragments
-// of a product over those N columns: k-step kk takes column blocks 2kk and
-// 2kk + 1 (the mma.sync m16n8k16 re-pack, per warp).
-template <int N>
-__device__ __forceinline__ void to_a(uint32_t (&a)[N / 16][4],
-                                     const float (&s)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-    a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-    a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-    a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-}
-
-// Rows r0 and r0 + 8 of a warpgroup's 64 x D accumulator, times f0 / f1,
-// as bf16 at dst0 / dst1 (this thread's columns 8n + 2t + {0, 1}).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst0, bf16* dst1,
-                                           const float (&c)[D / 2], float f0,
-                                           float f1) {
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(dst0 + 8 * n) =
-        pack_bf16(c[4 * n] * f0, c[4 * n + 1] * f0);
-    *reinterpret_cast<uint32_t*>(dst1 + 8 * n) =
-        pack_bf16(c[4 * n + 2] * f1, c[4 * n + 3] * f1);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Shared memory rounded up to the 1024-byte alignment of the 128-byte
-// swizzle (the launch asks for 1024 bytes more than it uses).
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
+using namespace fk;
 
 // ---- forward ----------------------------------------------------------------
 
@@ -854,57 +560,8 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   }
 }
 
-// ---- host ---------------------------------------------------------------------
+// ---- host -----------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so the
-// library links no -lcuda.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The TMA map of a [B, T, E] bf16 tensor (dims {E, T, B}) read in boxes of
-// ``rows`` rows of D columns, swizzled as smem_desc reads them.
-bool tile_map(CUtensorMap* map, const void* base, int B, int T, int E, int D,
-              int rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(E), cuuint64_t(T), cuuint64_t(B)};
-  const cuuint64_t strides[2] = {cuuint64_t(E) * 2, cuuint64_t(T) * E * 2};
-  const cuuint32_t box[3] = {cuuint32_t(D), cuuint32_t(rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                        : CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Occupancy of a kernel at kThreads and ``smem`` bytes: registers a thread
-// and resident CTAs an SM, from the CUDA runtime.
 // The production instances: head_dim D, consumer warpgroups, tile, CTAs
 // an SM (settled on an H100; PERF.md).
 template <int D>
@@ -913,24 +570,6 @@ template <int D>
 using DqOf = Dq<D, D == 32 ? 3 : 2, 64, 1>;
 template <int D>
 using DkvOf = Dkv<D, D == 32 ? 3 : 2, 64, 1>;
-
-// Before a launch of a kernel: its dynamic shared memory.
-template <class C, typename Kernel>
-cudaError_t prepare(Kernel kernel) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-}
-
-// Registers a thread and resident CTAs an SM of a kernel, from the CUDA
-// runtime.
-template <class C, typename Kernel>
-int occupancy(Kernel kernel, int* regs, int* ctas) {
-  cudaError_t err = prepare<C>(kernel);
-  if (err != cudaSuccess) return int(err);
-  return fk::kernel_occupancy(kernel, C::THREADS, C::SMEM, regs, ctas);
-}
-
-int grid_x(int T, int BM) { return (T + BM - 1) / BM; }
 
 template <class C>
 int dense_fwd(const void* q, const void* k, const void* v, void* out,

@@ -83,9 +83,17 @@ def _declare(lib) -> None:
         + [i] * 4 + [f, p])         # B E V k, eps, stream
     lib.fk_lm_head_topk.restype = i
     lib.fk_slab_rope_attention_bwd.argtypes = (
-        [p] * 12                    # q k v cos sin out dout lse delta dq dk dv
+        [p] * 14                    # q k v cos sin out dout lse qr kr delta
+                                    # dq dk dv
         + [i] * 5 + [f, p])         # B T H D P, scale, stream
     lib.fk_slab_rope_attention_bwd.restype = i
+    lib.fk_slab_rope_attn_bwd_prep.argtypes = (
+        [p] * 9                     # q k cos sin out dout qr kr delta
+        + [i] * 4 + [p])            # B T H D, stream
+    lib.fk_slab_rope_attn_bwd_prep.restype = i
+    lib.fk_slab_rope_attention_bwd_occupancy.argtypes = (
+        [i] * 3 + [ctypes.POINTER(i)] * 2)   # pass D P, regs ctas
+    lib.fk_slab_rope_attention_bwd_occupancy.restype = i
     lib.fk_flash_attention_fwd.argtypes = (
         [p] * 6                     # q k v sid out lse
         + [i] * 6 + [f, p])         # B T H D mode P, scale, stream

@@ -8,11 +8,13 @@
   in int8, dequantized in the convert; V and AV stay bf16. A template
   parameter of K1's kernel plus a pre-pass that rotates and quantizes K,
   in the same source.
-- K4 replaces ``block_attention.py:_bwd_packed`` (and the per-head ``_bwd``),
-  reached from ``_slab_rope_attention_bwd``; CUDA C++ in
-  ``csrc/slab_rope_attention_bwd.cu``. Delta and the rotations of q/k and
-  back of dq/dk run inside it. After K10 it runs on K10's out and lse, as
-  the JAX package's backward does.
+- K4 replaces ``block_attention.py:_slab_rope_attention_bwd``: its XLA
+  rotations, ``_bwd_packed`` (or the per-head ``_bwd``) and the rotations
+  back; CUDA C++ in ``csrc/slab_rope_attention_bwd.cu``. A pre-pass rotates
+  q and k once and takes delta, then a dq pass and a dk/dv pass run on TMA
+  rings and wgmma (the blocks of ``csrc/hopper_blocks.cuh``) and rotate dq
+  and dk back in their epilogues. After K10 it runs on K10's out and lse,
+  as the JAX package's backward does.
 
 Each source note says what bounds the kernel on an H100 and how the design
 answers that. ``SlabRopeAttention`` is the autograd Function around them:
@@ -28,6 +30,8 @@ does not take raises. ``supported`` says which inputs they take;
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from frankenstein_tpu_torch.ops import rope
@@ -37,7 +41,8 @@ KCHUNK = 1024      # rows per K10 key scale (the JAX pack plan's chunk)
 
 launches = 0       # wrapper calls that ran K1
 launches_int8 = 0  # wrapper calls that ran K10 (its pre-pass and kernel)
-launches_bwd = 0   # wrapper calls that ran K4
+launches_bwd = 0   # wrapper calls that ran K4 (its pre-pass and both passes)
+BWD_PASSES = {"prep": 0, "dq": 1, "dkv": 2}   # bwd_occupancy's passes
 
 
 def _absmax_codes(x, dims):
@@ -127,6 +132,20 @@ def slab_rope_attention_int8_ref(q, k, v, cos, sin, *, n_heads: int,
                                     True)
 
 
+def slab_rope_bwd_prep_ref(q, k, cos, sin, out, dout, *, n_heads: int):
+    """Plain twin of K4's pre-pass: q and k rotated
+    (``apply_rope_folded``, rounded to their dtype) and delta =
+    rowsum(out * dout) per head, in f32 (f64 for f64 input). Returns (qr,
+    kr [B, T, E], delta [B, H, T])."""
+    b, t, e = q.shape
+    acc = torch.promote_types(q.dtype, torch.float32)
+    cos_e, sin_e = cos.repeat(1, n_heads), sin.repeat(1, n_heads)
+    prod = out.to(acc) * dout.to(acc)
+    delta = prod.reshape(b, t, n_heads, e // n_heads).sum(-1).transpose(1, 2)
+    return (rope.apply_rope_folded(q, cos_e, sin_e),
+            rope.apply_rope_folded(k, cos_e, sin_e), delta)
+
+
 def slab_rope_attention_bwd_ref(q, k, v, cos, sin, out, lse, dout, *,
                                 n_heads: int, tok_per_time: int):
     """Plain PyTorch twin of K4, one query slab at a time (no T x T matrix):
@@ -143,10 +162,10 @@ def slab_rope_attention_bwd_ref(q, k, v, cos, sin, out, lse, dout, *,
     acc = torch.promote_types(q.dtype, torch.float32)
     cos_e, sin_e = cos.repeat(1, n_heads), sin.repeat(1, n_heads)
     heads = lambda x: x.reshape(b, t, n_heads, d)
-    qr = heads(rope.apply_rope_folded(q, cos_e, sin_e).to(acc))
-    kr = heads(rope.apply_rope_folded(k, cos_e, sin_e).to(acc))
+    qr, kr, delta = slab_rope_bwd_prep_ref(q, k, cos, sin, out, dout,
+                                           n_heads=n_heads)
+    qr, kr = heads(qr.to(acc)), heads(kr.to(acc))
     vf, do = heads(v).to(acc), heads(dout).to(acc)
-    delta = (heads(out).to(acc) * do).sum(-1).transpose(1, 2)   # [B, H, T]
     dq = torch.zeros(b, t, n_heads, d, dtype=acc, device=q.device)
     dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
     for r0 in range(0, t, tok_per_time):
@@ -299,6 +318,38 @@ def slab_rope_attention(q, k, v, cos, sin, *, n_heads: int,
     return out, lse
 
 
+def slab_rope_bwd_prep(q, k, cos, sin, out, dout, *, n_heads: int):
+    """K4's pre-pass alone: (qr, kr [B, T, E] bf16, delta [B, H, T] f32)
+    as ``slab_rope_bwd_prep_ref`` gives them. The pre-pass on CUDA tensors,
+    the twin on CPU tensors; ``slab_rope_attention_bwd`` runs it before
+    its two passes."""
+    if not q.is_cuda:
+        return slab_rope_bwd_prep_ref(q, k, cos, sin, out, dout,
+                                      n_heads=n_heads)
+    _check(q, k, k, cos, sin, n_heads, 1, out=out, dout=dout)
+    b, t, e = q.shape
+    qr, kr = torch.empty_like(q), torch.empty_like(k)
+    delta = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
+    rc = build.library().fk_slab_rope_attn_bwd_prep(
+        q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        out.data_ptr(), dout.data_ptr(), qr.data_ptr(), kr.data_ptr(),
+        delta.data_ptr(), b, t, n_heads, e // n_heads, _stream(q))
+    build.check(rc, "slab_rope_attn_bwd_prep")
+    return qr, kr, delta
+
+
+def bwd_occupancy(pass_: str, head_dim: int, tok_per_time: int) -> tuple:
+    """(registers a thread, resident CTAs an SM) of one K4 pass ("prep",
+    "dq", "dkv") at ``head_dim``, in the instance (masked or not) that
+    ``tok_per_time`` takes, from the CUDA runtime."""
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = build.library().fk_slab_rope_attention_bwd_occupancy(
+        BWD_PASSES[pass_], head_dim, tok_per_time, ctypes.byref(regs),
+        ctypes.byref(ctas))
+    build.check(rc, f"slab_rope_attention_bwd_occupancy[{pass_}]")
+    return regs.value, ctas.value
+
+
 def slab_rope_attention_bwd(q, k, v, cos, sin, out, lse, dout, *,
                             n_heads: int, tok_per_time: int):
     """Gradients (dq, dk, dv) of ``slab_rope_attention`` with respect to the
@@ -316,13 +367,14 @@ def slab_rope_attention_bwd(q, k, v, cos, sin, out, lse, dout, *,
         raise ValueError(f"lse: need contiguous f32 [{b}, {n_heads}, {t}] "
                          f"on {q.device}")
     d = e // n_heads
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    qr, kr, dq, dk, dv = (torch.empty_like(q) for _ in range(5))
     delta = torch.empty_like(lse)
     rc = build.library().fk_slab_rope_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
         sin.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t,
-        n_heads, d, tok_per_time, 1.0 / float(d) ** 0.5, _stream(q))
+        qr.data_ptr(), kr.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, t, n_heads, d, tok_per_time,
+        1.0 / float(d) ** 0.5, _stream(q))
     build.check(rc, "slab_rope_attention_bwd")
     launches_bwd += 1
     return dq, dk, dv

@@ -38,10 +38,14 @@ def _twin_grads(q, k, v, do, cos, sin, h, p):
     return [g.numpy() for g in grads]
 
 
-def test_twin_matches_packed_pallas_backward_interpret():
-    """B=1, T=1024, H=4, D=32, P=256 takes ``_bwd_packed`` in interpret
-    mode; atol 2e-4 as tests/test_attention.py holds that backward."""
-    b, t, h, d, p = 1, 1024, 4, 32, 256
+@pytest.mark.parametrize("p", [256, 32])
+def test_twin_matches_packed_pallas_backward_interpret(p):
+    """B=1, T=1024, H=4, D=32 takes ``_bwd_packed`` in interpret mode at
+    P=256 (K4's unmasked instance) and at P=32 (its masked one: P is no
+    multiple of 64); the JAX forward's pack plan takes only slabs that
+    divide its 512-row query block. atol 2e-4 as tests/test_attention.py
+    holds that backward."""
+    b, t, h, d = 1, 1024, 4, 32
     assert block_attention._bwd_packed_supported(t, d, 4, 4, p,
                                                  interpret=True)
     q, k, v, do = _arrays(0, b, t, h * d)

@@ -97,10 +97,18 @@ def _k4_case(dev, b, t, h, d, p, seed, dout=None):
 @pytest.mark.parametrize("b,t,h,d,p", [(1, 256, 2, 32, 64),
                                        (2, 384, 3, 32, 100),
                                        (1, 256, 2, 64, 16),
-                                       (2, 512, 2, 32, 512)])
+                                       (2, 512, 2, 32, 512),
+                                       (1, 768, 2, 32, 256),
+                                       (1, 640, 2, 32, 64),
+                                       (2, 512, 2, 32, 8),
+                                       (1, 384, 4, 32, 96),
+                                       (1, 256, 2, 64, 256),
+                                       (1, 512, 2, 32, 512)])
 def test_k4_matches_twin_and_is_deterministic(dev, b, t, h, d, p):
     """bf16 kernel vs the twin in f32 on the same bf16 inputs and the same
-    K1 residuals; two launches bitwise equal."""
+    K1 residuals; two launches bitwise equal. P a multiple of 64 takes the
+    unmasked instance, any other P the masked one; T=768 puts 192-row CTAs
+    across slab boundaries, T=640 is no multiple of 192."""
     args, kw = _k4_case(dev, b, t, h, d, p, seed=b * t + p)
     before = k1.launches_bwd
     got = k1.slab_rope_attention_bwd(*args, **kw)
@@ -126,6 +134,58 @@ def test_k4_probability_rows_sum_to_one(dev, d, p):
     _, _, dv = k1.slab_rope_attention_bwd(*args, **kw)
     sums = dv.float().reshape(b, t, h, d).sum(dim=1)
     assert float((sums - 1.0).abs().max()) < 1e-2
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_k4_prep_matches_twin(dev, d):
+    """K4's pre-pass: qr and kr bitwise equal to the twin's rotation (K1's
+    arithmetic), delta within 1e-6 of max |twin| (f32 sums in another
+    order); it counts no K4 launch."""
+    args, kw = _k4_case(dev, 2, 384, 3, d, 96, seed=d)
+    q, k, _, cos, sin, out, _, dout = args
+    before = k1.launches_bwd
+    qr, kr, delta = k1.slab_rope_bwd_prep(q, k, cos, sin, out, dout,
+                                          n_heads=3)
+    torch.cuda.synchronize()
+    assert k1.launches_bwd == before
+    rq, rk, rd = k1.slab_rope_bwd_prep_ref(q, k, cos, sin, out, dout,
+                                           n_heads=3)
+    assert torch.equal(qr, rq) and torch.equal(kr, rk)
+    assert _err(delta, rd) <= 1e-6 * float(rd.abs().max())
+
+
+def test_k4_after_qk_int8_forward(dev):
+    """A qk_int8 forward (K10) then K4 on its out and lse, through the
+    autograd Function: the gradients are K4's on K10's residuals, within
+    K4_TOL of the twin on the same residuals."""
+    b, t, h, d, p = 1, 1024, 2, 32, 256
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, k, v, dout = (torch.randn(b, t, h * d, generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    cos, sin = rope.folded_tables(rope.build_rope_cache(d, t, device=dev),
+                                  1)
+    kw = dict(n_heads=h, tok_per_time=p)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (k1.launches, k1.launches_int8, k1.launches_bwd)
+    out = k1.SlabRopeAttention.apply(*leaves, cos, sin, h, p, True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert (k1.launches, k1.launches_int8, k1.launches_bwd) == (
+        before[0], before[1] + 1, before[2] + 1)
+    o8, lse8 = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
+    want = k1.slab_rope_attention_bwd_ref(
+        *(x.float() for x in (q, k, v, cos, sin, o8, lse8, dout)), **kw)
+    for name, leaf, w in zip("qkv", leaves, want):
+        assert torch.isfinite(leaf.grad).all(), name
+        assert _err(leaf.grad, w) <= K4_TOL * float(w.abs().max()), name
+
+
+@pytest.mark.parametrize("p", [256, 96])
+def test_k4_occupancy_reads_every_pass(dev, p):
+    for d in (32, 64):
+        for pass_ in k1.BWD_PASSES:
+            regs, ctas = k1.bwd_occupancy(pass_, d, p)
+            assert 0 < regs <= 255 and ctas >= 1, (pass_, d, regs, ctas)
 
 
 def test_k4_refuses_what_it_does_not_take(dev):
