@@ -9,8 +9,16 @@ nvcc (sm_90a) and then, one line per phase:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the kernel build time;
-2. kernel K1 (slab-causal RoPE attention) against its plain PyTorch twin at
-   the flagship encoder shape, with both times;
+2. kernel K1 (slab-causal RoPE attention: a rotation pre-pass, then a
+   wgmma forward) against its plain PyTorch twin at the flagship encoder
+   shape (B=2, T=6144, H=8, D=32) at P=256 (its unmasked instance), P=96
+   (its masked one) and P=192 (the two warpgroups of a CTA ending at
+   different keys): out, lse, two launches bitwise equal; then K1 and SDPA
+   (bool slab mask, rotated q, k) in turns at B=2 and B=32, both back to
+   back at B=2 and B=128, K1 back to back at B=2, 32 and 128 beside its
+   exp floor and issued TFLOP/s, the masked instance's times, the
+   pre-pass's and the forward's ms (torch.profiler), each kernel's
+   registers and CTAs an SM, and the twin's time;
 3. kernel K2 (all-layer GPT-2 decode step) against its twin at GPT-2 124M
    width, bf16 and w8a16 weights, with both times;
 4. the flagship Franky served end to end through ``make_franky_predictor``
@@ -301,50 +309,145 @@ def phase_card(card: str) -> None:
           f"{built}, ready after {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def phase_k1(card: str) -> dict:
+def _k1_inputs(b: int, gen, t: int = 6144, h: int = 8, d: int = 32):
+    """Flagship encoder attention: bf16 q, k, v [B, T, E] and the rope
+    tables."""
     import torch
     from frankenstein_tpu_torch.ops import rope
-    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
-    b, t, h, d, p = 2, 6144, 8, 32, 256
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
     q, k, v = (torch.randn(b, t, h * d, generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     cos, sin = rope.folded_tables(rope.build_rope_cache(d, t, device=dev),
                                   1)
+    return q, k, v, cos, sin
+
+
+def _k1_checks(args, h: int, p: int) -> dict:
+    """K1 with slabs of ``p`` tokens against its f32 twin (out and lse,
+    absolute, within K1_TOL), finite, and two launches bitwise equal.
+    Raises where a check fails."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
     kw = dict(n_heads=h, tok_per_time=p)
-    out, lse = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
-    ref_out, ref_lse = k1.slab_rope_attention_ref(q.float(), k.float(),
-                                                  v.float(), cos, sin, **kw)
+    out, lse = k1.slab_rope_attention(*args, **kw)
+    again = k1.slab_rope_attention(*args, **kw)
+    ref_out, ref_lse = k1.slab_rope_attention_ref(
+        *(x.float() for x in args[:3]), *args[3:], **kw)
     torch.cuda.synchronize()
     err_out, err_lse = _max_err(out, ref_out), _max_err(lse, ref_lse)
-    rel_out = err_out / float(ref_out.abs().max())
-    rel_lse = err_lse / float(ref_lse.abs().max())
-    ms = _time_ms(lambda: k1.slab_rope_attention(q, k, v, cos, sin, **kw))
-    plain_ms = _time_ms(lambda: k1.slab_rope_attention_ref(q, k, v, cos, sin,
-                                                           **kw), iters=3)
-    library_ms = _time_ms(_sdpa(*_sdpa_heads(q, k, v, cos, sin, h),
-                                _slab_mask(t, p, dev)), iters=3)
-    bound = _bound(_nbytes(q, k, v, cos, sin, out, lse),
-                   4 * d * h * b * _slab_pairs(t, p))
-    qb, kb, vb = (torch.randn(128, t, h * d, generator=gen, device=dev)
-                  .to(torch.bfloat16) for _ in range(3))
-    ms_b128 = _time_ms(lambda: k1.slab_rope_attention(qb, kb, vb, cos, sin,
-                                                      **kw), iters=3)
-    print(f"phase 2 K1 slab_rope_attention B={b} T={t} E={h * d} H={h} "
-          f"P={p} bf16: out max_abs_err {err_out:.3e} (rel {rel_out:.3e}), "
-          f"lse max_abs_err {err_lse:.3e} (rel {rel_lse:.3e}), tol {K1_TOL} "
-          f"| kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), SDPA with the "
-          f"slab mask {library_ms:.3f} ms | kernel at B=128 "
-          f"{ms_b128:.3f} ms | {card}", flush=True)
-    _check(torch.isfinite(out).all() and torch.isfinite(lse).all(),
-           "K1 output not finite")
+    bitwise = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    where = f"K1 at P={p}"
+    _check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+           f"{where}: output not finite")
     _check(err_out <= K1_TOL and err_lse <= K1_TOL,
-           f"K1 disagrees with its twin: out {err_out}, lse {err_lse}")
-    return {"max_abs_err": max(err_out, err_lse), "ms": ms,
-            "plain_ms": plain_ms, "ms_b128": ms_b128,
-            "library_ms": library_ms, **bound}
+           f"{where} disagrees with its twin: out {err_out}, lse {err_lse}")
+    _check(bitwise, f"{where} is not deterministic")
+    return {"out": out, "lse": lse, "err_out": err_out, "err_lse": err_lse,
+            "rel_out": err_out / float(ref_out.abs().max()),
+            "rel_lse": err_lse / float(ref_lse.abs().max()),
+            "bitwise": bitwise}
+
+
+def _by_kernel(fn, pattern: str, want: set, calls: int = 3) -> dict:
+    """Device ms a call of each kernel whose name ``pattern`` matches (its
+    group 1 names it) over ``calls`` calls of ``fn`` (torch.profiler),
+    after one warm-up; raises unless every name of ``want`` ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(pattern, e.key)
+        if found:
+            name = found.group(1)
+            out[name] = out.get(name, 0.0) + _device_us(e) / 1e3 / calls
+    _check(set(out) == want, f"the profile of {sorted(want)} found "
+           f"{sorted(out)}")
+    return out
+
+
+def phase_k1(card: str) -> dict:
+    """K1 against its twin at the flagship shape, at P=256 (the unmasked
+    instance), P=96 (the masked one) and P=192 (unmasked, the two
+    warpgroups of a 128-row CTA ending at different keys): out, lse, two
+    launches bitwise equal; then at P=256 K1 and SDPA (bool slab mask,
+    rotated q, k) in turns (``_in_turns``) at B=2 and B=32 and back to
+    back at B=128, K1 back to back at B=2, 32 and 128 beside its bound,
+    exp floor (one ex2 a visible pair at EXP2_PER_S) and issued TFLOP/s
+    (4·D ops a visible pair), the masked instance back to back, the
+    pre-pass's and the forward's ms (torch.profiler) and each kernel's
+    registers and CTAs an SM."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    b, t, h, d, p = 2, 6144, 8, 32, 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    args = _k1_inputs(b, gen)
+    q, k, v, cos, sin = args
+    kw = dict(n_heads=h, tok_per_time=p)
+    checks = {pp: _k1_checks(args, h, pp) for pp in (p, 96, 192)}
+    main = checks[p]
+    fwd = lambda a, pp=p: (lambda: k1.slab_rope_attention(
+        *a, n_heads=h, tok_per_time=pp))
+    sdpa = lambda a: _sdpa(*_sdpa_heads(*a, h), _slab_mask(t, p, a[0].device))
+    timed = {2: _in_turns({"K1": fwd(args), "SDPA": sdpa(args)})}
+    ms = {2: _time_ms(fwd(args))}
+    sdpa_ms = {2: _time_ms(sdpa(args), iters=3)}
+    ms_masked = {2: _time_ms(fwd(args, 96))}
+    plain_ms = _time_ms(lambda: k1.slab_rope_attention_ref(*args, **kw),
+                        iters=3)
+    bound = _bound(_nbytes(q, k, v, cos, sin, main["out"], main["lse"]),
+                   4 * d * h * b * _slab_pairs(t, p))
+    pairs = {bb: h * bb * _slab_pairs(t, p) for bb in (2, 32, 128)}
+    occ = {("prep", p): k1.fwd_occupancy("prep", d, p)}
+    occ.update({("fwd", pp): k1.fwd_occupancy("fwd", d, pp)
+                for pp in (p, 96)})
+    bargs = _k1_inputs(32, gen)
+    timed[32] = _in_turns({"K1": fwd(bargs), "SDPA": sdpa(bargs)})
+    ms[32] = _time_ms(fwd(bargs), iters=5)
+    ms_masked[32] = _time_ms(fwd(bargs, 96), iters=5)
+    passes = _by_kernel(fwd(bargs), r"slab_rope_attn_fwd_(prep|wgmma)",
+                        {"prep", "wgmma"})
+    del bargs
+    bargs = _k1_inputs(128, gen)
+    ms[128] = _time_ms(fwd(bargs), iters=3)
+    sdpa_ms[128] = _time_ms(sdpa(bargs), iters=3)
+    del bargs
+    floor = {bb: n / EXP2_PER_S * 1e3 for bb, n in pairs.items()}
+    at = lambda bb: (f"B={bb}: kernel back to back {ms[bb]:.3f} ms, exp "
+                     f"floor {floor[bb]:.4f} ms, issued "
+                     f"{4 * d * pairs[bb] / ms[bb] / 1e9:.1f} TFLOP/s")
+    print(f"phase 2 K1 slab_rope_attention B={b} T={t} E={h * d} H={h} "
+          f"D={d} bf16 | " + " | ".join(
+              f"P={pp}{' (masked instance)' if pp == 96 else ''}: out "
+              f"max_abs_err {c['err_out']:.3e} (rel {c['rel_out']:.3e}), lse "
+              f"max_abs_err {c['err_lse']:.3e} (rel {c['rel_lse']:.3e}), "
+              f"two launches bitwise equal {c['bitwise']}"
+              for pp, c in checks.items()) +
+          f" | tol {K1_TOL} | P={p} in turns, medians (range) of "
+          f"{TIMING_REPEATS}: B=2 kernel {_ms_note(timed[2], 'K1')} ms, SDPA "
+          f"with the slab mask {_ms_note(timed[2], 'SDPA')} ms; B=32 kernel "
+          f"{_ms_note(timed[32], 'K1')} ms, SDPA "
+          f"{_ms_note(timed[32], 'SDPA')} ms | " +
+          " | ".join(at(bb) for bb in (2, 32, 128)) +
+          f" | SDPA back to back: B=2 {sdpa_ms[2]:.3f} ms, B=128 "
+          f"{sdpa_ms[128]:.3f} ms | P=96 (masked) "
+          f"back to back: B=2 {ms_masked[2]:.3f} ms, B=32 "
+          f"{ms_masked[32]:.3f} ms | B=32 by kernel (torch.profiler, ms a "
+          f"call): pre-pass {passes['prep']:.3f}, forward "
+          f"{passes['wgmma']:.3f} | plain {plain_ms:.3f} ms, bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) | registers / "
+          f"CTAs an SM: " + ", ".join(f"{pas} P={pp} {r} / {c}"
+                                      for (pas, pp), (r, c) in occ.items()) +
+          f" | {card}", flush=True)
+    return {"max_abs_err": max(main["err_out"], main["err_lse"]),
+            "ms": ms[2], "plain_ms": plain_ms, "ms_b32": ms[32],
+            "ms_b128": ms[128], "library_ms": sdpa_ms[2],
+            **bound}
 
 
 def _heads(x, h):
@@ -1020,28 +1123,6 @@ def _k4_checks(b: int, gen, p: int) -> dict:
             "prep_bitwise": prep_bitwise, "delta_rel": delta_rel}
 
 
-def _k4_by_pass(fn, calls: int = 3) -> dict:
-    """Device ms a call of each K4 kernel (pre-pass, dq, dk/dv) over
-    ``calls`` calls of ``fn`` (torch.profiler), after one warm-up."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        found = re.search(r"slab_rope_attn_bwd_(prep|dkv|dq)(?![a-z_])", e.key)
-        if found:
-            pas = found.group(1)
-            out[pas] = out.get(pas, 0.0) + _device_us(e) / 1e3 / calls
-    _check(set(out) == {"prep", "dq", "dkv"},
-           f"the K4 profile lacks a pass: {sorted(out)}")
-    return out
-
-
 def phase_k4(card: str) -> dict:
     """K4 against its twins at the flagship shape, at P=256 (the unmasked
     instance) and P=96 (the masked one); then, at P=256, the kernel and
@@ -1073,7 +1154,9 @@ def phase_k4(card: str) -> dict:
     big = _in_turns({"K4": bwd(bargs), "SDPA bwd": sdpa(bargs)})
     ms_b32 = big["K4"]["ms"][0]
     b2b_b32 = _time_ms(bwd(bargs), iters=5)
-    passes = _k4_by_pass(bwd(bargs))
+    passes = _by_kernel(bwd(bargs),
+                        r"slab_rope_attn_bwd_(prep|dkv|dq)(?![a-z_])",
+                        {"prep", "dq", "dkv"})
     del bargs
     print(f"phase 8 K4 slab_rope_attention_bwd B={b} T={t} E={h * d} H={h} "
           f"bf16 | P={p} (unmasked instance): dq/dk/dv rel err "
@@ -2765,22 +2848,27 @@ def phase_probes(card: str) -> dict:
     q, k, v = qb[:b], kb[:b], vb[:b]
     twins = {}
     checks = _probe_checks(q, k, v, h, twins)
-    # the ROPE=false modes are K1 and K10 with the rotation left out
+    # with identity rope tables K1 computes the ``kernel`` mode's function
+    # (held to its twin within K1_TOL: the mode is the mma.sync design K10
+    # keeps), and K10 is bitwise ``int8_full`` (the rotation left out)
     cos, sin = torch.ones(t, d, device=dev), torch.zeros(t, d, device=dev)
     identity = {}
     for p in (8, 256):
         kw = dict(n_heads=h, tok_per_time=p)
-        pairs = [(sp.slab_attention_probe(q, k, v, variant="kernel", **kw),
-                  k1.slab_rope_attention(q, k, v, cos, sin, **kw))]
+        twin = twins[(p, sp.TWINS["kernel"])]
+        got = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+        errs = [_max_err(g, w) for g, w in zip(got, twin)]
+        identity[p] = {"K1 err": max(errs), "K1 ok": max(errs) <= K1_TOL}
         if p == 256:
-            pairs.append((sp.slab_attention_probe(q, k, v,
-                                                  variant="int8_full", **kw),
-                          k1.slab_rope_attention(q, k, v, cos, sin,
-                                                 qk_int8=True, **kw)))
-        identity[p] = all(torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1])
-                          for a, b_ in pairs)
+            a = sp.slab_attention_probe(q, k, v, variant="int8_full", **kw)
+            b_ = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True,
+                                        **kw)
+            identity[p]["K10 bitwise"] = (torch.equal(a[0], b_[0])
+                                          and torch.equal(a[1], b_[1]))
     _probe_checks_hold(checks, f"B={b}")
-    _check(all(identity.values()), f"identity-table K1 / K10: {identity}")
+    _check(all(r["K1 ok"] and r.get("K10 bitwise", True)
+               for r in identity.values()),
+           f"identity-table K1 / K10: {identity}")
 
     # the kernels line: kernel and int8_full at B=2, P=256, beside their
     # twins, SDPA and their bounds
@@ -2840,12 +2928,13 @@ def phase_probes(card: str) -> dict:
         print(f"phase 19 probe attn P={p} references: production K1 (rope) "
               f"{r['rope_ms']:.3f} ms, SDPA with the slab mask "
               f"{r['sdpa_ms']:.3f} ms, 4096^2 bf16 matmul "
-              f"{r['matmul_tflops']:.1f} TFLOP/s; identity-table K1 / K10 "
-              f"bitwise equal to kernel / int8_full {identity[p]}; launches "
+              f"{r['matmul_tflops']:.1f} TFLOP/s; identity-table K1 against "
+              f"kernel's twin (tol {K1_TOL}) and K10 bitwise int8_full "
+              f"{identity[p]}; launches "
               f"{launches[0]} bf16, {launches[1]} int8 | {card}", flush=True)
     occ = {name: sp.occupancy(name) for name in sp.PROBE_VARIANTS
            if name not in ("bf16", "mask_last")}
-    occ.update({"K1": sp.occupancy("kernel", rope=True),
+    occ.update({"K1": k1.fwd_occupancy("fwd", d, 256),
                 "K10": sp.occupancy("int8_full", rope=True)})
     print("phase 19 probe modes at D=32, registers a thread / resident CTAs "
           "of 256 threads an SM: " + ", ".join(
@@ -2907,7 +2996,7 @@ def main() -> int:
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [
         {"name": "slab_rope_attention_fwd", "route": "cuda",
-         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention_fwd.cu",
          "replaces": "frankenstein_tpu/ops/pallas/block_attention.py:1454",
          "launches": sl["launches"]["K1"], **_entry(k1)},
         {"name": "fused_decode_blocks", "route": "cuda",

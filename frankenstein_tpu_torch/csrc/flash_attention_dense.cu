@@ -58,7 +58,8 @@
 //     without the overlap, whose second set of live tiles would not fit
 //     in 128 registers; at D = 64 one CTA of two.
 // The blocks (barriers, TMA, wgmma descriptors and products, the re-pack,
-// tile maps) live in hopper_blocks.cuh, shared with K4.
+// the online softmax, tile maps) live in hopper_blocks.cuh, shared with K4
+// and K1.
 
 #include "flash_host.cuh"
 #include "flash_mask.cuh"
@@ -85,50 +86,6 @@ struct Fwd : Roles<NWG_> {
   static constexpr int OFF_BAR = OFF_V + STAGES * TILE;
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
 };
-
-// One tile's online softmax in log2 units, in place: s holds the raw
-// scores q.k of rows g and g + 8; on return their exps 2^(s*c - m) with
-// the new running max m, l holds the row sums so far (per thread;
-// quad-summed at the end) and a the factor the output rows must be
-// rescaled by (1 where the max did not move).
-template <int N>
-__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float c,
-                                               float& m0, float& m1,
-                                               float& l0, float& l1,
-                                               float& a0, float& a1) {
-  // four independent max chains a row, then a tree: short dependencies
-  float r0[4], r1[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) r0[e] = r1[e] = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    r0[2 * (j & 1)] = fmaxf(r0[2 * (j & 1)], s[4 * j]);
-    r0[2 * (j & 1) + 1] = fmaxf(r0[2 * (j & 1) + 1], s[4 * j + 1]);
-    r1[2 * (j & 1)] = fmaxf(r1[2 * (j & 1)], s[4 * j + 2]);
-    r1[2 * (j & 1) + 1] = fmaxf(r1[2 * (j & 1) + 1], s[4 * j + 3]);
-  }
-  const float x0 = fmaxf(fmaxf(r0[0], r0[1]), fmaxf(r0[2], r0[3]));
-  const float x1 = fmaxf(fmaxf(r1[0], r1[1]), fmaxf(r1[2], r1[3]));
-  const float n0 = fmaxf(m0, quad_max(x0) * c);
-  const float n1 = fmaxf(m1, quad_max(x1) * c);
-  a0 = n0 == m0 ? 1.f : ex2(m0 - n0);
-  a1 = n1 == m1 ? 1.f : ex2(m1 - n1);
-  m0 = n0;
-  m1 = n1;
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -n0));
-      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], c, -n1));
-      sum0 += s[4 * j + e];
-      sum1 += s[4 * j + 2 + e];
-    }
-  }
-  l0 = l0 * a0 + sum0;
-  l1 = l1 * a1 + sum1;
-}
 
 // One CTA per (BM query rows, head, batch row). Ring of STAGES (K, V)
 // tiles of BN keys: full_k / full_v complete when a tile has landed, empty

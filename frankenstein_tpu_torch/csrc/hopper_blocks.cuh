@@ -1,10 +1,13 @@
 // Hopper building blocks shared by the wgmma attention kernels: K7 dense
-// (flash_attention_dense.cu) and K4 (slab_rope_attention_bwd.cu). Device
-// side: the warp roles of a CTA, mbarriers, TMA and bulk copies, ex2, the
-// wgmma fences, shared-memory descriptors and products (SS and RS), the
-// f32-accumulator to bf16 A-fragment re-pack. Host side: the TMA tile map
-// of a [B, T, E] bf16 tensor, the grid of row blocks, and a kernel's
-// launch preparation and occupancy. One copy, included by both sources.
+// (flash_attention_dense.cu), K4 (slab_rope_attention_bwd.cu) and K1
+// (slab_rope_attention_fwd.cu). Device side: the warp roles of a CTA,
+// mbarriers, TMA and bulk copies, ex2, the wgmma fences, shared-memory
+// descriptors and products (SS and RS), the f32-accumulator to bf16
+// A-fragment re-pack, the log2-unit online softmax of a score tile, and
+// the slab-causal schedule's key end and tile release. Host side: the TMA
+// tile map of a [B, T, E] bf16 tensor, the grid of row blocks, and a
+// kernel's launch preparation and occupancy. One copy, included by all
+// three sources.
 #pragma once
 
 #include <cuda.h>
@@ -302,10 +305,69 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// One tile's online softmax in log2 units, in place: s holds the raw
+// scores q.k of rows g and g + 8; on return their exps 2^(s*c - m) with
+// the new running max m, l holds the row sums so far (per thread;
+// quad-summed at the end) and a the factor the output rows must be
+// rescaled by (1 where the max did not move).
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float c,
+                                               float& m0, float& m1,
+                                               float& l0, float& l1,
+                                               float& a0, float& a1) {
+  // four independent max chains a row, then a tree: short dependencies
+  float r0[4], r1[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) r0[e] = r1[e] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    r0[2 * (j & 1)] = fmaxf(r0[2 * (j & 1)], s[4 * j]);
+    r0[2 * (j & 1) + 1] = fmaxf(r0[2 * (j & 1) + 1], s[4 * j + 1]);
+    r1[2 * (j & 1)] = fmaxf(r1[2 * (j & 1)], s[4 * j + 2]);
+    r1[2 * (j & 1) + 1] = fmaxf(r1[2 * (j & 1) + 1], s[4 * j + 3]);
+  }
+  const float x0 = fmaxf(fmaxf(r0[0], r0[1]), fmaxf(r0[2], r0[3]));
+  const float x1 = fmaxf(fmaxf(r1[0], r1[1]), fmaxf(r1[2], r1[3]));
+  const float n0 = fmaxf(m0, quad_max(x0) * c);
+  const float n1 = fmaxf(m1, quad_max(x1) * c);
+  a0 = n0 == m0 ? 1.f : ex2(m0 - n0);
+  a1 = n1 == m1 ? 1.f : ex2(m1 - n1);
+  m0 = n0;
+  m1 = n1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -n0));
+      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], c, -n1));
+      sum0 += s[4 * j + e];
+      sum1 += s[4 * j + 2 + e];
+    }
+  }
+  l0 = l0 * a0 + sum0;
+  l1 = l1 * a1 + sum1;
+}
+
 // Shared memory rounded up to the 1024-byte alignment of the 128-byte
 // swizzle (the launch asks for 1024 bytes more than it uses).
 __device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
   return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// ---- slab-causal schedule -------------------------------------------------
+
+// One past the last key row ``row`` sees.
+__device__ __forceinline__ int key_end(int row, int T, int P) {
+  return min(T, (row / P + 1) * P);
+}
+
+// Wait for tile n of a ring of ST stages to land, then release it.
+template <int ST>
+__device__ __forceinline__ void pass_tile(uint64_t* full, uint64_t* empty,
+                                          int n, int lane) {
+  mbar_wait(&full[n % ST], (n / ST) & 1);
+  if (lane == 0) mbar_arrive(&empty[n % ST]);
 }
 
 // ---- host -----------------------------------------------------------------

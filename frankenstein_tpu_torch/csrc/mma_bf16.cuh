@@ -1,9 +1,10 @@
-// Device helpers shared by K1 and K10 (slab_rope_attention.cu), K4
-// (slab_rope_attention_bwd.cu) and the other mma.sync kernels: the bf16 and
-// int8 mma.sync tile products, bf16 packing,
-// and the RoPE rotation both kernels apply while they load q/k tiles. The
-// rotation must be the same code in both: K4 recomputes K1's scores from
-// K1's lse, so its rotated q/k must round exactly as K1's did.
+// Device helpers shared by K10 and the probes (slab_rope_attention.cu), K1
+// (slab_rope_attention_fwd.cu), K4 (slab_rope_attention_bwd.cu) and the
+// other mma.sync kernels: the bf16 and int8 mma.sync tile products, bf16
+// packing, and the RoPE rotation that K1's and K4's pre-passes and K10's
+// loads apply to q/k. The rotation must be the same code in all of them:
+// K4 recomputes K1's (or K10's) scores from its lse, so its rotated q/k
+// must round exactly as the forward's did.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,9 +1,15 @@
-// K1 and K10: slab-causal flash attention with in-kernel RoPE, forward only;
-// K10 is K1 with int8 QK scores (a template parameter of the same kernel).
+// K10 and the probes: slab-causal flash attention with in-kernel RoPE,
+// forward only, on mma.sync. K10 is K1's contract with int8 QK scores (a
+// template parameter of this kernel). Production K1 lives in
+// slab_rope_attention_fwd.cu (a rotation pre-pass and a wgmma forward);
+// this kernel is the mma.sync design K1 had before, kept as K10's and as
+// the probes' (ROPE = false, every mode below).
 //
-// K1 replaces frankenstein_tpu/ops/pallas/block_attention.py:
-// _fwd_packed_rope_bte (kernel body _fwd_packed_rope_kernel), reached from
-// slab_causal_attention_rope. Same contract:
+// K1's contract, which the bf16 modes compute (without the rotation) and
+// K10 computes with int8 scores; K1 replaces
+// frankenstein_tpu/ops/pallas/block_attention.py: _fwd_packed_rope_bte
+// (kernel body _fwd_packed_rope_kernel), reached from
+// slab_causal_attention_rope:
 //   q, k, v   [B, T, E] bf16, UNROTATED, head h = columns [h*D, (h+1)*D)
 //   cos, sin  [T, D] f32, rope_cache[-T:] with each column repeated for the
 //             adjacent lanes 2i, 2i+1 (suffix-aligned)
@@ -52,19 +58,21 @@
 //     ((row_last / P) + 1) * P: future slabs are never loaded, a warp skips
 //     the tiles past its rows' last slab, and only tiles that reach past a
 //     warp's first slab are masked.
-// wgmma, TMA and a pipelined K/V ring are later work. On an H100 the
-// probes below put about half of K1's time in the products and a fifth in
-// the registers its runtime mask branch holds (123 a thread: 2 CTAs an SM
-// where the branchless body fits 3); PERF.md has the split.
+// On an H100 the probes below put about half of this design's time in the
+// products and a fifth in the registers its runtime mask branch holds (123
+// a thread: 2 CTAs an SM where the branchless body fits 3); PERF.md has
+// the split. slab_rope_attention_fwd.cu answers them for K1: wgmma on a
+// TMA ring, a mask only in a compile-time instance, exp2, one rotation a
+// key; K10 keeps this design.
 //
 // The probes (fk_slab_attention_probe) replace tools/attn_probe.py:
 // _variant_call and tools/int8_attr_probe.py:_call, which price the
 // components of the packed TPU forward by timing variants with one
 // removed. Here each variant is a compile-time mode of this kernel
-// (template parameters ROPE and VARIANT; the production K1 and K10 are
-// ROPE = true, VARIANT = PROD, and every probe branch is behind
+// (template parameters ROPE and VARIANT; production K10 is ROPE = true,
+// VARIANT = PROD with INT8, and every probe branch is behind
 // if constexpr), instantiated at D = 32 only:
-//   PROD with ROPE = false   K1 (K10 with INT8) on unrotated q, k
+//   PROD with ROPE = false   K1's math (K10's with INT8) on unrotated q, k
 //   DOTS_ONLY                scores * scale rounded to bf16 as PV's
 //                            A-fragments: no mask, max, exp, sum or
 //                            rescale; out = the accumulator, lse = 0
@@ -545,29 +553,7 @@ rope_quantize_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
 }  // namespace
 
 // Shapes are checked by the Python wrapper (ops/cuda/slab_attention.py):
-// T % 128 == 0 (and T % 1024 == 0 for K10), D in {32, 64}, contiguous bf16
-// q/k/v, f32 [T, D] tables.
-extern "C" int fk_slab_rope_attention_fwd(const void* q, const void* k,
-                                          const void* v, const void* cos_t,
-                                          const void* sin_t, void* out,
-                                          void* lse, int B, int T, int H,
-                                          int D, int P, float scale,
-                                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T % BQ != 0 || P <= 0) return int(cudaErrorInvalidValue);
-  const dim3 grid(T / BQ, H, B);
-  auto args = [&](auto kernel) {
-    kernel<<<grid, NTHREADS, 0, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr,
-        nullptr, static_cast<const bf16*>(v),
-        static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-        static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P, scale);
-    return int(cudaGetLastError());
-  };
-  if (D == 32) return args(slab_rope_attn_fwd<32, false, true, PROD>);
-  if (D == 64) return args(slab_rope_attn_fwd<64, false, true, PROD>);
-  return int(cudaErrorInvalidValue);
-}
+// T % 1024 == 0, D in {32, 64}, contiguous bf16 q/k/v, f32 [T, D] tables.
 
 // K10's pre-pass alone: codes k8 [B, T, E] int8, scales ks [B, H, T/1024];
 // amax [B, H, T/1024] u32 scratch, zero on entry.
@@ -620,14 +606,11 @@ extern "C" int fk_slab_rope_attention_fwd_int8(
   return int(cudaErrorInvalidValue);
 }
 
-// f(the D = 32 kernel of `variant`): with `rope`, production K1 (PROD) or
-// K10 (INT8_FULL); else the probe mode, on unrotated q and k.
+// f(the D = 32 kernel of `variant`): with `rope`, production K10
+// (INT8_FULL); else the probe mode, on unrotated q and k.
 template <typename F>
 int with_mode(int variant, bool rope, F f) {
-  if (rope) {
-    return variant == INT8_FULL ? f(slab_rope_attn_fwd<32, true, true, PROD>)
-                                : f(slab_rope_attn_fwd<32, false, true, PROD>);
-  }
+  if (rope) return f(slab_rope_attn_fwd<32, true, true, PROD>);
   switch (variant) {
     case PROD: return f(slab_rope_attn_fwd<32, false, false, PROD>);
     case DOTS_ONLY: return f(slab_rope_attn_fwd<32, false, false, DOTS_ONLY>);
@@ -693,12 +676,13 @@ extern "C" int fk_slab_attention_probe(const void* q, const void* k,
 }
 
 // Registers a thread and resident CTAs an SM of the D = 32 instance of a
-// mode: the probes' (rope = 0) or production K1 / K10's (rope = 1 with
-// PROD or INT8_FULL), from the CUDA runtime.
+// mode: the probes' (rope = 0) or production K10's (rope = 1 with
+// INT8_FULL), from the CUDA runtime. Production K1's are
+// fk_slab_rope_attention_fwd_occupancy's (slab_rope_attention_fwd.cu).
 extern "C" int fk_slab_attention_occupancy(int variant, int rope, int* regs,
                                            int* ctas) {
   if (variant < PROD || variant > INT8_NOQUANT ||
-      (rope && variant != PROD && variant != INT8_FULL))
+      (rope && variant != INT8_FULL))
     return int(cudaErrorInvalidValue);
   return with_mode(variant, rope != 0, [&](auto kernel) {
     cudaFuncAttributes attr;

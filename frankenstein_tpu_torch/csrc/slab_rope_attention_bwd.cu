@@ -107,19 +107,6 @@ __device__ __forceinline__ void store_unrotated(bf16* dst0, bf16* dst1,
   }
 }
 
-// One past the last key row ``row`` sees.
-__device__ __forceinline__ int key_end(int row, int T, int P) {
-  return min(T, (row / P + 1) * P);
-}
-
-// Wait for tile n of a ring of ST stages to land, then release it.
-template <int ST>
-__device__ __forceinline__ void pass_tile(uint64_t* full, uint64_t* empty,
-                                          int n, int lane) {
-  mbar_wait(&full[n % ST], (n / ST) & 1);
-  if (lane == 0) mbar_arrive(&empty[n % ST]);
-}
-
 // ---- pre-pass ---------------------------------------------------------------
 
 // One thread a 16-byte chunk (8 lanes) of a (row, head): qr, kr rotated by

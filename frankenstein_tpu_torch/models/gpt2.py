@@ -218,7 +218,7 @@ class GPT(nn.Module):
         if cfg.moe_experts:
             raise NotImplementedError(
                 "the MoE MLP is not ported yet (ROADMAP.md, modules to "
-                "port, item 11)")
+                "port, \"parallel modes and MoE\")")
         self.cfg = cfg
         self.compute_dtype = dtype
         self.transformer = nn.ModuleDict({

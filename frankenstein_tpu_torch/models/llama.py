@@ -146,7 +146,7 @@ class Llama(nn.Module):
         if cfg.moe_experts:
             raise NotImplementedError(
                 "the MoE MLP is not ported yet (ROADMAP.md, modules to "
-                "port, item 11)")
+                "port, \"parallel modes and MoE\")")
         self.cfg = cfg
         self.compute_dtype = dtype
         self.model = nn.Module()

@@ -59,8 +59,16 @@ def _declare(lib) -> None:
     c_void_p, so ctypes never truncates them to 32 bits)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fk_slab_rope_attention_fwd.argtypes = (
-        [p] * 7 + [i] * 5 + [f, p])
+        [p] * 9                     # q k v cos sin qr kr out lse
+        + [i] * 5 + [f, p])         # B T H D P, scale, stream
     lib.fk_slab_rope_attention_fwd.restype = i
+    lib.fk_slab_rope_attn_fwd_prep.argtypes = (
+        [p] * 6                     # q k cos sin qr kr
+        + [i] * 4 + [p])            # B T H D, stream
+    lib.fk_slab_rope_attn_fwd_prep.restype = i
+    lib.fk_slab_rope_attention_fwd_occupancy.argtypes = (
+        [i] * 3 + [ctypes.POINTER(i)] * 2)   # pass D P, regs ctas
+    lib.fk_slab_rope_attention_fwd_occupancy.restype = i
     lib.fk_slab_rope_k_quant.argtypes = (
         [p] * 6                     # k cos sin amax k8 ks
         + [i] * 4 + [p])            # B T H D, stream

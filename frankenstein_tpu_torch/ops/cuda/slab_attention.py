@@ -2,12 +2,17 @@
 (bf16 or int8 QK scores) and backward.
 
 - K1 replaces ``frankenstein_tpu/ops/pallas/block_attention.py:
-  _fwd_packed_rope_bte``; CUDA C++ in ``csrc/slab_rope_attention.cu``.
-- K10 is the same kernel's ``qk_int8=True`` mode: rotated Q quantized per
+  _fwd_packed_rope_bte``; CUDA C++ in ``csrc/slab_rope_attention_fwd.cu``.
+  A pre-pass rotates q and k once into a workspace (the rotation K4's
+  pre-pass runs), then a forward runs on a TMA ring and wgmma (the blocks
+  of ``csrc/hopper_blocks.cuh``) on K4's slab schedule, in an unmasked
+  instance where the slab length is a multiple of 64 (the key tile and a
+  warpgroup's rows) and a masked one for any other.
+- K10 is the JAX kernel's ``qk_int8=True`` mode: rotated Q quantized per
   (row, head) and rotated K per (1024-row chunk, head) to int8, the QK dot
   in int8, dequantized in the convert; V and AV stay bf16. A template
-  parameter of K1's kernel plus a pre-pass that rotates and quantizes K,
-  in the same source.
+  parameter of the mma.sync kernel that K1 ran before, plus a pre-pass
+  that rotates and quantizes K, in ``csrc/slab_rope_attention.cu``.
 - K4 replaces ``block_attention.py:_slab_rope_attention_bwd``: its XLA
   rotations, ``_bwd_packed`` (or the per-head ``_bwd``) and the rotations
   back; CUDA C++ in ``csrc/slab_rope_attention_bwd.cu``. A pre-pass rotates
@@ -42,6 +47,7 @@ KCHUNK = 1024      # rows per K10 key scale (the JAX pack plan's chunk)
 launches = 0       # wrapper calls that ran K1
 launches_int8 = 0  # wrapper calls that ran K10 (its pre-pass and kernel)
 launches_bwd = 0   # wrapper calls that ran K4 (its pre-pass and both passes)
+FWD_PASSES = {"prep": 0, "fwd": 1}            # fwd_occupancy's passes
 BWD_PASSES = {"prep": 0, "dq": 1, "dkv": 2}   # bwd_occupancy's passes
 
 
@@ -132,18 +138,25 @@ def slab_rope_attention_int8_ref(q, k, v, cos, sin, *, n_heads: int,
                                     True)
 
 
+def slab_rope_fwd_prep_ref(q, k, cos, sin, *, n_heads: int):
+    """Plain twin of K1's pre-pass: q and k [B, T, E] rotated
+    (``apply_rope_folded`` with the [T, D] tables repeated over the heads,
+    rounded to their dtype). Returns (qr, kr)."""
+    cos_e, sin_e = cos.repeat(1, n_heads), sin.repeat(1, n_heads)
+    return (rope.apply_rope_folded(q, cos_e, sin_e),
+            rope.apply_rope_folded(k, cos_e, sin_e))
+
+
 def slab_rope_bwd_prep_ref(q, k, cos, sin, out, dout, *, n_heads: int):
-    """Plain twin of K4's pre-pass: q and k rotated
-    (``apply_rope_folded``, rounded to their dtype) and delta =
-    rowsum(out * dout) per head, in f32 (f64 for f64 input). Returns (qr,
-    kr [B, T, E], delta [B, H, T])."""
+    """Plain twin of K4's pre-pass: q and k rotated as K1's pre-pass
+    rotates them (``slab_rope_fwd_prep_ref``) and delta = rowsum(out *
+    dout) per head, in f32 (f64 for f64 input). Returns (qr, kr [B, T, E],
+    delta [B, H, T])."""
     b, t, e = q.shape
     acc = torch.promote_types(q.dtype, torch.float32)
-    cos_e, sin_e = cos.repeat(1, n_heads), sin.repeat(1, n_heads)
     prod = out.to(acc) * dout.to(acc)
     delta = prod.reshape(b, t, n_heads, e // n_heads).sum(-1).transpose(1, 2)
-    return (rope.apply_rope_folded(q, cos_e, sin_e),
-            rope.apply_rope_folded(k, cos_e, sin_e), delta)
+    return (*slab_rope_fwd_prep_ref(q, k, cos, sin, n_heads=n_heads), delta)
 
 
 def slab_rope_attention_bwd_ref(q, k, v, cos, sin, out, lse, dout, *,
@@ -284,13 +297,43 @@ def slab_rope_attention_fwd_int8(q, k8, ks, v, cos, sin, *, n_heads: int,
     return out, lse
 
 
+def slab_rope_fwd_prep(q, k, cos, sin, *, n_heads: int):
+    """K1's pre-pass alone: (qr, kr [B, T, E] bf16) as
+    ``slab_rope_fwd_prep_ref`` gives them. The pre-pass on CUDA tensors,
+    the twin on CPU tensors; ``slab_rope_attention`` runs it before its
+    forward, into a workspace it drops after the call."""
+    if not q.is_cuda:
+        return slab_rope_fwd_prep_ref(q, k, cos, sin, n_heads=n_heads)
+    _check(q, k, k, cos, sin, n_heads, 1)
+    b, t, e = q.shape
+    qr, kr = torch.empty_like(q), torch.empty_like(k)
+    rc = build.library().fk_slab_rope_attn_fwd_prep(
+        q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        qr.data_ptr(), kr.data_ptr(), b, t, n_heads, e // n_heads, _stream(q))
+    build.check(rc, "slab_rope_attn_fwd_prep")
+    return qr, kr
+
+
+def fwd_occupancy(pass_: str, head_dim: int, tok_per_time: int) -> tuple:
+    """(registers a thread, resident CTAs an SM) of one K1 kernel ("prep",
+    "fwd") at ``head_dim``, in the instance (masked or not) that
+    ``tok_per_time`` takes, from the CUDA runtime."""
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = build.library().fk_slab_rope_attention_fwd_occupancy(
+        FWD_PASSES[pass_], head_dim, tok_per_time, ctypes.byref(regs),
+        ctypes.byref(ctas))
+    build.check(rc, f"slab_rope_attention_fwd_occupancy[{pass_}]")
+    return regs.value, ctas.value
+
+
 def slab_rope_attention(q, k, v, cos, sin, *, n_heads: int,
                         tok_per_time: int, qk_int8: bool = False):
     """Slab-causal attention over UNROTATED [B, T, E] q/k/v with RoPE
-    applied inside the kernel. cos, sin: [T, D] f32 lane tables
+    applied by the kernels. cos, sin: [T, D] f32 lane tables
     (``rope.folded_tables(rope_cache[-T:], 1)``). ``qk_int8`` runs K10 (its
-    pre-pass, then its kernel; T % 1024 == 0) instead of K1. Returns
-    (out [B, T, E], lse [B, H, T] f32)."""
+    pre-pass, then its kernel; T % 1024 == 0) instead of K1. K1's rotated
+    q and k ([B, T, E] bf16 each) are a workspace of the call, not kept.
+    Returns (out [B, T, E], lse [B, H, T] f32)."""
     global launches, launches_int8
     if not q.is_cuda:
         ref = (slab_rope_attention_int8_ref if qk_int8
@@ -307,12 +350,13 @@ def slab_rope_attention(q, k, v, cos, sin, *, n_heads: int,
         return out, lse
     b, t, e = q.shape
     d = e // n_heads
-    out = torch.empty_like(q)
+    qr, kr, out = (torch.empty_like(q) for _ in range(3))
     lse = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
     rc = build.library().fk_slab_rope_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, n_heads, d,
-        tok_per_time, 1.0 / float(d) ** 0.5, _stream(q))
+        sin.data_ptr(), qr.data_ptr(), kr.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, t, n_heads, d, tok_per_time,
+        1.0 / float(d) ** 0.5, _stream(q))
     build.check(rc, "slab_rope_attention_fwd")
     launches += 1
     return out, lse

@@ -1,18 +1,21 @@
-"""The packed-attention probes: K1 / K10's kernel in its probe modes.
+"""The packed-attention probes: K10's kernel in its probe modes.
 
 They replace ``tools/attn_probe.py:_variant_call`` and
 ``tools/int8_attr_probe.py:_call``, which priced each component of the
 packed TPU forward by timing a variant of the kernel with that component
-removed. Here each variant is a compile-time mode of K1 / K10's own CUDA
-kernel (``csrc/slab_rope_attention.cu``, template parameters ``ROPE`` and
-``VARIANT``), run on UNROTATED q and k at head_dim 32, as the JAX probes
-omit RoPE. The port follows the math contract, not the TPU schedule: where
+removed. Here each variant is a compile-time mode of K10's CUDA kernel
+(``csrc/slab_rope_attention.cu``, template parameters ``ROPE`` and
+``VARIANT``), the mma.sync design K1 ran before its wgmma redesign
+(``csrc/slab_rope_attention_fwd.cu``), run on UNROTATED q and k at
+head_dim 32, as the JAX probes omit RoPE. The bf16 modes compute K1's
+function, so they price that design's parts, which K10 keeps. The port follows the math contract, not the TPU schedule: where
 a variant removes TPU-only machinery, the mode removes the Hopper component
 that plays its role (``no_kbd``: the transposed staging of V).
 
 ``PROBE_VARIANTS`` maps the JAX probes' variant names to the kernel's
 modes: ``kernel`` (attn probe), ``bf16`` (int8 probe) and ``mask_last`` are
-K1 itself, since K1 masks only the tiles that cross a warp's first slab;
+the kernel's K1 mode, which masks only the tiles that cross a warp's first
+slab;
 ``mask_all`` masks every visited tile. A mode's values are exact (K1's or
 K10's math), defined (a stated function, not attention: the twins below
 say which) or, for ``no_kbd``, wrong by design (timing only, no twin).
@@ -322,7 +325,8 @@ def _launch(q, k, v, k8, ks, amax, out, lse, n_heads, tok_per_time,
 def occupancy(variant: str, rope: bool = False) -> tuple:
     """(registers a thread, resident CTAs an SM) of the kernel's D = 32
     instance of ``variant`` on the current card, from the CUDA runtime;
-    with ``rope``, of production K1 (``kernel``) or K10 (``int8_full``)."""
+    with ``rope``, of production K10 (``int8_full``; any other mode is
+    refused: production K1's are ``slab_attention.fwd_occupancy``'s)."""
     regs, ctas = ctypes.c_int(), ctypes.c_int()
     rc = build.library().fk_slab_attention_occupancy(
         PROBE_VARIANTS[variant], int(rope), ctypes.byref(regs),

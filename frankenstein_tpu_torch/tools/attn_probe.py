@@ -1,21 +1,25 @@
-"""Where does the time of K1, the slab-attention forward, go?
+"""Where does the time of the mma.sync slab-attention forward go?
 
 The Hopper counterpart of the JAX package's ``tools/attn_probe.py``. Each
-variant is a compile-time mode of K1's own kernel
-(``ops/cuda/slab_probe.py``, ``csrc/slab_rope_attention.cu``) with one
-component removed, timed on the same unrotated inputs:
+variant is a compile-time mode of the mma.sync kernel that K1 ran before
+its wgmma redesign and K10 still runs (``ops/cuda/slab_probe.py``,
+``csrc/slab_rope_attention.cu``), with one component removed, timed on the
+same unrotated inputs; production K1 (``csrc/slab_rope_attention_fwd.cu``)
+is not one of them:
 
-  kernel     K1 without the rotation: the reference point
+  kernel     K1's math on that kernel, without the rotation: the
+             reference point
   dots_only  the QK and PV products only: no mask, max, exp, sum or rescale
   no_kbd     V staged row-major, not transposed (the step that plays the
              TPU's block-diagonal K staging; values wrong, timing only)
   no_mask    the slab mask dropped
-  mask_all   the mask on every visited tile (K1 masks only the tiles that
-             cross a warp's first slab, which is what ``mask_last`` priced)
+  mask_all   the mask on every visited tile (the kernel masks only the
+             tiles that cross a warp's first slab, which is what
+             ``mask_last`` priced)
   exp2       log2(e) folded into the score scale, exp2f
 
 plus three references the port never calls on its path: ``rope``
-(production K1 with the rope tables: prices the rotation), ``sdpa``
+(production K1, the wgmma design, with the rope tables), ``sdpa``
 (``scaled_dot_product_attention`` with the bool slab mask, the library
 yardstick) and ``matmul`` (a 4096^2 bf16 ``torch.matmul``, the card's
 practical dense-product ceiling, as the JAX tool's ``xla_dot``).

@@ -1,7 +1,7 @@
 """Where does the time of K10, K1's int8-QK-score mode, go?
 
 The Hopper counterpart of the JAX package's ``tools/int8_attr_probe.py``.
-Each variant is a compile-time mode of K1 / K10's kernel
+Each variant is a compile-time mode of K10's kernel
 (``ops/cuda/slab_probe.py``, ``csrc/slab_rope_attention.cu``) on the same
 unrotated inputs, as the JAX probe omits RoPE:
 

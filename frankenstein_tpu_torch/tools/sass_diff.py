@@ -4,8 +4,10 @@ Compiles OLD and NEW with the port's own nvcc flags (``ops/cuda/build.py``,
 ``sm_90a``) into cubins under the git-ignored ``build/``, dumps each with
 ``cuobjdump -sass``, splits the dump into functions and compares every
 function of OLD with the function of NEW of the same mangled name,
-instruction by instruction. The anonymous namespace's hash, which differs
-between any two files, is taken out of names and instructions. A ``--map PATTERN=REPLACEMENT`` (a Python regex substitution, applied
+instruction by instruction. The anonymous namespace's two hashes, which
+differ between any two files (the second also changed when a file lost
+an external function), are taken out of names and instructions. A
+``--map PATTERN=REPLACEMENT`` (a Python regex substitution, applied
 in turn) renames OLD's functions first, for a template that gained
 parameters; a ``--removed PATTERN`` (a Python regex) names OLD functions
 that NEW drops on purpose, each ``removed`` where NEW lacks it. One JSON
@@ -13,8 +15,8 @@ line on stdout: per OLD function ``same``, ``differs`` (with the count of
 differing lines), ``missing`` or ``removed``, and how many functions only
 NEW has. Exits 1 unless every OLD function is ``same`` or ``removed``.
 
-Run on a machine with the CUDA toolkit, e.g. for K1 / K10 against an older
-copy of their source::
+Run on a machine with the CUDA toolkit, e.g. for K10 and the probes against
+an older copy of their source::
 
     python -m frankenstein_tpu_torch.tools.sass_diff OLD.cu \\
         frankenstein_tpu_torch/csrc/slab_rope_attention.cu \\
@@ -38,7 +40,7 @@ from pathlib import Path
 
 from frankenstein_tpu_torch.ops.cuda import build
 
-ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_|(?<=_cu_)[0-9a-f]{8}")
 
 
 def sass(src: Path, workdir: Path) -> dict:

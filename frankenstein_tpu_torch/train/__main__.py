@@ -35,13 +35,13 @@ import sys
 from pathlib import Path
 
 # models of the JAX package's train.py that the port does not train yet,
-# and the ROADMAP.md item ("modules to port") that brings each
+# and the title of the ROADMAP.md item ("modules to port") that brings each
 NOT_PORTED = {
-    "simple_mae": "item 8 (MAE pretraining: SimpleMAE)",
-    "vqvae": "item 10 (VQ-VAE and the rest)",
-    "franky-llama": "item 7 (FrankyLlama training)",
-    "moe-gpt": "item 11 (parallel modes: the MoE MLP)",
-    "brainformer": "item 12 (BrainFormer regression)",
+    "simple_mae": "SimpleMAE",
+    "vqvae": "VQ-VAE and the rest",
+    "franky-llama": "FrankyLlama training",
+    "moe-gpt": "parallel modes and MoE",
+    "brainformer": "BrainFormer regression",
 }
 
 # CLI flag -> TrainConfig field, for flags that override the YAML
@@ -104,7 +104,7 @@ def parse_args(argv=None):
 
 def _refuse(name: str):
     raise SystemExit(f"--model {name} is not ported to PyTorch yet: "
-                     f"ROADMAP.md, modules to port, {NOT_PORTED[name]}")
+                     f"ROADMAP.md, modules to port, \"{NOT_PORTED[name]}\"")
 
 
 def model_config(args):
@@ -212,7 +212,7 @@ def main(argv=None):
         raise SystemExit(
             f"--init-encoder-from grafts an MAE encoder into a composite: "
             f"--model franky, not {args.model} (franky-llama's training is "
-            f"ROADMAP.md, modules to port, item 7)")
+            f"ROADMAP.md, modules to port, \"FrankyLlama training\")")
     tcfg = train_config(args, yaml_train, argv)
     device = cli_device(args.device)
     enc = cfg if args.model == "mae" else cfg.brain.encoder

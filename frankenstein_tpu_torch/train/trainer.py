@@ -22,8 +22,9 @@ On one device, in eager PyTorch:
   trainer does, from a key that does not change within the round;
 - the loss is read to the host only at warm-up, log and eval boundaries and
   at the end, where a non-finite value raises ``FloatingPointError``.
-Not ported: ``fsdp`` and meshes wider than one device (the parallel modes,
-ROADMAP item 11), MFU logging (``utils/profiling.py``, item 10).
+Not ported: ``fsdp`` and meshes wider than one device (ROADMAP item
+"parallel modes and MoE"), MFU logging (``utils/profiling.py``, item "VQ-VAE
+and the rest").
 """
 
 from __future__ import annotations
@@ -161,11 +162,12 @@ def _check_parallel(config: TrainConfig) -> None:
     if config.fsdp:
         raise NotImplementedError(
             "fsdp: parameter sharding is not ported yet (ROADMAP.md, "
-            "modules to port, item 11)")
+            "modules to port, \"parallel modes and MoE\")")
     if config.mesh_shape and math.prod(config.mesh_shape) > 1:
         raise NotImplementedError(
             f"mesh_shape {config.mesh_shape}: the port trains on one device; "
-            "the parallel modes are ROADMAP.md, modules to port, item 11")
+            "the parallel modes are ROADMAP.md, modules to port, "
+            "\"parallel modes and MoE\"")
 
 
 def run_train_model(model: nn.Module, datasets, config: TrainConfig,

@@ -8,7 +8,7 @@
 - Every kernel of the source falls in ``chip_smoke.py``'s "K4" profile
   family in the spellings a profiler may report, never in K6 / K7's.
 - The Hopper blocks live once, in ``csrc/hopper_blocks.cuh``, which K7
-  dense's source and K4's include.
+  dense's source, K4's and K1's include.
 - The slab-causal tile schedule of the dq and dk/dv passes, written out in
   Python as the kernels compute it (key / query tile ranges a consumer
   warpgroup walks, the tiles it waits for and releases, the tiles it masks
@@ -123,11 +123,12 @@ def test_k4_kernel_names_are_the_sources_kernels():
 def test_hopper_blocks_live_once_in_the_shared_header():
     header = (CSRC / "hopper_blocks.cuh").read_text()
     assert not re.findall(KERNEL_RE, header)
-    users = [CSRC / "flash_attention_dense.cu", SOURCE]
+    users = [CSRC / "flash_attention_dense.cu", SOURCE,
+             CSRC / "slab_rope_attention_fwd.cu"]
     for src in users:
         assert '#include "hopper_blocks.cuh"' in src.read_text(), src.name
     for helper in ("mbar_wait", "tma_load", "smem_desc", "to_a", "tile_map",
-                   "aligned_smem"):
+                   "aligned_smem", "online_softmax", "key_end", "pass_tile"):
         defined = [p.name for p in sorted(CSRC.glob("*.cu*"))
                    if re.search(rf"\b{helper}\([^;]*\)\s*{{", p.read_text())]
         assert defined == ["hopper_blocks.cuh"], (helper, defined)

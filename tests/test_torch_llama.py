@@ -185,7 +185,7 @@ def test_decode_weights_route_by_family(pair):
 
 
 def test_moe_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="parallel modes and MoE"):
         llama.Llama(tconfig.tiny_llama_config(moe_experts=2))
 
 
