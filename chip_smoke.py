@@ -19,26 +19,34 @@ nvcc (sm_90a) and then, one line per phase:
    exp floor and issued TFLOP/s, the masked instance's times, the
    pre-pass's and the forward's ms (torch.profiler), each kernel's
    registers and CTAs an SM, and the twin's time;
-3. kernel K2 (all-layer GPT-2 decode step) against its twin at GPT-2 124M
-   width, bf16 and w8a16 weights, with both times;
+3. kernel K2 (all-layer GPT-2 decode step: one persistent cooperative
+   launch a token, ``csrc/decode_common.cuh``) against its twin at GPT-2
+   124M width, bf16 and w8a16 weights, two launches bitwise equal, with
+   both times a token at B=8 and B=128 beside the bound, the achieved GB/s,
+   the launch (grid, registers, CTAs an SM, spills from ``build.log``, ring
+   slots, depth splits), the device operations a call (torch.profiler: 1)
+   and, for w8a16 at B=8, one token's split into products, attention, rows
+   / act and barrier waits (the kernel's %globaltimer stamps);
 4. the flagship Franky served end to end through ``make_franky_predictor``
    (random weights from a seed, bf16, w8a16 decode, top-k 10), with the
    launch counts of the kernels (K9 = 4 encoder blocks + 2 Perceiver
    self-attention blocks per encode), output checks, an f32 CPU
    cross-check of the chain, and encode / decode times at batch 128, the
    encode with K9 on and off (``fused_mlp.ENABLED``) in turns, with its
-   peak memory;
+   peak memory, and one B=8 request's device time by kernel family;
 5. kernel K3 (beam-search cache reorder) against its twin at the flagship
    beam shape, bf16 and int8, and at FrankyLlama's int8 beam cache
    [8, 160, 64, 512], bitwise, with both times;
 6. kernel K2's int8-KV mode against its twin at GPT-2 124M width, B*W=160
-   and B=8, bf16 and w8a16 weights, with both times;
+   and B=8, bf16 and w8a16 weights, two launches bitwise equal, with both
+   times and phase 3's launch numbers (the phase split for w8a16);
 7. the beam path: the same flagship served through ``make_franky_predictor
    (beam_width=5, int8_kv=True, int8_weights=True)`` at batch 32, with the
    launch counts of K1, K2 (int8-KV mode), K3 and K9, beam width 1 against
    greedy, the int8-KV logits against the bf16 cache's,
    ``evaluate_franky_wer`` over a synthetic set, the submission writer,
-   and encode / beam decode / request times;
+   encode / beam decode / request times and one request's device time by
+   kernel family;
 8. kernel K4 (the backward of K1: a rotation pre-pass, a dq pass and a
    dk/dv pass) against its twin at the flagship encoder shape, at P=256
    (its unmasked instance) and P=96 (its masked one): dq, dk, dv, the
@@ -64,7 +72,8 @@ nvcc (sm_90a) and then, one line per phase:
     and at a 1B-class shape (E=2048, head_dim 128, F=5632, L=16, B=8, S=48,
     bf16 and w8a16): errors, int8 codes (equal to the twin's off ties in
     layer 0, at most one apart deeper), the exact rounding rule, a 3-step
-    chain across row 8, two launches bitwise equal, both times;
+    chain across row 8, two launches bitwise equal, both times and phase
+    3's launch numbers (the phase split for w8a16 at B*W=160 and B=8);
 11. FrankyLlama (``configs/franky_llama.yaml``'s model: the flagship encoder,
     a 2-layer Perceiver into a ~110M LLaMA) served end to end through
     ``make_franky_predictor(beam_width=5, int8_kv=True, int8_weights=True,
@@ -73,7 +82,8 @@ nvcc (sm_90a) and then, one line per phase:
     moved a row off its first beam, beam width 1 against greedy, the int8-KV
     logits against a bf16 cache's, an f32 CPU cross-check, the top-k path,
     and the median and range over 5 runs of encode / beam decode / rescore
-    (timed stage by stage within one chain) and of the whole request;
+    (timed stage by stage within one chain) and of the whole request, and
+    one request's device time by kernel family;
 12. kernels K6 (flash attention over a gathered token subset: key j visible
     to query i iff slab(pos[j]) <= slab(pos[i])) and K7 (dense, and
     slab-causal without RoPE) against their twins, forward and backward:
@@ -195,6 +205,8 @@ PROFILE_FAMILIES = [
     ("K1", r"slab_rope_attn_fwd"),
     ("K4", r"slab_rope_attn_bwd"),
     ("K9", r"fused_norm_swiglu"),
+    ("K2", r"gpt2_decode_step"),
+    ("K5", r"llama_decode_step"),
     ("cuBLAS", r"gemm|xmma|nvjet|cutlass|sm90_"),
     ("AdamW", r"multi_tensor"),
     ("reductions", r"reduce|norm"),
@@ -499,7 +511,49 @@ def _decode_bound(x, st: dict, mats, kc, length: int, scales=()) -> dict:
                + _nbytes(*scales) + rows)
     n_weights = sum(st[key].numel() for key in mats)
     ops = 2 * b * n_weights + 4 * n_layer * b * width * (length + 1)
-    return _bound(n_bytes, ops)
+    return {**_bound(n_bytes, ops), "bytes": n_bytes}
+
+
+def _spills(kernel: str) -> int:
+    """The most bytes of spill stores ptxas reported (``build.log``) for any
+    instance of ``kernel``."""
+    from frankenstein_tpu_torch.ops.cuda import build
+    log = (build.BUILD_DIR / "build.log").read_text().splitlines()
+    most = 0
+    for i, line in enumerate(log):
+        if "Function properties for" in line and kernel in line:
+            found = re.search(r"(\d+) bytes spill stores", log[i + 1])
+            most = max(most, int(found.group(1)) if found else 0)
+    return most
+
+
+def _decode_report(fn, ms: float, bound: dict, info: dict, kernel: str,
+                   split: bool = False) -> tuple:
+    """(a note, its numbers) for an all-layer decode call: the achieved
+    GB/s of its bound's bytes, the launch (grid, registers, CTAs an SM,
+    spills), the device operations a call (torch.profiler; 1 for the
+    persistent kernel) and, with ``split``, one token's ms in products,
+    attention, rows / act and barrier waits (the kernel's %globaltimer
+    stamps, mean over the CTAs)."""
+    from frankenstein_tpu_torch.tools import decode_sweep
+    ops, by_kernel = decode_sweep.kernel_split(fn, calls=3)
+    spills = _spills(kernel)
+    gbs = bound["bytes"] / (ms * 1e-3) / 1e9
+    parts = decode_sweep.phase_split(fn) if split else None
+    note = (f"{gbs:.1f} GB/s of the bound's bytes, grid {info['grid']} "
+            f"({info['ctas_per_sm']} CTAs an SM, {info['registers']} "
+            f"registers, {spills} bytes spilled, ring {info['ring']}, "
+            f"splits {info['splits']}), {ops:g} device operations a call")
+    if parts is not None:
+        note += ", a token's ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in parts.items())
+    # at most one operation a call, and only the kernel's own (late in a
+    # long process the profiler may drop a kernel's record: fewer than one
+    # is reported as read; tools/decode_sweep.py profile reads a fresh one)
+    _check(ops <= 1 and all(kernel in k for k in by_kernel),
+           f"{kernel}: {ops} device operations a call ({by_kernel})")
+    return note, {"gbs": gbs, "device_ops": ops, "split_ms": parts,
+                  "spills": spills, **info}
 
 
 def _k2_inputs(b: int, gen, w8: bool):
@@ -534,12 +588,17 @@ def phase_k2(card: str) -> dict:
     for mode, w8 in (("bf16", False), ("w8a16", True)):
         x, st, kc, vc = _k2_inputs(b, gen, w8)
         kc_k, vc_k = kc.clone(), vc.clone()
+        kc_a, vc_a = kc.clone(), vc.clone()
         kc_r, vc_r = kc.clone(), vc.clone()
         xo, _, _ = k2.fused_decode_blocks(x, st, kc_k, vc_k, length,
+                                          n_head=n_head)
+        xa, _, _ = k2.fused_decode_blocks(x, st, kc_a, vc_a, length,
                                           n_head=n_head)
         xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc_r, vc_r, length,
                                               n_head=n_head)
         torch.cuda.synchronize()
+        bitwise = (torch.equal(xo, xa) and torch.equal(kc_k, kc_a)
+                   and torch.equal(vc_k, vc_a))
         scale = float(xr.float().abs().max())
         err_x = _max_err(xo, xr)
         err_row = max(_max_err(kc_k[:, :, length], kc_r[:, :, length]),
@@ -553,26 +612,43 @@ def phase_k2(card: str) -> dict:
         plain_ms = _time_ms(lambda: k2.fused_decode_blocks_ref(
             x, st, kc_r, vc_r, length, n_head=n_head))
         bound = _decode_bound(x, st, k2.WEIGHT_KEYS, kc, length)
+        note, launch = _decode_report(
+            lambda: k2.fused_decode_blocks(x, st, kc_a, vc_a, length,
+                                           n_head=n_head), ms, bound,
+            k2.launch_info(12, b, kc.shape[2], 768, n_head, w8, False),
+            "gpt2_decode_step", split=w8)
         xb, stb, kcb, vcb = _k2_inputs(128, gen, w8)
         ms_b128 = _time_ms(lambda: k2.fused_decode_blocks(
             xb, stb, kcb, vcb, length, n_head=n_head))
         plain_b128 = _time_ms(lambda: k2.fused_decode_blocks_ref(
             xb, stb, kcb, vcb, length, n_head=n_head))
+        bound_b128 = _decode_bound(xb, stb, k2.WEIGHT_KEYS, kcb, length)
+        note_b128, _ = _decode_report(
+            lambda: k2.fused_decode_blocks(xb, stb, kcb, vcb, length,
+                                           n_head=n_head), ms_b128,
+            bound_b128,
+            k2.launch_info(12, 128, kcb.shape[2], 768, n_head, w8, False),
+            "gpt2_decode_step")
         print(f"phase 3 K2 fused_decode_blocks {mode} L=12 E=768 H=12 S=64 "
               f"B={b} length={length}: x_out max_abs_err {err_x:.3e} "
               f"(max|x| {scale:.3f}), new-row max_abs_err {err_row:.3e} "
               f"(max|row| {row_scale:.3f}), other rows untouched "
-              f"{untouched}, tol {K2_TOL} x max | kernel {ms:.4f} ms, plain "
+              f"{untouched}, two launches bitwise equal {bitwise}, tol "
+              f"{K2_TOL} x max | kernel {ms:.4f} ms a token, plain "
               f"{plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}) | B=128 kernel {ms_b128:.4f} ms, plain "
-              f"{plain_b128:.4f} ms | {card}", flush=True)
+              f"({bound['bound_by']}), {note} | B=128 kernel {ms_b128:.4f} "
+              f"ms, plain {plain_b128:.4f} ms, bound "
+              f"{bound_b128['bound_ms']:.4f} ms, {note_b128} | {card}",
+              flush=True)
         _check(torch.isfinite(xo).all(), f"K2 {mode} output not finite")
+        _check(bitwise, f"K2 {mode} is not deterministic")
         _check(err_x <= K2_TOL * scale and err_row <= K2_TOL * row_scale,
                f"K2 {mode} disagrees with its twin: x {err_x}, row {err_row}")
         _check(untouched, f"K2 {mode} wrote outside row {length}")
         results[mode] = {"max_abs_err": max(err_x, err_row), "ms": ms,
                          "plain_ms": plain_ms, "ms_b128": ms_b128,
-                         "plain_ms_b128": plain_b128, **bound}
+                         "plain_ms_b128": plain_b128, "launch": launch,
+                         **bound}
     return results
 
 
@@ -774,6 +850,8 @@ def phase_slice(card: str, model) -> dict:
         model, idx_b, pb, gen, max_new_tokens=25, top_k=10, qweights=qw),
         iters=3, warmup=1)
     request_ms = _time_ms(lambda: predict(xs), iters=3, warmup=1)
+    _profile_request(lambda: predict(xs), 4, "B=8 request, top-k 10, w8a16",
+                     "K2", card)
     print(f"phase 4 slice: Franky flagship (768x256 window, 6144 tokens, "
           f"GPT-2 124M, bf16, w8a16 decode, top-k 10, 25 tokens): "
           f"{len(out)} strings, launches {launches} (K1 = {enc.n_layers} per "
@@ -904,8 +982,11 @@ def phase_k2_int8(card: str) -> dict:
             kc, ks = k2.quantize_cache_side(kf)
             vc, vs = k2.quantize_cache_side(vf)
             kc_k, vc_k = kc.clone(), vc.clone()
+            kc_a, vc_a = kc.clone(), vc.clone()
             kc_r, vc_r = kc.clone(), vc.clone()
             xo, _, _ = k2.fused_decode_blocks(x, st, kc_k, vc_k, length, ks,
+                                              vs, n_head=n_head)
+            xa, _, _ = k2.fused_decode_blocks(x, st, kc_a, vc_a, length, ks,
                                               vs, n_head=n_head)
             rows = []
             xr, _, _ = k2.fused_decode_blocks_ref(
@@ -925,19 +1006,28 @@ def phase_k2_int8(card: str) -> dict:
             exact = _k2_int8_exact(x, st, kc, vc, length, n_head)
             bound = _decode_bound(x, st, k2.WEIGHT_KEYS, kc, length,
                                   (ks, vs))
-            ms = _time_ms(lambda: k2.fused_decode_blocks(
-                x, st, kc_k, vc_k, length, ks, vs, n_head=n_head))
+            bitwise = (torch.equal(xo, xa) and torch.equal(kc_k, kc_a)
+                       and torch.equal(vc_k, vc_a))
+            run = lambda: k2.fused_decode_blocks(
+                x, st, kc_k, vc_k, length, ks, vs, n_head=n_head)
+            ms = _time_ms(run)
             plain_ms = _time_ms(lambda: k2.fused_decode_blocks_ref(
                 x, st, kc_r, vc_r, length, ks, vs, n_head=n_head))
+            note, launch = _decode_report(
+                run, ms, bound,
+                k2.launch_info(12, b, kc.shape[2], 768, n_head, w8, True),
+                "gpt2_decode_step", split=w8)
             print(f"phase 6 K2 fused_decode_blocks int8 KV, {mode} weights, "
                   f"L=12 E=768 H=12 S=64 B={b} length={length}: x_out "
                   f"max_abs_err {err_x:.3e} (max|x| {scale:.3f}), tol "
                   f"{K2_TOL} x max | new-row codes vs twin k {codes[0]} v "
                   f"{codes[1]} (tie window {CODE_WINDOW}) | exact-row "
                   f"codes wrong {exact} | other rows untouched {untouched} "
-                  f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) | "
-                  f"{card}", flush=True)
+                  f"| two launches bitwise equal {bitwise} | kernel "
+                  f"{ms:.4f} ms a token, plain {plain_ms:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+                  f"{note} | {card}", flush=True)
+            _check(bitwise, f"K2 int8 {mode} B={b} is not deterministic")
             _check(torch.isfinite(xo).all(), f"K2 int8 {mode} not finite")
             _check(err_x <= K2_TOL * scale,
                    f"K2 int8 {mode} B={b} disagrees with its twin: {err_x}")
@@ -950,7 +1040,8 @@ def phase_k2_int8(card: str) -> dict:
                    f"K2 int8 {mode} B={b} exact-row codes: {exact}")
             _check(untouched, f"K2 int8 {mode} wrote outside row {length}")
             results[(mode, b)] = {"max_abs_err": err_x, "ms": ms,
-                                  "plain_ms": plain_ms, **bound}
+                                  "plain_ms": plain_ms, "launch": launch,
+                                  **bound}
     return results
 
 
@@ -1040,6 +1131,8 @@ def phase_beams(card: str, model) -> dict:
         model, idx0, prefix, beam_width=w, eos_id=GPT2_EOT,
         length_penalty=1.0, **kw), iters=3, warmup=1)
     request_ms = _time_ms(lambda: predict(xs), iters=3, warmup=1)
+    _profile_request(lambda: predict(xs), 7,
+                     "B=32 beams of 5, int8 KV, w8a16", "K2", card)
     print(f"phase 7 beams: Franky flagship, beam width {w}, int8 KV, w8a16, "
           f"{steps} tokens, B={b}: {len(out)} strings, launches {launches} "
           f"(K1 = {enc.n_layers} and K9 = {_k9_blocks(cfg)} per encode, K2 "
@@ -1270,6 +1363,33 @@ def _device_us(event) -> float:
         if hasattr(event, attr):
             return float(getattr(event, attr))
     return 0.0
+
+
+def _profile_request(fn, phase: int, what: str, kernel: str,
+                     card: str) -> dict:
+    """One request's device time by kernel family (torch.profiler, after
+    a warm-up call); raises unless ``kernel``'s family ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    families: dict = {}
+    for e in prof.key_averages():
+        if _device_us(e) > 0 and not re.match(r"(Optimizer\.|ProfilerStep)",
+                                               e.key):
+            fam = _family(e.key)
+            families[fam] = families.get(fam, 0.0) + _device_us(e) / 1e3
+    fams = ", ".join(f"{fam} {ms:.2f}" for fam, ms in
+                     sorted(families.items(), key=lambda kv: -kv[1]))
+    print(f"phase {phase} profile {what} (torch.profiler, one request): "
+          f"device time {sum(families.values()):.1f} ms | ms by family: "
+          f"{fams} | {card}", flush=True)
+    _check(families.get(kernel, 0.0) > 0,
+           f"phase {phase}: no {kernel} kernel in the request's profile")
+    return families
 
 
 def _profile_steps(state, tcfg, ds, what: str, card: str) -> dict:
@@ -1549,8 +1669,13 @@ def phase_k5(card: str) -> dict:
             chain = max(chain, _max_err(xo_n, xr_n)
                         / float(xr_n.float().abs().max()))
         bound = _decode_bound(x, st, k5.WEIGHT_KEYS, kc, length, (ks, vs))
-        ms = _time_ms(lambda: run(k5.fused_llama_decode_blocks, kc_a, vc_a,
-                                  length))
+        call = lambda: run(k5.fused_llama_decode_blocks, kc_a, vc_a, length)
+        ms = _time_ms(call)
+        note, launch = _decode_report(
+            call, ms, bound,
+            k5.launch_info(g["n_layers"], b, g["s"], g["e"], g["h"], g["kv"],
+                           g["f"], w8, int8),
+            "llama_decode_step", split=w8 and (b == 160 or b == 8))
         plain_ms = _time_ms(lambda: run(k5.fused_llama_decode_blocks_ref,
                                         kc_r, vc_r, length), iters=3)
         exact = (_k5_int8_exact(g["n_layers"], b, g["s"], g["e"], g["h"],
@@ -1564,9 +1689,9 @@ def phase_k5(card: str) -> dict:
               f"x max | {row_note} | other rows untouched {untouched} | "
               f"3-step chain from length 7 rel err {chain:.3e} | two "
               f"launches bitwise equal {bitwise} | exact-row codes wrong "
-              f"{exact} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) | {card}",
-              flush=True)
+              f"{exact} | kernel {ms:.4f} ms a token, plain {plain_ms:.4f} "
+              f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+              f"{note} | {card}", flush=True)
         _check(torch.isfinite(xo).all(), f"K5 {shape} {mode} not finite")
         _check(err_x <= K5_TOL * scale and chain <= K5_TOL,
                f"K5 {shape} B={b} {mode} disagrees with its twin: x {err_x},"
@@ -1577,7 +1702,8 @@ def phase_k5(card: str) -> dict:
         _check(exact in (None, {"kernel": 0, "twin": 0}),
                f"K5 {shape} {mode} exact-row codes: {exact}")
         results[(shape, b, w8, int8)] = {"max_abs_err": err_x, "ms": ms,
-                                         "plain_ms": plain_ms, **bound}
+                                         "plain_ms": plain_ms,
+                                         "launch": launch, **bound}
         del x, st, kc, vc, kc_k, vc_k, kc_a, vc_a, kc_r, vc_r
     return results
 
@@ -1680,6 +1806,8 @@ def phase_franky_llama(card: str, model) -> dict:
     staged = list(zip(*(stages() for _ in range(TIMING_REPEATS))))
     encode_ms, decode_ms, rescore_ms = (_spread(s) for s in staged)
     request_ms = _spread(_time_each_ms(lambda: predict(xs)))
+    _profile_request(lambda: predict(xs), 11, "FrankyLlama B=32 beams of 5, "
+                     "int8 KV, w8a16, rescored", "K5", card)
     topk_ms = _spread(_time_each_ms(lambda: topk(xs)))
     fmt = lambda s: f"{s[0]:.1f} [{s[1]:.1f}, {s[2]:.1f}]"
     print(f"phase 11 FrankyLlama: {enc.window_size}x{enc.n_electrodes} "

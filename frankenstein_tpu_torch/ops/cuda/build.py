@@ -114,26 +114,33 @@ def _declare(lib) -> None:
         [i] * 3 + [ctypes.POINTER(i)] * 2)   # mode pass D, regs ctas
     lib.fk_flash_attention_occupancy.restype = i
     lib.fk_fused_decode_blocks.argtypes = (
-        [p] * 6                     # x_in, x_out, x_res, h, hh, workspace
+        [p] * 5                     # x_in, x_out, workspace, barrier, stamps
         + [p] * 16                  # 12 weight arrays + 4 scales
         + [p] * 4                   # k_cache, v_cache, k_scale, v_scale
         + [i] * 8                   # L, B, S, E, H, length, w_int8, kv_int8
+        + [i] * 4                   # ctas_per_sm, ring, items, n_chunk
         + [p])                      # stream
     lib.fk_fused_decode_blocks.restype = i
-    lib.fk_fused_decode_workspace_bytes.argtypes = [i, i]
+    lib.fk_fused_decode_workspace_bytes.argtypes = [i] * 8
     lib.fk_fused_decode_workspace_bytes.restype = ctypes.c_longlong
+    lib.fk_fused_decode_info.argtypes = [i] * 11 + [ctypes.POINTER(i)]
+    lib.fk_fused_decode_info.restype = i
     lib.fk_fused_llama_decode_blocks.argtypes = (
-        [p] * 6                     # x_in, x_out, x_res, h, act, workspace
+        [p] * 5                     # x_in, x_out, workspace, barrier, stamps
         + [p] * 4                   # cos, sin, norm1_w, norm2_w
         + [p] * 14                  # 7 weight arrays + 7 scales
         + [p] * 4                   # k_cache, v_cache, k_scale, v_scale
         + [i] * 8                   # L, B, S, E, H, KV, F, length
-        + [f, i, i, p])             # eps, w_int8, kv_int8, stream
+        + [f, i, i]                 # eps, w_int8, kv_int8
+        + [i] * 4                   # ctas_per_sm, ring, items, n_chunk
+        + [p])                      # stream
     lib.fk_fused_llama_decode_blocks.restype = i
-    lib.fk_fused_llama_decode_workspace_bytes.argtypes = [i] * 4
+    lib.fk_fused_llama_decode_workspace_bytes.argtypes = [i] * 10
     lib.fk_fused_llama_decode_workspace_bytes.restype = ctypes.c_longlong
     lib.fk_fused_llama_decode_smem_bytes.argtypes = [i] * 4
     lib.fk_fused_llama_decode_smem_bytes.restype = ctypes.c_longlong
+    lib.fk_fused_llama_decode_info.argtypes = [i] * 13 + [ctypes.POINTER(i)]
+    lib.fk_fused_llama_decode_info.restype = i
     lib.fk_beam_reorder.argtypes = (
         [p] * 3                     # k_cache, v_cache, parent_local
         + [i] * 4                   # L, groups, W, row bytes

@@ -1,21 +1,27 @@
 """K2: one GPT-2 token through all transformer blocks.
 
 Replaces ``frankenstein_tpu/ops/pallas/fused_decode.py:fused_decode_blocks``.
-The kernels are CUDA C++ in ``frankenstein_tpu_torch/csrc/fused_decode.cu``
-(a split-K decode product, finalize passes that apply the w8 scale, bias,
-GELU, residual and the next LayerNorm, and a per-(batch, head) cached
-attention); its source note says what bounds them on an H100 and how the
-design answers that.
+The kernel is CUDA C++ in ``frankenstein_tpu_torch/csrc/fused_decode.cu`` on
+the persistent decode step of ``csrc/decode_common.cuh`` (shared with K5):
+one cooperative launch a token runs all layers, its phases behind grid
+barriers, a producer warp a CTA streaming the weight tiles and cache rows by
+TMA, the products on wgmma with the batch rows as N; its source note says
+what bounds it on an H100 and how the design answers that.
 
-``fused_decode_blocks`` launches the kernels for CUDA tensors and runs the
+``fused_decode_blocks`` launches the kernel for CUDA tensors and runs the
 plain PyTorch twin ``fused_decode_blocks_ref`` for CPU tensors, never one in
 place of the other. Modes: bf16 weights, or int8 w8a16 weights
 (``quantize_weights``), each with a bf16 cache or an int8 cache with fixed
 per-(layer, lane) f32 scales (``quantize_cache_side``): the k-scale folds
 into q, the v-scale multiplies the AV sum, the token's own K/V terms stay
 float, and the new row is requantized in the kernel. ``supported`` says
-which inputs the kernels take; ``models/gpt2.py:GPT.decode_step`` consults
+which inputs the kernel takes; ``models/gpt2.py:GPT.decode_step`` consults
 it and runs the module blocks where it says no.
+
+``TUNING`` holds the launch knobs of both decode kernels (K2 and K5), read
+on every call: CTAs an SM, ring slots, the work-item target that sets each
+product's depth splits, and the N chunk (batch rows a product takes at
+once). ``tools/decode_sweep.py`` holds them against their neighbours.
 """
 
 from __future__ import annotations
@@ -30,6 +36,16 @@ from frankenstein_tpu_torch.ops.cuda import build
 launches = 0          # wrapper calls that ran the CUDA kernels (one per
                       # token step), in either cache mode
 launches_int8_kv = 0  # the same, counting only the int8-KV mode
+
+# the production setting, from tools/decode_sweep.py on an H100 (PERF.md)
+TUNING = {"ctas_per_sm": 2, "ring": 3, "items": 264, "n_chunk": 32}
+STAMPS = None   # None, or a CUDA int64 tensor of at least [grid,
+                # STAMP_SLOTS] that each call fills with every CTA's ns in
+                # STAMP_NAMES (chip_smoke.py's phase split)
+STAMP_SLOTS = 8   # STAMPS of csrc/decode_common.cuh
+STAMP_NAMES = ("products", "attention", "rows_act", "barrier_wait",
+               "attention_qkv", "attention_scores", "attention_softmax_av",
+               "attention_out")
 
 WEIGHT_KEYS = ("qkv_w", "proj_w", "fc_w", "fc2_w")
 SCALE_KEYS = ("qkv_s", "proj_s", "fc_s", "fc2_s")
@@ -231,6 +247,76 @@ def _check(x, stacked, k_cache, v_cache, length: int, n_head: int,
                              f"{tuple(a.shape)} on {a.device}")
 
 
+def knob_values() -> tuple:
+    """TUNING as the C entry points take it: (CTAs an SM, ring slots, work
+    items, N chunk)."""
+    return (int(TUNING["ctas_per_sm"]), int(TUNING["ring"]),
+            int(TUNING["items"]), int(TUNING["n_chunk"]))
+
+
+def scratch(nbytes: int, dev) -> torch.Tensor:
+    """The kernel's workspace of ``nbytes`` (-1: knobs it does not take)."""
+    if nbytes < 0:
+        raise ValueError(f"decode knobs {TUNING}: need 1-4 CTAs an SM, a "
+                         "ring of 1-16 slots, at least one item and an N "
+                         "chunk of 8, 16 or 32")
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+_barriers = {}
+
+
+def barrier(dev) -> torch.Tensor:
+    """The grid barrier of the decode kernels on ``dev``'s current stream:
+    64 int32 (an arrival count, and a generation on its own 128-byte
+    line), zeroed once and left ready by every launch, so a call is one
+    device operation. One a stream: two streams never share one."""
+    stream = torch.cuda.current_stream(dev)
+    key = (stream.device, stream.cuda_stream)
+    if key not in _barriers:
+        _barriers[key] = torch.zeros(64, dtype=torch.int32, device=dev)
+    return _barriers[key]
+
+
+def stamps_ptr(dev):
+    """STAMPS' pointer, or None when the phase split is not asked for."""
+    if STAMPS is None:
+        return None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if (STAMPS.dtype != torch.int64 or STAMPS.device != dev
+            or STAMPS.numel() < STAMP_SLOTS * sms * knob_values()[0]):
+        raise ValueError(f"STAMPS: need int64 [{sms * knob_values()[0]}, "
+                         f"{STAMP_SLOTS}] "
+                         f"on {dev}")
+    return STAMPS.data_ptr()
+
+
+INFO_KEYS = ("grid", "registers", "ctas_per_sm", "smem_bytes", "ring",
+             "scores_in_smem", "local_bytes", "splits", "fold_act")
+
+
+def info_dict(out) -> dict:
+    """The twelve ints of an ``fk_*_decode_info`` call as a dict."""
+    vals = list(out)
+    return dict(zip(INFO_KEYS, vals[:7] + [vals[7:11], vals[11]]))
+
+
+def launch_info(n_layer: int, b: int, s: int, e: int, n_head: int, w8: bool,
+                int8: bool) -> dict:
+    """How K2 launches for these shapes under TUNING: grid, registers a
+    thread, resident CTAs an SM, dynamic shared bytes, ring slots, whether
+    the scores sit in shared memory, local (spill) bytes a thread and the
+    four products' depth splits, and whether the fc product's epilogue
+    applies GELU (else an act phase does)."""
+    import ctypes
+    out = (ctypes.c_int * 12)()
+    k = knob_values()
+    rc = build.library().fk_fused_decode_info(
+        n_layer, b, s, e, n_head, int(w8), int(int8), *k, out)
+    build.check(rc, "fused_decode_info")
+    return info_dict(out)
+
+
 def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
                         k_scale=None, v_scale=None, *, n_head: int):
     """Run all transformer blocks for ONE token position.
@@ -259,17 +345,15 @@ def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
     w8 = stacked["qkv_w"].dtype == torch.int8
     dev = x.device
     lib = build.library()
+    knobs = knob_values()
     x_out = torch.empty_like(x)
-    x_res = torch.empty(b, e, dtype=torch.float32, device=dev)
-    hbuf = torch.empty(b, e, dtype=torch.bfloat16, device=dev)
-    hh = torch.empty(b, 4 * e, dtype=torch.bfloat16, device=dev)
-    workspace = torch.empty(lib.fk_fused_decode_workspace_bytes(b, e) // 4,
-                            dtype=torch.float32, device=dev)
+    workspace = scratch(lib.fk_fused_decode_workspace_bytes(
+        n_layer, b, s, e, n_head, knobs[2], knobs[3], knobs[0]), dev)
     p = lambda key: stacked[key].data_ptr()
     scales = [p(k) if w8 else None for k in SCALE_KEYS]
     rc = lib.fk_fused_decode_blocks(
-        x.data_ptr(), x_out.data_ptr(), x_res.data_ptr(), hbuf.data_ptr(),
-        hh.data_ptr(), workspace.data_ptr(),
+        x.data_ptr(), x_out.data_ptr(), workspace.data_ptr(),
+        barrier(dev).data_ptr(), stamps_ptr(dev),
         p("ln1_w"), p("ln1_b"), p("qkv_w"), p("qkv_b"), p("proj_w"),
         p("proj_b"), p("ln2_w"), p("ln2_b"), p("fc_w"), p("fc_b"),
         p("fc2_w"), p("fc2_b"), *scales,
@@ -277,6 +361,7 @@ def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         n_layer, b, s, e, n_head, length, int(w8), int(quant),
+        knobs[0], knobs[1], knobs[2], knobs[3],
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "fused_decode_blocks")
     launches += 1

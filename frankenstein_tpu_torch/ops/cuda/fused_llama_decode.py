@@ -6,8 +6,10 @@ pipelined ``_fused_llama_decode_pipelined`` and the big-model
 ``_fused_llama_decode_bigmodel``. Those are three TPU schedules of one
 computation, chosen by VMEM budget; here one CUDA C++ kernel family
 (``frankenstein_tpu_torch/csrc/fused_llama_decode.cu``) takes every
-geometry, with no VMEM gate and no ``FK_LLAMA_*`` switch. Its source note
-says what bounds it on an H100 and how the design answers that.
+geometry, with no VMEM gate and no ``FK_LLAMA_*`` switch: K2's persistent
+decode step (``csrc/decode_common.cuh``), one cooperative launch a token,
+with K2's launch knobs (``fused_decode.TUNING``). Its source note says what
+bounds it on an H100 and how the design answers that.
 
 Per layer: f32 RMSNorm -> q, k, v products -> RoPE on the new q row (width
 E) and k row (width E_kv) with the folded cos/sin rows of position
@@ -37,6 +39,7 @@ from typing import Optional
 import torch
 
 from frankenstein_tpu_torch.ops.cuda import build
+from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
 
 launches = 0          # wrapper calls that ran the CUDA kernels (one per
                       # token step), in either cache mode
@@ -45,7 +48,7 @@ launches_int8_kv = 0  # the same, counting only the int8-KV mode
 WEIGHT_KEYS = ("wq", "wk", "wv", "wo", "wg", "wu", "wd")
 MAX_HEAD_DIM = 128
 MAX_SMEM = 227 * 1024      # shared memory one H100 block may opt in to
-ATTN_ROWS = 64             # cache rows staged at a time (decode_common.cuh)
+ATTN_ROWS = 64             # cache rows of an attention tile (decode_common.cuh)
 
 
 def quantize_weights(stacked: dict) -> dict:
@@ -183,10 +186,10 @@ def _need(name: str, a, dtype, shape, dev) -> None:
 
 
 def attention_smem_bytes(d: int, r: int, s: int, cache_bytes: int) -> int:
-    """Shared memory of the attention kernel for head_dim ``d``, ``r`` query
-    heads per KV head and a cache of ``s`` rows of ``cache_bytes``-byte
-    values: ``llama_attention_smem_bytes`` of ``csrc/fused_llama_decode.cu``,
-    which ``_check`` asks the library for."""
+    """The attention working set of one (batch row, KV head) item for
+    head_dim ``d``, ``r`` query heads per KV head and a cache of ``s`` rows
+    of ``cache_bytes``-byte values: ``fk_fused_llama_decode_smem_bytes`` of
+    ``csrc/fused_llama_decode.cu``, which ``_check`` asks the library for."""
     return ((3 * r * d + 2 * d + r * s + 2 * r + 3) & ~3) * 4 \
         + ATTN_ROWS * d * cache_bytes
 
@@ -268,6 +271,19 @@ def _check(x, stacked, k_cache, v_cache, length: int, cos_row, sin_row,
               (n_layers, e), dev)
 
 
+def launch_info(n_layers: int, b: int, s: int, e: int, n_heads: int,
+                n_kv_heads: int, f: int, w8: bool, int8: bool) -> dict:
+    """How K5 launches for these shapes under ``fused_decode.TUNING``
+    (``fused_decode.launch_info``'s keys)."""
+    import ctypes
+    out = (ctypes.c_int * 12)()
+    rc = build.library().fk_fused_llama_decode_info(
+        n_layers, b, s, e, n_heads, n_kv_heads, f, int(w8), int(int8),
+        *k2.knob_values(), out)
+    build.check(rc, "fused_llama_decode_info")
+    return k2.info_dict(out)
+
+
 def fused_llama_decode_blocks(x, stacked, k_cache, v_cache, length: int,
                               cos_row, sin_row, k_scale=None, v_scale=None,
                               *, n_heads: int, n_kv_heads: int, eps: float):
@@ -304,25 +320,24 @@ def fused_llama_decode_blocks(x, stacked, k_cache, v_cache, length: int,
     w8 = stacked["wq"].dtype == torch.int8
     dev = x.device
     lib = build.library()
+    knobs = k2.knob_values()
     x_out = torch.empty_like(x)
-    x_res = torch.empty(b, e, dtype=torch.float32, device=dev)
-    hbuf = torch.empty(b, e, dtype=torch.bfloat16, device=dev)
-    act = torch.empty(b, f, dtype=torch.bfloat16, device=dev)
-    workspace = torch.empty(
-        lib.fk_fused_llama_decode_workspace_bytes(b, e, e_kv, f) // 4,
-        dtype=torch.float32, device=dev)
+    workspace = k2.scratch(lib.fk_fused_llama_decode_workspace_bytes(
+        n_layers, b, s, e, n_heads, n_kv_heads, f, knobs[2], knobs[3],
+        knobs[0]), dev)
     p = lambda key: stacked[key].data_ptr()
     scales = [p(key + "_s") if w8 else None for key in WEIGHT_KEYS]
     rc = lib.fk_fused_llama_decode_blocks(
-        x.data_ptr(), x_out.data_ptr(), x_res.data_ptr(), hbuf.data_ptr(),
-        act.data_ptr(), workspace.data_ptr(), cos_row.data_ptr(),
+        x.data_ptr(), x_out.data_ptr(), workspace.data_ptr(),
+        k2.barrier(dev).data_ptr(), k2.stamps_ptr(dev), cos_row.data_ptr(),
         sin_row.data_ptr(), p("norm1_w"), p("norm2_w"),
         *[p(key) for key in WEIGHT_KEYS], *scales,
         k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if quant else None,
         v_scale.data_ptr() if quant else None,
         n_layers, b, s, e, n_heads, n_kv_heads, f, length, float(eps),
-        int(w8), int(quant), torch.cuda.current_stream(dev).cuda_stream)
+        int(w8), int(quant), *knobs,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(rc, "fused_llama_decode_blocks")
     launches += 1
     launches_int8_kv += int(quant)

@@ -1,5 +1,6 @@
-"""Kernels K1, K2 (bf16 and int8 KV caches), K3, K4, K5 (bf16 and int8
-KV caches, one to four query heads per KV head), K6 / K7 (the three mask
+"""Kernels K1, K2 (bf16 and int8 KV caches, its launch knobs, a cache too
+long for shared-memory scores), K3, K4, K5 (bf16 and int8 KV caches, one
+to four query heads per KV head, the 1B-class width), K6 / K7 (the three mask
 modes of flash attention, forward and backward), K8 (the fused head and
 top-k, ragged vocab, ties), K9 (the fused pre-norm SwiGLU MLP, both norms)
 and K10 (int8 QK scores: K codes, scales, out and lse), and the probe modes
@@ -302,9 +303,29 @@ def _k2_weights(gen, dev, n_layer, e, w8):
     return k2.quantize_weights(st) if w8 else st
 
 
+def _k2_twice(x, st, kc, vc, length, ks=None, vs=None, *, n_head):
+    """Two launches on copies of the caches: their outputs, bitwise equal,
+    and the launch count they added (asserted 2)."""
+    before = k2.launches
+    outs = []
+    for _ in range(2):
+        kc_k, vc_k = kc.clone(), vc.clone()
+        xo, _, _ = k2.fused_decode_blocks(x, st, kc_k, vc_k, length, ks, vs,
+                                          n_head=n_head)
+        outs.append((xo, kc_k, vc_k))
+    torch.cuda.synchronize()
+    assert k2.launches == before + 2
+    assert all(torch.equal(a, c) for a, c in zip(*outs))
+    return outs[0]
+
+
 @pytest.mark.parametrize("w8", [False, True])
-@pytest.mark.parametrize("b,length", [(8, 5), (40, 0), (3, 15)])
+@pytest.mark.parametrize("b,length", [(8, 5), (40, 0), (3, 15), (300, 9),
+                                      (13, 2)])
 def test_k2_matches_twin(dev, w8, b, length):
+    """x and the new rows within K2's tolerance, every other row untouched,
+    two launches bitwise equal; batches that pad the wgmma N (3, 13), fill
+    several N chunks (300) and leave the cache empty (length 0)."""
     n_layer, h, e, s = 2, 4, 128, 16
     gen = torch.Generator(device=dev).manual_seed(b + length)
     st = _k2_weights(gen, dev, n_layer, e, w8)
@@ -312,10 +333,8 @@ def test_k2_matches_twin(dev, w8, b, length):
     kc = rnd(n_layer, b, s, e).to(torch.bfloat16)
     vc = rnd(n_layer, b, s, e).to(torch.bfloat16)
     x = rnd(b, e).to(torch.bfloat16)
-    kc_k, vc_k, kc_r, vc_r = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-    before = k2.launches
-    xo, _, _ = k2.fused_decode_blocks(x, st, kc_k, vc_k, length, n_head=h)
-    assert k2.launches == before + 1
+    kc_r, vc_r = kc.clone(), vc.clone()
+    xo, kc_k, vc_k = _k2_twice(x, st, kc, vc, length, n_head=h)
     xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc_r, vc_r, length,
                                           n_head=h)
     scale = float(xr.float().abs().max())
@@ -329,12 +348,13 @@ def test_k2_matches_twin(dev, w8, b, length):
 
 
 @pytest.mark.parametrize("w8", [False, True])
-@pytest.mark.parametrize("b,length", [(8, 5), (40, 0), (3, 15)])
+@pytest.mark.parametrize("b,length", [(8, 5), (40, 0), (3, 15), (300, 9)])
 def test_k2_int8_kv_matches_twin(dev, w8, b, length):
     """int8 caches: x within K2's tolerance; the codes written at ``length``
     within one code of the twin's (the twin's f32 K/V differ from the
     kernel's in summation order, so a value near a .5 boundary may round
-    the other way); every other row untouched."""
+    the other way); every other row untouched; two launches bitwise
+    equal."""
     n_layer, h, e, s = 2, 2, 128, 16
     gen = torch.Generator(device=dev).manual_seed(100 + b + length)
     st = _k2_weights(gen, dev, n_layer, e, w8)
@@ -342,11 +362,8 @@ def test_k2_int8_kv_matches_twin(dev, w8, b, length):
     kc, ks = k2.quantize_cache_side(rnd(n_layer, b, s, e))
     vc, vs = k2.quantize_cache_side(rnd(n_layer, b, s, e))
     x = rnd(b, e).to(torch.bfloat16)
-    kc_k, vc_k, kc_r, vc_r = kc.clone(), vc.clone(), kc.clone(), vc.clone()
-    before = k2.launches
-    xo, _, _ = k2.fused_decode_blocks(x, st, kc_k, vc_k, length, ks, vs,
-                                      n_head=h)
-    assert k2.launches == before + 1
+    kc_r, vc_r = kc.clone(), vc.clone()
+    xo, kc_k, vc_k = _k2_twice(x, st, kc, vc, length, ks, vs, n_head=h)
     xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc_r, vc_r, length, ks, vs,
                                           n_head=h)
     assert _err(xo, xr) <= 2e-2 * float(xr.float().abs().max())
@@ -355,6 +372,101 @@ def test_k2_int8_kv_matches_twin(dev, w8, b, length):
     others = [r for r in range(s) if r != length]
     assert torch.equal(kc_k[:, :, others], kc[:, :, others])
     assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("b,int8", [(160, True), (8, False)])
+def test_k2_full_width_matches_twin(dev, w8, b, int8):
+    """GPT-2 124M's width (E=768, 12 heads, S=64) at two layers, as the beam
+    path (B*W=160, int8 KV) and the B=8 request (bf16 KV) run it: x within
+    K2's tolerance, new rows within it (bf16) or one code (int8), other
+    rows untouched, two launches bitwise equal."""
+    n_layer, h, e, s, length = 2, 12, 768, 64, 33
+    gen = torch.Generator(device=dev).manual_seed(200 + b)
+    st = _k2_weights(gen, dev, n_layer, e, w8)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    if int8:
+        kc, ks = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+        vc, vs = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+    else:
+        kc, vc = (rnd(n_layer, b, s, e).to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    x = rnd(b, e).to(torch.bfloat16)
+    kc_r, vc_r = kc.clone(), vc.clone()
+    xo, kc_k, vc_k = _k2_twice(x, st, kc, vc, length, ks, vs, n_head=h)
+    xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc_r, vc_r, length, ks, vs,
+                                          n_head=h)
+    assert _err(xo, xr) <= 2e-2 * float(xr.float().abs().max())
+    for got, want in ((kc_k, kc_r), (vc_k, vc_r)):
+        row = want[:, :, length]
+        tol = 1 if int8 else 2e-2 * float(row.float().abs().max())
+        assert _err(got[:, :, length], row) <= tol
+    others = [r for r in range(s) if r != length]
+    assert torch.equal(kc_k[:, :, others], kc[:, :, others])
+    assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("knobs", [dict(n_chunk=16), dict(n_chunk=8),
+                                   dict(ring=1), dict(items=528),
+                                   dict(items=1), dict(ctas_per_sm=1)])
+def test_k2_knobs_keep_the_result(dev, monkeypatch, knobs):
+    """Other launch knobs (N chunks of 16 and 8 rows, the smallest ring,
+    more and fewer depth splits, one CTA an SM) move the schedule, not the
+    math: x within
+    K2's tolerance of the twin, two launches bitwise equal."""
+    monkeypatch.setattr(k2, "TUNING", dict(k2.TUNING, **knobs))
+    n_layer, h, e, s, b, length = 2, 4, 256, 16, 40, 7
+    gen = torch.Generator(device=dev).manual_seed(7)
+    st = _k2_weights(gen, dev, n_layer, e, True)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    kc, ks = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+    vc, vs = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+    x = rnd(b, e).to(torch.bfloat16)
+    xo, _, _ = _k2_twice(x, st, kc, vc, length, ks, vs, n_head=h)
+    xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc.clone(), vc.clone(),
+                                          length, ks, vs, n_head=h)
+    assert _err(xo, xr) <= 2e-2 * float(xr.float().abs().max())
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_k2_long_cache_keeps_the_scores_in_global_memory(dev, int8):
+    """A cache whose score rows do not fit in shared memory beside the
+    smallest ring (S=12000 at head_dim 64): the scores go to the global
+    workspace, and x and the new rows still hold to the twin."""
+    n_layer, h, e, s, b, length = 1, 2, 128, 12000, 2, 11000
+    assert k2.launch_info(n_layer, b, s, e, h, False, int8)[
+        "scores_in_smem"] == 0
+    gen = torch.Generator(device=dev).manual_seed(12)
+    st = _k2_weights(gen, dev, n_layer, e, False)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    if int8:
+        kc, ks = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+        vc, vs = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+    else:
+        kc, vc = (rnd(n_layer, b, s, e).to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    x = rnd(b, e).to(torch.bfloat16)
+    kc_r, vc_r = kc.clone(), vc.clone()
+    xo, kc_k, vc_k = _k2_twice(x, st, kc, vc, length, ks, vs, n_head=h)
+    xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc_r, vc_r, length, ks, vs,
+                                          n_head=h)
+    assert _err(xo, xr) <= 2e-2 * float(xr.float().abs().max())
+    for got, want in ((kc_k, kc_r), (vc_k, vc_r)):
+        row = want[:, :, length]
+        tol = 1 if int8 else 2e-2 * float(row.float().abs().max())
+        assert _err(got[:, :, length], row) <= tol
+
+
+def test_k2_launch_info(dev):
+    """The launch the kernel reports: a cooperative grid of whole SMs, a
+    ring, the depth splits of the planner (every
+    product's splits divide its K / 128 stages)."""
+    info = k2.launch_info(12, 160, 64, 768, 12, True, True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert info["grid"] % sms == 0 and info["grid"] >= sms
+    assert info["ring"] >= 1 and info["ctas_per_sm"] >= 1
+    for n, k in zip(info["splits"], (768, 768, 768, 3072)):
+        assert (k // 128) % n == 0
 
 
 @pytest.mark.parametrize("w8", [False, True])
@@ -495,6 +607,69 @@ def test_k5_matches_twin(dev, w8, int8, b, length, e, h, kv):
     others = [r for r in range(s) if r != length]
     assert torch.equal(kc_k[:, :, others], kc[:, :, others])
     assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("w8,int8", [(False, False), (True, False),
+                                     (False, True), (True, True)])
+def test_k5_1b_width_matches_twin(dev, w8, int8):
+    """The 1B-class width (E=2048, 16 heads on 8 KV heads, F=5632) at two
+    layers, B=8: x within K5_TOL, new rows within it (bf16) or one code
+    (int8), other rows untouched, two launches bitwise equal."""
+    n_layers, b, s, e, h, kv, f, length = 2, 8, 48, 2048, 16, 8, 5632, 40
+    x, st, kc, vc, ks, vs = _k5_case(dev, 11, n_layers, b, s, e, h, kv, f,
+                                     w8, int8)
+    cos_e, sin_e = rope.folded_tables(rope.build_rope_cache(e // h, s,
+                                                            device=dev), h)
+    cos, sin = cos_e[length:length + 1], sin_e[length:length + 1]
+    kw = dict(n_heads=h, n_kv_heads=kv, eps=1e-5)
+    outs = []
+    for _ in range(2):
+        kc_k, vc_k = kc.clone(), vc.clone()
+        xo, _, _ = k5.fused_llama_decode_blocks(x, st, kc_k, vc_k, length,
+                                                cos, sin, ks, vs, **kw)
+        outs.append((xo, kc_k, vc_k))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*outs))
+    xo, kc_k, vc_k = outs[0]
+    kc_r, vc_r = kc.clone(), vc.clone()
+    xr, _, _ = k5.fused_llama_decode_blocks_ref(x, st, kc_r, vc_r, length,
+                                                cos, sin, ks, vs, **kw)
+    assert _err(xo, xr) <= K5_TOL * float(xr.float().abs().max())
+    for got, want in ((kc_k, kc_r), (vc_k, vc_r)):
+        row = want[:, :, length]
+        tol = 1 if int8 else K5_TOL * float(row.float().abs().max())
+        assert _err(got[:, :, length], row) <= tol
+    others = [r for r in range(s) if r != length]
+    assert torch.equal(kc_k[:, :, others], kc[:, :, others])
+    assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("items", [8, 1056])
+def test_k5_both_act_paths_match_twin(dev, monkeypatch, w8, items):
+    """The gate|up product folds SwiGLU into its epilogue (a small item
+    target: each item takes a gate and an up tile) or splits its depth and
+    leaves SwiGLU to an act phase (a large one); both hold x to K5_TOL and
+    two launches bitwise."""
+    monkeypatch.setattr(k2, "TUNING", dict(k2.TUNING, items=items))
+    n_layers, b, s, e, h, kv, f, length = 2, 40, 16, 256, 4, 2, 512, 9
+    x, st, kc, vc, ks, vs = _k5_case(dev, 17, n_layers, b, s, e, h, kv, f,
+                                     w8, True)
+    assert k5.launch_info(n_layers, b, s, e, h, kv, f, w8, True)[
+        "fold_act"] == int(items == 8)
+    cos_e, sin_e = rope.folded_tables(rope.build_rope_cache(e // h, s,
+                                                            device=dev), h)
+    cos, sin = cos_e[length:length + 1], sin_e[length:length + 1]
+    kw = dict(n_heads=h, n_kv_heads=kv, eps=1e-5)
+    outs = [k5.fused_llama_decode_blocks(x, st, kc.clone(), vc.clone(),
+                                         length, cos, sin, ks, vs, **kw)[0]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+    xr, _, _ = k5.fused_llama_decode_blocks_ref(x, st, kc.clone(), vc.clone(),
+                                                length, cos, sin, ks, vs,
+                                                **kw)
+    assert _err(outs[0], xr) <= K5_TOL * float(xr.float().abs().max())
 
 
 def test_k5_refuses_what_it_does_not_take(dev):
