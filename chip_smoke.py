@@ -110,12 +110,14 @@ nvcc (sm_90a) and then, one line per phase:
     encoder equal to the MAE checkpoint's bitwise before the first step;
     last, a torch.profiler split of the MAE's and the grafted Franky's B=32
     step by kernel family;
-14. kernel K9 (the fused pre-norm SwiGLU MLP) against its twin, LayerNorm
-    and RMSNorm, at the flagship encoder's shape (B=2, T=6144, E=256,
-    hidden 1024) and the Perceiver's (B=128, T=32, hidden 512): out and the
-    update out - x, two launches bitwise equal, the kernel's, the twin's
-    and the eager module chain's times (no one library call computes the
-    function), and the three at B=32;
+14. kernel K9 (the fused pre-norm SwiGLU MLP, wgmma products on weights
+    streamed by TMA) against its twin, LayerNorm and RMSNorm, at the
+    flagship encoder's shape (T=6144, E=256, hidden 1024) at B=2, 32 and
+    128 (its one- and two-warpgroup instances) and the Perceiver's (B=128,
+    T=32, hidden 512): out and the update out - x, two launches bitwise
+    equal, the kernel's, the twin's and the eager module chain's times (no
+    one library call computes the function), the kernel's issued TFLOP/s,
+    registers and CTAs an SM;
 15. the routes the kernels do not take, through the train CLI at B=1: one
     ``--no-bf16`` step of Franky and of the MAE (f32: no kernel launches,
     plain attention at T=6144, the MLPs' module chain) and one bf16 step of
@@ -127,13 +129,17 @@ nvcc (sm_90a) and then, one line per phase:
     only at a near-tie), two launches bitwise equal, a forced tie, the
     kernel's, the twin's and the eager chain's times, and the port's dense
     route at B=128;
-17. kernel K10 (K1 with int8 QK scores) against its twin and against K1
-    at the flagship encoder shape (B=2, T=6144, H=8, D=32, P=256): K codes
+17. kernel K10 (K1's forward with int8 QK scores: a K pre-pass, a Q
+    pre-pass, an int8-wgmma forward) against its twin and against K1 at
+    the flagship encoder shape (B=2, T=6144, H=8, D=32, P=256): K codes
     and scales, out (relative to max |twin|) and lse, the same check failed
     by K1's output and by a K10 that reads chunk 0's K scale for every
     tile, the drift of out from K1's, K10 + K4 gradients against the
     twins' chain, two launches bitwise equal, K10's and K1's times in
-    turns, K10's kernel and K pre-pass alone, and both at B=32;
+    turns, K10 without its K pre-pass and the K pre-pass alone, both back
+    to back at B=2, 32 and 128 beside K10's exp floor and issued TOP/s,
+    the B=32 call split by kernel (torch.profiler), and each K10 kernel's
+    registers and CTAs an SM;
 18. the flagship served with bf16 block weights through
     ``make_franky_predictor(top_k=10)`` at B=128 and B=8 with
     ``sampling.COMPACT_TOPK`` and ``qk_int8`` on (K8 = 25 and K10 = 4 per
@@ -145,11 +151,13 @@ nvcc (sm_90a) and then, one line per phase:
     request timed in turns with each switch on and off (medians of 5 and
     their ranges, sentences/s at B=128), and one Franky training step at
     B=2 with ``qk_int8`` (K10 forward, K4 backward);
-19. the packed-attention probes (``ops/cuda/slab_probe.py``, modes of K1 /
-    K10's kernel on unrotated q, k): every mode at B=2, T=6144, H=8, D=32
-    against its twin (P=8 and P=256; the int8 modes at P=256), ``kernel``
-    and ``int8_full`` bitwise equal to K1 and K10 run with identity rope
-    tables, ``no_kbd`` finite, repeatable and unlike ``kernel``; then the
+19. the packed-attention probes (``ops/cuda/slab_probe.py``, modes of the
+    mma.sync kernel K1 and K10 ran before their wgmma redesigns, on
+    unrotated q, k): every mode at B=2, T=6144, H=8, D=32 against its twin
+    (P=8 and P=256; the int8 modes at P=256), K1 with identity rope tables
+    within K1_TOL of ``kernel``'s twin, K10 and ``int8_full`` within K10's
+    tolerances of K10's twin on those tables with bitwise equal K codes,
+    ``no_kbd`` finite, repeatable and unlike ``kernel``; then the
     two probe CLIs as a user runs them at B=128 (``attn_probe`` at P=8 and
     P=256, ``int8_attr_probe`` at P=256), one line per variant with its
     median time, its twin error at B=2, its bound and its issued TFLOP/s.
@@ -202,6 +210,7 @@ PROFILE_FAMILIES = [
     ("K6/K7 fwd", r"flash_attn_fwd"),
     ("K6/K7 bwd dq", r"flash_attn_bwd_dq"),
     ("K6/K7 bwd dk/dv", r"flash_attn_bwd_dkv"),
+    ("K10", r"slab_rope_attn_fwd_int8|rope_(absmax|quantize)_k"),
     ("K1", r"slab_rope_attn_fwd"),
     ("K4", r"slab_rope_attn_bwd"),
     ("K9", r"fused_norm_swiglu"),
@@ -2355,12 +2364,19 @@ def _k9_inputs(b: int, t: int, hidden: int, kind: str, gen):
 
 
 def phase_k9(card: str) -> dict:
+    """K9 in both norms against its twin at the encoder's shapes (B=2, 32
+    and 128: its one- and two-warpgroup instances) and the Perceiver's:
+    out and the update out - x within K9_TOL, two launches bitwise equal;
+    the kernel's, the twin's and the eager module chain's times, the
+    kernel's issued TFLOP/s, bound, registers and CTAs an SM."""
     import torch
     from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     results = {}
     for kind in ("layernorm", "rmsnorm"):
         for shape, b, t, hidden in (("encoder", 2, 6144, 1024),
+                                    ("encoder B=32", 32, 6144, 1024),
+                                    ("encoder B=128", 128, 6144, 1024),
                                     ("Perceiver", 128, 32, 512)):
             args = _k9_inputs(b, t, hidden, kind, gen)
             run = lambda: k9.fused_norm_swiglu(*args, kind=kind)
@@ -2373,46 +2389,38 @@ def phase_k9(card: str) -> dict:
             upd = ref.float() - args[0].float()
             upd_rel = (_max_err(out.float() - args[0].float(), upd)
                        / float(upd.abs().max()))
-            ms = _time_ms(run)
+            finite = bool(torch.isfinite(out).all())
+            del out, again, ref, upd
+            big = b * t > 2 * 6144
+            ms = _time_ms(run, iters=5 if big else 10)
             plain_ms = _time_ms(lambda: k9.fused_norm_swiglu_ref(
-                *args, kind=kind), iters=3)
-            chain_ms = _time_ms(lambda: k9.reference_chain(*args, kind=kind))
+                *args, kind=kind), iters=2 if big else 3, warmup=1)
+            chain_ms = _time_ms(lambda: k9.reference_chain(*args, kind=kind),
+                                iters=5 if big else 10)
             rows, e = b * t, args[0].shape[-1]
-            bound = _bound(4 * rows * e + _nbytes(*args[1:]),
-                           6 * rows * e * hidden)
+            ops = 6 * rows * e * hidden
+            bound = _bound(4 * rows * e + _nbytes(*args[1:]), ops)
+            regs, ctas = k9.occupancy(e, kind, rows=rows)
             print(f"phase 14 K9 fused_norm_swiglu {kind} {shape} B={b} T={t} "
                   f"E={e} hidden={hidden} bf16: out max_abs_err {err:.3e} "
                   f"(rel {rel:.3e}), update out - x rel err {upd_rel:.3e}, "
                   f"tol {K9_TOL} x max|twin|, two launches bitwise equal "
-                  f"{bitwise} | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"eager module chain {chain_ms:.4f} ms, bound "
-                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}) | "
-                  f"{card}", flush=True)
-            _check(bool(torch.isfinite(out).all()), f"K9 {kind} not finite")
-            _check(max(rel, upd_rel) <= K9_TOL,
+                  f"{bitwise} | kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} "
+                  f"TFLOP/s issued), plain {plain_ms:.4f} ms, eager module "
+                  f"chain {chain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+                  f"({bound['bound_by']}) | registers / CTAs an SM {regs} / "
+                  f"{ctas} | {card}", flush=True)
+            _check(finite, f"K9 {kind} {shape} not finite")
+            _check(rel <= K9_TOL and upd_rel <= K9_TOL,
                    f"K9 {kind} {shape} disagrees with its twin: {rel}, "
                    f"update {upd_rel}")
             _check(bitwise, f"K9 {kind} {shape} is not deterministic")
             results[(kind, shape)] = {"max_abs_err": err, "ms": ms,
                                       "plain_ms": plain_ms,
+                                      "chain_ms": chain_ms,
+                                      "occupancy": (regs, ctas),
                                       "library_ms": None, **bound}
-            del args, out, again, ref, upd
-        big = _k9_inputs(32, 6144, 1024, kind, gen)
-        ms_b32 = _time_ms(lambda: k9.fused_norm_swiglu(*big, kind=kind),
-                          iters=5)
-        chain_b32 = _time_ms(lambda: k9.reference_chain(*big, kind=kind),
-                             iters=5)
-        plain_b32 = _time_ms(lambda: k9.fused_norm_swiglu_ref(*big,
-                                                              kind=kind),
-                             iters=2, warmup=1)
-        rows = 32 * 6144
-        bound_b32 = _bound(4 * rows * 256 + _nbytes(*big[1:]),
-                           6 * rows * 256 * 1024)
-        print(f"phase 14 K9 fused_norm_swiglu {kind} encoder B=32: kernel "
-              f"{ms_b32:.3f} ms, plain {plain_b32:.3f} ms, eager module "
-              f"chain {chain_b32:.3f} ms, bound {bound_b32['bound_ms']:.4f} "
-              f"ms ({bound_b32['bound_by']}) | {card}", flush=True)
-        del big
+            del args
     return results
 
 
@@ -2657,11 +2665,29 @@ def phase_k10(card: str) -> dict:
     pairs = _slab_pairs(t, p)
     bound = _bound(_nbytes(q, k, v, cos, sin, out, lse),
                    2 * d * h * b * pairs, int8_ops=2 * d * h * b * pairs)
-    qb, kb, vb = act(32), act(32), act(32)
-    ms_b32 = _time_ms(lambda: k1.slab_rope_attention(
-        qb, kb, vb, cos, sin, qk_int8=True, **kw), iters=3)
-    k1_b32 = _time_ms(lambda: k1.slab_rope_attention(qb, kb, vb, cos, sin,
-                                                     **kw), iters=3)
+    # back to back at B=2, 32 and 128 beside K1, the exp floor and the
+    # issued rate; the B=32 call split by kernel
+    back = {2: (_time_ms(run), _time_ms(lambda: k1.slab_rope_attention(
+        q, k, v, cos, sin, **kw)))}
+    for bb in (32, 128):
+        qb, kb, vb = act(bb), act(bb), act(bb)
+        back[bb] = tuple(_time_ms(lambda on=on: k1.slab_rope_attention(
+            qb, kb, vb, cos, sin, qk_int8=on, **kw), iters=3)
+            for on in (True, False))
+        if bb == 32:
+            split = _by_kernel(
+                lambda: k1.slab_rope_attention(qb, kb, vb, cos, sin,
+                                               qk_int8=True, **kw),
+                r"(slab_rope_attn_fwd_int8_prep|slab_rope_attn_fwd_int8_wgmma"
+                r"|rope_absmax_k|rope_quantize_k)",
+                {"slab_rope_attn_fwd_int8_prep",
+                 "slab_rope_attn_fwd_int8_wgmma", "rope_absmax_k",
+                 "rope_quantize_k"})
+        del qb, kb, vb
+    ms_b32, k1_b32 = back[32]
+    floor = {bb: h * bb * pairs / EXP2_PER_S * 1e3 for bb in back}
+    occ = {(pas, pp): k1.fwd_int8_occupancy(pas, d, pp)
+           for pas in k1.FWD_PASSES for pp in (p, 96)}
     note = lambda sp: f"{sp[0]:.4f} ({sp[1]:.4f}-{sp[2]:.4f})"
     print(f"phase 17 K10 slab_rope_attention qk_int8 B={b} T={t} E={h * d} "
           f"H={h} P={p} bf16: K codes off the twin's {n_differ} ({n_off_tie}"
@@ -2678,10 +2704,20 @@ def phase_k10(card: str) -> dict:
           f"{K4_TOL}, launches K10 {through[0]} K4 {through[1]}), two "
           f"launches bitwise equal {bitwise} | in turns, medians (range) of "
           f"{TIMING_REPEATS}: K10 {note(spread[True])} ms, K1 "
-          f"{note(spread[False])} ms; K10's kernel alone {main_ms:.4f} ms, "
+          f"{note(spread[False])} ms; K10 without its K pre-pass "
+          f"{main_ms:.4f} ms, "
           f"K pre-pass alone {pre_ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) | B=32: "
-          f"K10 {ms_b32:.3f} ms, K1 {k1_b32:.3f} ms | {card}", flush=True)
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) | back to "
+          f"back, K10 / K1 ms, K10's exp floor and issued TOP/s: " +
+          ", ".join(f"B={bb} {k10_ms:.3f} / {k1_ms_:.3f} (floor "
+                    f"{floor[bb]:.4f}, {4 * d * h * bb * pairs / k10_ms / 1e9:.1f})"
+                    for bb, (k10_ms, k1_ms_) in back.items()) +
+          " | B=32 by kernel (torch.profiler, ms a call): " +
+          ", ".join(f"{name} {ms_:.3f}" for name, ms_ in split.items()) +
+          " | registers / CTAs an SM: " +
+          ", ".join(f"{pas} P={pp} {r} / {c}"
+                    for (pas, pp), (r, c) in occ.items()) +
+          f" | {card}", flush=True)
     _check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
            "K10 output not finite")
     _check(n_off_tie == 0 and scales_equal,
@@ -2697,6 +2733,7 @@ def phase_k10(card: str) -> dict:
     return {"max_abs_err": max(err[0] * top, err[1]), "ms": ms,
             "main_ms": main_ms, "pre_ms": pre_ms, "k1_ms": k1_ms,
             "plain_ms": plain_ms, "ms_b32": ms_b32, "k1_ms_b32": k1_b32,
+            "back": back, "floor": floor, "split": split, "occupancy": occ,
             "controls": controls, "library_ms": None, **bound}
 
 
@@ -2977,8 +3014,11 @@ def phase_probes(card: str) -> dict:
     twins = {}
     checks = _probe_checks(q, k, v, h, twins)
     # with identity rope tables K1 computes the ``kernel`` mode's function
-    # (held to its twin within K1_TOL: the mode is the mma.sync design K10
-    # keeps), and K10 is bitwise ``int8_full`` (the rotation left out)
+    # and K10 the ``int8_full`` mode's (the rotation left out): K1 is held
+    # to the mode's twin within K1_TOL, and K10 and ``int8_full`` to K10's
+    # twin on those tables within K10_OUT_TOL / K10_LSE_TOL (the modes are
+    # the mma.sync design both left); the K pre-pass they share gives
+    # bitwise equal codes and scales
     cos, sin = torch.ones(t, d, device=dev), torch.zeros(t, d, device=dev)
     identity = {}
     for p in (8, 256):
@@ -2988,13 +3028,26 @@ def phase_probes(card: str) -> dict:
         errs = [_max_err(g, w) for g, w in zip(got, twin)]
         identity[p] = {"K1 err": max(errs), "K1 ok": max(errs) <= K1_TOL}
         if p == 256:
-            a = sp.slab_attention_probe(q, k, v, variant="int8_full", **kw)
-            b_ = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True,
-                                        **kw)
-            identity[p]["K10 bitwise"] = (torch.equal(a[0], b_[0])
-                                          and torch.equal(a[1], b_[1]))
+            ref, ref_lse = k1.slab_rope_attention_int8_ref(q, k, v, cos, sin,
+                                                           **kw)
+            top = float(ref.abs().max())
+            for name, (o_, l_) in (
+                    ("int8_full", sp.slab_attention_probe(
+                        q, k, v, variant="int8_full", **kw)),
+                    ("K10", k1.slab_rope_attention(q, k, v, cos, sin,
+                                                   qk_int8=True, **kw))):
+                e_ = (_max_err(o_, ref) / top, _max_err(l_, ref_lse))
+                identity[p][f"{name} err"] = e_
+                identity[p][f"{name} ok"] = (e_[0] <= K10_OUT_TOL
+                                             and e_[1] <= K10_LSE_TOL)
+            codes = sp.probe_quantize_k(k, n_heads=h, variant="int8_full")
+            want = k1.rope_quantize_k(k, cos, sin, n_heads=h)
+            identity[p]["K codes bitwise"] = (
+                torch.equal(codes[0], want[0])
+                and torch.equal(codes[1], want[1]))
     _probe_checks_hold(checks, f"B={b}")
-    _check(all(r["K1 ok"] and r.get("K10 bitwise", True)
+    _check(all(r["K1 ok"] and r.get("int8_full ok", True)
+               and r.get("K10 ok", True) and r.get("K codes bitwise", True)
                for r in identity.values()),
            f"identity-table K1 / K10: {identity}")
 
@@ -3057,15 +3110,16 @@ def phase_probes(card: str) -> dict:
               f"{r['rope_ms']:.3f} ms, SDPA with the slab mask "
               f"{r['sdpa_ms']:.3f} ms, 4096^2 bf16 matmul "
               f"{r['matmul_tflops']:.1f} TFLOP/s; identity-table K1 against "
-              f"kernel's twin (tol {K1_TOL}) and K10 bitwise int8_full "
-              f"{identity[p]}; launches "
+              f"kernel's twin (tol {K1_TOL}), K10 and int8_full against "
+              f"K10's twin (tol {K10_OUT_TOL} / {K10_LSE_TOL}), their K "
+              f"codes bitwise: {identity[p]}; launches "
               f"{launches[0]} bf16, {launches[1]} int8 | {card}", flush=True)
     occ = {name: sp.occupancy(name) for name in sp.PROBE_VARIANTS
            if name not in ("bf16", "mask_last")}
     occ.update({"K1": k1.fwd_occupancy("fwd", d, 256),
-                "K10": sp.occupancy("int8_full", rope=True)})
-    print("phase 19 probe modes at D=32, registers a thread / resident CTAs "
-          "of 256 threads an SM: " + ", ".join(
+                "K10": k1.fwd_int8_occupancy("fwd", d, 256)})
+    print("phase 19 probe modes at D=32 (and production K1's and K10's "
+          "forwards), registers a thread / resident CTAs an SM: " + ", ".join(
               f"{name} {r}/{c}" for name, (r, c) in occ.items())
           + f" | {card}", flush=True)
     _probe_checks_hold(checks_b, f"B={PROBE_BATCH} (rows 0-{b - 1})")
@@ -3196,7 +3250,7 @@ def main() -> int:
          "launches": served["launches"][(128, True)]["K8"],
          **_entry(k8[128])},
         {"name": "slab_rope_attention_fwd_int8", "route": "cuda",
-         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention_int8.cu",
          "replaces": "frankenstein_tpu/ops/pallas/block_attention.py:1334 "
                      "(qk_int8)",
          "launches": served["launches"][(128, True)]["K10"],

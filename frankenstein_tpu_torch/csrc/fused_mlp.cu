@@ -1,4 +1,5 @@
-// K9: the fused pre-norm SwiGLU MLP sublayer, forward only:
+// K9: the fused pre-norm SwiGLU MLP sublayer, forward only, for Hopper
+// (sm_90a):
 //   out = x + w2 (silu(w1 h) * w3 h),  h = LayerNorm(x) or RMSNorm(x)
 //
 // Replaces frankenstein_tpu/ops/pallas/fused_mlp.py:_fused_call (kernel
@@ -14,80 +15,95 @@
 // Rounding points are the TPU kernel's: norm statistics in f32; h =
 // bf16(f32(bf16(normed)) * nw + nb); a = bf16(h w1^T) and b = bf16(h w3^T),
 // accumulated in f32; g = bf16(bf16(silu_f32(a)) * b); y = g w2^T in f32;
-// out = bf16(x + bf16(y)).
+// out = bf16(x + bf16(y)). One launch, no atomics on any value, a fixed
+// order of every sum: two launches are bitwise equal.
 //
 // What bounds it on an H100: 6 R E hidden operations against 4 R E bytes of
-// activations and 6 E hidden bytes of weights. At E = 256, hidden = 1024
-// that is about 1500 operations a byte, far above the card's ~295, so the
-// tensor cores bound it. The eager chain it replaces writes the [R, hidden]
-// activations to device memory and reads them back several times; here
-// they never leave the SM:
-//   * one CTA of 8 warps per 128-row tile, each warp owning 16 rows;
-//   * the prologue normalises the tile (one row per warp step, statistics
-//     by warp shuffles) into shared memory as bf16 h;
-//   * the hidden dimension is walked in chunks of 32 columns: the chunk's
-//     w1 and w3 rows and w2 columns stream into shared memory with cp.async
-//     while the previous chunk computes (two stages);
-//   * a and b are mma.sync m16n8k16 products with f32 accumulators; the
-//     gate runs in registers and its bf16 values are re-packed in registers
-//     as the A-fragments of the y product (mma_bf16.cuh), so g never
-//     touches shared memory;
-//   * y, the warp's 16 rows by E, stays in f32 registers across the loop;
-//   * the epilogue adds the residual (x read again, mostly from L2) and
-//     writes bf16.
-// Every CTA reads all 6 E hidden bytes of weights (1.5 MB at the flagship
-// width) from L2; 128-row tiles keep that at 12 KB of L2 reads per row.
-// wgmma, TMA multicast of the weight chunks and a persistent CTA that keeps
-// the weights resident are later work.
+// activations and 6 E hidden bytes of weights: at E = 256, hidden = 1024
+// about 1500 operations a byte, far above the card's ~295, so the tensor
+// cores bound it (0.313 ms at R = 32 * 6144). The [R, hidden] activations
+// never leave the SM, and the design answers the rest so:
+//   * a CTA is NWG consumer warpgroups of 64 rows each (128 rows at the
+//     flagship's row counts, 64 where that leaves SMs idle); every product
+//     is a wgmma;
+//   * the weights stream through a ring of ST stages by TMA, one stage a
+//     hidden chunk of NC = 32 columns: the chunk's w1 and w3 rows stacked
+//     as one [2 NC, E] K-major tile (so a and b are ONE m64n64 product a
+//     k-step, which keeps the shared-memory reads of h at half of two
+//     m64n32 products) and its w2 columns as an [E, NC] K-major tile, all
+//     128- or 64-byte swizzled as wgmma reads them;
+//   * every CTA reads all 6 E hidden bytes of weights (1.5 MB at the
+//     flagship width) from L2, 12 KB a row at 128-row CTAs;
+//   * the first thread issues the first ST chunks before the norm, so
+//     they land while it runs; after that the last of the CTA's warps to
+//     release a stage refills it (a count in shared memory), so no warp
+//     waits for another to issue;
+//   * there is no producer warp: a ninth warp would put three warps on an
+//     SM sub-partition and hold every thread to 168 registers, and y alone
+//     takes E / 2 = 128 (E = 256). Eight warps leave 255;
+//   * the norm prologue: each warp normalises 16 rows (statistics by warp
+//     shuffles) and writes h as bf16 into shared memory in the 128-byte
+//     swizzled K-major layout wgmma reads, then a proxy fence;
+//   * per chunk: [a | b] = h [w1c | w3c]^T as SS wgmma (E / 16 k-steps of
+//     m64n64k16), the gate in registers, g re-packed as the A-fragments of
+//     an RS wgmma y += g w2c^T (m64nEk16, NC / 16 k-steps) that runs while
+//     the warpgroup waits for the next chunk's [a | b]; the other
+//     warpgroup's products fill the tensor cores while this one gates;
+//   * y, the warpgroup's 64 rows by E, stays in f32 registers across the
+//     hidden loop; the epilogue adds the residual (x read again, mostly
+//     from L2) and writes bf16.
+// The shapes (MlpOf: warpgroups, chunk, stages) were held against their
+// neighbours on the card by tools/k9_shape_sweep.py, beside designs tried
+// and not kept (PERF.md): a two-CTA cluster sharing each chunk by TMA
+// multicast, a start chunk of each CTA's own, the next chunk's [a | b]
+// run under this one's gate, h's A-fragments held in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "flash_host.cuh"
+#include "hopper_blocks.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using fk::bf16;
-using fk::lds32;
-using fk::mma_bf16;
-using fk::pack_bf16;
+using namespace fk;
 
-constexpr int BM = 128;               // rows per CTA
-constexpr int NWARPS = BM / 16;       // 16 rows per warp
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int NC = 32;                // hidden columns per chunk
-constexpr int LDC = NC + 8;           // row stride of the w2 chunk
 constexpr int kLayerNorm = 0, kRmsNorm = 1;
-
-// Shared memory in bf16 elements: h, then two stages of (w1, w3, w2)
-// chunks. Strides of E + 8 and NC + 8 keep every fragment load
-// conflict-free.
-template <int E>
-struct Smem {
-  static constexpr int LDH = E + 8;
-  static constexpr int H = BM * LDH;
-  static constexpr int W13 = NC * LDH;
-  static constexpr int W2 = E * LDC;
-  static constexpr int STAGE = 2 * W13 + W2;
-  static constexpr size_t BYTES = size_t(H + 2 * STAGE) * sizeof(bf16);
-};
-
-__device__ __forceinline__ void cp_async16(bf16* smem, const bf16* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
+constexpr int SMEM_MAX = 232448;   // a CTA's shared memory on an H100
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+struct WgmmaRSK;
+
+#include "fused_mlp_wgmma.cuh"
+
+// NWG consumer warpgroups of 64 rows at width E, hidden chunks of NC
+// columns in a ring of ST stages. Shared memory: h as E / 64 column blocks of [BM rows][128 bytes]; a
+// stage is the stacked w1 | w3 chunk as E / 64 column blocks of [2 NC
+// rows][128 bytes], then the w2 chunk [E rows][NC * 2 bytes]; the ring's
+// full barriers and release counts.
+template <int E_, int NWG_, int NC_, int ST_>
+struct MlpPass {
+  static constexpr int E = E_, NWG = NWG_, NC = NC_, ST = ST_;
+  static constexpr int BM = 64 * NWG, THREADS = 128 * NWG;
+  static constexpr int KB = E / 64;
+  static constexpr int H_BLOCK = BM * 128, H_BYTES = KB * H_BLOCK;
+  static constexpr int W13_BLOCK = 2 * NC * 128, W13 = KB * W13_BLOCK;
+  static constexpr int W2 = E * NC * 2, STAGE = W13 + W2;
+  static constexpr int OFF_W = H_BYTES;
+  static constexpr int OFF_BAR = OFF_W + ST * STAGE;
+  static constexpr int OFF_REL = OFF_BAR + 8 * ST;
+  static constexpr int SMEM = OFF_REL + 4 * ST + 1024;
+  static_assert(E % 64 == 0 && E <= 256, "E in {64, 128, 192, 256}");
+  static_assert(NC == 32 || NC == 64, "a w2 chunk row of 64 or 128 bytes");
+  static_assert(W2 % 1024 == 0 && H_BLOCK % 1024 == 0,
+                "every tile at the 128-byte swizzle's 1024-byte repeat");
+  static_assert(SMEM <= SMEM_MAX, "shared memory of one CTA");
+};
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -99,67 +115,71 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Stage the hidden columns [c0, c0 + NC): w1 and w3 rows, w2 columns.
-template <int E>
-__device__ __forceinline__ void load_chunk(bf16* stage, const bf16* w1,
-                                           const bf16* w3, const bf16* w2,
-                                           int c0, int hidden, int tid) {
-  using S = Smem<E>;
-  constexpr int CH = E / 8;       // 16-byte pieces of a w1 / w3 row
-  bf16* s1 = stage;
-  bf16* s3 = stage + S::W13;
-  bf16* s2 = stage + 2 * S::W13;
-  for (int idx = tid; idx < NC * CH; idx += NTHREADS) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    const size_t off = size_t(c0 + r) * E + c;
-    cp_async16(s1 + r * S::LDH + c, w1 + off);
-    cp_async16(s3 + r * S::LDH + c, w3 + off);
-  }
-  constexpr int CH2 = NC / 8;     // 16-byte pieces of a w2 row's chunk
-  for (int idx = tid; idx < E * CH2; idx += NTHREADS) {
-    const int r = idx / CH2, c = (idx % CH2) * 8;
-    cp_async16(s2 + r * LDC + c, w2 + size_t(r) * hidden + c0 + c);
-  }
+// g = bf16(bf16(silu(a)) * b), a and b rounded to bf16 first (the
+// products' outputs), silu in f32 through ex2.
+__device__ __forceinline__ float gate(float a, float b) {
+  const float ar = round_bf16(a);
+  const float s = round_bf16(__fdividef(ar, 1.f + ex2(-ar * kLog2e)));
+  return round_bf16(__fmul_rn(s, round_bf16(b)));
 }
 
-// g = bf16(bf16(silu(a)) * b) on one C-fragment, a and b rounded to bf16
-// first (the products' outputs), silu in f32.
-__device__ __forceinline__ void gate(float (&g)[4], const float (&a)[4],
-                                     const float (&b)[4]) {
+// Stage s <- hidden chunk n: the w1 and w3 rows [n NC, (n + 1) NC) as
+// column blocks of 64, and w2's columns of the chunk.
+template <class C>
+__device__ __forceinline__ void load_chunk(uint8_t* stage, uint64_t* full,
+                                           const CUtensorMap* tw1,
+                                           const CUtensorMap* tw3,
+                                           const CUtensorMap* tw2, int n) {
+  mbar_expect_tx(full, C::STAGE);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float ar = round_bf16(a[i]);
-    const float s = round_bf16(ar / (1.0f + expf(-ar)));
-    g[i] = round_bf16(__fmul_rn(s, round_bf16(b[i])));
+  for (int kb = 0; kb < C::KB; ++kb) {
+    tma_load(stage + kb * C::W13_BLOCK, tw1, full, kb * 64, n * C::NC, 0);
+    tma_load(stage + kb * C::W13_BLOCK + C::NC * 128, tw3, full, kb * 64,
+             n * C::NC, 0);
   }
+  tma_load(stage + C::W13, tw2, full, n * C::NC, 0, 0);
 }
 
-template <int E, int KIND>
-__global__ void __launch_bounds__(NTHREADS, 1)
-fused_norm_swiglu_kernel(const bf16* __restrict__ x,
-                         const float* __restrict__ nw,
-                         const float* __restrict__ nb,
-                         const bf16* __restrict__ w1,
-                         const bf16* __restrict__ w3,
-                         const bf16* __restrict__ w2, bf16* __restrict__ out,
-                         int R, int hidden, float eps) {
-  using S = Smem<E>;
-  constexpr int LDH = S::LDH;
-  constexpr int NT = E / 8;        // y n-tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sH = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sW = sH + S::H;
+// One CTA per BM rows. Every thread is a consumer; see the source note for
+// who loads the weights.
+template <class C, int KIND>
+__global__ void __launch_bounds__(C::THREADS, 1)
+    fused_norm_swiglu_wgmma(const __grid_constant__ CUtensorMap tw1,
+                            const __grid_constant__ CUtensorMap tw3,
+                            const __grid_constant__ CUtensorMap tw2,
+                            const bf16* __restrict__ x,
+                            const float* __restrict__ nw,
+                            const float* __restrict__ nb,
+                            bf16* __restrict__ out, int R, int hidden,
+                            float eps) {
+  constexpr int E = C::E, NC = C::NC, ST = C::ST;
+  constexpr int WARPS = 4 * C::NWG;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  unsigned* rel = reinterpret_cast<unsigned*>(smem + C::OFF_REL);
+  const int tid = threadIdx.x;
+  const int nch = hidden / NC;
+  const int row0 = blockIdx.x * C::BM;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      rel[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int n = 0; n < min(ST, nch); ++n)
+      load_chunk<C>(smem + C::OFF_W + n * C::STAGE, &full[n], &tw1, &tw3,
+                    &tw2, n);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;   // mma group / thread in group
-  const int row0 = blockIdx.x * BM;
-  const int nchunks = hidden / NC;
+  const int cw = warpgroup_index(), warp = (tid / 32) % 4, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
 
-  load_chunk<E>(sW, w1, w3, w2, 0, hidden, tid);
-  cp_async_commit();
-
-  // prologue, overlapping the first chunk's loads: the warp's 16 rows,
-  // normalised, as bf16 h. Lane l holds columns [8l, 8l + 8) when 8l < E.
+  // prologue: the warp's 16 rows, normalised, as bf16 h in the swizzled
+  // layout. Lane l holds columns [8l, 8l + 8) when 8l < E: 16-byte chunk
+  // l % 8 of column block l / 8, at chunk (l % 8) ^ (row % 8) of its row.
   {
     const int c = lane * 8;
     const bool mine = c < E;
@@ -169,8 +189,9 @@ fused_norm_swiglu_kernel(const bf16* __restrict__ x,
       w[i] = mine ? nw[c + i] : 0.f;
       bias[i] = (mine && nb != nullptr) ? nb[c + i] : 0.f;
     }
+    uint8_t* hcol = smem + (lane / 8) * C::H_BLOCK;
     for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const int row = row0 + r;
+      const int row = row0 + cw * 64 + r;
       float v[8];
       if (mine && row < R) {
         const uint4 raw =
@@ -217,132 +238,162 @@ fused_norm_swiglu_kernel(const bf16* __restrict__ x,
               bias[2 * i + 1]);
           p[i] = pack_bf16(h0, h1);
         }
-        *reinterpret_cast<uint4*>(sH + r * LDH + c) = packed;
+        const int rr = cw * 64 + r;
+        *reinterpret_cast<uint4*>(hcol + rr * 128 +
+                                  (((lane % 8) ^ (rr % 8)) * 16)) = packed;
       }
     }
   }
+  // h, written by the generic proxy, is read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  warpgroup_sync(cw);
 
-  // y: rows (g, g + 8) of the warp, columns 8n + 2t + {0, 1}
-  float y[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) y[n][0] = y[n][1] = y[n][2] = y[n][3] = 0.f;
-  const bf16* sHw = sH + warp * 16 * LDH;
+  // Release chunk n's stage: the last of the CTA's warps to do so refills
+  // it with chunk n + ST.
+  auto release = [&](int n) {
+    if (lane != 0) return;
+    const int s = n % ST;
+    if (atomicAdd(&rel[s], 1u) % WARPS == WARPS - 1 && n + ST < nch)
+      load_chunk<C>(smem + C::OFF_W + s * C::STAGE, &full[s], &tw1, &tw3,
+                    &tw2, n + ST);
+  };
 
-  for (int ch = 0; ch < nchunks; ++ch) {
-    if (ch + 1 < nchunks) {
-      load_chunk<E>(sW + ((ch + 1) & 1) * S::STAGE, w1, w3, w2,
-                    (ch + 1) * NC, hidden, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // chunk ch (and, the first time, h) visible to all
-    const bf16* s1 = sW + (ch & 1) * S::STAGE;
-    const bf16* s3 = s1 + S::W13;
-    const bf16* s2 = s1 + 2 * S::W13;
-
-    // a = h w1_chunk^T, b = h w3_chunk^T: 16 rows x NC columns each
-    float a[NC / 8][4], b[NC / 8][4];
+  const uint32_t h_addr = smem_u32(smem) + cw * 64 * 128;
+  const uint32_t w_base = smem_u32(smem + C::OFF_W);
+  float y[E / 2], ab[NC];
+  uint32_t ga[NC / 16][4];
 #pragma unroll
-    for (int j = 0; j < NC / 8; ++j)
+  for (int i = 0; i < E / 2; ++i) y[i] = 0.f;
+  for (int n = 0; n < nch; ++n) {
+    const int s = n % ST;
+    const uint32_t w13 = w_base + s * C::STAGE;
+    mbar_wait(&full[s], (n / ST) & 1);
+    // [a | b] = h [w1c | w3c]^T, queued behind the previous chunk's y
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[j][i] = b[j][i] = 0.f;
+    for (int kk = 0; kk < E / 16; ++kk)
+      WgmmaSS<2 * NC>::mma(
+          ab,
+          kmajor_desc<128>(h_addr + (kk / 4) * C::H_BLOCK + (kk % 4) * 32),
+          kmajor_desc<128>(w13 + (kk / 4) * C::W13_BLOCK + (kk % 4) * 32),
+          kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(ab);
+    fence_regs(y);
+    fence_regs(ga);
+    if (n > 0) release(n - 1);
+    // the gate: a is columns [0, NC) of the product, b columns [NC, 2 NC),
+    // in the same thread
+    float gv[NC / 2];
 #pragma unroll
-    for (int kk = 0; kk < E / 16; ++kk) {
-      uint32_t ha[4];
-      ha[0] = lds32(sHw + g * LDH + kk * 16 + 2 * t);
-      ha[1] = lds32(sHw + (g + 8) * LDH + kk * 16 + 2 * t);
-      ha[2] = lds32(sHw + g * LDH + kk * 16 + 8 + 2 * t);
-      ha[3] = lds32(sHw + (g + 8) * LDH + kk * 16 + 8 + 2 * t);
+    for (int i = 0; i < NC / 2; ++i) gv[i] = gate(ab[i], ab[i + NC / 2]);
+    to_a<NC>(ga, gv);
+    // y += g w2c^T, in flight until the next chunk's wait
+    wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < NC / 8; ++j) {
-        const bf16* r1 = s1 + (j * 8 + g) * LDH + kk * 16 + 2 * t;
-        const bf16* r3 = s3 + (j * 8 + g) * LDH + kk * 16 + 2 * t;
-        mma_bf16(a[j], ha, lds32(r1), lds32(r1 + 8));
-        mma_bf16(b[j], ha, lds32(r3), lds32(r3 + 8));
-      }
-    }
-
-    // the gate in registers; the n-tiles 2kk, 2kk + 1 of g are the
-    // A-fragment of hidden step kk of y += g w2_chunk^T
-#pragma unroll
-    for (int kk = 0; kk < NC / 16; ++kk) {
-      float g0[4], g1[4];
-      gate(g0, a[2 * kk], b[2 * kk]);
-      gate(g1, a[2 * kk + 1], b[2 * kk + 1]);
-      uint32_t ga[4];
-      fk::repack_a(ga, g0, g1);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const bf16* r2 = s2 + (n * 8 + g) * LDC + kk * 16 + 2 * t;
-        mma_bf16(y[n], ga, lds32(r2), lds32(r2 + 8));
-      }
-    }
-    __syncthreads();   // stage (ch & 1) free for chunk ch + 2
+    for (int kk = 0; kk < NC / 16; ++kk)
+      WgmmaRSK<E>::mma(y, ga[kk],
+                       kmajor_desc<2 * NC>(w13 + C::W13 + kk * 32));
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  fence_regs(y);
+  fence_regs(ga);
+  release(nch - 1);
 
-  // out = bf16(x + bf16(y))
-  const int r_lo = row0 + warp * 16 + g, r_hi = r_lo + 8;
+  // out = bf16(x + bf16(y)): rows g and g + 8 of the warp's 16, columns
+  // 8n + 2t + {0, 1}
+  const int r_lo = row0 + cw * 64 + warp * 16 + g, r_hi = r_lo + 8;
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
+  for (int n = 0; n < E / 8; ++n) {
     const int c = n * 8 + 2 * t;
     if (r_lo < R) {
       const size_t off = size_t(r_lo) * E + c;
       const __nv_bfloat162 xv =
           *reinterpret_cast<const __nv_bfloat162*>(x + off);
       *reinterpret_cast<uint32_t*>(out + off) =
-          pack_bf16(__bfloat162float(xv.x) + round_bf16(y[n][0]),
-                    __bfloat162float(xv.y) + round_bf16(y[n][1]));
+          pack_bf16(__bfloat162float(xv.x) + round_bf16(y[4 * n]),
+                    __bfloat162float(xv.y) + round_bf16(y[4 * n + 1]));
     }
     if (r_hi < R) {
       const size_t off = size_t(r_hi) * E + c;
       const __nv_bfloat162 xv =
           *reinterpret_cast<const __nv_bfloat162*>(x + off);
       *reinterpret_cast<uint32_t*>(out + off) =
-          pack_bf16(__bfloat162float(xv.x) + round_bf16(y[n][2]),
-                    __bfloat162float(xv.y) + round_bf16(y[n][3]));
+          pack_bf16(__bfloat162float(xv.x) + round_bf16(y[4 * n + 2]),
+                    __bfloat162float(xv.y) + round_bf16(y[4 * n + 3]));
     }
   }
 }
 
-template <int E, int KIND>
-int launch(const bf16* x, const float* nw, const float* nb, const bf16* w1,
-           const bf16* w3, const bf16* w2, bf16* out, int R, int hidden,
+// ---- host ---------------------------------------------------------------------
+
+// The production instances: width E and consumer warpgroups; hidden chunk
+// and ring stages (held against their neighbours on an H100 by
+// tools/k9_shape_sweep.py, which rewrites this line; PERF.md).
+template <int E, int NWG>
+using MlpOf = MlpPass<E, NWG, 32, E == 256 && NWG == 2 ? 3 : 4>;
+
+// Two warpgroups a CTA (half the weight reads a row) where their CTAs
+// still fill half the SMs, one otherwise (a few thousand rows: twice the
+// CTAs).
+int warpgroups(int R) {
+  static int sms = 0;
+  if (sms == 0 &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, 0) !=
+          cudaSuccess)
+    sms = 132;
+  return 2 * ((R + 127) / 128) >= sms ? 2 : 1;
+}
+
+template <class C, int KIND>
+int launch(const void* x, const void* nw, const void* nb, const void* w1,
+           const void* w3, const void* w2, void* out, int R, int hidden,
            float eps, cudaStream_t st) {
-  auto kernel = fused_norm_swiglu_kernel<E, KIND>;
-  constexpr size_t smem = Smem<E>::BYTES;
-  static bool opted_in = false;   // above 48 KB only after opting in
-  if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-    opted_in = true;
-  }
-  kernel<<<(R + BM - 1) / BM, NTHREADS, smem, st>>>(x, nw, nb, w1, w3, w2,
-                                                     out, R, hidden, eps);
+  constexpr int E = C::E;
+  CUtensorMap tw1, tw3, tw2;
+  if (!tile_map_rows(&tw1, w1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 1,
+                     hidden, E, 64, C::NC) ||
+      !tile_map_rows(&tw3, w3, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 1,
+                     hidden, E, 64, C::NC) ||
+      !tile_map_rows(&tw2, w2, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 1, E,
+                     hidden, C::NC, E))
+    return int(cudaErrorInvalidValue);
+  auto kernel = fused_norm_swiglu_wgmma<C, KIND>;
+  cudaError_t err = prepare<C>(kernel);
+  if (err != cudaSuccess) return int(err);
+  kernel<<<(R + C::BM - 1) / C::BM, C::THREADS, C::SMEM, st>>>(
+      tw1, tw3, tw2, static_cast<const bf16*>(x),
+      static_cast<const float*>(nw), static_cast<const float*>(nb),
+      static_cast<bf16*>(out), R, hidden, eps);
   return int(cudaGetLastError());
 }
 
-template <int KIND>
-int launch_kind(int E, const bf16* x, const float* nw, const float* nb,
-                const bf16* w1, const bf16* w3, const bf16* w2, bf16* out,
-                int R, int hidden, float eps, cudaStream_t st) {
+// f(the instance of width E and W warpgroups, the norm as a type), or
+// cudaErrorInvalidValue for a shape without one.
+template <int W, typename F>
+int with_width(int E, int kind, F f) {
+  auto by_kind = [&](auto c) {
+    if (kind == kLayerNorm)
+      return f(c, std::integral_constant<int, kLayerNorm>());
+    if (kind == kRmsNorm) return f(c, std::integral_constant<int, kRmsNorm>());
+    return int(cudaErrorInvalidValue);
+  };
   switch (E) {
-    case 64:
-      return launch<64, KIND>(x, nw, nb, w1, w3, w2, out, R, hidden, eps, st);
-    case 128:
-      return launch<128, KIND>(x, nw, nb, w1, w3, w2, out, R, hidden, eps,
-                               st);
-    case 192:
-      return launch<192, KIND>(x, nw, nb, w1, w3, w2, out, R, hidden, eps,
-                               st);
-    case 256:
-      return launch<256, KIND>(x, nw, nb, w1, w3, w2, out, R, hidden, eps,
-                               st);
-    default:
-      return int(cudaErrorInvalidValue);
+    case 64: return by_kind(MlpOf<64, W>());
+    case 128: return by_kind(MlpOf<128, W>());
+    case 192: return by_kind(MlpOf<192, W>());
+    case 256: return by_kind(MlpOf<256, W>());
+    default: return int(cudaErrorInvalidValue);
   }
+}
+
+template <typename F>
+int with_instance(int E, int kind, int nwg, F f) {
+  if (nwg == 1) return with_width<1>(E, kind, f);
+  if (nwg == 2) return with_width<2>(E, kind, f);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -356,18 +407,26 @@ extern "C" int fk_fused_norm_swiglu(const void* x, const void* nw,
                                     int R, int E, int hidden, int kind,
                                     float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R < 0 || hidden <= 0 || hidden % NC != 0)
+  if (R < 0 || hidden <= 0 || hidden % 32 != 0)
     return int(cudaErrorInvalidValue);
   if (R == 0) return 0;
-  auto run = [&](auto launcher) {
-    return launcher(E, static_cast<const bf16*>(x),
-                    static_cast<const float*>(nw),
-                    static_cast<const float*>(nb),
-                    static_cast<const bf16*>(w1), static_cast<const bf16*>(w3),
-                    static_cast<const bf16*>(w2), static_cast<bf16*>(out), R,
-                    hidden, eps, st);
-  };
-  if (kind == kLayerNorm) return run(launch_kind<kLayerNorm>);
-  if (kind == kRmsNorm) return run(launch_kind<kRmsNorm>);
-  return int(cudaErrorInvalidValue);
+  return with_instance(E, kind, warpgroups(R), [&](auto c, auto kind_c) {
+    using C = decltype(c);
+    return launch<C, decltype(kind_c)::value>(x, nw, nb, w1, w3, w2, out, R,
+                                              hidden, eps, st);
+  });
+}
+
+// Registers a thread and resident CTAs an SM of the instance of width E,
+// norm ``kind`` and ``nwg`` consumer warpgroups (1 or 2; 0: the one a
+// launch of R rows takes).
+extern "C" int fk_fused_norm_swiglu_occupancy(int E, int kind, int nwg,
+                                              int R, int* regs, int* ctas) {
+  return with_instance(E, kind, nwg > 0 ? nwg : warpgroups(R),
+                       [&](auto c, auto kind_c) {
+                         using C = decltype(c);
+                         return occupancy<C>(
+                             fused_norm_swiglu_wgmma<C, decltype(kind_c)::value>,
+                             regs, ctas);
+                       });
 }

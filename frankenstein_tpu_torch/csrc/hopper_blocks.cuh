@@ -1,13 +1,15 @@
-// Hopper building blocks shared by the wgmma attention kernels: K7 dense
-// (flash_attention_dense.cu), K4 (slab_rope_attention_bwd.cu) and K1
-// (slab_rope_attention_fwd.cu). Device side: the warp roles of a CTA,
-// mbarriers, TMA and bulk copies, ex2, the wgmma fences, shared-memory
-// descriptors and products (SS and RS), the f32-accumulator to bf16
-// A-fragment re-pack, the log2-unit online softmax of a score tile, and
-// the slab-causal schedule's key end and tile release. Host side: the TMA
-// tile map of a [B, T, E] bf16 tensor, the grid of row blocks, and a
-// kernel's launch preparation and occupancy. One copy, included by all
-// three sources.
+// Hopper building blocks shared by the wgmma kernels: K7 dense
+// (flash_attention_dense.cu), K4 (slab_rope_attention_bwd.cu), K1
+// (slab_rope_attention_fwd.cu), K10 (slab_rope_attention_int8.cu) and K9
+// (fused_mlp.cu). Device side: the warp roles of a CTA, mbarriers, TMA and
+// bulk copies, ex2, the wgmma fences, shared-memory descriptors (bf16 rows
+// of a head, and K-major rows of 32, 64 or 128 bytes of any type) and
+// products (SS and RS), the f32-accumulator to bf16 A-fragment re-pack,
+// the log2-unit online softmax of a score tile, and the slab-causal
+// schedule's key end and tile release. Host side: the TMA tile maps of a
+// [B, T, E] bf16 tensor and of any row-major tensor, the grid of row
+// blocks, and a kernel's launch preparation and occupancy. One copy,
+// included by all five sources.
 #pragma once
 
 #include <cuda.h>
@@ -148,6 +150,12 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 }
 
 template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int R>
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[R][4]) {
 #pragma unroll
   for (int i = 0; i < R; ++i)
@@ -170,6 +178,23 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, bool mn_major) {
   const uint64_t lead = mn_major ? kGroup : 1;
   return uint64_t((addr & 0x3FFFF) >> 4) | (lead << 16) | (kGroup << 32) |
          (kSwizzle << 62);
+}
+
+// Shared-memory descriptor of a K-major tile whose rows are ROW bytes (32,
+// 64 or 128: one swizzle row of that width, 32-, 64- or 128-byte swizzle)
+// stored as TMA wrote it, from a base aligned to the swizzle's repeat
+// (8 * ROW bytes): 8-row groups step by SBO = 8 * ROW bytes, the leading
+// offset is unused, and a k-step of 32 bytes adds 32 to the address.
+// smem_desc<D>'s K-major reading is kmajor_desc<2 * D>; this form also
+// reads int8 rows (K10's D-byte q and k rows) and the 128-byte column
+// blocks of K9's h and weight tiles.
+template <int ROW>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
+  static_assert(ROW == 32 || ROW == 64 || ROW == 128, "a swizzle row width");
+  constexpr uint64_t kGroup = (8 * ROW) >> 4;   // 8 rows, 16-byte units
+  constexpr uint64_t kSwizzle = ROW == 32 ? 3 : ROW == 64 ? 2 : 1;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (kGroup << 32) | (kSwizzle << 62);
 }
 
 template <int N>
@@ -400,23 +425,40 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// The TMA map of a row-major tensor of ``elem``-byte elements, [outer,
+// rows, cols] (dims {cols, rows, outer}; outer 1 for a matrix), read in
+// boxes of box_rows rows of box_cols columns, swizzled by the box's row
+// width (32, 64 or 128 bytes) as kmajor_desc reads it.
+inline bool tile_map_rows(CUtensorMap* map, const void* base,
+                          CUtensorMapDataType type, int elem, int outer,
+                          int rows, int cols, int box_cols, int box_rows) {
+  const EncodeTiled encode = encoder();
+  const int row_bytes = box_cols * elem;
+  if (encode == nullptr ||
+      (row_bytes != 32 && row_bytes != 64 && row_bytes != 128))
+    return false;
+  const cuuint64_t dims[3] = {cuuint64_t(cols), cuuint64_t(rows),
+                              cuuint64_t(outer)};
+  const cuuint64_t strides[2] = {cuuint64_t(cols) * elem,
+                                 cuuint64_t(rows) * cols * elem};
+  const cuuint32_t box[3] = {cuuint32_t(box_cols), cuuint32_t(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      row_bytes == 32   ? CU_TENSOR_MAP_SWIZZLE_32B
+      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_128B;
+  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The TMA map of a [B, T, E] bf16 tensor (dims {E, T, B}) read in boxes of
 // ``rows`` rows of D columns, swizzled as smem_desc reads them.
 inline bool tile_map(CUtensorMap* map, const void* base, int B, int T, int E,
                      int D, int rows) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(E), cuuint64_t(T), cuuint64_t(B)};
-  const cuuint64_t strides[2] = {cuuint64_t(E) * 2, cuuint64_t(T) * E * 2};
-  const cuuint32_t box[3] = {cuuint32_t(D), cuuint32_t(rows), 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                        : CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tile_map_rows(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B, T,
+                       E, D, rows);
 }
 
 // CTAs of BM rows that cover T rows.

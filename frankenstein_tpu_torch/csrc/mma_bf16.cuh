@@ -1,10 +1,11 @@
-// Device helpers shared by K10 and the probes (slab_rope_attention.cu), K1
+// Device helpers shared by the probes and K10's K pre-pass
+// (slab_rope_attention.cu), K10 (slab_rope_attention_int8.cu), K1
 // (slab_rope_attention_fwd.cu), K4 (slab_rope_attention_bwd.cu) and the
 // other mma.sync kernels: the bf16 and int8 mma.sync tile products, bf16
-// packing, and the RoPE rotation that K1's and K4's pre-passes and K10's
-// loads apply to q/k. The rotation must be the same code in all of them:
-// K4 recomputes K1's (or K10's) scores from its lse, so its rotated q/k
-// must round exactly as the forward's did.
+// packing, the RoPE rotation that K1's, K4's and K10's pre-passes apply to
+// q/k, and K10's int8 code rule. The rotation must be the same code in all
+// of them: K4 recomputes K1's (or K10's) scores from its lse, so its
+// rotated q/k must round exactly as the forward's did.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -90,6 +91,18 @@ __device__ __forceinline__ uint4 load_rotate8(const bf16* __restrict__ src,
         __fadd_rn(__fmul_rn(x1, c[2 * p + 1]), __fmul_rn(x0, s[2 * p + 1])));
   }
   return out;
+}
+
+// K10's int8 code of v at scale s: round half to even of the IEEE
+// quotient (the JAX kernel's jnp.round(x / s)).
+__device__ __forceinline__ int8_t quantize_s8(float v, float s) {
+  return static_cast<int8_t>(__float2int_rn(__fdiv_rn(v, s)));
+}
+
+// K10's symmetric scale of a group whose max |x| is mx: mx / 127 + 1e-12,
+// each step rounded in f32 (an IEEE quotient, not a product with 1/127).
+__device__ __forceinline__ float absmax_scale(float mx) {
+  return __fadd_rn(__fdiv_rn(mx, 127.f), 1e-12f);
 }
 
 }  // namespace fk

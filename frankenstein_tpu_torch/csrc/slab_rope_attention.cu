@@ -1,12 +1,13 @@
-// K10 and the probes: slab-causal flash attention with in-kernel RoPE,
-// forward only, on mma.sync. K10 is K1's contract with int8 QK scores (a
-// template parameter of this kernel). Production K1 lives in
-// slab_rope_attention_fwd.cu (a rotation pre-pass and a wgmma forward);
-// this kernel is the mma.sync design K1 had before, kept as K10's and as
-// the probes' (ROPE = false, every mode below).
+// The probes and K10's K pre-pass: slab-causal flash attention with
+// in-kernel RoPE, forward only, on mma.sync, the design K1 and K10 ran
+// before their wgmma redesigns (slab_rope_attention_fwd.cu,
+// slab_rope_attention_int8.cu), kept as the probes' kernel (ROPE = false,
+// every mode below); and the pre-pass that rotates and quantizes K, which
+// production K10 runs before its own kernels (fk_slab_rope_k_quant, ROPE
+// = true).
 //
 // K1's contract, which the bf16 modes compute (without the rotation) and
-// K10 computes with int8 scores; K1 replaces
+// the int8 modes with int8 scores; K1 replaces
 // frankenstein_tpu/ops/pallas/block_attention.py: _fwd_packed_rope_bte
 // (kernel body _fwd_packed_rope_kernel), reached from
 // slab_causal_attention_rope:
@@ -21,10 +22,10 @@
 // probabilities); probabilities cast to bf16 before the AV product, as the
 // JAX kernel does.
 //
-// K10 replaces the same kernel's qk_int8=True mode (block_attention.py:
-// 1351-1356, 1370-1379, 1392-1403, 1411-1426), with its arithmetic:
-//   * rotated Q (rounded to bf16) per (row, head): s_q = max|q| / 127 +
-//     1e-12 in f32, codes round_half_even(q / s_q), an IEEE division;
+// K10's arithmetic (block_attention.py: 1351-1356, 1370-1379, 1392-1403,
+// 1411-1426), which the int8 modes keep:
+//   * Q (rounded to bf16) per (row, head): s_q = max|q| / 127 + 1e-12 in
+//     f32, codes round_half_even(q / s_q), an IEEE division;
 //   * rotated K per (1024-row key chunk, head): s_k the same over the
 //     chunk's rows and the head's lanes, codes round_half_even(k / s_k);
 //   * score = (float(int32 dot(q8, k8)) * (scale * s_k)) * s_q, in that
@@ -35,43 +36,40 @@
 // tiles, so a pre-pass (rope_absmax_k, then rope_quantize_k, over small
 // row tiles) rotates K, takes each chunk's max and writes the codes
 // [B, T, E] int8 and the scales [B, H, T/1024] f32; since 1024 % 64 == 0
-// each K tile has one scale. The main kernel rotates Q once, takes each
-// row's max (row-local) and holds the int8 A-fragments in registers; QK is
-// mma.sync m16n8k32
-// s8 x s8 -> s32, one mma per 16x8 score tile at D=32, and the int32
-// accumulators convert in registers, after which the code is K1's.
+// each K tile has one scale. The kernel's int8 modes take each Q row's max
+// (row-local) and hold the int8 A-fragments in registers; QK is mma.sync
+// m16n8k32 s8 x s8 -> s32, one mma per 16x8 score tile at D=32, and the
+// int32 accumulators convert in registers, after which the code is the
+// bf16 modes'.
 //
-// What bounds it on an H100: at D = 32 each score costs 2 x 32 MACs on the
-// tensor cores but one exp and several f32 ops of softmax, so the kernel is
-// bound by tensor-core issue and softmax work, not by bytes (K/V tiles are
-// re-read per q-tile, mostly from L2). The design keeps everything between
-// the two products in registers:
+// The design, which the probes price: at D = 32 each score costs 2 x 32
+// MACs on the tensor cores but one exp and several f32 ops of softmax, so
+// the kernel is bound by tensor-core issue and softmax work, not by bytes
+// (K/V tiles are re-read per q-tile, mostly from L2). Everything between
+// the two products stays in registers:
 //   * one CTA per (batch, head, 128-row q-tile); 8 warps of 16 q rows;
-//   * the q tile is rotated once in f32, rounded to bf16 and held as mma
-//     A-fragments in registers; each K tile is rotated as it is loaded, V is
-//     stored transposed so both B-fragments are single 32-bit loads;
-//   * both products are mma.sync m16n8k16 bf16 with f32 accumulation; the
-//     score accumulators of QK^T are re-packed in registers as the bf16
+//   * the q tile is held as mma A-fragments in registers; V is stored
+//     transposed so both B-fragments are single 32-bit loads;
+//   * both products are mma.sync with f32 (s32) accumulation; the score
+//     accumulators of QK^T are re-packed in registers as the bf16
 //     A-fragments of PV (flash-attention-2 layout), so scores and
 //     probabilities never touch shared memory;
 //   * the K/V loop stops at the end of the tile's last slab,
 //     ((row_last / P) + 1) * P: future slabs are never loaded, a warp skips
 //     the tiles past its rows' last slab, and only tiles that reach past a
 //     warp's first slab are masked.
-// On an H100 the probes below put about half of this design's time in the
+// On an H100 the probes put about half of this design's time in the
 // products and a fifth in the registers its runtime mask branch holds (123
 // a thread: 2 CTAs an SM where the branchless body fits 3); PERF.md has
-// the split. slab_rope_attention_fwd.cu answers them for K1: wgmma on a
-// TMA ring, a mask only in a compile-time instance, exp2, one rotation a
-// key; K10 keeps this design.
+// the split. K1's and K10's wgmma forwards answer them: a TMA ring, a mask
+// only in a compile-time instance, exp2, one rotation a key.
 //
 // The probes (fk_slab_attention_probe) replace tools/attn_probe.py:
 // _variant_call and tools/int8_attr_probe.py:_call, which price the
 // components of the packed TPU forward by timing variants with one
 // removed. Here each variant is a compile-time mode of this kernel
-// (template parameters ROPE and VARIANT; production K10 is ROPE = true,
-// VARIANT = PROD with INT8, and every probe branch is behind
-// if constexpr), instantiated at D = 32 only:
+// (template parameters ROPE and VARIANT; every probe branch is behind
+// if constexpr), instantiated at D = 32 with ROPE = false:
 //   PROD with ROPE = false   K1's math (K10's with INT8) on unrotated q, k
 //   DOTS_ONLY                scores * scale rounded to bf16 as PV's
 //                            A-fragments: no mask, max, exp, sum or
@@ -98,12 +96,14 @@
 
 namespace {
 
+using fk::absmax_scale;
 using fk::bf16;
 using fk::lds32;
 using fk::load_rotate8;
 using fk::mma_bf16;
 using fk::mma_s8;
 using fk::pack_bf16;
+using fk::quantize_s8;
 
 constexpr int BQ = 128;              // query rows per CTA
 constexpr int BK = 64;               // keys per tile
@@ -112,15 +112,6 @@ constexpr int NTHREADS = NWARPS * 32;
 constexpr int KCHUNK = 1024;         // rows per K scale (K10)
 static_assert(NTHREADS == 2 * BQ, "K10 quantizes Q with two threads a row");
 static_assert(KCHUNK % BK == 0, "a K tile must sit in one scale chunk");
-
-// The int8 code of v at scale s: round half to even of the IEEE quotient.
-__device__ __forceinline__ int8_t quantize(float v, float s) {
-  return static_cast<int8_t>(__float2int_rn(__fdiv_rn(v, s)));
-}
-
-__device__ __forceinline__ float absmax_scale(float mx) {
-  return __fadd_rn(__fdiv_rn(mx, 127.f), 1e-12f);
-}
 
 // The probes' cast-only int8 code: round half to even of 8 v (the JAX
 // probes' round(8 x); |v| < 15.9 keeps it in range).
@@ -153,11 +144,12 @@ __device__ __forceinline__ uint4 stage8(const bf16* __restrict__ src,
   return *reinterpret_cast<const uint4*>(src);
 }
 
-// INT8 = false: K1 (k is the bf16 input, k8 and ks unused).
-// INT8 = true: K10 (k unused; k8 [B, T, E] and ks [B, H, T / KCHUNK] from
+// INT8 = false: K1's math (k is the bf16 input, k8 and ks unused).
+// INT8 = true: K10's (k unused; k8 [B, T, E] and ks [B, H, T / KCHUNK] from
 // rope_quantize_k).
-// ROPE = false (the probes): q and k tiles are staged as stored; cos_t and
-// sin_t are unused. VARIANT: a probe mode (enum Variant), PROD for K1/K10.
+// ROPE = false (every instance, the probes'): q and k tiles are staged as
+// stored; cos_t and sin_t are unused. VARIANT: a probe mode (enum Variant),
+// PROD for K1's or K10's math.
 template <int D, bool INT8, bool ROPE, int VARIANT>
 __global__ void __launch_bounds__(NTHREADS)
 slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -231,7 +223,7 @@ slab_rope_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
         int8_t* dst = sQ8 + r * LD8 + half * (D / 2);
 #pragma unroll
         for (int c = 0; c < D / 2; ++c)
-          dst[c] = quantize(__bfloat162float(src[c]), s);
+          dst[c] = quantize_s8(__bfloat162float(src[c]), s);
         if (half == 0) sQs[r] = s;
       }
     }
@@ -546,17 +538,19 @@ rope_quantize_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
   int8_t* c8 = reinterpret_cast<int8_t*>(&codes);
 #pragma unroll
   for (int i = 0; i < 8; ++i)
-    c8[i] = CAST ? cast_code(f[i]) : quantize(f[i], s);
+    c8[i] = CAST ? cast_code(f[i]) : quantize_s8(f[i], s);
   *reinterpret_cast<uint2*>(k8 + off) = codes;
 }
 
 }  // namespace
 
-// Shapes are checked by the Python wrapper (ops/cuda/slab_attention.py):
-// T % 1024 == 0, D in {32, 64}, contiguous bf16 q/k/v, f32 [T, D] tables.
+// Shapes are checked by the Python wrappers (ops/cuda/slab_attention.py,
+// ops/cuda/slab_probe.py): T % 1024 == 0 for the int8 modes, D in {32,
+// 64}, contiguous bf16 q/k/v, f32 [T, D] tables.
 
-// K10's pre-pass alone: codes k8 [B, T, E] int8, scales ks [B, H, T/1024];
-// amax [B, H, T/1024] u32 scratch, zero on entry.
+// K10's K pre-pass (production K10 runs it before
+// slab_rope_attention_int8.cu's kernels): codes k8 [B, T, E] int8, scales
+// ks [B, H, T/1024]; amax [B, H, T/1024] u32 scratch, zero on entry.
 extern "C" int fk_slab_rope_k_quant(const void* k, const void* cos_t,
                                     const void* sin_t, void* amax, void* k8,
                                     void* ks, int B, int T, int H, int D,
@@ -585,32 +579,9 @@ extern "C" int fk_slab_rope_k_quant(const void* k, const void* cos_t,
   return int(cudaErrorInvalidValue);
 }
 
-// K10's main kernel on the pre-pass's codes and scales.
-extern "C" int fk_slab_rope_attention_fwd_int8(
-    const void* q, const void* k8, const void* ks, const void* v,
-    const void* cos_t, const void* sin_t, void* out, void* lse, int B, int T,
-    int H, int D, int P, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T % KCHUNK != 0 || P <= 0) return int(cudaErrorInvalidValue);
-  const dim3 grid(T / BQ, H, B);
-  auto args = [&](auto kernel) {
-    kernel<<<grid, NTHREADS, 0, st>>>(
-        static_cast<const bf16*>(q), nullptr, static_cast<const int8_t*>(k8),
-        static_cast<const float*>(ks), static_cast<const bf16*>(v),
-        static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-        static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P, scale);
-    return int(cudaGetLastError());
-  };
-  if (D == 32) return args(slab_rope_attn_fwd<32, true, true, PROD>);
-  if (D == 64) return args(slab_rope_attn_fwd<64, true, true, PROD>);
-  return int(cudaErrorInvalidValue);
-}
-
-// f(the D = 32 kernel of `variant`): with `rope`, production K10
-// (INT8_FULL); else the probe mode, on unrotated q and k.
+// f(the D = 32 kernel of probe mode `variant`), on unrotated q and k.
 template <typename F>
-int with_mode(int variant, bool rope, F f) {
-  if (rope) return f(slab_rope_attn_fwd<32, true, true, PROD>);
+int with_mode(int variant, F f) {
   switch (variant) {
     case PROD: return f(slab_rope_attn_fwd<32, false, false, PROD>);
     case DOTS_ONLY: return f(slab_rope_attn_fwd<32, false, false, DOTS_ONLY>);
@@ -665,7 +636,7 @@ extern "C" int fk_slab_attention_probe(const void* q, const void* k,
   }
   if (!(stages & 2)) return 0;
   const dim3 grid(T / BQ, H, B);
-  return with_mode(variant, false, [&](auto kernel) {
+  return with_mode(variant, [&](auto kernel) {
     kernel<<<grid, NTHREADS, 0, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const int8_t*>(k8), static_cast<const float*>(ks),
@@ -676,15 +647,15 @@ extern "C" int fk_slab_attention_probe(const void* q, const void* k,
 }
 
 // Registers a thread and resident CTAs an SM of the D = 32 instance of a
-// mode: the probes' (rope = 0) or production K10's (rope = 1 with
-// INT8_FULL), from the CUDA runtime. Production K1's are
-// fk_slab_rope_attention_fwd_occupancy's (slab_rope_attention_fwd.cu).
-extern "C" int fk_slab_attention_occupancy(int variant, int rope, int* regs,
+// probe mode, from the CUDA runtime. Production K1's are
+// fk_slab_rope_attention_fwd_occupancy's (slab_rope_attention_fwd.cu),
+// production K10's fk_slab_rope_attention_fwd_int8_occupancy's
+// (slab_rope_attention_int8.cu).
+extern "C" int fk_slab_attention_occupancy(int variant, int* regs,
                                            int* ctas) {
-  if (variant < PROD || variant > INT8_NOQUANT ||
-      (rope && variant != INT8_FULL))
+  if (variant < PROD || variant > INT8_NOQUANT)
     return int(cudaErrorInvalidValue);
-  return with_mode(variant, rope != 0, [&](auto kernel) {
+  return with_mode(variant, [&](auto kernel) {
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return int(err);

@@ -73,17 +73,24 @@ def _declare(lib) -> None:
         [p] * 6                     # k cos sin amax k8 ks
         + [i] * 4 + [p])            # B T H D, stream
     lib.fk_slab_rope_k_quant.restype = i
+    lib.fk_slab_rope_q_quant.argtypes = (
+        [p] * 5                     # q cos sin q8 qs
+        + [i] * 4 + [p])            # B T H D, stream
+    lib.fk_slab_rope_q_quant.restype = i
     lib.fk_slab_rope_attention_fwd_int8.argtypes = (
-        [p] * 8                     # q k8 ks v cos sin out lse
+        [p] * 10                    # q k8 ks v cos sin q8 qs out lse
         + [i] * 5 + [f, p])         # B T H D P, scale, stream
     lib.fk_slab_rope_attention_fwd_int8.restype = i
+    lib.fk_slab_rope_attention_fwd_int8_occupancy.argtypes = (
+        [i] * 3 + [ctypes.POINTER(i)] * 2)   # pass D P, regs ctas
+    lib.fk_slab_rope_attention_fwd_int8_occupancy.restype = i
     lib.fk_slab_attention_probe.argtypes = (
         [p] * 8                     # q k v amax k8 ks out lse
         + [i] * 5 + [f]             # B T H D P, scale
         + [i] * 2 + [p])            # variant stages, stream
     lib.fk_slab_attention_probe.restype = i
     lib.fk_slab_attention_occupancy.argtypes = (
-        [i] * 2 + [ctypes.POINTER(i)] * 2)   # variant rope, regs ctas
+        [i] + [ctypes.POINTER(i)] * 2)       # variant, regs ctas
     lib.fk_slab_attention_occupancy.restype = i
     lib.fk_lm_head_topk.argtypes = (
         [p] * 12                    # x ln_w ln_b wte h cand_val cand_idx
@@ -151,6 +158,9 @@ def _declare(lib) -> None:
         + [i] * 4                   # R E hidden kind
         + [f, p])                   # eps, stream
     lib.fk_fused_norm_swiglu.restype = i
+    lib.fk_fused_norm_swiglu_occupancy.argtypes = (
+        [i] * 4 + [ctypes.POINTER(i)] * 2)   # E kind nwg R, regs ctas
+    lib.fk_fused_norm_swiglu_occupancy.restype = i
     lib.fk_error_string.argtypes = [i]
     lib.fk_error_string.restype = ctypes.c_char_p
 

@@ -17,6 +17,8 @@ place of the other: a CUDA input the kernel does not take raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
@@ -142,6 +144,19 @@ def fused_norm_swiglu(x, nw, nb, w1, w3, w2, *, kind: str = "layernorm"):
     build.check(rc, "fused_norm_swiglu")
     launches += 1
     return out
+
+
+def occupancy(e: int, kind: str = "layernorm", warpgroups: int = 0,
+              rows: int = 0) -> tuple:
+    """(registers a thread, resident CTAs an SM) of the kernel at width
+    ``e`` with 1 or 2 consumer ``warpgroups`` (0: the count a launch of
+    ``rows`` rows takes), from the CUDA runtime."""
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = build.library().fk_fused_norm_swiglu_occupancy(
+        e, KINDS[kind], warpgroups, rows, ctypes.byref(regs),
+        ctypes.byref(ctas))
+    build.check(rc, f"fused_norm_swiglu_occupancy[{e}, {kind}]")
+    return regs.value, ctas.value
 
 
 class FusedNormSwiGLU(torch.autograd.Function):

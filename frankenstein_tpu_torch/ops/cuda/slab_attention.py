@@ -10,9 +10,10 @@
   warpgroup's rows) and a masked one for any other.
 - K10 is the JAX kernel's ``qk_int8=True`` mode: rotated Q quantized per
   (row, head) and rotated K per (1024-row chunk, head) to int8, the QK dot
-  in int8, dequantized in the convert; V and AV stay bf16. A template
-  parameter of the mma.sync kernel that K1 ran before, plus a pre-pass
-  that rotates and quantizes K, in ``csrc/slab_rope_attention.cu``.
+  in int8, dequantized in the convert; V and AV stay bf16. A pre-pass
+  rotates and quantizes K (``csrc/slab_rope_attention.cu``), another Q,
+  then K1's forward with its score product in int8 wgmma runs on their
+  codes (``csrc/slab_rope_attention_int8.cu``).
 - K4 replaces ``block_attention.py:_slab_rope_attention_bwd``: its XLA
   rotations, ``_bwd_packed`` (or the per-head ``_bwd``) and the rotations
   back; CUDA C++ in ``csrc/slab_rope_attention_bwd.cu``. A pre-pass rotates
@@ -47,7 +48,7 @@ KCHUNK = 1024      # rows per K10 key scale (the JAX pack plan's chunk)
 launches = 0       # wrapper calls that ran K1
 launches_int8 = 0  # wrapper calls that ran K10 (its pre-pass and kernel)
 launches_bwd = 0   # wrapper calls that ran K4 (its pre-pass and both passes)
-FWD_PASSES = {"prep": 0, "fwd": 1}            # fwd_occupancy's passes
+FWD_PASSES = {"prep": 0, "fwd": 1}            # fwd(_int8)_occupancy's
 BWD_PASSES = {"prep": 0, "dq": 1, "dkv": 2}   # bwd_occupancy's passes
 
 
@@ -75,6 +76,18 @@ def rope_quantize_k_ref(k, cos, sin, *, n_heads: int):
         kr.reshape(b, t // KCHUNK, KCHUNK, n_heads, d), (2, 4))
     return (codes.reshape(b, t, e).to(torch.int8),
             s.reshape(b, t // KCHUNK, n_heads).transpose(1, 2).contiguous())
+
+
+def rope_quantize_q_ref(q, cos, sin, *, n_heads: int):
+    """Plain twin of K10's Q pre-pass: q [B, T, E] rotated
+    (``apply_rope_folded``, rounded to q's dtype) and quantized per (row,
+    head). Returns (codes [B, T, E] int8, scales [B, H, T] f32)."""
+    b, t, e = q.shape
+    cos_e, sin_e = cos.repeat(1, n_heads), sin.repeat(1, n_heads)
+    qr = rope.apply_rope_folded(q, cos_e, sin_e).float()
+    codes, s = _absmax_codes(qr.reshape(b, t, n_heads, e // n_heads), (3,))
+    return (codes.reshape(b, t, e).to(torch.int8),
+            s[..., 0].transpose(1, 2).contiguous())
 
 
 def _slab_rope_attention_ref(q, k, v, cos, sin, n_heads: int,
@@ -273,26 +286,50 @@ def rope_quantize_k(k, cos, sin, *, n_heads: int):
     return k8, ks
 
 
+def rope_quantize_q(q, cos, sin, *, n_heads: int):
+    """K10's Q pre-pass alone: q [B, T, E] rotated and quantized per (row,
+    head). Returns (codes [B, T, E] int8, scales [B, H, T] f32). The
+    pre-pass on CUDA tensors, the twin on CPU tensors;
+    ``slab_rope_attention_fwd_int8`` runs it before K10's forward."""
+    if not q.is_cuda:
+        return rope_quantize_q_ref(q, cos, sin, n_heads=n_heads)
+    b, t, e = q.shape
+    _check(q, q, q, cos, sin, n_heads, 1)
+    _check_int8(t)
+    q8 = torch.empty(b, t, e, dtype=torch.int8, device=q.device)
+    qs = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
+    rc = build.library().fk_slab_rope_q_quant(
+        q.data_ptr(), cos.data_ptr(), sin.data_ptr(), q8.data_ptr(),
+        qs.data_ptr(), b, t, n_heads, e // n_heads, _stream(q))
+    build.check(rc, "slab_rope_q_quant")
+    return q8, qs
+
+
 def slab_rope_attention_fwd_int8(q, k8, ks, v, cos, sin, *, n_heads: int,
                                  tok_per_time: int):
-    """K10's kernel alone, on the codes and scales of ``rope_quantize_k``
-    (CUDA tensors only; it times the kernel without its pre-pass). Returns
-    (out, lse) as ``slab_rope_attention``."""
+    """K10 after its K pre-pass, on the codes and scales of
+    ``rope_quantize_k`` (CUDA tensors only; it times K10 without the K
+    pre-pass): the Q pre-pass, into a workspace dropped after the call,
+    then the forward. Returns (out, lse) as ``slab_rope_attention``."""
     _check(q, q, v, cos, sin, n_heads, tok_per_time)
     b, t, e = q.shape
     _check_int8(t)
     if (k8.dtype != torch.int8 or k8.shape != q.shape
-            or not k8.is_contiguous() or ks.dtype != torch.float32
+            or not k8.is_contiguous() or k8.data_ptr() % 16
+            or k8.device != q.device or ks.dtype != torch.float32
             or ks.shape != (b, n_heads, t // KCHUNK)
-            or not ks.is_contiguous()):
+            or not ks.is_contiguous() or ks.device != q.device):
         raise ValueError("k8, ks: need rope_quantize_k's codes and scales")
     d = e // n_heads
+    q8 = torch.empty(b, t, e, dtype=torch.int8, device=q.device)
+    qs = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lse = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
     rc = build.library().fk_slab_rope_attention_fwd_int8(
         q.data_ptr(), k8.data_ptr(), ks.data_ptr(), v.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t,
-        n_heads, d, tok_per_time, 1.0 / float(d) ** 0.5, _stream(q))
+        cos.data_ptr(), sin.data_ptr(), q8.data_ptr(), qs.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, t, n_heads, d, tok_per_time,
+        1.0 / float(d) ** 0.5, _stream(q))
     build.check(rc, "slab_rope_attention_fwd_int8")
     return out, lse
 
@@ -314,16 +351,29 @@ def slab_rope_fwd_prep(q, k, cos, sin, *, n_heads: int):
     return qr, kr
 
 
+def _occupancy(entry: str, pass_: int, head_dim: int,
+               tok_per_time: int) -> tuple:
+    regs, ctas = ctypes.c_int(), ctypes.c_int()
+    rc = getattr(build.library(), entry)(
+        pass_, head_dim, tok_per_time, ctypes.byref(regs),
+        ctypes.byref(ctas))
+    build.check(rc, f"{entry}[{pass_}]")
+    return regs.value, ctas.value
+
+
 def fwd_occupancy(pass_: str, head_dim: int, tok_per_time: int) -> tuple:
     """(registers a thread, resident CTAs an SM) of one K1 kernel ("prep",
     "fwd") at ``head_dim``, in the instance (masked or not) that
     ``tok_per_time`` takes, from the CUDA runtime."""
-    regs, ctas = ctypes.c_int(), ctypes.c_int()
-    rc = build.library().fk_slab_rope_attention_fwd_occupancy(
-        FWD_PASSES[pass_], head_dim, tok_per_time, ctypes.byref(regs),
-        ctypes.byref(ctas))
-    build.check(rc, f"slab_rope_attention_fwd_occupancy[{pass_}]")
-    return regs.value, ctas.value
+    return _occupancy("fk_slab_rope_attention_fwd_occupancy",
+                      FWD_PASSES[pass_], head_dim, tok_per_time)
+
+
+def fwd_int8_occupancy(pass_: str, head_dim: int, tok_per_time: int) -> tuple:
+    """As ``fwd_occupancy``, of one K10 kernel: "prep" its Q pre-pass,
+    "fwd" its forward."""
+    return _occupancy("fk_slab_rope_attention_fwd_int8_occupancy",
+                      FWD_PASSES[pass_], head_dim, tok_per_time)
 
 
 def slab_rope_attention(q, k, v, cos, sin, *, n_heads: int,
@@ -331,8 +381,9 @@ def slab_rope_attention(q, k, v, cos, sin, *, n_heads: int,
     """Slab-causal attention over UNROTATED [B, T, E] q/k/v with RoPE
     applied by the kernels. cos, sin: [T, D] f32 lane tables
     (``rope.folded_tables(rope_cache[-T:], 1)``). ``qk_int8`` runs K10 (its
-    pre-pass, then its kernel; T % 1024 == 0) instead of K1. K1's rotated
-    q and k ([B, T, E] bf16 each) are a workspace of the call, not kept.
+    K and Q pre-passes, then its forward; T % 1024 == 0) instead of K1.
+    The rotated q and k (K1) or their codes and scales (K10) are a
+    workspace of the call, not kept.
     Returns (out [B, T, E], lse [B, H, T] f32)."""
     global launches, launches_int8
     if not q.is_cuda:

@@ -1,14 +1,17 @@
-"""The packed-attention probes: K10's kernel in its probe modes.
+"""The packed-attention probes: the mma.sync attention kernel in its probe
+modes.
 
 They replace ``tools/attn_probe.py:_variant_call`` and
 ``tools/int8_attr_probe.py:_call``, which priced each component of the
 packed TPU forward by timing a variant of the kernel with that component
-removed. Here each variant is a compile-time mode of K10's CUDA kernel
+removed. Here each variant is a compile-time mode of one CUDA kernel
 (``csrc/slab_rope_attention.cu``, template parameters ``ROPE`` and
-``VARIANT``), the mma.sync design K1 ran before its wgmma redesign
-(``csrc/slab_rope_attention_fwd.cu``), run on UNROTATED q and k at
+``VARIANT``), the mma.sync design K1 and K10 ran before their wgmma
+redesigns (``csrc/slab_rope_attention_fwd.cu``,
+``csrc/slab_rope_attention_int8.cu``), run on UNROTATED q and k at
 head_dim 32, as the JAX probes omit RoPE. The bf16 modes compute K1's
-function, so they price that design's parts, which K10 keeps. The port follows the math contract, not the TPU schedule: where
+function and the int8 ones K10's, so they price that older design's parts.
+The port follows the math contract, not the TPU schedule: where
 a variant removes TPU-only machinery, the mode removes the Hopper component
 that plays its role (``no_kbd``: the transposed staging of V).
 
@@ -322,15 +325,14 @@ def _launch(q, k, v, k8, ks, amax, out, lse, n_heads, tok_per_time,
     build.check(rc, f"slab_attention_probe[{variant}]")
 
 
-def occupancy(variant: str, rope: bool = False) -> tuple:
+def occupancy(variant: str) -> tuple:
     """(registers a thread, resident CTAs an SM) of the kernel's D = 32
-    instance of ``variant`` on the current card, from the CUDA runtime;
-    with ``rope``, of production K10 (``int8_full``; any other mode is
-    refused: production K1's are ``slab_attention.fwd_occupancy``'s)."""
+    instance of ``variant`` on the current card, from the CUDA runtime.
+    Production K1's and K10's are ``slab_attention.fwd_occupancy``'s and
+    ``slab_attention.fwd_int8_occupancy``'s."""
     regs, ctas = ctypes.c_int(), ctypes.c_int()
     rc = build.library().fk_slab_attention_occupancy(
-        PROBE_VARIANTS[variant], int(rope), ctypes.byref(regs),
-        ctypes.byref(ctas))
+        PROBE_VARIANTS[variant], ctypes.byref(regs), ctypes.byref(ctas))
     build.check(rc, f"slab_attention_occupancy[{variant}]")
     return regs.value, ctas.value
 

@@ -1,11 +1,11 @@
 """Where does the time of the mma.sync slab-attention forward go?
 
 The Hopper counterpart of the JAX package's ``tools/attn_probe.py``. Each
-variant is a compile-time mode of the mma.sync kernel that K1 ran before
-its wgmma redesign and K10 still runs (``ops/cuda/slab_probe.py``,
+variant is a compile-time mode of the mma.sync kernel that K1 and K10 ran
+before their wgmma redesigns (``ops/cuda/slab_probe.py``,
 ``csrc/slab_rope_attention.cu``), with one component removed, timed on the
 same unrotated inputs; production K1 (``csrc/slab_rope_attention_fwd.cu``)
-is not one of them:
+and K10 (``csrc/slab_rope_attention_int8.cu``) are not among them:
 
   kernel     K1's math on that kernel, without the rotation: the
              reference point

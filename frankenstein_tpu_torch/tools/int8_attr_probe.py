@@ -1,9 +1,11 @@
-"""Where does the time of K10, K1's int8-QK-score mode, go?
+"""Where does the time of int8 QK scores (K10's math) go?
 
 The Hopper counterpart of the JAX package's ``tools/int8_attr_probe.py``.
-Each variant is a compile-time mode of K10's kernel
-(``ops/cuda/slab_probe.py``, ``csrc/slab_rope_attention.cu``) on the same
-unrotated inputs, as the JAX probe omits RoPE:
+Each variant is a compile-time mode of the mma.sync kernel K10 ran before
+its wgmma redesign (``ops/cuda/slab_probe.py``,
+``csrc/slab_rope_attention.cu``; production K10 is
+``csrc/slab_rope_attention_int8.cu``) on the same unrotated inputs, as the
+JAX probe omits RoPE:
 
   bf16                the bf16 reference (attn_probe's ``kernel``)
   int8_dots_only      cast-only codes round(8x), the int8 QK product, raw

@@ -1,0 +1,96 @@
+"""Time K9 and K10 (K1 beside K10) at the main path's shapes, through the
+wrappers every checkout of the port has, so two trees can be compared in
+one call on one card.
+
+- K9 (``fused_mlp.fused_norm_swiglu``, LayerNorm): the encoder's [B, 6144,
+  256] with hidden 1024 at each batch, and the Perceiver's [128, 32, 256]
+  with hidden 512.
+- K10 (``slab_attention.slab_rope_attention(qk_int8=True)``: its K and Q
+  pre-passes and its forward) and K1 at B in the batches, T=6144, H=8,
+  D=32, P=256, at the qk_int8 tests' activation scale (0.5).
+
+Each time is CUDA events around ``--launches`` launches back to back after
+a warm-up, the median of ``--repeats`` such turns; one JSON line per
+kernel and shape with the card's name. Run it with the package to time
+first on the path, e.g. from the root of another checkout::
+
+    PYTHONPATH=. python /path/to/frankenstein_tpu_torch/tools/kernel_times.py
+
+or in this one as ``python -m frankenstein_tpu_torch.tools.kernel_times``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _median_ms(fn, launches: int, repeats: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return sorted(times)[len(times) // 2]
+
+
+def main(argv=None) -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, nargs="+", default=[2, 32, 128])
+    ap.add_argument("--launches", type=int, default=5)
+    ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--tag", default="", help="a label for the lines")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_times: needs a CUDA device", file=sys.stderr)
+        return 1
+    from frankenstein_tpu_torch.ops import rope
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    card = torch.cuda.get_device_name(0)
+    time = lambda fn: _median_ms(fn, args.launches, args.repeats)
+    e = 256
+    for b, t, hidden in [(b, 6144, 1024) for b in args.batch] + [
+            (128, 32, 512)]:
+        x = rnd(b, t, e).to(torch.bfloat16)
+        nw, nb = 1.0 + 0.1 * rnd(e), 0.1 * rnd(e)
+        w1, w3 = ((rnd(hidden, e) / e ** 0.5).to(torch.bfloat16)
+                  for _ in range(2))
+        w2 = (rnd(e, hidden) / hidden ** 0.5).to(torch.bfloat16)
+        ms = time(lambda: k9.fused_norm_swiglu(x, nw, nb, w1, w3, w2))
+        print(json.dumps({"tag": args.tag, "kernel": "K9", "B": b, "T": t,
+                          "E": e, "hidden": hidden, "ms": ms,
+                          "tflops": 6 * b * t * e * hidden / ms / 1e9,
+                          "card": card}), flush=True)
+        del x, w1, w3, w2
+    t, h, d, p = 6144, 8, 32, 256
+    cos, sin = rope.folded_tables(rope.build_rope_cache(d, t, device=dev), 1)
+    kw = dict(n_heads=h, tok_per_time=p)
+    for b in args.batch:
+        q, k, v = ((0.5 * rnd(b, t, h * d)).to(torch.bfloat16)
+                   for _ in range(3))
+        for name, on in (("K10", True), ("K1", False)):
+            ms = time(lambda: k1.slab_rope_attention(q, k, v, cos, sin,
+                                                     qk_int8=on, **kw))
+            print(json.dumps({"tag": args.tag, "kernel": name, "B": b,
+                              "T": t, "H": h, "D": d, "P": p, "ms": ms,
+                              "card": card}), flush=True)
+        del q, k, v
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

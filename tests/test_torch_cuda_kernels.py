@@ -3,8 +3,8 @@ long for shared-memory scores), K3, K4, K5 (bf16 and int8 KV caches, one
 to four query heads per KV head, the 1B-class width), K6 / K7 (the three mask
 modes of flash attention, forward and backward), K8 (the fused head and
 top-k, ragged vocab, ties), K9 (the fused pre-norm SwiGLU MLP, both norms)
-and K10 (int8 QK scores: K codes, scales, out and lse), and the probe modes
-of K10's kernel (ops/cuda/slab_probe.py), on the card against
+and K10 (int8 QK scores: K and Q codes, scales, out and lse), and the probe
+modes of the mma.sync attention kernel (ops/cuda/slab_probe.py), on the card against
 their plain PyTorch twins, at
 small shapes that reach the kernels' edge cases (slabs that do not divide
 the tiles, a batch that does not fill a tile, an empty cache, one beam and
@@ -909,11 +909,19 @@ def _k9_case(dev, b, t, e, hidden, kind, seed):
                                           (4, 32, 256, 512),
                                           (1, 200, 128, 256),
                                           (2, 77, 64, 192),
-                                          (1, 130, 192, 320)])
+                                          (1, 130, 192, 320),
+                                          (1, 100, 128, 64),
+                                          (3, 6000, 256, 1024),
+                                          (1, 17000, 64, 128),
+                                          (2, 8500, 192, 256),
+                                          (1, 16950, 128, 576)])
 def test_k9_matches_twin_and_is_deterministic(dev, kind, b, t, e, hidden):
     """Out and the update out - x against the twin at the kernel's rounding
-    points, on the same bf16 inputs; two launches bitwise equal. Row counts
-    that leave the last 128-row tile ragged, and every width."""
+    points, on the same bf16 inputs; two launches bitwise equal. Every
+    width, hidden from the gate's 64 up, row counts that leave the last row
+    tile (and the last CTA of a cluster) empty or ragged, and both
+    instances of each width: one warpgroup a CTA at the small row counts,
+    two from about 66 * 128 rows on."""
     args = _k9_case(dev, b, t, e, hidden, kind, seed=b * t + e)
     before = k9.launches
     out = k9.fused_norm_swiglu(*args, kind=kind)
@@ -927,6 +935,23 @@ def test_k9_matches_twin_and_is_deterministic(dev, kind, b, t, e, hidden):
     x = args[0].float()
     upd = ref.float() - x
     assert _err(out.float() - x, upd) <= K9_TOL * float(upd.abs().max())
+
+
+def test_k9_occupancy_reads_every_instance(dev):
+    """Registers and resident CTAs of every instance (width, norm, one or
+    two warpgroups), from the CUDA runtime; a launch's own pick at a small
+    and a large row count; a width without an instance is refused."""
+    for e in (64, 128, 192, 256):
+        for kind in k9.KINDS:
+            for nwg in (1, 2):
+                regs, ctas = k9.occupancy(e, kind, nwg)
+                assert 0 < regs <= 255 and ctas >= 1, (e, kind, nwg, regs)
+    assert k9.occupancy(256, rows=128 * 32) == k9.occupancy(256,
+                                                            warpgroups=1)
+    assert k9.occupancy(256, rows=2 * 6144) == k9.occupancy(256,
+                                                            warpgroups=2)
+    with pytest.raises(RuntimeError, match="occupancy"):
+        k9.occupancy(96, warpgroups=1)
 
 
 def test_k9_refuses_what_it_does_not_take(dev):
@@ -1150,7 +1175,9 @@ def test_k8_refuses_what_it_does_not_take(dev):
 # order of f32 sums: within K10_LSE_TOL. K1's output, and a kernel that read
 # chunk 0's K scale for every tile, fail that check.
 K10_CASES = [(1, 1024, 2, 32, 256), (2, 6144, 8, 32, 256),
-             (1, 2048, 2, 64, 100)]
+             (1, 2048, 2, 64, 100), (1, 2048, 2, 32, 96),
+             (1, 3072, 2, 64, 256), (2, 1024, 4, 32, 1024),
+             (1, 2048, 2, 32, 160), (1, 2048, 3, 64, 192)]
 K10_OUT_TOL = 1e-2
 K10_LSE_TOL = 1e-4
 
@@ -1171,11 +1198,12 @@ def _k10_case(dev, b, t, h, d, seed):
 
 @pytest.mark.parametrize("b,t,h,d,p", K10_CASES)
 def test_k10_matches_twin_and_is_deterministic(dev, b, t, h, d, p):
-    """K codes and scales of the pre-pass equal to the twin's (codes off
-    .5 ties); out and lse within K10_OUT_TOL and K10_LSE_TOL of the twin run
-    on the same bf16 inputs, where K1's output (and, with two key chunks or
-    more, chunk 0's K scale read for every tile) fails; two launches
-    bitwise equal."""
+    """K and Q codes and scales of the pre-passes equal to the twins'
+    (codes off .5 ties); out and lse within K10_OUT_TOL and K10_LSE_TOL of
+    the twin run on the same bf16 inputs, where K1's output (and, with two
+    key chunks or more, chunk 0's K scale read for every tile) fails; two
+    launches bitwise equal. Both head dims in the unmasked (P % 64 == 0)
+    and masked instances, and P = T."""
     q, k, v, cos, sin = _k10_case(dev, b, t, h, d, seed=b * t + p)
     kw = dict(n_heads=h, tok_per_time=p)
     k8, ks = k1.rope_quantize_k(k, cos, sin, n_heads=h)
@@ -1186,6 +1214,14 @@ def test_k10_matches_twin_and_is_deterministic(dev, b, t, h, d, p):
     pre = rotated.float().reshape(b, t, h, d) / scale[..., None]
     tie = (((pre.abs() % 1.0) - 0.5).abs() <= 1e-3).reshape(b, t, h * d)
     assert int(((k8 != r8) & ~tie).sum()) == 0
+    q8, qs = k1.rope_quantize_q(q, cos, sin, n_heads=h)
+    w8, ws = k1.rope_quantize_q_ref(q, cos, sin, n_heads=h)
+    assert torch.equal(qs, ws)
+    rotated = rope.apply_rope_folded(q, cos.repeat(1, h), sin.repeat(1, h))
+    pre = (rotated.float().reshape(b, t, h, d)
+           / ws.transpose(1, 2)[..., None])
+    tie = (((pre.abs() % 1.0) - 0.5).abs() <= 1e-3).reshape(b, t, h * d)
+    assert int(((q8 != w8) & ~tie).sum()) == 0
     before = (k1.launches, k1.launches_int8)
     out, lse = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
     again = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
@@ -1217,7 +1253,8 @@ def test_k10_refuses_what_it_does_not_take(dev):
         k1.rope_quantize_k(k, cos, sin, n_heads=2)
 
 
-# The probe modes of K1 / K10's kernel (ops/cuda/slab_probe.py) against
+# The probe modes of the mma.sync kernel K1 and K10 ran before their wgmma
+# redesigns (ops/cuda/slab_probe.py) against
 # their twins on the same bf16 inputs, within the limits slab_probe states
 # (EXACT_TOL, DEFINED_TOL, LSE_TOL; ``probe_error``, ``agrees``).
 PROBE_EXACT = ("kernel", "mask_all", "exp2", "int8_full")
@@ -1255,11 +1292,13 @@ def test_probe_modes_match_twins_and_are_deterministic(dev, variant, b, t, h,
 def test_probe_kernel_is_k1_and_k10_on_identity_tables(dev, p):
     """With cos 1, sin 0 tables production K1 computes the ``kernel``
     mode's function: K1 is held to that mode's twin within K1's 3e-2 (the
-    mode is the mma.sync design K1 had, which K10 keeps; exp2 and another
-    order of sums rule out bitwise equality). ``int8_full`` differs from
-    production K10 only in the rotation: bitwise K10 so run (its codes
-    too); its kernel alone on ``probe_quantize_k``'s codes is bitwise the
-    pair."""
+    mode is the mma.sync design K1 had; exp2 and another order of sums rule
+    out bitwise equality). ``int8_full`` computes production K10's function
+    so run: both are held to K10's twin on identity tables within
+    K10_OUT_TOL and K10_LSE_TOL (K10 moved to wgmma, so no longer
+    bitwise); the K pre-pass they share gives bitwise equal codes and
+    scales; ``int8_full``'s kernel alone on ``probe_quantize_k``'s codes is
+    bitwise the pair."""
     from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
     b, t, h = 2, 2048, 2
     q, k, v = _probe_case(dev, b, t, h, seed=p)
@@ -1270,8 +1309,9 @@ def test_probe_kernel_is_k1_and_k10_on_identity_tables(dev, p):
     got = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
     assert _err(got[0], want[0]) < 3e-2 and _err(got[1], want[1]) < 3e-2
     got = sp.slab_attention_probe(q, k, v, variant="int8_full", **kw)
-    want = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    prod = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
+    want = k1.slab_rope_attention_int8_ref(q, k, v, cos, sin, **kw)
+    assert _k10_passes(*got, *want) and _k10_passes(*prod, *want)
     codes = sp.probe_quantize_k(k, n_heads=h, variant="int8_full")
     want_codes = k1.rope_quantize_k(k, cos, sin, n_heads=h)
     assert torch.equal(codes[0], want_codes[0])
@@ -1311,17 +1351,19 @@ def test_probe_refuses_what_it_does_not_take(dev):
 
 
 def test_probe_occupancy_reads_every_mode(dev):
-    """Registers and resident CTAs of each D=32 instance, production K10
-    included, from the CUDA runtime, and production K1's forward from
-    ``fwd_occupancy``; a rope instance other than K10 is refused, K1's
-    old one too."""
+    """Registers and resident CTAs of each D=32 probe instance from the
+    CUDA runtime, and production K1's and K10's passes (which left the
+    probes' kernel) from ``fwd_occupancy`` and ``fwd_int8_occupancy``; a
+    head dim without a K10 instance is refused."""
     from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
     for name in sp.PROBE_VARIANTS:
         regs, ctas = sp.occupancy(name)
         assert 0 < regs <= 255 and ctas >= 1
-    for regs, ctas in (sp.occupancy("int8_full", rope=True),
-                       k1.fwd_occupancy("fwd", 32, 256)):
-        assert 0 < regs <= 255 and ctas >= 1
-    for name in ("exp2", "kernel"):
-        with pytest.raises(RuntimeError, match="occupancy"):
-            sp.occupancy(name, rope=True)
+    for p in (256, 96):
+        for d in (32, 64):
+            for pass_ in k1.FWD_PASSES:
+                for regs, ctas in (k1.fwd_occupancy(pass_, d, p),
+                                   k1.fwd_int8_occupancy(pass_, d, p)):
+                    assert 0 < regs <= 255 and ctas >= 1, (pass_, d, p)
+    with pytest.raises(RuntimeError, match="occupancy"):
+        k1.fwd_int8_occupancy("fwd", 48, 256)

@@ -124,11 +124,13 @@ def test_hopper_blocks_live_once_in_the_shared_header():
     header = (CSRC / "hopper_blocks.cuh").read_text()
     assert not re.findall(KERNEL_RE, header)
     users = [CSRC / "flash_attention_dense.cu", SOURCE,
-             CSRC / "slab_rope_attention_fwd.cu"]
+             CSRC / "slab_rope_attention_fwd.cu",
+             CSRC / "slab_rope_attention_int8.cu", CSRC / "fused_mlp.cu"]
     for src in users:
         assert '#include "hopper_blocks.cuh"' in src.read_text(), src.name
     for helper in ("mbar_wait", "tma_load", "smem_desc", "to_a", "tile_map",
-                   "aligned_smem", "online_softmax", "key_end", "pass_tile"):
+                   "aligned_smem", "online_softmax", "key_end", "pass_tile",
+                   "kmajor_desc", "tile_map_rows", "fence_regs"):
         defined = [p.name for p in sorted(CSRC.glob("*.cu*"))
                    if re.search(rf"\b{helper}\([^;]*\)\s*{{", p.read_text())]
         assert defined == ["hopper_blocks.cuh"], (helper, defined)

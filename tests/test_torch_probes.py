@@ -1,4 +1,5 @@
-"""The probe modes of K1 / K10's kernel (``ops/cuda/slab_probe.py``):
+"""The probe modes of the mma.sync kernel K1 and K10 ran before their wgmma
+redesigns (``ops/cuda/slab_probe.py``):
 their plain twins against the JAX probes ``tools/attn_probe.py`` and
 ``tools/int8_attr_probe.py`` run in Pallas interpret mode, the int8 twins
 against a numpy float64 oracle on bf16-lattice inputs, the dots-only twins
