@@ -151,16 +151,19 @@ nvcc (sm_90a) and then, one line per phase:
     request timed in turns with each switch on and off (medians of 5 and
     their ranges, sentences/s at B=128), and one Franky training step at
     B=2 with ``qk_int8`` (K10 forward, K4 backward);
-19. the packed-attention probes (``ops/cuda/slab_probe.py``, modes of the
-    mma.sync kernel K1 and K10 ran before their wgmma redesigns, on
-    unrotated q, k): every mode at B=2, T=6144, H=8, D=32 against its twin
-    (P=8 and P=256; the int8 modes at P=256), K1 with identity rope tables
-    within K1_TOL of ``kernel``'s twin, K10 and ``int8_full`` within K10's
-    tolerances of K10's twin on those tables with bitwise equal K codes,
-    ``no_kbd`` finite, repeatable and unlike ``kernel``; then the
-    two probe CLIs as a user runs them at B=128 (``attn_probe`` at P=8 and
-    P=256, ``int8_attr_probe`` at P=256), one line per variant with its
-    median time, its twin error at B=2, its bound and its issued TFLOP/s.
+19. the packed-attention probes (``ops/cuda/slab_probe.py``: compile-time
+    modes of K1's and K10's wgmma forwards, on unrotated q, k): every mode
+    at B=2, T=6144, H=8, D=32 against its twin (P=8 and P=256; the int8
+    modes at P=256); K1 with identity rope tables bitwise equal to the
+    ``kernel`` mode (out and lse, P=8 and 256) and within K1_TOL of its
+    twin; K10 on those tables bitwise equal to ``int8_full`` (P=256), both
+    within K10's tolerances of K10's twin, with bitwise equal K and Q codes
+    and scales; ``no_kbd`` finite, repeatable and unlike ``kernel``; then
+    the two probe CLIs as a user runs them at B=128 (``attn_probe`` at P=8
+    and P=256, ``int8_attr_probe`` at P=256), one line per variant with
+    its median time, its twin error at B=2 and B=128, its bound and its
+    issued TFLOP/s, ``kernel`` beside K1 less its rotation pre-pass and
+    ``int8_full`` beside K10, and each mode's registers and CTAs an SM.
 
 Every on / off comparison (phases 4, 9, 13, 17 and 18) is timed by
 ``_in_turns``: one warm-up each, then single calls alternating in turns,
@@ -3013,41 +3016,46 @@ def phase_probes(card: str) -> dict:
     q, k, v = qb[:b], kb[:b], vb[:b]
     twins = {}
     checks = _probe_checks(q, k, v, h, twins)
-    # with identity rope tables K1 computes the ``kernel`` mode's function
-    # and K10 the ``int8_full`` mode's (the rotation left out): K1 is held
-    # to the mode's twin within K1_TOL, and K10 and ``int8_full`` to K10's
-    # twin on those tables within K10_OUT_TOL / K10_LSE_TOL (the modes are
-    # the mma.sync design both left); the K pre-pass they share gives
-    # bitwise equal codes and scales
+    # with identity rope tables K1's pre-pass leaves q and k as they are
+    # and its forward is the ``kernel`` mode's instance: K1's out and lse
+    # are bitwise the mode's, and within K1_TOL of the mode's twin. So run,
+    # K10 is bitwise ``int8_full`` (the same pre-pass arithmetic, then the
+    # same forward), both within K10_OUT_TOL / K10_LSE_TOL of K10's twin on
+    # those tables, and the pre-passes give bitwise equal K and Q codes and
+    # scales
     cos, sin = torch.ones(t, d, device=dev), torch.zeros(t, d, device=dev)
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
     identity = {}
     for p in (8, 256):
         kw = dict(n_heads=h, tok_per_time=p)
         twin = twins[(p, sp.TWINS["kernel"])]
         got = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+        mode = sp.slab_attention_probe(q, k, v, variant="kernel", **kw)
         errs = [_max_err(g, w) for g, w in zip(got, twin)]
-        identity[p] = {"K1 err": max(errs), "K1 ok": max(errs) <= K1_TOL}
+        identity[p] = {"K1 err": max(errs), "K1 ok": max(errs) <= K1_TOL,
+                       "K1 bitwise kernel": same(got, mode)}
         if p == 256:
             ref, ref_lse = k1.slab_rope_attention_int8_ref(q, k, v, cos, sin,
                                                            **kw)
             top = float(ref.abs().max())
-            for name, (o_, l_) in (
-                    ("int8_full", sp.slab_attention_probe(
-                        q, k, v, variant="int8_full", **kw)),
-                    ("K10", k1.slab_rope_attention(q, k, v, cos, sin,
-                                                   qk_int8=True, **kw))):
+            full = sp.slab_attention_probe(q, k, v, variant="int8_full",
+                                           **kw)
+            prod = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True,
+                                          **kw)
+            for name, (o_, l_) in (("int8_full", full), ("K10", prod)):
                 e_ = (_max_err(o_, ref) / top, _max_err(l_, ref_lse))
                 identity[p][f"{name} err"] = e_
                 identity[p][f"{name} ok"] = (e_[0] <= K10_OUT_TOL
                                              and e_[1] <= K10_LSE_TOL)
-            codes = sp.probe_quantize_k(k, n_heads=h, variant="int8_full")
-            want = k1.rope_quantize_k(k, cos, sin, n_heads=h)
-            identity[p]["K codes bitwise"] = (
-                torch.equal(codes[0], want[0])
-                and torch.equal(codes[1], want[1]))
+            identity[p]["K10 bitwise int8_full"] = same(full, prod)
+            identity[p]["K codes bitwise"] = same(
+                sp.probe_quantize_k(k, n_heads=h, variant="int8_full"),
+                k1.rope_quantize_k(k, cos, sin, n_heads=h))
+            identity[p]["Q codes bitwise"] = same(
+                sp.probe_quantize_q(q, n_heads=h, variant="int8_full"),
+                k1.rope_quantize_q(q, cos, sin, n_heads=h))
     _probe_checks_hold(checks, f"B={b}")
-    _check(all(r["K1 ok"] and r.get("int8_full ok", True)
-               and r.get("K10 ok", True) and r.get("K codes bitwise", True)
+    _check(all(all(ok for key, ok in r.items() if "err" not in key)
                for r in identity.values()),
            f"identity-table K1 / K10: {identity}")
 
@@ -3106,21 +3114,32 @@ def phase_probes(card: str) -> dict:
                   f"| {twin} | {card}", flush=True)
     for p in (8, 256):
         r = runs[p]
+        fwd = r["rope_ms"] - r["prep_ms"]
         print(f"phase 19 probe attn P={p} references: production K1 (rope) "
-              f"{r['rope_ms']:.3f} ms, SDPA with the slab mask "
+              f"{r['rope_ms']:.3f} ms, its rotation pre-pass alone "
+              f"{r['prep_ms']:.3f} ms, K1 less its pre-pass {fwd:.3f} ms "
+              f"(kernel {r['kernel_ms']:.3f} ms, "
+              f"{r['kernel_ms'] / fwd:.3f}x), SDPA with the slab mask "
               f"{r['sdpa_ms']:.3f} ms, 4096^2 bf16 matmul "
               f"{r['matmul_tflops']:.1f} TFLOP/s; identity-table K1 against "
-              f"kernel's twin (tol {K1_TOL}), K10 and int8_full against "
-              f"K10's twin (tol {K10_OUT_TOL} / {K10_LSE_TOL}), their K "
-              f"codes bitwise: {identity[p]}; launches "
-              f"{launches[0]} bf16, {launches[1]} int8 | {card}", flush=True)
-    occ = {name: sp.occupancy(name) for name in sp.PROBE_VARIANTS
-           if name not in ("bf16", "mask_last")}
-    occ.update({"K1": k1.fwd_occupancy("fwd", d, 256),
-                "K10": k1.fwd_int8_occupancy("fwd", d, 256)})
-    print("phase 19 probe modes at D=32 (and production K1's and K10's "
-          "forwards), registers a thread / resident CTAs an SM: " + ", ".join(
-              f"{name} {r}/{c}" for name, (r, c) in occ.items())
+              f"kernel and its twin (tol {K1_TOL}), K10 against int8_full "
+              f"and both against K10's twin (tol {K10_OUT_TOL} / "
+              f"{K10_LSE_TOL}), their K and Q codes: {identity[p]}; "
+              f"launches {launches[0]} bf16, {launches[1]} int8 | {card}",
+              flush=True)
+    r = runs["int8"]
+    print(f"phase 19 probe int8_attr P=256 references: production K10 "
+          f"{r['k10_ms']:.3f} ms, int8_full {r['int8_full_ms']:.3f} ms "
+          f"({r['int8_full_ms'] / r['k10_ms']:.3f}x) | {card}", flush=True)
+    occ = {(name, p): sp.occupancy(name, p) for p in (256, 8)
+           for name in sp.PROBE_VARIANTS
+           if name not in ("bf16", "mask_last", *sp.ALIASES)}
+    occ.update({("K1 prep", 256): k1.fwd_occupancy("prep", d, 256),
+                ("K10 Q prep", 256): k1.fwd_int8_occupancy("prep", d, 256)})
+    print("phase 19 probe modes' forwards at D=32 (kernel and int8_full are "
+          "production K1's and K10's), registers a thread / resident CTAs "
+          "an SM: " + ", ".join(f"{name} P={p} {r}/{c}"
+                                for (name, p), (r, c) in occ.items())
           + f" | {card}", flush=True)
     _probe_checks_hold(checks_b, f"B={PROBE_BATCH} (rows 0-{b - 1})")
     n_attn, n_int8 = len(attn_probe.VARIANTS), len(int8_attr_probe.VARIANTS)
@@ -3256,11 +3275,11 @@ def main() -> int:
          "launches": served["launches"][(128, True)]["K10"],
          **_entry(k10)},
         {"name": "slab_attention_probe", "route": "cuda",
-         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention_fwd.cu",
          "replaces": "tools/attn_probe.py:137 (_variant_call, call :167)",
          "launches": probes["launches"][0], **_entry(probes["kernel"])},
         {"name": "slab_attention_probe_int8", "route": "cuda",
-         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention.cu",
+         "source": "frankenstein_tpu_torch/csrc/slab_rope_attention_int8.cu",
          "replaces": "tools/int8_attr_probe.py:165 (_call, call :197)",
          "launches": probes["launches"][1], **_entry(probes["int8_full"])}]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -18,9 +18,9 @@ paths are hand-written CUDA C++ for Hopper (``csrc/``):
 - K3 ``ops/cuda/beam_reorder.py``: the in-place beam-search cache reorder;
 - K8 ``ops/cuda/lm_head_topk.py``: a decode step's head, top-k and
   logsumexp without the [B, V] logits (``sampling.COMPACT_TOPK``);
-- the packed-attention probes ``ops/cuda/slab_probe.py``: K1 / K10's
-  kernel with one component removed, timed by ``tools.attn_probe`` and
-  ``tools.int8_attr_probe``.
+- the packed-attention probes ``ops/cuda/slab_probe.py``: compile-time
+  modes of K1's and K10's wgmma forwards, each with one component
+  removed, timed by ``tools.attn_probe`` and ``tools.int8_attr_probe``.
 
 Each kernel's wrapper runs a plain PyTorch twin for CPU tensors, so the CPU
 tests hold the port to the JAX package. The package imports torch and

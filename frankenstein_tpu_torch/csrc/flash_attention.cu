@@ -23,8 +23,8 @@
 // What bounds it on an H100: at D = 32 each visible (query, key) pair
 // costs 2 x 32 MACs on the tensor cores but one exp and several f32 ops of
 // softmax, so the kernel is bound by tensor-core throughput and softmax
-// work, not by bytes (K/V tiles are re-read per q-tile, mostly from L2). K1's
-// design carries over without its RoPE (csrc/slab_rope_attention.cu):
+// work, not by bytes (K/V tiles are re-read per q-tile, mostly from L2). The
+// design:
 //   * one CTA per (batch, head, 128-row q-tile); 8 warps of 16 q rows;
 //   * the q tile is held as mma A-fragments in registers; V is stored
 //     transposed so both B-fragments are single 32-bit loads;

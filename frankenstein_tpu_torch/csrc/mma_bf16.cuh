@@ -1,11 +1,12 @@
-// Device helpers shared by the probes and K10's K pre-pass
-// (slab_rope_attention.cu), K10 (slab_rope_attention_int8.cu), K1
-// (slab_rope_attention_fwd.cu), K4 (slab_rope_attention_bwd.cu) and the
-// other mma.sync kernels: the bf16 and int8 mma.sync tile products, bf16
-// packing, the RoPE rotation that K1's, K4's and K10's pre-passes apply to
-// q/k, and K10's int8 code rule. The rotation must be the same code in all
-// of them: K4 recomputes K1's (or K10's) scores from its lse, so its
-// rotated q/k must round exactly as the forward's did.
+// Device helpers the kernel sources include (directly or through
+// hopper_blocks.cuh): the bf16 mma.sync tile product of K6 / K7 slab and
+// positions (flash_attention.cu, flash_attention_bwd.cu) and K8
+// (lm_head_topk.cu), bf16 packing, the RoPE rotation the pre-passes of K1
+// (slab_rope_attention_fwd.cu), K4 (slab_rope_attention_bwd.cu) and K10
+// (slab_rope_attention_int8.cu) apply to q/k, and K10's int8 code rule.
+// The rotation must be the same code in all of them: K4 recomputes K1's
+// (or K10's) scores from its lse, so its rotated q/k must round exactly as
+// the forward's did.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,23 +29,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a (16x32 s8, row) * b (32x8 s8, col) + d, s32 accumulators (K10's
-// QK product). Fragments: a = {A[g][4t..4t+3], A[g+8][4t..], A[g][16+4t..],
-// A[g+8][16+4t..]}, b = {B[4t..4t+3][g], B[16+4t..][g]}, c as mma_bf16's.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -58,6 +58,26 @@
 // tools/k1_shape_sweep.py (PERF.md): at D = 32 two CTAs an SM of two
 // consumer warpgroups and 64-key tiles, at D = 64 one CTA of three.
 //
+// The probes (fk_slab_attention_probe; ops/cuda/slab_probe.py) replace
+// tools/attn_probe.py: _variant_call, which prices the components of the
+// packed TPU forward by timing variants with one removed. Here each bf16
+// variant is an instance of this forward on UNROTATED q and k (no
+// pre-pass) at D = 32, every mode branch behind if constexpr (FwdPass's
+// MODE; PROD compiles to the production kernel):
+//   kernel, bf16,  the production instance FwdOf<32, MASKED> itself (the
+//   mask_last      masked one masks only the tiles that cross the
+//                  warpgroup's first slab, which mask_last prices)
+//   exp2           kernel's instance: the exps already are ex2 of one FFMA
+//   no_mask        the unmasked production instance at any P, over every
+//                  tile a warpgroup visits
+//   MASK_ALL       the masked body with the mask on every visited tile
+//   DOTS_ONLY      the scores times scale, rounded to bf16, straight into
+//                  P V: no mask, max, exp, sum or rescale; out is the
+//                  unnormalised accumulator, lse 0
+//   NO_KBD         V read K-major from the same tile and swizzle instead of
+//                  through the transpose-B bit (the step that plays the
+//                  TPU's block-diagonal staging; values wrong, timing only)
+//
 // Kernel names: slab_rope_attn_fwd_*, never with flash_attn_fwd in a name
 // or a template type (chip_smoke.py's profile families take the first
 // pattern that matches, and K6 / K7's comes first).
@@ -72,6 +92,17 @@ namespace {
 using namespace fk;
 
 constexpr int PREP_THREADS = 256;
+
+// Probe modes; the numbers are fk_slab_attention_probe's `variant`
+// (ops/cuda/slab_probe.py:PROBE_VARIANTS). FwdPass's MODE is PROD,
+// DOTS_ONLY, NO_KBD or MASK_ALL; NO_MASK runs the unmasked PROD instance.
+enum Mode : int {
+  PROD = 0,
+  DOTS_ONLY = 1,
+  NO_KBD = 2,
+  NO_MASK = 3,
+  MASK_ALL = 4,
+};
 
 // ---- pre-pass ---------------------------------------------------------------
 
@@ -100,11 +131,13 @@ __global__ void __launch_bounds__(PREP_THREADS)
 // ---- forward ------------------------------------------------------------------
 
 // NWG consumer warpgroups of 64 query rows, key tiles of BN in a ring of
-// STAGES; MASKED compiles the per-element slab mask.
-template <int D_, int NWG_, int BN_, int CTAS_, bool MASKED_>
+// STAGES; MASKED compiles the per-element slab mask, MODE a probe mode.
+template <int D_, int NWG_, int BN_, int CTAS_, bool MASKED_,
+          int MODE_ = PROD>
 struct FwdPass : Roles<NWG_> {
   static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
   static constexpr bool MASKED = MASKED_;
+  static constexpr int MODE = MODE_;
   static constexpr int BM = 64 * NWG, STAGES = 4;
   static_assert(128 % BN == 0, "T % 128 == 0 must leave no partial tile");
   static constexpr int Q_BYTES = BM * D * 2, TILE = BN * D * 2;
@@ -113,6 +146,30 @@ struct FwdPass : Roles<NWG_> {
   static constexpr int OFF_BAR = OFF_V + STAGES * TILE;
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
+
+// NO_KBD's P V: c (64 x D) += A (64 x K) * B with B's K x D read K-major
+// from V's tile of K rows of D (rows of 2*D bytes as TMA stored them): the
+// D-row blocks of the tile in turn, each D / 16 k-steps of 32 bytes, so
+// every byte of the tile is read once, at the wrong place (timing only).
+template <int D, int K>
+__device__ __forceinline__ void mma_acc_kmajor(float (&c)[D / 2],
+                                               const uint32_t (&a)[K / 16][4],
+                                               uint32_t b) {
+  static_assert(D == 32 && K % D == 0, "the probes' D = 32");
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint64_t desc = smem_desc<D>(
+        b + (kk / (D / 16)) * D * 2 * D + (kk % (D / 16)) * 32, false);
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3]), "+f"(c[4]), "+f"(c[5]), "+f"(c[6]), "+f"(c[7]), "+f"(c[8]), "+f"(c[9]), "+f"(c[10]), "+f"(c[11]), "+f"(c[12]), "+f"(c[13]), "+f"(c[14]), "+f"(c[15])
+        : "r"(a[kk][0]), "r"(a[kk][1]), "r"(a[kk][2]), "r"(a[kk][3]),
+          "l"(desc), "r"(1));
+  }
+}
 
 // One CTA per (BM query rows, head, batch row): blockIdx.x = b * H + h,
 // blockIdx.y counts row blocks from the last (the heaviest) down. Ring of
@@ -184,9 +241,12 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
     // the scores of key tile j that this thread's rows do not see at -inf
+    // (MASK_ALL: on every tile)
     auto mask = [&](int j) {
       if constexpr (C::MASKED) {
-        if ((j + 1) * BN <= mask_from) return;
+        if constexpr (C::MODE != MASK_ALL) {
+          if ((j + 1) * BN <= mask_from) return;
+        }
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) {
           const int key = j * BN + 8 * (i / 4) + 2 * t + (i & 1);
@@ -203,8 +263,13 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      mask(0);
-      online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+      if constexpr (C::MODE == DOTS_ONLY) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) s[i] *= scale;
+      } else {
+        mask(0);
+        online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+      }
       to_a<BN>(p, s);
       // Tile j's scores are issued with tile j-1's PV; tile j's softmax
       // runs while that PV is in flight, and rescales o once it has landed.
@@ -214,28 +279,41 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
         wgmma_fence();
         mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
         wgmma_commit();
-        mma_acc<D, BN>(o, p, v_base + sp * C::TILE);
+        if constexpr (C::MODE == NO_KBD)
+          mma_acc_kmajor<D, BN>(o, p, v_base + sp * C::TILE);
+        else
+          mma_acc<D, BN>(o, p, v_base + sp * C::TILE);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(s);
-        mask(j);
-        online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+        if constexpr (C::MODE == DOTS_ONLY) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) s[i] *= scale;
+        } else {
+          mask(j);
+          online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+        }
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(p);
         if (lane == 0) mbar_arrive(&empty[sp]);
+        if constexpr (C::MODE != DOTS_ONLY) {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          o[4 * n] *= a0;
-          o[4 * n + 1] *= a0;
-          o[4 * n + 2] *= a1;
-          o[4 * n + 3] *= a1;
+          for (int n = 0; n < D / 8; ++n) {
+            o[4 * n] *= a0;
+            o[4 * n + 1] *= a0;
+            o[4 * n + 2] *= a1;
+            o[4 * n + 3] *= a1;
+          }
         }
         to_a<BN>(p, s);
       }
       const int sl = (nkw - 1) % ST;
       wgmma_fence();
-      mma_acc<D, BN>(o, p, v_base + sl * C::TILE);
+      if constexpr (C::MODE == NO_KBD)
+        mma_acc_kmajor<D, BN>(o, p, v_base + sl * C::TILE);
+      else
+        mma_acc<D, BN>(o, p, v_base + sl * C::TILE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -247,15 +325,25 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
     for (int j = nkw; j < nk; ++j) pass_tile<ST>(full, empty, j, lane);
 
     if (rows_in) {
-      l0 = quad_sum(l0);
-      l1 = quad_sum(l1);
-      const int E = H * D;
-      bf16* out0 = out + (size_t(b) * T + row0) * E + h * D + 2 * t;
-      store_rows<D>(out0, out0 + 8 * size_t(E), o, 1.f / l0, 1.f / l1);
-      if (t == 0) {
-        float* lrow = lse + (size_t(b) * H + h) * T;
-        lrow[row0] = (m0 + log2f(l0)) * kLn2;
-        lrow[row1] = (m1 + log2f(l1)) * kLn2;
+      if constexpr (C::MODE == DOTS_ONLY) {   // the raw accumulator; lse 0
+        const int E = H * D;
+        bf16* out0 = out + (size_t(b) * T + row0) * E + h * D + 2 * t;
+        store_rows<D>(out0, out0 + 8 * size_t(E), o, 1.f, 1.f);
+        if (t == 0) {
+          float* lrow = lse + (size_t(b) * H + h) * T;
+          lrow[row0] = lrow[row1] = 0.f;
+        }
+      } else {
+        l0 = quad_sum(l0);
+        l1 = quad_sum(l1);
+        const int E = H * D;
+        bf16* out0 = out + (size_t(b) * T + row0) * E + h * D + 2 * t;
+        store_rows<D>(out0, out0 + 8 * size_t(E), o, 1.f / l0, 1.f / l1);
+        if (t == 0) {
+          float* lrow = lse + (size_t(b) * H + h) * T;
+          lrow[row0] = (m0 + log2f(l0)) * kLn2;
+          lrow[row1] = (m1 + log2f(l1)) * kLn2;
+        }
       }
     }
   }
@@ -333,6 +421,28 @@ int pass_occupancy(int pass, int* regs, int* ctas) {
 
 bool shape_ok(int T, int D) { return T % 128 == 0 && (D == 32 || D == 64); }
 
+// A probe mode's instance: the production shape at D = 32 in that mode.
+template <bool MASKED, int MODE>
+using ProbeOf = FwdPass<32, FwdOf<32, MASKED>::NWG, FwdOf<32, MASKED>::BN,
+                        FwdOf<32, MASKED>::CTAS, MASKED, MODE>;
+
+// f(an object of the instance probe mode `variant` runs at P), or an
+// error for a mode this file does not have.
+template <typename F>
+int with_probe(int variant, int P, F f) {
+  const bool masked = !unmasked<32>(P);
+  switch (variant) {
+    case PROD:
+      return masked ? f(FwdOf<32, true>()) : f(FwdOf<32, false>());
+    case DOTS_ONLY: return f(ProbeOf<false, DOTS_ONLY>());
+    case NO_KBD:
+      return masked ? f(ProbeOf<true, NO_KBD>()) : f(ProbeOf<false, NO_KBD>());
+    case NO_MASK: return f(FwdOf<32, false>());
+    case MASK_ALL: return f(ProbeOf<true, MASK_ALL>());
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // The pre-pass alone: qr, kr ([B, T, E] bf16) from q, k. Shapes are
@@ -377,4 +487,38 @@ extern "C" int fk_slab_rope_attention_fwd_occupancy(int pass, int D, int P,
                            : pass_occupancy<32, true>(pass, regs, ctas);
   return unmasked<64>(P) ? pass_occupancy<64, false>(pass, regs, ctas)
                          : pass_occupancy<64, true>(pass, regs, ctas);
+}
+
+// The bf16 probes: probe mode `variant` (enum Mode) of the forward on
+// UNROTATED q and k at D = 32, no pre-pass, into out and lse on
+// ``stream``. Shapes are checked by the Python wrapper
+// (ops/cuda/slab_probe.py): T % 128 == 0, contiguous bf16 [B, T, E].
+extern "C" int fk_slab_attention_probe(const void* q, const void* k,
+                                       const void* v, void* out, void* lse,
+                                       int B, int T, int H, int D, int P,
+                                       float scale, int variant,
+                                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(T, D) || D != 32 || P <= 0)
+    return int(cudaErrorInvalidValue);
+  return with_probe(variant, P, [&](auto c) {
+    return attend<decltype(c)>(q, k, v, out, lse, B, T, H, P, scale, st);
+  });
+}
+
+// Registers a thread and resident CTAs an SM of the instance bf16 probe
+// mode `variant` runs at tokens-per-slab P.
+extern "C" int fk_slab_attention_probe_occupancy(int variant, int P,
+                                                 int* regs, int* ctas) {
+  if (P <= 0) return int(cudaErrorInvalidValue);
+  return with_probe(variant, P, [&](auto c) {
+    using C = decltype(c);
+    return fk::occupancy<C>(slab_rope_attn_fwd_wgmma<C>, regs, ctas);
+  });
+}
+
+// The text of a CUDA error code any entry point of the library returned
+// (ops/cuda/build.py:check).
+extern "C" const char* fk_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -8,9 +8,9 @@
 // the JAX kernel's int8 arithmetic:
 //   q, v      [B, T, E] bf16, q UNROTATED, head h = columns [h*D, (h+1)*D)
 //   k8, ks    rotated K's codes [B, T, E] int8 and scales [B, H, T / 1024]
-//             f32, from K10's K pre-pass (fk_slab_rope_k_quant,
-//             slab_rope_attention.cu): one scale per (1024-row key chunk,
-//             head), s = max|k| / 127 + 1e-12 in f32
+//             f32, from K10's K pre-pass (fk_slab_rope_k_quant, below):
+//             one scale per (1024-row key chunk, head), s = max|k| / 127 +
+//             1e-12 in f32
 //   cos, sin  [T, D] f32, rope_cache[-T:], each column repeated for the
 //             adjacent lanes 2i, 2i+1 (suffix-aligned)
 //   q8, qs    workspace: rotated Q's codes [B, T, E] int8 and scales
@@ -22,8 +22,10 @@
 // that order; then K1's softmax and its bf16 P V (V, the probabilities and
 // out stay bf16, l sums the unrounded exps).
 //
-// Two launches after the K pre-pass, on one stream, no atomics, a fixed
-// order of every sum: two launches of K10 are bitwise equal.
+// The K pre-pass rotates K, takes each chunk's max |k| (an atomic max on
+// the float's bits, exact in any order) and writes the codes and scales.
+// Two launches after it, on one stream, no atomics, a fixed order of every
+// sum: two launches of K10 are bitwise equal.
 //   * Q pre-pass: one thread a 16-byte chunk (8 lanes) of a (row, head):
 //     rotated by fk::load_rotate8 (K1's and K4's rotation, rounded to
 //     bf16), the (row, head)'s max |q| by shuffles over its D / 8 adjacent
@@ -60,9 +62,24 @@
 // The shapes (Int8Of) start from K1's and were held against their
 // neighbours on the card by tools/k1_shape_sweep.py --int8 (PERF.md).
 //
-// Kernel names: slab_rope_attn_fwd_int8_*, never with flash_attn_fwd in a
-// name or a template type (chip_smoke.py's profile families take the first
-// pattern that matches, and K6 / K7's comes first).
+// The int8 probes (fk_slab_attention_probe_int8; ops/cuda/slab_probe.py)
+// replace tools/int8_attr_probe.py: _call, which prices the parts of int8
+// QK scores by timing variants with one removed. Here each variant runs
+// both pre-passes with ROPE = false (q and k as stored, as the JAX probes
+// omit RoPE), then an instance of this forward at D = 32, every mode branch
+// behind if constexpr (Int8Pass's MODE; PROD compiles to the production
+// kernel):
+//   int8_full           K10's codes, the production instance Int8Of
+//   int8_cheap_dequant  K10's codes; the scores s32_to_f32 * scale only,
+//                       no s_k or s_q load or multiply (SCALE_ONLY)
+//   int8_noquant        cast-only codes round(8 x) from both pre-passes
+//                       (CAST: no max reduction, no scale), SCALE_ONLY
+//   int8_dots_only      cast-only codes; the int32 scores rounded to bf16
+//                       straight into P V, no softmax; lse 0 (DOTS)
+//
+// Kernel names: slab_rope_attn_fwd_int8_* and rope_*_k, never with
+// flash_attn_fwd in a name or a template type (chip_smoke.py's profile
+// families take the first pattern that matches, and K6 / K7's comes first).
 
 #include "flash_host.cuh"
 #include "flash_mask.cuh"
@@ -76,11 +93,41 @@ using namespace fk;
 constexpr int PREP_THREADS = 256;
 constexpr int KCHUNK = 1024;   // key rows per K scale
 
+// Forward modes (Int8Pass's MODE): K10's scores, convert times scale only,
+// or the raw int32 scores into P V.
+enum Mode : int { PROD = 0, SCALE_ONLY = 1, DOTS = 2 };
+
+// The int8 probes; the numbers are fk_slab_attention_probe_int8's
+// `variant` (ops/cuda/slab_probe.py:PROBE_VARIANTS).
+enum Variant : int {
+  INT8_FULL = 5,
+  INT8_DOTS_ONLY = 6,
+  INT8_CHEAP_DEQUANT = 7,
+  INT8_NOQUANT = 8,
+};
+
+// The probes' cast-only int8 code: round half to even of 8 v (the JAX
+// probes' round(8 x); |v| < 15.9 keeps it in range).
+__device__ __forceinline__ int8_t cast_code(float v) {
+  return static_cast<int8_t>(__float2int_rn(8.f * v));
+}
+
+// 8 bf16 lanes of x at src, rotated with the position's table rows (ROPE)
+// or as stored.
+template <bool ROPE>
+__device__ __forceinline__ uint4 stage8(const bf16* __restrict__ src,
+                                        const float* __restrict__ cos_row,
+                                        const float* __restrict__ sin_row) {
+  if constexpr (ROPE) return load_rotate8(src, cos_row, sin_row);
+  return *reinterpret_cast<const uint4*>(src);
+}
+
 // ---- Q pre-pass ---------------------------------------------------------------
 
-// One thread a 16-byte chunk (8 lanes) of a (row, head): the rotated lanes,
-// the (row, head)'s scale over its D / 8 threads, the 8 codes.
-template <int D>
+// One thread a 16-byte chunk (8 lanes) of a (row, head): the rotated lanes
+// (ROPE; as stored else), the (row, head)'s scale over its D / 8 threads,
+// the 8 codes; CAST: the cast-only codes, no scale.
+template <int D, bool ROPE = true, bool CAST = false>
 __global__ void __launch_bounds__(PREP_THREADS)
     slab_rope_attn_fwd_int8_prep(const bf16* __restrict__ q,
                                  const float* __restrict__ cos_t,
@@ -101,30 +148,125 @@ __global__ void __launch_bounds__(PREP_THREADS)
   float f[8];
   float mx = 0.f;
   if (in) {
-    const uint4 rot = load_rotate8(q + off, cos_t + size_t(pos) * D + c,
+    const uint4 rot = stage8<ROPE>(q + off, cos_t + size_t(pos) * D + c,
                                    sin_t + size_t(pos) * D + c);
     const bf16* rv = reinterpret_cast<const bf16*>(&rot);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       f[i] = __bfloat162float(rv[i]);
-      mx = fmaxf(mx, fabsf(f[i]));
+      if constexpr (!CAST) mx = fmaxf(mx, fabsf(f[i]));
     }
   }
+  if constexpr (!CAST) {
 #pragma unroll
-  for (int o = 1; o < CH; o <<= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    for (int o = 1; o < CH; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  }
   if (!in) return;
-  const float s = absmax_scale(mx);
+  const float s = CAST ? 0.f : absmax_scale(mx);
   uint2 codes;
   int8_t* c8 = reinterpret_cast<int8_t*>(&codes);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) c8[i] = quantize_s8(f[i], s);
+  for (int i = 0; i < 8; ++i)
+    c8[i] = CAST ? cast_code(f[i]) : quantize_s8(f[i], s);
   *reinterpret_cast<uint2*>(q8 + off) = codes;
-  if (c == 0) {
+  if (!CAST && c == 0) {
     const int h = int(off % E) / D;
     const size_t b = off / (size_t(T) * E);
     qs[(b * H + h) * T + pos] = s;
   }
+}
+
+// ---- K pre-pass ---------------------------------------------------------------
+
+// K10's pre-pass, two kernels over tiles of ROWS K rows (one 8-lane piece
+// a thread): rope_absmax_k rotates K (the rotation K1 applies, rounded to
+// bf16) and folds each tile's max |k| into its chunk's max with an atomic
+// max on the float's bits (non-negative floats order as their bits do);
+// rope_quantize_k rotates again, takes the chunk's scale and writes the
+// codes, and the chunk's first tile writes the scale. K is read twice, the
+// second time mostly from L2. The probes run them with ROPE = false (K as
+// stored) and, for the cast-only modes, rope_quantize_k alone with CAST:
+// codes round(8 k), no chunk max and no scale.
+constexpr int QK_THREADS = 256;
+
+template <int D>
+struct QkTile {
+  static constexpr int CH = D / 8;              // pieces a row
+  static constexpr int ROWS = QK_THREADS / CH;  // 64 at D=32, 32 at D=64
+  static_assert(KCHUNK % ROWS == 0, "a tile must sit in one chunk");
+
+  // the chunk of this CTA's tile in the [B, H, T / KCHUNK] scale arrays
+  static __device__ __forceinline__ size_t slot(int T, int H) {
+    return (size_t(blockIdx.z) * H + blockIdx.y) * (T / KCHUNK) +
+           blockIdx.x * ROWS / KCHUNK;
+  }
+
+  // this thread's 8 rotated (ROPE) or stored lanes; returns their offset
+  // in k
+  template <bool ROPE>
+  static __device__ __forceinline__ size_t rotated(const bf16* k,
+                                                   const float* cos_t,
+                                                   const float* sin_t, int T,
+                                                   int H, float (&f)[8]) {
+    const int r = threadIdx.x / CH, c = (threadIdx.x % CH) * 8;
+    const int pos = blockIdx.x * ROWS + r;
+    const size_t off = (size_t(blockIdx.z) * T + pos) * (H * D) +
+                       size_t(blockIdx.y) * D + c;
+    uint4 rot = stage8<ROPE>(k + off, cos_t + size_t(pos) * D + c,
+                             sin_t + size_t(pos) * D + c);
+    const bf16* rv = reinterpret_cast<const bf16*>(&rot);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = __bfloat162float(rv[i]);
+    return off;
+  }
+};
+
+template <int D, bool ROPE>
+__global__ void __launch_bounds__(QK_THREADS)
+rope_absmax_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
+              const float* __restrict__ sin_t, unsigned* __restrict__ amax,
+              int T, int H) {
+  __shared__ float red[QK_THREADS / 32];
+  float f[8];
+  QkTile<D>::template rotated<ROPE>(k, cos_t, sin_t, T, H, f);
+  float mx = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(f[i]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < QK_THREADS / 32; ++w) mx = fmaxf(mx, red[w]);
+    atomicMax(amax + QkTile<D>::slot(T, H), __float_as_uint(mx));
+  }
+}
+
+template <int D, bool ROPE, bool CAST>
+__global__ void __launch_bounds__(QK_THREADS)
+rope_quantize_k(const bf16* __restrict__ k, const float* __restrict__ cos_t,
+                const float* __restrict__ sin_t,
+                const unsigned* __restrict__ amax, int8_t* __restrict__ k8,
+                float* __restrict__ ks, int T, int H) {
+  float s = 0.f;
+  if constexpr (!CAST) {
+    const size_t slot = QkTile<D>::slot(T, H);
+    s = absmax_scale(__uint_as_float(amax[slot]));
+    if (threadIdx.x == 0 && (blockIdx.x * QkTile<D>::ROWS) % KCHUNK == 0)
+      ks[slot] = s;
+  }
+  float f[8];
+  const size_t off =
+      QkTile<D>::template rotated<ROPE>(k, cos_t, sin_t, T, H, f);
+  uint2 codes;
+  int8_t* c8 = reinterpret_cast<int8_t*>(&codes);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    c8[i] = CAST ? cast_code(f[i]) : quantize_s8(f[i], s);
+  *reinterpret_cast<uint2*>(k8 + off) = codes;
 }
 
 // ---- forward --------------------------------------------------------------------
@@ -180,11 +322,13 @@ __device__ __forceinline__ float s32_to_f32(uint32_t x) {
 }
 
 // NWG consumer warpgroups of 64 query rows, key tiles of BN in a ring of
-// STAGES; MASKED compiles the per-element slab mask.
-template <int D_, int NWG_, int BN_, int CTAS_, bool MASKED_>
+// STAGES; MASKED compiles the per-element slab mask, MODE a probe mode.
+template <int D_, int NWG_, int BN_, int CTAS_, bool MASKED_,
+          int MODE_ = PROD>
 struct Int8Pass : Roles<NWG_> {
   static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
   static constexpr bool MASKED = MASKED_;
+  static constexpr int MODE = MODE_;
   static constexpr int BM = 64 * NWG, STAGES = 4;
   static_assert(128 % BN == 0 && KCHUNK % BN == 0,
                 "a key tile in one 128-row block and one scale chunk");
@@ -271,14 +415,21 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
     // the scores of key tile j, dequantized in the JAX kernel's order
-    // (dot * (scale * s_k)) * s_q, those this thread's rows do not see at
-    // -inf (masked instance)
+    // (dot * (scale * s_k)) * s_q (SCALE_ONLY: dot * scale; DOTS: the
+    // dot), those this thread's rows do not see at -inf (masked instance)
     auto scores = [&](int j, float sk) {
-      const float ssk = __fmul_rn(scale, sk);
+      if constexpr (C::MODE == PROD) {
+        const float ssk = __fmul_rn(scale, sk);
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i)
-        s[i] = __fmul_rn(__fmul_rn(s32_to_f32(si[i]), ssk),
-                         (i & 2) ? sq1 : sq0);
+        for (int i = 0; i < BN / 2; ++i)
+          s[i] = __fmul_rn(__fmul_rn(s32_to_f32(si[i]), ssk),
+                           (i & 2) ? sq1 : sq0);
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i)
+          s[i] = C::MODE == SCALE_ONLY ? __fmul_rn(s32_to_f32(si[i]), scale)
+                                       : s32_to_f32(si[i]);
+      }
       if constexpr (C::MASKED) {
         if ((j + 1) * BN <= mask_from) return;
 #pragma unroll
@@ -301,7 +452,8 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
       wgmma_wait<0>();
       fence_regs(si);
       scores(0, sk);
-      online_softmax<BN>(s, kLog2e, m0, m1, l0, l1, a0, a1);
+      if constexpr (C::MODE != DOTS)
+        online_softmax<BN>(s, kLog2e, m0, m1, l0, l1, a0, a1);
       to_a<BN>(p, s);
       // Tile j's scores are issued with tile j-1's PV; tile j's softmax
       // runs while that PV is in flight, and rescales o once it has landed.
@@ -317,17 +469,20 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
         wgmma_wait<1>();
         fence_regs(si);
         scores(j, skj);
-        online_softmax<BN>(s, kLog2e, m0, m1, l0, l1, a0, a1);
+        if constexpr (C::MODE != DOTS)
+          online_softmax<BN>(s, kLog2e, m0, m1, l0, l1, a0, a1);
         wgmma_wait<0>();
         fence_regs(o);
         fence_regs(p);
         if (lane == 0) mbar_arrive(&empty[sp]);
+        if constexpr (C::MODE != DOTS) {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          o[4 * n] *= a0;
-          o[4 * n + 1] *= a0;
-          o[4 * n + 2] *= a1;
-          o[4 * n + 3] *= a1;
+          for (int n = 0; n < D / 8; ++n) {
+            o[4 * n] *= a0;
+            o[4 * n + 1] *= a0;
+            o[4 * n + 2] *= a1;
+            o[4 * n + 3] *= a1;
+          }
         }
         to_a<BN>(p, s);
       }
@@ -345,15 +500,25 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
     for (int j = nkw; j < nk; ++j) pass_tile<ST>(full, empty, j, lane);
 
     if (rows_in) {
-      l0 = quad_sum(l0);
-      l1 = quad_sum(l1);
-      const int E = H * D;
-      bf16* out0 = out + (size_t(b) * T + row0) * E + h * D + 2 * t;
-      store_rows<D>(out0, out0 + 8 * size_t(E), o, 1.f / l0, 1.f / l1);
-      if (t == 0) {
-        float* lrow = lse + (size_t(b) * H + h) * T;
-        lrow[row0] = (m0 + log2f(l0)) * kLn2;
-        lrow[row1] = (m1 + log2f(l1)) * kLn2;
+      if constexpr (C::MODE == DOTS) {   // the raw accumulator; lse 0
+        const int E = H * D;
+        bf16* out0 = out + (size_t(b) * T + row0) * E + h * D + 2 * t;
+        store_rows<D>(out0, out0 + 8 * size_t(E), o, 1.f, 1.f);
+        if (t == 0) {
+          float* lrow = lse + (size_t(b) * H + h) * T;
+          lrow[row0] = lrow[row1] = 0.f;
+        }
+      } else {
+        l0 = quad_sum(l0);
+        l1 = quad_sum(l1);
+        const int E = H * D;
+        bf16* out0 = out + (size_t(b) * T + row0) * E + h * D + 2 * t;
+        store_rows<D>(out0, out0 + 8 * size_t(E), o, 1.f / l0, 1.f / l1);
+        if (t == 0) {
+          float* lrow = lse + (size_t(b) * H + h) * T;
+          lrow[row0] = (m0 + log2f(l0)) * kLn2;
+          lrow[row1] = (m1 + log2f(l1)) * kLn2;
+        }
       }
     }
   }
@@ -374,12 +539,14 @@ bool unmasked(int P) {
   return P % Int8Of<D, false>::BN == 0 && P % 64 == 0;
 }
 
-template <int D>
+// The Q pre-pass (ROPE: rotated; CAST: the cast-only codes, no scales).
+template <int D, bool ROPE = true, bool CAST = false>
 int prep(const void* q, const void* cos_t, const void* sin_t, void* q8,
          void* qs, int B, int T, int H, cudaStream_t st) {
   const size_t chunks = size_t(B) * T * H * (D / 8);
   const unsigned blocks = unsigned((chunks + PREP_THREADS - 1) / PREP_THREADS);
-  slab_rope_attn_fwd_int8_prep<D><<<blocks, PREP_THREADS, 0, st>>>(
+  slab_rope_attn_fwd_int8_prep<D, ROPE, CAST>
+      <<<blocks, PREP_THREADS, 0, st>>>(
       static_cast<const bf16*>(q), static_cast<const float*>(cos_t),
       static_cast<const float*>(sin_t), static_cast<int8_t*>(q8),
       static_cast<float*>(qs), T, H, chunks);
@@ -439,7 +606,70 @@ bool shape_ok(int T, int D) {
   return T > 0 && T % KCHUNK == 0 && (D == 32 || D == 64);
 }
 
+// The K pre-pass: rope_absmax_k into amax (zero on entry), then
+// rope_quantize_k into k8 and ks; CAST: rope_quantize_k alone (amax and ks
+// unused).
+template <int D, bool ROPE, bool CAST>
+int k_prep(const void* k, const void* cos_t, const void* sin_t, void* amax,
+           void* k8, void* ks, int B, int T, int H, cudaStream_t st) {
+  const dim3 grid(T / QkTile<D>::ROWS, H, B);
+  if constexpr (!CAST) {
+    rope_absmax_k<D, ROPE><<<grid, QK_THREADS, 0, st>>>(
+        static_cast<const bf16*>(k), static_cast<const float*>(cos_t),
+        static_cast<const float*>(sin_t), static_cast<unsigned*>(amax), T, H);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  rope_quantize_k<D, ROPE, CAST><<<grid, QK_THREADS, 0, st>>>(
+      static_cast<const bf16*>(k), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), static_cast<const unsigned*>(amax),
+      static_cast<int8_t*>(k8), static_cast<float*>(ks), T, H);
+  return int(cudaGetLastError());
+}
+
+// A probe's forward instance: the production shape at D = 32 in a mode.
+template <bool MASKED, int MODE>
+using ProbeOf = Int8Pass<32, Int8Of<32, MASKED>::NWG, Int8Of<32, MASKED>::BN,
+                         Int8Of<32, MASKED>::CTAS, MASKED, MODE>;
+
+bool cast_only(int variant) {
+  return variant == INT8_DOTS_ONLY || variant == INT8_NOQUANT;
+}
+
+// f(an object of the forward instance int8 probe `variant` runs at P), or
+// an error for a variant this file does not have.
+template <typename F>
+int with_probe(int variant, int P, F f) {
+  const bool masked = !unmasked<32>(P);
+  switch (variant) {
+    case INT8_FULL:
+      return masked ? f(Int8Of<32, true>()) : f(Int8Of<32, false>());
+    case INT8_CHEAP_DEQUANT:
+    case INT8_NOQUANT:
+      return masked ? f(ProbeOf<true, SCALE_ONLY>())
+                    : f(ProbeOf<false, SCALE_ONLY>());
+    case INT8_DOTS_ONLY: return f(ProbeOf<false, DOTS>());
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
+
+// K10's K pre-pass (production K10 runs it before the Q pre-pass and the
+// forward): codes k8 [B, T, E] int8, scales ks [B, H, T/1024]; amax
+// [B, H, T/1024] u32 scratch, zero on entry. Shapes are checked by the
+// Python wrapper (ops/cuda/slab_attention.py).
+extern "C" int fk_slab_rope_k_quant(const void* k, const void* cos_t,
+                                    const void* sin_t, void* amax, void* k8,
+                                    void* ks, int B, int T, int H, int D,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(T, D)) return int(cudaErrorInvalidValue);
+  if (D == 32)
+    return k_prep<32, true, false>(k, cos_t, sin_t, amax, k8, ks, B, T, H,
+                                   st);
+  return k_prep<64, true, false>(k, cos_t, sin_t, amax, k8, ks, B, T, H, st);
+}
 
 // K10's Q pre-pass alone: codes q8 [B, T, E] int8 and scales qs [B, H, T]
 // f32 of q rotated. Shapes are checked by the Python wrapper
@@ -485,4 +715,54 @@ extern "C" int fk_slab_rope_attention_fwd_int8_occupancy(int pass, int D,
                            : pass_occupancy<32, true>(pass, regs, ctas);
   return unmasked<64>(P) ? pass_occupancy<64, false>(pass, regs, ctas)
                          : pass_occupancy<64, true>(pass, regs, ctas);
+}
+
+// The int8 probes on UNROTATED q and k at D = 32: `stages` & 1 runs the K
+// pre-pass into k8 and ks (amax [B, H, T/1024] u32 scratch, zero on
+// entry), & 2 the Q pre-pass into q8 and qs, both with ROPE = false and,
+// for the cast-only variants, CAST (amax, ks and qs then unused); & 4 the
+// forward instance of `variant` (enum Variant) on k8, ks, q8, qs as they
+// stand. Shapes are checked by the Python wrapper (ops/cuda/slab_probe.py):
+// T % 1024 == 0, contiguous [B, T, E] tensors.
+extern "C" int fk_slab_attention_probe_int8(
+    const void* q, const void* k, const void* v, void* amax, void* q8,
+    void* qs, void* k8, void* ks, void* out, void* lse, int B, int T, int H,
+    int D, int P, float scale, int variant, int stages, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(T, D) || D != 32 || P <= 0 || variant < INT8_FULL ||
+      variant > INT8_NOQUANT)
+    return int(cudaErrorInvalidValue);
+  const bool cast = cast_only(variant);
+  if (stages & 1) {
+    const int rc =
+        cast ? k_prep<32, false, true>(k, nullptr, nullptr, amax, k8, ks, B,
+                                       T, H, st)
+             : k_prep<32, false, false>(k, nullptr, nullptr, amax, k8, ks, B,
+                                        T, H, st);
+    if (rc != 0) return rc;
+  }
+  if (stages & 2) {
+    const int rc = cast ? prep<32, false, true>(q, nullptr, nullptr, q8, qs,
+                                                B, T, H, st)
+                        : prep<32, false, false>(q, nullptr, nullptr, q8, qs,
+                                                 B, T, H, st);
+    if (rc != 0) return rc;
+  }
+  if (!(stages & 4)) return 0;
+  return with_probe(variant, P, [&](auto c) {
+    return attend<decltype(c)>(q8, qs, k8, ks, v, out, lse, B, T, H, P,
+                               scale, st);
+  });
+}
+
+// Registers a thread and resident CTAs an SM of the forward instance int8
+// probe `variant` runs at tokens-per-slab P.
+extern "C" int fk_slab_attention_probe_int8_occupancy(int variant, int P,
+                                                      int* regs,
+                                                      int* ctas) {
+  if (P <= 0) return int(cudaErrorInvalidValue);
+  return with_probe(variant, P, [&](auto c) {
+    using C = decltype(c);
+    return fk::occupancy<C>(slab_rope_attn_fwd_int8_wgmma<C>, regs, ctas);
+  });
 }

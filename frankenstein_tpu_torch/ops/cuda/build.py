@@ -85,13 +85,20 @@ def _declare(lib) -> None:
         [i] * 3 + [ctypes.POINTER(i)] * 2)   # pass D P, regs ctas
     lib.fk_slab_rope_attention_fwd_int8_occupancy.restype = i
     lib.fk_slab_attention_probe.argtypes = (
-        [p] * 8                     # q k v amax k8 ks out lse
+        [p] * 5                     # q k v out lse
+        + [i] * 5 + [f]             # B T H D P, scale
+        + [i, p])                   # variant, stream
+    lib.fk_slab_attention_probe.restype = i
+    lib.fk_slab_attention_probe_int8.argtypes = (
+        [p] * 10                    # q k v amax q8 qs k8 ks out lse
         + [i] * 5 + [f]             # B T H D P, scale
         + [i] * 2 + [p])            # variant stages, stream
-    lib.fk_slab_attention_probe.restype = i
-    lib.fk_slab_attention_occupancy.argtypes = (
-        [i] + [ctypes.POINTER(i)] * 2)       # variant, regs ctas
-    lib.fk_slab_attention_occupancy.restype = i
+    lib.fk_slab_attention_probe_int8.restype = i
+    for name in ("fk_slab_attention_probe_occupancy",
+                 "fk_slab_attention_probe_int8_occupancy"):
+        getattr(lib, name).argtypes = (
+            [i] * 2 + [ctypes.POINTER(i)] * 2)   # variant P, regs ctas
+        getattr(lib, name).restype = i
     lib.fk_lm_head_topk.argtypes = (
         [p] * 12                    # x ln_w ln_b wte h cand_val cand_idx
                                     # tile_m tile_se vals idx logz

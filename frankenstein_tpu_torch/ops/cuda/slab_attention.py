@@ -11,9 +11,9 @@
 - K10 is the JAX kernel's ``qk_int8=True`` mode: rotated Q quantized per
   (row, head) and rotated K per (1024-row chunk, head) to int8, the QK dot
   in int8, dequantized in the convert; V and AV stay bf16. A pre-pass
-  rotates and quantizes K (``csrc/slab_rope_attention.cu``), another Q,
-  then K1's forward with its score product in int8 wgmma runs on their
-  codes (``csrc/slab_rope_attention_int8.cu``).
+  rotates and quantizes K, another Q, then K1's forward with its score
+  product in int8 wgmma runs on their codes
+  (``csrc/slab_rope_attention_int8.cu``).
 - K4 replaces ``block_attention.py:_slab_rope_attention_bwd``: its XLA
   rotations, ``_bwd_packed`` (or the per-head ``_bwd``) and the rotations
   back; CUDA C++ in ``csrc/slab_rope_attention_bwd.cu``. A pre-pass rotates

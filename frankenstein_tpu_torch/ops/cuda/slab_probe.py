@@ -1,31 +1,33 @@
-"""The packed-attention probes: the mma.sync attention kernel in its probe
-modes.
+"""The packed-attention probes: K1's and K10's wgmma forwards in their
+probe modes.
 
 They replace ``tools/attn_probe.py:_variant_call`` and
 ``tools/int8_attr_probe.py:_call``, which priced each component of the
 packed TPU forward by timing a variant of the kernel with that component
-removed. Here each variant is a compile-time mode of one CUDA kernel
-(``csrc/slab_rope_attention.cu``, template parameters ``ROPE`` and
-``VARIANT``), the mma.sync design K1 and K10 ran before their wgmma
-redesigns (``csrc/slab_rope_attention_fwd.cu``,
-``csrc/slab_rope_attention_int8.cu``), run on UNROTATED q and k at
-head_dim 32, as the JAX probes omit RoPE. The bf16 modes compute K1's
-function and the int8 ones K10's, so they price that older design's parts.
-The port follows the math contract, not the TPU schedule: where
-a variant removes TPU-only machinery, the mode removes the Hopper component
-that plays its role (``no_kbd``: the transposed staging of V).
+removed. Here each variant is a compile-time mode of the production
+templates, run on UNROTATED q and k at head_dim 32, as the JAX probes omit
+RoPE: the bf16 variants are instances of K1's forward
+(``csrc/slab_rope_attention_fwd.cu``, ``FwdPass``'s MODE) with no rotation
+pre-pass, the int8 variants K10's two pre-passes without the rotation,
+then an instance of K10's forward (``csrc/slab_rope_attention_int8.cu``,
+``Int8Pass``'s MODE). So they price the design that runs. The port follows
+the math contract, not the TPU schedule: where a variant removes TPU-only
+machinery, the mode removes the Hopper component that plays its role
+(``no_kbd``: V read K-major instead of through the transpose-B bit).
 
-``PROBE_VARIANTS`` maps the JAX probes' variant names to the kernel's
-modes: ``kernel`` (attn probe), ``bf16`` (int8 probe) and ``mask_last`` are
-the kernel's K1 mode, which masks only the tiles that cross a warp's first
-slab;
-``mask_all`` masks every visited tile. A mode's values are exact (K1's or
-K10's math), defined (a stated function, not attention: the twins below
-say which) or, for ``no_kbd``, wrong by design (timing only, no twin).
+``PROBE_VARIANTS`` maps the JAX probes' variant names to the modes.
+``kernel`` (attn probe), ``bf16`` (int8 probe) and ``mask_last`` are the
+production K1 instance itself, which masks only the tiles that cross a
+warpgroup's first slab; ``mask_all`` masks every visited tile; ``exp2``
+launches ``kernel``'s instance (``ALIASES``: the design already folds
+log2 e into one FFMA before ex2); ``int8_full`` is production K10. A
+mode's values are exact (K1's or K10's math), defined (a stated function,
+not attention: the twins below say which) or, for ``no_kbd``, wrong by
+design (timing only, no twin).
 
-``slab_attention_probe`` launches the kernel for CUDA tensors and runs the
-mode's plain PyTorch twin (``TWINS``) for CPU tensors; a CUDA input the
-kernel does not take (``supported``) raises. The probes get no model-path
+``slab_attention_probe`` launches the kernels for CUDA tensors and runs
+the mode's plain PyTorch twin (``TWINS``) for CPU tensors; a CUDA input the
+kernels do not take (``supported``) raises. The probes get no model-path
 route: ``frankenstein_tpu_torch.tools.attn_probe`` and ``.int8_attr_probe``
 time them.
 """
@@ -40,16 +42,21 @@ from frankenstein_tpu_torch.ops.cuda import build
 from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
 
 HEAD_DIM = 32      # the probe modes are instantiated at D = 32 only
-BQ, BK, WARP_ROWS = 128, 64, 16   # the kernel's q-tile, key tile and warp
+BQ = 128           # K1's and K10's T % 128 == 0
+BK, WG_ROWS = 64, 64   # the forwards' key tile and a warpgroup's rows
 
-# name -> the kernel's mode (csrc/slab_rope_attention.cu: enum Variant)
+# name -> the kernels' probe mode (enum Mode of slab_rope_attention_fwd.cu,
+# enum Variant of slab_rope_attention_int8.cu)
 PROBE_VARIANTS = {
-    "kernel": 0, "bf16": 0, "mask_last": 0, "dots_only": 1, "no_kbd": 2,
-    "no_mask": 3, "mask_all": 4, "exp2": 5, "int8_full": 6,
-    "int8_dots_only": 7, "int8_cheap_dequant": 8, "int8_noquant": 9}
-INT8_FULL = 6      # modes from here on quantize Q and K (T % 1024 == 0)
+    "kernel": 0, "bf16": 0, "mask_last": 0, "exp2": 0, "dots_only": 1,
+    "no_kbd": 2, "no_mask": 3, "mask_all": 4, "int8_full": 5,
+    "int8_dots_only": 6, "int8_cheap_dequant": 7, "int8_noquant": 8}
+# a JAX variant whose change the wgmma design already has: it launches the
+# named mode's instance
+ALIASES = {"exp2": "kernel"}
+INT8_FULL = 5      # modes from here on quantize Q and K (T % 1024 == 0)
 CAST_ONLY = ("int8_dots_only", "int8_noquant")   # codes round(8 x)
-# values exactly K1's or K10's math; the modes over the kernel's visit set
+# values exactly K1's or K10's math; the modes over the forward's visit set
 EXACT = ("kernel", "bf16", "mask_last", "mask_all", "exp2", "int8_full")
 UNMASKED = ("dots_only", "no_mask", "int8_dots_only")
 
@@ -76,19 +83,19 @@ def slab_ends(t: int, p: int, device=None):
 
 
 def visit_ends(t: int, p: int, device=None):
-    """[T]: the end of the keys the kernel visits for query i, unmasked:
-    its 16-row warp stops at the last row's slab end and visits whole
-    64-key tiles. Equal to ``slab_ends`` where P % 64 == 0."""
-    first = torch.arange(t, device=device) // WARP_ROWS * WARP_ROWS
-    kend = torch.clamp(((first + WARP_ROWS - 1) // p + 1) * p, max=t)
+    """[T]: the end of the keys the forward visits for query i, unmasked:
+    its 64-row warpgroup walks whole 64-key tiles up to its last row's
+    slab end (K1's ``nkw``). Equal to ``slab_ends`` where P % 64 == 0."""
+    first = torch.arange(t, device=device) // WG_ROWS * WG_ROWS
+    kend = torch.clamp(((first + WG_ROWS - 1) // p + 1) * p, max=t)
     return torch.clamp((kend + BK - 1) // BK * BK, max=t)
 
 
 def visited_tiles(t: int, p: int) -> int:
-    """64-key tiles the kernel's warps visit over T rows, per (batch,
-    head): each warp does one QK and one PV product of 2 * 16 * 64 * D
+    """64-key tiles the forward's warpgroups visit over T rows, per (batch,
+    head): each warpgroup does one QK and one PV product of 2 * 64 * 64 * D
     operations per tile."""
-    ends = visit_ends(t, p)[::WARP_ROWS]
+    ends = visit_ends(t, p)[::WG_ROWS]
     return int(((ends + BK - 1) // BK).sum())
 
 
@@ -117,7 +124,7 @@ def _probe_ref(q, k, v, n_heads: int, ends, dots, softmax: bool,
                rows: int = 256):
     """Query i attends to keys below ``ends[i]`` with scores
     ``dots(r0, r1, kmax)`` ([B, H, rows, keys] in the accumulation dtype):
-    a softmax, p rounded to v's dtype before AV (as the kernel's bf16
+    a softmax, p rounded to v's dtype before AV (as the forwards' bf16
     A-fragments), or with ``softmax=False`` the scores themselves rounded
     to v's dtype and lse 0. ``rows`` queries at a time (no T x T matrix)."""
     b, t, e = q.shape
@@ -179,7 +186,7 @@ def _scale(q, n_heads: int) -> float:
 
 
 def no_mask_ref(q, k, v, *, n_heads: int, tok_per_time: int):
-    """Twin of ``no_mask``: softmax attention over the keys the kernel
+    """Twin of ``no_mask``: softmax attention over the keys the forward
     visits (``visit_ends``), no slab mask."""
     acc = torch.promote_types(q.dtype, torch.float32)
     dots = _qk(_heads(q, n_heads, acc), _heads(k, n_heads, acc),
@@ -312,29 +319,58 @@ def _check(q, k, v, n_heads: int, tok_per_time: int, variant: str) -> None:
         raise ValueError("tok_per_time must be positive")
 
 
-def _launch(q, k, v, k8, ks, amax, out, lse, n_heads, tok_per_time,
-            variant, stages) -> None:
-    ref = q if q is not None else k
+def _addr(x) -> int:
+    return 0 if x is None else x.data_ptr()
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_int8(q, k, v, amax, codes, out, lse, n_heads, tok_per_time,
+                 variant, stages) -> None:
+    """fk_slab_attention_probe_int8: ``stages`` & 1 the K pre-pass, & 2
+    the Q pre-pass, & 4 the forward; ``codes`` = (q8, qs, k8, ks), those
+    of a pre-pass that does not run None."""
+    ref = codes[0] if codes[0] is not None else codes[2]
     b, t, e = ref.shape
-    addr = lambda x: 0 if x is None else x.data_ptr()
-    rc = build.library().fk_slab_attention_probe(
-        addr(q), addr(k), addr(v), addr(amax), addr(k8), addr(ks), addr(out),
-        addr(lse), b, t, n_heads, HEAD_DIM, tok_per_time,
-        1.0 / HEAD_DIM ** 0.5, PROBE_VARIANTS[variant], stages,
-        torch.cuda.current_stream(ref.device).cuda_stream)
-    build.check(rc, f"slab_attention_probe[{variant}]")
+    rc = build.library().fk_slab_attention_probe_int8(
+        _addr(q), _addr(k), _addr(v), _addr(amax),
+        *(_addr(x) for x in codes), _addr(out), _addr(lse), b, t, n_heads,
+        HEAD_DIM, tok_per_time, 1.0 / HEAD_DIM ** 0.5,
+        PROBE_VARIANTS[variant], stages, _stream(ref))
+    build.check(rc, f"slab_attention_probe_int8[{variant}]")
 
 
-def occupancy(variant: str) -> tuple:
-    """(registers a thread, resident CTAs an SM) of the kernel's D = 32
-    instance of ``variant`` on the current card, from the CUDA runtime.
-    Production K1's and K10's are ``slab_attention.fwd_occupancy``'s and
-    ``slab_attention.fwd_int8_occupancy``'s."""
+def occupancy(variant: str, tok_per_time: int = 256) -> tuple:
+    """(registers a thread, resident CTAs an SM) of the forward instance
+    ``variant`` runs at ``tok_per_time`` (D = 32) on the current card, from
+    the CUDA runtime. The int8 modes' pre-passes are K10's
+    (``slab_attention.fwd_int8_occupancy("prep", ...)``)."""
     regs, ctas = ctypes.c_int(), ctypes.c_int()
-    rc = build.library().fk_slab_attention_occupancy(
-        PROBE_VARIANTS[variant], ctypes.byref(regs), ctypes.byref(ctas))
-    build.check(rc, f"slab_attention_occupancy[{variant}]")
+    entry = ("fk_slab_attention_probe_int8_occupancy" if is_int8(variant)
+             else "fk_slab_attention_probe_occupancy")
+    rc = getattr(build.library(), entry)(
+        PROBE_VARIANTS[variant], tok_per_time, ctypes.byref(regs),
+        ctypes.byref(ctas))
+    build.check(rc, f"{entry}[{variant}]")
     return regs.value, ctas.value
+
+
+def _empty_codes(x, n_heads: int, rows: int):
+    """int8 codes like x and f32 scales [B, H, rows]."""
+    return (torch.empty(x.shape, dtype=torch.int8, device=x.device),
+            torch.empty(x.shape[0], n_heads, rows, dtype=torch.float32,
+                        device=x.device))
+
+
+def _cuda_int8(x, n_heads: int, variant: str) -> None:
+    if not is_int8(variant):
+        raise ValueError(f"{variant!r} is not an int8 probe mode")
+    if not x.is_cuda:
+        raise ValueError("the probe pre-passes run on CUDA tensors only; "
+                         "the twins quantize inside")
+    _check(x, None, None, n_heads, 1, variant)
 
 
 def probe_quantize_k(k, *, n_heads: int, variant: str):
@@ -343,21 +379,38 @@ def probe_quantize_k(k, *, n_heads: int, variant: str):
     cast-only (round(8 k), scales unused) for ``int8_dots_only`` and
     ``int8_noquant``. Returns (codes [B, T, E] int8, scales [B, H, T/1024]
     f32) for ``slab_attention_probe(..., with_prepass=False)``."""
-    if not is_int8(variant):
-        raise ValueError(f"{variant!r} is not an int8 probe mode")
-    if not k.is_cuda:
-        raise ValueError("the probe pre-pass runs on CUDA tensors only; "
-                         "the twins quantize inside")
-    _check(k, None, None, n_heads, 1, variant)
-    b, t, e = k.shape
-    k8 = torch.empty(b, t, e, dtype=torch.int8, device=k.device)
-    ks = torch.empty(b, n_heads, t // k1.KCHUNK, dtype=torch.float32,
-                     device=k.device)
+    _cuda_int8(k, n_heads, variant)
+    t = k.shape[1]
+    k8, ks = _empty_codes(k, n_heads, t // k1.KCHUNK)
     amax = (None if variant in CAST_ONLY else
-            torch.zeros(b, n_heads, t // k1.KCHUNK, dtype=torch.int32,
-                        device=k.device))
-    _launch(None, k, None, k8, ks, amax, None, None, n_heads, 1, variant, 1)
+            torch.zeros(ks.shape, dtype=torch.int32, device=k.device))
+    _launch_int8(None, k, None, amax, (None, None, k8, ks), None, None,
+                 n_heads, 1, variant, 1)
     return k8, ks
+
+
+def probe_quantize_q(q, *, n_heads: int, variant: str):
+    """An int8 mode's Q pre-pass alone (CUDA tensors only): q [B, T, E] as
+    stored, quantized per (row, head) as K10's Q pre-pass does, or
+    cast-only as ``probe_quantize_k``. Returns (codes [B, T, E] int8,
+    scales [B, H, T] f32) for ``slab_attention_probe(...,
+    with_prepass=False)``."""
+    _cuda_int8(q, n_heads, variant)
+    q8, qs = _empty_codes(q, n_heads, q.shape[1])
+    _launch_int8(q, None, None, None, (q8, qs, None, None), None, None,
+                 n_heads, 1, variant, 2)
+    return q8, qs
+
+
+def _check_codes(pair, x, n_heads: int, rows: int, name: str) -> None:
+    codes, scales = pair
+    if (codes.dtype != torch.int8 or codes.shape != x.shape
+            or codes.device != x.device or not codes.is_contiguous()
+            or codes.data_ptr() % 16 or scales.dtype != torch.float32
+            or scales.shape != (x.shape[0], n_heads, rows)
+            or scales.device != x.device or not scales.is_contiguous()):
+        raise ValueError(f"{name}: need probe_quantize_{name}'s (codes, "
+                         "scales)")
 
 
 def slab_attention_probe(q, k, v, *, n_heads: int, tok_per_time: int,
@@ -367,51 +420,53 @@ def slab_attention_probe(q, k, v, *, n_heads: int, tok_per_time: int,
     Returns (out [B, T, E], lse [B, H, T] f32; lse 0 for the dots-only
     modes).
 
-    An int8 mode runs its K pre-pass, then the kernel; with
-    ``with_prepass=False`` it runs the kernel alone and ``k`` is the pair
-    (codes, scales) of ``probe_quantize_k`` (CUDA only). CPU tensors run the
-    mode's twin (``TWINS``); ``no_kbd`` has none and raises there."""
+    An int8 mode runs its K and Q pre-passes, then the forward; with
+    ``with_prepass=False`` it runs the forward alone, ``q`` the pair
+    (codes, scales) of ``probe_quantize_q`` and ``k`` that of
+    ``probe_quantize_k`` (CUDA only). CPU tensors run the mode's twin
+    (``TWINS``); ``no_kbd`` has none and raises there."""
     global launches, launches_int8
     if variant not in PROBE_VARIANTS:
         raise ValueError(f"unknown probe variant {variant!r}; one of "
                          f"{sorted(PROBE_VARIANTS)}")
     int8 = is_int8(variant)
-    if not q.is_cuda:
+    if not v.is_cuda:
         if variant not in TWINS:
             raise ValueError(f"{variant!r} has no plain twin: its values are "
                              "wrong by design (timing only, CUDA only)")
         if not with_prepass:
-            raise ValueError("with_prepass=False runs the kernel alone, on "
+            raise ValueError("with_prepass=False runs the forward alone, on "
                              "CUDA tensors only")
         _check(q, k, v, n_heads, tok_per_time, variant)
         return TWINS[variant](q, k, v, n_heads=n_heads,
                               tok_per_time=tok_per_time)
-    b, t, e = q.shape
-    k8 = ks = None
+    b, t, e = v.shape
     if int8 and not with_prepass:
-        k8, ks = k
-        k = None
-        if (k8.dtype != torch.int8 or k8.shape != q.shape
-                or not k8.is_contiguous() or ks.dtype != torch.float32
-                or ks.shape != (b, n_heads, t // k1.KCHUNK)
-                or not ks.is_contiguous()):
-            raise ValueError("k: need probe_quantize_k's (codes, scales)")
-    _check(q, k, v, n_heads, tok_per_time, variant)
-    out = torch.empty_like(q)
-    lse = torch.empty(b, n_heads, t, dtype=torch.float32, device=q.device)
-    stages, amax = 2, None
-    if int8 and with_prepass:
-        k8 = torch.empty(b, t, e, dtype=torch.int8, device=q.device)
-        ks = torch.empty(b, n_heads, t // k1.KCHUNK, dtype=torch.float32,
-                         device=q.device)
+        _check(v, None, None, n_heads, tok_per_time, variant)
+        _check_codes(q, v, n_heads, t, "q")
+        _check_codes(k, v, n_heads, t // k1.KCHUNK, "k")
+        codes, q, k = (*q, *k), None, None
+    else:
+        _check(q, k, v, n_heads, tok_per_time, variant)
+    out = torch.empty_like(v)
+    lse = torch.empty(b, n_heads, t, dtype=torch.float32, device=v.device)
+    if not int8:
+        rc = build.library().fk_slab_attention_probe(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, t, n_heads, HEAD_DIM, tok_per_time,
+            1.0 / HEAD_DIM ** 0.5, PROBE_VARIANTS[variant], _stream(v))
+        build.check(rc, f"slab_attention_probe[{variant}]")
+        launches += 1
+        return out, lse
+    stages, amax = 4, None
+    if with_prepass:
+        codes = (*_empty_codes(q, n_heads, t),
+                 *_empty_codes(k, n_heads, t // k1.KCHUNK))
         if variant not in CAST_ONLY:
             amax = torch.zeros(b, n_heads, t // k1.KCHUNK, dtype=torch.int32,
-                               device=q.device)
-        stages = 3
-    _launch(q, k, v, k8, ks, amax, out, lse, n_heads, tok_per_time, variant,
-            stages)
-    if int8:
-        launches_int8 += 1
-    else:
-        launches += 1
+                               device=v.device)
+        stages = 7
+    _launch_int8(q, k, v, amax, codes, out, lse, n_heads, tok_per_time,
+                 variant, stages)
+    launches_int8 += 1
     return out, lse

@@ -105,13 +105,15 @@ def _load(path, int8: bool = False):
 
 
 def _spills(log: str, d: int, int8: bool = False) -> int:
-    """Spill bytes (stores + loads) ptxas reports for the forward kernels
-    of head_dim ``d`` (the library also holds the other head_dim's)."""
+    """Spill bytes (stores + loads) ptxas reports for the production
+    forward kernels of head_dim ``d`` (the library also holds the other
+    head_dim's, and the probe modes' instances, MODE > 0)."""
     kernel, pass_type = KINDS[int8][3]
+    production = re.compile(rf"{pass_type}ILi{d}E(?:Li\d+E){{3}}Lb[01]ELi0EE")
     total, inside = 0, False
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            inside = kernel in line and f"{pass_type}ILi{d}E" in line
+            inside = kernel in line and bool(production.search(line))
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
         if inside and found:

@@ -6,7 +6,10 @@ Compiles OLD and NEW with the port's own nvcc flags (``ops/cuda/build.py``,
 function of OLD with the function of NEW of the same mangled name,
 instruction by instruction. The anonymous namespace's two hashes, which
 differ between any two files (the second also changed when a file lost
-an external function), are taken out of names and instructions. A
+an external function), are taken out of names and instructions; so are
+what the dump sets by the rest of the cubin: the column padding (to its
+widest instruction) and the numbers of the branch labels (counted across
+it), renumbered from 0 in each function. A
 ``--map PATTERN=REPLACEMENT`` (a Python regex substitution, applied
 in turn) renames OLD's functions first, for a template that gained
 parameters; a ``--removed PATTERN`` (a Python regex) names OLD functions
@@ -15,12 +18,20 @@ line on stdout: per OLD function ``same``, ``differs`` (with the count of
 differing lines), ``missing`` or ``removed``, and how many functions only
 NEW has. Exits 1 unless every OLD function is ``same`` or ``removed``.
 
-Run on a machine with the CUDA toolkit, e.g. for K10 and the probes against
-an older copy of their source::
+Run on a machine with the CUDA toolkit, e.g. for K1's forward, whose pass
+type gained the probes' MODE, against an older copy of its source::
 
     python -m frankenstein_tpu_torch.tools.sass_diff OLD.cu \\
-        frankenstein_tpu_torch/csrc/slab_rope_attention.cu \\
-        --map '(slab_rope_attn_fwdILi\\d+ELb\\d)EEE=\\1ELb1ELi0EEE'
+        frankenstein_tpu_torch/csrc/slab_rope_attention_fwd.cu \\
+        --map '(FwdPassI(?:Li\\d+E){4}Lb[01]E)=\\1Li0E'
+
+or for K10's K pre-pass, which moved into K10's source from one that
+held the mma.sync probe kernels (the file's name is in the symbols)::
+
+    python -m frankenstein_tpu_torch.tools.sass_diff OLD.cu \\
+        frankenstein_tpu_torch/csrc/slab_rope_attention_int8.cu \\
+        --map '_ZN\\d+22_slab_rope_attention_cu_=_ZN6027_slab_rope_attention_int8_cu_' \\
+        --removed 'slab_rope_attn_fwdILi32ELb'
 
 or for K6 / K7 slab, whose dense instances moved to
 ``csrc/flash_attention_dense.cu``::
@@ -41,6 +52,15 @@ from pathlib import Path
 from frankenstein_tpu_torch.ops.cuda import build
 
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_|(?<=_cu_)[0-9a-f]{8}")
+LABEL = re.compile(r"\.L_x_\d+")
+
+
+def canonical(body: list) -> list:
+    """A function's dump lines with each run of blanks one space and its
+    branch labels numbered from 0 in order of appearance."""
+    labels = {}
+    number = lambda m: labels.setdefault(m.group(0), f".L_x_{len(labels)}")
+    return [LABEL.sub(number, " ".join(line.split())) for line in body]
 
 
 def sass(src: Path, workdir: Path) -> dict:
@@ -64,7 +84,7 @@ def sass(src: Path, workdir: Path) -> dict:
             funcs[name] = []
         elif name is not None and line:
             funcs[name].append(line)
-    return funcs
+    return {name: canonical(body) for name, body in funcs.items()}
 
 
 def compare(old: dict, new: dict, maps, removed=None) -> dict:

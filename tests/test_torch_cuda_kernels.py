@@ -4,7 +4,7 @@ to four query heads per KV head, the 1B-class width), K6 / K7 (the three mask
 modes of flash attention, forward and backward), K8 (the fused head and
 top-k, ragged vocab, ties), K9 (the fused pre-norm SwiGLU MLP, both norms)
 and K10 (int8 QK scores: K and Q codes, scales, out and lse), and the probe
-modes of the mma.sync attention kernel (ops/cuda/slab_probe.py), on the card against
+modes of K1's and K10's forwards (ops/cuda/slab_probe.py), on the card against
 their plain PyTorch twins, at
 small shapes that reach the kernels' edge cases (slabs that do not divide
 the tiles, a batch that does not fill a tile, an empty cache, one beam and
@@ -1253,10 +1253,9 @@ def test_k10_refuses_what_it_does_not_take(dev):
         k1.rope_quantize_k(k, cos, sin, n_heads=2)
 
 
-# The probe modes of the mma.sync kernel K1 and K10 ran before their wgmma
-# redesigns (ops/cuda/slab_probe.py) against
-# their twins on the same bf16 inputs, within the limits slab_probe states
-# (EXACT_TOL, DEFINED_TOL, LSE_TOL; ``probe_error``, ``agrees``).
+# The probe modes of K1's and K10's wgmma forwards (ops/cuda/slab_probe.py)
+# against their twins on the same bf16 inputs, within the limits slab_probe
+# states (EXACT_TOL, DEFINED_TOL, LSE_TOL; ``probe_error``, ``agrees``).
 PROBE_EXACT = ("kernel", "mask_all", "exp2", "int8_full")
 PROBE_DEFINED = ("dots_only", "no_mask", "int8_dots_only",
                  "int8_cheap_dequant", "int8_noquant")
@@ -1290,49 +1289,57 @@ def test_probe_modes_match_twins_and_are_deterministic(dev, variant, b, t, h,
 
 @pytest.mark.parametrize("p", [8, 256])
 def test_probe_kernel_is_k1_and_k10_on_identity_tables(dev, p):
-    """With cos 1, sin 0 tables production K1 computes the ``kernel``
-    mode's function: K1 is held to that mode's twin within K1's 3e-2 (the
-    mode is the mma.sync design K1 had; exp2 and another order of sums rule
-    out bitwise equality). ``int8_full`` computes production K10's function
-    so run: both are held to K10's twin on identity tables within
-    K10_OUT_TOL and K10_LSE_TOL (K10 moved to wgmma, so no longer
-    bitwise); the K pre-pass they share gives bitwise equal codes and
-    scales; ``int8_full``'s kernel alone on ``probe_quantize_k``'s codes is
-    bitwise the pair."""
+    """With cos 1, sin 0 tables K1's pre-pass leaves q and k as they are,
+    and K1's forward is the ``kernel`` mode's instance: K1's out and lse
+    are bitwise the mode's, and both within K1's 3e-2 of the mode's twin.
+    So run, K10 is bitwise ``int8_full`` (its pre-passes rotate by the
+    identity, then the same forward), both within K10's tolerances of
+    K10's twin; the K and Q pre-passes give bitwise equal codes and
+    scales; ``int8_full``'s forward alone on ``probe_quantize_q`` /
+    ``_k``'s codes is bitwise the pair."""
     from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
     b, t, h = 2, 2048, 2
     q, k, v = _probe_case(dev, b, t, h, seed=p)
     cos = torch.ones(t, 32, device=dev)
     sin = torch.zeros(t, 32, device=dev)
     kw = dict(n_heads=h, tok_per_time=p)
-    want = sp.TWINS["kernel"](q, k, v, **kw)
+    mode = sp.slab_attention_probe(q, k, v, variant="kernel", **kw)
     got = k1.slab_rope_attention(q, k, v, cos, sin, **kw)
+    assert torch.equal(got[0], mode[0]) and torch.equal(got[1], mode[1])
+    want = sp.TWINS["kernel"](q, k, v, **kw)
     assert _err(got[0], want[0]) < 3e-2 and _err(got[1], want[1]) < 3e-2
     got = sp.slab_attention_probe(q, k, v, variant="int8_full", **kw)
     prod = k1.slab_rope_attention(q, k, v, cos, sin, qk_int8=True, **kw)
+    assert torch.equal(got[0], prod[0]) and torch.equal(got[1], prod[1])
     want = k1.slab_rope_attention_int8_ref(q, k, v, cos, sin, **kw)
     assert _k10_passes(*got, *want) and _k10_passes(*prod, *want)
-    codes = sp.probe_quantize_k(k, n_heads=h, variant="int8_full")
-    want_codes = k1.rope_quantize_k(k, cos, sin, n_heads=h)
-    assert torch.equal(codes[0], want_codes[0])
-    assert torch.equal(codes[1], want_codes[1])
-    alone = sp.slab_attention_probe(q, codes, v, variant="int8_full",
+    k_codes = sp.probe_quantize_k(k, n_heads=h, variant="int8_full")
+    q_codes = sp.probe_quantize_q(q, n_heads=h, variant="int8_full")
+    for pair, want_pair in ((k_codes, k1.rope_quantize_k(k, cos, sin,
+                                                         n_heads=h)),
+                            (q_codes, k1.rope_quantize_q(q, cos, sin,
+                                                         n_heads=h))):
+        assert torch.equal(pair[0], want_pair[0])
+        assert torch.equal(pair[1], want_pair[1])
+    alone = sp.slab_attention_probe(q_codes, k_codes, v, variant="int8_full",
                                     with_prepass=False, **kw)
     assert torch.equal(alone[0], got[0]) and torch.equal(alone[1], got[1])
 
 
 def test_probe_no_kbd_guard(dev):
     """``no_kbd`` reads V in the wrong layout (timing only, no twin): its
-    values are finite, bitwise repeatable and differ from ``kernel``'s."""
+    values are finite, bitwise repeatable and differ from ``kernel``'s,
+    in both mask instances."""
     from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
     q, k, v = _probe_case(dev, 2, 2048, 2, seed=7)
-    kw = dict(n_heads=2, tok_per_time=256)
-    out, lse = sp.slab_attention_probe(q, k, v, variant="no_kbd", **kw)
-    again = sp.slab_attention_probe(q, k, v, variant="no_kbd", **kw)
-    ref = sp.slab_attention_probe(q, k, v, variant="kernel", **kw)
-    torch.cuda.synchronize()
-    guard = sp.no_kbd_guard(out, lse, again, ref[0])
-    assert sp.guard_holds(guard), guard
+    for p in (8, 256):
+        kw = dict(n_heads=2, tok_per_time=p)
+        out, lse = sp.slab_attention_probe(q, k, v, variant="no_kbd", **kw)
+        again = sp.slab_attention_probe(q, k, v, variant="no_kbd", **kw)
+        ref = sp.slab_attention_probe(q, k, v, variant="kernel", **kw)
+        torch.cuda.synchronize()
+        guard = sp.no_kbd_guard(out, lse, again, ref[0])
+        assert sp.guard_holds(guard), (p, guard)
 
 
 def test_probe_refuses_what_it_does_not_take(dev):
@@ -1351,14 +1358,20 @@ def test_probe_refuses_what_it_does_not_take(dev):
 
 
 def test_probe_occupancy_reads_every_mode(dev):
-    """Registers and resident CTAs of each D=32 probe instance from the
-    CUDA runtime, and production K1's and K10's passes (which left the
-    probes' kernel) from ``fwd_occupancy`` and ``fwd_int8_occupancy``; a
-    head dim without a K10 instance is refused."""
+    """Registers and resident CTAs of each probe mode's D=32 forward
+    instance at P=256 and P=8 from the CUDA runtime (``kernel``'s and
+    ``int8_full``'s are production K1's and K10's forwards), and production
+    K1's and K10's passes from ``fwd_occupancy`` and
+    ``fwd_int8_occupancy``; a head dim without a K10 instance is
+    refused."""
     from frankenstein_tpu_torch.ops.cuda import slab_probe as sp
-    for name in sp.PROBE_VARIANTS:
-        regs, ctas = sp.occupancy(name)
-        assert 0 < regs <= 255 and ctas >= 1
+    for p in (256, 8):
+        for name in sp.PROBE_VARIANTS:
+            regs, ctas = sp.occupancy(name, p)
+            assert 0 < regs <= 255 and ctas >= 1, (name, p)
+        assert sp.occupancy("kernel", p) == k1.fwd_occupancy("fwd", 32, p)
+        assert (sp.occupancy("int8_full", p)
+                == k1.fwd_int8_occupancy("fwd", 32, p))
     for p in (256, 96):
         for d in (32, 64):
             for pass_ in k1.FWD_PASSES:

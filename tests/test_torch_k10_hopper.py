@@ -12,7 +12,7 @@
   the log2-unit online softmax in float64, gives the twin's out and lse
   (``slab_rope_attention_int8_ref``) within K10_OUT_TOL / K10_LSE_TOL, the
   card's tolerances, at D = 32 and 64 and P in {8, 96, 256}.
-- Every kernel of the source, and the K pre-pass K10 runs, falls in
+- Every kernel of the source, K10's K pre-pass among them, falls in
   ``chip_smoke.py``'s "K10" profile family in the spellings a profiler may
   report, never in K1's or K6 / K7's.
 
@@ -220,11 +220,11 @@ def _spellings(name: str) -> dict:
     head = f"_ZN{len(anon)}{anon}{len(name)}{name}"
     if name.endswith("_prep"):
         return {"bare": name,
-                "demangled": f"void (anonymous namespace)::{name}<32>("
-                             "__nv_bfloat16 const*, float const*, float "
+                "demangled": f"void (anonymous namespace)::{name}<32, true, "
+                             "false>(__nv_bfloat16 const*, float const*, float "
                              "const*, signed char*, float*, int, int, "
                              "unsigned long)",
-                "mangled": f"{head}ILi32EEEvPK13__nv_bfloat16PKfS5_PaPfiim"}
+                "mangled": f"{head}ILi32ELb1ELb0EEEvPK13__nv_bfloat16PKfS5_PaPfiim"}
     if name.startswith("rope_"):
         return {"bare": name,
                 "demangled": f"void (anonymous namespace)::{name}<32, "
@@ -233,11 +233,11 @@ def _spellings(name: str) -> dict:
                 "mangled": f"{head}ILi32ELb1EEEvPK13__nv_bfloat16PKfS5_Pjii"}
     return {"bare": name,
             "demangled": f"void (anonymous namespace)::{name}<(anonymous "
-                         "namespace)::Int8Pass<32, 2, 64, 2, false> >("
+                         "namespace)::Int8Pass<32, 2, 64, 2, false, 0> >("
                          "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
                          "float const*, float const*, __nv_bfloat16*, "
                          "float*, int, int, int, float)",
-            "mangled": f"{head}INS_8Int8PassILi32ELi2ELi64ELi2ELb0EEEEEv14"
+            "mangled": f"{head}INS_8Int8PassILi32ELi2ELi64ELi2ELb0ELi0EEEEEv14"
                        "CUtensorMap_stS3_S3_PKfS5_P13__nv_bfloat16Pfiiif"}
 
 
@@ -252,15 +252,17 @@ def test_k10_kernels_fall_in_the_k10_family(name, form):
 def test_k10_kernel_names_are_the_sources_kernels():
     text = SOURCE.read_text()
     kernels = re.findall(KERNEL_RE, text)
-    assert sorted(kernels) == sorted(KERNELS)
-    for name in kernels:
+    assert sorted(kernels) == sorted(KERNELS + K_PREPASS)
+    for name in KERNELS:
         assert name.startswith("slab_rope_attn_fwd_int8_")
+    for name in kernels:
         assert "flash_attn_fwd" not in name
     assert "flash_attn_fwd" not in text.split("#include")[-1]
-    # the K pre-pass K10 runs stays in the probes' source, shared with them
-    old = (SOURCE.parent / "slab_rope_attention.cu").read_text()
-    assert "fk_slab_rope_k_quant" in old
-    assert 'extern "C" int fk_slab_rope_attention_fwd_int8(' not in old
+    # the K pre-pass K10 runs lives beside K10's kernels, its entry point
+    # before theirs
+    assert 'extern "C" int fk_slab_rope_k_quant(' in text
+    assert text.index('extern "C" int fk_slab_rope_k_quant(') < text.index(
+        'extern "C" int fk_slab_rope_attention_fwd_int8(')
     for name in K_PREPASS:
         assert re.search(rf"void __launch_bounds__\(QK_THREADS\)\s*{name}\(",
-                         old), name
+                         text), name

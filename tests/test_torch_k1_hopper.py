@@ -97,10 +97,10 @@ def _spellings(name: str) -> dict:
                            "S6_iim"}
     return {"bare": name,
             "demangled": f"void (anonymous namespace)::{name}<(anonymous "
-                         "namespace)::FwdPass<32, 2, 64, 2, false> >("
+                         "namespace)::FwdPass<32, 2, 64, 2, false, 0> >("
                          "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
                          "__nv_bfloat16*, float*, int, int, int, float)",
-            "mangled": f"{head}INS_7FwdPassILi32ELi2ELi64ELi2ELb0EEEEEv14"
+            "mangled": f"{head}INS_7FwdPassILi32ELi2ELi64ELi2ELb0ELi0EEEEEv14"
                        "CUtensorMap_stS3_S3_P13__nv_bfloat16Pfiiif"}
 
 

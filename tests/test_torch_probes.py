@@ -1,10 +1,11 @@
-"""The probe modes of the mma.sync kernel K1 and K10 ran before their wgmma
-redesigns (``ops/cuda/slab_probe.py``):
-their plain twins against the JAX probes ``tools/attn_probe.py`` and
-``tools/int8_attr_probe.py`` run in Pallas interpret mode, the int8 twins
-against a numpy float64 oracle on bf16-lattice inputs, the dots-only twins
-against a direct sum over the kernel's visit set, the wrapper's gates, and
-the two probe CLIs (``frankenstein_tpu_torch.tools``) on the CPU.
+"""The probe modes of K1's and K10's wgmma forwards
+(``ops/cuda/slab_probe.py``): their plain twins against the JAX probes
+``tools/attn_probe.py`` and ``tools/int8_attr_probe.py`` run in Pallas
+interpret mode, the int8 twins against a numpy float64 oracle on
+bf16-lattice inputs, the dots-only twins against a direct sum over the
+forwards' visit set, every JAX variant's port mode, the sources that
+define the probes' entry points, the wrapper's gates, and the two probe
+CLIs (``frankenstein_tpu_torch.tools``) on the CPU.
 
 The JAX probes pack 4 heads of D=32 into 128 lanes ([nb, T, 128]); the
 port's [B, T, E] layout with 4 heads is the same array. Inputs are f32
@@ -13,10 +14,12 @@ the JAX int8 path's scales agree with the port's IEEE quotient (the tie gap
 on the lattice is a finding in the JAX package, ``ROADMAP.md`` section 3).
 """
 
+import ast
 import functools
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import types
@@ -203,13 +206,14 @@ def test_int8_twins_match_float64_oracle_on_bf16_lattice(variant):
                                        ("int8_dots_only", 8),
                                        ("int8_dots_only", 256)])
 def test_dots_only_twins_sum_over_the_visit_set(variant, p):
-    """The dots-only modes: out_i = sum over the keys j the kernel visits
-    for row i (its 16-row warp's 64-key tiles up to the warp's last slab
-    end) of the score, rounded to v's dtype, times v_j; no softmax, lse 0.
-    Against a direct float64 sum: dots_only on f32 draws (no rounding),
-    int8_dots_only on bf16 ones (its integer dots round to bf16 as the
-    kernel's A-fragments do), within the bf16 rounding of out. At P=8 a
-    warp spans two slabs, so the visit set reaches past the slab mask."""
+    """The dots-only modes: out_i = sum over the keys j the forward visits
+    for row i (its 64-row warpgroup's 64-key tiles up to the warpgroup's
+    last slab end) of the score, rounded to v's dtype, times v_j; no
+    softmax, lse 0. Against a direct float64 sum: dots_only on f32 draws
+    (no rounding), int8_dots_only on bf16 ones (its integer dots round to
+    bf16 as the forward's A-fragments do), within the bf16 rounding of
+    out. At P=8 a warpgroup spans eight slabs, so the visit set reaches
+    past the slab mask."""
     bf16 = variant == "int8_dots_only"
     q, k, v = (a[0].reshape(T, NPACK, D).astype(np.float64)
                for a in _draws(5, lattice=bf16))
@@ -219,7 +223,7 @@ def test_dots_only_twins_sum_over_the_visit_set(variant, p):
     else:
         s = np.einsum("qhd,khd->hqk", q, k) / np.sqrt(D)
     i = np.arange(T)
-    ends = np.minimum(T, ((i // 16 * 16 + 15) // p + 1) * p)
+    ends = np.minimum(T, ((i // 64 * 64 + 63) // p + 1) * p)
     ends = np.minimum(T, (ends + 63) // 64 * 64)
     s[:, ~(i[None, :] < ends[:, None])] = 0.0
     want = np.einsum("hqk,khd->qhd", s, v).reshape(T, NPACK * D)
@@ -233,15 +237,17 @@ def test_dots_only_twins_sum_over_the_visit_set(variant, p):
 
 
 def test_visit_set_and_counts():
-    """The kernel's visit set equals the slab mask where P % 64 == 0 and
+    """The forwards' visit set equals the slab mask where P % 64 == 0 and
     reaches past it at P=8; no_mask's twin is then K1's twin. Tile counts:
-    a 16-row warp visits ceil(end / 64) tiles."""
+    a 64-row warpgroup visits ceil(end / 64) tiles, end its last row's slab
+    end (K1's nkw)."""
     assert torch.equal(sp.visit_ends(6144, 256), sp.slab_ends(6144, 256))
     ends = sp.visit_ends(256, 8)
-    assert ends[:16].tolist() == [64] * 16
-    assert ends[48:64].tolist() == [64] * 16 and ends[64].item() == 128
+    assert ends[:64].tolist() == [64] * 64
+    assert ends[64:128].tolist() == [128] * 64 and ends[128].item() == 192
     assert sp.visited_tiles(6144, 256) == sum(
-        ((w * 16) // 256 + 1) * 4 for w in range(6144 // 16))
+        ((w * 64) // 256 + 1) * 4 for w in range(6144 // 64))
+    assert sp.visited_tiles(256, 8) == 1 + 2 + 3 + 4
     q, k, v = (torch.from_numpy(a) for a in _draws(6))
     got = sp.slab_attention_probe(q, k, v, n_heads=NPACK, tok_per_time=256,
                                   variant="no_mask")
@@ -253,6 +259,89 @@ def test_visit_set_and_counts():
     unmasked = sp.slab_attention_probe(q, k, v, n_heads=NPACK,
                                        tok_per_time=8, variant="no_mask")
     assert float((masked[0] - unmasked[0]).abs().max()) > 1e-2
+
+
+def _jax_variants(tool):
+    """The variant names the JAX tool's ``main`` times, read from its
+    source (its loop ``for variant in (...)``)."""
+    tree = ast.parse((ROOT / "tools" / f"{tool}.py").read_text())
+    main = next(node for node in tree.body
+                if isinstance(node, ast.FunctionDef) and node.name == "main")
+    loops = [node for node in ast.walk(main) if isinstance(node, ast.For)
+             and getattr(node.target, "id", None) == "variant"]
+    assert len(loops) == 1, tool
+    return ast.literal_eval(loops[0].iter)
+
+
+def _enum(source, name):
+    """{member: value} of ``enum name`` in a CUDA source."""
+    body = re.search(rf"enum {name} : int {{([^}}]*)}};", source).group(1)
+    return {m: int(v) for m, v in re.findall(r"(\w+) = (\d+)", body)}
+
+
+def test_every_jax_probe_variant_has_a_mode():
+    """Every variant the two JAX tools time maps to a port mode, the
+    number the C entry points dispatch on (``enum Mode`` of K1's forward
+    for the bf16 modes, ``enum Variant`` of K10's for the int8 ones). The
+    names that share the production K1 instance are ``kernel``, ``bf16``,
+    ``mask_last`` and ``exp2``, which is a stated alias of ``kernel``; the
+    port CLIs time every JAX variant but ``mask_last`` (``kernel`` masks
+    only the tiles that cross a warpgroup's first slab)."""
+    from frankenstein_tpu_torch.tools import attn_probe, int8_attr_probe
+    jax_attn = _jax_variants("attn_probe")
+    jax_int8 = _jax_variants("int8_attr_probe")
+    assert set(jax_attn) | set(jax_int8) <= set(sp.PROBE_VARIANTS)
+    assert set(attn_probe.VARIANTS) == set(jax_attn) - {"mask_last"} | {
+        "mask_all"}
+    assert int8_attr_probe.VARIANTS == jax_int8
+    assert sp.ALIASES == {"exp2": "kernel"}
+    kernel = sp.PROBE_VARIANTS["kernel"]
+    assert [name for name, mode in sp.PROBE_VARIANTS.items()
+            if mode == kernel] == ["kernel", "bf16", "mask_last", "exp2"]
+    csrc = ROOT / "frankenstein_tpu_torch" / "csrc"
+    fwd = _enum((csrc / "slab_rope_attention_fwd.cu").read_text(), "Mode")
+    int8 = _enum((csrc / "slab_rope_attention_int8.cu").read_text(),
+                 "Variant")
+    c_name = lambda name: "PROD" if mode == kernel else name.upper()
+    for name, mode in sp.PROBE_VARIANTS.items():
+        enum = int8 if sp.is_int8(name) else fwd
+        assert enum[c_name(name)] == mode, name
+    assert sorted(fwd.values()) + sorted(int8.values()) == sorted(
+        set(sp.PROBE_VARIANTS.values()))
+
+
+ENTRY_RE = r'extern "C" (?:int|long long|const char\*) (\w+)\('
+
+
+def test_probe_and_prepass_symbols_defined_once():
+    """The mma.sync attention source is gone. K10's K pre-pass entry
+    point, the library's error text and the probes' entry points are each
+    defined in exactly one source: the bf16 probes beside K1's forward,
+    the int8 probes and the K pre-pass beside K10's. Every entry point
+    ``build.py`` binds is defined once."""
+    from frankenstein_tpu_torch.ops.cuda import build
+    csrc = ROOT / "frankenstein_tpu_torch" / "csrc"
+    assert not (csrc / "slab_rope_attention.cu").exists()
+    defined = {}
+    for src in sorted(csrc.glob("*.cu")):
+        for name in re.findall(ENTRY_RE, src.read_text()):
+            defined.setdefault(name, []).append(src.name)
+    fwd, int8 = "slab_rope_attention_fwd.cu", "slab_rope_attention_int8.cu"
+    assert {name: defined.get(name) for name in (
+        "fk_slab_rope_k_quant", "fk_error_string", "fk_slab_attention_probe",
+        "fk_slab_attention_probe_occupancy", "fk_slab_attention_probe_int8",
+        "fk_slab_attention_probe_int8_occupancy")} == {
+        "fk_slab_rope_k_quant": [int8], "fk_error_string": [fwd],
+        "fk_slab_attention_probe": [fwd],
+        "fk_slab_attention_probe_occupancy": [fwd],
+        "fk_slab_attention_probe_int8": [int8],
+        "fk_slab_attention_probe_int8_occupancy": [int8]}
+    bound = set(re.findall(r"lib\.(fk_\w+)\.argtypes",
+                           Path(build.__file__).read_text()))
+    bound |= set(re.findall(r'"(fk_\w+_occupancy)"',
+                            Path(build.__file__).read_text()))
+    assert bound <= set(defined)
+    assert all(len(defined[name]) == 1 for name in bound)
 
 
 def test_wrapper_gates():
@@ -355,3 +444,26 @@ def test_sass_diff_maps_renamed_templates():
             "18slab_rope_attn_fwdILi32ELb1EEEv")
     assert sass_diff.ANON.sub("", name) == (
         "_ZN5522_slab_rope_attention_cu_18slab_rope_attn_fwdILi32ELb1EEEv")
+
+
+def test_sass_diff_ignores_what_the_rest_of_the_cubin_sets():
+    """cuobjdump pads a cubin's columns to its widest instruction and
+    numbers branch labels across it: a function moved to another source
+    keeps its SASS but not those. canonical() takes both out (labels from
+    0 in order of appearance), and a changed instruction still shows."""
+    from frankenstein_tpu_torch.tools import sass_diff
+    old = ["/*0000*/   BRA `(.L_x_7) ;   /* 0x1 */", ".L_x_7:",
+           "/*0010*/   EXIT ;   /* 0x2 */", "/*0020*/   BRA `(.L_x_9) ;"]
+    new = ["/*0000*/ BRA `(.L_x_31) ; /* 0x1 */", ".L_x_31:",
+           "/*0010*/ EXIT ; /* 0x2 */", "/*0020*/ BRA `(.L_x_40) ;"]
+    assert sass_diff.canonical(old) == sass_diff.canonical(new) == [
+        "/*0000*/ BRA `(.L_x_0) ; /* 0x1 */", ".L_x_0:",
+        "/*0010*/ EXIT ; /* 0x2 */", "/*0020*/ BRA `(.L_x_1) ;"]
+    moved = {"f": sass_diff.canonical(old)}
+    assert sass_diff.compare(moved, {"f": sass_diff.canonical(new)},
+                             []) == {"f": "same"}
+    changed = sass_diff.canonical(new[:2] + ["/*0010*/ RET ; /* 0x2 */"]
+                                  + new[3:])
+    assert sass_diff.compare(moved, {"f": changed}, []) == {
+        "f": "differs (1 lines)"}
+
