@@ -91,7 +91,8 @@ nvcc (sm_90a) and then, one line per phase:
     ``masking_indices``), K7 at B=2, T=6144; out, lse, dq, dk, dv, the
     probability rows the backward recomputes (each sums to 1 against the
     forward's lse), two launches bitwise equal, kernel, twin and SDPA times,
-    and the kernels at B=32;
+    and the kernels and SDPA (K6 with its bool mask, K7 dense unmasked) at
+    B=32;
 13. MAE pretraining: ``configs/mae.yaml``'s MAE (f32 parameters, bf16
     compute) trained for 30 steps at B=32 through the train CLI, with an
     eval and a checkpoint: finite, falling losses, the launch counts of K6
@@ -109,7 +110,8 @@ nvcc (sm_90a) and then, one line per phase:
     trained for 2 steps with ``--init-encoder-from`` the MAE run, its
     encoder equal to the MAE checkpoint's bitwise before the first step;
     last, a torch.profiler split of the MAE's and the grafted Franky's B=32
-    step by kernel family;
+    step by kernel family (K6's three passes each a family the MAE's must
+    show);
 14. kernel K9 (the fused pre-norm SwiGLU MLP, wgmma products on weights
     streamed by TMA) against its twin, LayerNorm and RMSNorm, at the
     flagship encoder's shape (T=6144, E=256, hidden 1024) at B=2, 32 and
@@ -210,9 +212,12 @@ PROFILE_STEPS = 3   # profiled B=32 train steps (phase 13)
 PROFILE_TOP = 4     # kernels named in a profile line
 # kernel name -> family, first match wins
 PROFILE_FAMILIES = [
-    ("K6/K7 fwd", r"flash_attn_fwd"),
-    ("K6/K7 bwd dq", r"flash_attn_bwd_dq"),
-    ("K6/K7 bwd dk/dv", r"flash_attn_bwd_dkv"),
+    ("K6 fwd", r"flash_attn_fwd_positions"),
+    ("K6 bwd dq", r"flash_attn_bwd_dq_positions"),
+    ("K6 bwd dk/dv", r"flash_attn_bwd_dkv_positions"),
+    ("K7 fwd", r"flash_attn_fwd"),
+    ("K7 bwd dq", r"flash_attn_bwd_dq"),
+    ("K7 bwd dk/dv", r"flash_attn_bwd_dkv"),
     ("K10", r"slab_rope_attn_fwd_int8|rope_(absmax|quantize)_k"),
     ("K1", r"slab_rope_attn_fwd"),
     ("K4", r"slab_rope_attn_bwd"),
@@ -1922,7 +1927,8 @@ def _ms_note(timed: dict, name: str) -> str:
 def phase_flash(card: str) -> dict:
     """K6 and K7 (modes positions, dense, slab) forward and backward at the
     MAE's shapes against their twins; kernel and SDPA timed in turns
-    (``_in_turns``) at B=2 and, unmasked, B=32, and the kernels back to
+    (``_in_turns``) at B=2 and B=32 (SDPA with K6's bool mask, K7 dense
+    unmasked; K7 slab's kernel alone), and the kernels back to
     back at B=2 (a single B=2 call also times the host's launch work);
     each mode's exp floor (one ex2 a visible pair a pass at EXP2_PER_S),
     issued TFLOP/s (4·D ops a pair forward, 14·D in the two backward
@@ -1996,16 +2002,17 @@ def phase_flash(card: str) -> dict:
         big = {"fwd": lambda: k67.flash_attention(qb, kb, vb, **kwb),
                "bwd": lambda: k67.flash_attention_bwd(qb, kb, vb, ob, lb, db,
                                                       **kwb)}
-        if mode == "dense":
+        if mode != "slab":   # K6 with its bool mask, K7 dense unmasked
             qkvb = [_heads(x, h) for x in (qb, kb, vb)]
-            big.update({"SDPA fwd": _sdpa(*qkvb, None),
-                        "SDPA bwd": _sdpa(*qkvb, None, db)})
+            maskb = _flash_mask(kwb, t, qb.device)
+            big.update({"SDPA fwd": _sdpa(*qkvb, maskb),
+                        "SDPA bwd": _sdpa(*qkvb, maskb, db)})
         b32 = _in_turns(big)
         fwd_b32, bwd_b32 = b32["fwd"]["ms"][0], b32["bwd"]["ms"][0]
         pairs32 = _flash_pairs(kwb, 32, t)
         del qb, kb, vb, db, ob, lb, big
         sdpa32 = (f", SDPA forward {_ms_note(b32, 'SDPA fwd')}, backward "
-                  f"{_ms_note(b32, 'SDPA bwd')}" if mode == "dense" else "")
+                  f"{_ms_note(b32, 'SDPA bwd')}" if mode != "slab" else "")
         print(f"phase 12 {name} flash_attention mode={mode} B={b} T={t} "
               f"E={e} H={h}{' P=256' if mode != 'dense' else ''} bf16, "
               f"{pairs} visible pairs: out/lse rel err {fwd_rels[0]:.3e}/"
@@ -2264,6 +2271,11 @@ def phase_mae(card: str) -> dict:
         big = tcfg.replace(batch_size=256, grad_accum=8)
         big_ms, big_peak = _time_steps(state, big, ds, 256, 1)
         profiles = {"MAE": _profile_steps(state, tcfg, ds, "MAE", card)}
+        k6_fams = ("K6 fwd", "K6 bwd dq", "K6 bwd dk/dv")
+        _check(all(profiles["MAE"]["families"].get(f, 0.0) > 0
+                   for f in k6_fams),
+               f"the MAE profile lacks a K6 family: "
+               f"{sorted(profiles['MAE']['families'])}")
         del state
 
         # the recipe's next step: the MAE's encoder grafted into Franky
@@ -3240,7 +3252,7 @@ def main() -> int:
              ":396)")):
         fwd, bwd = fa[mode]
         src = "frankenstein_tpu_torch/csrc/flash_attention"
-        fwd_src, bwd_src = ((src + "_dense.cu",) * 2 if mode == "dense"
+        fwd_src, bwd_src = ((src + "_dense.cu",) * 2 if mode != "slab"
                             else (src + ".cu", src + "_bwd.cu"))
         kernels += [
             {"name": f"flash_attention_fwd_{mode}", "route": "cuda",

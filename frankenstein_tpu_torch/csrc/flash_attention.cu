@@ -1,24 +1,21 @@
-// K6 and K7 slab: flash attention over folded q/k/v with a mask, forward
-// only (the backward is flash_attention_bwd.cu). Mode dense (K7 unmasked)
-// runs the wgmma kernels of flash_attention_dense.cu; this file's C entry
-// point dispatches it there.
+// K7 slab: slab-causal flash attention over folded q/k/v without RoPE,
+// forward only (the backward is flash_attention_bwd.cu). Modes dense (K7
+// unmasked) and positions (K6) run the wgmma kernels of
+// flash_attention_dense.cu; this file's C entry point dispatches them
+// there.
 //
-// Replaces, in frankenstein_tpu/ops/pallas/block_attention.py:
-//   K6  _fwd with ``pos`` (kernel _fwd_tri_kernel, pos=True), reached from
-//       gathered_slab_attention -> _gathered_attention: the MAE encoder's
-//       attention over the 25% of tokens it keeps;
-//   K7  _fwd / _fwd_packed (kernels _fwd_tri_kernel, _fwd_packed_kernel),
-//       reached from slab_causal_attention[_folded] (slab-causal, no RoPE).
-// Contract:
-//   q, k, v   [B, T, E] bf16, head h = columns [h*D, (h+1)*D); q and k
-//             already rotated where the model uses RoPE
-//   sid       [B, T] int32 slab ids (kPositions only, else unused)
+// Replaces, in frankenstein_tpu/ops/pallas/block_attention.py, _fwd /
+// _fwd_packed (kernels _fwd_tri_kernel, _fwd_packed_kernel), reached from
+// slab_causal_attention[_folded] (slab-causal, no RoPE). Contract:
+//   q, k, v   [B, T, E] bf16, head h = columns [h*D, (h+1)*D)
+//   sid       unused by mode slab (the C entry point takes K6's slab ids)
 //   out       [B, T, E] bf16
 //   lse       [B, H, T] f32, per-row logsumexp (kept for the backward)
-// The mask mode is a template parameter (flash_mask.cuh). Scale 1/sqrt(D);
-// s = (q k^T) * scale in f32, masked scores set to -FLT_MAX (finfo(f32).min,
-// as the JAX kernel's NEG_INF); online softmax in f32 whose l sums the
-// unrounded exps; p cast to bf16 before the AV product; lse = m + log(l).
+// Key j is visible to query i iff j / P <= i / P (flash_mask.cuh). Scale
+// 1/sqrt(D); s = (q k^T) * scale in f32, masked scores set to -FLT_MAX
+// (finfo(f32).min, as the JAX kernel's NEG_INF); online softmax in f32
+// whose l sums the unrounded exps; p cast to bf16 before the AV product;
+// lse = m + log(l).
 //
 // What bounds it on an H100: at D = 32 each visible (query, key) pair
 // costs 2 x 32 MACs on the tensor cores but one exp and several f32 ops of
@@ -32,17 +29,12 @@
 //     score accumulators re-packed in registers as the bf16 A-fragments of
 //     PV (mma_bf16.cuh), so scores and probabilities never touch shared
 //     memory;
-//   * pruning: kSlab walks key tiles up to the end of the q tile's last
-//     slab, as K1 does; kPositions skips a key tile whose least slab id
-//     exceeds the q tile's greatest (exact for any order; with sorted ids
-//     the loop ends at the staircase). A warp skips the tiles past its own
-//     rows' slabs, and only tiles that reach past a warp's least slab are
-//     masked.
-// Every row sees at least its own key, so no row's l is 0. A row whose
-// first tiles are all masked (kPositions in an unsorted order) accumulates
-// exp(0) terms at m = -FLT_MAX; the first visible score rescales them by
-// exp(-FLT_MAX - m) = 0, so they vanish exactly.
-// The wgmma / TMA design of flash_attention_dense.cu is later work here.
+//   * pruning: the key loop ends at the end of the q tile's last slab, as
+//     K1's does; a warp skips the tiles past its own rows' slabs, and only
+//     tiles that reach past a warp's least slab are masked.
+// Every row sees at least its own key, so no row's l is 0.
+// The wgmma / TMA design of flash_attention_dense.cu is later work here
+// (ROADMAP: fold K7 slab onto K4's passes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,18 +69,17 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int LDV = BK + 8;    // row stride of the transposed V tile
   constexpr int NT = BK / 8;     // score n-tiles per K tile
   constexpr int OT = D / 8;      // output n-tiles
+  static_assert(MODE == fk::kSlab, "modes dense and positions run the "
+                "wgmma kernels of flash_attention_dense.cu");
   __shared__ __align__(16) bf16 sQ[BQ * LDQ];
   __shared__ __align__(16) bf16 sK[BK * LDQ];
   __shared__ __align__(16) bf16 sVt[D * LDV];
-  __shared__ int sKs[BK];        // the key tile's slab ids (kPositions)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // mma group / thread in group
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int E = H * D;
   const size_t base = size_t(b) * T * E + size_t(h) * D;
-  const int* sid_b =   // the batch row's slab ids (kPositions only)
-      MODE == fk::kPositions ? sid + size_t(b) * T : sid;
 
   for (int idx = tid; idx < BQ * CH; idx += NTHREADS) {
     const int r = idx / CH, c = (idx % CH) * 8;
@@ -110,21 +101,12 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row_first = q0 + warp * 16;
   const int row0 = row_first + g, row1 = row0 + 8;   // this thread's rows
-  const int slab0 = fk::slab_of<MODE>(sid_b, row0, P);
-  const int slab1 = fk::slab_of<MODE>(sid_b, row1, P);
-  // least / greatest slab of the warp's rows, greatest of the CTA's rows,
-  // and the end of the key loop
-  int warp_lo = 0, warp_hi = 0, cta_hi = 0, kend = T;
-  if constexpr (MODE == fk::kSlab) {
-    warp_lo = row_first / P;
-    warp_hi = (row_first + 15) / P;
-    kend = min(T, ((q0 + BQ - 1) / P + 1) * P);
-  } else if constexpr (MODE == fk::kPositions) {
-    const int2 wr = fk::slab_range(sid_b + row_first, 16);
-    warp_lo = wr.x;
-    warp_hi = wr.y;
-    cta_hi = fk::slab_range(sid_b + q0, BQ).y;
-  }
+  const int slab0 = fk::slab_of<MODE>(sid, row0, P);
+  const int slab1 = fk::slab_of<MODE>(sid, row1, P);
+  // least / greatest slab of the warp's rows, and the end of the key loop
+  const int warp_lo = row_first / P;
+  const int warp_hi = (row_first + 15) / P;
+  const int kend = min(T, ((q0 + BQ - 1) / P + 1) * P);
 
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
   float o[OT][4];
@@ -132,13 +114,8 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < OT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
-    int2 kr = make_int2(0, 0);   // least / greatest slab of the key tile
-    if constexpr (MODE == fk::kSlab) {
-      kr = make_int2(k0 / P, (k0 + BK - 1) / P);
-    } else if constexpr (MODE == fk::kPositions) {
-      kr = fk::slab_range(sid_b + k0, BK);
-      if (kr.x > cta_hi) continue;  // CTA-uniform: no row sees this tile
-    }
+    // least / greatest slab of the key tile
+    const int2 kr = make_int2(k0 / P, (k0 + BK - 1) / P);
     __syncthreads();  // previous K, V tile consumed
     for (int idx = tid; idx < BK * CH; idx += NTHREADS) {
       const int r = idx / CH, c = (idx % CH) * 8;
@@ -149,9 +126,6 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* vv = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
       for (int i = 0; i < 8; ++i) sVt[(c + i) * LDV + r] = vv[i];
-    }
-    if constexpr (MODE == fk::kPositions) {
-      if (tid < BK) sKs[tid] = sid_b[k0 + tid];
     }
     __syncthreads();
     if (kr.x > warp_hi) continue;  // warp-uniform
@@ -176,9 +150,7 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 2; ++e) {
         float a = s[j][e] * scale, c = s[j][2 + e] * scale;
         if (need_mask) {
-          const int col = j * 8 + 2 * t + e;
-          const int key_slab = MODE == fk::kPositions ? sKs[col]
-                                                      : (k0 + col) / P;
+          const int key_slab = (k0 + j * 8 + 2 * t + e) / P;
           if (key_slab > slab0) a = -FLT_MAX;
           if (key_slab > slab1) c = -FLT_MAX;
         }
@@ -251,17 +223,11 @@ flash_attn_fwd(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_fwd(int mode, dim3 grid, cudaStream_t st, const bf16* q,
-               const bf16* k, const bf16* v, const int* sid, bf16* out,
-               float* lse, int T, int H, int P, float scale) {
-  if (mode == fk::kSlab)
-    flash_attn_fwd<D, fk::kSlab><<<grid, NTHREADS, 0, st>>>(
-        q, k, v, sid, out, lse, T, H, P, scale);
-  else if (mode == fk::kPositions)
-    flash_attn_fwd<D, fk::kPositions><<<grid, NTHREADS, 0, st>>>(
-        q, k, v, sid, out, lse, T, H, P, scale);
-  else
-    return int(cudaErrorInvalidValue);
+int launch_fwd(dim3 grid, cudaStream_t st, const bf16* q, const bf16* k,
+               const bf16* v, bf16* out, float* lse, int T, int H, int P,
+               float scale) {
+  flash_attn_fwd<D, fk::kSlab><<<grid, NTHREADS, 0, st>>>(
+      q, k, v, nullptr, out, lse, T, H, P, scale);
   return int(cudaGetLastError());
 }
 
@@ -281,12 +247,16 @@ extern "C" int fk_flash_attention_fwd(const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   if (mode == fk::kDense)
     return fk::flash_dense_fwd(q, k, v, out, lse, B, T, H, D, scale, st);
+  if (mode == fk::kPositions)
+    return fk::flash_positions_fwd(q, k, v, sid, out, lse, B, T, H, D, scale,
+                                   st);
+  if (mode != fk::kSlab) return int(cudaErrorInvalidValue);
   const dim3 grid(T / BQ, H, B);
   auto run = [&](auto launch) {
-    return launch(mode, grid, st, static_cast<const bf16*>(q),
+    return launch(grid, st, static_cast<const bf16*>(q),
                   static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<const int*>(sid), static_cast<bf16*>(out),
-                  static_cast<float*>(lse), T, H, P, scale);
+                  static_cast<bf16*>(out), static_cast<float*>(lse), T, H, P,
+                  scale);
   };
   if (D == 32) return run(launch_fwd<32>);
   if (D == 64) return run(launch_fwd<64>);
@@ -301,10 +271,6 @@ int flash_masked_fwd_occupancy(int mode, int D, int* regs, int* ctas) {
   };
   if (mode == kSlab && D == 32) return read(flash_attn_fwd<32, kSlab>);
   if (mode == kSlab && D == 64) return read(flash_attn_fwd<64, kSlab>);
-  if (mode == kPositions && D == 32)
-    return read(flash_attn_fwd<32, kPositions>);
-  if (mode == kPositions && D == 64)
-    return read(flash_attn_fwd<64, kPositions>);
   return int(cudaErrorInvalidValue);
 }
 

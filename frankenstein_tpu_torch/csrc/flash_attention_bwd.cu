@@ -1,14 +1,14 @@
-// K6 and K7 slab backward: the gradients of flash_attention.cu's masked
-// modes. Mode dense (K7 unmasked) runs the wgmma passes of
-// flash_attention_dense.cu; this file's C entry point dispatches it there.
+// K7 slab backward: the gradients of flash_attention.cu's slab-causal
+// mode. Modes dense (K7 unmasked) and positions (K6) run the wgmma passes
+// of flash_attention_dense.cu; this file's C entry point dispatches them
+// there.
 //
 // Replaces frankenstein_tpu/ops/pallas/block_attention.py:_bwd (kernel
-// bodies _bwd_dq_tri_kernel and _bwd_dkv_tri_kernel, with ``pos`` for K6,
-// from _gathered_attention_bwd) and _bwd_packed (kernels
-// _bwd_dq_packed_kernel, _bwd_dkv_packed_kernel, from _slab_attention_bwd:
-// K7 slab). Contract:
-//   q, k, v   [B, T, E] bf16, as the forward took them (already rotated)
-//   sid       [B, T] int32 slab ids (kPositions only)
+// bodies _bwd_dq_tri_kernel and _bwd_dkv_tri_kernel) and _bwd_packed
+// (kernels _bwd_dq_packed_kernel, _bwd_dkv_packed_kernel, from
+// _slab_attention_bwd: K7 slab). Contract:
+//   q, k, v   [B, T, E] bf16, as the forward took them
+//   sid       unused by mode slab (the C entry point takes K6's slab ids)
 //   out       [B, T, E] bf16, the forward's output
 //   lse       [B, H, T] f32, the forward's per-row logsumexp
 //   dout      [B, T, E] bf16, the gradient of out
@@ -29,17 +29,13 @@
 // (slab_rope_attention_bwd.cu), whose layout this follows without RoPE.
 //   * dq pass: one CTA per (batch, head, 128-row query block), 8 warps of 16
 //     rows. q and dout are held as mma A-fragments. The CTA first writes
-//     delta for its rows (fused here, as K4 fuses it). The key loop prunes
-//     as the forward does: kSlab stops at the end of the block's last slab,
-//     kPositions skips a key tile whose least slab id exceeds the block's
-//     greatest; a warp skips tiles past its rows' slabs and masks only
-//     tiles that reach past its least slab.
+//     delta for its rows (fused here, as K4 fuses it). The key loop stops at
+//     the end of the block's last slab; a warp skips tiles past its rows'
+//     slabs and masks only tiles that reach past its least slab.
 //   * dk/dv pass: one CTA per (batch, head, 128-key block), 8 warps of 16
-//     keys, k and v held as A-fragments. It mirrors the pruning: kSlab
-//     starts at the first query tile of the block's first slab, kPositions
-//     skips a query tile whose greatest slab id is below the block's least
-//     key slab. Runs after the dq pass on the same stream, which orders the
-//     delta it reads.
+//     keys, k and v held as A-fragments. It mirrors the pruning: it starts
+//     at the first query tile of the block's first slab. Runs after the dq
+//     pass on the same stream, which orders the delta it reads.
 // The score accumulators are re-packed in registers as the bf16
 // A-fragments of the next product (mma_bf16.cuh), so s, p, dp and ds never
 // touch shared memory; the operands a product needs transposed (k in the
@@ -50,7 +46,7 @@
 // in the dq pass and 4 in the dk/dv pass, against the forward's 2, plus an
 // exp in each pass; at D = 32 that is tensor-core throughput and f32 work
 // per score, not bytes. The wgmma / TMA design of flash_attention_dense.cu
-// is later work here.
+// is later work here (ROADMAP: fold K7 slab onto K4's passes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -90,7 +86,8 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int PRO = 2 * BM * LDR, LOOP = 2 * BN * LDR + D * LDT;
   __shared__ __align__(16) bf16 smem[PRO > LOOP ? PRO : LOOP];
   __shared__ float sDelta[BM];
-  __shared__ int sKs[BN];        // the key tile's slab ids (kPositions)
+  static_assert(MODE == fk::kSlab, "modes dense and positions run the "
+                "wgmma passes of flash_attention_dense.cu");
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;   // mma group / thread in group
@@ -98,8 +95,6 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int E = H * D;
   const size_t base = size_t(b) * T * E + size_t(h) * D;
   const size_t lbase = (size_t(b) * H + h) * T;
-  const int* sid_b =   // the batch row's slab ids (kPositions only)
-      MODE == fk::kPositions ? sid + size_t(b) * T : sid;
 
   bf16* sQ = smem;
   bf16* sdO = smem + BM * LDR;
@@ -148,19 +143,11 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int row_first = q0 + wr;
   const int row0 = row_first + g, row1 = row0 + 8;   // this thread's rows
-  const int slab0 = fk::slab_of<MODE>(sid_b, row0, P);
-  const int slab1 = fk::slab_of<MODE>(sid_b, row1, P);
-  int warp_lo = 0, warp_hi = 0, cta_hi = 0, kend = T;
-  if constexpr (MODE == fk::kSlab) {
-    warp_lo = row_first / P;
-    warp_hi = (row_first + 15) / P;
-    kend = min(T, ((q0 + BM - 1) / P + 1) * P);
-  } else if constexpr (MODE == fk::kPositions) {
-    const int2 w = fk::slab_range(sid_b + row_first, 16);
-    warp_lo = w.x;
-    warp_hi = w.y;
-    cta_hi = fk::slab_range(sid_b + q0, BM).y;
-  }
+  const int slab0 = fk::slab_of<MODE>(sid, row0, P);
+  const int slab1 = fk::slab_of<MODE>(sid, row1, P);
+  const int warp_lo = row_first / P;
+  const int warp_hi = (row_first + 15) / P;
+  const int kend = min(T, ((q0 + BM - 1) / P + 1) * P);
   const float lse0 = lse[lbase + row0], lse1 = lse[lbase + row1];
   const float dl0 = sDelta[wr + g], dl1 = sDelta[wr + g + 8];
 
@@ -172,13 +159,8 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sV = smem + BN * LDR;
   bf16* sKt = smem + 2 * BN * LDR;
   for (int k0 = 0; k0 < kend; k0 += BN) {
-    int2 kr = make_int2(0, 0);   // least / greatest slab of the key tile
-    if constexpr (MODE == fk::kSlab) {
-      kr = make_int2(k0 / P, (k0 + BN - 1) / P);
-    } else if constexpr (MODE == fk::kPositions) {
-      kr = fk::slab_range(sid_b + k0, BN);
-      if (kr.x > cta_hi) continue;  // CTA-uniform: no row sees this tile
-    }
+    // least / greatest slab of the key tile
+    const int2 kr = make_int2(k0 / P, (k0 + BN - 1) / P);
     __syncthreads();  // prologue fragments / previous tiles consumed
     for (int idx = tid; idx < BN * CH; idx += NTHREADS) {
       const int r = idx / CH, c = (idx % CH) * 8;
@@ -190,9 +172,6 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int i = 0; i < 8; ++i) sKt[(c + i) * LDT + r] = k8[i];
       *reinterpret_cast<uint4*>(sV + r * LDR + c) =
           *reinterpret_cast<const uint4*>(v + off);
-    }
-    if constexpr (MODE == fk::kPositions) {
-      if (tid < BN) sKs[tid] = sid_b[k0 + tid];
     }
     __syncthreads();
     if (kr.x > warp_hi) continue;  // warp-uniform
@@ -222,9 +201,7 @@ flash_attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float p0 = __expf(s[j][e] * scale - lse0);
         float p1 = __expf(s[j][2 + e] * scale - lse1);
         if (need_mask) {
-          const int col = j * 8 + 2 * t + e;
-          const int key_slab = MODE == fk::kPositions ? sKs[col]
-                                                      : (k0 + col) / P;
+          const int key_slab = (k0 + j * 8 + 2 * t + e) / P;
           if (key_slab > slab0) p0 = 0.f;
           if (key_slab > slab1) p1 = 0.f;
         }
@@ -273,7 +250,8 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int PRO = 2 * BM * LDR, LOOP = 2 * BN * LDR + 2 * D * LDT;
   __shared__ __align__(16) bf16 smem[PRO > LOOP ? PRO : LOOP];
   __shared__ float sL[BN], sDl[BN];
-  __shared__ int sQs[BN];        // the query tile's slab ids (kPositions)
+  static_assert(MODE == fk::kSlab, "modes dense and positions run the "
+                "wgmma passes of flash_attention_dense.cu");
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -281,8 +259,6 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int E = H * D;
   const size_t base = size_t(b) * T * E + size_t(h) * D;
   const size_t lbase = (size_t(b) * H + h) * T;
-  const int* sid_b =   // the batch row's slab ids (kPositions only)
-      MODE == fk::kPositions ? sid + size_t(b) * T : sid;
 
   bf16* sK = smem;
   bf16* sV = smem + BM * LDR;
@@ -314,21 +290,12 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int key_first = j0 + wr;
   const int key0 = key_first + g, key1 = key0 + 8;  // this thread's keys
-  const int kslab0 = fk::slab_of<MODE>(sid_b, key0, P);
-  const int kslab1 = fk::slab_of<MODE>(sid_b, key1, P);
-  // least / greatest slab of the warp's keys, least of the CTA's keys, and
-  // the first query tile
-  int warp_lo = 0, warp_hi = 0, cta_lo = 0, qstart = 0;
-  if constexpr (MODE == fk::kSlab) {
-    warp_lo = key_first / P;
-    warp_hi = (key_first + 15) / P;
-    qstart = ((j0 / P) * P / BN) * BN;
-  } else if constexpr (MODE == fk::kPositions) {
-    const int2 w = fk::slab_range(sid_b + key_first, 16);
-    warp_lo = w.x;
-    warp_hi = w.y;
-    cta_lo = fk::slab_range(sid_b + j0, BM).x;
-  }
+  const int kslab0 = fk::slab_of<MODE>(sid, key0, P);
+  const int kslab1 = fk::slab_of<MODE>(sid, key1, P);
+  // least / greatest slab of the warp's keys, and the first query tile
+  const int warp_lo = key_first / P;
+  const int warp_hi = (key_first + 15) / P;
+  const int qstart = ((j0 / P) * P / BN) * BN;
 
   float dka[OT][4], dva[OT][4];
 #pragma unroll
@@ -342,13 +309,8 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* sQt = smem + 2 * BN * LDR;
   bf16* sdOt = sQt + D * LDT;
   for (int q0 = qstart; q0 < T; q0 += BN) {
-    int2 qr = make_int2(0, 0);   // least / greatest slab of the query tile
-    if constexpr (MODE == fk::kSlab) {
-      qr = make_int2(q0 / P, (q0 + BN - 1) / P);
-    } else if constexpr (MODE == fk::kPositions) {
-      qr = fk::slab_range(sid_b + q0, BN);
-      if (qr.y < cta_lo) continue;  // CTA-uniform: no row sees these keys
-    }
+    // least / greatest slab of the query tile
+    const int2 qr = make_int2(q0 / P, (q0 + BN - 1) / P);
     __syncthreads();  // prologue fragments / previous tiles consumed
     for (int idx = tid; idx < BN * CH; idx += NTHREADS) {
       const int r = idx / CH, c = (idx % CH) * 8;
@@ -368,7 +330,6 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (tid < BN) {
       sL[tid] = lse[lbase + q0 + tid];
       sDl[tid] = delta[lbase + q0 + tid];
-      if constexpr (MODE == fk::kPositions) sQs[tid] = sid_b[q0 + tid];
     }
     __syncthreads();
     if (qr.y < warp_lo) continue;  // warp-uniform
@@ -400,8 +361,7 @@ flash_attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float p0 = __expf(st[j][e] * scale - l);
         float p1 = __expf(st[j][2 + e] * scale - l);
         if (need_mask) {
-          const int q_slab = MODE == fk::kPositions ? sQs[col]
-                                                    : (q0 + col) / P;
+          const int q_slab = (q0 + col) / P;
           if (q_slab < kslab0) p0 = 0.f;
           if (q_slab < kslab1) p1 = 0.f;
         }
@@ -454,21 +414,6 @@ int launch_bwd(dim3 grid, cudaStream_t st, const bf16* q, const bf16* k,
   return int(cudaGetLastError());
 }
 
-template <int D>
-int launch_bwd_mode(int mode, dim3 grid, cudaStream_t st, const bf16* q,
-                    const bf16* k, const bf16* v, const int* sid,
-                    const bf16* out, const bf16* dout, const float* lse,
-                    float* delta, bf16* dq, bf16* dk, bf16* dv, int T, int H,
-                    int P, float scale) {
-  if (mode == fk::kSlab)
-    return launch_bwd<D, fk::kSlab>(grid, st, q, k, v, sid, out, dout, lse,
-                                    delta, dq, dk, dv, T, H, P, scale);
-  if (mode == fk::kPositions)
-    return launch_bwd<D, fk::kPositions>(grid, st, q, k, v, sid, out, dout,
-                                         lse, delta, dq, dk, dv, T, H, P,
-                                         scale);
-  return int(cudaErrorInvalidValue);
-}
 
 }  // namespace
 
@@ -488,18 +433,22 @@ extern "C" int fk_flash_attention_bwd(
   if (mode == fk::kDense)
     return fk::flash_dense_bwd(q, k, v, out, dout, lse, delta, dq, dk, dv, B,
                                T, H, D, scale, st);
+  if (mode == fk::kPositions)
+    return fk::flash_positions_bwd(q, k, v, sid, out, dout, lse, delta, dq,
+                                   dk, dv, B, T, H, D, scale, st);
+  if (mode != fk::kSlab) return int(cudaErrorInvalidValue);
   const dim3 grid(T / BM, H, B);
   auto run = [&](auto launch) {
-    return launch(mode, grid, st, static_cast<const bf16*>(q),
+    return launch(grid, st, static_cast<const bf16*>(q),
                   static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                  static_cast<const int*>(sid), static_cast<const bf16*>(out),
+                  nullptr, static_cast<const bf16*>(out),
                   static_cast<const bf16*>(dout),
                   static_cast<const float*>(lse), static_cast<float*>(delta),
                   static_cast<bf16*>(dq), static_cast<bf16*>(dk),
                   static_cast<bf16*>(dv), T, H, P, scale);
   };
-  if (D == 32) return run(launch_bwd_mode<32>);
-  if (D == 64) return run(launch_bwd_mode<64>);
+  if (D == 32) return run(launch_bwd<32, fk::kSlab>);
+  if (D == 64) return run(launch_bwd<64, fk::kSlab>);
   return int(cudaErrorInvalidValue);
 }
 
@@ -519,12 +468,6 @@ int flash_masked_bwd_occupancy(int mode, int pass, int D, int* regs,
     return of_mode(flash_attn_bwd_dq<32, kSlab>, flash_attn_bwd_dkv<32, kSlab>);
   if (mode == kSlab && D == 64)
     return of_mode(flash_attn_bwd_dq<64, kSlab>, flash_attn_bwd_dkv<64, kSlab>);
-  if (mode == kPositions && D == 32)
-    return of_mode(flash_attn_bwd_dq<32, kPositions>,
-                   flash_attn_bwd_dkv<32, kPositions>);
-  if (mode == kPositions && D == 64)
-    return of_mode(flash_attn_bwd_dq<64, kPositions>,
-                   flash_attn_bwd_dkv<64, kPositions>);
   return int(cudaErrorInvalidValue);
 }
 

@@ -1,29 +1,43 @@
-// K7 dense: the MAE decoder's unmasked flash attention, forward and both
-// backward passes, redesigned for Hopper (sm_90a): TMA rings, wgmma, warp
-// specialisation and exp2. Modes slab and positions (K7 slab, K6) keep the
-// mma.sync kernels of flash_attention.cu / flash_attention_bwd.cu, whose C
-// entry points dispatch mode dense here (flash_host.cuh).
+// K7 dense and K6: the MAE decoder's unmasked flash attention and the MAE
+// encoder's attention over the tokens it keeps, forward and both backward
+// passes, redesigned for Hopper (sm_90a): TMA rings, wgmma, warp
+// specialisation and exp2. One kernel family: the mask mode
+// (flash_mask.cuh) is a compile-time property of each pass's shape,
+// kDense for K7 dense and kPositions for K6, and every positions branch
+// sits behind if constexpr, so the dense instances compile as they did.
+// Mode slab (K7 slab) keeps the mma.sync kernels of flash_attention.cu /
+// flash_attention_bwd.cu, whose C entry points dispatch modes dense and
+// positions here (flash_host.cuh).
 //
 // Replaces, in frankenstein_tpu/ops/pallas/block_attention.py:
-//   forward   dense_flash_attention :1278 -> _slab_attention :746 -> _fwd
-//             :202 (call :260) or _fwd_packed :1017 -> :994 -> :945 (call
-//             :976), with the mask off;
-//   backward  :762 -> _bwd_packed :658 (calls :685, :721) or _bwd :396
-//             (calls :436, :484): the _bwd_dq / _bwd_dkv split, kept.
+//   K7 forward  dense_flash_attention :1278 -> _slab_attention :746 -> _fwd
+//               :202 (call :260) or _fwd_packed :1017 -> :994 -> :945 (call
+//               :976), with the mask off;
+//   K7 backward :762 -> _bwd_packed :658 (calls :685, :721) or _bwd :396
+//               (calls :436, :484): the _bwd_dq / _bwd_dkv split, kept;
+//   K6 forward  _fwd :202 with ``pos`` (kernel _fwd_tri_kernel :156, mask
+//               _pos_mask :147, call :260), and K6 backward _bwd :396 with
+//               ``pos`` (kernels _bwd_dq_tri_kernel :284, _bwd_dkv_tri_kernel
+//               :346, calls :436, :484), both reached from
+//               gathered_slab_attention :1242 -> _gathered_attention
+//               :1191-1215.
 // Contract (unchanged from the mma.sync kernels):
 //   q, k, v, dout  [B, T, E] bf16, head h = columns [h*D, (h+1)*D), D in
 //                  {32, 64}, T % 128 == 0
+//   sid            [B, T] int32 slab ids, K6 only, in any order: key j is
+//                  visible to query i iff sid[j] <= sid[i]
 //   out            [B, T, E] bf16; lse [B, H, T] f32, natural-log units
 //   delta          [B, H, T] f32 workspace: rowsum(f32(out) * f32(dout)),
 //                  written by the dq pass, read by the dk/dv pass
 //   dq, dk, dv     [B, T, E] bf16
-// Forward: scale 1/sqrt(D); scores and online softmax in f32, p rounded to
-// bf16 before PV, l sums the unrounded exps. Backward: p = exp(s - lse),
-// ds = bf16(p * (dp - delta) * scale), dv = bf16(p)^T dout, dq = ds k,
-// dk = ds^T q, each rounded once to bf16. No atomics and a fixed order of
-// every sum, so two backward launches are bitwise equal.
+// Forward: scale 1/sqrt(D); scores and online softmax in f32, masked scores
+// at finfo(f32).min, p rounded to bf16 before PV, l sums the unrounded
+// exps. Backward: p = exp(s - lse) (0 where masked), ds = bf16(p * (dp -
+// delta) * scale), dv = bf16(p)^T dout, dq = ds k, dk = ds^T q, each
+// rounded once to bf16. No atomics and a fixed order of every sum, so two
+// backward launches are bitwise equal.
 //
-// The three floors at the MAE's shape (B=2, T=6144, H=8, D=32; B=32 x 16),
+// The three floors at K7's shape (B=2, T=6144, H=8, D=32; B=32 x 16),
 // on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s, ex2 at 16 a clock an SM):
 //   products  forward 4*D ops a visible pair: 0.078 ms; backward 10*D
 //             (the two-pass design issues 14*D): 0.195 ms (0.27 issued);
@@ -32,6 +46,10 @@
 //             that binds at D = 32;
 //   bytes     q, k, v, out once: under 0.02 ms; K/V tiles are re-read by
 //             every 128-row CTA of a head, from L2.
+// K6 at the MAE encoder's shape (1536 of 6144 tokens kept, P = 256: about
+// 2.5e6 visible pairs at B=2, 3.9e7 at B=32) has the same floors scaled by
+// its pairs, 0.005 / 0.081 ms of exps forward; at B=2 its grid is under one
+// wave and the CTA with the most visible tiles sets the time.
 // What the design does about them:
 //   * warp specialisation: in every CTA one producer warp keeps a ring of
 //     TMA tile loads in flight on mbarriers (no register or instruction
@@ -57,9 +75,37 @@
 //     (192 rows) of 64-key tiles, the dk/dv pass three of 64 keys each
 //     without the overlap, whose second set of live tiles would not fit
 //     in 128 registers; at D = 64 one CTA of two.
+// K6's staircase, data-dependent and exact for any order of the ids:
+//   * each CTA first takes the least and greatest slab id of every column
+//     tile (keys in the forward and the dq pass, queries in the dk/dv
+//     pass), of its own rows and of each warpgroup's from the sid row
+//     (flash_mask.cuh: slab_ranges; no extra launch), while the TMA loads
+//     of its own rows are in flight; the producer streams only the tiles
+//     some row of the CTA sees, and the tile's ids ride the ring beside it;
+//   * each consumer warpgroup walks that same list: a tile none of its
+//     rows sees is released unseen (pass_tile: the ring would stall the
+//     producer otherwise); a tile every pair of which is visible runs the
+//     dense code; only the rest compare ids per element;
+//   * under an unsorted order a row may meet a wholly invisible tile
+//     before any visible key: online_softmax<N, true> keeps its l and o at
+//     0 there (hopper_blocks.cuh), so masking stays at finfo(f32).min;
+//   * a warpgroup that skips a tile first finishes its pending P V (or dS
+//     K), so it never holds a stage while it waits for a later one; the
+//     accumulating product of a walk's first tile runs on zeros;
+//   * the heaviest row block goes first: the grid is (batch row x head,
+//     row block), the forward and dq pass from the last row block (under
+//     sorted ids it sees every key), the dk/dv pass from the first key
+//     block (seen by every query);
+//   * a K6 CTA walks a few tiles (about 13 of 24 at the MAE's shape), so
+//     its prologue and tail weigh: the forward keeps FwdOf's shape, the
+//     dq and dk/dv passes run one consumer warpgroup a CTA, three CTAs an
+//     SM at D = 32, so that other CTAs' tiles hide one CTA's start and
+//     end (held against K7 dense's shapes on an H100, PERF.md). An
+//     overlapped dk/dv walk (tile i's scores issued with tile i-1's dV /
+//     dK products) needed 206 registers, two CTAs an SM, and read slower.
 // The blocks (barriers, TMA, wgmma descriptors and products, the re-pack,
-// the online softmax, tile maps) live in hopper_blocks.cuh, shared with K4
-// and K1.
+// the online softmax, tile maps) live in hopper_blocks.cuh, shared with K4,
+// K1, K10 and K9.
 
 #include "flash_host.cuh"
 #include "flash_mask.cuh"
@@ -77,6 +123,7 @@ using namespace fk;
 template <int D_, int NWG_, int BN_, int CTAS_>
 struct Fwd : Roles<NWG_> {
   static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
+  static constexpr int MODE = kDense;
   static constexpr int BM = 64 * NWG, STAGES = 4;
   static_assert(128 % BM == 0 && 128 % BN == 0,
                 "T % 128 == 0 must leave no partial row or key tile");
@@ -87,18 +134,36 @@ struct Fwd : Roles<NWG_> {
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
 };
 
+// K6's forward: Fwd's shape with each stage's key slab ids (SIDS bytes)
+// after the V tiles, and after the barriers the slab ranges of every key
+// tile, of the CTA's rows and of each warpgroup's (8 bytes each, added at
+// launch).
+template <int D_, int NWG_, int BN_, int CTAS_>
+struct FwdPos : Fwd<D_, NWG_, BN_, CTAS_> {
+  using Base = Fwd<D_, NWG_, BN_, CTAS_>;
+  static constexpr int MODE = kPositions, SIDS = BN_ * 4;
+  static constexpr int OFF_SID = Base::OFF_V + Base::STAGES * Base::TILE;
+  static constexpr int OFF_BAR = OFF_SID + Base::STAGES * SIDS;
+  static constexpr int OFF_RANGE = OFF_BAR + 8 * (1 + 3 * Base::STAGES);
+  static constexpr int SMEM = OFF_RANGE + 1024;
+};
+
 // One CTA per (BM query rows, head, batch row). Ring of STAGES (K, V)
 // tiles of BN keys: full_k / full_v complete when a tile has landed, empty
-// when every consumer warp is done with the stage.
+// when every consumer warp is done with the stage. kPositions: the grid is
+// (B * H, row blocks from the last), full_k alone completes a stage (K, V
+// and the key ids), and only the key tiles some row of the CTA sees are
+// streamed.
 template <class C>
-__global__ void __launch_bounds__(C::THREADS, C::CTAS)
-    flash_attn_fwd_dense_wgmma(const __grid_constant__ CUtensorMap tq,
-                               const __grid_constant__ CUtensorMap tk,
-                               const __grid_constant__ CUtensorMap tv,
-                               bf16* __restrict__ out,
-                               float* __restrict__ lse, int T, int H,
-                               float scale) {
+__device__ __forceinline__ void fwd_pass(const CUtensorMap& tq,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const int* __restrict__ sid,
+                                         bf16* __restrict__ out,
+                                         float* __restrict__ lse, int T,
+                                         int H, float scale) {
   constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
+  constexpr bool POS = C::MODE == kPositions;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
@@ -106,9 +171,18 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   uint64_t* full_v = full_k + ST;
   uint64_t* empty = full_v + ST;
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * C::BM, h = blockIdx.y, b = blockIdx.z;
+  int q0, h, b;
+  if constexpr (POS) {
+    h = blockIdx.x % H;
+    b = blockIdx.x / H;
+    q0 = (gridDim.y - 1 - blockIdx.y) * C::BM;
+  } else {
+    q0 = blockIdx.x * C::BM;
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int nk = T / BN;
-  if (tid == 0) {
+  auto init_barriers = [&]() {
     mbar_init(bar_q, 1);
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full_k[s], 1);
@@ -116,23 +190,57 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
       mbar_init(&empty[s], 4 * C::NWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  };
+  // kPositions: the producer's thread starts the Q load, then the CTA
+  // takes the slab ranges of the key tiles, its rows (rng[nk]) and each
+  // warpgroup's rows (rng[nk + 1 + cw])
+  int2* rng = nullptr;
+  const int* sid_b = nullptr;
+  if constexpr (POS) {
+    if (tid == 128 * C::NWG) {
+      init_barriers();
+      mbar_expect_tx(bar_q, C::Q_BYTES);
+      tma_load(smem, &tq, bar_q, h * D, q0, b);
+    }
+    rng = reinterpret_cast<int2*>(smem + C::OFF_RANGE);
+    sid_b = sid + size_t(b) * T;
+    slab_ranges<BN, C::NWG>(rng, sid_b, nk, q0, min(C::BM, T - q0));
+  } else {
+    if (tid == 0) init_barriers();
   }
   __syncthreads();
 
   const int wg = warpgroup_index();
   if (wg == C::NWG) {  // producer
     if (tid == 128 * C::NWG) {
-      mbar_expect_tx(bar_q, C::Q_BYTES);
-      tma_load(smem, &tq, bar_q, h * D, q0, b);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % ST;
-        mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
-        mbar_expect_tx(&full_k[s], C::TILE);
-        tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full_k[s], h * D,
-                 j * BN, b);
-        mbar_expect_tx(&full_v[s], C::TILE);
-        tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full_v[s], h * D,
-                 j * BN, b);
+      if constexpr (POS) {
+        const int cta_hi = rng[nk].y;
+        for (int j = 0, n = 0; j < nk; ++j) {
+          if (rng[j].x > cta_hi) continue;   // no row of the CTA sees it
+          const int s = n % ST;
+          mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+          mbar_expect_tx(&full_k[s], 2 * C::TILE + C::SIDS);
+          tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full_k[s], h * D,
+                   j * BN, b);
+          tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full_k[s], h * D,
+                   j * BN, b);
+          bulk_load(smem + C::OFF_SID + s * C::SIDS, sid_b + j * BN, C::SIDS,
+                    &full_k[s]);
+          ++n;
+        }
+      } else {
+        mbar_expect_tx(bar_q, C::Q_BYTES);
+        tma_load(smem, &tq, bar_q, h * D, q0, b);
+        for (int j = 0; j < nk; ++j) {
+          const int s = j % ST;
+          mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+          mbar_expect_tx(&full_k[s], C::TILE);
+          tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full_k[s], h * D,
+                   j * BN, b);
+          mbar_expect_tx(&full_v[s], C::TILE);
+          tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full_v[s], h * D,
+                   j * BN, b);
+        }
       }
     }
   } else {  // consumers
@@ -149,48 +257,133 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
 
     mbar_wait(bar_q, 0);
-    mbar_wait(&full_k[0], 0);
-    wgmma_fence();
-    mma_rows<D, BN>(s, q_addr, k_base);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
-    to_a<BN>(p, s);
-    // Tile j's scores are issued with tile j-1's PV; tile j's softmax runs
-    // while that PV is in flight, and rescales o once it has landed.
-    for (int j = 1; j < nk; ++j) {
-      const int sj = j % ST, sp = (j - 1) % ST;
-      mbar_wait(&full_k[sj], (j / ST) & 1);
-      mbar_wait(&full_v[sp], ((j - 1) / ST) & 1);
+    if constexpr (POS) {
+      const int first = q0 + cw * 64;
+      const bool rows_in = first < T;        // T % 64 == 0: all or none
+      // the warpgroup's least / greatest row id (none: every tile skipped)
+      const int2 wr = rng[nk + 1 + cw];
+      const int r0 = first + warp * 16 + g;   // this thread's rows r0, r0 + 8
+      const int sl0 = rows_in ? sid_b[r0] : 0;
+      const int sl1 = rows_in ? sid_b[r0 + 8] : 0;
+      const int cta_hi = rng[nk].y;
+      // the scores of the keys in stage st that rows r0 / r0 + 8 do not see
+      auto mask = [&](int st) {
+        const int* ks =
+            reinterpret_cast<const int*>(smem + C::OFF_SID + st * C::SIDS);
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+          const int2 k2 = *reinterpret_cast<const int2*>(ks + 8 * jj + 2 * t);
+          if (k2.x > sl0) s[4 * jj] = kMaskedScore;
+          if (k2.y > sl0) s[4 * jj + 1] = kMaskedScore;
+          if (k2.x > sl1) s[4 * jj + 2] = kMaskedScore;
+          if (k2.y > sl1) s[4 * jj + 3] = kMaskedScore;
+        }
+      };
+      auto zero_p = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) p[kk][r] = 0u;
+      };
+      // the pending P V of stage sp, then its release
+      auto finish = [&](int sp) {
+        wgmma_fence();
+        mma_acc<D, BN>(o, p, v_base + sp * C::TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(&empty[sp]);
+      };
+      zero_p();
+      int sp = -1;   // the stage whose P V is pending, -1 none (p is 0)
+      for (int j = 0, n = 0; j < nk; ++j) {
+        const int2 kr = rng[j];
+        if (kr.x > cta_hi) continue;       // not streamed
+        const int sj = n % ST;
+        const uint32_t parity = (n / ST) & 1;
+        ++n;
+        if (kr.x > wr.y) {                 // none of the rows sees it
+          if (sp >= 0) {
+            finish(sp);
+            sp = -1;
+            zero_p();
+          }
+          mbar_wait(&full_k[sj], parity);
+          if (lane == 0) mbar_arrive(&empty[sj]);
+          continue;
+        }
+        // the tile's scores issued with the pending P V (of zeros if none)
+        mbar_wait(&full_k[sj], parity);
+        wgmma_fence();
+        mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+        wgmma_commit();
+        mma_acc<D, BN>(o, p, v_base + (sp >= 0 ? sp : sj) * C::TILE);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        if (kr.y > wr.x) mask(sj);         // some pair is not visible
+        online_softmax<BN, true>(s, c, m0, m1, l0, l1, a0, a1);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        if (sp >= 0 && lane == 0) mbar_arrive(&empty[sp]);
+#pragma unroll
+        for (int n8 = 0; n8 < D / 8; ++n8) {
+          o[4 * n8] *= a0;
+          o[4 * n8 + 1] *= a0;
+          o[4 * n8 + 2] *= a1;
+          o[4 * n8 + 3] *= a1;
+        }
+        to_a<BN>(p, s);
+        sp = sj;
+      }
+      if (sp >= 0) finish(sp);
+      if (!rows_in) return;
+    } else {
+      mbar_wait(&full_k[0], 0);
       wgmma_fence();
-      mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+      mma_rows<D, BN>(s, q_addr, k_base);
       wgmma_commit();
-      mma_acc<D, BN>(o, p, v_base + sp * C::TILE);
-      wgmma_commit();
-      wgmma_wait<1>();
+      wgmma_wait<0>();
       fence_regs(s);
       online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+      to_a<BN>(p, s);
+      // Tile j's scores are issued with tile j-1's PV; tile j's softmax runs
+      // while that PV is in flight, and rescales o once it has landed.
+      for (int j = 1; j < nk; ++j) {
+        const int sj = j % ST, sp = (j - 1) % ST;
+        mbar_wait(&full_k[sj], (j / ST) & 1);
+        mbar_wait(&full_v[sp], ((j - 1) / ST) & 1);
+        wgmma_fence();
+        mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+        wgmma_commit();
+        mma_acc<D, BN>(o, p, v_base + sp * C::TILE);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(&empty[sp]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n] *= a0;
+          o[4 * n + 1] *= a0;
+          o[4 * n + 2] *= a1;
+          o[4 * n + 3] *= a1;
+        }
+        to_a<BN>(p, s);
+      }
+      const int sl = (nk - 1) % ST;
+      mbar_wait(&full_v[sl], ((nk - 1) / ST) & 1);
+      wgmma_fence();
+      mma_acc<D, BN>(o, p, v_base + sl * C::TILE);
+      wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
-      fence_regs(p);
-      if (lane == 0) mbar_arrive(&empty[sp]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        o[4 * n] *= a0;
-        o[4 * n + 1] *= a0;
-        o[4 * n + 2] *= a1;
-        o[4 * n + 3] *= a1;
-      }
-      to_a<BN>(p, s);
     }
-    const int sl = (nk - 1) % ST;
-    mbar_wait(&full_v[sl], ((nk - 1) / ST) & 1);
-    wgmma_fence();
-    mma_acc<D, BN>(o, p, v_base + sl * C::TILE);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(o);
 
     l0 = quad_sum(l0);
     l1 = quad_sum(l1);
@@ -206,6 +399,29 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   }
 }
 
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_fwd_dense_wgmma(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               bf16* __restrict__ out,
+                               float* __restrict__ lse, int T, int H,
+                               float scale) {
+  fwd_pass<C>(tq, tk, tv, nullptr, out, lse, T, H, scale);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_fwd_positions_wgmma(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const int* __restrict__ sid,
+                                   bf16* __restrict__ out,
+                                   float* __restrict__ lse, int T, int H,
+                                   float scale) {
+  fwd_pass<C>(tq, tk, tv, sid, out, lse, T, H, scale);
+}
+
 // ---- backward: dq pass ------------------------------------------------------
 
 // NWG consumer warpgroups of 64 query rows, key tiles of BN in a ring of
@@ -213,6 +429,7 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
 template <int D_, int NWG_, int BN_, int CTAS_>
 struct Dq : Roles<NWG_> {
   static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
+  static constexpr int MODE = kDense;
   static constexpr int BM = 64 * NWG, STAGES = 4;
   static_assert(128 % BN == 0, "T % 128 == 0 must leave no partial tile");
   static constexpr int ROWS = BM * D * 2, TILE = BN * D * 2;
@@ -224,25 +441,40 @@ struct Dq : Roles<NWG_> {
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+// K6's dq pass: Dq's shape with each stage's key slab ids after the V
+// tiles, and the slab ranges after the barriers (added at launch).
+template <int D_, int NWG_, int BN_, int CTAS_>
+struct DqPos : Dq<D_, NWG_, BN_, CTAS_> {
+  using Base = Dq<D_, NWG_, BN_, CTAS_>;
+  static constexpr int MODE = kPositions, SIDS = BN_ * 4;
+  static constexpr int OFF_SID = Base::OFF_V + Base::STAGES * Base::TILE;
+  static constexpr int OFF_DELTA = OFF_SID + Base::STAGES * SIDS;
+  static constexpr int OFF_BAR = OFF_DELTA + Base::BM * 4;
+  static constexpr int OFF_RANGE = OFF_BAR + 8 * (1 + 2 * Base::STAGES);
+  static constexpr int SMEM = OFF_RANGE + 1024;
+};
+
 // One CTA per (BM query rows, head, batch row), warpgroups as the
 // forward's; ring of (K, V) tiles of BN keys. Each consumer first writes
 // delta for its 64 rows (two threads a row, f32 products summed in a
 // fixed order), then walks the keys: S = Q K^T and dP = dO V^T, then
 // ds = bf16(2^(s*c - lse*log2 e) * (dp - delta) * scale) in registers,
 // dQ += dS K. Tile j's S and dP are issued with tile j-1's dQ product.
+// kPositions: the forward's grid and walk (the key ids ride the ring).
 template <class C>
-__global__ void __launch_bounds__(C::THREADS, C::CTAS)
-    flash_attn_bwd_dq_dense_wgmma(const __grid_constant__ CUtensorMap tq,
-                                  const __grid_constant__ CUtensorMap tk,
-                                  const __grid_constant__ CUtensorMap tv,
-                                  const __grid_constant__ CUtensorMap tdo,
-                                  const bf16* __restrict__ out,
-                                  const bf16* __restrict__ dout,
-                                  const float* __restrict__ lse,
-                                  float* __restrict__ delta,
-                                  bf16* __restrict__ dq, int T, int H,
-                                  float scale) {
+__device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
+                                        const CUtensorMap& tk,
+                                        const CUtensorMap& tv,
+                                        const CUtensorMap& tdo,
+                                        const int* __restrict__ sid,
+                                        const bf16* __restrict__ out,
+                                        const bf16* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        float* __restrict__ delta,
+                                        bf16* __restrict__ dq, int T, int H,
+                                        float scale) {
   constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
+  constexpr bool POS = C::MODE == kPositions;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   float* s_delta = reinterpret_cast<float*>(smem + C::OFF_DELTA);
@@ -250,32 +482,75 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   uint64_t* full = bar_q + 1;
   uint64_t* empty = full + ST;
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * C::BM, h = blockIdx.y, b = blockIdx.z;
+  int q0, h, b;
+  if constexpr (POS) {
+    h = blockIdx.x % H;
+    b = blockIdx.x / H;
+    q0 = (gridDim.y - 1 - blockIdx.y) * C::BM;
+  } else {
+    q0 = blockIdx.x * C::BM;
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int nk = T / BN;
-  if (tid == 0) {
+  auto init_barriers = [&]() {
     mbar_init(bar_q, 1);
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * C::NWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  };
+  auto load_rows = [&]() {   // the CTA's Q and dO rows
+    mbar_expect_tx(bar_q, 2 * C::ROWS);
+    tma_load(smem, &tq, bar_q, h * D, q0, b);
+    tma_load(smem + C::OFF_DO, &tdo, bar_q, h * D, q0, b);
+  };
+  // kPositions: as the forward's
+  int2* rng = nullptr;
+  const int* sid_b = nullptr;
+  if constexpr (POS) {
+    if (tid == 128 * C::NWG) {
+      init_barriers();
+      load_rows();
+    }
+    rng = reinterpret_cast<int2*>(smem + C::OFF_RANGE);
+    sid_b = sid + size_t(b) * T;
+    slab_ranges<BN, C::NWG>(rng, sid_b, nk, q0, min(C::BM, T - q0));
+  } else {
+    if (tid == 0) init_barriers();
   }
   __syncthreads();
 
   const int wg = warpgroup_index();
   if (wg == C::NWG) {  // producer
     if (tid == 128 * C::NWG) {
-      mbar_expect_tx(bar_q, 2 * C::ROWS);
-      tma_load(smem, &tq, bar_q, h * D, q0, b);
-      tma_load(smem + C::OFF_DO, &tdo, bar_q, h * D, q0, b);
-      for (int j = 0; j < nk; ++j) {
-        const int s = j % ST;
-        mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * C::TILE);
-        tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full[s], h * D,
-                 j * BN, b);
-        tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full[s], h * D,
-                 j * BN, b);
+      if constexpr (POS) {
+        const int cta_hi = rng[nk].y;
+        for (int j = 0, n = 0; j < nk; ++j) {
+          if (rng[j].x > cta_hi) continue;   // no row of the CTA sees it
+          const int s = n % ST;
+          mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * C::TILE + C::SIDS);
+          tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full[s], h * D,
+                   j * BN, b);
+          tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full[s], h * D,
+                   j * BN, b);
+          bulk_load(smem + C::OFF_SID + s * C::SIDS, sid_b + j * BN, C::SIDS,
+                    &full[s]);
+          ++n;
+        }
+      } else {
+        load_rows();
+        for (int j = 0; j < nk; ++j) {
+          const int s = j % ST;
+          mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * C::TILE);
+          tma_load(smem + C::OFF_K + s * C::TILE, &tk, &full[s], h * D,
+                   j * BN, b);
+          tma_load(smem + C::OFF_V + s * C::TILE, &tv, &full[s], h * D,
+                   j * BN, b);
+        }
       }
     }
   } else {  // consumers
@@ -330,44 +605,148 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
     };
 
     mbar_wait(bar_q, 0);
-    mbar_wait(&full[0], 0);
-    wgmma_fence();
-    mma_rows<D, BN>(s, q_addr, k_base);
-    mma_rows<D, BN>(dp, do_addr, v_base);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    fence_regs(dp);
-    grad();
-    to_a<BN>(ds, s);
-    for (int j = 1; j < nk; ++j) {
-      const int sj = j % ST, sp = (j - 1) % ST;
-      mbar_wait(&full[sj], (j / ST) & 1);
+    if constexpr (POS) {
+      // rows_in is the warpgroup's (T % 64 == 0): none of its rows or all
+      const int2 wr = rng[nk + 1 + cw];
+      const int sl0 = rows_in ? sid_b[q0 + rl0] : 0;
+      const int sl1 = rows_in ? sid_b[q0 + rl1] : 0;
+      const int cta_hi = rng[nk].y;
+      // ds of the keys in stage st that rows rl0 / rl1 do not see: 0
+      auto mask = [&](int st) {
+        const int* ks =
+            reinterpret_cast<const int*>(smem + C::OFF_SID + st * C::SIDS);
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+          const int2 k2 = *reinterpret_cast<const int2*>(ks + 8 * jj + 2 * t);
+          if (k2.x > sl0) s[4 * jj] = 0.f;
+          if (k2.y > sl0) s[4 * jj + 1] = 0.f;
+          if (k2.x > sl1) s[4 * jj + 2] = 0.f;
+          if (k2.y > sl1) s[4 * jj + 3] = 0.f;
+        }
+      };
+      auto zero_ds = [&]() {
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) ds[kk][r] = 0u;
+      };
+      // the pending dS K of stage sp, then its release
+      auto finish = [&](int sp) {
+        wgmma_fence();
+        mma_acc<D, BN>(acc, ds, k_base + sp * C::TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ds);
+        if (lane == 0) mbar_arrive(&empty[sp]);
+      };
+      zero_ds();
+      int sp = -1;   // the stage whose dS K is pending, -1 none (ds is 0)
+      for (int j = 0, n = 0; j < nk; ++j) {
+        const int2 kr = rng[j];
+        if (kr.x > cta_hi) continue;       // not streamed
+        const int sj = n % ST;
+        const uint32_t parity = (n / ST) & 1;
+        ++n;
+        if (kr.x > wr.y) {                 // none of the rows sees it
+          if (sp >= 0) {
+            finish(sp);
+            sp = -1;
+            zero_ds();
+          }
+          mbar_wait(&full[sj], parity);
+          if (lane == 0) mbar_arrive(&empty[sj]);
+          continue;
+        }
+        mbar_wait(&full[sj], parity);
+        wgmma_fence();
+        mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+        mma_rows<D, BN>(dp, do_addr, v_base + sj * C::TILE);
+        wgmma_commit();
+        mma_acc<D, BN>(acc, ds, k_base + (sp >= 0 ? sp : sj) * C::TILE);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        grad();
+        if (kr.y > wr.x) mask(sj);         // some pair is not visible
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ds);
+        if (sp >= 0 && lane == 0) mbar_arrive(&empty[sp]);
+        to_a<BN>(ds, s);
+        sp = sj;
+      }
+      if (sp >= 0) finish(sp);
+    } else {
+      mbar_wait(&full[0], 0);
       wgmma_fence();
-      mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
-      mma_rows<D, BN>(dp, do_addr, v_base + sj * C::TILE);
+      mma_rows<D, BN>(s, q_addr, k_base);
+      mma_rows<D, BN>(dp, do_addr, v_base);
       wgmma_commit();
-      mma_acc<D, BN>(acc, ds, k_base + sp * C::TILE);
-      wgmma_commit();
-      wgmma_wait<1>();
+      wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
       grad();
+      to_a<BN>(ds, s);
+      for (int j = 1; j < nk; ++j) {
+        const int sj = j % ST, sp = (j - 1) % ST;
+        mbar_wait(&full[sj], (j / ST) & 1);
+        wgmma_fence();
+        mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+        mma_rows<D, BN>(dp, do_addr, v_base + sj * C::TILE);
+        wgmma_commit();
+        mma_acc<D, BN>(acc, ds, k_base + sp * C::TILE);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+        fence_regs(dp);
+        grad();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ds);
+        if (lane == 0) mbar_arrive(&empty[sp]);
+        to_a<BN>(ds, s);
+      }
+      wgmma_fence();
+      mma_acc<D, BN>(acc, ds, k_base + ((nk - 1) % ST) * C::TILE);
+      wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      fence_regs(ds);
-      if (lane == 0) mbar_arrive(&empty[sp]);
-      to_a<BN>(ds, s);
     }
-    wgmma_fence();
-    mma_acc<D, BN>(acc, ds, k_base + ((nk - 1) % ST) * C::TILE);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
 
     bf16* dq0 = dq + (size_t(b) * T + q0 + rl0) * E + h * D + 2 * t;
     if (rows_in) store_rows<D>(dq0, dq0 + 8 * size_t(E), acc, 1.f, 1.f);
   }
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dq_dense_wgmma(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const bf16* __restrict__ out,
+                                  const bf16* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  float* __restrict__ delta,
+                                  bf16* __restrict__ dq, int T, int H,
+                                  float scale) {
+  dq_pass<C>(tq, tk, tv, tdo, nullptr, out, dout, lse, delta, dq, T, H,
+             scale);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dq_positions_wgmma(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo, const int* __restrict__ sid,
+        const bf16* __restrict__ out, const bf16* __restrict__ dout,
+        const float* __restrict__ lse, float* __restrict__ delta,
+        bf16* __restrict__ dq, int T, int H, float scale) {
+  dq_pass<C>(tq, tk, tv, tdo, sid, out, dout, lse, delta, dq, T, H, scale);
 }
 
 // ---- backward: dk/dv pass ---------------------------------------------------
@@ -377,6 +756,7 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
 template <int D_, int NWG_, int BN_, int CTAS_>
 struct Dkv : Roles<NWG_> {
   static constexpr int D = D_, NWG = NWG_, BN = BN_, CTAS = CTAS_;
+  static constexpr int MODE = kDense;
   static constexpr int BM = 64 * NWG, STAGES = 4;
   static_assert(128 % BN == 0, "T % 128 == 0 must leave no partial tile");
   static constexpr int ROWS = BM * D * 2, TILE = BN * D * 2, VEC = BN * 4;
@@ -389,24 +769,42 @@ struct Dkv : Roles<NWG_> {
   static constexpr int SMEM = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
 
+// K6's dk/dv pass: Dkv's shape with each stage's query slab ids after
+// delta, and the slab ranges of the query tiles, of the CTA's keys and of
+// each warpgroup's after the barriers (added at launch).
+template <int D_, int NWG_, int BN_, int CTAS_>
+struct DkvPos : Dkv<D_, NWG_, BN_, CTAS_> {
+  using Base = Dkv<D_, NWG_, BN_, CTAS_>;
+  static constexpr int MODE = kPositions, SIDS = BN_ * 4;
+  static constexpr int OFF_SID = Base::OFF_DL + Base::STAGES * Base::VEC;
+  static constexpr int OFF_BAR = OFF_SID + Base::STAGES * SIDS;
+  static constexpr int OFF_RANGE = OFF_BAR + 8 * (1 + 2 * Base::STAGES);
+  static constexpr int SMEM = OFF_RANGE + 1024;
+};
+
 // One CTA per (BM keys, head, batch row): the producer loads the K and V
 // rows once, then a ring of (Q, dO, lse, delta) tiles of BN queries.
 // Each consumer owns 64 keys: S^T = K Q^T and dP^T = V dO^T, then
 // p^T = 2^(s*c - lse*log2 e) and ds^T = bf16(p^T * (dp^T - delta) *
 // scale) in registers, dV += bf16(P^T) dO and dK += dS^T Q. Runs after
 // the dq pass on the same stream, which orders the delta it reads.
+// kPositions: the grid is (B * H, key blocks from the first), the query
+// tiles' ids ride the ring, and only the query tiles that see some key of
+// the CTA are streamed; a warpgroup releases those none of its keys is
+// seen by.
 template <class C>
-__global__ void __launch_bounds__(C::THREADS, C::CTAS)
-    flash_attn_bwd_dkv_dense_wgmma(const __grid_constant__ CUtensorMap tq,
-                                   const __grid_constant__ CUtensorMap tk,
-                                   const __grid_constant__ CUtensorMap tv,
-                                   const __grid_constant__ CUtensorMap tdo,
-                                   const float* __restrict__ lse,
-                                   const float* __restrict__ delta,
-                                   bf16* __restrict__ dk,
-                                   bf16* __restrict__ dv, int T, int H,
-                                   float scale) {
+__device__ __forceinline__ void dkv_pass(const CUtensorMap& tq,
+                                         const CUtensorMap& tk,
+                                         const CUtensorMap& tv,
+                                         const CUtensorMap& tdo,
+                                         const int* __restrict__ sid,
+                                         const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         bf16* __restrict__ dk,
+                                         bf16* __restrict__ dv, int T, int H,
+                                         float scale) {
   constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
+  constexpr bool POS = C::MODE == kPositions;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const float* s_lse = reinterpret_cast<const float*>(smem + C::OFF_L);
@@ -415,15 +813,43 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + ST;
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * C::BM, h = blockIdx.y, b = blockIdx.z;
+  int j0, h, b;
+  if constexpr (POS) {
+    h = blockIdx.x % H;
+    b = blockIdx.x / H;
+    j0 = blockIdx.y * C::BM;
+  } else {
+    j0 = blockIdx.x * C::BM;
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int nq = T / BN;
-  if (tid == 0) {
+  auto init_barriers = [&]() {
     mbar_init(bar_kv, 1);
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * C::NWG);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  };
+  auto load_rows = [&]() {   // the CTA's K and V rows
+    mbar_expect_tx(bar_kv, 2 * C::ROWS);
+    tma_load(smem, &tk, bar_kv, h * D, j0, b);
+    tma_load(smem + C::OFF_V, &tv, bar_kv, h * D, j0, b);
+  };
+  // kPositions: as the forward's, over query tiles and the CTA's keys
+  int2* rng = nullptr;
+  const int* sid_b = nullptr;
+  if constexpr (POS) {
+    if (tid == 128 * C::NWG) {
+      init_barriers();
+      load_rows();
+    }
+    rng = reinterpret_cast<int2*>(smem + C::OFF_RANGE);
+    sid_b = sid + size_t(b) * T;
+    slab_ranges<BN, C::NWG>(rng, sid_b, nq, j0, min(C::BM, T - j0));
+  } else {
+    if (tid == 0) init_barriers();
   }
   __syncthreads();
 
@@ -431,21 +857,40 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   if (wg == C::NWG) {  // producer
     if (tid == 128 * C::NWG) {
       const size_t lbase = (size_t(b) * H + h) * T;
-      mbar_expect_tx(bar_kv, 2 * C::ROWS);
-      tma_load(smem, &tk, bar_kv, h * D, j0, b);
-      tma_load(smem + C::OFF_V, &tv, bar_kv, h * D, j0, b);
-      for (int i = 0; i < nq; ++i) {
-        const int s = i % ST;
-        mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * C::TILE + 2 * C::VEC);
-        tma_load(smem + C::OFF_Q + s * C::TILE, &tq, &full[s], h * D,
-                 i * BN, b);
-        tma_load(smem + C::OFF_DO + s * C::TILE, &tdo, &full[s], h * D,
-                 i * BN, b);
-        bulk_load(smem + C::OFF_L + s * C::VEC, lse + lbase + i * BN, C::VEC,
-                  &full[s]);
-        bulk_load(smem + C::OFF_DL + s * C::VEC, delta + lbase + i * BN,
-                  C::VEC, &full[s]);
+      if constexpr (POS) {
+        const int cta_lo = rng[nq].x;
+        for (int i = 0, n = 0; i < nq; ++i) {
+          if (rng[i].y < cta_lo) continue;   // it sees no key of the CTA
+          const int s = n % ST;
+          mbar_wait(&empty[s], ((n / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * C::TILE + 2 * C::VEC + C::SIDS);
+          tma_load(smem + C::OFF_Q + s * C::TILE, &tq, &full[s], h * D,
+                   i * BN, b);
+          tma_load(smem + C::OFF_DO + s * C::TILE, &tdo, &full[s], h * D,
+                   i * BN, b);
+          bulk_load(smem + C::OFF_L + s * C::VEC, lse + lbase + i * BN,
+                    C::VEC, &full[s]);
+          bulk_load(smem + C::OFF_DL + s * C::VEC, delta + lbase + i * BN,
+                    C::VEC, &full[s]);
+          bulk_load(smem + C::OFF_SID + s * C::SIDS, sid_b + i * BN, C::SIDS,
+                    &full[s]);
+          ++n;
+        }
+      } else {
+        load_rows();
+        for (int i = 0; i < nq; ++i) {
+          const int s = i % ST;
+          mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * C::TILE + 2 * C::VEC);
+          tma_load(smem + C::OFF_Q + s * C::TILE, &tq, &full[s], h * D,
+                   i * BN, b);
+          tma_load(smem + C::OFF_DO + s * C::TILE, &tdo, &full[s], h * D,
+                   i * BN, b);
+          bulk_load(smem + C::OFF_L + s * C::VEC, lse + lbase + i * BN,
+                    C::VEC, &full[s]);
+          bulk_load(smem + C::OFF_DL + s * C::VEC, delta + lbase + i * BN,
+                    C::VEC, &full[s]);
+        }
       }
     }
   } else {  // consumers
@@ -481,11 +926,8 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
         }
       }
     };
-
-    mbar_wait(bar_kv, 0);
-    for (int i = 0; i < nq; ++i) {
-      const int si = i % ST;
-      mbar_wait(&full[si], (i / ST) & 1);
+    // one query tile (stage si) for the warpgroup's keys
+    auto attend = [&](int si) {
       wgmma_fence();
       mma_rows<D, BN>(st, k_addr, q_base + si * C::TILE);
       mma_rows<D, BN>(dpt, v_addr, do_base + si * C::TILE);
@@ -494,6 +936,8 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
       fence_regs(st);
       fence_regs(dpt);
       grad(si);
+    };
+    auto accumulate = [&](int si) {
       to_a<BN>(pa, st);
       to_a<BN>(dsa, dpt);
       wgmma_fence();
@@ -506,6 +950,58 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
       fence_regs(pa);
       fence_regs(dsa);
       if (lane == 0) mbar_arrive(&empty[si]);
+    };
+
+    mbar_wait(bar_kv, 0);
+    if constexpr (POS) {
+      const int first = j0 + cw * 64;
+      const bool keys_in = first < T;        // T % 64 == 0: all or none
+      // the warpgroup's least / greatest key id (none: every tile skipped)
+      const int2 wk = rng[nq + 1 + cw];
+      const int kr0 = first + warp * 16 + g;  // this thread's keys kr0, +8
+      const int ks0 = keys_in ? sid_b[kr0] : 0;
+      const int ks1 = keys_in ? sid_b[kr0 + 8] : 0;
+      const int cta_lo = rng[nq].x;
+      // p^T and ds^T of the queries in stage si that do not see keys
+      // kr0 / kr0 + 8: 0
+      auto mask = [&](int si) {
+        const int* qs =
+            reinterpret_cast<const int*>(smem + C::OFF_SID + si * C::SIDS);
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj) {
+          const int2 q2 = *reinterpret_cast<const int2*>(qs + 8 * jj + 2 * t);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int ks = r ? ks1 : ks0;
+            if (q2.x < ks) st[4 * jj + 2 * r] = dpt[4 * jj + 2 * r] = 0.f;
+            if (q2.y < ks)
+              st[4 * jj + 2 * r + 1] = dpt[4 * jj + 2 * r + 1] = 0.f;
+          }
+        }
+      };
+      for (int i = 0, n = 0; i < nq; ++i) {
+        const int2 qr = rng[i];
+        if (qr.y < cta_lo) continue;       // not streamed
+        const int si = n % ST;
+        const uint32_t parity = (n / ST) & 1;
+        ++n;
+        mbar_wait(&full[si], parity);
+        if (qr.y < wk.x) {                 // it sees none of the keys
+          if (lane == 0) mbar_arrive(&empty[si]);
+          continue;
+        }
+        attend(si);
+        if (qr.x < wk.y) mask(si);         // some pair is not visible
+        accumulate(si);
+      }
+      if (!keys_in) return;
+    } else {
+      for (int i = 0; i < nq; ++i) {
+        const int si = i % ST;
+        mbar_wait(&full[si], (i / ST) & 1);
+        attend(si);
+        accumulate(si);
+      }
     }
 
     const int E = H * D, key0 = j0 + cw * 64 + warp * 16 + g;
@@ -517,20 +1013,79 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
   }
 }
 
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dkv_dense_wgmma(const __grid_constant__ CUtensorMap tq,
+                                   const __grid_constant__ CUtensorMap tk,
+                                   const __grid_constant__ CUtensorMap tv,
+                                   const __grid_constant__ CUtensorMap tdo,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv, int T, int H,
+                                   float scale) {
+  dkv_pass<C>(tq, tk, tv, tdo, nullptr, lse, delta, dk, dv, T, H, scale);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dkv_positions_wgmma(
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv,
+        const __grid_constant__ CUtensorMap tdo, const int* __restrict__ sid,
+        const float* __restrict__ lse, const float* __restrict__ delta,
+        bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
+        float scale) {
+  dkv_pass<C>(tq, tk, tv, tdo, sid, lse, delta, dk, dv, T, H, scale);
+}
+
 // ---- host -----------------------------------------------------------------
 
 // The production instances: head_dim D, consumer warpgroups, tile, CTAs
-// an SM (settled on an H100; PERF.md).
+// an SM (settled on an H100; PERF.md). K6's (Pos*Of) were held against
+// K7 dense's shapes on the card (PERF.md, section 6).
 template <int D>
 using FwdOf = Fwd<D, 2, D == 32 ? 64 : 128, D == 32 ? 2 : 1>;
 template <int D>
 using DqOf = Dq<D, D == 32 ? 3 : 2, 64, 1>;
 template <int D>
 using DkvOf = Dkv<D, D == 32 ? 3 : 2, 64, 1>;
+template <int D>
+using PosFwdOf = FwdPos<D, 2, D == 32 ? 64 : 128, D == 32 ? 2 : 1>;
+template <int D>
+using PosDqOf = DqPos<D, 1, 64, D == 32 ? 3 : 2>;
+template <int D>
+using PosDkvOf = DkvPos<D, 1, 64, D == 32 ? 3 : 2>;
+
+// Dynamic shared memory of a launch over T rows: K6's adds the slab
+// ranges of its T / BN column tiles, of its rows and of each warpgroup's.
+template <class C>
+int smem_bytes(int T) {
+  if constexpr (C::MODE == kPositions)
+    return C::SMEM + 8 * (T / C::BN + 1 + C::NWG);
+  return C::SMEM;
+}
+
+// Before a launch of ``kernel`` over T rows: its dynamic shared memory.
+template <class C, typename Kernel>
+cudaError_t prepare_rows(Kernel kernel, int T) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<C>(T));
+}
+
+// The grid of a pass over T rows: dense (row blocks, H, B); K6 (B * H,
+// row blocks), which the kernels walk from the heaviest block.
+template <class C>
+dim3 grid_of(int B, int T, int H) {
+  if constexpr (C::MODE == kPositions) return dim3(B * H, grid_x(T, C::BM));
+  return dim3(grid_x(T, C::BM), H, B);
+}
 
 template <class C>
-int dense_fwd(const void* q, const void* k, const void* v, void* out,
-              void* lse, int B, int T, int H, float scale, cudaStream_t st) {
+int attention_fwd(const void* q, const void* k, const void* v,
+                  const void* sid, void* out, void* lse, int B, int T, int H,
+                  float scale, cudaStream_t st) {
   constexpr int D = C::D;
   CUtensorMap tq, tk, tv;
   const int E = H * D;
@@ -538,35 +1093,59 @@ int dense_fwd(const void* q, const void* k, const void* v, void* out,
       !tile_map(&tk, k, B, T, E, D, C::BN) ||
       !tile_map(&tv, v, B, T, E, D, C::BN))
     return int(cudaErrorInvalidValue);
-  auto kernel = flash_attn_fwd_dense_wgmma<C>;
-  cudaError_t err = prepare<C>(kernel);
-  if (err != cudaSuccess) return int(err);
-  kernel<<<dim3(grid_x(T, C::BM), H, B), C::THREADS, C::SMEM, st>>>(
-      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), T, H,
-      scale);
+  const dim3 grid = grid_of<C>(B, T, H);
+  const int smem = smem_bytes<C>(T);
+  if constexpr (C::MODE == kPositions) {
+    auto kernel = flash_attn_fwd_positions_wgmma<C>;
+    cudaError_t err = prepare_rows<C>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid, C::THREADS, smem, st>>>(
+        tq, tk, tv, static_cast<const int*>(sid), static_cast<bf16*>(out),
+        static_cast<float*>(lse), T, H, scale);
+  } else {
+    auto kernel = flash_attn_fwd_dense_wgmma<C>;
+    cudaError_t err = prepare_rows<C>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid, C::THREADS, smem, st>>>(tq, tk, tv,
+                                           static_cast<bf16*>(out),
+                                           static_cast<float*>(lse), T, H,
+                                           scale);
+  }
   return int(cudaGetLastError());
 }
 
 template <class P, class R>
-int dense_bwd(const void* q, const void* k, const void* v, const void* out,
-              const void* dout, const void* lse, void* delta, void* dq,
-              void* dk, void* dv, int B, int T, int H, float scale,
-              cudaStream_t st) {
+int attention_bwd(const void* q, const void* k, const void* v,
+                  const void* sid, const void* out, const void* dout,
+                  const void* lse, void* delta, void* dq, void* dk, void* dv,
+                  int B, int T, int H, float scale, cudaStream_t st) {
   constexpr int D = P::D;
   CUtensorMap tq, tk, tv, tdo;
   const int E = H * D;
+  const int* ids = static_cast<const int*>(sid);
   if (!tile_map(&tq, q, B, T, E, D, P::BM) ||
       !tile_map(&tdo, dout, B, T, E, D, P::BM) ||
       !tile_map(&tk, k, B, T, E, D, P::BN) ||
       !tile_map(&tv, v, B, T, E, D, P::BN))
     return int(cudaErrorInvalidValue);
-  auto dq_kernel = flash_attn_bwd_dq_dense_wgmma<P>;
-  cudaError_t err = prepare<P>(dq_kernel);
-  if (err != cudaSuccess) return int(err);
-  dq_kernel<<<dim3(grid_x(T, P::BM), H, B), P::THREADS, P::SMEM, st>>>(
-      tq, tk, tv, tdo, static_cast<const bf16*>(out),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf16*>(dq), T, H, scale);
+  cudaError_t err;
+  if constexpr (P::MODE == kPositions) {
+    auto kernel = flash_attn_bwd_dq_positions_wgmma<P>;
+    err = prepare_rows<P>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid_of<P>(B, T, H), P::THREADS, smem_bytes<P>(T), st>>>(
+        tq, tk, tv, tdo, ids, static_cast<const bf16*>(out),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<float*>(delta), static_cast<bf16*>(dq), T, H, scale);
+  } else {
+    auto kernel = flash_attn_bwd_dq_dense_wgmma<P>;
+    err = prepare_rows<P>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid_of<P>(B, T, H), P::THREADS, smem_bytes<P>(T), st>>>(
+        tq, tk, tv, tdo, static_cast<const bf16*>(out),
+        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+        static_cast<float*>(delta), static_cast<bf16*>(dq), T, H, scale);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
 
@@ -575,27 +1154,56 @@ int dense_bwd(const void* q, const void* k, const void* v, const void* out,
       !tile_map(&tk, k, B, T, E, D, R::BM) ||
       !tile_map(&tv, v, B, T, E, D, R::BM))
     return int(cudaErrorInvalidValue);
-  auto dkv_kernel = flash_attn_bwd_dkv_dense_wgmma<R>;
-  err = prepare<R>(dkv_kernel);
-  if (err != cudaSuccess) return int(err);
-  dkv_kernel<<<dim3(grid_x(T, R::BM), H, B), R::THREADS, R::SMEM, st>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), T, H, scale);
+  if constexpr (R::MODE == kPositions) {
+    auto kernel = flash_attn_bwd_dkv_positions_wgmma<R>;
+    err = prepare_rows<R>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid_of<R>(B, T, H), R::THREADS, smem_bytes<R>(T), st>>>(
+        tq, tk, tv, tdo, ids, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), T, H, scale);
+  } else {
+    auto kernel = flash_attn_bwd_dkv_dense_wgmma<R>;
+    err = prepare_rows<R>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid_of<R>(B, T, H), R::THREADS, smem_bytes<R>(T), st>>>(
+        tq, tk, tv, tdo, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), T, H, scale);
+  }
   return int(cudaGetLastError());
 }
 
-template <int D>
-int dense_occupancy(int pass, int* regs, int* ctas) {
-  if (pass == 0)
-    return occupancy<FwdOf<D>>(flash_attn_fwd_dense_wgmma<FwdOf<D>>, regs,
-                               ctas);
-  if (pass == 1)
-    return occupancy<DqOf<D>>(flash_attn_bwd_dq_dense_wgmma<DqOf<D>>, regs,
-                              ctas);
-  if (pass == 2)
-    return occupancy<DkvOf<D>>(flash_attn_bwd_dkv_dense_wgmma<DkvOf<D>>,
-                               regs, ctas);
+// Registers and CTAs an SM of one pass (0 forward, 1 dq, 2 dk/dv) of a
+// mode's instances at head_dim D; K6's at the MAE encoder's N = 1536.
+template <int D, bool POS>
+int pass_occupancy(int pass, int* regs, int* ctas) {
+  constexpr int T = 1536;
+  auto read = [&](auto kernel, auto shape) {
+    using C = decltype(shape);
+    const cudaError_t err = prepare_rows<C>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    return kernel_occupancy(kernel, C::THREADS, smem_bytes<C>(T), regs,
+                            ctas);
+  };
+  if constexpr (POS) {
+    if (pass == 0)
+      return read(flash_attn_fwd_positions_wgmma<PosFwdOf<D>>,
+                  PosFwdOf<D>());
+    if (pass == 1)
+      return read(flash_attn_bwd_dq_positions_wgmma<PosDqOf<D>>,
+                  PosDqOf<D>());
+    if (pass == 2)
+      return read(flash_attn_bwd_dkv_positions_wgmma<PosDkvOf<D>>,
+                  PosDkvOf<D>());
+  } else {
+    if (pass == 0)
+      return read(flash_attn_fwd_dense_wgmma<FwdOf<D>>, FwdOf<D>());
+    if (pass == 1)
+      return read(flash_attn_bwd_dq_dense_wgmma<DqOf<D>>, DqOf<D>());
+    if (pass == 2)
+      return read(flash_attn_bwd_dkv_dense_wgmma<DkvOf<D>>, DkvOf<D>());
+  }
   return int(cudaErrorInvalidValue);
 }
 
@@ -608,9 +1216,11 @@ int flash_dense_fwd(const void* q, const void* k, const void* v, void* out,
                     cudaStream_t st) {
   if (T % 128 != 0) return int(cudaErrorInvalidValue);
   if (D == 32)
-    return dense_fwd<FwdOf<32>>(q, k, v, out, lse, B, T, H, scale, st);
+    return attention_fwd<FwdOf<32>>(q, k, v, nullptr, out, lse, B, T, H,
+                                    scale, st);
   if (D == 64)
-    return dense_fwd<FwdOf<64>>(q, k, v, out, lse, B, T, H, scale, st);
+    return attention_fwd<FwdOf<64>>(q, k, v, nullptr, out, lse, B, T, H,
+                                    scale, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -620,17 +1230,41 @@ int flash_dense_bwd(const void* q, const void* k, const void* v,
                     int H, int D, float scale, cudaStream_t st) {
   if (T % 128 != 0) return int(cudaErrorInvalidValue);
   if (D == 32)
-    return dense_bwd<DqOf<32>, DkvOf<32>>(q, k, v, out, dout, lse, delta, dq,
-                                          dk, dv, B, T, H, scale, st);
+    return attention_bwd<DqOf<32>, DkvOf<32>>(q, k, v, nullptr, out, dout,
+                                              lse, delta, dq, dk, dv, B, T,
+                                              H, scale, st);
   if (D == 64)
-    return dense_bwd<DqOf<64>, DkvOf<64>>(q, k, v, out, dout, lse, delta, dq,
-                                          dk, dv, B, T, H, scale, st);
+    return attention_bwd<DqOf<64>, DkvOf<64>>(q, k, v, nullptr, out, dout,
+                                              lse, delta, dq, dk, dv, B, T,
+                                              H, scale, st);
   return int(cudaErrorInvalidValue);
 }
 
-int flash_dense_occupancy(int pass, int D, int* regs, int* ctas) {
-  if (D == 32) return dense_occupancy<32>(pass, regs, ctas);
-  if (D == 64) return dense_occupancy<64>(pass, regs, ctas);
+int flash_positions_fwd(const void* q, const void* k, const void* v,
+                        const void* sid, void* out, void* lse, int B, int T,
+                        int H, int D, float scale, cudaStream_t st) {
+  if (T % 128 != 0 || sid == nullptr) return int(cudaErrorInvalidValue);
+  if (D == 32)
+    return attention_fwd<PosFwdOf<32>>(q, k, v, sid, out, lse, B, T, H,
+                                       scale, st);
+  if (D == 64)
+    return attention_fwd<PosFwdOf<64>>(q, k, v, sid, out, lse, B, T, H,
+                                       scale, st);
+  return int(cudaErrorInvalidValue);
+}
+
+int flash_positions_bwd(const void* q, const void* k, const void* v,
+                        const void* sid, const void* out, const void* dout,
+                        const void* lse, void* delta, void* dq, void* dk,
+                        void* dv, int B, int T, int H, int D, float scale,
+                        cudaStream_t st) {
+  if (T % 128 != 0 || sid == nullptr) return int(cudaErrorInvalidValue);
+  if (D == 32)
+    return attention_bwd<PosDqOf<32>, PosDkvOf<32>>(
+        q, k, v, sid, out, dout, lse, delta, dq, dk, dv, B, T, H, scale, st);
+  if (D == 64)
+    return attention_bwd<PosDqOf<64>, PosDkvOf<64>>(
+        q, k, v, sid, out, dout, lse, delta, dq, dk, dv, B, T, H, scale, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -640,8 +1274,16 @@ int flash_dense_occupancy(int pass, int D, int* regs, int* ctas) {
 // 2 dk/dv) of a mode's kernel at head_dim D, from the CUDA runtime.
 extern "C" int fk_flash_attention_occupancy(int mode, int pass, int D,
                                             int* regs, int* ctas) {
-  if (mode == fk::kDense) return fk::flash_dense_occupancy(pass, D, regs, ctas);
+  if (mode == fk::kDense || mode == fk::kPositions) {
+    const bool pos = mode == fk::kPositions;
+    if (D == 32)
+      return pos ? pass_occupancy<32, true>(pass, regs, ctas)
+                 : pass_occupancy<32, false>(pass, regs, ctas);
+    if (D == 64)
+      return pos ? pass_occupancy<64, true>(pass, regs, ctas)
+                 : pass_occupancy<64, false>(pass, regs, ctas);
+    return int(cudaErrorInvalidValue);
+  }
   if (pass == 0) return fk::flash_masked_fwd_occupancy(mode, D, regs, ctas);
   return fk::flash_masked_bwd_occupancy(mode, pass, D, regs, ctas);
 }
-

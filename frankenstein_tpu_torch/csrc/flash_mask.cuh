@@ -1,6 +1,7 @@
-// The mask modes of K6 and K7 (flash_attention.cu, flash_attention_bwd.cu),
-// shared by the forward and both backward passes so that all three see the
-// same visible (query, key) pairs:
+// The mask modes of K6 and K7, shared by the forward and both backward
+// passes so that all three see the same visible (query, key) pairs (K7
+// slab: flash_attention.cu, flash_attention_bwd.cu; K7 dense and K6:
+// flash_attention_dense.cu; K1's slab_of<kSlab>):
 //   kDense      K7 unmasked: every key is visible to every query;
 //   kSlab       K7 slab-causal: key j is visible to query i iff
 //               j / P <= i / P (P = tokens per time slab);
@@ -9,11 +10,15 @@
 //               (its original positions // P).
 #pragma once
 
+#include <cfloat>
 #include <climits>
 
 namespace fk {
 
 enum MaskMode { kDense = 0, kSlab = 1, kPositions = 2 };
+
+// The score of an invisible key: finfo(f32).min, the JAX kernel's NEG_INF.
+inline constexpr float kMaskedScore = -FLT_MAX;
 
 __device__ __forceinline__ int warp_min(int x) {
 #pragma unroll
@@ -37,6 +42,28 @@ __device__ __forceinline__ int2 slab_range(const int* __restrict__ sid,
     hi = max(hi, sid[i]);
   }
   return make_int2(warp_min(lo), warp_max(hi));
+}
+
+// rng[j] = slab_range of column tile j (sid[j * BN, (j + 1) * BN)) for
+// j < nt, rng[nt] that of the CTA's own rows sid[r0, r0 + rows), and
+// rng[nt + 1 + w] that of its 64-row group w < NWG ((INT_MAX, INT_MIN)
+// past the rows): by the warps of the CTA in turn (every thread must
+// call), before the __syncthreads that publishes them.
+template <int BN, int NWG>
+__device__ __forceinline__ void slab_ranges(int2* rng,
+                                            const int* __restrict__ sid,
+                                            int nt, int r0, int rows) {
+  for (int j = threadIdx.x / 32; j <= nt + NWG; j += blockDim.x / 32) {
+    const int w = j - nt - 1;
+    int2 r = make_int2(INT_MAX, INT_MIN);
+    if (j < nt)
+      r = slab_range(sid + j * BN, BN);
+    else if (j == nt)
+      r = slab_range(sid + r0, rows);
+    else if (64 * w < rows)
+      r = slab_range(sid + r0 + 64 * w, 64);
+    if (threadIdx.x % 32 == 0) rng[j] = r;
+  }
 }
 
 // Slab of token ``pos`` of a batch row: pos / P (kSlab) or sid[pos]

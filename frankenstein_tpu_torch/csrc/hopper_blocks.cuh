@@ -330,12 +330,21 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// A running max (log2 units) below this has seen only masked scores
+// (finfo(f32).min times c): no visible score comes near it.
+inline constexpr float kNoKeyYet = -1e30f;
+
 // One tile's online softmax in log2 units, in place: s holds the raw
 // scores q.k of rows g and g + 8; on return their exps 2^(s*c - m) with
 // the new running max m, l holds the row sums so far (per thread;
 // quad-summed at the end) and a the factor the output rows must be
-// rescaled by (1 where the max did not move).
-template <int N>
+// rescaled by (1 where the max did not move). MASKED: s may hold
+// finfo(f32).min for invisible keys, and a row may have seen nothing
+// else yet. Its max is then that score times c, and one FFMA's s*c - m
+// is not 0 but s*c's rounding error (up to 2^102, whose ex2 is inf), so
+// such a row takes its exps from a base of +inf: all 0, l and o stay 0,
+// and the first visible score rescales them by 2^(m - n) = 0.
+template <int N, bool MASKED = false>
 __device__ __forceinline__ void online_softmax(float (&s)[N / 2], float c,
                                                float& m0, float& m1,
                                                float& l0, float& l1,
@@ -359,13 +368,18 @@ __device__ __forceinline__ void online_softmax(float (&s)[N / 2], float c,
   a1 = n1 == m1 ? 1.f : ex2(m1 - n1);
   m0 = n0;
   m1 = n1;
+  float b0 = n0, b1 = n1;
+  if constexpr (MASKED) {
+    b0 = n0 < kNoKeyYet ? INFINITY : n0;
+    b1 = n1 < kNoKeyYet ? INFINITY : n1;
+  }
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -n0));
-      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], c, -n1));
+      s[4 * j + e] = ex2(fmaf(s[4 * j + e], c, -b0));
+      s[4 * j + 2 + e] = ex2(fmaf(s[4 * j + 2 + e], c, -b1));
       sum0 += s[4 * j + e];
       sum1 += s[4 * j + 2 + e];
     }

@@ -12,12 +12,15 @@ modes, forward and backward.
   replaces ``gathered_slab_attention``: the MAE encoder's attention over the
   tokens it keeps.
 
-CUDA C++: mode ``"dense"`` in ``csrc/flash_attention_dense.cu`` (TMA
-rings, wgmma and warp-specialised warpgroups: a forward, a dq pass and a
-dk/dv pass), the masked modes in ``csrc/flash_attention.cu`` (forward) and
-``csrc/flash_attention_bwd.cu`` (a dq pass, then a dk/dv pass; mma.sync),
-whose C entry points dispatch all three modes. Each source note says what
-bounds the kernel on an H100 and how the design answers that.
+CUDA C++: modes ``"dense"`` and ``"positions"`` in
+``csrc/flash_attention_dense.cu``, one family of kernels with the mask mode
+a compile-time parameter (TMA rings, wgmma and warp-specialised
+warpgroups: a forward, a dq pass and a dk/dv pass; K6 walks a staircase
+taken from the slab ids, exact in any order), mode ``"slab"`` in
+``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
+(a dq pass, then a dk/dv pass; mma.sync), whose C entry points dispatch all
+three modes. Each source note says what bounds the kernel on an H100 and
+how the design answers that.
 ``FlashAttention`` is the autograd Function around them, saving q, k, v,
 out, lse and the slab ids as the JAX package's custom VJPs do.
 
@@ -44,10 +47,13 @@ TWIN_ROWS = 256   # query rows per step of the twins: no T x T matrix
 
 launches = dict.fromkeys(MODES, 0)       # wrapper calls that ran the forward
 launches_bwd = dict.fromkeys(MODES, 0)   # wrapper calls that ran the backward
-# The kernels mode "dense" launches, by symbol name (forward, dq, dk/dv):
-# a profile attributes device time by these names.
+# The kernels modes "dense" and "positions" launch, by symbol name
+# (forward, dq, dk/dv): a profile attributes device time by these names.
 DENSE_KERNELS = ("flash_attn_fwd_dense_wgmma", "flash_attn_bwd_dq_dense_wgmma",
                  "flash_attn_bwd_dkv_dense_wgmma")
+POSITIONS_KERNELS = ("flash_attn_fwd_positions_wgmma",
+                     "flash_attn_bwd_dq_positions_wgmma",
+                     "flash_attn_bwd_dkv_positions_wgmma")
 PASSES = {"fwd": 0, "dq": 1, "dkv": 2}   # fk_flash_attention_occupancy
 
 
@@ -178,9 +184,9 @@ def _check(q, k, v, n_heads: int, mode: str, tok_per_time: int, slab_ids,
     if mode == "positions" and (
             slab_ids is None or slab_ids.dtype != torch.int32
             or slab_ids.shape != (b, t) or not slab_ids.is_contiguous()
-            or slab_ids.device != q.device):
-        raise ValueError(f"mode 'positions' needs contiguous int32 slab_ids "
-                         f"[{b}, {t}] on {q.device}")
+            or slab_ids.data_ptr() % 16 or slab_ids.device != q.device):
+        raise ValueError(f"mode 'positions' needs contiguous 16-byte-aligned "
+                         f"int32 slab_ids [{b}, {t}] on {q.device}")
 
 
 def _launch_args(q, n_heads: int, mode: str, tok_per_time: int, slab_ids):

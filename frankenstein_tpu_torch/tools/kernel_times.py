@@ -1,6 +1,6 @@
-"""Time K9 and K10 (K1 beside K10) at the main path's shapes, through the
-wrappers every checkout of the port has, so two trees can be compared in
-one call on one card.
+"""Time K9, K10 (K1 beside K10) and K6 at the main path's shapes, through
+the wrappers every checkout of the port has, so two trees can be compared
+in one call on one card.
 
 - K9 (``fused_mlp.fused_norm_swiglu``, LayerNorm): the encoder's [B, 6144,
   256] with hidden 1024 at each batch, and the Perceiver's [128, 32, 256]
@@ -8,6 +8,11 @@ one call on one card.
 - K10 (``slab_attention.slab_rope_attention(qk_int8=True)``: its K and Q
   pre-passes and its forward) and K1 at B in the batches, T=6144, H=8,
   D=32, P=256, at the qk_int8 tests' activation scale (0.5).
+- K6 (``flash_attention.flash_attention`` and ``flash_attention_bwd``,
+  mode positions): the MAE encoder's attention over the 1536 of 6144
+  tokens ``masking_indices`` keeps (ratio 0.75), their slab ids at P=256,
+  H=8, D=32, at each batch; the forward and the backward (its dq and dk/dv
+  passes) each on their own.
 
 Each time is CUDA events around ``--launches`` launches back to back after
 a warm-up, the median of ``--repeats`` such turns; one JSON line per
@@ -50,11 +55,16 @@ def main(argv=None) -> int:
     ap.add_argument("--launches", type=int, default=5)
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--tag", default="", help="a label for the lines")
+    ap.add_argument("--kernels", nargs="+", default=["K9", "K10", "K6"],
+                    choices=["K9", "K10", "K6"],
+                    help="which to time (K10 brings K1 beside it)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA device", file=sys.stderr)
         return 1
+    from frankenstein_tpu_torch.models.brainformer import masking_indices
     from frankenstein_tpu_torch.ops import rope
+    from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
     from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
     from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
     dev = torch.device("cuda")
@@ -63,8 +73,8 @@ def main(argv=None) -> int:
     card = torch.cuda.get_device_name(0)
     time = lambda fn: _median_ms(fn, args.launches, args.repeats)
     e = 256
-    for b, t, hidden in [(b, 6144, 1024) for b in args.batch] + [
-            (128, 32, 512)]:
+    k9_shapes = [(b, 6144, 1024) for b in args.batch] + [(128, 32, 512)]
+    for b, t, hidden in k9_shapes if "K9" in args.kernels else []:
         x = rnd(b, t, e).to(torch.bfloat16)
         nw, nb = 1.0 + 0.1 * rnd(e), 0.1 * rnd(e)
         w1, w3 = ((rnd(hidden, e) / e ** 0.5).to(torch.bfloat16)
@@ -79,7 +89,7 @@ def main(argv=None) -> int:
     t, h, d, p = 6144, 8, 32, 256
     cos, sin = rope.folded_tables(rope.build_rope_cache(d, t, device=dev), 1)
     kw = dict(n_heads=h, tok_per_time=p)
-    for b in args.batch:
+    for b in args.batch if "K10" in args.kernels else []:
         q, k, v = ((0.5 * rnd(b, t, h * d)).to(torch.bfloat16)
                    for _ in range(3))
         for name, on in (("K10", True), ("K1", False)):
@@ -89,6 +99,24 @@ def main(argv=None) -> int:
                               "T": t, "H": h, "D": d, "P": p, "ms": ms,
                               "card": card}), flush=True)
         del q, k, v
+    for b in args.batch if "K6" in args.kernels else []:
+        _, kept = masking_indices(gen, b, t, 0.75)
+        sid = (kept // p).to(torch.int32).contiguous()
+        n = kept.shape[1]
+        q, k, v, dout = (rnd(b, n, h * d).to(torch.bfloat16)
+                         for _ in range(4))
+        kw = dict(n_heads=h, mode="positions", tok_per_time=0, slab_ids=sid)
+        out, lse = k67.flash_attention(q, k, v, **kw)
+        pairs = int((sid[:, None, :] <= sid[:, :, None]).sum())
+        for name, fn in (
+                ("K6 fwd", lambda: k67.flash_attention(q, k, v, **kw)),
+                ("K6 bwd", lambda: k67.flash_attention_bwd(
+                    q, k, v, out, lse, dout, **kw))):
+            print(json.dumps({"tag": args.tag, "kernel": name, "B": b,
+                              "N": n, "of": t, "H": h, "D": d, "P": p,
+                              "pairs": pairs, "ms": time(fn),
+                              "card": card}), flush=True)
+        del q, k, v, dout, out, lse
     return 0
 
 

@@ -8,7 +8,8 @@ modes of K1's and K10's forwards (ops/cuda/slab_probe.py), on the card against
 their plain PyTorch twins, at
 small shapes that reach the kernels' edge cases (slabs that do not divide
 the tiles, a batch that does not fill a tile, an empty cache, one beam and
-the widest group, unsorted positions, a ragged last row tile), the
+the widest group, unsorted positions, slab ids whose first key tile most
+rows do not see, a ragged last row tile), the
 gradients of an encoder through K1 and K4 and of an MAE through K6 and K7
 against their f32 CPU twins, and training steps through the train CLI that
 the kernels do not take (f32 compute, an MAE of 100 channels), which run
@@ -837,6 +838,94 @@ def test_k6_k7_occupancy_reads_every_pass(dev):
                 regs, ctas = k67.occupancy(mode, pass_, d)
                 assert 0 < regs <= 255 and ctas >= 1, (mode, pass_, d)
     assert k67.occupancy("dense", "fwd", 32)[1] == 2
+
+
+# K6's wgmma kernels (csrc/flash_attention_dense.cu, mode positions): the
+# staircase each CTA takes from the slab ids, exact in any order.
+K6_CASES = [(2, 1536, 8, 32, 256, "sorted"),   # the MAE encoder's shape
+            (1, 768, 2, 64, 40, "shuffled"),   # D=64: 128-key forward tiles
+            (2, 512, 2, 32, 16, "first tile unseen"),
+            (1, 512, 2, 64, 16, "first tile unseen"),
+            (2, 640, 2, 32, 64, "sorted"),     # 10 key tiles: the ring wraps
+                                               # unevenly; the dq pass's
+                                               # last 192-row block ends
+                                               # past T
+            (1, 640, 3, 32, 40, "shuffled")]
+
+
+def _k6_case(dev, b, t, h, d, p, order, seed, dout=None):
+    """bf16 q, k, v, dout and the wrapper's keywords of mode positions.
+    ``order``: "sorted" or "shuffled" kept positions of a 4x longer window
+    (``_flash_case``), or "first tile unseen": slab ids in [0, 4) with the
+    first 128 keys (a forward key tile at either head dim) at the greatest,
+    so that most rows' first visited tile holds no key they see."""
+    if order != "first tile unseen":
+        return _flash_case(dev, "positions", b, t, h, d, p, seed, dout=dout,
+                           shuffled=order == "shuffled")
+    (q, k, v, dout), kw = _flash_case(dev, "dense", b, t, h, d, 0, seed,
+                                      dout=dout)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    sid = torch.randint(0, 4, (b, t), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sid[:, :128] = 3
+    kw.update(mode="positions", tok_per_time=p, slab_ids=sid.contiguous())
+    return (q, k, v, dout), kw
+
+
+@pytest.mark.parametrize("b,t,h,d,p,order", K6_CASES)
+def test_k6_matches_twin_and_is_deterministic(dev, b, t, h, d, p, order):
+    """The wgmma forward (out, lse) and backward (dq, dk, dv) of mode
+    positions against the twins in f32 on the same bf16 inputs, finite,
+    one launch a call, two backward launches bitwise equal."""
+    (q, k, v, dout), kw = _k6_case(dev, b, t, h, d, p, order, seed=t + d)
+    before = (k67.launches["positions"], k67.launches_bwd["positions"])
+    out, lse = k67.flash_attention(q, k, v, **kw)
+    got = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert (k67.launches["positions"], k67.launches_bwd["positions"]) == (
+        before[0] + 1, before[1] + 2)
+    assert all(bool(torch.isfinite(x).all()) for x in (out, lse, *got))
+    ref, ref_lse = k67.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw)
+    assert _err(out, ref) <= FLASH_TOL * float(ref.abs().max())
+    assert _err(lse, ref_lse) <= FLASH_TOL * float(ref_lse.abs().max())
+    want = k67.flash_attention_bwd_ref(
+        *(x.float() for x in (q, k, v, out)), lse, dout.float(), **kw)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), name
+        assert _err(g, w) <= FLASH_TOL * float(w.abs().max()), name
+
+
+@pytest.mark.parametrize("t,d,p,order", [(1536, 32, 256, "sorted"),
+                                         (512, 32, 16, "first tile unseen"),
+                                         (768, 64, 40, "shuffled")])
+def test_k6_probability_rows_sum_to_one(dev, t, d, p, order):
+    """As test_k6_k7_probability_rows_sum_to_one, for K6's wgmma passes at
+    the MAE's shape, where rows meet a wholly unseen tile first, and at
+    D=64."""
+    b, h = 2, 2
+    rows = torch.arange(d, device=dev) * 13 % t
+    dout = torch.zeros(b, t, h * d, dtype=torch.bfloat16, device=dev)
+    for head in range(h):
+        dout[:, rows, head * d + torch.arange(d, device=dev)] = 1.0
+    (q, k, v, _), kw = _k6_case(dev, b, t, h, d, p, order, seed=9,
+                                dout=dout)
+    out, lse = k67.flash_attention(q, k, v, **kw)
+    _, _, dv = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    sums = dv.float().reshape(b, t, h, d).sum(dim=1)
+    assert float((sums - 1.0).abs().max()) < 1e-2
+
+
+def test_k6_occupancy_reads_every_pass(dev):
+    """Registers and resident CTAs of K6's three wgmma passes at both head
+    dims (at the MAE's N=1536); its forward at D=32 keeps K7 dense's two
+    CTAs an SM."""
+    for pass_ in k67.PASSES:
+        for d in (32, 64):
+            regs, ctas = k67.occupancy("positions", pass_, d)
+            assert 0 < regs <= 255 and ctas >= 1, (pass_, d)
+    assert k67.occupancy("positions", "fwd", 32)[1] == 2
 
 
 def test_k6_k7_refuse_what_they_do_not_take(dev):

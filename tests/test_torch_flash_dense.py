@@ -1,7 +1,7 @@
 """K7 dense's wgmma kernels (``csrc/flash_attention_dense.cu``) from the
 CPU: their symbol names, as ``ops/cuda/flash_attention.py`` keeps them, are
-the source's kernels and fall in ``chip_smoke.py``'s K6/K7 profile
-families (never "cuBLAS"); and the kernels' softmax arithmetic, written
+the source's kernels (with K6's, which share the source) and fall in
+``chip_smoke.py``'s K7 profile families (never "cuBLAS" or K6's); and the kernels' softmax arithmetic, written
 out in plain PyTorch (log2 units, one FFMA and ex2 a score, the rescale
 skipped where a row's max does not move, lse = (m + log2 l) * ln 2),
 matches the JAX package's dense Pallas kernel in interpret mode at the
@@ -28,7 +28,7 @@ SOURCE = ROOT / "frankenstein_tpu_torch" / "csrc" / "flash_attention_dense.cu"
 FWD_TOL = 3e-5
 KEY_TILE = 64    # the D = 32 forward's keys a tile (FwdOf<32>::BN)
 FAMILIES = dict(zip(k67.DENSE_KERNELS,
-                    ("K6/K7 fwd", "K6/K7 bwd dq", "K6/K7 bwd dk/dv")))
+                    ("K7 fwd", "K7 bwd dq", "K7 bwd dk/dv")))
 CONFIGS = dict(zip(k67.DENSE_KERNELS, ("Fwd", "Dq", "Dkv")))  # template args
 
 
@@ -64,7 +64,8 @@ def test_dense_kernel_names_are_the_sources_kernels():
     kernels = re.findall(
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
         SOURCE.read_text())
-    assert sorted(kernels) == sorted(k67.DENSE_KERNELS)
+    assert sorted(kernels) == sorted(k67.DENSE_KERNELS
+                                     + k67.POSITIONS_KERNELS)
 
 
 def _exp2_attention(q, k, v, tile: int = KEY_TILE):

@@ -109,7 +109,7 @@ def _spellings(name: str) -> dict:
 def test_k1_kernels_fall_in_the_k1_family(name, form):
     family = _chip_smoke()._family(_spellings(name)[form])
     assert family == "K1"
-    assert family != "K6/K7 fwd"
+    assert family not in ("K6 fwd", "K7 fwd")
 
 
 def test_k1_kernel_names_are_the_sources_kernels():
