@@ -92,7 +92,10 @@ nvcc (sm_90a) and then, one line per phase:
     probability rows the backward recomputes (each sums to 1 against the
     forward's lse), two launches bitwise equal, kernel, twin and SDPA times,
     and the kernels and SDPA (K6 with its bool mask, K7 dense unmasked) at
-    B=32;
+    B=32; then K7 slab (the slab mode of the same wgmma passes) at P=256,
+    96 and 8 and head_dim 32 and 64, forward and backward against the
+    twins, two backward launches bitwise equal, and each slab pass's
+    registers and CTAs an SM, unmasked and masked instance;
 13. MAE pretraining: ``configs/mae.yaml``'s MAE (f32 parameters, bf16
     compute) trained for 30 steps at B=32 through the train CLI, with an
     eval and a checkpoint: finite, falling losses, the launch counts of K6
@@ -125,12 +128,16 @@ nvcc (sm_90a) and then, one line per phase:
     plain attention at T=6144, the MLPs' module chain) and one bf16 step of
     an MAE of ``--channels 100`` (2400 tokens, 600 kept: K6 and K7 refuse
     them, K9 runs); finite losses, the launch counts and the plain calls;
-16. kernel K8 (the decode step's ln_f + tied head + top-k + logsumexp)
-    against its twin at GPT-2 124M width (E=768, V=50304), bf16, k=10, at
-    B=8, 32, 128 and 160 (beams' B*W): vals, logz, indices (a difference
-    only at a near-tie), two launches bitwise equal, a forced tie, the
-    kernel's, the twin's and the eager chain's times, and the port's dense
-    route at B=128;
+16. kernel K8 (the decode step's ln_f + tied head + top-k + logsumexp:
+    a LayerNorm pre-pass, then a persistent TMA-ring wgmma head with a
+    grid barrier and a merge) against its twin at GPT-2 124M width (E=768,
+    V=50304), bf16, k=10, at B=8, 32, 128 and 160 (beams' B*W): vals,
+    logz, indices (a difference only at a near-tie), two launches bitwise
+    equal, each launch's device time (torch.profiler) beside the bound,
+    the launch (batch width, ring stages, registers, spills), the kernel's,
+    the twin's and the eager chain's times, and the port's dense route at
+    B=128; then B=1, k=32 at B=160, a table of width 1024, a ragged vocab
+    whose true top-k lies in its last block's tail, and a forced tie;
 17. kernel K10 (K1's forward with int8 QK scores: a K pre-pass, a Q
     pre-pass, an int8-wgmma forward) against its twin and against K1 at
     the flagship encoder shape (B=2, T=6144, H=8, D=32, P=256): K codes
@@ -183,6 +190,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2054,7 +2062,58 @@ def phase_flash(card: str) -> dict:
              "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
              "ms_b32": bwd_b32, **bwd_bound})
         del q, k, v, dout, out, lse, got, again, ref, want, onehot, thunks
+    _slab_instances(gen, card)
     return results
+
+
+def _slab_instances(gen, card: str) -> None:
+    """K7 slab's wgmma passes (mode slab of ``csrc/flash_attention_dense.cu``)
+    at P = 256 (the unmasked instance), 96 and 8 (the MASKED one: slab
+    boundaries inside the 64-row groups, and a P below one tile), head_dim
+    32 and 64, forward and backward against the twins, two backward
+    launches bitwise equal; and each pass's registers and CTAs an SM, both
+    instances."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
+    b, t, h = 1, 1536, 4
+    for d in (32, 64):
+        for p in (256, 96, 8):
+            q, k, v, dout = (torch.randn(b, t, h * d, generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                             for _ in range(4))
+            kw = dict(n_heads=h, mode="slab", tok_per_time=p)
+            out, lse = k67.flash_attention(q, k, v, **kw)
+            got = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            again = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+            ref, ref_lse = k67.flash_attention_ref(q.float(), k.float(),
+                                                   v.float(), **kw)
+            want = k67.flash_attention_bwd_ref(
+                *(x.float() for x in (q, k, v, out)), lse, dout.float(), **kw)
+            torch.cuda.synchronize()
+            rel = lambda g, w: _max_err(g, w) / float(w.abs().max())
+            rels = [rel(out, ref), rel(lse, ref_lse)] + [
+                rel(g, w) for g, w in zip(got, want)]
+            bitwise = all(torch.equal(g, a) for g, a in zip(got, again))
+            masked = {pas: k67.slab_masked(p, pas, d) for pas in k67.PASSES}
+            print(f"phase 12 K7 slab B={b} T={t} H={h} D={d} P={p}: out/lse "
+                  f"and dq/dk/dv rel err " + "/".join(f"{x:.2e}" for x in rels)
+                  + f" (tol {FLASH_TOL} x max|twin|), two backward launches "
+                  f"bitwise equal {bitwise}, masked instance "
+                  + ", ".join(f"{pas} {m}" for pas, m in masked.items())
+                  + f" | {card}", flush=True)
+            _check(all(bool(torch.isfinite(x).all())
+                       for x in (out, lse, *got)), f"K7 slab P={p} D={d} "
+                   f"not finite")
+            _check(max(rels) <= FLASH_TOL, f"K7 slab P={p} D={d} disagrees "
+                   f"with its twin: {rels}")
+            _check(bitwise, f"K7 slab P={p} D={d} backward not deterministic")
+            del q, k, v, dout, out, lse, got, again, ref, want
+    occ = {(pas, d, m): k67.occupancy("slab", pas, d, m)
+           for pas in k67.PASSES for d in (32, 64) for m in (False, True)}
+    print("phase 12 K7 slab registers / CTAs an SM (pass, D, instance): "
+          + ", ".join(f"{pas} D={d} {'masked' if m else 'unmasked'} "
+                      f"{r} / {c}" for (pas, d, m), (r, c) in occ.items())
+          + f" | {card}", flush=True)
 
 
 def _read_flash() -> dict:
@@ -2535,13 +2594,75 @@ def _topk_gap(idx, ref_vals, ref_idx, logits) -> tuple:
     return int(differ.sum()), float(near[differ].max())
 
 
+def _k8_check(name: str, got, again, ref, logits, k: int, card: str,
+              note: str = "") -> tuple:
+    """K8's outputs against its twin's: values and logz within K8_TOL,
+    every differing index a near-tie, no index repeated or past V, two
+    launches bitwise equal; prints one line. Returns (value, logz) max
+    errors."""
+    import torch
+    bitwise = all(torch.equal(a, c) for a, c in zip(got, again))
+    err_v, err_z = _max_err(got[0], ref[0]), _max_err(got[2], ref[2])
+    differ, gap = _topk_gap(got[1], ref[0], ref[1], logits)
+    print(f"phase 16 K8 {name}: vals max_abs_err {err_v:.3e}, logz "
+          f"{err_z:.3e}, indices off the twin's {differ} (largest near-tie "
+          f"gap {gap:.3e}), tol {K8_TOL}, two launches bitwise equal "
+          f"{bitwise}{note} | {card}", flush=True)
+    _check(all(bool(torch.isfinite(a).all()) for a in (got[0], got[2])),
+           f"K8 {name} not finite")
+    _check(max(err_v, err_z, gap) <= K8_TOL,
+           f"K8 {name} disagrees with its twin: vals {err_v}, logz {err_z}, "
+           f"index gap {gap}")
+    _check(all(len(set(r.tolist())) == k for r in got[1])
+           and int(got[1].max()) < logits.shape[1],
+           f"K8 {name} repeats an index or points past V")
+    _check(bitwise, f"K8 {name} is not deterministic")
+    return err_v, err_z
+
+
+def _k8_profile(batches, k: int) -> dict:
+    """Each K8 launch's device ms a call (torch.profiler) at each batch of
+    ``batches``, GPT-2's head, ``_k8_inputs`` from the phase's seed."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    out = {}
+    for b in batches:
+        x, w, bias, wte = _k8_inputs(b, gen)
+        out[b] = _by_kernel(lambda: k8.lm_head_topk(x, w, bias, wte, k=k),
+                            r"(lm_head_norm|lm_head_topk_wgmma)",
+                            {"lm_head_norm", "lm_head_topk_wgmma"})
+    return out
+
+
+def _k8_device_ms(batches, k: int) -> dict:
+    """``_k8_profile`` in a fresh process: late in this one torch.profiler
+    drops records (PERF.md §7)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import json, chip_smoke as c; "
+            f"print(json.dumps(c._k8_profile({list(batches)}, {k})))")
+    done = subprocess.run([sys.executable, "-c", code], cwd=here,
+                          capture_output=True, text=True)
+    _check(done.returncode == 0, f"K8's profile failed: {done.stderr[-2000:]}")
+    last = done.stdout.strip().splitlines()[-1]
+    return {int(b): v for b, v in json.loads(last).items()}
+
+
 def phase_k8(card: str) -> dict:
+    """K8 (``csrc/lm_head_topk.cu``: the LayerNorm pre-pass, then the
+    persistent TMA-ring wgmma head with its top-k, grid barrier and merge)
+    against its twin at GPT-2's head, B = 8, 32, 128 and 160, with each
+    launch's device time (torch.profiler) beside the bound, the eager chain
+    and, at B=128, the port's dense route; then B=1, a ragged vocab whose
+    true top-k lies in its tail, k=32 and a table wider than 768; the
+    forced tie; the launch (batch width, ring stages, registers)."""
     import torch
     from frankenstein_tpu_torch.ops import norms
     from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
     k, e, v = 10, 768, 50304
     results = {}
+    device = _k8_device_ms((8, 32, 128, 160), k)
     for b in (8, 32, 128, 160):
         x, w, bias, wte = _k8_inputs(b, gen)
         run = lambda: k8.lm_head_topk(x, w, bias, wte, k=k)
@@ -2553,6 +2674,9 @@ def phase_k8(card: str) -> dict:
         differ, gap = _topk_gap(got[1], ref[0], ref[1],
                                 k8.head_logits_ref(x, w, bias, wte))
         ms = _time_ms(run)
+        by_launch = device[b]
+        device_ms = sum(by_launch.values())
+        launch = k8.info(b, k, k8.grid_size(x.device, v))
         plain_ms = _time_ms(lambda: k8.lm_head_topk_ref(x, w, bias, wte,
                                                         k=k), iters=3)
         chain_ms = _time_ms(lambda: _k8_chain(x, w, bias, wte, k))
@@ -2571,10 +2695,18 @@ def phase_k8(card: str) -> dict:
         print(f"phase 16 K8 lm_head_topk B={b} E={e} V={v} k={k} bf16: vals "
               f"max_abs_err {err_v:.3e}, logz {err_z:.3e}, indices off the "
               f"twin's {differ} (largest near-tie gap {gap:.3e}), tol "
-              f"{K8_TOL}, two launches bitwise equal {bitwise} | kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, eager chain "
+              f"{K8_TOL}, two launches bitwise equal {bitwise} | back to "
+              f"back {ms:.4f} ms a call; device a call (profiler, a fresh "
+              f"process): "
+              + ", ".join(f"{name} {t:.4f} ms" for name, t in
+                          by_launch.items()) +
+              f", {device_ms:.4f} ms in all, {device_ms / bound['bound_ms']:.2f}x "
+              f"the bound | plain {plain_ms:.4f} ms, eager chain "
               f"{chain_ms:.4f} ms{dense}, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}) | {card}", flush=True)
+              f"({bound['bound_by']}) | launch: width {launch['width']}, "
+              f"{launch['stages']} ring stages, {launch['smem']} B shared, "
+              f"{launch['regs']} registers, {launch['ctas']} CTA an SM, "
+              f"{launch['local_bytes']} B spilled | {card}", flush=True)
         _check(all(bool(torch.isfinite(a).all()) for a in (got[0], got[2])),
                f"K8 B={b} not finite")
         _check(max(err_v, err_z, gap) <= K8_TOL,
@@ -2583,10 +2715,59 @@ def phase_k8(card: str) -> dict:
         _check(all(len(set(r.tolist())) == k for r in got[1]),
                f"K8 B={b} repeats an index")
         _check(bitwise, f"K8 B={b} is not deterministic")
+        _check(launch["local_bytes"] == 0, f"K8 B={b} spills: {launch}")
         results[b] = {"max_abs_err": max(err_v, err_z), "ms": ms,
-                      "plain_ms": plain_ms, "chain_ms": chain_ms,
-                      "library_ms": None, **bound, **extra}
+                      "device_ms": device_ms, "plain_ms": plain_ms,
+                      "chain_ms": chain_ms, "library_ms": None, **bound,
+                      **extra}
         del x, wte, got, again, ref
+
+    # B=1; k=32 at B=160; a table wider than GPT-2 124M's (GPT-2 medium's
+    # 1024); V=50257, whose last block holds 81 rows, with row 7's top-10 in
+    # that tail and every logit of row 1 negative (the zero rows past V
+    # would outrank them all if they were not masked)
+    for b, ek, kk in ((1, 768, 10), (160, 768, 32), (8, 1024, 10)):
+        x, w, bias, wte = _k8_inputs(b, gen)
+        if ek != e:
+            x = torch.randn(b, ek, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            w, bias = w[:1].expand(ek).contiguous(), bias[:1].expand(
+                ek).contiguous()
+            wte = (0.02 * torch.randn(v, ek, generator=gen, device="cuda")
+                   ).to(torch.bfloat16)
+        got = k8.lm_head_topk(x, w, bias, wte, k=kk)
+        again = k8.lm_head_topk(x, w, bias, wte, k=kk)
+        _k8_check(f"B={b} E={ek} V={v} k={kk}", got, again,
+                  k8.lm_head_topk_ref(x, w, bias, wte, k=kk),
+                  k8.head_logits_ref(x, w, bias, wte), kk, card)
+        del x, wte
+    vt = 50257
+    x, w, bias, wte = _k8_inputs(8, gen)
+    wte = wte[:vt].contiguous()
+    w, bias = torch.ones_like(w), torch.zeros_like(bias)
+    xf = x[7].float()
+    a = (xf - xf.mean()) / xf.std(unbiased=False)
+    r = torch.randn(e, generator=gen, device="cuda")
+    r = r - r.mean()
+    r = r - (r @ a) / (a @ a) * a
+    brow = r / r.std(unbiased=False)
+    x[1] = brow.to(torch.bfloat16)
+    wte.copy_((-0.01 * brow + 0.001 * torch.randn(
+        vt, e, generator=gen, device="cuda")).to(torch.bfloat16))
+    scale = torch.linspace(0.5, 0.25, 12, device="cuda")[:, None]
+    wte[vt - 12:] = (scale * (a - 0.02 * brow)).to(torch.bfloat16)
+    got = k8.lm_head_topk(x, w, bias, wte, k=k)
+    again = k8.lm_head_topk(x, w, bias, wte, k=k)
+    logits = k8.head_logits_ref(x, w, bias, wte)
+    tail_ok = (got[1][7].tolist() == list(range(vt - 12, vt - 2))
+               and got[1][1].tolist() == list(range(vt - 1, vt - 11, -1)))
+    _k8_check(f"ragged V={vt}, row 7's top-10 in the last block's tail, row "
+              f"1's logits all negative", got, again,
+              k8.lm_head_topk_ref(x, w, bias, wte, k=k), logits, k, card,
+              note=f", rows 1 and 7 take the tail's rows {tail_ok}")
+    _check(float(logits[1].max()) < 0 and tail_ok,
+           f"K8 ragged tail: rows {got[1][1].tolist()} {got[1][7].tolist()}")
+    del x, wte, logits
 
     # ties: vocab rows 3 and 7 equal and aligned with row 0's h
     x, w, bias, wte = _k8_inputs(8, gen)
@@ -3175,6 +3356,7 @@ def _entry(r: dict) -> dict:
 
 def main() -> int:
     import torch
+    from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3251,17 +3433,18 @@ def main() -> int:
              "_fwd :260)", "658 (_bwd_packed, calls :685, :721; and _bwd "
              ":396)")):
         fwd, bwd = fa[mode]
-        src = "frankenstein_tpu_torch/csrc/flash_attention"
-        fwd_src, bwd_src = ((src + "_dense.cu",) * 2 if mode != "slab"
-                            else (src + ".cu", src + "_bwd.cu"))
+        src = "frankenstein_tpu_torch/csrc/flash_attention_dense.cu"
+        # K7 slab's entries name its kernels' symbols (mode slab of the
+        # dense file's passes)
+        names = ((k67.SLAB_KERNELS[0], ", ".join(k67.SLAB_KERNELS[1:]))
+                 if mode == "slab" else (f"flash_attention_fwd_{mode}",
+                                         f"flash_attention_bwd_{mode}"))
         kernels += [
-            {"name": f"flash_attention_fwd_{mode}", "route": "cuda",
-             "source": fwd_src,
+            {"name": names[0], "route": "cuda", "source": src,
              "replaces": f"frankenstein_tpu/ops/pallas/block_attention.py:"
                          f"{fwd_at}",
              "launches": mae["launches"][key], **_entry(fwd)},
-            {"name": f"flash_attention_bwd_{mode}", "route": "cuda",
-             "source": bwd_src,
+            {"name": names[1], "route": "cuda", "source": src,
              "replaces": f"frankenstein_tpu/ops/pallas/block_attention.py:"
                          f"{bwd_at}",
              "launches": mae["launches"][f"{key}-bwd"], **_entry(bwd)}]
@@ -3275,7 +3458,7 @@ def main() -> int:
              "launches": sl["launches"]["K9"] if kind == "layernorm" else 0,
              **_entry(k9[(kind, "encoder")])})
     kernels += [
-        {"name": "lm_head_topk", "route": "cuda",
+        {"name": "lm_head_norm, lm_head_topk_wgmma", "route": "cuda",
          "source": "frankenstein_tpu_torch/csrc/lm_head_topk.cu",
          "replaces": "frankenstein_tpu/ops/pallas/lm_head_topk.py:86",
          "launches": served["launches"][(128, True)]["K8"],

@@ -16,8 +16,13 @@ paths are hand-written CUDA C++ for Hopper (``csrc/``):
 - K2 ``ops/cuda/fused_decode.py``: one GPT-2 token through all blocks,
   with a bf16 or an int8 KV cache;
 - K3 ``ops/cuda/beam_reorder.py``: the in-place beam-search cache reorder;
-- K8 ``ops/cuda/lm_head_topk.py``: a decode step's head, top-k and
-  logsumexp without the [B, V] logits (``sampling.COMPACT_TOPK``);
+- K8 ``ops/cuda/lm_head_topk.py`` (``csrc/lm_head_topk.cu``): a decode
+  step's head, top-k and logsumexp without the [B, V] logits
+  (``sampling.COMPACT_TOPK``), a persistent TMA-ring wgmma head;
+- K6 and K7 ``ops/cuda/flash_attention.py``
+  (``csrc/flash_attention_dense.cu``): the MAE's attention over its kept
+  tokens, dense attention, and slab-causal attention without RoPE, three
+  compile-time mask modes of one family of wgmma passes;
 - the packed-attention probes ``ops/cuda/slab_probe.py``: compile-time
   modes of K1's and K10's wgmma forwards, each with one component
   removed, timed by ``tools.attn_probe`` and ``tools.int8_attr_probe``.

@@ -1,13 +1,12 @@
-// K7 dense and K6: the MAE decoder's unmasked flash attention and the MAE
-// encoder's attention over the tokens it keeps, forward and both backward
-// passes, redesigned for Hopper (sm_90a): TMA rings, wgmma, warp
-// specialisation and exp2. One kernel family: the mask mode
-// (flash_mask.cuh) is a compile-time property of each pass's shape,
-// kDense for K7 dense and kPositions for K6, and every positions branch
-// sits behind if constexpr, so the dense instances compile as they did.
-// Mode slab (K7 slab) keeps the mma.sync kernels of flash_attention.cu /
-// flash_attention_bwd.cu, whose C entry points dispatch modes dense and
-// positions here (flash_host.cuh).
+// K7 dense, K6 and K7 slab: the MAE decoder's unmasked flash attention,
+// the MAE encoder's attention over the tokens it keeps, and slab-causal
+// attention without RoPE, forward and both backward passes, for Hopper
+// (sm_90a): TMA rings, wgmma, warp specialisation and exp2. One kernel
+// family: the mask mode (flash_mask.cuh) is a compile-time property of
+// each pass's shape, kDense for K7 dense, kPositions for K6 and kSlab for
+// K7 slab, and every positions or slab branch sits behind if constexpr, so
+// the dense instances compile as they did. The C entry points at the end
+// dispatch all three modes.
 //
 // Replaces, in frankenstein_tpu/ops/pallas/block_attention.py:
 //   K7 forward  dense_flash_attention :1278 -> _slab_attention :746 -> _fwd
@@ -20,12 +19,17 @@
 //               ``pos`` (kernels _bwd_dq_tri_kernel :284, _bwd_dkv_tri_kernel
 //               :346, calls :436, :484), both reached from
 //               gathered_slab_attention :1242 -> _gathered_attention
-//               :1191-1215.
+//               :1191-1215;
+//   K7 slab     the same kernels with causal=True (slab-causal, no RoPE),
+//               via slab_causal_attention :1268 and
+//               slab_causal_attention_folded :1169.
 // Contract (unchanged from the mma.sync kernels):
 //   q, k, v, dout  [B, T, E] bf16, head h = columns [h*D, (h+1)*D), D in
 //                  {32, 64}, T % 128 == 0
 //   sid            [B, T] int32 slab ids, K6 only, in any order: key j is
 //                  visible to query i iff sid[j] <= sid[i]
+//   P              K7 slab's tokens a slab, any P > 0: key j is visible to
+//                  query i iff j / P <= i / P
 //   out            [B, T, E] bf16; lse [B, H, T] f32, natural-log units
 //   delta          [B, H, T] f32 workspace: rowsum(f32(out) * f32(dout)),
 //                  written by the dq pass, read by the dk/dv pass
@@ -103,6 +107,25 @@
 //     end (held against K7 dense's shapes on an H100, PERF.md). An
 //     overlapped dk/dv walk (tile i's scores issued with tile i-1's dV /
 //     dK products) needed 206 registers, two CTAs an SM, and read slower.
+// K7 slab's staircase is arithmetic (hopper_blocks.cuh: key_end), so it
+// needs no prologue and no ids on the ring; it walks K1's and K4's slab
+// schedule on K7 dense's shapes (Slab*Of):
+//   * the grid is K6's, heaviest block first: the forward and the dq pass
+//     from the last row block (its keys run to the end of its last row's
+//     slab), the dk/dv pass from the first key block (seen by every query);
+//   * the producer streams the keys up to the end of the CTA's last row's
+//     slab (the queries from its first key's slab start); each warpgroup
+//     walks those up to its own last row's slab end (from its own first
+//     key's slab start), as the dense code does, and waits for and
+//     releases the rest unseen (pass_tile), so the ring never stalls;
+//   * where P % 64 == 0 and P % BN == 0 (the flagship's P = 256) every
+//     tile a warpgroup walks is wholly visible: the unmasked instance has
+//     no mask code. Any other P takes the MASKED instance, which compares
+//     slab_of<kSlab> per element on the tiles that cross the warpgroup's
+//     slab boundary only: invisible scores at finfo(f32).min in the
+//     forward, p and ds at 0 in the backward. Every row sees key 0, so no
+//     row meets a wholly masked first tile and the plain online softmax
+//     holds.
 // The blocks (barriers, TMA, wgmma descriptors and products, the re-pack,
 // the online softmax, tile maps) live in hopper_blocks.cuh, shared with K4,
 // K1, K10 and K9.
@@ -148,12 +171,24 @@ struct FwdPos : Fwd<D_, NWG_, BN_, CTAS_> {
   static constexpr int SMEM = OFF_RANGE + 1024;
 };
 
+// K7 slab's passes: the dense shapes of a pass, mode slab, and MASKED for
+// a P whose slab boundaries fall inside the 64-row groups or the tiles the
+// passes visit (the element compare; none where P % 64 == 0 and P % BN ==
+// 0, the flagship's P = 256).
+template <class Base, bool MASKED_>
+struct Slab : Base {
+  static constexpr int MODE = kSlab;
+  static constexpr bool MASKED = MASKED_;
+};
+
 // One CTA per (BM query rows, head, batch row). Ring of STAGES (K, V)
 // tiles of BN keys: full_k / full_v complete when a tile has landed, empty
 // when every consumer warp is done with the stage. kPositions: the grid is
 // (B * H, row blocks from the last), full_k alone completes a stage (K, V
 // and the key ids), and only the key tiles some row of the CTA sees are
-// streamed.
+// streamed. kSlab: the same grid; the producer streams the keys up to the
+// end of the CTA's last row's slab, each warpgroup walks those up to its
+// own last row's and releases the rest unseen.
 template <class C>
 __device__ __forceinline__ void fwd_pass(const CUtensorMap& tq,
                                          const CUtensorMap& tk,
@@ -161,9 +196,10 @@ __device__ __forceinline__ void fwd_pass(const CUtensorMap& tq,
                                          const int* __restrict__ sid,
                                          bf16* __restrict__ out,
                                          float* __restrict__ lse, int T,
-                                         int H, float scale) {
+                                         int H, int P, float scale) {
   constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
   constexpr bool POS = C::MODE == kPositions;
+  constexpr bool SLAB = C::MODE == kSlab;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
@@ -172,7 +208,7 @@ __device__ __forceinline__ void fwd_pass(const CUtensorMap& tq,
   uint64_t* empty = full_v + ST;
   const int tid = threadIdx.x;
   int q0, h, b;
-  if constexpr (POS) {
+  if constexpr (POS || SLAB) {
     h = blockIdx.x % H;
     b = blockIdx.x / H;
     q0 = (gridDim.y - 1 - blockIdx.y) * C::BM;
@@ -181,7 +217,9 @@ __device__ __forceinline__ void fwd_pass(const CUtensorMap& tq,
     h = blockIdx.y;
     b = blockIdx.z;
   }
-  const int nk = T / BN;
+  int nk = T / BN;
+  if constexpr (SLAB)   // the CTA's furthest key: its last row's slab end
+    nk = (key_end(min(q0 + C::BM, T) - 1, T, P) + BN - 1) / BN;
   auto init_barriers = [&]() {
     mbar_init(bar_q, 1);
     for (int s = 0; s < ST; ++s) {
@@ -340,6 +378,82 @@ __device__ __forceinline__ void fwd_pass(const CUtensorMap& tq,
       }
       if (sp >= 0) finish(sp);
       if (!rows_in) return;
+    } else if constexpr (SLAB) {
+      const int first = q0 + cw * 64;        // the warpgroup's first row
+      const bool rows_in = first < T;        // T % 64 == 0: all or none
+      const int nkw =
+          rows_in ? (key_end(first + 63, T, P) + BN - 1) / BN : 0;
+      const int r0 = first + warp * 16 + g;  // this thread's rows r0, r0 + 8
+      // keys from mask_from on lie past the first row's slab, and from
+      // end0 / end1 on past this thread's rows' slabs
+      const int mask_from = (first / P + 1) * P;
+      const int end0 = key_end(r0, T, P), end1 = key_end(r0 + 8, T, P);
+      // the scores of key tile j that rows r0 / r0 + 8 do not see (MASKED;
+      // every row sees key 0, so no row meets a wholly masked first tile)
+      auto mask = [&](int j) {
+        if constexpr (C::MASKED) {
+          if ((j + 1) * BN <= mask_from) return;
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            const int key = j * BN + 8 * (i / 4) + 2 * t + (i & 1);
+            if (key >= ((i & 2) ? end1 : end0)) s[i] = kMaskedScore;
+          }
+        }
+      };
+      if (nkw > 0) {
+        mbar_wait(&full_k[0], 0);
+        wgmma_fence();
+        mma_rows<D, BN>(s, q_addr, k_base);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        mask(0);
+        online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+        to_a<BN>(p, s);
+        for (int j = 1; j < nkw; ++j) {
+          const int sj = j % ST, sp = (j - 1) % ST;
+          mbar_wait(&full_k[sj], (j / ST) & 1);
+          mbar_wait(&full_v[sp], ((j - 1) / ST) & 1);
+          wgmma_fence();
+          mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+          wgmma_commit();
+          mma_acc<D, BN>(o, p, v_base + sp * C::TILE);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+          mask(j);
+          online_softmax<BN>(s, c, m0, m1, l0, l1, a0, a1);
+          wgmma_wait<0>();
+          fence_regs(o);
+          fence_regs(p);
+          if (lane == 0) mbar_arrive(&empty[sp]);
+#pragma unroll
+          for (int n8 = 0; n8 < D / 8; ++n8) {
+            o[4 * n8] *= a0;
+            o[4 * n8 + 1] *= a0;
+            o[4 * n8 + 2] *= a1;
+            o[4 * n8 + 3] *= a1;
+          }
+          to_a<BN>(p, s);
+        }
+        const int sl = (nkw - 1) % ST;
+        mbar_wait(&full_v[sl], ((nkw - 1) / ST) & 1);
+        wgmma_fence();
+        mma_acc<D, BN>(o, p, v_base + sl * C::TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(&empty[sl]);
+      }
+      // the tiles past the warpgroup's last slab: released unseen, or the
+      // ring would stall the producer for the warpgroups that see them
+      for (int j = nkw; j < nk; ++j) {
+        mbar_wait(&full_k[j % ST], (j / ST) & 1);
+        mbar_wait(&full_v[j % ST], (j / ST) & 1);
+        if (lane == 0) mbar_arrive(&empty[j % ST]);
+      }
+      if (!rows_in) return;
     } else {
       mbar_wait(&full_k[0], 0);
       wgmma_fence();
@@ -407,7 +521,7 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
                                bf16* __restrict__ out,
                                float* __restrict__ lse, int T, int H,
                                float scale) {
-  fwd_pass<C>(tq, tk, tv, nullptr, out, lse, T, H, scale);
+  fwd_pass<C>(tq, tk, tv, nullptr, out, lse, T, H, 0, scale);
 }
 
 template <class C>
@@ -419,7 +533,17 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
                                    bf16* __restrict__ out,
                                    float* __restrict__ lse, int T, int H,
                                    float scale) {
-  fwd_pass<C>(tq, tk, tv, sid, out, lse, T, H, scale);
+  fwd_pass<C>(tq, tk, tv, sid, out, lse, T, H, 0, scale);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_fwd_slab_wgmma(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              bf16* __restrict__ out, float* __restrict__ lse,
+                              int T, int H, int P, float scale) {
+  fwd_pass<C>(tq, tk, tv, nullptr, out, lse, T, H, P, scale);
 }
 
 // ---- backward: dq pass ------------------------------------------------------
@@ -461,6 +585,7 @@ struct DqPos : Dq<D_, NWG_, BN_, CTAS_> {
 // ds = bf16(2^(s*c - lse*log2 e) * (dp - delta) * scale) in registers,
 // dQ += dS K. Tile j's S and dP are issued with tile j-1's dQ product.
 // kPositions: the forward's grid and walk (the key ids ride the ring).
+// kSlab: the forward's grid and walk.
 template <class C>
 __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
                                         const CUtensorMap& tk,
@@ -472,9 +597,10 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
                                         const float* __restrict__ lse,
                                         float* __restrict__ delta,
                                         bf16* __restrict__ dq, int T, int H,
-                                        float scale) {
+                                        int P, float scale) {
   constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
   constexpr bool POS = C::MODE == kPositions;
+  constexpr bool SLAB = C::MODE == kSlab;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   float* s_delta = reinterpret_cast<float*>(smem + C::OFF_DELTA);
@@ -483,7 +609,7 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
   uint64_t* empty = full + ST;
   const int tid = threadIdx.x;
   int q0, h, b;
-  if constexpr (POS) {
+  if constexpr (POS || SLAB) {
     h = blockIdx.x % H;
     b = blockIdx.x / H;
     q0 = (gridDim.y - 1 - blockIdx.y) * C::BM;
@@ -492,7 +618,9 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
     h = blockIdx.y;
     b = blockIdx.z;
   }
-  const int nk = T / BN;
+  int nk = T / BN;
+  if constexpr (SLAB)   // the CTA's furthest key: its last row's slab end
+    nk = (key_end(min(q0 + C::BM, T) - 1, T, P) + BN - 1) / BN;
   auto init_barriers = [&]() {
     mbar_init(bar_q, 1);
     for (int s = 0; s < ST; ++s) {
@@ -678,6 +806,69 @@ __device__ __forceinline__ void dq_pass(const CUtensorMap& tq,
         sp = sj;
       }
       if (sp >= 0) finish(sp);
+    } else if constexpr (SLAB) {
+      const int first = q0 + cw * 64;        // the warpgroup's first row
+      const int nkw =
+          first < T ? (key_end(first + 63, T, P) + BN - 1) / BN : 0;
+      // keys from mask_from on lie past the first row's slab
+      const int mask_from = (first / P + 1) * P;
+      const int sl0 = slab_of<kSlab>(nullptr, q0 + rl0, P);
+      const int sl1 = slab_of<kSlab>(nullptr, q0 + rl1, P);
+      // ds of the keys of tile j that rows rl0 / rl1 do not see: 0 (MASKED)
+      auto mask = [&](int j) {
+        if constexpr (C::MASKED) {
+          if ((j + 1) * BN <= mask_from) return;
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) {
+            const int key = j * BN + 8 * (i / 4) + 2 * t + (i & 1);
+            if (slab_of<kSlab>(nullptr, key, P) > ((i & 2) ? sl1 : sl0))
+              s[i] = 0.f;
+          }
+        }
+      };
+      if (nkw > 0) {
+        mbar_wait(&full[0], 0);
+        wgmma_fence();
+        mma_rows<D, BN>(s, q_addr, k_base);
+        mma_rows<D, BN>(dp, do_addr, v_base);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+        grad();
+        mask(0);
+        to_a<BN>(ds, s);
+        for (int j = 1; j < nkw; ++j) {
+          const int sj = j % ST, sp = (j - 1) % ST;
+          mbar_wait(&full[sj], (j / ST) & 1);
+          wgmma_fence();
+          mma_rows<D, BN>(s, q_addr, k_base + sj * C::TILE);
+          mma_rows<D, BN>(dp, do_addr, v_base + sj * C::TILE);
+          wgmma_commit();
+          mma_acc<D, BN>(acc, ds, k_base + sp * C::TILE);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+          fence_regs(dp);
+          grad();
+          mask(j);
+          wgmma_wait<0>();
+          fence_regs(acc);
+          fence_regs(ds);
+          if (lane == 0) mbar_arrive(&empty[sp]);
+          to_a<BN>(ds, s);
+        }
+        const int sl = (nkw - 1) % ST;
+        wgmma_fence();
+        mma_acc<D, BN>(acc, ds, k_base + sl * C::TILE);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(ds);
+        if (lane == 0) mbar_arrive(&empty[sl]);
+      }
+      // the tiles past the warpgroup's last slab: released unseen
+      for (int j = nkw; j < nk; ++j) pass_tile<ST>(full, empty, j, lane);
     } else {
       mbar_wait(&full[0], 0);
       wgmma_fence();
@@ -732,7 +923,7 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
                                   float* __restrict__ delta,
                                   bf16* __restrict__ dq, int T, int H,
                                   float scale) {
-  dq_pass<C>(tq, tk, tv, tdo, nullptr, out, dout, lse, delta, dq, T, H,
+  dq_pass<C>(tq, tk, tv, tdo, nullptr, out, dout, lse, delta, dq, T, H, 0,
              scale);
 }
 
@@ -746,7 +937,24 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
         const bf16* __restrict__ out, const bf16* __restrict__ dout,
         const float* __restrict__ lse, float* __restrict__ delta,
         bf16* __restrict__ dq, int T, int H, float scale) {
-  dq_pass<C>(tq, tk, tv, tdo, sid, out, dout, lse, delta, dq, T, H, scale);
+  dq_pass<C>(tq, tk, tv, tdo, sid, out, dout, lse, delta, dq, T, H, 0,
+             scale);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dq_slab_wgmma(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 const __grid_constant__ CUtensorMap tdo,
+                                 const bf16* __restrict__ out,
+                                 const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 float* __restrict__ delta,
+                                 bf16* __restrict__ dq, int T, int H, int P,
+                                 float scale) {
+  dq_pass<C>(tq, tk, tv, tdo, nullptr, out, dout, lse, delta, dq, T, H, P,
+             scale);
 }
 
 // ---- backward: dk/dv pass ---------------------------------------------------
@@ -791,7 +999,9 @@ struct DkvPos : Dkv<D_, NWG_, BN_, CTAS_> {
 // kPositions: the grid is (B * H, key blocks from the first), the query
 // tiles' ids ride the ring, and only the query tiles that see some key of
 // the CTA are streamed; a warpgroup releases those none of its keys is
-// seen by.
+// seen by. kSlab: the same grid; the producer streams the query tiles from
+// the first row that sees the CTA's first key (its slab's start), each
+// warpgroup releases those before its own first key's slab unseen.
 template <class C>
 __device__ __forceinline__ void dkv_pass(const CUtensorMap& tq,
                                          const CUtensorMap& tk,
@@ -802,9 +1012,10 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tq,
                                          const float* __restrict__ delta,
                                          bf16* __restrict__ dk,
                                          bf16* __restrict__ dv, int T, int H,
-                                         float scale) {
+                                         int P, float scale) {
   constexpr int D = C::D, BN = C::BN, ST = C::STAGES;
   constexpr bool POS = C::MODE == kPositions;
+  constexpr bool SLAB = C::MODE == kSlab;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = aligned_smem(smem_raw);
   const float* s_lse = reinterpret_cast<const float*>(smem + C::OFF_L);
@@ -814,7 +1025,7 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tq,
   uint64_t* empty = full + ST;
   const int tid = threadIdx.x;
   int j0, h, b;
-  if constexpr (POS) {
+  if constexpr (POS || SLAB) {
     h = blockIdx.x % H;
     b = blockIdx.x / H;
     j0 = blockIdx.y * C::BM;
@@ -824,6 +1035,9 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tq,
     b = blockIdx.z;
   }
   const int nq = T / BN;
+  // kSlab: the first query tile that sees the CTA's first key
+  int i0 = 0;
+  if constexpr (SLAB) i0 = (j0 / P) * P / BN;
   auto init_barriers = [&]() {
     mbar_init(bar_kv, 1);
     for (int s = 0; s < ST; ++s) {
@@ -878,9 +1092,9 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tq,
         }
       } else {
         load_rows();
-        for (int i = 0; i < nq; ++i) {
-          const int s = i % ST;
-          mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+        for (int i = i0; i < nq; ++i) {
+          const int s = (i - i0) % ST;
+          mbar_wait(&empty[s], (((i - i0) / ST) & 1) ^ 1);
           mbar_expect_tx(&full[s], 2 * C::TILE + 2 * C::VEC);
           tma_load(smem + C::OFF_Q + s * C::TILE, &tq, &full[s], h * D,
                    i * BN, b);
@@ -995,6 +1209,44 @@ __device__ __forceinline__ void dkv_pass(const CUtensorMap& tq,
         accumulate(si);
       }
       if (!keys_in) return;
+    } else if constexpr (SLAB) {
+      const int first = j0 + cw * 64;        // the warpgroup's first key
+      const bool keys_in = first < T;        // T % 64 == 0: all or none
+      // its first query tile (the first row that sees its first key), and
+      // the rows below which some of its keys are not seen (MASKED)
+      const int iw = keys_in ? (first / P) * P / BN : nq;
+      const int mask_below = ((first + 63) / P) * P;
+      const int key0 = first + warp * 16 + g;   // this thread's keys, +8
+      const int ks0 = slab_of<kSlab>(nullptr, key0, P);
+      const int ks1 = slab_of<kSlab>(nullptr, key0 + 8, P);
+      // p^T and ds^T of the queries of tile i that do not see keys key0 /
+      // key0 + 8: 0
+      auto mask = [&](int i) {
+        if constexpr (C::MASKED) {
+          if (i * BN >= mask_below) return;
+#pragma unroll
+          for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int qs =
+                  slab_of<kSlab>(nullptr, i * BN + 8 * jj + 2 * t + e, P);
+#pragma unroll
+              for (int r = 0; r < 2; ++r)
+                if (qs < (r ? ks1 : ks0))
+                  st[4 * jj + 2 * r + e] = dpt[4 * jj + 2 * r + e] = 0.f;
+            }
+        }
+      };
+      for (int i = i0; i < min(iw, nq); ++i)
+        pass_tile<ST>(full, empty, i - i0, lane);
+      for (int i = iw; i < nq; ++i) {
+        const int si = (i - i0) % ST;
+        mbar_wait(&full[si], ((i - i0) / ST) & 1);
+        attend(si);
+        mask(i);
+        accumulate(si);
+      }
+      if (!keys_in) return;
     } else {
       for (int i = 0; i < nq; ++i) {
         const int si = i % ST;
@@ -1024,7 +1276,8 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
                                    bf16* __restrict__ dk,
                                    bf16* __restrict__ dv, int T, int H,
                                    float scale) {
-  dkv_pass<C>(tq, tk, tv, tdo, nullptr, lse, delta, dk, dv, T, H, scale);
+  dkv_pass<C>(tq, tk, tv, tdo, nullptr, lse, delta, dk, dv, T, H, 0,
+              scale);
 }
 
 template <class C>
@@ -1037,14 +1290,29 @@ __global__ void __launch_bounds__(C::THREADS, C::CTAS)
         const float* __restrict__ lse, const float* __restrict__ delta,
         bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
         float scale) {
-  dkv_pass<C>(tq, tk, tv, tdo, sid, lse, delta, dk, dv, T, H, scale);
+  dkv_pass<C>(tq, tk, tv, tdo, sid, lse, delta, dk, dv, T, H, 0, scale);
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::CTAS)
+    flash_attn_bwd_dkv_slab_wgmma(const __grid_constant__ CUtensorMap tq,
+                                  const __grid_constant__ CUtensorMap tk,
+                                  const __grid_constant__ CUtensorMap tv,
+                                  const __grid_constant__ CUtensorMap tdo,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, int T, int H, int P,
+                                  float scale) {
+  dkv_pass<C>(tq, tk, tv, tdo, nullptr, lse, delta, dk, dv, T, H, P, scale);
 }
 
 // ---- host -----------------------------------------------------------------
 
 // The production instances: head_dim D, consumer warpgroups, tile, CTAs
 // an SM (settled on an H100; PERF.md). K6's (Pos*Of) were held against
-// K7 dense's shapes on the card (PERF.md, section 6).
+// K7 dense's shapes on the card (PERF.md, section 6); K7 slab's (Slab*Of)
+// are K7 dense's, unmasked or MASKED.
 template <int D>
 using FwdOf = Fwd<D, 2, D == 32 ? 64 : 128, D == 32 ? 2 : 1>;
 template <int D>
@@ -1057,6 +1325,20 @@ template <int D>
 using PosDqOf = DqPos<D, 1, 64, D == 32 ? 3 : 2>;
 template <int D>
 using PosDkvOf = DkvPos<D, 1, 64, D == 32 ? 3 : 2>;
+template <int D, bool MASKED>
+using SlabFwdOf = Slab<FwdOf<D>, MASKED>;
+template <int D, bool MASKED>
+using SlabDqOf = Slab<DqOf<D>, MASKED>;
+template <int D, bool MASKED>
+using SlabDkvOf = Slab<DkvOf<D>, MASKED>;
+
+// A P at which every tile a pass of shape C visits is wholly visible to
+// each warpgroup that walks it: slab boundaries fall on the 64-row groups
+// and on the tiles.
+template <class C>
+bool unmasked(int P) {
+  return P % 64 == 0 && P % C::BN == 0;
+}
 
 // Dynamic shared memory of a launch over T rows: K6's adds the slab
 // ranges of its T / BN column tiles, of its rows and of each warpgroup's.
@@ -1074,18 +1356,18 @@ cudaError_t prepare_rows(Kernel kernel, int T) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<C>(T));
 }
 
-// The grid of a pass over T rows: dense (row blocks, H, B); K6 (B * H,
-// row blocks), which the kernels walk from the heaviest block.
+// The grid of a pass over T rows: dense (row blocks, H, B); K6 and K7 slab
+// (B * H, row blocks), which the kernels walk from the heaviest block.
 template <class C>
 dim3 grid_of(int B, int T, int H) {
-  if constexpr (C::MODE == kPositions) return dim3(B * H, grid_x(T, C::BM));
+  if constexpr (C::MODE != kDense) return dim3(B * H, grid_x(T, C::BM));
   return dim3(grid_x(T, C::BM), H, B);
 }
 
 template <class C>
 int attention_fwd(const void* q, const void* k, const void* v,
                   const void* sid, void* out, void* lse, int B, int T, int H,
-                  float scale, cudaStream_t st) {
+                  int P, float scale, cudaStream_t st) {
   constexpr int D = C::D;
   CUtensorMap tq, tk, tv;
   const int E = H * D;
@@ -1102,6 +1384,14 @@ int attention_fwd(const void* q, const void* k, const void* v,
     kernel<<<grid, C::THREADS, smem, st>>>(
         tq, tk, tv, static_cast<const int*>(sid), static_cast<bf16*>(out),
         static_cast<float*>(lse), T, H, scale);
+  } else if constexpr (C::MODE == kSlab) {
+    auto kernel = flash_attn_fwd_slab_wgmma<C>;
+    cudaError_t err = prepare_rows<C>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<grid, C::THREADS, smem, st>>>(tq, tk, tv,
+                                           static_cast<bf16*>(out),
+                                           static_cast<float*>(lse), T, H, P,
+                                           scale);
   } else {
     auto kernel = flash_attn_fwd_dense_wgmma<C>;
     cudaError_t err = prepare_rows<C>(kernel, T);
@@ -1114,37 +1404,46 @@ int attention_fwd(const void* q, const void* k, const void* v,
   return int(cudaGetLastError());
 }
 
-template <class P, class R>
+template <class Q, class R>
 int attention_bwd(const void* q, const void* k, const void* v,
                   const void* sid, const void* out, const void* dout,
                   const void* lse, void* delta, void* dq, void* dk, void* dv,
-                  int B, int T, int H, float scale, cudaStream_t st) {
-  constexpr int D = P::D;
+                  int B, int T, int H, int P, float scale, cudaStream_t st) {
+  constexpr int D = Q::D;
   CUtensorMap tq, tk, tv, tdo;
   const int E = H * D;
   const int* ids = static_cast<const int*>(sid);
-  if (!tile_map(&tq, q, B, T, E, D, P::BM) ||
-      !tile_map(&tdo, dout, B, T, E, D, P::BM) ||
-      !tile_map(&tk, k, B, T, E, D, P::BN) ||
-      !tile_map(&tv, v, B, T, E, D, P::BN))
+  const bf16* o = static_cast<const bf16*>(out);
+  const bf16* d = static_cast<const bf16*>(dout);
+  const float* l = static_cast<const float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  if (!tile_map(&tq, q, B, T, E, D, Q::BM) ||
+      !tile_map(&tdo, dout, B, T, E, D, Q::BM) ||
+      !tile_map(&tk, k, B, T, E, D, Q::BN) ||
+      !tile_map(&tv, v, B, T, E, D, Q::BN))
     return int(cudaErrorInvalidValue);
+  const dim3 gq = grid_of<Q>(B, T, H);
   cudaError_t err;
-  if constexpr (P::MODE == kPositions) {
-    auto kernel = flash_attn_bwd_dq_positions_wgmma<P>;
-    err = prepare_rows<P>(kernel, T);
+  if constexpr (Q::MODE == kPositions) {
+    auto kernel = flash_attn_bwd_dq_positions_wgmma<Q>;
+    err = prepare_rows<Q>(kernel, T);
     if (err != cudaSuccess) return int(err);
-    kernel<<<grid_of<P>(B, T, H), P::THREADS, smem_bytes<P>(T), st>>>(
-        tq, tk, tv, tdo, ids, static_cast<const bf16*>(out),
-        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<float*>(delta), static_cast<bf16*>(dq), T, H, scale);
+    kernel<<<gq, Q::THREADS, smem_bytes<Q>(T), st>>>(
+        tq, tk, tv, tdo, ids, o, d, l, dl, static_cast<bf16*>(dq), T, H,
+        scale);
+  } else if constexpr (Q::MODE == kSlab) {
+    auto kernel = flash_attn_bwd_dq_slab_wgmma<Q>;
+    err = prepare_rows<Q>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<gq, Q::THREADS, smem_bytes<Q>(T), st>>>(
+        tq, tk, tv, tdo, o, d, l, dl, static_cast<bf16*>(dq), T, H, P,
+        scale);
   } else {
-    auto kernel = flash_attn_bwd_dq_dense_wgmma<P>;
-    err = prepare_rows<P>(kernel, T);
+    auto kernel = flash_attn_bwd_dq_dense_wgmma<Q>;
+    err = prepare_rows<Q>(kernel, T);
     if (err != cudaSuccess) return int(err);
-    kernel<<<grid_of<P>(B, T, H), P::THREADS, smem_bytes<P>(T), st>>>(
-        tq, tk, tv, tdo, static_cast<const bf16*>(out),
-        static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-        static_cast<float*>(delta), static_cast<bf16*>(dq), T, H, scale);
+    kernel<<<gq, Q::THREADS, smem_bytes<Q>(T), st>>>(
+        tq, tk, tv, tdo, o, d, l, dl, static_cast<bf16*>(dq), T, H, scale);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
@@ -1154,29 +1453,79 @@ int attention_bwd(const void* q, const void* k, const void* v,
       !tile_map(&tk, k, B, T, E, D, R::BM) ||
       !tile_map(&tv, v, B, T, E, D, R::BM))
     return int(cudaErrorInvalidValue);
+  const dim3 gr = grid_of<R>(B, T, H);
+  bf16* gk = static_cast<bf16*>(dk);
+  bf16* gv = static_cast<bf16*>(dv);
   if constexpr (R::MODE == kPositions) {
     auto kernel = flash_attn_bwd_dkv_positions_wgmma<R>;
     err = prepare_rows<R>(kernel, T);
     if (err != cudaSuccess) return int(err);
-    kernel<<<grid_of<R>(B, T, H), R::THREADS, smem_bytes<R>(T), st>>>(
-        tq, tk, tv, tdo, ids, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), T, H, scale);
+    kernel<<<gr, R::THREADS, smem_bytes<R>(T), st>>>(
+        tq, tk, tv, tdo, ids, l, dl, gk, gv, T, H, scale);
+  } else if constexpr (R::MODE == kSlab) {
+    auto kernel = flash_attn_bwd_dkv_slab_wgmma<R>;
+    err = prepare_rows<R>(kernel, T);
+    if (err != cudaSuccess) return int(err);
+    kernel<<<gr, R::THREADS, smem_bytes<R>(T), st>>>(tq, tk, tv, tdo, l, dl,
+                                                     gk, gv, T, H, P, scale);
   } else {
     auto kernel = flash_attn_bwd_dkv_dense_wgmma<R>;
     err = prepare_rows<R>(kernel, T);
     if (err != cudaSuccess) return int(err);
-    kernel<<<grid_of<R>(B, T, H), R::THREADS, smem_bytes<R>(T), st>>>(
-        tq, tk, tv, tdo, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), T, H, scale);
+    kernel<<<gr, R::THREADS, smem_bytes<R>(T), st>>>(tq, tk, tv, tdo, l, dl,
+                                                     gk, gv, T, H, scale);
   }
   return int(cudaGetLastError());
 }
 
+// The forward of mode ``mode`` at head_dim D.
+template <int D>
+int forward(int mode, const void* q, const void* k, const void* v,
+            const void* sid, void* out, void* lse, int B, int T, int H,
+            int P, float scale, cudaStream_t st) {
+  if (mode == kDense)
+    return attention_fwd<FwdOf<D>>(q, k, v, nullptr, out, lse, B, T, H, 0,
+                                   scale, st);
+  if (mode == kPositions)
+    return attention_fwd<PosFwdOf<D>>(q, k, v, sid, out, lse, B, T, H, 0,
+                                      scale, st);
+  if (unmasked<SlabFwdOf<D, false>>(P))
+    return attention_fwd<SlabFwdOf<D, false>>(q, k, v, nullptr, out, lse, B,
+                                              T, H, P, scale, st);
+  return attention_fwd<SlabFwdOf<D, true>>(q, k, v, nullptr, out, lse, B, T,
+                                           H, P, scale, st);
+}
+
+// The dq pass, then the dk/dv pass, of mode ``mode`` at head_dim D.
+template <int D>
+int backward(int mode, const void* q, const void* k, const void* v,
+             const void* sid, const void* out, const void* dout,
+             const void* lse, void* delta, void* dq, void* dk, void* dv,
+             int B, int T, int H, int P, float scale, cudaStream_t st) {
+  if (mode == kDense)
+    return attention_bwd<DqOf<D>, DkvOf<D>>(q, k, v, nullptr, out, dout, lse,
+                                            delta, dq, dk, dv, B, T, H, 0,
+                                            scale, st);
+  if (mode == kPositions)
+    return attention_bwd<PosDqOf<D>, PosDkvOf<D>>(q, k, v, sid, out, dout,
+                                                  lse, delta, dq, dk, dv, B,
+                                                  T, H, 0, scale, st);
+  // the dq and the dk/dv pass walk 64-row tiles: one test for both
+  static_assert(SlabDqOf<D, false>::BN == SlabDkvOf<D, false>::BN,
+                "one mask instance for both passes");
+  if (unmasked<SlabDqOf<D, false>>(P))
+    return attention_bwd<SlabDqOf<D, false>, SlabDkvOf<D, false>>(
+        q, k, v, nullptr, out, dout, lse, delta, dq, dk, dv, B, T, H, P,
+        scale, st);
+  return attention_bwd<SlabDqOf<D, true>, SlabDkvOf<D, true>>(
+      q, k, v, nullptr, out, dout, lse, delta, dq, dk, dv, B, T, H, P, scale,
+      st);
+}
+
 // Registers and CTAs an SM of one pass (0 forward, 1 dq, 2 dk/dv) of a
-// mode's instances at head_dim D; K6's at the MAE encoder's N = 1536.
-template <int D, bool POS>
+// mode's instances at head_dim D (kSlab: MASKED's or the unmasked one);
+// K6's at the MAE encoder's N = 1536.
+template <int D, int MODE, bool MASKED>
 int pass_occupancy(int pass, int* regs, int* ctas) {
   constexpr int T = 1536;
   auto read = [&](auto kernel, auto shape) {
@@ -1186,7 +1535,7 @@ int pass_occupancy(int pass, int* regs, int* ctas) {
     return kernel_occupancy(kernel, C::THREADS, smem_bytes<C>(T), regs,
                             ctas);
   };
-  if constexpr (POS) {
+  if constexpr (MODE == kPositions) {
     if (pass == 0)
       return read(flash_attn_fwd_positions_wgmma<PosFwdOf<D>>,
                   PosFwdOf<D>());
@@ -1196,6 +1545,13 @@ int pass_occupancy(int pass, int* regs, int* ctas) {
     if (pass == 2)
       return read(flash_attn_bwd_dkv_positions_wgmma<PosDkvOf<D>>,
                   PosDkvOf<D>());
+  } else if constexpr (MODE == kSlab) {
+    using F = SlabFwdOf<D, MASKED>;
+    using Q = SlabDqOf<D, MASKED>;
+    using R = SlabDkvOf<D, MASKED>;
+    if (pass == 0) return read(flash_attn_fwd_slab_wgmma<F>, F());
+    if (pass == 1) return read(flash_attn_bwd_dq_slab_wgmma<Q>, Q());
+    if (pass == 2) return read(flash_attn_bwd_dkv_slab_wgmma<R>, R());
   } else {
     if (pass == 0)
       return read(flash_attn_fwd_dense_wgmma<FwdOf<D>>, FwdOf<D>());
@@ -1207,83 +1563,70 @@ int pass_occupancy(int pass, int* regs, int* ctas) {
   return int(cudaErrorInvalidValue);
 }
 
+template <int D>
+int occupancy_of(int mode, int pass, int* regs, int* ctas) {
+  const bool masked = pass >= 3;
+  pass %= 3;
+  if (mode == kDense && !masked)
+    return pass_occupancy<D, kDense, false>(pass, regs, ctas);
+  if (mode == kPositions && !masked)
+    return pass_occupancy<D, kPositions, false>(pass, regs, ctas);
+  if (mode == kSlab)
+    return masked ? pass_occupancy<D, kSlab, true>(pass, regs, ctas)
+                  : pass_occupancy<D, kSlab, false>(pass, regs, ctas);
+  return int(cudaErrorInvalidValue);
+}
+
+bool shape_ok(int T, int mode, int P, const void* sid) {
+  return T % 128 == 0 && (mode == kDense || mode == kPositions ||
+                          mode == kSlab) &&
+         (mode != kSlab || P > 0) && (mode != kPositions || sid != nullptr);
+}
+
 }  // namespace
 
-namespace fk {
-
-int flash_dense_fwd(const void* q, const void* k, const void* v, void* out,
-                    void* lse, int B, int T, int H, int D, float scale,
-                    cudaStream_t st) {
-  if (T % 128 != 0) return int(cudaErrorInvalidValue);
+// Shapes are checked by the Python wrapper (ops/cuda/flash_attention.py):
+// T % 128 == 0, D in {32, 64}, contiguous bf16 [B, T, E] q/k/v, P > 0 for
+// kSlab, a contiguous int32 [B, T] sid for kPositions.
+extern "C" int fk_flash_attention_fwd(const void* q, const void* k,
+                                      const void* v, const void* sid,
+                                      void* out, void* lse, int B, int T,
+                                      int H, int D, int mode, int P,
+                                      float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(T, mode, P, sid)) return int(cudaErrorInvalidValue);
   if (D == 32)
-    return attention_fwd<FwdOf<32>>(q, k, v, nullptr, out, lse, B, T, H,
-                                    scale, st);
+    return forward<32>(mode, q, k, v, sid, out, lse, B, T, H, P, scale, st);
   if (D == 64)
-    return attention_fwd<FwdOf<64>>(q, k, v, nullptr, out, lse, B, T, H,
-                                    scale, st);
+    return forward<64>(mode, q, k, v, sid, out, lse, B, T, H, P, scale, st);
   return int(cudaErrorInvalidValue);
 }
 
-int flash_dense_bwd(const void* q, const void* k, const void* v,
-                    const void* out, const void* dout, const void* lse,
-                    void* delta, void* dq, void* dk, void* dv, int B, int T,
-                    int H, int D, float scale, cudaStream_t st) {
-  if (T % 128 != 0) return int(cudaErrorInvalidValue);
+// As the forward's, plus f32 [B, H, T] lse and delta. Launches the dq
+// pass, then the dk/dv pass, on ``stream``.
+extern "C" int fk_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* sid,
+    const void* out, const void* dout, const void* lse, void* delta,
+    void* dq, void* dk, void* dv, int B, int T, int H, int D, int mode,
+    int P, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!shape_ok(T, mode, P, sid)) return int(cudaErrorInvalidValue);
   if (D == 32)
-    return attention_bwd<DqOf<32>, DkvOf<32>>(q, k, v, nullptr, out, dout,
-                                              lse, delta, dq, dk, dv, B, T,
-                                              H, scale, st);
+    return backward<32>(mode, q, k, v, sid, out, dout, lse, delta, dq, dk,
+                        dv, B, T, H, P, scale, st);
   if (D == 64)
-    return attention_bwd<DqOf<64>, DkvOf<64>>(q, k, v, nullptr, out, dout,
-                                              lse, delta, dq, dk, dv, B, T,
-                                              H, scale, st);
+    return backward<64>(mode, q, k, v, sid, out, dout, lse, delta, dq, dk,
+                        dv, B, T, H, P, scale, st);
   return int(cudaErrorInvalidValue);
 }
-
-int flash_positions_fwd(const void* q, const void* k, const void* v,
-                        const void* sid, void* out, void* lse, int B, int T,
-                        int H, int D, float scale, cudaStream_t st) {
-  if (T % 128 != 0 || sid == nullptr) return int(cudaErrorInvalidValue);
-  if (D == 32)
-    return attention_fwd<PosFwdOf<32>>(q, k, v, sid, out, lse, B, T, H,
-                                       scale, st);
-  if (D == 64)
-    return attention_fwd<PosFwdOf<64>>(q, k, v, sid, out, lse, B, T, H,
-                                       scale, st);
-  return int(cudaErrorInvalidValue);
-}
-
-int flash_positions_bwd(const void* q, const void* k, const void* v,
-                        const void* sid, const void* out, const void* dout,
-                        const void* lse, void* delta, void* dq, void* dk,
-                        void* dv, int B, int T, int H, int D, float scale,
-                        cudaStream_t st) {
-  if (T % 128 != 0 || sid == nullptr) return int(cudaErrorInvalidValue);
-  if (D == 32)
-    return attention_bwd<PosDqOf<32>, PosDkvOf<32>>(
-        q, k, v, sid, out, dout, lse, delta, dq, dk, dv, B, T, H, scale, st);
-  if (D == 64)
-    return attention_bwd<PosDqOf<64>, PosDkvOf<64>>(
-        q, k, v, sid, out, dout, lse, delta, dq, dk, dv, B, T, H, scale, st);
-  return int(cudaErrorInvalidValue);
-}
-
-}  // namespace fk
 
 // Registers a thread and resident CTAs an SM of one pass (0 forward, 1 dq,
-// 2 dk/dv) of a mode's kernel at head_dim D, from the CUDA runtime.
+// 2 dk/dv; 3-5 the same passes of mode slab's MASKED instance) of a mode's
+// kernel at head_dim D, from the CUDA runtime.
 extern "C" int fk_flash_attention_occupancy(int mode, int pass, int D,
                                             int* regs, int* ctas) {
-  if (mode == fk::kDense || mode == fk::kPositions) {
-    const bool pos = mode == fk::kPositions;
-    if (D == 32)
-      return pos ? pass_occupancy<32, true>(pass, regs, ctas)
-                 : pass_occupancy<32, false>(pass, regs, ctas);
-    if (D == 64)
-      return pos ? pass_occupancy<64, true>(pass, regs, ctas)
-                 : pass_occupancy<64, false>(pass, regs, ctas);
-    return int(cudaErrorInvalidValue);
-  }
-  if (pass == 0) return fk::flash_masked_fwd_occupancy(mode, D, regs, ctas);
-  return fk::flash_masked_bwd_occupancy(mode, pass, D, regs, ctas);
+  if (pass < 0 || pass > 5) return int(cudaErrorInvalidValue);
+  if (D == 32) return occupancy_of<32>(mode, pass, regs, ctas);
+  if (D == 64) return occupancy_of<64>(mode, pass, regs, ctas);
+  return int(cudaErrorInvalidValue);
 }

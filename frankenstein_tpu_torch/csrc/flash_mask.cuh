@@ -1,7 +1,7 @@
 // The mask modes of K6 and K7, shared by the forward and both backward
-// passes so that all three see the same visible (query, key) pairs (K7
-// slab: flash_attention.cu, flash_attention_bwd.cu; K7 dense and K6:
-// flash_attention_dense.cu; K1's slab_of<kSlab>):
+// passes so that all three see the same visible (query, key) pairs
+// (flash_attention_dense.cu: each mode a compile-time mode of its passes;
+// K1's and K4's slab_of<kSlab>):
 //   kDense      K7 unmasked: every key is visible to every query;
 //   kSlab       K7 slab-causal: key j is visible to query i iff
 //               j / P <= i / P (P = tokens per time slab);

@@ -1,7 +1,5 @@
 // Device helpers the kernel sources include (directly or through
-// hopper_blocks.cuh): the bf16 mma.sync tile product of K6 / K7 slab and
-// positions (flash_attention.cu, flash_attention_bwd.cu) and K8
-// (lm_head_topk.cu), bf16 packing, the RoPE rotation the pre-passes of K1
+// hopper_blocks.cuh): bf16 packing, the RoPE rotation the pre-passes of K1
 // (slab_rope_attention_fwd.cu), K4 (slab_rope_attention_bwd.cu) and K10
 // (slab_rope_attention_int8.cu) apply to q/k, and K10's int8 code rule.
 // The rotation must be the same code in all of them: K4 recomputes K1's
@@ -16,38 +14,9 @@ namespace fk {
 
 typedef __nv_bfloat16 bf16;
 
-// d = a (16x16 bf16, row) * b (16x8 bf16, col) + d, f32 accumulators.
-// Fragments (g = lane / 4, t = lane % 4):
-//   a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]}
-//   b = {B[2t..][g], B[2t+8..][g]}, c = {C[g][2t], C[g][2t+1],
-//   C[g+8][2t], C[g+8][2t+1]}
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A-fragment of key step kk from the f32 C-fragments of the score tiles
-// 2kk and 2kk+1, rounded to bf16 (the flash-attention-2 register re-pack).
-__device__ __forceinline__ void repack_a(uint32_t (&a)[4], const float (&s0)[4],
-                                         const float (&s1)[4]) {
-  a[0] = pack_bf16(s0[0], s0[1]);
-  a[1] = pack_bf16(s0[2], s0[3]);
-  a[2] = pack_bf16(s1[0], s1[1]);
-  a[3] = pack_bf16(s1[2], s1[3]);
 }
 
 // Load 8 bf16 lanes, rotate the 4 adjacent pairs in f32 with the position's

@@ -100,10 +100,12 @@ def _declare(lib) -> None:
             [i] * 2 + [ctypes.POINTER(i)] * 2)   # variant P, regs ctas
         getattr(lib, name).restype = i
     lib.fk_lm_head_topk.argtypes = (
-        [p] * 12                    # x ln_w ln_b wte h cand_val cand_idx
-                                    # tile_m tile_se vals idx logz
-        + [i] * 4 + [f, p])         # B E V k, eps, stream
+        [p] * 11                    # x ln_w ln_b wte h cand part bar vals
+                                    # idx logz
+        + [i] * 5 + [f, p])         # B E V k G, eps, stream
     lib.fk_lm_head_topk.restype = i
+    lib.fk_lm_head_topk_info.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+    lib.fk_lm_head_topk_info.restype = i   # B k G, out[6]
     lib.fk_slab_rope_attention_bwd.argtypes = (
         [p] * 14                    # q k v cos sin out dout lse qr kr delta
                                     # dq dk dv

@@ -12,15 +12,14 @@ modes, forward and backward.
   replaces ``gathered_slab_attention``: the MAE encoder's attention over the
   tokens it keeps.
 
-CUDA C++: modes ``"dense"`` and ``"positions"`` in
-``csrc/flash_attention_dense.cu``, one family of kernels with the mask mode
-a compile-time parameter (TMA rings, wgmma and warp-specialised
-warpgroups: a forward, a dq pass and a dk/dv pass; K6 walks a staircase
-taken from the slab ids, exact in any order), mode ``"slab"`` in
-``csrc/flash_attention.cu`` (forward) and ``csrc/flash_attention_bwd.cu``
-(a dq pass, then a dk/dv pass; mma.sync), whose C entry points dispatch all
-three modes. Each source note says what bounds the kernel on an H100 and
-how the design answers that.
+CUDA C++: all three modes in ``csrc/flash_attention_dense.cu``, one family
+of kernels with the mask mode a compile-time parameter (TMA rings, wgmma
+and warp-specialised warpgroups: a forward, a dq pass and a dk/dv pass; K6
+walks a staircase taken from the slab ids, exact in any order; K7 slab the
+arithmetic staircase of its slabs, with an element compare only where P is
+not a multiple of the 64-row tiles), whose C entry points dispatch them.
+The source note says what bounds the kernels on an H100 and how the design
+answers that.
 ``FlashAttention`` is the autograd Function around them, saving q, k, v,
 out, lse and the slab ids as the JAX package's custom VJPs do.
 
@@ -54,6 +53,8 @@ DENSE_KERNELS = ("flash_attn_fwd_dense_wgmma", "flash_attn_bwd_dq_dense_wgmma",
 POSITIONS_KERNELS = ("flash_attn_fwd_positions_wgmma",
                      "flash_attn_bwd_dq_positions_wgmma",
                      "flash_attn_bwd_dkv_positions_wgmma")
+SLAB_KERNELS = ("flash_attn_fwd_slab_wgmma", "flash_attn_bwd_dq_slab_wgmma",
+                "flash_attn_bwd_dkv_slab_wgmma")
 PASSES = {"fwd": 0, "dq": 1, "dkv": 2}   # fk_flash_attention_occupancy
 
 
@@ -250,14 +251,26 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, n_heads: int, mode: str,
     return dq, dk, dv
 
 
-def occupancy(mode: str, pass_: str, head_dim: int = 32) -> tuple:
+def slab_masked(tok_per_time: int, pass_: str, head_dim: int = 32) -> bool:
+    """Whether mode "slab" runs a pass's MASKED instance (the element
+    compare) at P = ``tok_per_time``: unless P is a multiple of 64 and of
+    the pass's tile (the forward's 128 keys at head_dim 64, else 64)."""
+    tile = 128 if pass_ == "fwd" and head_dim == 64 else 64
+    return tok_per_time % 64 != 0 or tok_per_time % tile != 0
+
+
+def occupancy(mode: str, pass_: str, head_dim: int = 32,
+              masked: bool = False) -> tuple:
     """(registers a thread, resident CTAs an SM) of one pass ("fwd", "dq"
-    or "dkv") of a mode's kernel at ``head_dim``, on the current card, from
-    the CUDA runtime."""
+    or "dkv") of a mode's kernel at ``head_dim`` (mode "slab": its
+    ``masked`` instance or the unmasked one), on the current card, from the
+    CUDA runtime."""
+    if masked and mode != "slab":
+        raise ValueError(f"mode {mode!r} has no masked instance")
     regs, ctas = ctypes.c_int(), ctypes.c_int()
     rc = build.library().fk_flash_attention_occupancy(
-        MODES[mode], PASSES[pass_], head_dim, ctypes.byref(regs),
-        ctypes.byref(ctas))
+        MODES[mode], PASSES[pass_] + (3 if masked else 0), head_dim,
+        ctypes.byref(regs), ctypes.byref(ctas))
     build.check(rc, f"flash_attention_occupancy[{mode}, {pass_}]")
     return regs.value, ctas.value
 

@@ -33,11 +33,11 @@ held the mma.sync probe kernels (the file's name is in the symbols)::
         --map '_ZN\\d+22_slab_rope_attention_cu_=_ZN6027_slab_rope_attention_int8_cu_' \\
         --removed 'slab_rope_attn_fwdILi32ELb'
 
-or for K6 / K7 slab, whose dense instances moved to
-``csrc/flash_attention_dense.cu``::
+or for K7 dense and K6 after a change to their shared source (K7 slab's
+instances, a mode of the same passes, count among NEW's own)::
 
     python -m frankenstein_tpu_torch.tools.sass_diff OLD.cu \\
-        frankenstein_tpu_torch/csrc/flash_attention.cu --removed 'ELi0EE'
+        frankenstein_tpu_torch/csrc/flash_attention_dense.cu
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """Kernels K1, K2 (bf16 and int8 KV caches, its launch knobs, a cache too
 long for shared-memory scores), K3, K4, K5 (bf16 and int8 KV caches, one
 to four query heads per KV head, the 1B-class width), K6 / K7 (the three mask
-modes of flash attention, forward and backward), K8 (the fused head and
-top-k, ragged vocab, ties), K9 (the fused pre-norm SwiGLU MLP, both norms)
+modes of flash attention, forward and backward: K7 slab's unmasked and
+masked instances at P = 256, 96, 64, 8 and 1), K8 (the fused head and
+top-k: B from 1 to 300, k = 1, 10 and 32, a ragged vocab with its top-k in
+the tail, a table of width 1024 and 1600, ties, its launch and kept
+scratch), K9 (the fused pre-norm SwiGLU MLP, both norms)
 and K10 (int8 QK scores: K and Q codes, scales, out and lse), and the probe
 modes of K1's and K10's forwards (ops/cuda/slab_probe.py), on the card against
 their plain PyTorch twins, at
@@ -928,6 +931,60 @@ def test_k6_occupancy_reads_every_pass(dev):
     assert k67.occupancy("positions", "fwd", 32)[1] == 2
 
 
+# K7 slab's wgmma passes (csrc/flash_attention_dense.cu, mode slab): the
+# unmasked instance where P % 64 == 0 (and P % 128 == 0 for the forward's
+# 128-key tiles at D=64), the MASKED one at any other P, a P below one
+# tile and P=1 (every warpgroup's diagonal tile partly visible).
+SLAB_CASES = [(2, 768, 2, 32, 256), (1, 768, 2, 64, 256),
+              (2, 768, 2, 32, 96), (1, 768, 2, 64, 96),
+              (1, 512, 2, 32, 8), (1, 512, 2, 64, 8),
+              (1, 384, 2, 32, 1), (1, 640, 3, 32, 64),
+              (1, 1024, 2, 64, 64)]
+
+
+@pytest.mark.parametrize("b,t,h,d,p", SLAB_CASES)
+def test_k7_slab_matches_twin_and_is_deterministic(dev, b, t, h, d, p):
+    """Forward (out, lse) and backward (dq, dk, dv) against the twins in f32
+    on the same bf16 inputs, finite, two backward launches bitwise equal,
+    the probability rows the backward recomputes summing to 1."""
+    (q, k, v, dout), kw = _flash_case(dev, "slab", b, t, h, d, p,
+                                      seed=7 * t + p + d)
+    out, lse = k67.flash_attention(q, k, v, **kw)
+    got = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    again = k67.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    rows = torch.arange(d, device=dev) * 13 % t
+    onehot = torch.zeros_like(dout)
+    for head in range(h):
+        onehot[:, rows, head * d + torch.arange(d, device=dev)] = 1.0
+    _, _, dv1 = k67.flash_attention_bwd(q, k, v, out, lse, onehot, **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(x).all()) for x in (out, lse, *got))
+    ref, ref_lse = k67.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           **kw)
+    assert _err(out, ref) <= FLASH_TOL * float(ref.abs().max())
+    assert _err(lse, ref_lse) <= FLASH_TOL * float(ref_lse.abs().max())
+    want = k67.flash_attention_bwd_ref(
+        *(x.float() for x in (q, k, v, out)), lse, dout.float(), **kw)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert torch.equal(g, a), name
+        assert _err(g, w) <= FLASH_TOL * float(w.abs().max()), name
+    sums = dv1.float().reshape(b, t, h, d).sum(dim=1)
+    assert float((sums - 1.0).abs().max()) < 1e-2
+
+
+def test_k7_slab_occupancy_reads_every_pass(dev):
+    """Registers and resident CTAs of both instances of K7 slab's three
+    passes at both head dims: K7 dense's shapes, whose forward at D=32
+    keeps two CTAs an SM."""
+    for pass_ in k67.PASSES:
+        for d in (32, 64):
+            for masked in (False, True):
+                regs, ctas = k67.occupancy("slab", pass_, d, masked)
+                assert 0 < regs <= 255 and ctas >= 1, (pass_, d, masked)
+    assert k67.occupancy("slab", "fwd", 32)[1] == 2
+    assert k67.occupancy("slab", "fwd", 32, True)[1] == 2
+
+
 def test_k6_k7_refuse_what_they_do_not_take(dev):
     x = torch.zeros(1, 200, 64, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="T % 128"):
@@ -1210,7 +1267,7 @@ def _k8_agrees(got, want, logits, k: int) -> None:
 
 
 @pytest.mark.parametrize("v", [50304, 50257])
-@pytest.mark.parametrize("k", [1, 10])
+@pytest.mark.parametrize("k", [1, 10, 32])
 @pytest.mark.parametrize("b", [1, 8, 128, 160])
 def test_k8_matches_twin_and_is_deterministic(dev, b, k, v):
     """GPT-2 width (E=768) with the full vocab and a ragged last slab
@@ -1226,6 +1283,90 @@ def test_k8_matches_twin_and_is_deterministic(dev, b, k, v):
     want = k8.lm_head_topk_ref(*args, k=k)
     _k8_agrees(got, want, k8.head_logits_ref(*args), k)
     assert int(got[1].max()) < v
+
+
+@pytest.mark.parametrize("b,e,v,k", [(8, 1024, 50257, 10),
+                                     (300, 768, 1000, 10),
+                                     (3, 1600, 20000, 32),
+                                     (40, 768, 333, 5)])
+def test_k8_other_shapes_match_twin(dev, b, e, v, k):
+    """A width past GPT-2's 768 (streamed E), a batch past the widest
+    instance (two chunks of 256), a grid of under one CTA an SM (V=1000:
+    8 vocab blocks) and a ragged tail three rows into its block."""
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    gen = torch.Generator(device=dev).manual_seed(b + e + v)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    args = (rnd(b, e).to(torch.bfloat16), 1.0 + 0.1 * rnd(e), 0.1 * rnd(e),
+            (0.05 * rnd(v, e)).to(torch.bfloat16))
+    got = k8.lm_head_topk(*args, k=k)
+    again = k8.lm_head_topk(*args, k=k)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    _k8_agrees(got, k8.lm_head_topk_ref(*args, k=k),
+               k8.head_logits_ref(*args), k)
+
+
+def test_k8_top_k_in_the_vocab_tail(dev):
+    """V=50257: the last block holds 81 rows. Batch row 7's top-10 are rows
+    50245-50254 of the tail; every logit of batch row 1 is negative, so the
+    table's rows past V, zeros on the card, would outrank them all were they
+    not masked out of the top-k and of logz."""
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    x, ln_w, ln_b, wte = _k8_case(dev, 8, 50257, seed=5)
+    ln_w.fill_(1.0)
+    ln_b.fill_(0.0)
+    xf = x[7].float()
+    a = (xf - xf.mean()) / xf.std(unbiased=False)    # row 7's h
+    gen = torch.Generator(device=dev).manual_seed(6)
+    r = torch.randn(K8_E, generator=gen, device=dev)
+    r = r - r.mean()
+    r = r - (r @ a) / (a @ a) * a
+    bvec = r / r.std(unbiased=False)                  # row 1's h, _|_ a
+    x[1] = bvec.to(torch.bfloat16)
+    noise = torch.randn(50257, K8_E, generator=gen, device=dev)
+    wte.copy_((-0.01 * bvec + 0.001 * noise).to(torch.bfloat16))
+    scale = torch.linspace(0.5, 0.25, 12, device=dev)[:, None]
+    wte[50245:] = (scale * (a - 0.02 * bvec)).to(torch.bfloat16)
+    got = k8.lm_head_topk(x, ln_w, ln_b, wte, k=10)
+    want = k8.lm_head_topk_ref(x, ln_w, ln_b, wte, k=10)
+    logits = k8.head_logits_ref(x, ln_w, ln_b, wte)
+    assert float(logits[1].max()) < 0
+    _k8_agrees(got, want, logits, 10)
+    assert got[1][7].tolist() == list(range(50245, 50255))
+    assert got[1][1].tolist() == list(range(50256, 50246, -1))
+    assert int(got[1].max()) < 50257
+
+
+def test_k8_launch_and_scratch_are_kept(dev):
+    """The launch the wrapper plans is the kernel's (batch width, stages,
+    shared memory), one CTA an SM, no spills; a repeated call reuses the
+    scratch and the f32 copies of bf16 norm parameters, and a parameter
+    changed in place is copied anew."""
+    from frankenstein_tpu_torch.ops.cuda import lm_head_topk as k8
+    grid = k8.grid_size(dev, 50304)
+    for b in k8.WIDTHS + (300,):
+        for k in (1, 10, 32):
+            info = k8.info(b, k, grid)
+            plan = k8._plan(b, k, grid)
+            assert (info["width"], info["stages"], info["smem"]) == plan
+            assert info["ctas"] >= 1 and info["local_bytes"] == 0, info
+    x, ln_w, ln_b, wte = _k8_case(dev, 8, 50304, seed=2)
+    ln_w, ln_b = ln_w.to(torch.bfloat16), ln_b.to(torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    first = k8.lm_head_topk(x, ln_w, ln_b, wte, k=10)
+    scratch = k8._scratch(dev, 8, K8_E, 10, grid, stream)
+    w32 = k8._as_f32(ln_w, K8_E, dev)
+    second = k8.lm_head_topk(x, ln_w, ln_b, wte, k=10)
+    assert all(a is b for a, b in zip(
+        scratch, k8._scratch(dev, 8, K8_E, 10, grid, stream)))
+    assert k8._as_f32(ln_w, K8_E, dev) is w32
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+    ln_w.mul_(2.0)
+    assert k8._as_f32(ln_w, K8_E, dev) is not w32
+    third = k8.lm_head_topk(x, ln_w, ln_b, wte, k=10)
+    _k8_agrees(third, k8.lm_head_topk_ref(x, ln_w.float(), ln_b.float(), wte,
+                                          k=10),
+               k8.head_logits_ref(x, ln_w.float(), ln_b.float(), wte), 10)
 
 
 def test_k8_breaks_ties_to_the_lower_index(dev):
@@ -1251,6 +1392,7 @@ def test_k8_refuses_what_it_does_not_take(dev):
     assert not k8.supported(dev, bf16, f32, 128, 768, 50304, 10)
     assert not k8.supported(dev, bf16, bf16, 128, 768, 50304, 33)
     assert not k8.supported(dev, bf16, bf16, 128, 772, 50304, 10)
+    assert k8.supported(dev, bf16, bf16, 128, 1024, 50304, 10)
     x, ln_w, ln_b, wte = _k8_case(dev, 4, 1000, seed=1)
     with pytest.raises(ValueError, match="K8 takes"):
         k8.lm_head_topk(x.float(), ln_w, ln_b, wte, k=10)

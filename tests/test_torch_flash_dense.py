@@ -65,7 +65,8 @@ def test_dense_kernel_names_are_the_sources_kernels():
         r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(",
         SOURCE.read_text())
     assert sorted(kernels) == sorted(k67.DENSE_KERNELS
-                                     + k67.POSITIONS_KERNELS)
+                                     + k67.POSITIONS_KERNELS
+                                     + k67.SLAB_KERNELS)
 
 
 def _exp2_attention(q, k, v, tile: int = KEY_TILE):

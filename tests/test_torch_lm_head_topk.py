@@ -273,15 +273,16 @@ def test_franky_llama_keeps_the_dense_route(monkeypatch, topk_calls):
 
 
 def test_supported_gate():
-    """On the card: bf16 x and table, E % 8 == 0, E <= 768, 1 <= k <= 32,
-    any B and any V (a ragged tail is masked); the CPU twin takes
+    """On the card: bf16 x and table, E % 8 == 0 at any width (the table
+    is streamed: GPT-2's 768 to GPT-2 XL's 1600 and past), 1 <= k <= 32,
+    k <= V, any B and any V (a ragged tail is masked); the CPU twin takes
     anything."""
     bf16, f32 = torch.bfloat16, torch.float32
     cuda = torch.device("cuda")
     assert lm_head_topk.supported(cuda, bf16, bf16, 128, 768, 50304, 10)
     assert lm_head_topk.supported(cuda, bf16, bf16, 1, 768, 50257, 32)
-    assert not lm_head_topk.supported(cuda, bf16, bf16, 160, 1024, 50304, 1)
-    assert not lm_head_topk.supported(cuda, bf16, bf16, 8, 1600, 50257, 10)
+    assert lm_head_topk.supported(cuda, bf16, bf16, 160, 1024, 50304, 1)
+    assert lm_head_topk.supported(cuda, bf16, bf16, 300, 1600, 50257, 32)
     assert not lm_head_topk.supported(cuda, f32, f32, 128, 768, 50304, 10)
     assert not lm_head_topk.supported(cuda, bf16, f32, 128, 768, 50304, 10)
     assert not lm_head_topk.supported(cuda, bf16, bf16, 128, 768, 50304, 33)
@@ -292,9 +293,16 @@ def test_supported_gate():
 
 
 def test_plan_fits_shared_memory():
-    """GPT-2's width takes 393 slabs of 128 vocab rows (the last one
-    ragged at V=50257); a table wider than 768 is refused."""
-    assert lm_head_topk._plan(768, 50304, 10) == 393
-    assert lm_head_topk._plan(768, 50257, 32) == 393
-    assert lm_head_topk._plan(1024, 50257, 32) is None
-    assert lm_head_topk._plan(1600, 50304, 10) is None
+    """The instance a batch takes (B rounded up to a width, chunks of 128
+    beyond) fits a CTA's shared memory with a ring of at least two stages
+    at every k, as many as fit up to eight: four at the flagship's B=128,
+    three at k=32 on the widest grid."""
+    assert lm_head_topk._plan(1, 10)[:2] == (8, 8)
+    assert lm_head_topk._plan(128, 10)[:2] == (128, 4)
+    assert lm_head_topk._plan(160, 10)[:2] == (128, 4)
+    assert lm_head_topk._plan(128, 32, 256)[:2] == (128, 3)
+    assert lm_head_topk._plan(300, 10)[0] == 128
+    for b in lm_head_topk.WIDTHS:
+        for k in (1, 10, 32):
+            n, st, smem = lm_head_topk._plan(b, k, lm_head_topk.MAX_GRID)
+            assert n == b and st >= 2 and smem <= lm_head_topk.SMEM_MAX
