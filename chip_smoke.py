@@ -172,9 +172,30 @@ nvcc (sm_90a) and then, one line per phase:
     and P=256, ``int8_attr_probe`` at P=256), one line per variant with
     its median time, its twin error at B=2 and B=128, its bound and its
     issued TFLOP/s, ``kernel`` beside K1 less its rotation pre-pass and
-    ``int8_full`` beside K10, and each mode's registers and CTAs an SM.
+    ``int8_full`` beside K10, and each mode's registers and CTAs an SM;
+20. the remaining training paths, through the train CLI in-process:
+    FrankyLlama (``configs/franky_llama.yaml``, 20 steps at B=32 with an
+    eval and a checkpoint, ``--init-encoder-from`` phase 13's MAE run):
+    the encoder equal to the MAE checkpoint's bitwise before the first
+    step, finite falling losses, K1 = 4 and K9 = 6 launches a forward pass
+    and K4 = 4 a step, the checkpoint restored bitwise, ``submit
+    --run-dir`` over 8 synthetic windows, one step's gradients at B=1
+    against an f32 CPU twin, and the B=32 step's median and range and
+    peak memory; SimpleMAE (``--model simple_mae --window 768 --channels
+    256``, 20 steps at B=32): padded timesteps in the windows, finite
+    falling losses, the encoder's and decoder's residual dtypes and K9's
+    RMSNorm launches the gate gives them (the encoder's bf16 blocks; the
+    decoder's stream is f32), K1, K4, K6 and K7 idle and every attention
+    on the plain path (the padding masks), the checkpoint restored
+    bitwise, B=1 gradients against an f32 CPU twin with the same mask, and
+    the B=32 step with K9 on and off in turns; BrainFormer at the train
+    CLI's geometry (25 x 50257 outputs) forward and backward at B=8 with
+    float targets against its f32 CPU twin, K1, K4 and K9 launched, and
+    its B=32 train step's median and range and peak memory; one Franky
+    step at B=2 with 24 sessions and per-sample ``date_info``, where
+    exactly the used ``date_embedding`` rows get a gradient.
 
-Every on / off comparison (phases 4, 9, 13, 17 and 18) is timed by
+Every on / off comparison (phases 4, 9, 13, 17, 18 and 20) is timed by
 ``_in_turns``: one warm-up each, then single calls alternating in turns,
 as medians and ranges of TIMING_REPEATS.
 
@@ -1307,32 +1328,40 @@ def phase_k4(card: str) -> dict:
             **bound}
 
 
-def _grad_check(state, tcfg, ds) -> dict:
-    """One step's gradients on the card (bf16 compute) against the same
-    weights as f32 on the CPU (the kernels' twins), at B=1: relative error
-    of the global norm and of each encoder attention weight."""
+def _grad_errs(card: dict, cpu: dict, names) -> dict:
+    """Relative error of the global gradient norm and of each of
+    ``names``' gradients, card against CPU."""
     import torch
-    from frankenstein_tpu_torch.models.franky import Franky
+    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum()
+                                          for v in g.values())))
+    errs = {"global_norm": abs(norm(card) - norm(cpu)) / norm(cpu)}
+    for n in names:
+        errs[n] = float((card[n] - cpu[n]).norm() / cpu[n].norm())
+    return errs
+
+
+def _grad_check(state, tcfg, ds) -> dict:
+    """One step's gradients of a Franky or FrankyLlama on the card (bf16
+    compute) against the same weights as f32 on the CPU (the kernels'
+    twins), at B=1: relative error of the global norm and of each encoder
+    attention weight."""
+    import torch
     from frankenstein_tpu_torch.train import trainer
     x, y, _ = ds[0]
     batch = (torch.from_numpy(x[None]), torch.from_numpy(y[None]))
     state.optimizer.zero_grad(set_to_none=True)
     trainer.loss_and_grads(state, tuple(a.cuda() for a in batch),
                            tcfg.replace(grad_accum=1, p_augs=0.0))
-    ref = Franky(state.model.cfg)
+    ref = type(state.model)(state.model.cfg)     # Franky or FrankyLlama
     ref.load_state_dict({k: v.cpu() for k, v in
                          state.model.state_dict().items()})
     ref(*batch)[0].backward()
     card = {n: p.grad.cpu() for n, p in state.model.named_parameters()}
     cpu = {n: p.grad for n, p in ref.named_parameters()}
-    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum()
-                                          for v in g.values())))
-    errs = {"global_norm": abs(norm(card) - norm(cpu)) / norm(cpu)}
-    for n in cpu:
-        if n.startswith("brain_model.encoder.") and ".attn." in n:
-            errs[n] = float((card[n] - cpu[n]).norm() / cpu[n].norm())
     state.optimizer.zero_grad(set_to_none=True)
-    return errs
+    return _grad_errs(card, cpu, [
+        n for n in cpu
+        if n.startswith("brain_model.encoder.") and ".attn." in n])
 
 
 def _batches(ds, batch_size: int, n: int) -> list:
@@ -1474,8 +1503,6 @@ def phase_train(card: str) -> dict:
     from frankenstein_tpu_torch import submit
     from frankenstein_tpu_torch.models.franky import Franky
     from frankenstein_tpu_torch.train import __main__ as train_cli
-    from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
-    from frankenstein_tpu_torch.train import trainer
 
     repo = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
@@ -1491,18 +1518,10 @@ def phase_train(card: str) -> dict:
         run_s = time.perf_counter() - t0
         launches = _read_launches()
         run_dir = Path(tmp) / "smoke"
-        records = [json.loads(line) for line in
-                   (run_dir / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["train/loss"] for r in records if "train/loss" in r]
-        rate = [r["samples_per_sec"] for r in records
-                if "samples_per_sec" in r]
-        val = [r["val/loss"] for r in records if "val/loss" in r]
+        losses, val, rate = _run_record(run_dir)
         cfg = state.model.cfg
         n_layers = cfg.brain.encoder.n_layers
-        _check(state.step == TRAIN_STEPS, f"stopped at step {state.step}")
-        _check(len(losses) >= 2 and all(map(math.isfinite, losses + val)),
-               f"losses {losses}, val {val}")
-        _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        _check_run(state, losses, val, TRAIN_STEPS, "Franky")
         # one eval batch: 32 validation trials at batch 32
         _check(launches["K4"] == n_layers * TRAIN_STEPS
                and launches["K1"] == n_layers * (TRAIN_STEPS + 1)
@@ -1511,22 +1530,9 @@ def phase_train(card: str) -> dict:
                and launches["K8"] == launches["K10"] == 0,
                f"training launches {launches}")
 
-        best = ckpt_lib.best_checkpoint(run_dir)
-        fresh = Franky(cfg, device=torch.device("cuda"),
-                       dtype=torch.bfloat16)
+        best = _restores_bitwise(state, run_dir, Franky(
+            cfg, device=torch.device("cuda"), dtype=torch.bfloat16))
         tcfg = _train_config(run_dir)
-        restored = ckpt_lib.restore_checkpoint(best, trainer.TrainState(
-            fresh, trainer.make_optimizer(tcfg, fresh)[0]))
-        same = (restored.step == state.step and all(
-            torch.equal(a, b) for a, b in zip(
-                state.model.state_dict().values(),
-                fresh.state_dict().values())))
-        opt_a = state.optimizer.state_dict()["state"]
-        opt_b = restored.optimizer.state_dict()["state"]
-        same = same and all(torch.equal(opt_a[i][key], opt_b[i][key])
-                            for i in opt_a for key in opt_a[i])
-        _check(same, f"checkpoint {best.name} does not restore bitwise")
-        del fresh, restored
 
         sub = submit.main(["--run-dir", str(run_dir), "--data", "synthetic",
                            "--synthetic-trials", "8", "--out",
@@ -1547,7 +1553,7 @@ def phase_train(card: str) -> dict:
           f"{losses[0]:.4f} -> {losses[-1]:.4f} (logged {len(losses)}), val "
           f"{val[-1]:.4f}, samples/s in the log {rate[-1]:.1f}, launches "
           f"{launches} (K4 = {n_layers} per step, K1 = {n_layers} and K9 = "
-          f"{_k9_blocks(cfg)} per forward), checkpoint {best.name} restored "
+          f"{_k9_blocks(cfg)} per forward), checkpoint {best} restored "
           f"bitwise, submit "
           f"--run-dir wrote {len(lines)} lines | B=1 card vs f32 CPU twin "
           f"gradients: global norm rel err {grad_errs['global_norm']:.3e}, "
@@ -2208,16 +2214,12 @@ def _mae_grad_check(model, ds, witness: bool = False) -> dict:
         return {n: p.grad for n, p in ref.named_parameters()}
 
     cpu = cpu_grads(None)
-    norm = lambda g: float(torch.sqrt(sum((v.double() ** 2).sum()
-                                          for v in g.values())))
-    rel = lambda g, n: float((g[n] - cpu[n]).norm() / cpu[n].norm())
     attn = [n for n in cpu if ".attn." in n]
-    out = {"errs": {"global_norm": abs(norm(card) - norm(cpu)) / norm(cpu),
-                    **{n: rel(card, n) for n in attn}},
-           "kernel_rel": kernel_rel, "witness": {}}
+    out = {"errs": _grad_errs(card, cpu, attn), "kernel_rel": kernel_rel,
+           "witness": {}}
     if witness:
-        low = cpu_grads(torch.bfloat16)
-        out["witness"] = {n: rel(low, n) for n in attn}
+        low = _grad_errs(cpu_grads(torch.bfloat16), cpu, attn)
+        out["witness"] = {n: low[n] for n in attn}
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -2257,19 +2259,11 @@ def phase_mae(card: str) -> dict:
         run_s = time.perf_counter() - t0
         launches, flash = _read_launches(), _read_flash()
         run_dir = Path(tmp) / "mae"
-        records = [json.loads(line) for line in
-                   (run_dir / "metrics.jsonl").read_text().splitlines()]
-        losses = [r["train/loss"] for r in records if "train/loss" in r]
-        rate = [r["samples_per_sec"] for r in records
-                if "samples_per_sec" in r]
-        val = [r["val/loss"] for r in records if "val/loss" in r]
+        losses, val, rate = _run_record(run_dir)
         cfg = state.model.cfg
         doc = json.loads((run_dir / "model_config.json").read_text())
         _check(doc["model"] == "mae", f"model_config.json says {doc}")
-        _check(state.step == TRAIN_STEPS, f"stopped at step {state.step}")
-        _check(len(losses) >= 2 and all(map(math.isfinite, losses + val)),
-               f"losses {losses}, val {val}")
-        _check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+        _check_run(state, losses, val, TRAIN_STEPS, "the MAE")
         # one eval batch: 32 validation trials at batch 32
         passes = TRAIN_STEPS + 1
         want = {"K6": cfg.n_layers * passes, "K6-bwd": cfg.n_layers *
@@ -2285,23 +2279,13 @@ def phase_mae(card: str) -> dict:
         _check(not any(twins.calls.values()),
                f"plain twins ran on the card: {twins.calls}")
 
-        best = ckpt_lib.best_checkpoint(run_dir)
+        _keep_mae_run(ckpt_lib.best_checkpoint(run_dir))
         fresh = MAE(cfg, device=torch.device("cuda"), dtype=torch.bfloat16)
+        best = _restores_bitwise(state, run_dir, fresh)
         tcfg = _train_config(run_dir)
-        restored = ckpt_lib.restore_checkpoint(best, trainer.TrainState(
-            fresh, trainer.make_optimizer(tcfg, fresh)[0]))
-        same = (restored.step == state.step and all(
-            torch.equal(a, b) for a, b in zip(
-                state.model.state_dict().values(),
-                fresh.state_dict().values())))
-        opt_a = state.optimizer.state_dict()["state"]
-        opt_b = restored.optimizer.state_dict()["state"]
-        same = same and all(torch.equal(opt_a[i][key], opt_b[i][key])
-                            for i in opt_a for key in opt_a[i])
-        _check(same, f"checkpoint {best.name} does not restore bitwise")
         mae_encoder = {k: v.clone() for k, v in
                        fresh.encoder.state_dict().items()}
-        del fresh, restored
+        del fresh
 
         ds = train_cli.build_datasets("synthetic", cfg.window_size,
                                       cfg.n_electrodes, 256)[0]
@@ -2388,7 +2372,7 @@ def phase_mae(card: str) -> dict:
           f"{cfg.n_dec_layers} per step), K9 {k9_want} ({cfg.n_layers} per "
           f"forward: the decoder's f32 stream keeps the module chain), K1-K5 "
           f"0, plain twins and the plain attention path 0 calls, checkpoint "
-          f"{best.name} restored bitwise, "
+          f"{best} restored bitwise, "
           f"return_preds {tuple(recon.shape)} with {masked_share:.4f} masked "
           f"| B=1 card vs f32 CPU twin gradients at the seeded initial "
           f"weights ({at_init['s']:.1f} s): global norm rel err "
@@ -2439,7 +2423,8 @@ def _k9_inputs(b: int, t: int, hidden: int, kind: str, gen):
 
 def phase_k9(card: str) -> dict:
     """K9 in both norms against its twin at the encoder's shapes (B=2, 32
-    and 128: its one- and two-warpgroup instances) and the Perceiver's:
+    and 128) and the Perceiver's, and the RMSNorm kind at SimpleMAE's
+    encoder shape (B=32 x 192 kept timesteps, one warpgroup a CTA):
     out and the update out - x within K9_TOL, two launches bitwise equal;
     the kernel's, the twin's and the eager module chain's times, the
     kernel's issued TFLOP/s, bound, registers and CTAs an SM."""
@@ -2448,10 +2433,14 @@ def phase_k9(card: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     results = {}
     for kind in ("layernorm", "rmsnorm"):
-        for shape, b, t, hidden in (("encoder", 2, 6144, 1024),
-                                    ("encoder B=32", 32, 6144, 1024),
-                                    ("encoder B=128", 128, 6144, 1024),
-                                    ("Perceiver", 128, 32, 512)):
+        shapes = [("encoder", 2, 6144, 1024), ("encoder B=32", 32, 6144, 1024),
+                  ("encoder B=128", 128, 6144, 1024),
+                  ("Perceiver", 128, 32, 512)]
+        if kind == "rmsnorm":
+            # SimpleMAE's encoder blocks (phase 20): 192 kept timesteps of
+            # 768 at B=32, one warpgroup a CTA at hidden 1024
+            shapes.append(("SimpleMAE encoder", 32, 192, 1024))
+        for shape, b, t, hidden in shapes:
             args = _k9_inputs(b, t, hidden, kind, gen)
             run = lambda: k9.fused_norm_swiglu(*args, kind=kind)
             out, again = run(), run()
@@ -3346,6 +3335,460 @@ def phase_probes(card: str) -> dict:
             "occupancy": occ, **entries}
 
 
+REST_STEPS = 20      # train steps of phase 20's FrankyLlama and SimpleMAE
+REST_SESSIONS = 24   # session rows of phase 20's session-embedding step
+_MAE_RUN: dict = {}  # phase 13's best MAE checkpoint, kept for phase 20
+
+
+def _keep_mae_run(best) -> None:
+    """Copy phase 13's best MAE checkpoint into a directory of its own,
+    removed at exit, for phase 20's ``--init-encoder-from``."""
+    import atexit
+    import shutil
+    import tempfile
+    from pathlib import Path
+    keep = Path(tempfile.mkdtemp(prefix="fk_mae_run_"))
+    atexit.register(shutil.rmtree, keep, ignore_errors=True)
+    shutil.copytree(best, keep / best.name)
+    _MAE_RUN["dir"] = keep
+
+
+def _run_record(run_dir) -> tuple:
+    """(train losses, val losses, samples/s) logged in a run's
+    metrics.jsonl."""
+    records = [json.loads(line) for line in
+               (run_dir / "metrics.jsonl").read_text().splitlines()]
+    pick = lambda key: [r[key] for r in records if key in r]
+    return pick("train/loss"), pick("val/loss"), pick("samples_per_sec")
+
+
+def _check_run(state, losses, val, steps: int, what: str) -> None:
+    _check(state.step == steps, f"{what} stopped at step {state.step}")
+    _check(len(losses) >= 2 and all(map(math.isfinite, losses + val)),
+           f"{what}: losses {losses}, val {val}")
+    _check(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+
+
+def _restores_bitwise(state, run_dir, fresh) -> str:
+    """Load ``run_dir``'s best checkpoint into ``fresh`` (a new model of the
+    same config) and its optimizer; raises unless parameters, AdamW state
+    and step equal ``state``'s bitwise. Returns the checkpoint's name."""
+    import torch
+    from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+    from frankenstein_tpu_torch.train import trainer
+    best = ckpt_lib.best_checkpoint(run_dir)
+    restored = ckpt_lib.restore_checkpoint(best, trainer.TrainState(
+        fresh, trainer.make_optimizer(_train_config(run_dir), fresh)[0]))
+    same = (restored.step == state.step and all(
+        torch.equal(a, b) for a, b in zip(state.model.state_dict().values(),
+                                          fresh.state_dict().values())))
+    opt_a = state.optimizer.state_dict()["state"]
+    opt_b = restored.optimizer.state_dict()["state"]
+    same = same and all(torch.equal(opt_a[i][key], opt_b[i][key])
+                        for i in opt_a for key in opt_a[i])
+    _check(same, f"checkpoint {best.name} does not restore bitwise")
+    return best.name
+
+
+def _free_card() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rest_franky_llama(card: str) -> dict:
+    """FrankyLlama trained through the train CLI from its YAML, its encoder
+    grafted from phase 13's MAE run."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch import submit
+    from frankenstein_tpu_torch.models.franky import FrankyLlama
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+    from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+    from frankenstein_tpu_torch.train import trainer
+
+    _check("dir" in _MAE_RUN,
+           "phase 20 grafts phase 13's MAE run: run phase_mae first")
+    mae = {k[len("encoder."):]: v for k, v in ckpt_lib.load_raw_checkpoint(
+        _MAE_RUN["dir"])["model"].items() if k.startswith("encoder.")}
+    repo = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        seen = {}
+        real_run = trainer.run_train_model
+
+        def snapshot(model, *a, **kw):
+            seen.update({k: v.detach().cpu().clone() for k, v in
+                         model.brain_model.encoder.state_dict().items()})
+            return real_run(model, *a, **kw)
+
+        trainer.run_train_model = snapshot
+        _reset_launches()
+        _reset_flash()
+        t0 = time.perf_counter()
+        try:
+            state = train_cli.main([
+                "--config", str(repo / "configs" / "franky_llama.yaml"),
+                "--data", "synthetic", "--synthetic-trials", "256",
+                "--steps", str(REST_STEPS), "--batch-size", "32",
+                "--warmup", "5", "--eval-interval", str(REST_STEPS),
+                "--init-encoder-from", str(_MAE_RUN["dir"]),
+                "--exp-name", "fl", "--save-folder", tmp])
+            torch.cuda.synchronize()
+        finally:
+            trainer.run_train_model = real_run
+        run_s = time.perf_counter() - t0
+        launches, flash = _read_launches(), _read_flash()
+        run_dir = Path(tmp) / "fl"
+        losses, val, rate = _run_record(run_dir)
+        cfg = state.model.cfg
+        _check(isinstance(state.model, FrankyLlama),
+               f"franky_llama.yaml built {type(state.model).__name__}")
+        _check_run(state, losses, val, REST_STEPS, "FrankyLlama")
+        _check(set(seen) == set(mae) and all(
+            torch.equal(seen[k], mae[k]) for k in seen),
+            "FrankyLlama's encoder is not the MAE checkpoint's")
+        # one eval batch: 32 validation trials at batch 32
+        n, passes = cfg.brain.encoder.n_layers, REST_STEPS + 1
+        want = dict.fromkeys(launches, 0)
+        want.update(K1=n * passes, K4=n * REST_STEPS,
+                    K9=_k9_blocks(cfg) * passes)
+        _check(launches == want and not any(flash.values()),
+               f"FrankyLlama launches {launches} {flash}, want {want}")
+        ckpt = _restores_bitwise(state, run_dir, FrankyLlama(
+            cfg, device=torch.device("cuda"), dtype=torch.bfloat16))
+        _free_card()
+        sub = submit.main(["--run-dir", str(run_dir), "--data", "synthetic",
+                           "--synthetic-trials", "8", "--out",
+                           str(Path(tmp) / "sub.txt")])
+        lines = sub.read_text().splitlines()
+        _check(len(lines) == 8, f"submission has {len(lines)} lines")
+        tcfg = _train_config(run_dir)
+        ds = train_cli.build_datasets("synthetic", 768, 256, 256)[0]
+        t1 = time.perf_counter()
+        grad_errs = _grad_check(state, tcfg, ds)
+        grad_s = time.perf_counter() - t1
+        timed = _in_turns({"step": _train_stepper(state, tcfg, ds, 32)})
+    del state
+    _free_card()
+    worst = max(grad_errs, key=grad_errs.get)
+    step = timed["step"]
+    print(f"phase 20 FrankyLlama training: configs/franky_llama.yaml "
+          f"(768x256 window, {n}-layer encoder, ~110M LLaMA, f32 params, "
+          f"bf16 compute), {REST_STEPS} steps at B=32 through the train CLI "
+          f"with --init-encoder-from phase 13's MAE run in {run_s:.1f} s: "
+          f"encoder equal to the MAE checkpoint's bitwise before step 1, "
+          f"train loss {losses[0]:.4f} -> {losses[-1]:.4f} (logged "
+          f"{len(losses)}), val {val[-1]:.4f}, samples/s in the log "
+          f"{rate[-1]:.1f}, launches {launches} (K1 = {n} and K9 = "
+          f"{_k9_blocks(cfg)} per forward, K4 = {n} per step), checkpoint "
+          f"{ckpt} restored bitwise, submit --run-dir wrote {len(lines)} "
+          f"lines | B=1 card vs f32 CPU twin gradients ({grad_s:.1f} s): "
+          f"global norm rel err {grad_errs['global_norm']:.3e}, worst "
+          f"encoder attention weight {worst} {grad_errs[worst]:.3e} (tol "
+          f"{GRAD_TOL}) | B=32 step {_note(step['ms'])} ms, "
+          f"{32e3 / step['ms'][0]:.1f} samples/s at the median, peak "
+          f"{step['gib']:.2f} GiB, median (range) of {TIMING_REPEATS} | "
+          f"{card}", flush=True)
+    _check(max(grad_errs.values()) <= GRAD_TOL,
+           f"FrankyLlama card vs CPU gradients: {grad_errs}")
+    return {"launches": launches, "step_ms": step["ms"],
+            "peak_gib": step["gib"], "grad": grad_errs}
+
+
+def _simple_mae_grads(model, x, idx, witness: bool = False) -> tuple:
+    """Gradients of one SimpleMAE loss at B=1 with mask ``idx``: on the card
+    (bf16 compute) and for the same weights as f32 on the CPU; their
+    ``_grad_errs`` over every attention weight. With ``witness``, also the
+    same weights' gradients from bf16 compute on the CPU against f32, each
+    attention weight's relative error (what bf16 rounding alone gives),
+    else an empty dict."""
+    import torch
+    from frankenstein_tpu_torch.models.simple_mae import SimpleMAE
+    model.zero_grad(set_to_none=True)
+    model(x.cuda().to(torch.bfloat16),
+          indices=tuple(i.cuda() for i in idx))[0].backward()
+    card = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    weights = {k: v.cpu() for k, v in model.state_dict().items()}
+
+    def cpu_grads(dtype):
+        ref = SimpleMAE(model.enc_cfg, model.dec_cfg, dtype=dtype)
+        ref.load_state_dict(weights)
+        ref(x.to(dtype or torch.float32), indices=idx)[0].backward()
+        return {n: p.grad for n, p in ref.named_parameters()}
+
+    cpu = cpu_grads(None)
+    attn = [n for n in cpu if ".attn." in n]
+    low = {}
+    if witness:
+        low = _grad_errs(cpu_grads(torch.bfloat16), cpu, attn)
+        del low["global_norm"]
+    return _grad_errs(card, cpu, attn), low
+
+
+def _rest_simple_mae(card: str) -> dict:
+    """SimpleMAE trained through the train CLI by flags at 768 x 256."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch.models.brainformer import masking_indices
+    from frankenstein_tpu_torch.models.simple_mae import SimpleMAE
+    from frankenstein_tpu_torch.models.weights import init_simple_mae_
+    from frankenstein_tpu_torch.ops import attention as tattn
+    from frankenstein_tpu_torch.ops import masks as mask_lib
+    from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
+    from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+    from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+
+    twins = [(k67, "flash_attention_ref"), (k67, "flash_attention_bwd_ref"),
+             (k1, "slab_rope_attention_ref"),
+             (k1, "slab_rope_attention_bwd_ref"),
+             (k9, "fused_norm_swiglu_ref"), (tattn, "_softmax_av")]
+    with tempfile.TemporaryDirectory() as tmp:
+        _reset_launches()
+        _reset_flash()
+        t0 = time.perf_counter()
+        with _CountCalls(twins) as plain:
+            state = train_cli.main([
+                "--model", "simple_mae", "--window", "768", "--channels",
+                "256", "--data", "synthetic", "--synthetic-trials", "256",
+                "--steps", str(REST_STEPS), "--batch-size", "32",
+                "--warmup", "5", "--eval-interval", str(REST_STEPS),
+                "--exp-name", "smae", "--save-folder", tmp])
+            torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches, flash = _read_launches(), _read_flash()
+        run_dir = Path(tmp) / "smae"
+        losses, val, rate = _run_record(run_dir)
+        model = state.model
+        enc, dec = model.enc_cfg, model.dec_cfg
+        _check_run(state, losses, val, REST_STEPS, "SimpleMAE")
+        ckpt = _restores_bitwise(state, run_dir, SimpleMAE(
+            enc, dec, device=torch.device("cuda"), dtype=torch.bfloat16))
+
+        ds = train_cli.build_datasets("synthetic", 768, 256, 256)[0]
+        xb = torch.stack([torch.from_numpy(ds[i][0]) for i in range(32)])
+        padded = int((~mask_lib.padding_mask(xb)).sum())
+        streams = {}
+        hooks = [blocks[0].register_forward_pre_hook(
+            lambda m, a, key=key: streams.__setitem__(key, a[0].dtype))
+            for key, blocks in (("encoder", model.encoder.transformer["h"]),
+                                ("decoder", model.decoder["h"]))]
+        with torch.no_grad():
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            loss_p, recon, binary = model(xb.cuda().to(torch.bfloat16),
+                                          generator=gen, return_preds=True)
+        for h in hooks:
+            h.remove()
+        # K9's gate takes a block whose stream is in the compute dtype: the
+        # encoder's (bf16), not the decoder's, which is f32 because the mask
+        # token takes the dtype of the encoder's ln_f output (f32 weights),
+        # as in the JAX package
+        _check(streams == {"encoder": torch.bfloat16,
+                           "decoder": torch.float32},
+               f"SimpleMAE residual streams {streams}, want a bf16 encoder "
+               f"and an f32 decoder")
+        k9_blocks = enc.n_layers
+        passes = REST_STEPS + 1
+        want = dict.fromkeys(launches, 0)
+        want["K9"] = k9_blocks * passes
+        softmax_want = (enc.n_layers + dec.n_layers) * passes
+        calls = plain.calls
+        _check(padded > 0, "no padded timestep in the B=32 windows")
+        _check(launches == want and not any(flash.values()),
+               f"SimpleMAE launches {launches} {flash}, want {want}")
+        _check(calls.pop("attention._softmax_av") == softmax_want
+               and not any(calls.values()),
+               f"SimpleMAE plain calls {plain.calls}, want "
+               f"{softmax_want} plain attentions and no twin")
+        _check(recon.shape == binary.shape == xb.shape
+               and math.isfinite(float(loss_p)),
+               f"return_preds {tuple(recon.shape)}, loss {float(loss_p)}")
+
+        # B=1 gradients with the same mask: at the seeded initial weights
+        # every attention weight, after training the global norm
+        i = next(i for i in range(len(ds)) if not ds[i][0][-1].any())
+        x = torch.from_numpy(ds[i][0][None])
+        idx = masking_indices(torch.Generator().manual_seed(SEED), 1, 768,
+                              dec.masking_ratio)
+        t1 = time.perf_counter()
+        init = init_simple_mae_(SimpleMAE(enc, dec, device=torch.device(
+            "cuda"), dtype=torch.bfloat16), seed=SEED)
+        at_init, witness = _simple_mae_grads(init, x, idx, witness=True)
+        del init
+        trained = _simple_mae_grads(model, x, idx)[0]
+        grad_s = time.perf_counter() - t1
+        tcfg = _train_config(run_dir)
+        ab = _k9_ab(_train_stepper(state, tcfg, ds, 32))
+    del state, model
+    _free_card()
+    worst = max(at_init, key=at_init.get)
+    w_worst = max(witness, key=witness.get)
+    print(f"phase 20 SimpleMAE pretraining: --model simple_mae --window 768 "
+          f"--channels 256 ({enc.block_size} timestep tokens of width "
+          f"{enc.patch_size}, {int(enc.block_size * (1 - dec.masking_ratio))}"
+          f" kept, {enc.n_layers}+{dec.n_layers} RMSNorm blocks of width "
+          f"{enc.dim}, f32 params, bf16 compute), {REST_STEPS} steps at B=32 "
+          f"through the train CLI in {run_s:.1f} s: train loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (logged {len(losses)}), val "
+          f"{val[-1]:.4f}, samples/s in the log {rate[-1]:.1f}, {padded} "
+          f"padded timesteps in 32 windows, streams encoder "
+          f"{streams['encoder']} / decoder {streams['decoder']}, launches "
+          f"{launches} (K9 RMSNorm = {k9_blocks} per forward), K6 / K7 0, "
+          f"plain attentions {softmax_want} ({enc.n_layers + dec.n_layers} "
+          f"per forward: the padding masks), twins 0, checkpoint {ckpt} "
+          f"restored bitwise, return_preds {tuple(recon.shape)} | B=1 card "
+          f"vs f32 CPU twin gradients, same mask, a padded window "
+          f"({grad_s:.1f} s): at the seeded initial weights global norm rel "
+          f"err {at_init['global_norm']:.3e}, worst attention weight {worst} "
+          f"{at_init[worst]:.3e} (tol {GRAD_TOL}) where bf16 compute on the "
+          f"CPU gives {witness[worst]:.3e}, bf16 CPU's worst {w_worst} "
+          f"{witness[w_worst]:.3e}; after training global "
+          f"norm {trained['global_norm']:.3e} | B=32 step in turns "
+          f"{_ab_note(ab)}, {32e3 / ab[True]['ms'][0]:.1f} samples/s at the "
+          f"K9-on median | {card}", flush=True)
+    _check(max(at_init.values()) <= GRAD_TOL
+           and trained["global_norm"] <= GRAD_TOL,
+           f"SimpleMAE card vs CPU gradients: {at_init}, trained {trained}")
+    return {"launches": launches, "k9_rmsnorm": want["K9"],
+            "k9_per_forward": k9_blocks, "step_ab": ab, "grad": at_init,
+            "witness": witness}
+
+
+def _rest_brainformer(card: str) -> dict:
+    """BrainFormer forward and backward at the train CLI's geometry against
+    its f32 CPU twin; one Franky step with the session embedding."""
+    import dataclasses
+
+    import torch
+    from frankenstein_tpu_torch.config import (FrankyConfig, MAEConfig,
+                                               PerceiverConfig, TrainConfig)
+    from frankenstein_tpu_torch.models.brainformer import BrainFormer
+    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.models.weights import (init_brainformer_,
+                                                       init_franky_)
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+    from frankenstein_tpu_torch.train import trainer
+    from frankenstein_tpu_torch.train.schedule import make_lr_schedule
+
+    b = 8
+    ds = train_cli.build_datasets("synthetic", 768, 256, 64)[0]
+    x = torch.stack([torch.from_numpy(ds[i][0]) for i in range(b)])
+    # the JAX train.py's --model brainformer geometry (flags' defaults)
+    cfg = PerceiverConfig(encoder=MAEConfig(window_size=768,
+                                            n_electrodes=256, patch_size=32),
+                          n_output_tokens=25, output_dim=50257)
+    targets = torch.randn(b, cfg.n_output_tokens, cfg.output_dim,
+                          generator=torch.Generator().manual_seed(SEED))
+    model = init_brainformer_(BrainFormer(cfg, device=torch.device("cuda"),
+                                          dtype=torch.bfloat16), seed=SEED)
+    _reset_launches()
+    loss, pred = model(x.cuda().to(torch.bfloat16), targets.cuda())
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    n = cfg.encoder.n_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(K1=n, K4=n, K9=n + cfg.n_layers)
+    _check(launches == want, f"BrainFormer launches {launches}, want {want}")
+    card_grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    ref = BrainFormer(cfg)
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    preds, cpu_loss = [], 0.0
+    for i in range(b):     # the batch mean, one sample at a time
+        li, pi = ref(x[i:i + 1], targets[i:i + 1])
+        (li / b).backward()
+        cpu_loss += float(li.detach()) / b
+        preds.append(pi.detach())
+    cpu_s = time.perf_counter() - t0
+    cpu = dict(ref.named_parameters())
+    names = [k for k in cpu if k.startswith("brain.encoder.")
+             and ".attn." in k] + ["brain.perceiver.to_motion.weight"]
+    errs = _grad_errs(card_grads, {k: p.grad for k, p in cpu.items()}, names)
+    pred_rel = _max_err(pred.detach().cpu(), torch.cat(preds)) / float(
+        torch.cat(preds).abs().max())
+    loss_rel = abs(float(loss.detach()) - cpu_loss) / cpu_loss
+    del ref, card_grads, cpu
+
+    # a B=32 train step (AdamW, float targets), timed
+    tcfg = TrainConfig(batch_size=32, warmup_iters=0, use_scheduler=False)
+    state = trainer.TrainState(model, trainer.make_optimizer(tcfg, model)[0])
+    ds32 = torch.stack([torch.from_numpy(ds[i][0]) for i in range(32)])
+    batch = (ds32.cuda(), torch.randn(
+        32, cfg.n_output_tokens, cfg.output_dim, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED)))
+    sched, gen = make_lr_schedule(tcfg), torch.Generator(device="cuda")
+    step = _in_turns({"step": lambda: trainer.train_step(
+        state, batch, tcfg, sched, gen)})["step"]
+    del state, model, batch
+    _free_card()
+
+    # one Franky training step with per-sample session rows
+    fcfg = FrankyConfig()
+    fcfg = dataclasses.replace(fcfg, brain=dataclasses.replace(
+        fcfg.brain, encoder=dataclasses.replace(fcfg.brain.encoder,
+                                                n_sessions=REST_SESSIONS)))
+    franky = init_franky_(Franky(fcfg, device=torch.device("cuda"),
+                                 dtype=torch.bfloat16), seed=SEED)
+    tcfg = tcfg.replace(batch_size=2)
+    state = trainer.TrainState(franky,
+                               trainer.make_optimizer(tcfg, franky)[0])
+    dates = torch.tensor([5, 6 + REST_SESSIONS], dtype=torch.int32)
+    batch = (x[:2].cuda(), torch.stack([torch.from_numpy(ds[i][1])
+                                        for i in range(2)]).cuda(),
+             dates.cuda())
+    _reset_launches()
+    step_loss = float(trainer.loss_and_grads(state, batch, tcfg))
+    step_launches = _read_launches()
+    rows = franky.brain_model.encoder.date_embedding.grad.abs().sum(-1).cpu()
+    used = sorted({int(d) % REST_SESSIONS for d in dates})
+    trainer.apply_update(state, tcfg, make_lr_schedule(tcfg))
+    del state, franky
+    _free_card()
+    print(f"phase 20 BrainFormer: the train CLI's --model brainformer "
+          f"geometry (768x256 window, {n}-layer encoder, "
+          f"{cfg.n_output_tokens} x {cfg.output_dim} outputs, f32 params, "
+          f"bf16 compute), one forward and backward at B={b} with float "
+          f"targets: launches {launches}, L1 loss {float(loss):.5f} vs f32 "
+          f"CPU twin {cpu_loss:.5f} (rel {loss_rel:.3e}), pred max err "
+          f"{pred_rel:.3e} of max |pred| (tol {SLICE_TOL}), gradients "
+          f"({cpu_s:.1f} s on the CPU) global norm rel err "
+          f"{errs['global_norm']:.3e}, worst of the encoder attention and "
+          f"to_motion weights {max(errs.values()):.3e} (tol {GRAD_TOL}) | "
+          f"B=32 train step (AdamW, float targets) {_note(step['ms'])} ms, "
+          f"{32e3 / step['ms'][0]:.1f} samples/s at the median, peak "
+          f"{step['gib']:.2f} GiB, median (range) of {TIMING_REPEATS} | "
+          f"session embedding: one Franky step at B=2 with n_sessions="
+          f"{REST_SESSIONS}, date_info {dates.tolist()}: loss "
+          f"{step_loss:.4f}, launches {step_launches}, date_embedding rows "
+          f"with a gradient {[r for r in range(REST_SESSIONS) if rows[r]]} "
+          f"(want {used}) | {card}", flush=True)
+    _check(pred_rel <= SLICE_TOL and loss_rel <= GRAD_TOL
+           and max(errs.values()) <= GRAD_TOL,
+           f"BrainFormer card vs CPU: pred {pred_rel}, loss {loss_rel}, "
+           f"gradients {errs}")
+    _check(math.isfinite(step_loss)
+           and [r for r in range(REST_SESSIONS) if rows[r]] == used,
+           f"session rows with a gradient: {rows.tolist()}, want {used}")
+    return {"launches": launches, "grad": errs, "pred_rel": pred_rel,
+            "step_ms": step["ms"], "peak_gib": step["gib"]}
+
+
+def phase_rest(card: str) -> dict:
+    """Phase 20: the remaining training paths (FrankyLlama, SimpleMAE,
+    BrainFormer and the session embedding). Needs phase 13's MAE run."""
+    return {"franky_llama": _rest_franky_llama(card),
+            "simple_mae": _rest_simple_mae(card),
+            "brainformer": _rest_brainformer(card)}
+
+
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
     null where no one PyTorch call computes the same function."""
@@ -3387,6 +3830,7 @@ def main() -> int:
     k10 = phase_k10(card)
     served = phase_served(card)
     probes = phase_probes(card)
+    rest = phase_rest(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [
@@ -3449,14 +3893,16 @@ def main() -> int:
                          f"{bwd_at}",
              "launches": mae["launches"][f"{key}-bwd"], **_entry(bwd)}]
     for kind in ("layernorm", "rmsnorm"):
-        # no ported model runs an RMSNorm Block yet: its launches are 0
+        # the RMSNorm kind's model path is SimpleMAE's (phase 20)
         kernels.append(
             {"name": f"fused_norm_swiglu_{kind}", "route": "cuda",
              "source": "frankenstein_tpu_torch/csrc/fused_mlp.cu",
              "replaces": "frankenstein_tpu/ops/pallas/fused_mlp.py:125 "
                          "(call :135)",
-             "launches": sl["launches"]["K9"] if kind == "layernorm" else 0,
-             **_entry(k9[(kind, "encoder")])})
+             "launches": (sl["launches"]["K9"] if kind == "layernorm"
+                          else rest["simple_mae"]["k9_rmsnorm"]),
+             **_entry(k9[(kind, "encoder" if kind == "layernorm"
+                          else "SimpleMAE encoder")])})
     kernels += [
         {"name": "lm_head_norm, lm_head_topk_wgmma", "route": "cuda",
          "source": "frankenstein_tpu_torch/csrc/lm_head_topk.cu",

@@ -1,7 +1,8 @@
 """Configuration dataclasses of the ported slices.
 
 Field-for-field copies of ``frankenstein_tpu/config.py`` (``MAEConfig``,
-``PerceiverConfig``, ``GPTConfig``, ``FrankyConfig``, ``TrainConfig``, the
+``SimpleEncoderConfig``, ``SimpleMAEConfig``, ``PerceiverConfig``,
+``GPTConfig``, ``FrankyConfig``, ``TrainConfig``, the
 JSON mixin that lets YAML sections and ``model_config.json`` round-trip, and
 the constants the slices use), and of ``LlamaConfig``,
 ``tiny_llama_config`` (``models/llama.py``) and ``FrankyLlamaConfig``
@@ -81,7 +82,8 @@ class MAEConfig(_SerializableMixin):
 
     masking_ratio: float = 0.75
 
-    # per-session conditioning; the port's encoder refuses n_sessions > 0
+    # per-session conditioning: n_sessions > 0 adds a learned
+    # date_embedding[date_info % n_sessions] to every token
     n_sessions: int = 0
 
     # sequence parallelism has no counterpart in the port yet; without a
@@ -99,6 +101,36 @@ class MAEConfig(_SerializableMixin):
     def block_size(self) -> int:
         """Total token count: time-slabs x electrodes."""
         return self.n_patches_per_channel * self.n_electrodes
+
+
+@dataclass(frozen=True)
+class SimpleEncoderConfig(_SerializableMixin):
+    """SimpleMAE's encoder: whole-timestep tokens (all channels of one time
+    bin) over ``block_size`` timesteps."""
+
+    block_size: int = 6           # tokens: timesteps of the window
+    patch_size: int = 128         # a token's width: the channel count
+    dim: int = 256
+    n_layers: int = 6
+    head_dim: int = 32
+    hidden_dim: int = 1024
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    rope_theta: float = 10000.0
+
+
+@dataclass(frozen=True)
+class SimpleMAEConfig(_SerializableMixin):
+    """SimpleMAE's decoder."""
+
+    dim: int = 256
+    n_layers: int = 2
+    head_dim: int = 32
+    hidden_dim: int = 1024
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    rope_theta: float = 10000.0
+    masking_ratio: float = 0.75
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,7 @@
-"""BrainFormer encoder, MAE pretrainer and Perceiver resampler
-(``frankenstein_tpu/models/brainformer.py``: ``to_patches``,
-``from_patches``, ``Encoder``, ``masking_indices``, ``MAE``,
-``BrainEncoder``).
+"""BrainFormer encoder, MAE pretrainer, Perceiver resampler and its L1
+regression head (``frankenstein_tpu/models/brainformer.py``:
+``to_patches``, ``from_patches``, ``Encoder``, ``masking_indices``,
+``MAE``, ``BrainEncoder``, ``BrainFormer``).
 
 The 6144-token slab-causal encoder attention runs kernel K1 on the card
 (K10, int8 QK scores, with ``qk_int8``), and its backward kernel K4. The
@@ -56,13 +56,13 @@ class Encoder(nn.Module):
     ``cfg.qk_int8`` reaches the blocks of ``forward`` (kernel K10), as the
     JAX ``Encoder.__call__`` passes it; ``forward_subset``, the MAE's
     kept-token path, passes nothing and computes exact attention, as the
-    JAX package's does."""
+    JAX package's does. With ``cfg.n_sessions`` > 0 the encoder holds a
+    ``date_embedding`` [n_sessions, dim], and a ``date_info`` [B] of
+    session ids adds row ``date_info % n_sessions`` to each sample's
+    tokens."""
 
     def __init__(self, cfg: MAEConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.n_sessions:
-            raise NotImplementedError(
-                "n_sessions > 0: the session embedding is not ported yet")
         self.cfg = cfg
         self.compute_dtype = dtype
         self.transformer = nn.ModuleDict({
@@ -74,25 +74,37 @@ class Encoder(nn.Module):
         })
         self.space_embedding = nn.Parameter(
             torch.zeros(1, cfg.n_electrodes, cfg.dim, device=device))
+        if cfg.n_sessions:
+            self.date_embedding = nn.Parameter(
+                torch.zeros(cfg.n_sessions, cfg.dim, device=device))
 
-    def embed_tokens(self, patches: torch.Tensor,
-                     positions=None) -> torch.Tensor:
+    def embed_tokens(self, patches: torch.Tensor, positions=None,
+                     date_info=None) -> torch.Tensor:
         """[B, N, p] patches -> [B, N, dim]: the patch embedding plus the
         per-electrode embedding tiled over time slabs, at the last N
-        positions, or at ``positions`` [B, N] (the MAE's kept tokens)."""
+        positions, or at ``positions`` [B, N] (the MAE's kept tokens),
+        plus each sample's session row where ``date_info`` is given."""
         c = self.cfg
         tok = linear(patches, self.transformer["emb"], self.compute_dtype)
         space = self.space_embedding.repeat(1, c.n_patches_per_channel,
                                             1).to(tok.dtype)
         if positions is None:
-            return tok + space[:, -tok.shape[1]:]
-        return tok + space[0][positions]
+            tok = tok + space[:, -tok.shape[1]:]
+        else:
+            tok = tok + space[0][positions]
+        if c.n_sessions and date_info is not None:
+            rows = torch.as_tensor(date_info, device=tok.device).long()
+            date = self.date_embedding[rows % c.n_sessions].to(tok.dtype)
+            tok = tok + date[:, None, :]
+        return tok
 
-    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, remat: bool = False,
+                date_info=None) -> torch.Tensor:
         """x: [B, T, C] signal -> [B, n_tokens, dim] context. ``remat``
         recomputes each block's activations in the backward."""
         c = self.cfg
-        tok = self.embed_tokens(to_patches(x, c.patch_size))
+        tok = self.embed_tokens(to_patches(x, c.patch_size),
+                                date_info=date_info)
         rope = rope_ops.build_rope_cache(c.head_dim, c.block_size,
                                          c.rope_theta, device=x.device)
         for block in self.transformer["h"]:
@@ -102,14 +114,14 @@ class Encoder(nn.Module):
         return self.transformer["ln_f"](tok)
 
     def forward_subset(self, patches: torch.Tensor, positions: torch.Tensor,
-                       rope_cache: torch.Tensor,
-                       remat: bool = False) -> torch.Tensor:
+                       rope_cache: torch.Tensor, remat: bool = False,
+                       date_info=None) -> torch.Tensor:
         """Encode only the kept tokens (the MAE path): patches [B, N, p] at
         ``positions`` [B, N] (sorted ascending) -> [B, N, dim]. Each block
         attends in the "gathered_slab" mode (kernel K6) with the rope rows
         of the kept positions."""
         c = self.cfg
-        tok = self.embed_tokens(patches, positions)
+        tok = self.embed_tokens(patches, positions, date_info)
         rope = rope_ops.rope_for_positions(rope_cache, positions)
         for block in self.transformer["h"]:
             tok = run_block(block, tok, remat=remat,
@@ -155,11 +167,14 @@ class MAE(nn.Module):
         self.to_signals = nn.Linear(cfg.decoder_dim, cfg.patch_size,
                                     device=device)
 
+    needs_labels = False    # the trainer passes it no targets
+
     def forward(self, x, targets=None, train: bool = False,
-                generator=None, indices=None, masking_ratio=None,
-                return_preds: bool = False):
+                generator=None, date_info=None, indices=None,
+                masking_ratio=None, return_preds: bool = False):
         """x: [B, T, C] signal; ``targets`` and ``train`` are ignored (the
-        trainer's uniform contract; the MAE has no dropout). The mask is
+        trainer's uniform contract; the MAE has no dropout); ``date_info``
+        [B] picks each sample's session row (``cfg.n_sessions``). The mask is
         drawn from ``generator`` (on the model's device), or given as
         ``indices`` = (masked, kept), sorted [B, M] and [B, N - M].
         Returns (loss, None), the mean squared error over the masked
@@ -179,7 +194,8 @@ class MAE(nn.Module):
 
         # the encoder sees only the kept tokens (25% at the default ratio)
         encoded = self.encoder.forward_subset(_take(patches, kept), kept,
-                                              rope_cache, self.remat)
+                                              rope_cache, self.remat,
+                                              date_info)
 
         # the decoder sees every token: the encoded ones at their positions,
         # the mask token elsewhere, plus the position embedding in natural
@@ -205,39 +221,69 @@ class MAE(nn.Module):
 
 class Perceiver(nn.Module):
     """The resampler's blocks, final norm and output head (``perceiver.*``
-    in the reference's state dict)."""
+    in the reference's state dict; the head is ``to_words`` in the Franky
+    notebook's variant and ``to_motion`` in the reference's BrainFormer)."""
 
-    def __init__(self, cfg: PerceiverConfig, device=None, dtype=None):
+    def __init__(self, cfg: PerceiverConfig, device=None, dtype=None,
+                 head: str = "to_words"):
         super().__init__()
         self.h = nn.ModuleList(
             CrossBlock(cfg.dim, cfg.n_heads, cfg.head_dim, cfg.hidden_dim,
                        device, dtype) for _ in range(cfg.n_layers))
         self.ln_f = LayerNorm(cfg.dim, device=device)
-        self.to_words = nn.Linear(cfg.dim, cfg.output_dim, device=device)
+        self.head = head
+        self.add_module(head, nn.Linear(cfg.dim, cfg.output_dim,
+                                        device=device))
 
 
 class BrainEncoder(nn.Module):
     """Encoder + Perceiver resampler -> n_output_tokens vectors of
-    output_dim."""
+    output_dim; ``head`` names the output projection (``Perceiver``)."""
 
-    def __init__(self, cfg: PerceiverConfig, device=None, dtype=None):
+    def __init__(self, cfg: PerceiverConfig, device=None, dtype=None,
+                 head: str = "to_words"):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = dtype
         self.encoder = Encoder(cfg.encoder, device, dtype)
         self.learnable_queries = nn.Parameter(
             torch.zeros(1, cfg.n_output_tokens, cfg.dim, device=device))
-        self.perceiver = Perceiver(cfg, device, dtype)
+        self.perceiver = Perceiver(cfg, device, dtype, head)
 
-    def forward(self, x: torch.Tensor, remat: bool = False) -> torch.Tensor:
-        """x: [B, T, C] -> [B, n_output_tokens, output_dim]."""
+    def forward(self, x: torch.Tensor, remat: bool = False,
+                date_info=None) -> torch.Tensor:
+        """x: [B, T, C] -> [B, n_output_tokens, output_dim]; ``date_info``
+        [B] picks each sample's session row (``cfg.encoder.n_sessions``)."""
         c = self.cfg
         cdt = self.compute_dtype or self.learnable_queries.dtype
-        context = self.encoder(x, remat)
+        context = self.encoder(x, remat, date_info)
         q = self.learnable_queries.to(cdt).expand(x.shape[0], -1, -1)
         rope = rope_ops.build_rope_cache(c.head_dim, c.n_output_tokens,
                                          c.rope_theta, device=x.device)
         for block in self.perceiver.h:
             q = run_block(block, q, context, remat=remat, sa_rope=rope)
-        return linear(self.perceiver.ln_f(q), self.perceiver.to_words,
-                      self.compute_dtype)
+        head = getattr(self.perceiver, self.perceiver.head)
+        return linear(self.perceiver.ln_f(q), head, self.compute_dtype)
+
+
+class BrainFormer(nn.Module):
+    """A BrainEncoder (``brain``, head ``to_motion``) with an L1 regression
+    loss over float targets of the prediction's shape [B, n_output_tokens,
+    output_dim]. Returns (loss, pred), or (None, pred) without targets.
+    ``remat``, read at each forward, recomputes every block's activations
+    in the backward."""
+
+    def __init__(self, cfg: PerceiverConfig, device=None, dtype=None):
+        super().__init__()
+        self.cfg = cfg
+        self.remat = False
+        self.brain = BrainEncoder(cfg, device, dtype, head="to_motion")
+
+    def forward(self, x, targets=None, train: bool = False,
+                generator=None, date_info=None):
+        """x: [B, T, C] signal; ``train`` and ``generator`` are ignored
+        (no dropout)."""
+        pred = self.brain(x, self.remat, date_info)
+        if targets is None:
+            return None, pred
+        return torch.mean(torch.abs(pred.float() - targets.float())), pred

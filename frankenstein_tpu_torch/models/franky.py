@@ -4,8 +4,9 @@ prefix -> a LLaMA (``frankenstein_tpu/models/franky.py``).
 The 32 Perceiver output vectors are a soft prompt for the LM. Module names
 (``brain_model``, ``llm_model``) follow the reference's state dict.
 ``dtype`` is the compute dtype (``models/layers.py``); ``remat``, read at
-each forward, recomputes every block's activations in the backward
-(Franky).
+each forward, recomputes every block's activations in the backward. Both
+take ``date_info`` [B], the samples' session ids, which reach the
+encoder's session embedding (``MAEConfig.n_sessions``).
 """
 
 from __future__ import annotations
@@ -52,9 +53,9 @@ class _BrainPrefixLM(nn.Module):
                            targets)
 
     @torch.no_grad()
-    def encode(self, x):
+    def encode(self, x, date_info=None):
         """Brain window -> prefix vectors in the LM's embedding space."""
-        return self.brain_model(x)
+        return self.brain_model(x, date_info=date_info)
 
     def init_decode_cache(self, batch: int, max_len: int):
         return self.llm_model.init_decode_cache(batch, max_len)
@@ -85,12 +86,13 @@ class Franky(_BrainPrefixLM):
                                                qweights, k=k)
 
     def forward(self, x, targets, train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                date_info=None):
         """x: [B, 768, 256] signal; targets: [B, 25] ids with -100 padding.
         Returns (loss, logits), the trainer's uniform contract. ``train``
         turns GPT dropout on, drawn from ``generator`` (a generator on the
         model's device)."""
-        features = self.brain_model(x, self.remat)
+        features = self.brain_model(x, self.remat, date_info)
         return self.llm_model(self._padded(targets), prefix=features,
                               targets=targets, train=train,
                               generator=generator, remat=self.remat)
@@ -104,12 +106,18 @@ class FrankyLlama(_BrainPrefixLM):
     def __init__(self, cfg: FrankyLlamaConfig, device=None, dtype=None):
         super().__init__(cfg, Llama(cfg.lm, device, dtype), cfg.lm.dim,
                          device, dtype)
+        self.remat = False
 
-    def forward(self, x, targets):
+    def forward(self, x, targets, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                date_info=None):
         """x: [B, T, C] signal; targets: [B, max_tokens] ids with -100
-        padding. Returns (loss, logits)."""
-        return self.llm_model(self._padded(targets),
-                              prefix=self.brain_model(x), targets=targets)
+        padding. Returns (loss, logits), the trainer's uniform contract;
+        the LLaMA has no dropout, so ``train`` and ``generator`` change
+        nothing."""
+        features = self.brain_model(x, self.remat, date_info)
+        return self.llm_model(self._padded(targets), prefix=features,
+                              targets=targets, remat=self.remat)
 
     @torch.no_grad()
     def sequence_logprob(self, idx, prefix=None,

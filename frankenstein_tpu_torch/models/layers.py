@@ -89,13 +89,15 @@ class SwiGLU(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """MHA with RoPE. The slab-causal mode with a shared rope table runs
-    kernel K1 (``ops.attention.slab_attention_rope_fused``) where
+    """MHA with RoPE. The slab-causal mode with a shared rope table, no
+    explicit ``mask`` and a suffix-aligned table (or one of exactly T rows)
+    runs kernel K1 (``ops.attention.slab_attention_rope_fused``) where
     ``slab_attention.supported`` holds; otherwise, and in the other modes,
-    ``apply_rope`` (a shared or a per-sample table) +
-    ``dot_product_attention``, which routes the MAE's "gathered_slab"
-    encoder (with ``positions``) to K6 and its long dense decoder to K7
-    where their kernels take the input.
+    ``apply_rope`` (a shared or a per-sample table, sliced by
+    ``rope_align``: "suffix" or "prefix") + ``dot_product_attention``,
+    which routes the MAE's "gathered_slab" encoder (with ``positions``) to
+    K6 and its long dense decoder to K7 where their kernels take the input,
+    and a call with a ``mask`` (SimpleMAE's padding) to the plain path.
 
     ``qk_int8`` asks for int8 QK scores (kernel K10, serving-grade accuracy;
     gradients approximately straight-through), as the JAX ``SelfAttention``
@@ -103,23 +105,26 @@ class SelfAttention(nn.Module):
     ``ops.attention.qk_int8_fallback`` and computes exact scores."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int, device=None,
-                 dtype=None):
+                 dtype=None, rope_align: str = "suffix"):
         super().__init__()
         self.n_heads, self.head_dim = n_heads, head_dim
         self.compute_dtype = dtype
+        self.rope_align = rope_align
         inner = n_heads * head_dim
         self.qw = _linear(dim, inner, False, device)
         self.kw = _linear(dim, inner, False, device)
         self.vw = _linear(dim, inner, False, device)
         self.project = _linear(inner, dim, False, device)
 
-    def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
+    def forward(self, x, *, mask=None, mask_mode=None, tok_per_time: int = 0,
                 rope=None, positions=None, qk_int8: bool = False):
         b, t, _ = x.shape
         cdt = self.compute_dtype
         qf, kf, vf = (linear(x, self.qw, cdt), linear(x, self.kw, cdt),
                       linear(x, self.vw, cdt))
-        if (mask_mode == "slab" and rope is not None
+        if (mask_mode == "slab" and mask is None and rope is not None
+                and rope.ndim == 3
+                and (self.rope_align == "suffix" or rope.shape[0] == t)
                 and slab_attention.supported(x.device, qf.dtype, t,
                                              qf.shape[-1], self.n_heads)):
             out = attn_ops.slab_attention_rope_fused(
@@ -133,9 +138,10 @@ class SelfAttention(nn.Module):
         shape = (b, t, self.n_heads, self.head_dim)
         q, k, v = qf.reshape(shape), kf.reshape(shape), vf.reshape(shape)
         if rope is not None:
-            q = rope_ops.apply_rope(q, rope)
-            k = rope_ops.apply_rope(k, rope)
-        out = attn_ops.dot_product_attention(q, k, v, mask_mode=mask_mode,
+            q = rope_ops.apply_rope(q, rope, self.rope_align)
+            k = rope_ops.apply_rope(k, rope, self.rope_align)
+        out = attn_ops.dot_product_attention(q, k, v, mask=mask,
+                                             mask_mode=mask_mode,
                                              tok_per_time=tok_per_time,
                                              positions=positions)
         return linear(out.reshape(b, t, -1), self.project, cdt)
@@ -177,24 +183,26 @@ def make_norm(kind: str, dim: int, device=None) -> nn.Module:
 
 
 class Block(nn.Module):
-    """Pre-norm residual block, LayerNorm or RMSNorm (``norm``). Its MLP
-    sublayer runs kernel K9 (``ops/cuda/fused_mlp.py:FusedNormSwiGLU``)
-    when ``fused_mlp.ENABLED`` and ``fused_mlp.supported`` hold (x in the
+    """Pre-norm residual block, LayerNorm or RMSNorm (``norm``), its
+    attention's rope table sliced by ``rope_align``. Its MLP sublayer runs
+    kernel K9 (``ops/cuda/fused_mlp.py:FusedNormSwiGLU``) when
+    ``fused_mlp.ENABLED`` and ``fused_mlp.supported`` hold (x in the
     compute dtype, a width the kernel takes), else the module chain."""
 
     def __init__(self, dim: int, n_heads: int, head_dim: int,
                  hidden_dim: int, device=None, dtype=None,
-                 norm: str = "layernorm"):
+                 norm: str = "layernorm", rope_align: str = "suffix"):
         super().__init__()
         self.norm = norm
         self.ln_1 = make_norm(norm, dim, device)
-        self.attn = SelfAttention(dim, n_heads, head_dim, device, dtype)
+        self.attn = SelfAttention(dim, n_heads, head_dim, device, dtype,
+                                  rope_align)
         self.ln_2 = make_norm(norm, dim, device)
         self.mlp = SwiGLU(dim, hidden_dim, device, dtype)
 
-    def forward(self, x, *, mask_mode=None, tok_per_time: int = 0,
+    def forward(self, x, *, mask=None, mask_mode=None, tok_per_time: int = 0,
                 rope=None, positions=None, qk_int8: bool = False):
-        x = x + self.attn(self.ln_1(x), mask_mode=mask_mode,
+        x = x + self.attn(self.ln_1(x), mask=mask, mask_mode=mask_mode,
                           tok_per_time=tok_per_time, rope=rope,
                           positions=positions, qk_int8=qk_int8)
         mlp = self.mlp

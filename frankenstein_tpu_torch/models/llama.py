@@ -34,7 +34,7 @@ from frankenstein_tpu_torch.config import IGNORE_INDEX, LlamaConfig
 from frankenstein_tpu_torch.models.gpt2 import (GPT, QuantCache,
                                                 cross_entropy_ignore,
                                                 on_float_cache)
-from frankenstein_tpu_torch.models.layers import RMSNorm, linear
+from frankenstein_tpu_torch.models.layers import RMSNorm, linear, run_block
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops import rope as rope_ops
 from frankenstein_tpu_torch.ops.cuda import fused_llama_decode
@@ -201,18 +201,20 @@ class Llama(nn.Module):
             x = torch.cat([prefix.to(self._cdt()), x], dim=1)
         return x
 
-    def _text_logits(self, idx, prefix):
-        """f32 logits over the text positions of ``idx`` [B, Tw]."""
+    def _text_logits(self, idx, prefix, remat: bool = False):
+        """f32 logits over the text positions of ``idx`` [B, Tw];
+        ``remat`` recomputes each block in the backward."""
         x = self._embed_in(idx, prefix)
         for block in self.model.layers:
-            x = block.forward_full(x)
+            x = run_block(block.forward_full, x, remat=remat)
         return self._head(self.model.norm(x[:, -idx.shape[1]:]))
 
-    def forward(self, idx, prefix=None, targets=None):
+    def forward(self, idx, prefix=None, targets=None, remat: bool = False):
         """idx: [B, Tw]; prefix: [B, P, E] or None. Returns (loss, logits):
         logits over the text positions with ``targets`` (loss ignores -100),
-        else (None, the last position's logits)."""
-        logits = self._text_logits(idx, prefix)
+        else (None, the last position's logits). ``remat`` recomputes each
+        block's activations in the backward."""
+        logits = self._text_logits(idx, prefix, remat)
         if targets is not None:
             return cross_entropy_ignore(logits[:, :-1], targets[:, 1:]), logits
         return None, logits[:, -1:]

@@ -1,15 +1,25 @@
-"""Weights for the port's Franky and FrankyLlama.
+"""Weights for the port's models.
 
 ``load_strict`` loads a dict of numpy arrays under the port's state-dict
 names with ``strict=True``. For Franky that is the dict the JAX package's
 ``models/import_reference.py:export_franky`` writes (the reference's torch
 names and layouts), so the exporter is the bridge from any JAX checkpoint;
-for the MAE it is ``export_mae``'s; for FrankyLlama it is the brain's
+for the MAE it is ``export_mae``'s; for SimpleMAE ``export_simple_mae``'s;
+for BrainFormer ``export_brain_encoder(params["brain"], head="to_motion",
+prefix="brain.")``; for FrankyLlama it is the brain's
 ``export_brain_encoder(..., prefix="brain_model.")`` merged with the
 LLaMA's ``llama_state_from_flax(..., prefix="llm_model.")``.
-``init_franky_``, ``init_mae_`` and ``init_franky_llama_`` draw random
-weights from a seed at the JAX initialisers' scales (not the same draws:
-the two frameworks' generators differ).
+
+The session embedding (``MAEConfig.n_sessions`` > 0) is the port's and the
+JAX package's own: the reference has no slot for it, so the exporters
+drop it (``_export_encoder``). Its row comes across by name from the JAX
+parameters, ``encoder.date_embedding`` [n_sessions, dim] to
+``<prefix>encoder.date_embedding`` (``date_embedding_state``).
+
+``init_franky_``, ``init_mae_``, ``init_simple_mae_``, ``init_brainformer_``
+and ``init_franky_llama_`` draw random weights from a seed at the JAX
+initialisers' scales (not the same draws: the two frameworks' generators
+differ).
 """
 
 from __future__ import annotations
@@ -21,9 +31,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from frankenstein_tpu_torch.models.brainformer import MAE
+from frankenstein_tpu_torch.models.brainformer import MAE, BrainFormer
 from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
 from frankenstein_tpu_torch.models.gpt2 import init_gpt_
+from frankenstein_tpu_torch.models.simple_mae import SimpleMAE
 
 
 def load_strict(model: nn.Module, state: Mapping[str, np.ndarray]):
@@ -73,11 +84,22 @@ def llama_state_from_flax(tree: Mapping, prefix: str = "") -> dict:
     return out
 
 
+def date_embedding_state(tree: Mapping, prefix: str = "") -> dict:
+    """The session embedding of a JAX encoder's params ``tree`` (the
+    ``encoder`` subtree of an MAE, a BrainEncoder or a composite's brain),
+    under the port's name; empty when the encoder has none."""
+    if "date_embedding" not in tree:
+        return {}
+    return {f"{prefix}date_embedding": np.asarray(tree["date_embedding"],
+                                                  np.float32)}
+
+
 def _init_brain_(brain: nn.Module, gen: torch.Generator) -> None:
     """Linear kernels at lecun-normal scale (std 1/sqrt(fan_in)), the space
-    embedding (and an MAE's mask token) at std 1, learnable queries at
-    zero, unit norms, zero biases. An MAE's ``decoder_pos_emb`` [N, F] gets
-    flax ``nn.Embed``'s default, std 1/sqrt(F), the kernels' rule."""
+    embedding (and an MAE's mask token) at std 1, the session embedding at
+    std 0.02, learnable queries at zero, unit norms, zero biases. An MAE's
+    ``decoder_pos_emb`` [N, F] gets flax ``nn.Embed``'s default, std
+    1/sqrt(F), the kernels' rule."""
     with torch.no_grad():
         for name, p in brain.named_parameters():
             if name.endswith("bias") or name == "learnable_queries":
@@ -86,6 +108,8 @@ def _init_brain_(brain: nn.Module, gen: torch.Generator) -> None:
                 nn.init.ones_(p)
             elif name in ("encoder.space_embedding", "mask_token"):
                 p.normal_(0.0, 1.0, generator=gen)
+            elif name == "encoder.date_embedding":
+                p.normal_(0.0, 0.02, generator=gen)
             else:
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
 
@@ -104,6 +128,23 @@ def init_mae_(model: MAE, seed: int) -> MAE:
     (``_init_brain_``)."""
     gen = torch.Generator(device=model.mask_token.device).manual_seed(seed)
     _init_brain_(model, gen)
+    return model
+
+
+def init_simple_mae_(model: SimpleMAE, seed: int) -> SimpleMAE:
+    """Random weights from ``seed`` at the JAX initialisers' scales
+    (``_init_brain_``: the mask token at std 1, RMSNorm and LayerNorm
+    weights at one)."""
+    gen = torch.Generator(device=model.mask_token.device).manual_seed(seed)
+    _init_brain_(model, gen)
+    return model
+
+
+def init_brainformer_(model: BrainFormer, seed: int) -> BrainFormer:
+    """Random weights from ``seed``: the BrainEncoder as ``_init_brain_``."""
+    gen = torch.Generator(
+        device=model.brain.learnable_queries.device).manual_seed(seed)
+    _init_brain_(model.brain, gen)
     return model
 
 

@@ -6,15 +6,20 @@ AV product, which accumulates in float32 and rounds to q's dtype.
 ``mask_mode``: None (dense), "causal" (suffix-aligned), "slab"
 (slab(j) <= slab(i) over time slabs of ``tok_per_time`` tokens) or
 "gathered_slab" (the same over the original ``positions`` of a gathered
-token subset, the MAE's kept tokens).
+token subset, the MAE's kept tokens). An explicit boolean ``mask`` (True =
+attend; [Tq, Tk], [B, Tq, Tk] or [B, 1, Tq, Tk], its suffix rows and
+columns taken) is ANDed with any mode: the padding masks of SimpleMAE.
 
 ``dot_product_attention`` routes as the JAX package does on the TPU:
 "gathered_slab", "slab" and dense attention over ``DENSE_FLASH_MIN`` tokens
 or more, each with Tq == Tk, run kernels K6 / K7 (their twins on the CPU,
 ``ops/cuda/flash_attention.py``) where ``flash_attention.supported`` holds;
 everything else (an f32 or odd-length input on the card, causal, the
-Perceiver's short self-attention, cross-attention) runs the plain path
-here, "gathered_slab" with a [B, N, N] mask from ``positions``.
+Perceiver's short self-attention, cross-attention, and any call with an
+explicit ``mask``, which the JAX package also sends to XLA) runs the plain
+path here, "gathered_slab" with a [B, N, N] mask from ``positions``. A
+query row that sees no key (a padded token) takes NEG_INF in every score
+and comes out as the uniform average of v, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -64,13 +69,25 @@ def _flash(q, k, v, mode: str, tok_per_time: int = 0, slab_ids=None):
     return out.reshape(b, t, h, d)
 
 
-def dot_product_attention(q, k, v, *, mask_mode: Optional[str] = None,
+def _broadcast_mask(mask: torch.Tensor, tq: int, tk: int) -> torch.Tensor:
+    """A boolean mask as [B or 1, 1, Tq, Tk]: its last Tq rows and Tk
+    columns, as the reference slices ``attn_mask[..., -t_q:, -t_k:]``."""
+    if mask.ndim == 2:
+        mask = mask[None, None]
+    elif mask.ndim == 3:
+        mask = mask[:, None]
+    return mask[..., -tq:, -tk:]
+
+
+def dot_product_attention(q, k, v, *, mask: Optional[torch.Tensor] = None,
+                          mask_mode: Optional[str] = None,
                           tok_per_time: int = 0,
                           positions: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Attention over [B, T, H, D] tensors. Returns [B, Tq, H, D].
-    ``positions`` ([B, T] ints, the original token positions) is read by
-    "gathered_slab" only."""
+    ``mask``: an explicit boolean mask (True = attend), ANDed with the
+    mode's; a call with one runs the plain path. ``positions`` ([B, T]
+    ints, the original token positions) is read by "gathered_slab" only."""
     tq, tk, h, d = q.shape[1], k.shape[1], q.shape[2], q.shape[3]
     if mask_mode == "gathered_slab" and (positions is None
                                          or tok_per_time <= 0):
@@ -78,7 +95,8 @@ def dot_product_attention(q, k, v, *, mask_mode: Optional[str] = None,
                          "tok_per_time > 0")
     if mask_mode == "slab" and tok_per_time <= 0:
         raise ValueError("mask_mode='slab' needs tok_per_time > 0")
-    if tq == tk and flash.supported(q.device, q.dtype, tq, h * d, h):
+    if mask is None and tq == tk and flash.supported(q.device, q.dtype, tq,
+                                                     h * d, h):
         if mask_mode == "gathered_slab":
             slab_ids = (positions // tok_per_time).to(torch.int32)
             return _flash(q, k, v, "positions",
@@ -102,6 +120,9 @@ def dot_product_attention(q, k, v, *, mask_mode: Optional[str] = None,
         allowed = None
     else:
         raise ValueError(f"unknown mask_mode {mask_mode!r}")
+    if mask is not None:
+        given = _broadcast_mask(mask, tq, tk)
+        allowed = given if allowed is None else allowed & given
     if allowed is not None:
         logits = logits.masked_fill(~allowed, NEG_INF)
     return _softmax_av(logits, v, q.dtype)

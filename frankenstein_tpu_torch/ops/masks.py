@@ -40,3 +40,14 @@ def causal_mask(t_q: int, t_k: int, device=None) -> torch.Tensor:
     qi = torch.arange(t_q, device=device)[:, None]
     kj = torch.arange(t_k, device=device)[None, :]
     return kj <= qi + (t_k - t_q)
+
+
+def padding_mask(x: torch.Tensor, pad_value: float = 0.0) -> torch.Tensor:
+    """[B, T, C] -> [B, T] bool, True where the timestep is real: not all
+    of its channels equal ``pad_value``."""
+    return ~torch.all(x == pad_value, dim=-1)
+
+
+def self_attention_padding_mask(valid: torch.Tensor) -> torch.Tensor:
+    """[B, T] valid flags -> [B, T, T] pairwise mask, valid_i & valid_j."""
+    return valid[:, :, None] & valid[:, None, :]

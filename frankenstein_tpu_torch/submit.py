@@ -1,6 +1,6 @@
 """eval.ai submission (the port of ``examples/submit_data.py``): decode every
-held-out trial with a trained Franky and write one normalized line per trial
-to sub.txt.
+held-out trial with a trained Franky or FrankyLlama and write one
+normalized line per trial to sub.txt.
 
   python -m frankenstein_tpu_torch.submit --run-dir logs/<exp> \\
       --data /data/competitionData
@@ -27,18 +27,23 @@ from pathlib import Path
 
 
 def build_from_run_dir(run_dir: Path):
-    """(FrankyConfig, best checkpoint path) from a training run directory."""
-    from frankenstein_tpu_torch.config import FrankyConfig
+    """(model class, its config, best checkpoint path) from a training run
+    directory of a composite: Franky or FrankyLlama."""
+    from frankenstein_tpu_torch.config import FrankyConfig, FrankyLlamaConfig
+    from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
     from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
 
     doc = json.loads((Path(run_dir) / "model_config.json").read_text())
-    if doc["model"] != "franky":
-        raise SystemExit(f"--run-dir decoding serves franky runs, not "
-                         f"{doc['model']}")
+    composites = {"franky": (Franky, FrankyConfig),
+                  "franky-llama": (FrankyLlama, FrankyLlamaConfig)}
+    if doc["model"] not in composites:
+        raise SystemExit(f"--run-dir decoding serves the composite models "
+                         f"(franky, franky-llama), not {doc['model']}")
+    cls, cfg_cls = composites[doc["model"]]
     best = ckpt_lib.best_checkpoint(run_dir)
     if best is None:
         raise SystemExit(f"no step_*_loss_* checkpoint under {run_dir}")
-    return FrankyConfig.from_dict(doc["model_config"]), best
+    return cls, cfg_cls.from_dict(doc["model_config"]), best
 
 
 def main(argv=None) -> Path:
@@ -74,13 +79,13 @@ def main(argv=None) -> Path:
     device = cli_device(args.device)
     ckpt = Path(args.checkpoint) if args.checkpoint else None
     if args.run_dir:
-        cfg, best = build_from_run_dir(Path(args.run_dir))
+        cls, cfg, best = build_from_run_dir(Path(args.run_dir))
         ckpt = ckpt or best
     elif ckpt is None:
         raise SystemExit("pass --run-dir or --checkpoint")
     else:
-        cfg = FrankyConfig()
-    model = Franky(cfg, device=device)
+        cls, cfg = Franky, FrankyConfig()
+    model = cls(cfg, device=device)
     model.load_state_dict(ckpt_lib.load_raw_checkpoint(
         ckpt, map_location=device)["model"])
     model = cast_params_for_inference(model)

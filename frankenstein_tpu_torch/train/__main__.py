@@ -1,5 +1,6 @@
-"""Train the flagship Franky or pretrain its encoder as an MAE (the port of
-``train.py --model franky`` and ``--model mae``).
+"""Train the flagship Franky or FrankyLlama, or pretrain an encoder as an
+MAE or a SimpleMAE (the port of ``train.py --model franky``,
+``franky-llama``, ``mae`` and ``simple_mae``).
 
 Examples:
   # end-to-end Franky on synthetic data (no dataset needed)
@@ -11,6 +12,15 @@ Examples:
       --data synthetic --steps 50 --batch-size 32 --exp-name mae
   python -m frankenstein_tpu_torch.train --config configs/franky.yaml \\
       --data synthetic --init-encoder-from logs/mae
+
+  # the north-star composite (its YAML, or --model franky-llama with the
+  # geometry flags), grafted the same way
+  python -m frankenstein_tpu_torch.train --config configs/franky_llama.yaml \\
+      --data synthetic --init-encoder-from logs/mae
+
+  # SimpleMAE over whole-timestep tokens: --channels is the token width
+  python -m frankenstein_tpu_torch.train --model simple_mae \\
+      --window 768 --channels 256 --data synthetic
 
   # on the competition data; then serve the run
   python -m frankenstein_tpu_torch.train --config configs/franky.yaml \\
@@ -37,12 +47,30 @@ from pathlib import Path
 # models of the JAX package's train.py that the port does not train yet,
 # and the title of the ROADMAP.md item ("modules to port") that brings each
 NOT_PORTED = {
-    "simple_mae": "SimpleMAE",
     "vqvae": "VQ-VAE and the rest",
-    "franky-llama": "FrankyLlama training",
     "moe-gpt": "parallel modes and MoE",
-    "brainformer": "BrainFormer regression",
 }
+
+# models the JAX package's train.py accepts but cannot train: the port
+# refuses them with the fault (ROADMAP.md, "Findings in the JAX package")
+JAX_FINDINGS = {
+    "brainformer": (
+        "the JAX trainer passes the batch's token ids [B, 25] as "
+        "BrainFormer's targets (frankenstein_tpu/train/trainer.py:125-131), "
+        "but its L1 head takes float targets of the prediction's shape "
+        "[B, 25, 50257] (frankenstein_tpu/models/brainformer.py:258-273): "
+        "train.py --model brainformer fails with \"ValueError: Incompatible "
+        "shapes for broadcasting: (2, 25, 50257), (2, 25)\". "
+        "models/brainformer.py:BrainFormer serves callers with float "
+        "targets"),
+}
+SIMPLE_MAE_FINDING = (
+    "The JAX train.py takes no data geometry from a simple_mae YAML "
+    "(train.py:145-153), so such a YAML fails in its loss "
+    "(configs/simple_mae.yaml, patch_size 128 against 256 channels: "
+    "\"TypeError: sub got incompatible shapes (2, 576, 128), "
+    "(2, 576, 256)\"). Pass --channels equal to encoder.patch_size, or "
+    "train by flags")
 
 # CLI flag -> TrainConfig field, for flags that override the YAML
 FLAG_TO_FIELD = {
@@ -62,7 +90,8 @@ def parse_args(argv=None):
                    help="YAML config (see configs/); explicitly passed CLI "
                         "flags override its train section")
     p.add_argument("--model", default="franky",
-                   choices=["franky", "mae", *NOT_PORTED])
+                   choices=["franky", "franky-llama", "mae", "simple_mae",
+                            *NOT_PORTED, *JAX_FINDINGS])
     p.add_argument("--data", default="synthetic",
                    help="'synthetic' or path to competitionData/")
     p.add_argument("--exp-name", default=None)
@@ -83,17 +112,20 @@ def parse_args(argv=None):
     p.add_argument("--eval-interval", type=int, default=1000)
     p.add_argument("--warmup", type=int, default=2000)
     p.add_argument("--decay-iters", type=int, default=50_000)
-    p.add_argument("--window", type=int, default=768)
+    p.add_argument("--window", type=int, default=768,
+                   help="time bins a window (simple_mae: its tokens)")
     p.add_argument("--patch", type=int, default=32)
-    p.add_argument("--channels", type=int, default=256)
+    p.add_argument("--channels", type=int, default=256,
+                   help="electrodes (simple_mae: a token's width)")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--synthetic-trials", type=int, default=512)
     p.add_argument("--save-folder", default="logs")
     p.add_argument("--init-encoder-from", default=None, metavar="CKPT",
-                   help="graft an MAE checkpoint's encoder into Franky "
-                        "before training (a run dir resolves to its best "
-                        "checkpoint; the MAEConfig geometry must match)")
+                   help="graft an MAE checkpoint's encoder into Franky or "
+                        "FrankyLlama before training (a run dir resolves "
+                        "to its best checkpoint; the MAEConfig geometry "
+                        "must match)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; exits without a usable GPU) or cpu")
     p.add_argument("--mesh", default=None,
@@ -103,34 +135,77 @@ def parse_args(argv=None):
 
 
 def _refuse(name: str):
+    if name in JAX_FINDINGS:
+        raise SystemExit(f"--model {name} is refused: {JAX_FINDINGS[name]}")
     raise SystemExit(f"--model {name} is not ported to PyTorch yet: "
                      f"ROADMAP.md, modules to port, \"{NOT_PORTED[name]}\"")
 
 
+def _config_from_yaml(name: str, mc: dict):
+    from frankenstein_tpu_torch import config as cfg_lib
+    if name == "simple_mae":
+        return (cfg_lib.SimpleEncoderConfig.from_dict(mc.get("encoder", {})),
+                cfg_lib.SimpleMAEConfig.from_dict(mc.get("decoder", {})))
+    return {"franky": cfg_lib.FrankyConfig, "mae": cfg_lib.MAEConfig,
+            "franky-llama": cfg_lib.FrankyLlamaConfig}[name].from_dict(mc)
+
+
+def _config_from_flags(args):
+    from frankenstein_tpu_torch import config as cfg_lib
+    if args.model == "simple_mae":
+        return (cfg_lib.SimpleEncoderConfig(block_size=args.window,
+                                            patch_size=args.channels),
+                cfg_lib.SimpleMAEConfig())
+    enc = cfg_lib.MAEConfig(window_size=args.window,
+                            n_electrodes=args.channels, patch_size=args.patch)
+    if args.model == "mae":
+        return enc
+    if args.model == "franky-llama":
+        return cfg_lib.FrankyLlamaConfig(brain=cfg_lib.PerceiverConfig(
+            encoder=enc, n_output_tokens=32, output_dim=1024))
+    return cfg_lib.FrankyConfig(
+        brain=cfg_lib.PerceiverConfig(encoder=enc, n_output_tokens=32,
+                                      output_dim=768),
+        gpt=cfg_lib.GPTConfig(dropout=args.dropout))
+
+
 def model_config(args):
-    """(FrankyConfig or MAEConfig, YAML train section) from --config or the
-    flags."""
-    from frankenstein_tpu_torch.config import (FrankyConfig, GPTConfig,
-                                               MAEConfig, PerceiverConfig)
-    classes = {"franky": FrankyConfig, "mae": MAEConfig}
+    """(model config, YAML train section or None) from --config or the
+    flags: a FrankyConfig, FrankyLlamaConfig or MAEConfig, or SimpleMAE's
+    (SimpleEncoderConfig, SimpleMAEConfig)."""
+    trained = ("franky", "franky-llama", "mae", "simple_mae")
     if args.config:
         import yaml
         doc = yaml.safe_load(Path(args.config).read_text())
         args.model = doc["model"]
-        if args.model not in classes:
+        if args.model not in trained:
             _refuse(args.model)
-        return (classes[args.model].from_dict(doc.get("model_config", {})),
+        return (_config_from_yaml(args.model, doc.get("model_config", {})),
                 doc.get("train", {}))
-    if args.model not in classes:
+    if args.model not in trained:
         _refuse(args.model)
-    enc = MAEConfig(window_size=args.window, n_electrodes=args.channels,
-                    patch_size=args.patch)
+    return _config_from_flags(args), None
+
+
+def data_geometry(args, cfg) -> tuple:
+    """(window, channels) of the data: the encoder's for the MAE and the
+    composites; for SimpleMAE the flags', which its config must match (a
+    token is one timestep of all channels)."""
     if args.model == "mae":
-        return enc, None
-    return (FrankyConfig(brain=PerceiverConfig(encoder=enc,
-                                               n_output_tokens=32,
-                                               output_dim=768),
-                         gpt=GPTConfig(dropout=args.dropout)), None)
+        return cfg.window_size, cfg.n_electrodes
+    if args.model != "simple_mae":
+        return cfg.brain.encoder.window_size, cfg.brain.encoder.n_electrodes
+    enc = cfg[0]
+    if enc.patch_size != args.channels:
+        raise SystemExit(
+            f"--model simple_mae: encoder.patch_size {enc.patch_size} is "
+            f"not the data's channel count {args.channels}. "
+            f"{SIMPLE_MAE_FINDING}")
+    if enc.block_size < args.window:
+        raise SystemExit(
+            f"--model simple_mae: encoder.block_size {enc.block_size} is "
+            f"shorter than the data's window {args.window}")
+    return args.window, args.channels
 
 
 def train_config(args, yaml_train, argv):
@@ -179,22 +254,30 @@ def build_datasets(data: str, window: int, channels: int,
 
 
 def build_model(args, cfg, tcfg, device):
-    """The MAE or Franky from ``cfg`` with random weights from the config's
-    seed, f32 parameters with bf16 compute unless --no-bf16; Franky's
+    """The model from ``cfg`` with random weights from the config's seed,
+    f32 parameters with bf16 compute unless --no-bf16; a composite's
     encoder grafted from --init-encoder-from when given."""
     import torch
 
     from frankenstein_tpu_torch.models import weights
     from frankenstein_tpu_torch.models.brainformer import MAE
-    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
+    from frankenstein_tpu_torch.models.simple_mae import SimpleMAE
     from frankenstein_tpu_torch.train import checkpoints
 
     dtype = torch.bfloat16 if tcfg.mixed_precision else None
     if args.model == "mae":
         return weights.init_mae_(MAE(cfg, device=device, dtype=dtype),
                                  seed=tcfg.seed)
-    model = weights.init_franky_(Franky(cfg, device=device, dtype=dtype),
-                                 seed=tcfg.seed)
+    if args.model == "simple_mae":
+        return weights.init_simple_mae_(
+            SimpleMAE(*cfg, device=device, dtype=dtype), seed=tcfg.seed)
+    if args.model == "franky-llama":
+        model = weights.init_franky_llama_(
+            FrankyLlama(cfg, device=device, dtype=dtype), seed=tcfg.seed)
+    else:
+        model = weights.init_franky_(Franky(cfg, device=device, dtype=dtype),
+                                     seed=tcfg.seed)
     if args.init_encoder_from:
         checkpoints.graft_encoder_from_mae(args.init_encoder_from, model)
     return model
@@ -208,24 +291,26 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     cfg, yaml_train = model_config(args)
-    if args.init_encoder_from and args.model != "franky":
+    if args.init_encoder_from and args.model not in ("franky",
+                                                     "franky-llama"):
         raise SystemExit(
             f"--init-encoder-from grafts an MAE encoder into a composite: "
-            f"--model franky, not {args.model} (franky-llama's training is "
-            f"ROADMAP.md, modules to port, \"FrankyLlama training\")")
+            f"--model franky or franky-llama, not {args.model}")
+    window, channels = data_geometry(args, cfg)
     tcfg = train_config(args, yaml_train, argv)
     device = cli_device(args.device)
-    enc = cfg if args.model == "mae" else cfg.brain.encoder
-    data = build_datasets(args.data, enc.window_size, enc.n_electrodes,
-                          args.synthetic_trials)
+    data = build_datasets(args.data, window, channels, args.synthetic_trials)
     model = build_model(args, cfg, tcfg, device)
 
     save = Path(args.save_folder)
     run_dir = save / tcfg.exp_name
     run_dir.mkdir(parents=True, exist_ok=True)
     # the model config beside the run, so the submission CLI rebuilds it
+    # (SimpleMAE's two sections as a list, as the JAX train.py writes them)
+    mc = ([c.to_dict() for c in cfg] if isinstance(cfg, tuple)
+          else cfg.to_dict())
     (run_dir / "model_config.json").write_text(json.dumps(
-        {"model": args.model, "model_config": cfg.to_dict()}, indent=1))
+        {"model": args.model, "model_config": mc}, indent=1))
     state = run_train_model(model, data, tcfg, save_folder=save)
     print(f"done at step {state.step}; logs in {run_dir}")
     return state

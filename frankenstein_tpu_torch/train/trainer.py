@@ -4,8 +4,11 @@ with bf16 compute, periodic eval, best-by-metric checkpoints, resume, JSONL
 metrics and a stop on a non-finite loss.
 
 The model contract is the JAX package's uniform one: ``loss, logits =
-model(x, targets, train=..., generator=...)``, plus a ``remat`` attribute
-that the trainer sets from the config (``models/franky.py:Franky``).
+model(x, targets, train=..., generator=..., date_info=...)``, where
+``date_info`` is the batch's third array (the samples' session ids) and
+``targets`` is None for a model whose ``needs_labels`` is False (the MAE,
+SimpleMAE), plus a ``remat`` attribute that the trainer sets from the
+config (``models/franky.py:Franky``).
 
 On one device, in eager PyTorch:
 - a step is ``grad_accum`` forward/backward passes over equal microbatches
@@ -96,7 +99,11 @@ def augment_batch(batch, generator: torch.Generator, p_augs: float,
 
 
 def _loss(model, batch, *, train: bool, generator=None):
-    loss, _ = model(batch[0], batch[1], train=train, generator=generator)
+    """The model's loss on ``batch`` = (x, targets[, date_info])."""
+    targets = batch[1] if getattr(model, "needs_labels", True) else None
+    date_info = batch[2] if len(batch) > 2 else None
+    loss, _ = model(batch[0], targets, train=train, generator=generator,
+                    date_info=date_info)
     return loss
 
 

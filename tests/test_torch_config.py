@@ -12,7 +12,8 @@ from frankenstein_tpu.models import llama as jllama
 from frankenstein_tpu_torch import config as tconfig
 
 NAMES = ["MAEConfig", "PerceiverConfig", "GPTConfig", "FrankyConfig",
-         "TrainConfig", "LlamaConfig", "FrankyLlamaConfig"]
+         "TrainConfig", "LlamaConfig", "FrankyLlamaConfig",
+         "SimpleEncoderConfig", "SimpleMAEConfig"]
 # where the JAX package keeps each class
 JAX_HOME = {"LlamaConfig": jllama, "FrankyLlamaConfig": jfranky}
 
@@ -65,7 +66,9 @@ def test_json_round_trip_matches_jax(name):
     changed = {"TrainConfig": {"mesh_shape": (1, 1), "batch_size": 32},
                "FrankyConfig": {"max_tokens": 9},
                "GPTConfig": {"n_layer": 2}, "LlamaConfig": {"n_layers": 3},
-               "FrankyLlamaConfig": {"pad_token_id": 7}}.get(name, {})
+               "FrankyLlamaConfig": {"pad_token_id": 7},
+               "SimpleEncoderConfig": {"block_size": 768, "patch_size": 256},
+               "SimpleMAEConfig": {"masking_ratio": 0.5}}.get(name, {})
     j, t = jcls(**changed), tcls(**changed)
     assert tcls.from_json(j.to_json()) == t
     assert jcls.from_json(t.to_json()) == j

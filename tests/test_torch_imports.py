@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
@@ -40,3 +42,29 @@ def test_port_sources_never_name_jax():
                                             "from frankenstein_tpu.",
                                             "from frankenstein_tpu ")), \
                 f"{path}: {line}"
+
+
+_ALONE = r"""
+import importlib, sys
+sys.modules["jax"] = None
+sys.modules["frankenstein_tpu"] = None
+mod = importlib.import_module(sys.argv[1])
+print(",".join(n for n in sys.argv[2:] if hasattr(mod, n)))
+"""
+
+
+@pytest.mark.parametrize("name,attrs", [
+    ("models.simple_mae", ["SimpleEncoder", "SimpleMAE"]),
+    ("models.gpt2_import", ["config_for", "params_from_hf_state_dict",
+                            "params_from_hf_model"]),
+    ("models.brainformer", ["BrainFormer"]),
+    ("models.weights", ["init_simple_mae_", "init_brainformer_",
+                        "date_embedding_state"])])
+def test_new_modules_import_alone_without_jax(name, attrs):
+    """Each module of the encoder-family training paths imports by itself
+    in a process where jax and the JAX package cannot load."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ALONE, f"frankenstein_tpu_torch.{name}",
+         *attrs], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().split(",") == attrs

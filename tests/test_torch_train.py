@@ -406,7 +406,8 @@ def test_graft_refuses_another_geometry(tmp_path, geometry, match):
 
 
 def test_cli_grafts_only_into_franky():
-    with pytest.raises(SystemExit, match="FrankyLlama training"):
+    with pytest.raises(SystemExit, match="--model franky or franky-llama, "
+                       "not mae"):
         train_main(["--model", "mae", "--data", "synthetic",
                     "--init-encoder-from", "logs/none"])
 
