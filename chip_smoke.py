@@ -193,7 +193,24 @@ nvcc (sm_90a) and then, one line per phase:
     float targets against its f32 CPU twin, K1, K4 and K9 launched, and
     its B=32 train step's median and range and peak memory; one Franky
     step at B=2 with 24 sessions and per-sample ``date_info``, where
-    exactly the used ``date_embedding`` rows get a gradient.
+    exactly the used ``date_embedding`` rows get a gradient;
+21. the whisper path (``models/whisper.py``) at whisper-tiny width (80 x
+    3000 input, 4 + 4 layers of width 384, bf16 compute, seeded weights),
+    which no kernel of the port serves: 64 synthetic windows prepared on
+    the card (``data/whisper_prep.py``: PCA-80, 2x FFT resample, pad to
+    3000); the card's prefill and 24 teacher-forced decode-step logits at
+    B=2 against an f32 CPU twin, beside bf16 on the CPU; a B=32 greedy
+    request (prefill, then ``greedy_decode_scan`` for 25 tokens) and a
+    B=32 beam-of-5 request over int8 self and cross KV, medians and ranges
+    of 5 in turns with their peaks, the cross K/V at batch 32 after
+    ``expand_cache`` and every reorder, and the greedy request's device
+    time by kernel family; ``evaluate_seq2seq_wer`` over the 64 windows,
+    greedy and with beams; the fine-tuning pipeline
+    (``whisper_pipeline.build``, then ``run_train_model``) for 20 steps at
+    B=16 with one WER eval and a checkpoint: finite falling losses, the
+    checkpoint restored bitwise, the step's median and range and peak, and
+    B=1 gradients against an f32 CPU twin beside bf16 on the CPU; every
+    kernel launch counter (K1-K10) at 0 through the phase.
 
 Every on / off comparison (phases 4, 9, 13, 17, 18 and 20) is timed by
 ``_in_turns``: one warm-up each, then single calls alternating in turns,
@@ -3789,6 +3806,324 @@ def phase_rest(card: str) -> dict:
             "brainformer": _rest_brainformer(card)}
 
 
+WHISPER_STEPS = 20      # phase 21's pipeline steps at B=16
+WHISPER_TOKENS = 25     # tokens of phase 21's B=32 requests
+WHISPER_TF_STEPS = 24   # teacher-forced decode steps of its CPU cross-check
+
+
+def _whisper_logits(model, mel, toks) -> list:
+    """f32 logits of ``model`` on its device: the prefill's, then one
+    decode_step's for each column of ``toks`` (teacher-forced)."""
+    import torch
+    from frankenstein_tpu_torch.models import whisper
+    dev = model.device
+    prompt = model.sot_prompt()
+    cache = whisper.init_whisper_cache(
+        model.cfg, mel.shape[0], len(prompt) + toks.shape[1] + 2, device=dev)
+    logits, cache, length = model.prefill(
+        torch.tensor(prompt, device=dev).repeat(mel.shape[0], 1),
+        mel.to(dev), cache)
+    out = [logits.float().cpu()]
+    for i in range(toks.shape[1]):
+        logits, cache, length = model.decode_step(toks[:, i].to(dev), cache,
+                                                  length)
+        out.append(logits.float().cpu())
+    return out
+
+
+def _whisper_twin(model, dtype=None):
+    """The same weights on the CPU, computing in ``dtype`` (f32 if None)."""
+    from frankenstein_tpu_torch.models.whisper import BrainWhisper
+    twin = BrainWhisper(model.cfg, dtype=dtype)
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin
+
+
+def _whisper_cross_check(model, mel) -> dict:
+    """The card's logits (bf16 compute) against the same weights as f32 on
+    the CPU, prefill and WHISPER_TF_STEPS teacher-forced steps at B=2:
+    "card" the largest error relative to max |f32 logits| over the steps,
+    "witness" the same for bf16 compute on the CPU."""
+    import torch
+    toks = torch.randint(0, model.cfg.n_vocab - 3, (mel.shape[0],
+                                                    WHISPER_TF_STEPS),
+                         generator=torch.Generator().manual_seed(SEED))
+    ref = _whisper_logits(_whisper_twin(model), mel, toks)
+    rel = lambda got: max(_max_err(g, r) / float(r.abs().max())
+                          for g, r in zip(got, ref))
+    return {"card": rel(_whisper_logits(model, mel, toks)),
+            "witness": rel(_whisper_logits(
+                _whisper_twin(model, torch.bfloat16), mel, toks))}
+
+
+def _whisper_grads(model, ds) -> tuple:
+    """One B=1 loss's gradients on the card (bf16 compute) against the same
+    weights as f32 on the CPU: ``_grad_errs`` over every attention
+    projection, and the same for bf16 compute on the CPU (the witness)."""
+    import torch
+    x, y, _ = ds[0]
+    x, y = torch.from_numpy(x[None]), torch.from_numpy(y[None])
+    model.zero_grad(set_to_none=True)
+    model(x.cuda().to(torch.bfloat16), y.cuda())[0].backward()
+    card = {n: p.grad.cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+
+    def cpu_grads(dtype):
+        twin = _whisper_twin(model, dtype)
+        twin(x.to(dtype or torch.float32), y)[0].backward()
+        return {n: p.grad for n, p in twin.named_parameters()}
+
+    cpu = cpu_grads(None)
+    attn = [n for n in cpu if "_attn." in n and n.endswith("proj.weight")]
+    low = _grad_errs(cpu_grads(torch.bfloat16), cpu, attn)
+    return _grad_errs(card, cpu, attn), low
+
+
+class _CrossBatches:
+    """While installed, records the batch of every cross K/V and self-KV
+    tensor that ``BrainWhisper.expand_cache`` returns and
+    ``BrainWhisper.reorder_cache`` is given and returns."""
+
+    def __init__(self):
+        from frankenstein_tpu_torch.models.whisper import BrainWhisper
+        self.cls, self.seen = BrainWhisper, []
+
+    def _record(self, what, cache):
+        self.seen.append((what, {c.shape[0] for kv in cache[2] for c in kv},
+                          {k.shape[0] for k in cache[0]}))
+
+    def __enter__(self):
+        self.saved = {n: self.cls.__dict__[n]
+                      for n in ("expand_cache", "reorder_cache")}
+        expand = self.saved["expand_cache"].__func__
+        reorder = self.saved["reorder_cache"].__func__
+
+        def expand_rec(cache, w):
+            out = expand(cache, w)
+            self._record("expand", out)
+            return out
+
+        def reorder_rec(cache, flat_idx, group=0):
+            self._record("reorder in", cache)
+            out = reorder(cache, flat_idx, group=group)
+            self._record("reorder out", out)
+            return out
+
+        self.cls.expand_cache = staticmethod(expand_rec)
+        self.cls.reorder_cache = staticmethod(reorder_rec)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def _kernel_count(fn) -> int:
+    """Device kernels one call of fn() runs (torch.profiler, after a
+    warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if _device_us(e) > 0
+               and not re.match(r"(Optimizer\.|ProfilerStep)", e.key))
+
+
+def phase_whisper(card: str) -> dict:
+    """Phase 21: the whisper path at whisper-tiny width (bf16 compute,
+    seeded weights): the card against its CPU twins, B=32 greedy and
+    beam-of-5 int8-KV requests, the seq2seq WER eval, and the fine-tuning
+    pipeline. No kernel of the port lies on this path."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from frankenstein_tpu_torch import whisper_pipeline
+    from frankenstein_tpu_torch.config import WhisperConfig
+    from frankenstein_tpu_torch.data import tokenizers, whisper_prep
+    from frankenstein_tpu_torch.decode import sampling
+    from frankenstein_tpu_torch.eval.evaluate import evaluate_seq2seq_wer
+    from frankenstein_tpu_torch.models import whisper
+    from frankenstein_tpu_torch.models.weights import init_whisper_
+    from frankenstein_tpu_torch.train import trainer
+
+    _reset_launches()
+    _reset_flash()
+    cfg = WhisperConfig()
+    model = init_whisper_(whisper.BrainWhisper(
+        cfg, device=torch.device("cuda"), dtype=torch.bfloat16), seed=SEED)
+
+    # 64 synthetic validation windows at full geometry, PCA fit on 128
+    # train trials, on the card
+    t0 = time.perf_counter()
+    brains, _, val_brains, val_sentences = whisper_pipeline.load_trials(
+        "synthetic", 128, 64)
+    mean, comps = whisper_prep.fit_pca(brains, device="cuda")
+    mels = whisper_prep.prepare_brain_data_for_whisper(
+        val_brains, mean, comps, n_components=cfg.n_mels,
+        pad_length=2 * cfg.n_audio_ctx, device="cuda")
+    prep_s = time.perf_counter() - t0
+    _check(mels.shape == (64, 80, 3000) and np.isfinite(mels).all(),
+           f"whisper prep gave {mels.shape}")
+
+    t0 = time.perf_counter()
+    cross = _whisper_cross_check(model, torch.from_numpy(mels[:2]))
+    cross_s = time.perf_counter() - t0
+
+    b = 32
+    x = torch.from_numpy(mels[:b]).cuda()
+    prompt = model.sot_prompt()
+    tok0 = torch.tensor(prompt, device="cuda").repeat(b, 1)
+
+    def prefill():
+        return model.prefill(tok0, x, whisper.init_whisper_cache(
+            cfg, b, len(prompt) + WHISPER_TOKENS + 2, device="cuda"))
+
+    state = prefill()
+    greedy_toks = sampling.greedy_decode_scan(model, *state,
+                                              max_new_tokens=WHISPER_TOKENS)
+    _check(greedy_toks.shape == (b, WHISPER_TOKENS)
+           and bool(torch.isfinite(state[0]).all())
+           and int(greedy_toks.max()) < cfg.n_vocab,
+           f"greedy request: tokens {tuple(greedy_toks.shape)}")
+    greedy = _in_turns({
+        "prefill": prefill,
+        "decode": lambda: sampling.greedy_decode_scan(
+            model, *state, max_new_tokens=WHISPER_TOKENS),
+        "request": lambda: sampling.greedy_decode_scan(
+            model, *prefill(), max_new_tokens=WHISPER_TOKENS)})
+    profile = _profile_request(
+        lambda: sampling.greedy_decode_scan(model, *prefill(),
+                                            max_new_tokens=WHISPER_TOKENS),
+        21, "whisper B=32 greedy request", "cuBLAS", card)
+    step_kernels = _kernel_count(lambda: sampling.greedy_decode_scan(
+        model, *state, max_new_tokens=WHISPER_TOKENS)) / (WHISPER_TOKENS - 1)
+
+    def beam_request():
+        logits, cache, length = prefill()
+        return sampling.beam_from_prefill(
+            model, logits, whisper.quantize_whisper_cache(cache), length,
+            max_new_tokens=WHISPER_TOKENS, beam_width=5,
+            eos_id=model.eot_id())
+
+    with _CrossBatches() as batches:
+        beam_toks, beam_scores = beam_request()
+    _check(beam_toks.shape == (b, WHISPER_TOKENS)
+           and bool(torch.isfinite(beam_scores).all()),
+           f"beam request: tokens {tuple(beam_toks.shape)}")
+    whats = [w for w, _, _ in batches.seen]
+    _check(whats.count("expand") == 1
+           and whats.count("reorder in") == WHISPER_TOKENS
+           and all(c == {b} and s == {5 * b} for _, c, s in batches.seen),
+           f"beam cache batches (what, cross, self): {batches.seen}")
+    beams = _in_turns({"request": beam_request})
+
+    tok = tokenizers.best_available_tokenizer()
+    t0 = time.perf_counter()
+    wer_g, preds_g = evaluate_seq2seq_wer(model, mels, val_sentences, tok,
+                                          batch_size=b)
+    wer_b, preds_b = evaluate_seq2seq_wer(model, mels, val_sentences, tok,
+                                          batch_size=b, beam_width=5)
+    eval_s = time.perf_counter() - t0
+    _check(len(preds_g) == len(preds_b) == 64
+           and math.isfinite(wer_g) and math.isfinite(wer_b),
+           f"seq2seq WER {wer_g}, {wer_b}, predictions {len(preds_g)}, "
+           f"{len(preds_b)}")
+    del model, state, x
+    _free_card()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pipe = whisper_pipeline.build(
+            "synthetic", device=torch.device("cuda"), batch_size=16,
+            steps=WHISPER_STEPS, eval_interval=WHISPER_STEPS)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        state = trainer.run_train_model(pipe.model, pipe.datasets,
+                                        pipe.config, save_folder=Path(tmp),
+                                        eval_metric=pipe.eval_metric)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_dir = Path(tmp) / pipe.config.exp_name
+        losses, val, rate = _run_record(run_dir)
+        records = [json.loads(line) for line in
+                   (run_dir / "metrics.jsonl").read_text().splitlines()]
+        wers = [r["val/metric"] for r in records if "val/metric" in r]
+        _check_run(state, losses, val, WHISPER_STEPS, "whisper pipeline")
+        _check(len(wers) == 1 and math.isfinite(wers[0]),
+               f"whisper pipeline WER evals {wers}")
+        ckpt = _restores_bitwise(state, run_dir, whisper.BrainWhisper(
+            cfg, device=torch.device("cuda"), dtype=torch.bfloat16))
+        ds = pipe.datasets[0]
+        step = _in_turns({"step": _train_stepper(state, pipe.config, ds,
+                                                 16)})["step"]
+        t1 = time.perf_counter()
+        grad_errs, witness = _whisper_grads(state.model, ds)
+        grad_s = time.perf_counter() - t1
+    del state, pipe
+    _free_card()
+    launches, flash = _read_launches(), _read_flash()
+
+    g = {k: v["ms"] for k, v in greedy.items()}
+    print(f"phase 21 whisper card vs CPU: whisper-tiny (80 x 3000 input, "
+          f"4 + 4 layers of width 384, 6 heads, vocabulary {cfg.n_vocab}, "
+          f"f32 params, bf16 compute, seeded weights), B=2, prefill and "
+          f"{WHISPER_TF_STEPS} teacher-forced decode steps ({cross_s:.1f} "
+          f"s): card vs f32 CPU twin max err {cross['card']:.3e} of max "
+          f"|logits|, bf16 on the CPU {cross['witness']:.3e} (limit "
+          f"{SLICE_TOL}); prep of 64 windows on the card (PCA-80 fit on 128 "
+          f"trials, 2x FFT resample, pad to 3000) {prep_s:.1f} s | {card}",
+          flush=True)
+    print(f"phase 21 whisper B=32 greedy request ({WHISPER_TOKENS} tokens, "
+          f"plain attention: the encoder's [32, 6, 1500, 1500] f32 scores): "
+          f"prefill {_note(g['prefill'])} ms, decode {_note(g['decode'])} "
+          f"ms, request {_note(g['request'])} ms, "
+          f"{b * 1e3 / g['request'][0]:.1f} sentences/s at the median, peak "
+          f"{greedy['request']['gib']:.2f} GiB, medians (range) of "
+          f"{TIMING_REPEATS} in turns | beams of 5 over int8 self and cross "
+          f"KV: request {_note(beams['request']['ms'])} ms, "
+          f"{b * 1e3 / beams['request']['ms'][0]:.1f} sentences/s, peak "
+          f"{beams['request']['gib']:.2f} GiB; cross K/V at batch {b} (self "
+          f"KV {5 * b}) after expand_cache and all {WHISPER_TOKENS} "
+          f"reorders | device busy {100 * sum(profile.values()) / g['request'][0]:.1f}% "
+          f"of the median request; {step_kernels:.0f} kernels a greedy "
+          f"decode step, {1e3 * g['decode'][0] / (WHISPER_TOKENS - 1) / step_kernels:.1f} "
+          f"us of decode a kernel | {card}", flush=True)
+    print(f"phase 21 whisper evaluate_seq2seq_wer over 64 synthetic windows "
+          f"at B=32 ({eval_s:.1f} s): greedy WER {wer_g:.4f}, beams of 5 "
+          f"WER {wer_b:.4f}, {len(preds_g)} and {len(preds_b)} predictions "
+          f"(random weights) | {card}", flush=True)
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"phase 21 whisper pipeline: build (128 + 32 synthetic trials, "
+          f"prep on the card) {build_s:.1f} s, {WHISPER_STEPS} steps at "
+          f"B=16 with one WER eval in {run_s:.1f} s: train loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (logged {len(losses)}), val "
+          f"{val[-1]:.4f}, WER {wers[0]:.4f}, samples/s in the log "
+          f"{rate[-1]:.1f}, checkpoint {ckpt} restored bitwise | B=16 step "
+          f"{_note(step['ms'])} ms, {16e3 / step['ms'][0]:.1f} samples/s at "
+          f"the median, peak {step['gib']:.2f} GiB, median (range) of "
+          f"{TIMING_REPEATS} | B=1 card vs f32 CPU twin gradients "
+          f"({grad_s:.1f} s): global norm rel err "
+          f"{grad_errs['global_norm']:.3e} (bf16 on the CPU "
+          f"{witness['global_norm']:.3e}), worst attention projection "
+          f"{worst} {grad_errs[worst]:.3e} where bf16 on the CPU gives "
+          f"{witness[worst]:.3e} (tol {GRAD_TOL}) | launches {launches} "
+          f"{flash} | {card}", flush=True)
+    _check(cross["card"] <= SLICE_TOL,
+           f"whisper card vs CPU logits: {cross}")
+    _check(max(grad_errs.values()) <= GRAD_TOL,
+           f"whisper card vs CPU gradients: {grad_errs}, bf16 CPU {witness}")
+    _check(not any(launches.values()) and not any(flash.values()),
+           f"phase 21 launched a kernel: {launches} {flash}")
+    return {"greedy": greedy, "beams": beams, "step": step,
+            "cross": cross, "grad": grad_errs, "wer": (wer_g, wer_b)}
+
+
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
     null where no one PyTorch call computes the same function."""
@@ -3831,6 +4166,7 @@ def main() -> int:
     served = phase_served(card)
     probes = phase_probes(card)
     rest = phase_rest(card)
+    phase_whisper(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [

@@ -6,7 +6,11 @@ GPT-2 124M. Serving: KV-cached top-k or beam-search decode, bf16 or int8 KV
 cache, through the predictor, the WER evaluation and the submission writer
 (``python -m frankenstein_tpu_torch.submit``). Training: f32 parameters and
 bf16 compute, AdamW with a value clip and the warmup-cosine schedule,
-checkpoints and resume (``python -m frankenstein_tpu_torch.train``). Plain
+checkpoints and resume (``python -m frankenstein_tpu_torch.train``). The
+whisper path (``models/whisper.py``: seq2seq decode, greedy, beams and
+int8 KV; its fine-tuning CLI ``python -m
+frankenstein_tpu_torch.whisper_pipeline``) is plain PyTorch in full, as
+the JAX package runs it in XLA. Plain
 tensor code is PyTorch; the kernels the JAX package wrote in Pallas on these
 paths are hand-written CUDA C++ for Hopper (``csrc/``):
 

@@ -2,7 +2,7 @@
 
 Field-for-field copies of ``frankenstein_tpu/config.py`` (``MAEConfig``,
 ``SimpleEncoderConfig``, ``SimpleMAEConfig``, ``PerceiverConfig``,
-``GPTConfig``, ``FrankyConfig``, ``TrainConfig``, the
+``GPTConfig``, ``FrankyConfig``, ``WhisperConfig``, ``TrainConfig``, the
 JSON mixin that lets YAML sections and ``model_config.json`` round-trip, and
 the constants the slices use), and of ``LlamaConfig``,
 ``tiny_llama_config`` (``models/llama.py``) and ``FrankyLlamaConfig``
@@ -240,6 +240,33 @@ class FrankyLlamaConfig(_SerializableMixin):
             max_seq_len=128, tie_embeddings=True))
     max_tokens: int = MAX_TOKENS
     pad_token_id: int = GPT2_EOT
+
+
+@dataclass(frozen=True)
+class WhisperConfig(_SerializableMixin):
+    """Whisper-tiny-like encoder / decoder geometry for the 80 x 3000 "fake
+    mel" input (``models/whisper.py``)."""
+
+    n_mels: int = 80
+    n_audio_ctx: int = 1500     # 3000 frames / 2 after conv2's stride
+    n_audio_state: int = 384
+    n_audio_head: int = 6
+    n_audio_layer: int = 4
+    n_vocab: int = 51864
+    n_text_ctx: int = 448
+    n_text_state: int = 384
+    n_text_head: int = 6
+    n_text_layer: int = 4
+    dropout: float = 0.0
+
+    # special tokens; -1 = unset (top-of-vocab placeholders).
+    # ``params_from_hf_whisper`` fills the real ids of a checkpoint
+    decoder_start_token_id: int = -1
+    eos_token_id: int = -1
+    pad_token: int = -1
+    # the full decoder prompt: (sot, lang?, task?, notimestamps?), HF's
+    # forced_decoder_ids behind decoder_start_token_id
+    sot_sequence: tuple = ()
 
 
 @dataclass(frozen=True)

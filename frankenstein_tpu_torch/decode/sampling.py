@@ -10,6 +10,11 @@ one [B*W] decode whose cache rows are regathered by parent beam every step
 (kernel K3 on the card).
 ``int8_kv=True`` quantizes the cache to int8 right after prefill.
 
+A seq2seq model (whisper) prefills itself (encoder, cross K/V, prompt) and
+hands its state to ``greedy_decode_scan`` or ``beam_from_prefill``, which
+take a model with ``decode_step`` and, for beams, its own
+``expand_cache`` / ``reorder_cache``.
+
 Randomness comes from a ``torch.Generator``; top-k is exact (the JAX
 package draws its candidates with ``approx_max_k``, which is exact off the
 TPU), so deterministic beams match the JAX package token for token, and
@@ -399,6 +404,20 @@ def _sampled_beam_scan(model, logits, cache, length: int, generator, b: int,
         scores = top_scores.reshape(-1)
     return _rank(toks, scores, finished, gen_len, b, w, max_new_tokens,
                  eos_id, length_penalty, n_best)
+
+
+@torch.no_grad()
+def greedy_decode_scan(model, logits, cache, length: int, *,
+                       max_new_tokens: int) -> torch.Tensor:
+    """Greedy KV-cached decode from a prefilled state, for any model with
+    ``decode_step(token, cache, length) -> (logits, cache, length)``: the
+    argmax of the prefill ``logits`` first, then ``max_new_tokens - 1``
+    cached steps. Returns [B, max_new_tokens] ids."""
+    toks = [torch.argmax(logits.float(), dim=-1)]
+    for _ in range(max_new_tokens - 1):
+        logits, cache, length = model.decode_step(toks[-1], cache, length)
+        toks.append(torch.argmax(logits.float(), dim=-1))
+    return torch.stack(toks, dim=1)
 
 
 def trim_at_eot(tokens, eot_id: int):

@@ -10,16 +10,20 @@ prefix="brain.")``; for FrankyLlama it is the brain's
 ``export_brain_encoder(..., prefix="brain_model.")`` merged with the
 LLaMA's ``llama_state_from_flax(..., prefix="llm_model.")``.
 
+For BrainWhisper the bridge is ``whisper_state_from_flax``: the JAX
+package has no exporter for it, and the port's names are HF's, so it is
+the inverse of the JAX ``params_from_hf_whisper``'s mapping.
+
 The session embedding (``MAEConfig.n_sessions`` > 0) is the port's and the
 JAX package's own: the reference has no slot for it, so the exporters
 drop it (``_export_encoder``). Its row comes across by name from the JAX
 parameters, ``encoder.date_embedding`` [n_sessions, dim] to
 ``<prefix>encoder.date_embedding`` (``date_embedding_state``).
 
-``init_franky_``, ``init_mae_``, ``init_simple_mae_``, ``init_brainformer_``
-and ``init_franky_llama_`` draw random weights from a seed at the JAX
-initialisers' scales (not the same draws: the two frameworks' generators
-differ).
+``init_franky_``, ``init_mae_``, ``init_simple_mae_``, ``init_brainformer_``,
+``init_franky_llama_`` and ``init_whisper_`` draw random weights from a
+seed at the JAX initialisers' scales (not the same draws: the two
+frameworks' generators differ).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from frankenstein_tpu_torch.models.brainformer import MAE, BrainFormer
 from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
 from frankenstein_tpu_torch.models.gpt2 import init_gpt_
 from frankenstein_tpu_torch.models.simple_mae import SimpleMAE
+from frankenstein_tpu_torch.models.whisper import BrainWhisper
 
 
 def load_strict(model: nn.Module, state: Mapping[str, np.ndarray]):
@@ -159,4 +164,75 @@ def init_franky_llama_(model: FrankyLlama, seed: int) -> FrankyLlama:
                 nn.init.ones_(p)
             else:
                 p.normal_(0.0, 0.02, generator=gen)
+    return model
+
+
+def whisper_state_from_flax(tree: Mapping) -> dict:
+    """The JAX package's flax ``BrainWhisper`` params (``{"params": ...}``
+    or the inner tree, as numpy) as the port's HF-named state dict: conv
+    kernels [k, in, out] become [out, in, k], dense kernels [in, out]
+    become [out, in], and ``proj_out.weight`` is the token embedding."""
+    p = tree.get("params", tree)
+    arr = lambda x: np.asarray(x, np.float32)
+    out = {}
+
+    def conv(name, src):
+        out[f"{name}.weight"] = arr(src["kernel"]).transpose(2, 1, 0)
+        out[f"{name}.bias"] = arr(src["bias"])
+
+    def dense(name, src):
+        out[f"{name}.weight"] = arr(src["kernel"]).T
+        if "bias" in src:
+            out[f"{name}.bias"] = arr(src["bias"])
+
+    def norm(name, src):
+        out[f"{name}.weight"] = arr(src["weight"])
+        out[f"{name}.bias"] = arr(src["bias"])
+
+    def layer(name, src, attns):
+        for attn in attns:
+            norm(f"{name}.{attn}_layer_norm", src[f"{attn}_layer_norm"])
+            for proj in ("q", "k", "v", "out"):
+                dense(f"{name}.{attn}.{proj}_proj",
+                      src[attn][f"{proj}_proj"])
+        norm(f"{name}.final_layer_norm", src["final_layer_norm"])
+        dense(f"{name}.fc1", src["mlp"]["fc1"])
+        dense(f"{name}.fc2", src["mlp"]["fc2"])
+
+    conv("model.encoder.conv1", p["conv1"])
+    conv("model.encoder.conv2", p["conv2"])
+    i = 0
+    while f"enc_{i}" in p:
+        layer(f"model.encoder.layers.{i}", p[f"enc_{i}"], ["self_attn"])
+        i += 1
+    norm("model.encoder.layer_norm", p["enc_ln"])
+    out["model.decoder.embed_tokens.weight"] = arr(p["embed_tokens"])
+    out["model.decoder.embed_positions.weight"] = arr(p["embed_positions"])
+    i = 0
+    while f"dec_{i}" in p:
+        layer(f"model.decoder.layers.{i}", p[f"dec_{i}"],
+              ["self_attn", "encoder_attn"])
+        i += 1
+    norm("model.decoder.layer_norm", p["dec_ln"])
+    out["proj_out.weight"] = out["model.decoder.embed_tokens.weight"]
+    return out
+
+
+def init_whisper_(model: BrainWhisper, seed: int) -> BrainWhisper:
+    """Random weights from ``seed`` at the flax initialisers' scales:
+    linear and conv kernels lecun normal (std 1/sqrt(fan_in), fan_in = in
+    x kernel width for a conv), zero biases, unit LayerNorm weights, and
+    N(0, 0.02) for the token and position embeddings."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(("embed_tokens.weight",
+                              "embed_positions.weight")):
+                p.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("bias"):
+                nn.init.zeros_(p)
+            elif "layer_norm" in name:
+                nn.init.ones_(p)
+            else:
+                p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=gen)
     return model

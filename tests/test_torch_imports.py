@@ -59,10 +59,22 @@ print(",".join(n for n in sys.argv[2:] if hasattr(mod, n)))
                             "params_from_hf_model"]),
     ("models.brainformer", ["BrainFormer"]),
     ("models.weights", ["init_simple_mae_", "init_brainformer_",
-                        "date_embedding_state"])])
+                        "date_embedding_state", "init_whisper_",
+                        "whisper_state_from_flax"]),
+    ("models.whisper", ["BrainWhisper", "WhisperQuantCache",
+                        "quantize_whisper_cache", "init_whisper_cache",
+                        "params_from_hf_whisper", "sinusoids"]),
+    ("ops.preprocess", ["zscore", "zscore_by_segments", "gaussian_kernel1d",
+                        "gaussian_smooth", "resample_fft", "pca_fit",
+                        "pca_transform"]),
+    ("data.whisper_prep", ["fit_pca", "prepare_brain_data_for_whisper"]),
+    ("eval.evaluate", ["evaluate_seq2seq_wer"]),
+    ("decode.sampling", ["greedy_decode_scan"]),
+    ("whisper_pipeline", ["build", "main", "tokenize_labels"])])
 def test_new_modules_import_alone_without_jax(name, attrs):
-    """Each module of the encoder-family training paths imports by itself
-    in a process where jax and the JAX package cannot load."""
+    """Each module of the encoder-family training paths and of the whisper
+    path imports by itself in a process where jax and the JAX package
+    cannot load."""
     proc = subprocess.run(
         [sys.executable, "-c", _ALONE, f"frankenstein_tpu_torch.{name}",
          *attrs], cwd=ROOT, capture_output=True, text=True, timeout=300)
