@@ -210,7 +210,33 @@ nvcc (sm_90a) and then, one line per phase:
     B=16 with one WER eval and a checkpoint: finite falling losses, the
     checkpoint restored bitwise, the step's median and range and peak, and
     B=1 gradients against an f32 CPU twin beside bf16 on the CPU; every
-    kernel launch counter (K1-K10) at 0 through the phase.
+    kernel launch counter (K1-K10) at 0 through the phase;
+22. the VQ-VAE and the rest: ``configs/vqvae.yaml``'s SoundStream (768 x
+    512 windows, C=256, D=64, K=1024; f32 parameters, bf16 convs, the
+    quantizer in f32) trained for 30 steps at B=64 through the train CLI
+    at the YAML's lr after a 5-step warm-up, logging every step, with an
+    eval every 10 and a checkpoint: finite losses, val falling at each
+    eval and the last 10 steps' mean under the first's, ``perplexity``,
+    ``rec_loss``, ``commit_loss`` and ``mfu`` in ``metrics.jsonl``, no
+    kernel launched, the checkpoint restored bitwise, codebook buffers
+    included; a fresh model's first step (initted 0 -> 1, k-means, the
+    refresh); the refresh of the trained model at B=64 against a
+    recomputation (each dead code a batch row's l2norm at size 1, the
+    rest the EMA update); B=1 steps on four padded windows with the
+    trained codebook written and read back as a reference file and
+    ``threshold_ema_dead_code=0`` (no draws), against an f32 CPU twin
+    (the loss and its terms within VQ_LOSS_TOL, which two injected faults
+    must exceed; gradients and the codebook's update off near-ties within
+    twice bf16 on the CPU's), with f32 on the card beside them;
+    ``get_quantize_vectors`` against the twin off near-ties; the B=64 step
+    (median and range of 5, peak, MFU), one B=256 step and its profile by
+    kernel family. Then the flagship Franky through ``stream_predict`` over
+    a 4096 x 256 recording (417 windows, stride 8, 53 calls of 8): K1 = 4
+    and K9 = 6 launches a call, each window's prefix against a direct
+    encode, windows/s; ``utils/profiling.py``'s peaks for this card and a
+    ``trace()`` of one encode; the flagship's weights as a reference
+    ``.safetensors`` through ``convert_reference`` and served by ``submit
+    --checkpoint`` over 8 windows, and written back by ``--reverse``.
 
 Every on / off comparison (phases 4, 9, 13, 17, 18 and 20) is timed by
 ``_in_turns``: one warm-up each, then single calls alternating in turns,
@@ -233,6 +259,8 @@ import re
 import subprocess
 import sys
 import time
+
+from frankenstein_tpu_torch.utils import profiling
 
 SEED = 0
 K1_TOL = 3e-2     # bf16 kernel vs f32 twin: rotated q/k and p round to bf16
@@ -270,6 +298,7 @@ PROFILE_FAMILIES = [
     ("K9", r"fused_norm_swiglu"),
     ("K2", r"gpt2_decode_step"),
     ("K5", r"llama_decode_step"),
+    ("cuDNN conv", r"cudnn|fprop|dgrad|wgrad|convolve|conv[12]d"),
     ("cuBLAS", r"gemm|xmma|nvjet|cutlass|sm90_"),
     ("AdamW", r"multi_tensor"),
     ("reductions", r"reduce|norm"),
@@ -289,11 +318,12 @@ ENCODE_DRIFT = 5e-2   # K10 vs K1 encoder context, max abs relative to
                       # max |K1's|: 4 layers of that drift, rounded to bf16
 PROBE_BATCH = 128         # the probes' timed shape, the JAX tools' B
 PROBE_TWIN_ROWS = 2       # batch rows of a probe output held to its twin
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
-BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core peak, same source
+# the H100 SXM's rates, NVIDIA's data sheet (utils/profiling.py)
+HBM_BYTES_PER_S = profiling.HBM_BW[profiling.H100_SXM]
+BF16_OPS_PER_S = profiling.PEAK_FLOPS[profiling.H100_SXM]   # dense
 EXP2_PER_S = 132 * 16 * 1.83e9   # ex2 a second: 16 a clock an SM at the
                                  # clock of the bf16 peak (K6 / K7 exp floor)
-INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core peak, same source
+INT8_OPS_PER_S = profiling.PEAK_INT8_OPS[profiling.H100_SXM]   # dense
 
 
 def _bound(n_bytes: float, n_ops: float, int8_ops: float = 0.0) -> dict:
@@ -1463,8 +1493,10 @@ def _profile_request(fn, phase: int, what: str, kernel: str,
     return families
 
 
-def _profile_steps(state, tcfg, ds, what: str, card: str) -> dict:
-    """Where a B=32 train step's device time goes: torch.profiler over
+def _profile_steps(state, tcfg, ds, what: str, card: str,
+                   batch_size: int = 32, phase: int = 13) -> dict:
+    """Where a train step's device time goes (B=32 unless ``batch_size``
+    says): torch.profiler over
     PROFILE_STEPS steps, the device time of every kernel summed by family
     (PROFILE_FAMILIES) and a step's top kernels, and the device's busy
     share of the window (summed kernel time over its wall time). Run after
@@ -1473,7 +1505,7 @@ def _profile_steps(state, tcfg, ds, what: str, card: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from frankenstein_tpu_torch.train import trainer
     from frankenstein_tpu_torch.train.schedule import make_lr_schedule
-    batches = _batches(ds, 32, PROFILE_STEPS)
+    batches = _batches(ds, batch_size, PROFILE_STEPS)
     sched = make_lr_schedule(tcfg)
     gen = torch.Generator(device="cuda")
     torch.cuda.synchronize()
@@ -1502,9 +1534,9 @@ def _profile_steps(state, tcfg, ds, what: str, card: str) -> dict:
                     f"{per_step(_device_us(e)):.2f}" for e in
                     sorted(kernels, key=_device_us,
                            reverse=True)[:PROFILE_TOP])
-    print(f"phase 13 profile {what} B=32, {PROFILE_STEPS} steps "
-          f"(torch.profiler): {wall_ms / PROFILE_STEPS:.1f} ms a step on the "
-          f"host clock, device time {total:.1f} ms a step, busy "
+    print(f"phase {phase} profile {what} B={batch_size}, {PROFILE_STEPS} "
+          f"steps (torch.profiler): {wall_ms / PROFILE_STEPS:.1f} ms a step "
+          f"on the host clock, device time {total:.1f} ms a step, busy "
           f"{100 * total / max(wall_ms / PROFILE_STEPS, 1e-9):.1f}% | ms a "
           f"step by family: {fams} | top kernels (launches and ms a step): "
           f"{top} | {card}", flush=True)
@@ -4124,6 +4156,573 @@ def phase_whisper(card: str) -> dict:
             "cross": cross, "grad": grad_errs, "wer": (wer_g, wer_b)}
 
 
+VQ_STEPS = 30          # phase 22's VQ-VAE train steps at B=64
+VQ_WARMUP = 5          # warm-up steps: the YAML's lr (1e-3) from step 5 on
+VQ_EVAL = 10           # steps between evals of the (fixed) validation set
+VQ_BATCH = 64          # the reference notebook's batch
+VQ_TIE = 2e-2          # cosine gap between a row's two best codes (f32 on
+                       # the CPU) under which bf16 may pick either
+VQ_WINDOWS = 4         # B=1 card-vs-CPU steps, one a window with padding
+# card (bf16 convs) vs f32 CPU twin, relative, at B=1: between the largest
+# sound reading (card or bf16 CPU: loss 1.8e-4, rec_loss 1.1e-4,
+# commit_loss 2.4e-3) and the smallest under the faults _vq_faults
+# injects (loss 5.2e-4, rec_loss 5.9e-2, commit_loss 1.8e-2; PERF.md)
+VQ_LOSS_TOL = {"loss": 3e-4, "rec_loss": 1e-3, "commit_loss": 6e-3}
+VQ_COMMIT_FAULT = 1.02  # the commitment-weight fault: 2% too large
+STREAM_T = 4096        # phase 22's synthetic recording, time bins
+STREAM_STRIDE = 8      # stream_predict's defaults
+STREAM_BATCH = 8
+
+
+def _vq_tie_rows(model, x) -> tuple:
+    """(f32 CPU indices [N], near-tie mask [N]) of ``model``'s encoder
+    output on ``x``: a row whose two best codes' cosine similarities lie
+    within VQ_TIE of each other may flip under bf16."""
+    import torch
+    from frankenstein_tpu_torch.ops.vq import l2norm
+    with torch.no_grad():
+        e = model.encoder(x).reshape(-1, model.cfg.D).float()
+        sim = l2norm(e) @ l2norm(model.quantizer._codebook.embed).T
+    top2 = torch.topk(sim, 2, dim=-1).values
+    return torch.argmax(sim, -1), (top2[:, 0] - top2[:, 1]) < VQ_TIE
+
+
+def _vq_terms(model) -> dict:
+    """The loss and its two terms of ``model``'s last forward."""
+    rec, commit = (float(model.aux[k]) for k in ("rec_loss", "commit_loss"))
+    return {"loss": rec + commit, "rec_loss": rec, "commit_loss": commit}
+
+
+def _vq_step(model, x) -> tuple:
+    """One train-mode forward and backward of a SoundStream (no draws:
+    initted, threshold 0): (loss terms, {name: grad}, codebook after, the
+    indices the step assigned)."""
+    idx = model.get_quantize_vectors(x)[0].reshape(-1)
+    model.zero_grad(set_to_none=True)
+    loss, _ = model(x, train=True)
+    loss.backward()
+    return (_vq_terms(model), {n: p.grad.detach().float().cpu()
+                               for n, p in model.named_parameters()},
+            model.quantizer._codebook.embed.detach().float().cpu().clone(),
+            idx.cpu())
+
+
+def _rel_terms(got: dict, want: dict) -> dict:
+    return {k: abs(got[k] - want[k]) / abs(want[k]) for k in want}
+
+
+def _vq_errs(got: tuple, want: tuple, ties, before) -> dict:
+    """Relative errors of a ``_vq_step`` against the f32 CPU twin's: the
+    loss and its terms, the global gradient norm, the worst conv weight,
+    and the codebook's update at the codes no flipped or near-tie row
+    touched."""
+    import torch
+    errs = _grad_errs(got[1], want[1], [n for n in want[1]
+                                        if n.endswith("weight")])
+    worst = max((n for n in errs if n.endswith("weight")), key=errs.get)
+    flipped = (got[3] != want[3]) | ties
+    bad = torch.zeros(before.shape[0], dtype=torch.bool)
+    bad[want[3][flipped]] = True
+    bad[got[3][flipped]] = True
+    keep = ~bad
+    upd = (want[2] - before)[keep]
+    return {**_rel_terms(got[0], want[0]),
+            "global_norm": errs["global_norm"], "worst": (worst, errs[worst]),
+            "codebook": float((got[2] - want[2])[keep].norm() / upd.norm())}
+
+
+def _vq_faults(twin, cfg0, x, want: dict) -> dict:
+    """The loss terms' relative errors on the card (bf16 convs) against the
+    f32 CPU twin's ``want`` under three injected faults: the commitment
+    weight 2% too large, padded rows counted in the L1, and the codebook
+    held in bf16."""
+    import torch
+    from frankenstein_tpu_torch.models import vq_brain
+
+    def terms(model):
+        with torch.no_grad():
+            model(x)
+        return _rel_terms(_vq_terms(model), want)
+
+    out = {"commit x1.02": terms(twin("cuda", torch.bfloat16, cfg0.replace(
+        commitment_weight=cfg0.commitment_weight * VQ_COMMIT_FAULT)))}
+    sound_l1 = vq_brain.masked_l1_loss
+    vq_brain.masked_l1_loss = lambda pred, gt: torch.mean(
+        torch.abs(pred.float() - gt.float()))
+    try:
+        out["padding counted"] = terms(twin("cuda", torch.bfloat16, cfg0))
+    finally:
+        vq_brain.masked_l1_loss = sound_l1
+    model = twin("cuda", torch.bfloat16, cfg0)
+    book = model.quantizer._codebook
+    book.embed.copy_(book.embed.to(torch.bfloat16).float())
+    out["codebook in bf16"] = terms(model)
+    return out
+
+
+def _vq_card_vs_cpu(state, cfg, ds) -> dict:
+    """Phase 22's B=1 check: the trained model written as a reference file
+    by the port's writer, read back (``soundstream_state``: an imported,
+    initted codebook) with ``threshold_ema_dead_code=0`` so the step draws
+    nothing, one train step on the card (bf16 convs) against an f32 CPU
+    twin, on VQ_WINDOWS windows with padded rows, with bf16 on the CPU and
+    f32 on the card beside it; then the loss terms under ``_vq_faults``."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch.models import import_reference as ir
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+    from frankenstein_tpu_torch.models.weights import load_strict
+
+    cfg0 = cfg.replace(threshold_ema_dead_code=0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "soundstream.safetensors"
+        ir.save_state_dict(state.model.state_dict(), path)
+        sd = ir.soundstream_state(ir.load_state_dict(path))
+
+    def twin(device, dtype, c=cfg0):
+        return load_strict(SoundStream(c, device=torch.device(device),
+                                       dtype=dtype), sd)
+
+    before = sd["quantizer._codebook.embed"].float()
+    padded = [i for i in range(len(ds)) if not ds[i][0][-1].any()]
+    runs = {"card": [], "card_f32": [], "witness": [], "faults": []}
+    ties_n = rows = 0
+    for i in padded[:VQ_WINDOWS]:
+        x = torch.from_numpy(ds[i][0][None])
+        cpu = _vq_step(twin("cpu", None), x)
+        _, ties = _vq_tie_rows(twin("cpu", None), x)
+        ties_n, rows = ties_n + int(ties.sum()), rows + ties.numel()
+        for key, device, dtype in (("card", "cuda", torch.bfloat16),
+                                   ("card_f32", "cuda", None),
+                                   ("witness", "cpu", torch.bfloat16)):
+            got = _vq_step(twin(device, dtype), x.to(device).to(
+                dtype or torch.float32))
+            runs[key].append(_vq_errs(got, cpu, ties, before))
+        runs["faults"].append(_vq_faults(
+            twin, cfg0, x.cuda().to(torch.bfloat16), cpu[0]))
+    worst = {key: {k: max(r[k] for r in runs[key])
+                   for k in ("loss", "rec_loss", "commit_loss",
+                             "global_norm", "codebook")}
+             for key in ("card", "card_f32", "witness")}
+    for key in worst:
+        worst[key]["worst"] = max((r["worst"] for r in runs[key]),
+                                  key=lambda w: w[1])
+    faults = {name: {k: min(f[name][k] for f in runs["faults"])
+                     for k in VQ_LOSS_TOL} for name in runs["faults"][0]}
+    return {**worst, "faults": faults, "ties": ties_n, "rows": rows,
+            "windows": len(runs["card"])}
+
+
+def _vq_within_limits(check: dict) -> bool:
+    """The card's loss terms under VQ_LOSS_TOL, which the faults' terms
+    exceed (the commitment fault on the loss and commit_loss, counting
+    padding on the loss and rec_loss; the bf16 codebook moves them less
+    than bf16 itself does, and is reported only); its gradients and codebook update
+    within WITNESS_FACTOR of bf16 on the CPU's, or under GRAD_TOL."""
+    card, wit, faults = check["card"], check["witness"], check["faults"]
+    sound = all(card[k] <= tol for k, tol in VQ_LOSS_TOL.items())
+    caught = all(faults["commit x1.02"][k] > VQ_LOSS_TOL[k]
+                 for k in ("loss", "commit_loss")) and all(
+        faults["padding counted"][k] > VQ_LOSS_TOL[k]
+        for k in ("loss", "rec_loss"))
+    pairs = [(card[k], wit[k]) for k in ("global_norm", "codebook")]
+    pairs.append((card["worst"][1], wit["worst"][1]))
+    return sound and caught and all(
+        c <= max(GRAD_TOL, WITNESS_FACTOR * w) for c, w in pairs)
+
+
+def _vq_refresh(model, ds) -> dict:
+    """One train-mode forward of a copy of the trained VQ-VAE on the card
+    at B=64 with the YAML's threshold: each code the EMA leaves under the
+    threshold must hold the l2norm of a row of the batch's encoder output
+    at cluster size 1, and every other code the EMA update, recomputed
+    here by ``index_add_`` and ``bincount``."""
+    import torch
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+    from frankenstein_tpu_torch.ops.vq import l2norm
+    c = model.cfg
+    copy = SoundStream(c, device=torch.device("cuda"), dtype=torch.bfloat16)
+    copy.load_state_dict(model.state_dict())
+    book = copy.quantizer._codebook
+    x = _batches(ds, VQ_BATCH, 1)[0][0].to(torch.bfloat16)
+    with torch.no_grad():
+        rows = copy.encoder(x).reshape(-1, c.D).float()
+        cb, cs = book.embed.clone(), book.cluster_size.clone()
+        idx = torch.argmax(l2norm(rows) @ l2norm(cb).T, -1)
+        counts = torch.bincount(idx, minlength=c.codebook_size).float()
+        sums = torch.zeros_like(cb).index_add_(0, idx, rows)
+        upd = torch.where(counts[:, None] > 0,
+                          l2norm(sums / counts.clamp_min(1.0)[:, None]), cb)
+        want_cb = cb * c.ema_decay + upd * (1 - c.ema_decay)
+        want_cs = cs * c.ema_decay + counts * (1 - c.ema_decay)
+        dead = want_cs < c.threshold_ema_dead_code
+        copy(x, train=True,
+             generator=torch.Generator(device="cuda").manual_seed(SEED))
+        got = book.embed
+        unit = l2norm(rows)
+        pick = torch.argmax(got[dead] @ unit.T, -1)
+        keep = ~dead
+        return {"dead": int(dead.sum()), "codes": c.codebook_size,
+                "rows": int(rows.shape[0]),
+                "distinct_rows": int(torch.unique(pick).numel()),
+                "row_err": float((got[dead] - unit[pick]).abs().max())
+                if dead.any() else 0.0,
+                "size_one": bool((book.cluster_size[dead] == 1.0).all()),
+                "ema_err": float((got[keep] - want_cb[keep]).norm()
+                                 / (want_cb[keep] - cb[keep]).norm()),
+                "size_err": float((book.cluster_size[keep]
+                                   - want_cs[keep]).abs().max()),
+                "avg_err": float((book.embed_avg - got * book.cluster_size[
+                    :, None]).abs().max()),
+                "initted": float(book.initted)}
+
+
+def _vq_tokens(model, ds) -> dict:
+    """``get_quantize_vectors`` of 4 windows on the card (bf16) against
+    the f32 CPU twin's indices, off near-ties."""
+    import numpy as np
+    import torch
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+    x = torch.from_numpy(np.stack(ds.inputs[:4]))
+    ref = SoundStream(model.cfg)
+    ref.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    want, ties = _vq_tie_rows(ref, x)
+    idx, quantized = model.get_quantize_vectors(
+        x.cuda().to(torch.bfloat16))
+    got = idx.reshape(-1).cpu()
+    off = ~ties
+    return {"rows": int(got.numel()), "ties": int(ties.sum()),
+            "differ_off_ties": int((got[off] != want[off]).sum()),
+            "differ_at_ties": int((got[ties] != want[ties]).sum()),
+            "shape": tuple(quantized.shape)}
+
+
+def _vq_first_step(cfg, tcfg, ds) -> dict:
+    """A fresh CLI model (``kmeans_init``: initted 0) through one train step
+    at B=64 on the card: k-means from the batch, the EMA update and the
+    dead-code refresh, then initted 1."""
+    import torch
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+    from frankenstein_tpu_torch.models.weights import init_soundstream_
+    from frankenstein_tpu_torch.train import trainer
+    from frankenstein_tpu_torch.train.schedule import make_lr_schedule
+    model = init_soundstream_(SoundStream(
+        cfg, device=torch.device("cuda"), dtype=torch.bfloat16), seed=SEED)
+    state = trainer.TrainState(model, trainer.make_optimizer(tcfg, model)[0])
+    book = model.quantizer._codebook
+    before = float(book.initted)
+    loss, aux = trainer.train_step(state, _batches(ds, VQ_BATCH, 1)[0], tcfg,
+                                   make_lr_schedule(tcfg),
+                                   torch.Generator(device="cuda"))
+    return {"before": before, "after": float(book.initted),
+            "loss": float(loss), "perplexity": float(aux["perplexity"]),
+            "refreshed": int((book.cluster_size == 1.0).sum())}
+
+
+def _means(values, n: int = 10) -> list:
+    """Means of consecutive runs of ``n`` values."""
+    return [sum(values[i:i + n]) / len(values[i:i + n])
+            for i in range(0, len(values), n)]
+
+
+def _vq_train(card: str) -> dict:
+    """Phase 22 (a): configs/vqvae.yaml through the train CLI at the YAML's
+    lr after a VQ_WARMUP-step warm-up (its own 2000 would hold the lr under
+    2e-5 for all VQ_STEPS), logging every step and evaluating every
+    VQ_EVAL: 512 synthetic trials, so the validation set (64) fills one
+    batch."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import yaml
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+    from frankenstein_tpu_torch.utils import profiling
+
+    repo = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = yaml.safe_load((repo / "configs" / "vqvae.yaml").read_text())
+        doc["train"]["log_interval"] = 1
+        config = Path(tmp) / "vqvae.yaml"
+        config.write_text(yaml.safe_dump(doc))
+        _reset_launches()
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--config", str(config), "--data", "synthetic",
+            "--synthetic-trials", "512", "--steps", str(VQ_STEPS),
+            "--batch-size", str(VQ_BATCH), "--warmup", str(VQ_WARMUP),
+            "--eval-interval", str(VQ_EVAL), "--exp-name", "smoke_vq",
+            "--save-folder", tmp])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _read_launches()
+        run_dir = Path(tmp) / "smoke_vq"
+        logged = [json.loads(line) for line in
+                  (run_dir / "metrics.jsonl").read_text().splitlines()]
+        train_logs = [r for r in logged if "train/loss" in r]
+        losses, val, rate = _run_record(run_dir)
+        _check(state.step == VQ_STEPS and len(losses) == VQ_STEPS
+               and len(val) == VQ_STEPS // VQ_EVAL
+               and all(map(math.isfinite, losses + val)),
+               f"VQ-VAE: step {state.step}, losses {losses}, val {val}")
+        keys = ("perplexity", "rec_loss", "commit_loss", "mfu")
+        _check(all(k in train_logs[-1] for k in keys)
+               and all(math.isfinite(train_logs[-1][k]) for k in keys),
+               f"VQ-VAE metrics.jsonl lacks {keys}: {train_logs[-1]}")
+        _check(not any(launches.values()),
+               f"the VQ-VAE launched a kernel: {launches}")
+        model = state.model
+        cfg = model.cfg
+        _check(float(model.quantizer._codebook.initted) == 1.0,
+               "initted is not set after training")
+        best = _restores_bitwise(state, run_dir, SoundStream(
+            cfg, device=torch.device("cuda"), dtype=torch.bfloat16))
+        tcfg = _train_config(run_dir)
+        ds = train_cli.build_datasets("synthetic", 768, cfg.n_electrodes,
+                                      256)[0]
+        first = _vq_first_step(cfg, tcfg, ds)
+        _check(first["before"] == 0.0 and first["after"] == 1.0
+               and math.isfinite(first["loss"]),
+               f"first VQ-VAE step: {first}")
+        refresh = _vq_refresh(model, ds)
+        t0 = time.perf_counter()
+        check = _vq_card_vs_cpu(state, cfg, ds)
+        check_s = time.perf_counter() - t0
+        tokens = _vq_tokens(model, ds)
+        step = _in_turns({"step": _train_stepper(state, tcfg, ds,
+                                                 VQ_BATCH)})["step"]
+        big_ms, big_peak = _time_steps(state, tcfg.replace(batch_size=256),
+                                       ds, 256, 1)
+        prof = _profile_steps(state, tcfg, ds, "VQ-VAE", card,
+                              batch_size=VQ_BATCH, phase=22)
+    flops = profiling.vqvae_fwd_flops_per_sample(cfg, t=768)
+    peak = profiling.detect_peak_flops()
+    mfu = 3 * flops * VQ_BATCH / (step["ms"][0] / 1e3) / peak
+    per = {k: _means([r[k] for r in train_logs], VQ_EVAL)
+           for k in ("train/loss", "rec_loss", "commit_loss", "grad_norm")}
+    fmt = lambda xs: " / ".join(f"{v:.4f}" for v in xs)
+    print(f"phase 22 VQ-VAE: configs/vqvae.yaml (768 x {cfg.n_electrodes}, "
+          f"C={cfg.C}, D={cfg.D}, K={cfg.codebook_size}, strides "
+          f"{cfg.strides}; f32 params, bf16 convs, f32 quantizer), "
+          f"{VQ_STEPS} steps at B={VQ_BATCH} through the train CLI at lr "
+          f"{tcfg.learning_rate:g} after {VQ_WARMUP} warm-up steps in "
+          f"{run_s:.1f} s: per step loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)} | means of {VQ_EVAL} "
+          f"steps: loss {fmt(per['train/loss'])}, rec_loss "
+          f"{fmt(per['rec_loss'])}, commit_loss {fmt(per['commit_loss'])}"
+          f", grad_norm {fmt(per['grad_norm'])} | val every {VQ_EVAL}: "
+          f"{fmt(val)} | last log perplexity "
+          f"{train_logs[-1]['perplexity']:.1f} mfu "
+          f"{train_logs[-1]['mfu']:.4f}, samples/s in the log {rate[-1]:.1f}"
+          f", launches {launches}, checkpoint {best} restored bitwise "
+          f"(codebook buffers included) | fresh model's first step: initted "
+          f"{first['before']:.0f} -> {first['after']:.0f}, perplexity "
+          f"{first['perplexity']:.1f}, {first['refreshed']} of "
+          f"{cfg.codebook_size} codes at cluster size 1 (refreshed or "
+          f"k-means counts of 1) | {card}", flush=True)
+    r = refresh
+    print(f"phase 22 VQ-VAE refresh on the card (trained model, B="
+          f"{VQ_BATCH}, threshold {cfg.threshold_ema_dead_code:g}): "
+          f"{r['dead']} of {r['codes']} codes dead after the EMA, each "
+          f"refreshed with a row of the batch's {r['rows']} ({r['distinct_rows']}"
+          f" distinct), max |code - l2norm(row)| {r['row_err']:.3e}, all "
+          f"at cluster size 1: {r['size_one']} | the other codes vs the EMA "
+          f"recomputed by index_add_: {r['ema_err']:.3e} of the update, "
+          f"cluster sizes {r['size_err']:.3e} | max |embed_avg - embed x "
+          f"size| {r['avg_err']:.3e}, initted {r['initted']:.0f} | {card}",
+          flush=True)
+    c, w, f32 = check["card"], check["witness"], check["card_f32"]
+    terms = lambda d: ", ".join(f"{k} {d[k]:.3e}" for k in VQ_LOSS_TOL)
+    print(f"phase 22 VQ-VAE B=1 steps on an imported initted codebook, "
+          f"threshold 0, {check['windows']} windows with padded rows "
+          f"({check_s:.1f} s), largest relative error against the f32 CPU "
+          f"twin: card bf16 {terms(c)}; bf16 on the CPU {terms(w)}; card "
+          f"f32 {terms(f32)} | limits {terms(VQ_LOSS_TOL)} | smallest "
+          f"under each fault on the card: "
+          + "; ".join(f"{name} {terms(v)}"
+                      for name, v in check["faults"].items())
+          + f" | gradient global norm {c['global_norm']:.3e} (bf16 CPU "
+          f"{w['global_norm']:.3e}, card f32 {f32['global_norm']:.3e}), "
+          f"worst conv weight {c['worst'][0]} {c['worst'][1]:.3e} "
+          f"({w['worst'][0]} {w['worst'][1]:.3e}), codebook update "
+          f"{c['codebook']:.3e} ({w['codebook']:.3e}) over the codes no "
+          f"flipped or near-tie row touched ({check['ties']} of "
+          f"{check['rows']} rows near a tie) | get_quantize_vectors at "
+          f"B=4: {tokens['rows']} rows, "
+          f"{tokens['differ_off_ties']} differ off near-ties, "
+          f"{tokens['differ_at_ties']} of {tokens['ties']} near-ties "
+          f"differ | B={VQ_BATCH} step {_note(step['ms'])} ms, "
+          f"{VQ_BATCH * 1e3 / step['ms'][0]:.1f} samples/s at the median, "
+          f"MFU {mfu:.4f} ({flops / 1e9:.3f} GFLOP a sample forward, x3), "
+          f"peak {step['gib']:.2f} GiB, median (range) of {TIMING_REPEATS}"
+          f" | B=256 step {big_ms:.1f} ms, peak {big_peak:.2f} GiB | "
+          f"{card}", flush=True)
+    _check(all(b < a for a, b in zip(val, val[1:]))
+           and per["train/loss"][-1] < per["train/loss"][0],
+           f"VQ-VAE loss did not fall: val {val}, means {per}")
+    _check(r["dead"] > 0 and r["size_one"] and r["row_err"] <= 1e-6
+           and r["ema_err"] <= 1e-4 and r["size_err"] <= 1e-6
+           and r["avg_err"] <= 1e-5 and r["initted"] == 1.0,
+           f"VQ-VAE refresh on the card: {r}")
+    _check(_vq_within_limits(check),
+           f"VQ-VAE card vs CPU beyond its limits: {check}")
+    _check(tokens["differ_off_ties"] == 0,
+           f"get_quantize_vectors differs off near-ties: {tokens}")
+    return {"step": step, "big_ms": big_ms, "check": check,
+            "refresh": refresh, "tokens": tokens, "mfu": mfu,
+            "profile": prof}
+
+
+def _stream_signal():
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return rng.standard_normal((STREAM_T, 256)).astype(np.float32)
+
+
+def _vq_stream(card: str) -> dict:
+    """Phase 22 (b): the flagship Franky over a long recording through
+    ``stream_predict``."""
+    import torch
+    from frankenstein_tpu_torch.decode import streaming
+    model = _flagship()
+    signal = _stream_signal()
+    window = model.cfg.brain.encoder.window_size
+    n_windows = (STREAM_T - window) // STREAM_STRIDE + 1
+    calls = -(-n_windows // STREAM_BATCH)
+    run = lambda: streaming.stream_predict(
+        model, signal, window_size=window, stride=STREAM_STRIDE,
+        batch_windows=STREAM_BATCH)
+    _reset_launches()
+    outs = run()
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    n_blocks = model.cfg.brain.encoder.n_layers
+    _check(len(outs) == n_windows
+           and launches["K1"] == n_blocks * calls
+           and launches["K9"] == _k9_blocks(model.cfg) * calls
+           and launches["K4"] == launches["K10"] == launches["K2"] == 0,
+           f"streaming: {len(outs)} windows, launches {launches}")
+    ms = _time_each_ms(run, iters=3)
+    worst = 0.0
+    with torch.no_grad():
+        for i, out in enumerate(outs):
+            start = i * STREAM_STRIDE
+            direct = model.encode(torch.from_numpy(
+                signal[start:start + window][None]).cuda())[0]
+            worst = max(worst, _max_err(out, direct)
+                        / float(direct.float().abs().max()))
+    med = _spread(ms)
+    print(f"phase 22 streaming: the flagship Franky (random weights, bf16) "
+          f"over a {STREAM_T} x 256 synthetic recording, window {window}, "
+          f"stride {STREAM_STRIDE}, {STREAM_BATCH} windows a call: "
+          f"{n_windows} windows in {calls} encode calls, launches K1 "
+          f"{launches['K1']} = {n_blocks} x {calls}, K9 {launches['K9']} = "
+          f"{_k9_blocks(model.cfg)} x {calls} | each window's prefix vs a "
+          f"direct B=1 encode: max err {worst:.3e} of max |prefix| (tol "
+          f"{SLICE_TOL}) | {_note(med)} ms a recording, "
+          f"{n_windows * 1e3 / med[0]:.1f} windows/s at the median of 3 | "
+          f"{card}", flush=True)
+    _check(worst <= SLICE_TOL, f"streamed vs direct encode: {worst}")
+    return {"launches": launches, "ms": med, "windows": n_windows,
+            "model": model}
+
+
+def _vq_profiling(card: str, model) -> dict:
+    """Phase 22 (c): this card's peaks and a trace of one encode."""
+    import json
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch.utils import profiling
+    peak, bw = profiling.detect_peak_flops(), profiling.detect_hbm_bw()
+    name = torch.cuda.get_device_name()
+    _check(peak is not None and bw is not None,
+           f"utils/profiling.py knows no peak for {name}")
+    x = torch.from_numpy(_stream_signal()[None, :768]).cuda()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            with torch.no_grad():
+                model.encode(x)
+            torch.cuda.synchronize()
+        trace = Path(tmp) / "trace.json"
+        events = json.loads(trace.read_text()).get("traceEvents", [])
+        size = trace.stat().st_size
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = sum("slab_rope_attn_fwd" in e.get("name", "") for e in kernels)
+    print(f"phase 22 profiling: detect_peak_flops() {peak:.4g} FLOP/s, "
+          f"detect_hbm_bw() {bw:.4g} B/s for {name}; trace() of one B=1 "
+          f"encode wrote {size} bytes, {len(events)} events, "
+          f"{len(kernels)} kernels ({k1} of K1) | {card}", flush=True)
+    _check(size > 0 and kernels and k1 > 0,
+           f"trace: {size} bytes, {len(kernels)} kernels, {k1} K1")
+    return {"peak": peak, "bw": bw}
+
+
+def _vq_reference_files(card: str, model) -> dict:
+    """Phase 22 (d): the flagship's weights as a reference .safetensors
+    (the port's writer), through convert_reference, served by ``submit
+    --checkpoint``; then written back with --reverse."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from frankenstein_tpu_torch import convert_reference, submit
+    from frankenstein_tpu_torch.models import import_reference as ir
+    from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+    sd = {k: v.float().cpu() for k, v in model.state_dict().items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ir.save_state_dict(sd, tmp / "franky.safetensors")
+        size = (tmp / "franky.safetensors").stat().st_size
+        t0 = time.perf_counter()
+        ckpt = convert_reference.main([
+            "--kind", "franky", "--src", str(tmp / "franky.safetensors"),
+            "--dst", str(tmp / "run")])
+        convert_s = time.perf_counter() - t0
+        loaded = ckpt_lib.load_raw_checkpoint(ckpt)["model"]
+        same = loaded.keys() == sd.keys() and all(
+            torch.equal(loaded[k], sd[k]) for k in sd)
+        _check(same, "the converted checkpoint differs from the file")
+        t0 = time.perf_counter()
+        out = submit.main(["--checkpoint", str(ckpt), "--data", "synthetic",
+                           "--synthetic-trials", "8", "--out",
+                           str(tmp / "sub.txt")])
+        submit_s = time.perf_counter() - t0
+        lines = out.read_text().splitlines()
+        convert_reference.main(["--kind", "franky", "--reverse", "--src",
+                                str(tmp / "run"), "--dst",
+                                str(tmp / "back.safetensors")])
+        back = ir.load_state_dict(tmp / "back.safetensors")
+        round_trip = back.keys() == sd.keys() and all(
+            torch.equal(back[k], sd[k]) for k in sd)
+    print(f"phase 22 reference files: the flagship's {len(sd)} tensors "
+          f"as a {size / 2 ** 20:.1f} MiB .safetensors (the port's writer) "
+          f"-> convert_reference --kind franky in {convert_s:.1f} s "
+          f"({ckpt.name}, bitwise the file) -> submit --checkpoint wrote "
+          f"{len(lines)} lines in {submit_s:.1f} s; --reverse wrote the "
+          f"file back bitwise: {round_trip} | {card}", flush=True)
+    _check(len(lines) == 8 and round_trip,
+           f"reference files: {len(lines)} lines, round trip {round_trip}")
+    return {"lines": len(lines)}
+
+
+def phase_vq(card: str) -> dict:
+    """Phase 22: the VQ-VAE trained at full width, streaming, profiling and
+    the reference-file converter."""
+    train = _vq_train(card)
+    _free_card()
+    stream = _vq_stream(card)
+    prof = _vq_profiling(card, stream["model"])
+    files = _vq_reference_files(card, stream.pop("model"))
+    _free_card()
+    return {"train": train, "stream": stream, "profiling": prof,
+            "files": files}
+
+
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
     null where no one PyTorch call computes the same function."""
@@ -4167,6 +4766,7 @@ def main() -> int:
     probes = phase_probes(card)
     rest = phase_rest(card)
     phase_whisper(card)
+    phase_vq(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [

@@ -2,11 +2,11 @@
 
 Field-for-field copies of ``frankenstein_tpu/config.py`` (``MAEConfig``,
 ``SimpleEncoderConfig``, ``SimpleMAEConfig``, ``PerceiverConfig``,
-``GPTConfig``, ``FrankyConfig``, ``WhisperConfig``, ``TrainConfig``, the
-JSON mixin that lets YAML sections and ``model_config.json`` round-trip, and
-the constants the slices use), and of ``LlamaConfig``,
-``tiny_llama_config`` (``models/llama.py``) and ``FrankyLlamaConfig``
-(``models/franky.py``). The port cannot import those modules, because the
+``GPTConfig``, ``VQVAEConfig``, ``FrankyConfig``, ``WhisperConfig``,
+``TrainConfig``, the JSON mixin that lets YAML sections and
+``model_config.json`` round-trip, and the constants the slices use), and
+of ``LlamaConfig``, ``tiny_llama_config`` (``models/llama.py``) and
+``FrankyLlamaConfig`` (``models/franky.py``). The port cannot import those modules, because the
 JAX package's ``__init__`` pulls in jax; ``tests/test_torch_config.py``
 holds the copies to the originals' fields, defaults and serialization.
 """
@@ -170,6 +170,26 @@ class GPTConfig(_SerializableMixin):
     @property
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
+
+
+@dataclass(frozen=True)
+class VQVAEConfig(_SerializableMixin):
+    """The VQ-VAE tokenizer ("SoundStream",
+    ``frankenstein_tpu/models/vq_brain.py``)."""
+
+    n_electrodes: int = 512   # spikePow(+tx4) channels into the codec
+    C: int = 256              # conv width
+    D: int = 64               # latent / codebook dim
+    codebook_size: int = 1024
+    strides: tuple = (2, 2)   # two stride-2 encoder blocks: 4x downsample
+
+    # the quantizer's knobs (vector_quantize_pytorch's names)
+    commitment_weight: float = 0.25
+    use_cosine_sim: bool = True
+    kmeans_init: bool = True
+    ema_decay: float = 0.8
+    threshold_ema_dead_code: float = 2.0
+    eps: float = 1e-5
 
 
 @dataclass(frozen=True)

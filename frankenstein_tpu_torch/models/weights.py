@@ -10,6 +10,11 @@ prefix="brain.")``; for FrankyLlama it is the brain's
 ``export_brain_encoder(..., prefix="brain_model.")`` merged with the
 LLaMA's ``llama_state_from_flax(..., prefix="llm_model.")``.
 
+For SoundStream it is ``export_soundstream(variables)``: the flax
+parameters and the ``"vq"`` collection under the reference's names, the
+transposed convs' kernels flipped back to torch's layout and ``initted``
+written as 1.
+
 For BrainWhisper the bridge is ``whisper_state_from_flax``: the JAX
 package has no exporter for it, and the port's names are HF's, so it is
 the inverse of the JAX ``params_from_hf_whisper``'s mapping.
@@ -21,7 +26,8 @@ parameters, ``encoder.date_embedding`` [n_sessions, dim] to
 ``<prefix>encoder.date_embedding`` (``date_embedding_state``).
 
 ``init_franky_``, ``init_mae_``, ``init_simple_mae_``, ``init_brainformer_``,
-``init_franky_llama_`` and ``init_whisper_`` draw random weights from a
+``init_franky_llama_``, ``init_whisper_`` and ``init_soundstream_`` draw
+random weights from a
 seed at the JAX initialisers' scales (not the same draws: the two
 frameworks' generators differ).
 """
@@ -39,21 +45,22 @@ from frankenstein_tpu_torch.models.brainformer import MAE, BrainFormer
 from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
 from frankenstein_tpu_torch.models.gpt2 import init_gpt_
 from frankenstein_tpu_torch.models.simple_mae import SimpleMAE
+from frankenstein_tpu_torch.models.vq_brain import SoundStream
 from frankenstein_tpu_torch.models.whisper import BrainWhisper
 
 
 def load_strict(model: nn.Module, state: Mapping[str, np.ndarray]):
-    """Copy ``state`` into ``model`` (strict: every tensor must map, and
-    every parameter must be given), each in its parameter's dtype. A tied
+    """Copy ``state`` (numpy arrays or tensors) into ``model`` (strict:
+    every tensor must map, and every parameter must be given), each in its
+    parameter's dtype. A tied
     head (GPT-2's ``lm_head.weight``) stays tied to its embedding."""
     ref = model.state_dict()
     tensors = {}
     for name, value in state.items():
         if name not in ref:
             raise KeyError(f"unexpected tensor {name!r}")
-        tensors[name] = torch.tensor(np.asarray(value),
-                                     dtype=ref[name].dtype,
-                                     device=ref[name].device)
+        tensors[name] = torch.as_tensor(value, dtype=ref[name].dtype,
+                                        device=ref[name].device)
     model.load_state_dict(tensors, strict=True)
     return model
 
@@ -235,4 +242,29 @@ def init_whisper_(model: BrainWhisper, seed: int) -> BrainWhisper:
                 nn.init.ones_(p)
             else:
                 p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=gen)
+    return model
+
+
+def init_soundstream_(model: SoundStream, seed: int) -> SoundStream:
+    """Random weights from ``seed`` at the flax initialisers' scales: conv
+    kernels lecun normal (std 1/sqrt(in x width), for the transposed convs'
+    [in, out, k] too), zero biases; the codebook at N(0, 0.02), as the JAX
+    quantizer's, with unit cluster sizes, ``embed_avg`` equal to it, and
+    ``initted`` 0 under ``kmeans_init`` (the first train batch sets it)."""
+    book = model.quantizer._codebook
+    gen = torch.Generator(device=book.embed.device).manual_seed(seed)
+    with torch.no_grad():
+        for conv in model.modules():
+            if isinstance(conv, nn.ConvTranspose1d):     # [in, out, k]
+                fan_in = conv.weight.shape[0] * conv.weight.shape[2]
+            elif isinstance(conv, nn.Conv1d):            # [out, in, k]
+                fan_in = conv.weight[0].numel()
+            else:
+                continue
+            conv.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+            nn.init.zeros_(conv.bias)
+        book.embed.normal_(0.0, 0.02, generator=gen)
+        book.cluster_size.fill_(1.0)
+        book.embed_avg.copy_(book.embed)
+        book.initted.fill_(0.0 if model.cfg.kmeans_init else 1.0)
     return model

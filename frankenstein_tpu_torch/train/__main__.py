@@ -1,6 +1,6 @@
-"""Train the flagship Franky or FrankyLlama, or pretrain an encoder as an
-MAE or a SimpleMAE (the port of ``train.py --model franky``,
-``franky-llama``, ``mae`` and ``simple_mae``).
+"""Train the flagship Franky or FrankyLlama, pretrain an encoder as an MAE
+or a SimpleMAE, or train the VQ-VAE tokenizer (the port of ``train.py
+--model franky``, ``franky-llama``, ``mae``, ``simple_mae`` and ``vqvae``).
 
 Examples:
   # end-to-end Franky on synthetic data (no dataset needed)
@@ -22,6 +22,13 @@ Examples:
   python -m frankenstein_tpu_torch.train --model simple_mae \\
       --window 768 --channels 256 --data synthetic
 
+  # the VQ-VAE tokenizer (SoundStream) over 512 channels, from its YAML
+  # or by flags (--channels, --window)
+  python -m frankenstein_tpu_torch.train --config configs/vqvae.yaml \\
+      --data synthetic --steps 50 --batch-size 64
+  python -m frankenstein_tpu_torch.train --model vqvae --channels 512 \\
+      --window 768 --data synthetic
+
   # on the competition data; then serve the run
   python -m frankenstein_tpu_torch.train --config configs/franky.yaml \\
       --data /data/competitionData --exp-name franky
@@ -31,7 +38,9 @@ Examples:
 With ``--config`` the YAML's ``train`` section is the base and only the
 flags typed on the command line override it. The run directory
 (``<save-folder>/<exp-name>``) gets ``model_config.json``,
-``train_config.json``, ``metrics.jsonl`` and ``step_*_loss_*`` checkpoints.
+``train_config.json``, ``metrics.jsonl`` (with ``mfu`` on a card whose
+peak ``utils/profiling.py`` knows, and the VQ-VAE's perplexity, rec_loss
+and commit_loss) and ``step_*_loss_*`` checkpoints.
 The model trains on the GPU (``--device cuda``, the default; without a
 usable GPU the CLI exits) or, when asked, on the CPU (``--device cpu``):
 f32 parameters, bf16 compute unless ``--no-bf16``.
@@ -47,7 +56,6 @@ from pathlib import Path
 # models of the JAX package's train.py that the port does not train yet,
 # and the title of the ROADMAP.md item ("modules to port") that brings each
 NOT_PORTED = {
-    "vqvae": "VQ-VAE and the rest",
     "moe-gpt": "parallel modes and MoE",
 }
 
@@ -91,7 +99,7 @@ def parse_args(argv=None):
                         "flags override its train section")
     p.add_argument("--model", default="franky",
                    choices=["franky", "franky-llama", "mae", "simple_mae",
-                            *NOT_PORTED, *JAX_FINDINGS])
+                            "vqvae", *NOT_PORTED, *JAX_FINDINGS])
     p.add_argument("--data", default="synthetic",
                    help="'synthetic' or path to competitionData/")
     p.add_argument("--exp-name", default=None)
@@ -113,10 +121,12 @@ def parse_args(argv=None):
     p.add_argument("--warmup", type=int, default=2000)
     p.add_argument("--decay-iters", type=int, default=50_000)
     p.add_argument("--window", type=int, default=768,
-                   help="time bins a window (simple_mae: its tokens)")
+                   help="time bins a window (simple_mae: its tokens; "
+                        "vqvae: also with --config)")
     p.add_argument("--patch", type=int, default=32)
     p.add_argument("--channels", type=int, default=256,
-                   help="electrodes (simple_mae: a token's width)")
+                   help="electrodes (simple_mae: a token's width; "
+                        "vqvae: its n_electrodes)")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
     p.add_argument("--synthetic-trials", type=int, default=512)
@@ -147,7 +157,8 @@ def _config_from_yaml(name: str, mc: dict):
         return (cfg_lib.SimpleEncoderConfig.from_dict(mc.get("encoder", {})),
                 cfg_lib.SimpleMAEConfig.from_dict(mc.get("decoder", {})))
     return {"franky": cfg_lib.FrankyConfig, "mae": cfg_lib.MAEConfig,
-            "franky-llama": cfg_lib.FrankyLlamaConfig}[name].from_dict(mc)
+            "franky-llama": cfg_lib.FrankyLlamaConfig,
+            "vqvae": cfg_lib.VQVAEConfig}[name].from_dict(mc)
 
 
 def _config_from_flags(args):
@@ -156,6 +167,8 @@ def _config_from_flags(args):
         return (cfg_lib.SimpleEncoderConfig(block_size=args.window,
                                             patch_size=args.channels),
                 cfg_lib.SimpleMAEConfig())
+    if args.model == "vqvae":
+        return cfg_lib.VQVAEConfig(n_electrodes=args.channels)
     enc = cfg_lib.MAEConfig(window_size=args.window,
                             n_electrodes=args.channels, patch_size=args.patch)
     if args.model == "mae":
@@ -171,9 +184,9 @@ def _config_from_flags(args):
 
 def model_config(args):
     """(model config, YAML train section or None) from --config or the
-    flags: a FrankyConfig, FrankyLlamaConfig or MAEConfig, or SimpleMAE's
-    (SimpleEncoderConfig, SimpleMAEConfig)."""
-    trained = ("franky", "franky-llama", "mae", "simple_mae")
+    flags: a FrankyConfig, FrankyLlamaConfig, MAEConfig or VQVAEConfig, or
+    SimpleMAE's (SimpleEncoderConfig, SimpleMAEConfig)."""
+    trained = ("franky", "franky-llama", "mae", "simple_mae", "vqvae")
     if args.config:
         import yaml
         doc = yaml.safe_load(Path(args.config).read_text())
@@ -189,10 +202,14 @@ def model_config(args):
 
 def data_geometry(args, cfg) -> tuple:
     """(window, channels) of the data: the encoder's for the MAE and the
-    composites; for SimpleMAE the flags', which its config must match (a
-    token is one timestep of all channels)."""
+    composites; for the VQ-VAE the --window flag and the config's
+    electrodes (a YAML gives no window, as in the JAX train.py); for
+    SimpleMAE the flags', which its config must match (a token is one
+    timestep of all channels)."""
     if args.model == "mae":
         return cfg.window_size, cfg.n_electrodes
+    if args.model == "vqvae":
+        return args.window, cfg.n_electrodes
     if args.model != "simple_mae":
         return cfg.brain.encoder.window_size, cfg.brain.encoder.n_electrodes
     enc = cfg[0]
@@ -263,9 +280,13 @@ def build_model(args, cfg, tcfg, device):
     from frankenstein_tpu_torch.models.brainformer import MAE
     from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
     from frankenstein_tpu_torch.models.simple_mae import SimpleMAE
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
     from frankenstein_tpu_torch.train import checkpoints
 
     dtype = torch.bfloat16 if tcfg.mixed_precision else None
+    if args.model == "vqvae":
+        return weights.init_soundstream_(
+            SoundStream(cfg, device=device, dtype=dtype), seed=tcfg.seed)
     if args.model == "mae":
         return weights.init_mae_(MAE(cfg, device=device, dtype=dtype),
                                  seed=tcfg.seed)
@@ -281,6 +302,22 @@ def build_model(args, cfg, tcfg, device):
     if args.init_encoder_from:
         checkpoints.graft_encoder_from_mae(args.init_encoder_from, model)
     return model
+
+
+def flops_per_sample(name: str, cfg, window: int) -> float:
+    """A sample's forward FLOPs (``utils/profiling.py``) for the trainer's
+    MFU, for the models the JAX train.py gives one: franky, franky-llama,
+    mae and vqvae; 0 (no MFU) for simple_mae."""
+    from frankenstein_tpu_torch.utils import profiling
+    if name == "franky":
+        return profiling.franky_fwd_flops_per_sample(cfg)
+    if name == "franky-llama":
+        return profiling.franky_llama_fwd_flops_per_sample(cfg)
+    if name == "mae":
+        return profiling.mae_fwd_flops_per_sample(cfg)
+    if name == "vqvae":
+        return profiling.vqvae_fwd_flops_per_sample(cfg, t=window)
+    return 0.0
 
 
 def main(argv=None):
@@ -311,7 +348,9 @@ def main(argv=None):
           else cfg.to_dict())
     (run_dir / "model_config.json").write_text(json.dumps(
         {"model": args.model, "model_config": mc}, indent=1))
-    state = run_train_model(model, data, tcfg, save_folder=save)
+    state = run_train_model(
+        model, data, tcfg, save_folder=save,
+        flops_per_sample=flops_per_sample(args.model, cfg, window))
     print(f"done at step {state.step}; logs in {run_dir}")
     return state
 

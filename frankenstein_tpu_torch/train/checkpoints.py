@@ -2,10 +2,11 @@
 (``frankenstein_tpu/train/checkpoints.py``).
 
 Each checkpoint is a ``step_{N}_loss_{L:.4f}/`` directory holding
-``state.pt`` (``torch.save`` of ``{"model", "optimizer", "step"}``) and
-``META.json`` (``{"step", "val_loss"}``), named and retained as the JAX
-package does: the ``keep`` best by validation loss (or by the trainer's
-``eval_metric``) survive.
+``state.pt`` (``torch.save`` of ``{"model", "optimizer", "step"}``; the
+model's state dict holds its buffers, a SoundStream's codebook among
+them) and ``META.json`` (``{"step", "val_loss"}``), named and retained as
+the JAX package does: the ``keep`` best by validation loss (or by the
+trainer's ``eval_metric``) survive.
 """
 
 from __future__ import annotations
@@ -40,17 +41,31 @@ def save_checkpoint(save_dir: Path, state, step: int, val_loss: float,
     ``keep`` best checkpoints. META.json is written last, so a directory
     without it is an unfinished checkpoint and is never picked."""
     save_dir = Path(save_dir)
+    path = _write(save_dir, {"model": state.model.state_dict(),
+                             "optimizer": state.optimizer.state_dict()},
+                  step, val_loss)
+    for _, d in sorted(_scored(save_dir), key=lambda t: t[0])[keep:]:
+        shutil.rmtree(d, ignore_errors=True)
+    return path
+
+
+def save_weights(save_dir: Path, model_state: dict, step: int,
+                 val_loss: float) -> Path:
+    """A checkpoint of weights alone, in ``save_checkpoint``'s layout with
+    no optimizer state (``state.pt`` holds ``{"model", "step"}``): what
+    ``convert_reference`` writes for a reference file. It serves and
+    grafts; ``restore_checkpoint`` needs a trainer's checkpoint."""
+    return _write(Path(save_dir), {"model": model_state}, step, val_loss)
+
+
+def _write(save_dir: Path, payload: dict, step: int, val_loss: float) -> Path:
     path = (save_dir / _ckpt_name(step, val_loss)).absolute()
     if path.exists():          # stale dir from an interrupted/previous run
         shutil.rmtree(path, ignore_errors=True)
     path.mkdir(parents=True)
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": int(step)}, path / STATE_FILE)
+    torch.save({**payload, "step": int(step)}, path / STATE_FILE)
     (path / "META.json").write_text(json.dumps(
         {"step": int(step), "val_loss": float(val_loss)}))
-    for _, d in sorted(_scored(save_dir), key=lambda t: t[0])[keep:]:
-        shutil.rmtree(d, ignore_errors=True)
     return path
 
 

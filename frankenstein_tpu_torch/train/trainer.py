@@ -7,12 +7,17 @@ The model contract is the JAX package's uniform one: ``loss, logits =
 model(x, targets, train=..., generator=..., date_info=...)``, where
 ``date_info`` is the batch's third array (the samples' session ids) and
 ``targets`` is None for a model whose ``needs_labels`` is False (the MAE,
-SimpleMAE), plus a ``remat`` attribute that the trainer sets from the
-config (``models/franky.py:Franky``).
+SimpleMAE, SoundStream), plus a ``remat`` attribute that the trainer sets
+from the config (``models/franky.py:Franky``). A model may leave ``aux``,
+a dict of scalar tensors, after its forward (SoundStream's perplexity,
+rec_loss and commit_loss, the JAX package's sown ``"aux"``); the trainer
+logs each, the mean over the microbatches under grad accumulation.
 
 On one device, in eager PyTorch:
 - a step is ``grad_accum`` forward/backward passes over equal microbatches
-  (mean loss, mean gradients), a value clip, one AdamW update;
+  (mean loss, mean gradients), a value clip, one AdamW update; buffers a
+  forward writes (SoundStream's codebook) carry from one microbatch to the
+  next, as the JAX scan threads its mutable collections;
 - ``steps_per_dispatch`` = k runs k such steps per host group with no host
   read between them; the numerics are those of k single steps and a run
   stops at most k - 1 steps past ``max_steps`` (CUDA graphs over the group
@@ -24,10 +29,12 @@ On one device, in eager PyTorch:
   step) before each batch, so the MAE draws its eval mask as the JAX
   trainer does, from a key that does not change within the round;
 - the loss is read to the host only at warm-up, log and eval boundaries and
-  at the end, where a non-finite value raises ``FloatingPointError``.
+  at the end, where a non-finite value raises ``FloatingPointError``;
+- with ``flops_per_sample`` (forward FLOPs, ``utils/profiling.py``) and a
+  card whose peak is known, each log line has ``mfu``: 3 x forward FLOPs a
+  step over the step time and the peak, as the JAX package logs it.
 Not ported: ``fsdp`` and meshes wider than one device (ROADMAP item
-"parallel modes and MoE"), MFU logging (``utils/profiling.py``, item "VQ-VAE
-and the rest").
+"parallel modes and MoE").
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from torch import nn
 
 from frankenstein_tpu_torch.config import TrainConfig
 from frankenstein_tpu_torch.train.schedule import make_lr_schedule
+from frankenstein_tpu_torch.utils import profiling
 from frankenstein_tpu_torch.utils.metrics import MetricLogger
 
 
@@ -99,19 +107,23 @@ def augment_batch(batch, generator: torch.Generator, p_augs: float,
 
 
 def _loss(model, batch, *, train: bool, generator=None):
-    """The model's loss on ``batch`` = (x, targets[, date_info])."""
+    """(the model's loss on ``batch`` = (x, targets[, date_info]), the
+    ``aux`` scalars its forward left, or {})."""
     targets = batch[1] if getattr(model, "needs_labels", True) else None
     date_info = batch[2] if len(batch) > 2 else None
     loss, _ = model(batch[0], targets, train=train, generator=generator,
                     date_info=date_info)
-    return loss
+    return loss, dict(getattr(model, "aux", {}))
 
 
 def loss_and_grads(state: TrainState, batch, config: TrainConfig,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   aux: Optional[dict] = None):
     """Mean loss over ``grad_accum`` equal microbatches of ``batch``, with
-    the mean gradients left in the parameters' ``.grad``. Applies the
-    step's augmentation and bf16 input cast first."""
+    the mean gradients left in the parameters' ``.grad`` and, when ``aux``
+    is given, the model's mean aux scalars written into it. Applies the
+    step's augmentation and bf16 input cast first. The microbatches run in
+    order, each on the buffers the last one wrote."""
     if config.p_augs > 0.0:
         batch = augment_batch(batch, generator, config.p_augs)
     if config.mixed_precision:
@@ -120,12 +132,17 @@ def loss_and_grads(state: TrainState, batch, config: TrainConfig,
     accum = max(config.grad_accum, 1)
     n = batch[0].shape[0] // accum
     state.optimizer.zero_grad(set_to_none=True)
-    total = None
+    total, aux_sum = None, {}
     for i in range(accum):
         micro = tuple(a[i * n:(i + 1) * n] for a in batch)
-        loss = _loss(state.model, micro, train=True, generator=generator)
+        loss, micro_aux = _loss(state.model, micro, train=True,
+                                generator=generator)
         (loss / accum).backward()
         total = loss.detach() if total is None else total + loss.detach()
+        for key, value in micro_aux.items():
+            aux_sum[key] = aux_sum.get(key, 0.0) + value.detach()
+    if aux is not None:
+        aux.update({k: v / accum for k, v in aux_sum.items()})
     return total / accum
 
 
@@ -146,15 +163,17 @@ def _step_seed(seed: int, step: int) -> int:
 
 def train_step(state: TrainState, batch, config: TrainConfig, sched,
                generator: torch.Generator):
-    """One optimizer update in place. Returns (loss, {"grad_norm"}) as
-    device tensors; the norm is of the gradients before the clip."""
+    """One optimizer update in place. Returns (loss, {"grad_norm", and the
+    model's aux}) as device tensors; the norm is of the gradients before
+    the clip."""
     generator.manual_seed(_step_seed(config.seed, state.step))
-    loss = loss_and_grads(state, batch, config, generator)
+    aux = {}
+    loss = loss_and_grads(state, batch, config, generator, aux)
     grads = [p.grad for p in state.model.parameters() if p.grad is not None]
     gnorm = torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g) for g in grads]))
     apply_update(state, config, sched)
-    return loss, {"grad_norm": gnorm}
+    return loss, {"grad_norm": gnorm, **aux}
 
 
 @torch.no_grad()
@@ -162,7 +181,7 @@ def eval_step(state: TrainState, batch,
               generator: Optional[torch.Generator] = None):
     """The loss of one eval batch; ``generator`` draws what the model
     draws in eval (the MAE's mask), Franky ignores it."""
-    return _loss(state.model, batch, train=False, generator=generator)
+    return _loss(state.model, batch, train=False, generator=generator)[0]
 
 
 def _check_parallel(config: TrainConfig) -> None:
@@ -180,7 +199,8 @@ def _check_parallel(config: TrainConfig) -> None:
 def run_train_model(model: nn.Module, datasets, config: TrainConfig,
                     save_folder: Path = Path("logs"),
                     eval_metric: Optional[Callable] = None,
-                    resume: bool = False) -> TrainState:
+                    resume: bool = False,
+                    flops_per_sample: float = 0.0) -> TrainState:
     """Step-based loop: infinite epochs over the train set, log every
     ``log_interval`` and eval every ``eval_interval`` steps, best
     checkpoint, stop at ``max_steps`` (overshoot < ``steps_per_dispatch``).
@@ -189,7 +209,8 @@ def run_train_model(model: nn.Module, datasets, config: TrainConfig,
     ``eval_metric(state, step) -> float``: when given, checkpoints are
     selected by it (lower is better) instead of the val loss. ``resume``
     restarts from the best checkpoint in the run directory, optimizer state
-    and step included."""
+    and step included. ``flops_per_sample``, a sample's forward FLOPs,
+    turns on the ``mfu`` metric where the card's peak is known."""
     from frankenstein_tpu_torch.data.datasets import batch_iterator
     from frankenstein_tpu_torch.data.loader import (prefetch, stack_steps,
                                                     to_device)
@@ -261,9 +282,16 @@ def run_train_model(model: nn.Module, datasets, config: TrainConfig,
                 check_finite(loss_f)
                 dt = time.perf_counter() - t0
                 metrics = {"train/loss": loss_f, "lr": sched(state.step),
-                           "grad_norm": float(aux["grad_norm"])}
+                           **{k: float(v) for k, v in aux.items()}}
                 if steps_timed:
                     metrics["samples_per_sec"] = samples_seen / max(dt, 1e-9)
+                if steps_timed and flops_per_sample:
+                    # forward + backward ~ 3x forward (PaLM App. B)
+                    mfu = profiling.estimate_mfu(
+                        3 * flops_per_sample * samples_seen / steps_timed,
+                        dt / steps_timed)
+                    if mfu is not None:      # None: no known peak
+                        metrics["mfu"] = mfu
                 logger.log(state.step, metrics)
 
             if crossed(config.eval_interval):

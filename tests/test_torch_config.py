@@ -13,7 +13,7 @@ from frankenstein_tpu_torch import config as tconfig
 
 NAMES = ["MAEConfig", "PerceiverConfig", "GPTConfig", "FrankyConfig",
          "TrainConfig", "LlamaConfig", "FrankyLlamaConfig",
-         "SimpleEncoderConfig", "SimpleMAEConfig"]
+         "SimpleEncoderConfig", "SimpleMAEConfig", "VQVAEConfig"]
 # where the JAX package keeps each class
 JAX_HOME = {"LlamaConfig": jllama, "FrankyLlamaConfig": jfranky}
 
@@ -68,7 +68,8 @@ def test_json_round_trip_matches_jax(name):
                "GPTConfig": {"n_layer": 2}, "LlamaConfig": {"n_layers": 3},
                "FrankyLlamaConfig": {"pad_token_id": 7},
                "SimpleEncoderConfig": {"block_size": 768, "patch_size": 256},
-               "SimpleMAEConfig": {"masking_ratio": 0.5}}.get(name, {})
+               "SimpleMAEConfig": {"masking_ratio": 0.5},
+               "VQVAEConfig": {"strides": (2, 3), "C": 64}}.get(name, {})
     j, t = jcls(**changed), tcls(**changed)
     assert tcls.from_json(j.to_json()) == t
     assert jcls.from_json(t.to_json()) == j

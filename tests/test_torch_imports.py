@@ -70,11 +70,23 @@ print(",".join(n for n in sys.argv[2:] if hasattr(mod, n)))
     ("data.whisper_prep", ["fit_pca", "prepare_brain_data_for_whisper"]),
     ("eval.evaluate", ["evaluate_seq2seq_wer"]),
     ("decode.sampling", ["greedy_decode_scan"]),
-    ("whisper_pipeline", ["build", "main", "tokenize_labels"])])
+    ("whisper_pipeline", ["build", "main", "tokenize_labels"]),
+    ("ops.conv", ["CausalConv1d", "CausalConvTranspose1d"]),
+    ("ops.vq", ["l2norm", "VectorQuantize", "codebook_perplexity"]),
+    ("models.vq_brain", ["SoundStream", "masked_l1_loss"]),
+    ("models.import_reference", ["load_state_dict", "save_state_dict",
+                                 "soundstream_state"]),
+    ("convert_reference", ["build", "main"]),
+    ("decode.streaming", ["sliding_windows", "stream_predict"]),
+    ("analysis", ["dataset_stats", "reduce_dimensionality",
+                  "crop_gpt_layers", "crop_block_size"]),
+    ("utils.profiling", ["detect_peak_flops", "estimate_mfu", "trace"]),
+    ("utils.debugging", ["assert_finite_tree", "jit_eager_parity",
+                         "enable_nan_debugging"])])
 def test_new_modules_import_alone_without_jax(name, attrs):
-    """Each module of the encoder-family training paths and of the whisper
-    path imports by itself in a process where jax and the JAX package
-    cannot load."""
+    """Each module of the encoder-family training paths, of the whisper
+    path and of the VQ-VAE slice imports by itself in a process where jax
+    and the JAX package cannot load."""
     proc = subprocess.run(
         [sys.executable, "-c", _ALONE, f"frankenstein_tpu_torch.{name}",
          *attrs], cwd=ROOT, capture_output=True, text=True, timeout=300)
