@@ -236,7 +236,29 @@ nvcc (sm_90a) and then, one line per phase:
     encode, windows/s; ``utils/profiling.py``'s peaks for this card and a
     ``trace()`` of one encode; the flagship's weights as a reference
     ``.safetensors`` through ``convert_reference`` and served by ``submit
-    --checkpoint`` over 8 windows, and written back by ``--reverse``.
+    --checkpoint`` over 8 windows, and written back by ``--reverse``;
+23. the parallel modes and MoE: (a) ``configs/moe_gpt.yaml`` (the flagship
+    encoder and Perceiver into GPT-2 124M with a top-2 MoESwiGLU of 8
+    experts, hidden 3072, in every block; f32 parameters, bf16 compute)
+    trained for 30 steps at B=32 through the train CLI with ``--mesh 1,1``
+    after a 5-step lr warm-up, logging every step: finite losses, the
+    last 10 steps' mean under the first 10's, launches K1 = 4 and K9 = 6
+    a forward, K4 = 4 a step, K2 = 0; the step's median and range of 5,
+    samples/s and the peak; (b) ``submit --run-dir`` on the run over 32
+    windows with beams of 5, and one B=32 request of the predictor (bf16
+    weights): K3 = 25, K1 = 4, K9 = 6, K2 = 0 a request, its median and
+    range of 5; the predictor with ``int8_weights=True`` raises; (c) the
+    trained MoE GPT on 4 windows' prefixes at B=1 on the card against its
+    f32 CPU twin, beside bf16 on the CPU: the logits' relative error
+    (within the larger of SLICE_TOL and WITNESS_FACTOR times bf16 on the
+    CPU's: bf16 activations flip near-tied routes, on either device) and
+    the share of (token, layer) routes whose expert sets are the twin's
+    (at most MOE_ROUTE_SLACK under bf16 on the CPU's);
+    (d) a one-rank NCCL group through the trainer's DDP and FSDP paths: 3
+    f32 steps of the MoE Franky (encoder cut to a 96 x 256 window), each
+    loss within 1e-5 rel of the unwrapped step's; (e) the dryrun
+    (``python -m frankenstein_tpu_torch.dryrun --ranks 4 --device cpu``)
+    on this machine's torch: its seven ``ok`` lines.
 
 Every on / off comparison (phases 4, 9, 13, 17, 18 and 20) is timed by
 ``_in_turns``: one warm-up each, then single calls alternating in turns,
@@ -4723,6 +4745,301 @@ def phase_vq(card: str) -> dict:
             "files": files}
 
 
+MOE_STEPS = 30
+MOE_BATCH = 32
+MOE_WINDOWS = 4       # phase 23 (c): prefixes checked card against CPU
+MOE_DDP_STEPS = 3     # phase 23 (d)
+MOE_DDP_TOL = 1e-5    # a one-rank DDP / FSDP step's loss vs the unwrapped
+MOE_ROUTE_SLACK = 5e-2  # the card's route agreement may fall this far
+                        # under bf16 on the CPU's
+
+
+def _moe_routes(model, run) -> tuple:
+    """(``run()``'s result, each MoE layer's top-k experts of every token
+    [N, K]) from a forward pre-hook on every MoESwiGLU of ``model``."""
+    from frankenstein_tpu_torch.models.moe import MoESwiGLU, stable_topk
+    routes, hooks = [], []
+
+    def grab(mod, args):
+        x = args[0].reshape(-1, mod.dim).to(mod.compute_dtype
+                                            or mod.w1.dtype)
+        probs = (x.float() @ mod.wg.float()).softmax(-1)
+        routes.append(stable_topk(probs, mod.k)[1].cpu())
+
+    for mod in model.modules():
+        if isinstance(mod, MoESwiGLU):
+            hooks.append(mod.register_forward_pre_hook(grab))
+    try:
+        return run(), routes
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _moe_card_vs_cpu(model, prefixes, texts) -> dict:
+    """The trained MoE GPT (``model.llm_model``, bf16 compute on the card)
+    on each window's prefix and text (its pad ids) at B=1, teacher-forced,
+    against its f32 CPU twin, and
+    bf16 on the CPU as the witness: the worst logits error relative to max
+    |twin| and the share of routes (token, layer) whose set of top-k
+    experts equals the twin's."""
+    import copy
+
+    import torch
+    lm = model.llm_model
+    twin = copy.deepcopy(lm).cpu().float()
+    for mod in twin.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = None
+    witness = copy.deepcopy(twin)
+    for mod in witness.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.bfloat16
+    errs = {"card": 0.0, "witness": 0.0}
+    agree = {"card": [0, 0], "witness": [0, 0]}
+    with torch.no_grad():
+        for prefix, idx in zip(prefixes, texts):
+            p, i = prefix.float().cpu(), idx.cpu()
+            want, r_want = _moe_routes(twin, lambda: twin(i, p, i)[1])
+            for name, m, dev in (("card", lm, "cuda"),
+                                 ("witness", witness, "cpu")):
+                got, r_got = _moe_routes(
+                    m, lambda: m(i.to(dev), p.to(dev), i.to(dev))[1])
+                errs[name] = max(errs[name], _max_err(got.cpu(), want)
+                                 / float(want.abs().max()))
+                for a, b in zip(r_got, r_want):
+                    same = a.sort(-1).values == b.sort(-1).values
+                    agree[name][0] += int(same.all(-1).sum())
+                    agree[name][1] += a.shape[0]
+    return {"errs": errs,
+            "agree": {k: v[0] / max(v[1], 1) for k, v in agree.items()}}
+
+
+def _moe_one_rank(card: str) -> dict:
+    """Phase 23 (d): a one-rank NCCL group; MOE_DDP_STEPS f32 steps of the
+    MoE Franky through the trainer's DDP and then its FSDP path, each
+    against the same steps of an unwrapped copy."""
+    import copy
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+    import yaml
+    from frankenstein_tpu_torch.config import FrankyConfig, TrainConfig
+    from frankenstein_tpu_torch.models.franky import Franky
+    from frankenstein_tpu_torch.models.weights import init_franky_
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+    from frankenstein_tpu_torch.train import trainer
+
+    repo = Path(__file__).resolve().parent
+    doc = yaml.safe_load((repo / "configs" / "moe_gpt.yaml").read_text())
+    cfg = FrankyConfig.from_dict(doc["model_config"])
+    cfg = cfg.replace(brain=cfg.brain.replace(
+        encoder=cfg.brain.encoder.replace(window_size=96)))
+    ds = train_cli.build_datasets("synthetic", 96, 256, 64)[0]
+    batches = _batches(ds, 4, MOE_DDP_STEPS)
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            for mode in ("ddp", "fsdp"):
+                model = init_franky_(Franky(cfg, device=dev), seed=SEED)
+                ref = copy.deepcopy(model)
+                tcfg = TrainConfig(batch_size=4, learning_rate=1e-4,
+                                   warmup_iters=0, use_scheduler=False,
+                                   mixed_precision=False, mesh_shape=(1, 1),
+                                   fsdp=mode == "fsdp")
+                runs = {}
+                for name, m, par in (("wrapped", model, True),
+                                     ("plain", ref, False)):
+                    p = (trainer.setup_parallel(m, tcfg, dev) if par
+                         else None)
+                    opt, sched = trainer.make_optimizer(tcfg, m)
+                    state = trainer.TrainState(m, opt, parallel=p)
+                    gen = torch.Generator(device=dev)
+                    runs[name] = [float(trainer.train_step(
+                        state, b, tcfg, sched, gen)[0]) for b in batches]
+                    runs[name + "_kind"] = type(p.runner).__name__ if p \
+                        else "none"
+                rel = max(abs(a - b) / abs(b) for a, b in
+                          zip(runs["wrapped"], runs["plain"]))
+                out[mode] = {"rel": rel, "losses": runs["wrapped"],
+                             "runner": runs["wrapped_kind"],
+                             "sharded": sum(hasattr(q, "placements")
+                                            for q in model.parameters())}
+                del model, ref, state, opt
+                _free_card()
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def phase_moe(card: str) -> dict:
+    """Phase 23: the moe-gpt path trained and served on the card, its MoE
+    GPT against the CPU, the one-rank NCCL DDP / FSDP steps and the
+    dryrun."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import yaml
+    from frankenstein_tpu_torch import submit
+    from frankenstein_tpu_torch.data.tokenizers import (
+        best_available_tokenizer)
+    from frankenstein_tpu_torch.decode import pipeline
+    from frankenstein_tpu_torch.dryrun import dryrun
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+
+    repo = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        doc = yaml.safe_load((repo / "configs" / "moe_gpt.yaml").read_text())
+        doc["train"]["log_interval"] = 1
+        config = Path(tmp) / "moe_gpt.yaml"
+        config.write_text(yaml.safe_dump(doc))
+        _reset_launches()
+        t0 = time.perf_counter()
+        state = train_cli.main([
+            "--config", str(config), "--mesh", "1,1", "--data", "synthetic",
+            "--synthetic-trials", "256", "--steps", str(MOE_STEPS),
+            "--batch-size", str(MOE_BATCH), "--warmup", "5",
+            "--eval-interval", str(MOE_STEPS), "--exp-name", "smoke_moe",
+            "--save-folder", tmp])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _read_launches()
+        run_dir = Path(tmp) / "smoke_moe"
+        losses, val, rate = _run_record(run_dir)
+        cfg = state.model.cfg
+        n_layers = cfg.brain.encoder.n_layers
+        means = _means(losses, 10)
+        _check(state.step == MOE_STEPS and len(losses) == MOE_STEPS
+               and all(map(math.isfinite, losses + val))
+               and means[-1] < means[0],
+               f"moe-gpt: step {state.step}, losses {losses}, val {val}")
+        # one eval batch: the 32 validation trials at batch 32
+        _check(launches["K4"] == n_layers * MOE_STEPS
+               and launches["K1"] == n_layers * (MOE_STEPS + 1)
+               and launches["K9"] == _k9_blocks(cfg) * (MOE_STEPS + 1)
+               and launches["K2"] == launches["K3"] == launches["K5"] == 0,
+               f"moe-gpt training launches {launches}")
+        tcfg = _train_config(run_dir)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        n_expert = sum(p.numel() for n, p in state.model.named_parameters()
+                       if ".moe.w" in n)
+        ds = train_cli.build_datasets("synthetic", 768, 256, 256)[0]
+        step = _in_turns({"step": _train_stepper(state, tcfg, ds,
+                                                 MOE_BATCH)})["step"]
+
+        # (c) before the run's weights are cast for serving
+        xs = [torch.from_numpy(ds[i][0][None]).cuda()
+              for i in range(MOE_WINDOWS)]
+        texts = [state.model._padded(torch.from_numpy(ds[i][1][None]))
+                 for i in range(MOE_WINDOWS)]
+        with torch.no_grad():
+            prefixes = [state.model.encode(x) for x in xs]
+        check = _moe_card_vs_cpu(state.model, prefixes, texts)
+        del state
+        _free_card()
+
+        t0 = time.perf_counter()
+        sub = submit.main(["--run-dir", str(run_dir), "--data", "synthetic",
+                           "--synthetic-trials", str(MOE_BATCH),
+                           "--batch-size", str(MOE_BATCH), "--beam-width",
+                           "5", "--out", str(Path(tmp) / "sub.txt")])
+        submit_s = time.perf_counter() - t0
+        lines = sub.read_text().splitlines()
+        _check(len(lines) == MOE_BATCH, f"submission: {len(lines)} lines")
+        cls, mcfg, best = submit.build_from_run_dir(run_dir)
+        from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
+        model = cls(mcfg, device=torch.device("cuda"))
+        model.load_state_dict(ckpt_lib.load_raw_checkpoint(
+            best, map_location="cuda")["model"])
+        model = pipeline.cast_params_for_inference(model)
+        tok = best_available_tokenizer()
+        predict = pipeline.make_franky_predictor(
+            model, tok, max_new_tokens=mcfg.max_tokens, beam_width=5)
+        batch = torch.stack([torch.from_numpy(ds[i][0])
+                             for i in range(MOE_BATCH)]).numpy()
+        _reset_launches()
+        predict(batch)
+        torch.cuda.synchronize()
+        req_launches = _read_launches()
+        _check(req_launches["K3"] == mcfg.max_tokens
+               and req_launches["K1"] == n_layers
+               and req_launches["K9"] == _k9_blocks(mcfg)
+               and req_launches["K2"] == req_launches["K2-int8"] == 0,
+               f"moe-gpt request launches {req_launches}")
+        request = _in_turns({"request": lambda: predict(batch)})["request"]
+        try:
+            pipeline.make_franky_predictor(model, tok, beam_width=5,
+                                           int8_weights=True)
+            refused = False
+        except NotImplementedError:
+            refused = True
+        _check(refused, "an MoE predictor took int8 weights")
+        del model, predict
+        _free_card()
+    one_rank = _moe_one_rank(card)
+    t0 = time.perf_counter()
+    dry = dryrun(4, "cpu", timeout=300.0)
+    dry_s = time.perf_counter() - t0
+    oks = [line for line in dry.splitlines() if " ok, loss=" in line]
+    _check(len(oks) == 7, f"dryrun: {dry}")
+    agree = check["agree"]
+    print(f"phase 23 moe-gpt: configs/moe_gpt.yaml (flagship encoder and "
+          f"Perceiver, GPT-2 124M with a top-{cfg.gpt.moe_k} MoE of "
+          f"{cfg.gpt.moe_experts} experts, hidden {4 * cfg.gpt.n_embd}, "
+          f"capacity {cfg.gpt.moe_capacity}, aux weight "
+          f"{cfg.gpt.moe_aux_weight}; {n_params / 1e6:.1f}M parameters, "
+          f"{n_expert / 1e6:.1f}M of them experts; f32 params, bf16 "
+          f"compute) trained {MOE_STEPS} steps at B={MOE_BATCH} through the "
+          f"train CLI with --mesh 1,1 in {run_s:.1f} s: loss means of 10 "
+          f"{' / '.join(f'{v:.4f}' for v in means)}, val {val[-1]:.4f}, "
+          f"launches {launches} (K1 = {n_layers} and K9 = "
+          f"{_k9_blocks(cfg)} a forward, K4 = {n_layers} a step) | B=32 "
+          f"step {_note(step['ms'])} ms (median, range of {TIMING_REPEATS}),"
+          f" {MOE_BATCH * 1e3 / step['ms'][0]:.1f} samples/s, peak "
+          f"{step['gib']:.2f} GiB | {card}", flush=True)
+    print(f"phase 23 moe-gpt served: submit --run-dir over {MOE_BATCH} "
+          f"windows, beams of 5, in {submit_s:.1f} s ({len(lines)} lines) | "
+          f"one B={MOE_BATCH} beam-of-5 request (bf16 weights): launches "
+          f"{req_launches} (K3 = {mcfg.max_tokens}, K1 = {n_layers}, K9 = "
+          f"{_k9_blocks(mcfg)}), {_note(request['ms'])} ms (median, range of"
+          f" {TIMING_REPEATS}), peak {request['gib']:.2f} GiB; "
+          f"int8_weights=True refused | {card}", flush=True)
+    print(f"phase 23 moe-gpt card vs CPU: the trained MoE GPT on "
+          f"{MOE_WINDOWS} windows' prefixes at B=1: logits max err "
+          f"{check['errs']['card']:.3e} of max |f32 CPU twin| (bf16 on the "
+          f"CPU {check['errs']['witness']:.3e}; limit the larger of "
+          f"{SLICE_TOL} and {WITNESS_FACTOR}x that); routes whose {cfg.gpt.moe_k} experts are the twin's: card "
+          f"{100 * agree['card']:.2f}%, bf16 on the CPU "
+          f"{100 * agree['witness']:.2f}% | {card}", flush=True)
+    print(f"phase 23 one-rank NCCL: {MOE_DDP_STEPS} f32 steps of the MoE "
+          f"Franky (96 x 256 window) at B=4: DDP "
+          f"({one_rank['ddp']['runner']}) losses "
+          f"{' '.join(f'{v:.6f}' for v in one_rank['ddp']['losses'])}, max "
+          f"rel err vs unwrapped {one_rank['ddp']['rel']:.2e}; FSDP2 "
+          f"({one_rank['fsdp']['sharded']} DTensor parameters) losses "
+          f"{' '.join(f'{v:.6f}' for v in one_rank['fsdp']['losses'])}, max "
+          f"rel err {one_rank['fsdp']['rel']:.2e} (tol {MOE_DDP_TOL}) | "
+          f"{card}", flush=True)
+    print(f"phase 23 dryrun (4 gloo ranks on the CPU, {dry_s:.1f} s): "
+          + " | ".join(line.split(": ", 1)[1] for line in oks), flush=True)
+    _check(check["errs"]["card"] <= max(
+               SLICE_TOL, WITNESS_FACTOR * check["errs"]["witness"])
+           and agree["card"] >= agree["witness"] - MOE_ROUTE_SLACK,
+           f"moe-gpt card vs CPU: {check}")
+    _check(one_rank["ddp"]["rel"] <= MOE_DDP_TOL
+           and one_rank["fsdp"]["rel"] <= MOE_DDP_TOL
+           and one_rank["ddp"]["runner"] == "DistributedDataParallel"
+           and one_rank["fsdp"]["sharded"] > 0,
+           f"one-rank NCCL steps: {one_rank}")
+    return {"launches": launches, "request": req_launches, "step": step}
+
+
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
     null where no one PyTorch call computes the same function."""
@@ -4767,6 +5084,7 @@ def main() -> int:
     rest = phase_rest(card)
     phase_whisper(card)
     phase_vq(card)
+    phase_moe(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [

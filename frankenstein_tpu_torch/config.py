@@ -86,8 +86,9 @@ class MAEConfig(_SerializableMixin):
     # date_embedding[date_info % n_sessions] to every token
     n_sessions: int = 0
 
-    # sequence parallelism has no counterpart in the port yet; without a
-    # sequence mesh the JAX package computes the same single-device math
+    # sequence parallelism: the encoder's tokens split over the ambient
+    # sequence group (parallel/ring_attention.py:seq_group), slab attention
+    # round the ring; without a group the same single-device math
     seq_parallel: bool = False
 
     # int8 QK scores in the encoder's slab attention (kernel K10)
@@ -161,7 +162,7 @@ class GPTConfig(_SerializableMixin):
     dropout: float = 0.0
     bias: bool = True
 
-    # Mixture-of-Experts MLP; the port's GPT refuses moe_experts > 0
+    # Mixture-of-Experts MLP (models/moe.py) in every block when > 0
     moe_experts: int = 0
     moe_k: int = 2
     moe_capacity: float = 1.25
@@ -223,7 +224,7 @@ class LlamaConfig(_SerializableMixin):
     max_seq_len: int = 8192
     tie_embeddings: bool = False
 
-    # Mixture-of-Experts MLP; the port's Llama refuses moe_experts > 0
+    # Mixture-of-Experts MLP (models/moe.py) in every block when > 0
     moe_experts: int = 0
     moe_k: int = 2
     moe_capacity: float = 1.25
@@ -293,9 +294,10 @@ class WhisperConfig(_SerializableMixin):
 class TrainConfig(_SerializableMixin):
     """The trainer's settings (``frankenstein_tpu/config.py:TrainConfig``).
     In the port: ``steps_per_dispatch`` is k optimizer steps per host group
-    (same numerics as k single steps); ``fsdp`` and a ``mesh_shape`` wider
-    than one device raise ``NotImplementedError`` (parallel modes are not
-    ported); ``remat`` checkpoints each block."""
+    (same numerics as k single steps); ``mesh_shape`` (data, model) and
+    ``fsdp`` lay the run out over a process group
+    (``train/trainer.py:setup_parallel``); ``remat`` checkpoints each
+    block."""
 
     exp_name: str = "default"
 

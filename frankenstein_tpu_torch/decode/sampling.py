@@ -52,10 +52,14 @@ def decode_weights(model, int8_weights: bool) -> dict:
     """The stacked decode weights the model's decode kernel streams (K2 for
     a GPT, K5 for a LLaMA, either possibly under a composite's
     ``llm_model``): in the model's dtype, or w8a16 int8 codes with
-    per-(layer, out-lane) scales."""
+    per-(layer, out-lane) scales. An MoE LM has none (None: its decode
+    steps run the module blocks), and int8 weights raise for it, as the JAX
+    package's do off its fused path."""
     from frankenstein_tpu_torch.models import gpt2, llama
     lm = model.llm_model if hasattr(model, "llm_model") else model
     family = llama if isinstance(lm, llama.Llama) else gpt2
+    if lm.cfg.moe_experts > 0 and not int8_weights:
+        return None
     if int8_weights:
         return family.quantize_decode_weights(lm, lm.dtype)
     return family.stack_decode_weights(lm)
@@ -87,7 +91,7 @@ def _compact(model, logits, qweights: dict, top_k: Optional[int],
     conditions, the JAX ``_sample_scan``'s)."""
     return (COMPACT_TOPK and top_k is not None and top_k < logits.shape[-1]
             and not greedy and hasattr(type(model), "decode_step_topk")
-            and qweights["qkv_w"].dtype != torch.int8)
+            and (qweights is None or qweights["qkv_w"].dtype != torch.int8))
 
 
 @torch.no_grad()

@@ -20,6 +20,7 @@ from frankenstein_tpu_torch.models.layers import (Block, CrossBlock,
                                                   LayerNorm, linear,
                                                   run_block)
 from frankenstein_tpu_torch.ops import rope as rope_ops
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 
 
 def to_patches(x: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -101,17 +102,38 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, remat: bool = False,
                 date_info=None) -> torch.Tensor:
         """x: [B, T, C] signal -> [B, n_tokens, dim] context. ``remat``
-        recomputes each block's activations in the backward."""
+        recomputes each block's activations in the backward.
+
+        With ``cfg.seq_parallel`` inside ``ring_attention.seq_group(g)``
+        (the JAX package's ambient "seq" mesh), each rank of g carries its
+        n-th of the tokens (in rank order; the count must divide) through
+        the blocks, RoPE at their global positions, the slab attention round
+        the ring, and the output is gathered whole (differentiably): the
+        one-device encoder's. The blocks' and ``ln_f``'s parameter
+        gradients are then each rank's share, summed by ``mesh.sum_grads``
+        (the embedding's come whole on every rank)."""
+        from frankenstein_tpu_torch.parallel import ring_attention
         c = self.cfg
         tok = self.embed_tokens(to_patches(x, c.patch_size),
                                 date_info=date_info)
         rope = rope_ops.build_rope_cache(c.head_dim, c.block_size,
                                          c.rope_theta, device=x.device)
+        group = ring_attention.ambient_seq_group() if c.seq_parallel else None
+        if group is not None:
+            n, t = mesh_lib.group_size(group), tok.shape[1]
+            if t % n:
+                raise ValueError(f"{t} tokens do not split over a sequence "
+                                 f"group of {n}")
+            r, t_loc = mesh_lib.group_rank(group), t // n
+            rope = rope[-t:][r * t_loc:(r + 1) * t_loc]
+            tok = ring_attention.scatter_to_group(tok, group, 1)
         for block in self.transformer["h"]:
             tok = run_block(block, tok, remat=remat, mask_mode="slab",
                             tok_per_time=c.n_electrodes, rope=rope,
-                            qk_int8=c.qk_int8)
-        return self.transformer["ln_f"](tok)
+                            qk_int8=c.qk_int8, ring=group)
+        out = self.transformer["ln_f"](tok)
+        return (out if group is None
+                else mesh_lib.gather_from_group(out, group, 1))
 
     def forward_subset(self, patches: torch.Tensor, positions: torch.Tensor,
                        rope_cache: torch.Tensor, remat: bool = False,
@@ -138,7 +160,9 @@ def masking_indices(generator, batch: int, n_tokens: int,
     device = device if device is not None else (
         generator.device if generator is not None else None)
     num_masked = int(masking_ratio * n_tokens)
-    noise = torch.rand(batch, n_tokens, generator=generator, device=device)
+    noise = mesh_lib.global_rows(
+        lambda n: torch.rand(n, n_tokens, generator=generator,
+                             device=device), batch)
     perm = torch.argsort(noise, dim=-1)
     return (torch.sort(perm[:, :num_masked], dim=-1).values,
             torch.sort(perm[:, num_masked:], dim=-1).values)

@@ -19,8 +19,11 @@
   (``ops/cuda/beam_reorder.py``) when the beams are grouped.
 - ``lm_head`` is tied to ``transformer.wte``.
 - ``dtype`` is the compute dtype (``models/layers.py``).
-
-The MoE MLP is not ported.
+- ``cfg.moe_experts`` > 0 swaps every block's MLP for a ``MoESwiGLU``
+  (``models/moe.py``, hidden 4E) as ``moe``; the training loss adds
+  ``moe_aux_weight`` x the blocks' summed balancing losses, and decode runs
+  the module blocks (K2 takes the dense MLP only, as the JAX package's
+  fused path does).
 """
 
 from __future__ import annotations
@@ -34,9 +37,11 @@ from torch import nn
 
 from frankenstein_tpu_torch.config import GPTConfig, IGNORE_INDEX
 from frankenstein_tpu_torch.models.layers import LayerNorm, linear, run_block
+from frankenstein_tpu_torch.models.moe import MoESwiGLU
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops.cuda import (beam_reorder, fused_decode,
                                              lm_head_topk)
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 
 
 class QuantCache(NamedTuple):
@@ -104,13 +109,20 @@ class GPTBlock(nn.Module):
         self.ln_1 = LayerNorm(cfg.n_embd, bias=cfg.bias, device=device)
         self.attn = CausalSelfAttention(cfg, device)
         self.ln_2 = LayerNorm(cfg.n_embd, bias=cfg.bias, device=device)
-        self.mlp = MLP(cfg, device)
+        if cfg.moe_experts > 0:
+            self.moe = MoESwiGLU(cfg.n_embd, 4 * cfg.n_embd, cfg.moe_experts,
+                                 cfg.moe_k, cfg.moe_capacity, device, dtype)
+        else:
+            self.mlp = MLP(cfg, device)
 
     def _mlp(self, x):
+        """(the MLP sublayer's output, its balancing loss or None)."""
+        if self.cfg.moe_experts > 0:
+            return self.moe(self.ln_2(x))
         cdt = self.compute_dtype
         h = F.gelu(linear(self.ln_2(x), self.mlp.c_fc, cdt),
                    approximate="none")
-        return linear(h, self.mlp.c_proj, cdt)
+        return linear(h, self.mlp.c_proj, cdt), None
 
     def forward(self, x, k_cache, v_cache, length: int):
         """x: [B, t, E]; k_cache/v_cache: this layer's [B, S, E], updated in
@@ -128,13 +140,14 @@ class GPTBlock(nn.Module):
                                       v_cache.reshape(heads), length + 1)
         x = x + linear(y.reshape(b, t, e), self.attn.c_proj,
                        self.compute_dtype)
-        return x + self._mlp(x)
+        return x + self._mlp(x)[0]
 
     def forward_full(self, x, rate: float = 0.0, seed: Optional[int] = None):
         """Causal attention of x [B, T, E] over itself: the cache forward
         with S = T from row 0, without a cache. Dropout at ``rate`` draws
         from a generator made from ``seed`` here, so a recomputation
-        (``remat``) draws the same masks."""
+        (``remat``) draws the same masks. Returns (x, the MoE balancing
+        loss or None)."""
         c = self.cfg
         b, t, e = x.shape
         gen = _generator(seed, x.device)
@@ -146,7 +159,8 @@ class GPTBlock(nn.Module):
                                       generator=gen)
         y = linear(y.reshape(b, t, e), self.attn.c_proj, self.compute_dtype)
         x = x + attn_ops.dropout(y, rate, gen)
-        return x + attn_ops.dropout(self._mlp(x), rate, gen)
+        h, aux = self._mlp(x)
+        return x + attn_ops.dropout(h, rate, gen), aux
 
 
 def init_cache(cfg: GPTConfig, batch: int, max_len: int,
@@ -163,7 +177,12 @@ def stack_decode_weights(gpt: "GPT", cdt=None) -> dict:
     model's dtype by default); LayerNorm params and biases in f32, which is
     lossless since the kernel lifts them to f32 anyway. Also ``lm_head_t``,
     the tied head [E, V] in the model's dtype widened to f32, so decode
-    steps do not re-widen it. Build it once per predictor, not per step."""
+    steps do not re-widen it. Build it once per predictor, not per step.
+    An MoE model has none: its decode runs the module blocks."""
+    if gpt.cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "stacked decode weights (K2, w8a16) take the dense MLP; an MoE "
+            "GPT decodes through its module blocks with qweights=None")
     blocks = list(gpt.transformer["h"])
     cdt = cdt or gpt.dtype
     e = gpt.cfg.n_embd
@@ -202,23 +221,24 @@ def quantize_decode_weights(gpt: "GPT", cdt=torch.bfloat16) -> dict:
 
 
 def cross_entropy_ignore(logits, targets, ignore_index: int = IGNORE_INDEX):
-    """Mean CE over non-ignored positions."""
+    """Mean CE over non-ignored positions. Under ``mesh.batch_shard`` the
+    mean is over the global batch's kept targets, times the group size
+    (this rank's share of the global loss, scaled as the mesh module
+    sets out)."""
     logits = logits.float()
     mask = targets != ignore_index
     safe = torch.where(mask, targets, torch.zeros_like(targets))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = (logz - gold) * mask
-    return nll.sum() / torch.clamp(mask.sum(), min=1)
+    shard = mesh_lib.current_batch_shard()
+    count = torch.clamp(mesh_lib.global_sum(mask.sum()), min=1)
+    return nll.sum() * (shard.size if shard else 1) / count
 
 
 class GPT(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "the MoE MLP is not ported yet (ROADMAP.md, modules to "
-                "port, \"parallel modes and MoE\")")
         self.cfg = cfg
         self.compute_dtype = dtype
         self.transformer = nn.ModuleDict({
@@ -299,12 +319,19 @@ class GPT(nn.Module):
         seeds = self._dropout_seeds(rate, generator)
         x = attn_ops.dropout(self._embed(idx, prefix), rate,
                              _generator(seeds[0], idx.device))
+        aux = None
         for block, seed in zip(self.transformer["h"], seeds[1:]):
-            x = run_block(block.forward_full, x, rate, seed, remat=remat)
+            x, aux_l = run_block(block.forward_full, x, rate, seed,
+                                 remat=remat)
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
         x = self.transformer["ln_f"](x[:, -t_words:])
         if targets is not None:
             logits = self._lm_head_live(x)
-            return cross_entropy_ignore(logits[:, :-1], targets[:, 1:]), logits
+            loss = cross_entropy_ignore(logits[:, :-1], targets[:, 1:])
+            if aux is not None:
+                loss = loss + self.cfg.moe_aux_weight * aux
+            return loss, logits
         return None, self._lm_head_live(x[:, -1:])
 
     @torch.no_grad()
@@ -379,9 +406,9 @@ class GPT(nn.Module):
         x = (self.transformer["wte"](token)
              + self.transformer["wpe"].weight[length][None])
         w_dtype = self.dtype if qweights is None else qweights["qkv_w"].dtype
-        if not fused_decode.supported(x.device, x.dtype, w_dtype,
-                                      cache[0].dtype, self.cfg.n_embd,
-                                      self.cfg.n_head):
+        if self.cfg.moe_experts > 0 or not fused_decode.supported(
+                x.device, x.dtype, w_dtype, cache[0].dtype, self.cfg.n_embd,
+                self.cfg.n_head):
             return (self._decode_blocks_plain(x, cache, length, qweights),
                     cache, qweights)
         if qweights is None:

@@ -26,15 +26,46 @@ from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops import norms
 from frankenstein_tpu_torch.ops import rope as rope_ops
 from frankenstein_tpu_torch.ops.cuda import fused_mlp, slab_attention
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 
 
 def linear(x: torch.Tensor, layer: nn.Linear,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``nn.Dense(dtype=dtype)``: input, weight and bias cast to the compute
-    dtype (the weight's own dtype when None)."""
+    dtype (the weight's own dtype when None). A layer that
+    ``parallel/sharding.py:shard_params`` split (``layer.tp``) computes its
+    part: a column split this rank's output features (its input's gradient
+    summed over the group), a row split its input features' share, summed
+    over the group before the bias."""
     cdt = dtype or layer.weight.dtype
     bias = None if layer.bias is None else layer.bias.to(cdt)
-    return F.linear(x.to(cdt), layer.weight.to(cdt), bias)
+    tp = getattr(layer, "tp", None)
+    if tp is None:
+        return F.linear(x.to(cdt), layer.weight.to(cdt), bias)
+    kind, group = tp
+    if kind == "col":
+        return F.linear(mesh_lib.copy_to_group(x.to(cdt), group),
+                        layer.weight.to(cdt), bias)
+    if kind != "row":
+        raise ValueError(f"linear() takes column or row splits, not {kind}")
+    out = mesh_lib.reduce_from_group(
+        F.linear(x.to(cdt), layer.weight.to(cdt)), group)
+    return out if bias is None else out + bias
+
+
+def embedding(idx: torch.Tensor, table: nn.Embedding) -> torch.Tensor:
+    """``table(idx)``; a vocab-split table (``table.tp``) looks up the ids
+    in its rows and sums the parts over the group."""
+    tp = getattr(table, "tp", None)
+    if tp is None:
+        return table(idx)
+    group = tp[1]
+    rows = table.weight.shape[0]
+    lo = mesh_lib.group_rank(group) * rows
+    mine = (idx >= lo) & (idx < lo + rows)
+    part = F.embedding(torch.where(mine, idx - lo, torch.zeros_like(idx)),
+                       table.weight) * mine[..., None]
+    return mesh_lib.reduce_from_group(part, group)
 
 
 def run_block(block, *args, remat: bool = False, **kwargs):
@@ -99,6 +130,12 @@ class SelfAttention(nn.Module):
     K6 and its long dense decoder to K7 where their kernels take the input,
     and a call with a ``mask`` (SimpleMAE's padding) to the plain path.
 
+    ``ring`` (a process group) is sequence parallelism: x holds this rank's
+    T/n tokens, ``rope`` their n-th of the table (global positions), and
+    the attention goes round the ring (``parallel/ring_attention.py``,
+    plain torch, the JAX package's ``impl="ring"``) with the mode's mask
+    from global positions; it takes no explicit ``mask`` or ``positions``.
+
     ``qk_int8`` asks for int8 QK scores (kernel K10, serving-grade accuracy;
     gradients approximately straight-through), as the JAX ``SelfAttention``
     does: only the K1 route honours it, and any other route calls
@@ -117,12 +154,13 @@ class SelfAttention(nn.Module):
         self.project = _linear(inner, dim, False, device)
 
     def forward(self, x, *, mask=None, mask_mode=None, tok_per_time: int = 0,
-                rope=None, positions=None, qk_int8: bool = False):
+                rope=None, positions=None, qk_int8: bool = False, ring=None):
         b, t, _ = x.shape
         cdt = self.compute_dtype
         qf, kf, vf = (linear(x, self.qw, cdt), linear(x, self.kw, cdt),
                       linear(x, self.vw, cdt))
-        if (mask_mode == "slab" and mask is None and rope is not None
+        if (ring is None and mask_mode == "slab" and mask is None
+                and rope is not None
                 and rope.ndim == 3
                 and (self.rope_align == "suffix" or rope.shape[0] == t)
                 and slab_attention.supported(x.device, qf.dtype, t,
@@ -140,6 +178,15 @@ class SelfAttention(nn.Module):
         if rope is not None:
             q = rope_ops.apply_rope(q, rope, self.rope_align)
             k = rope_ops.apply_rope(k, rope, self.rope_align)
+        if ring is not None:
+            from frankenstein_tpu_torch.parallel import ring_attention
+            if mask is not None or positions is not None:
+                raise NotImplementedError(
+                    "ring attention takes mask_mode-style masks only")
+            out = ring_attention.ring_attention(
+                q, k, v, ring, causal=mask_mode == "causal",
+                slab=tok_per_time if mask_mode == "slab" else None)
+            return linear(out.reshape(b, t, -1), self.project, cdt)
         out = attn_ops.dot_product_attention(q, k, v, mask=mask,
                                              mask_mode=mask_mode,
                                              tok_per_time=tok_per_time,
@@ -201,10 +248,10 @@ class Block(nn.Module):
         self.mlp = SwiGLU(dim, hidden_dim, device, dtype)
 
     def forward(self, x, *, mask=None, mask_mode=None, tok_per_time: int = 0,
-                rope=None, positions=None, qk_int8: bool = False):
+                rope=None, positions=None, qk_int8: bool = False, ring=None):
         x = x + self.attn(self.ln_1(x), mask=mask, mask_mode=mask_mode,
                           tok_per_time=tok_per_time, rope=rope,
-                          positions=positions, qk_int8=qk_int8)
+                          positions=positions, qk_int8=qk_int8, ring=ring)
         mlp = self.mlp
         cdt = mlp.compute_dtype or mlp.w1.weight.dtype
         if fused_mlp.ENABLED and fused_mlp.supported(

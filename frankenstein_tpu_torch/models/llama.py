@@ -17,8 +17,11 @@ rescoring (``frankenstein_tpu/models/llama.py``).
   CPU, where ``fused_llama_decode.supported`` holds, else the module
   blocks. ``reorder_cache`` gathers beams through kernel K3.
 - ``dtype`` is the compute dtype (``models/layers.py``).
-
-The MoE MLP is not ported.
+- ``cfg.moe_experts`` > 0 swaps every block's SwiGLU for a ``MoESwiGLU``
+  (``models/moe.py``, hidden ``cfg.hidden_dim``) as ``mlp``'s sibling
+  ``moe``; the training loss adds ``moe_aux_weight`` x the blocks' summed
+  balancing losses, and decode runs the module blocks (K5 takes the dense
+  MLP only, as the JAX package's fused path does).
 """
 
 from __future__ import annotations
@@ -34,10 +37,13 @@ from frankenstein_tpu_torch.config import IGNORE_INDEX, LlamaConfig
 from frankenstein_tpu_torch.models.gpt2 import (GPT, QuantCache,
                                                 cross_entropy_ignore,
                                                 on_float_cache)
-from frankenstein_tpu_torch.models.layers import RMSNorm, linear, run_block
+from frankenstein_tpu_torch.models.layers import (RMSNorm, embedding,
+                                                  linear, run_block)
+from frankenstein_tpu_torch.models.moe import MoESwiGLU
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops import rope as rope_ops
 from frankenstein_tpu_torch.ops.cuda import fused_llama_decode
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 
 
 class LlamaAttention(nn.Module):
@@ -70,7 +76,11 @@ class LlamaBlock(nn.Module):
         self.input_layernorm = RMSNorm(cfg.dim, cfg.norm_eps, device)
         self.self_attn = LlamaAttention(cfg, device)
         self.post_attention_layernorm = RMSNorm(cfg.dim, cfg.norm_eps, device)
-        self.mlp = LlamaMLP(cfg, device)
+        if cfg.moe_experts > 0:
+            self.moe = MoESwiGLU(cfg.dim, cfg.hidden_dim, cfg.moe_experts,
+                                 cfg.moe_k, cfg.moe_capacity, device, dtype)
+        else:
+            self.mlp = LlamaMLP(cfg, device)
 
     def _qkv(self, x, rope):
         """q [B, t, H, D] and k, v [B, t, KV, D]; q and k rotated with the
@@ -78,11 +88,12 @@ class LlamaBlock(nn.Module):
         c, cdt = self.cfg, self.compute_dtype
         b, t, _ = x.shape
         h = self.input_layernorm(x)
-        q = linear(h, self.self_attn.q_proj, cdt).reshape(b, t, c.n_heads,
+        # heads from the width: a tensor-parallel rank holds its part
+        q = linear(h, self.self_attn.q_proj, cdt).reshape(b, t, -1,
                                                           c.head_dim)
-        k = linear(h, self.self_attn.k_proj, cdt).reshape(b, t, c.n_kv_heads,
+        k = linear(h, self.self_attn.k_proj, cdt).reshape(b, t, -1,
                                                           c.head_dim)
-        v = linear(h, self.self_attn.v_proj, cdt).reshape(b, t, c.n_kv_heads,
+        v = linear(h, self.self_attn.v_proj, cdt).reshape(b, t, -1,
                                                           c.head_dim)
         return rope_ops.apply_rope(q, rope), rope_ops.apply_rope(k, rope), v
 
@@ -93,14 +104,18 @@ class LlamaBlock(nn.Module):
         return kv if rep == 1 else kv.repeat_interleave(rep, dim=2)
 
     def _rest(self, x, y):
-        """x + o_proj(y), then the SwiGLU sublayer."""
+        """x + o_proj(y), then the SwiGLU (or MoE) sublayer. Returns (x, the
+        MoE balancing loss or None)."""
         b, t, _ = x.shape
         cdt = self.compute_dtype
         x = x + linear(y.reshape(b, t, -1), self.self_attn.o_proj, cdt)
         h = self.post_attention_layernorm(x)
+        if self.cfg.moe_experts > 0:
+            out, aux = self.moe(h)
+            return x + out, aux
         gate = F.silu(linear(h, self.mlp.gate_proj, cdt))
         up = linear(h, self.mlp.up_proj, cdt)
-        return x + linear(gate * up, self.mlp.down_proj, cdt)
+        return x + linear(gate * up, self.mlp.down_proj, cdt), None
 
     def forward(self, x, k_cache, v_cache, length: int):
         """x: [B, t, E] at absolute positions [length, length + t);
@@ -114,15 +129,16 @@ class LlamaBlock(nn.Module):
         q, k, v = self._qkv(x, table[length:length + t])
         k_cache[:, length:length + t] = k.reshape(b, t, -1).to(k_cache.dtype)
         v_cache[:, length:length + t] = v.reshape(b, t, -1).to(v_cache.dtype)
-        heads = (b, s, c.n_kv_heads, c.head_dim)
+        heads = (b, s, -1, c.head_dim)
         y = attn_ops.cached_attention(q, self._expand(k_cache.reshape(heads)),
                                       self._expand(v_cache.reshape(heads)),
                                       length + 1)
-        return self._rest(x, y)
+        return self._rest(x, y)[0]
 
     def forward_full(self, x):
         """Causal attention of x [B, T, E] over itself: the cache forward
-        with S = T from row 0, without a cache (differentiable)."""
+        with S = T from row 0, without a cache (differentiable). Returns
+        (x, the MoE balancing loss or None)."""
         c = self.cfg
         table = rope_ops.build_rope_cache(c.head_dim, x.shape[1],
                                           c.rope_theta, device=x.device)
@@ -143,10 +159,6 @@ def init_llama_cache(cfg: LlamaConfig, batch: int, max_len: int,
 class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, device=None, dtype=None):
         super().__init__()
-        if cfg.moe_experts:
-            raise NotImplementedError(
-                "the MoE MLP is not ported yet (ROADMAP.md, modules to "
-                "port, \"parallel modes and MoE\")")
         self.cfg = cfg
         self.compute_dtype = dtype
         self.model = nn.Module()
@@ -190,33 +202,46 @@ class Llama(nn.Module):
     def _head(self, x, table=None):
         """x @ w^T with w cast to x's dtype, products summed in f32 and f32
         logits (the JAX ``_head``). ``table``: a precomputed
-        ``lm_head_table()``."""
+        ``lm_head_table()``. A vocab-split head (``lm_head.tp``) computes
+        its rows' logits and gathers the vocabulary over the group."""
+        tp = getattr(self.lm_head, "tp", None)
+        if tp is not None:
+            x = mesh_lib.copy_to_group(x, tp[1])
+            part = x.float() @ self.lm_head.weight.to(x.dtype).float().t()
+            return mesh_lib.gather_from_group(part, tp[1], -1)
         if table is None:
             table = self.lm_head.weight.to(x.dtype).float().t()
         return x.float() @ table
 
     def _embed_in(self, idx, prefix):
-        x = self.model.embed_tokens(idx).to(self._cdt())
+        x = embedding(idx, self.model.embed_tokens).to(self._cdt())
         if prefix is not None:
             x = torch.cat([prefix.to(self._cdt()), x], dim=1)
         return x
 
     def _text_logits(self, idx, prefix, remat: bool = False):
-        """f32 logits over the text positions of ``idx`` [B, Tw];
-        ``remat`` recomputes each block in the backward."""
+        """(f32 logits over the text positions of ``idx`` [B, Tw], the
+        blocks' summed MoE balancing loss or None); ``remat`` recomputes
+        each block in the backward."""
         x = self._embed_in(idx, prefix)
+        aux = None
         for block in self.model.layers:
-            x = run_block(block.forward_full, x, remat=remat)
-        return self._head(self.model.norm(x[:, -idx.shape[1]:]))
+            x, aux_l = run_block(block.forward_full, x, remat=remat)
+            if aux_l is not None:
+                aux = aux_l if aux is None else aux + aux_l
+        return self._head(self.model.norm(x[:, -idx.shape[1]:])), aux
 
     def forward(self, idx, prefix=None, targets=None, remat: bool = False):
         """idx: [B, Tw]; prefix: [B, P, E] or None. Returns (loss, logits):
         logits over the text positions with ``targets`` (loss ignores -100),
         else (None, the last position's logits). ``remat`` recomputes each
         block's activations in the backward."""
-        logits = self._text_logits(idx, prefix, remat)
+        logits, aux = self._text_logits(idx, prefix, remat)
         if targets is not None:
-            return cross_entropy_ignore(logits[:, :-1], targets[:, 1:]), logits
+            loss = cross_entropy_ignore(logits[:, :-1], targets[:, 1:])
+            if aux is not None:
+                loss = loss + self.cfg.moe_aux_weight * aux
+            return loss, logits
         return None, logits[:, -1:]
 
     def sequence_logprob(self, idx, prefix=None,
@@ -226,7 +251,7 @@ class Llama(nn.Module):
         [B, T] with trailing pads. Returns [B] f32."""
         mask = idx != ignore_index
         ids = torch.where(mask, idx, torch.zeros_like(idx))
-        logp = torch.log_softmax(self._text_logits(ids, prefix)[:, :-1],
+        logp = torch.log_softmax(self._text_logits(ids, prefix)[0][:, :-1],
                                  dim=-1)
         tok = torch.gather(logp, -1, ids[:, 1:, None])[..., 0]
         return (tok * mask[:, 1:]).sum(-1)
@@ -277,7 +302,7 @@ class Llama(nn.Module):
         quant = isinstance(cache, QuantCache)
         x = self.model.embed_tokens(token).to(self._cdt())
         w_dtype = self._cdt() if qweights is None else qweights["wq"].dtype
-        if not fused_llama_decode.supported(
+        if c.moe_experts > 0 or not fused_llama_decode.supported(
                 x.device, x.dtype, w_dtype, cache[0].dtype, c.dim,
                 c.n_heads, c.n_kv_heads, c.hidden_dim, cache[0].shape[2]):
             x = self.model.norm(self._decode_blocks_plain(x, cache, length,
@@ -331,7 +356,12 @@ def stack_decode_weights(llama: Llama, cdt=None) -> dict:
     in the compute dtype ``cdt`` (the model's by default), RMSNorm weights
     [L, E] in f32 (exact: the kernel lifts them to f32 anyway), and
     ``lm_head_t``, the head table of ``Llama.lm_head_table``. Build it once
-    per predictor, not per step."""
+    per predictor, not per step. An MoE model has none: its decode runs
+    the module blocks."""
+    if llama.cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "stacked decode weights (K5, w8a16) take the dense MLP; an MoE "
+            "LLaMA decodes through its module blocks with qweights=None")
     blocks = list(llama.model.layers)
     cdt = cdt or llama._cdt()
 

@@ -1,0 +1,175 @@
+"""Mixture-of-Experts SwiGLU with expert parallelism
+(``frankenstein_tpu/models/moe.py:MoESwiGLU``).
+
+The JAX package's GShard / Switch layer with static shapes:
+
+- the router is f32: softmax(x @ wg), top-k with ties to the lower expert
+  index (as ``jax.lax.top_k``; a stable sort, since ``torch.topk`` promises
+  no order on ties), gates renormalised over the chosen experts;
+- capacity ``cap = max(1, int(cf * N * k / E))`` slots an expert, and
+  ``cap = N`` for a one-position call (cached decode), so serving drops
+  nothing; priority is all first choices before any second choice, then
+  token order; a choice past its expert's capacity is dropped (its gate is
+  zero and the residual carries the token);
+- dispatch and combine are dense one-hot [N, E, C] tensors and the experts'
+  SwiGLU products batched einsums over the stacked ``w1``, ``w3`` [E, d, f]
+  and ``w2`` [E, f, d], as the JAX package stores them;
+- the Switch load-balancing loss E * sum_e(first-choice share_e x mean
+  router prob_e), 1 at perfect balance.
+
+The products stay plain ``einsum``: the JAX package computes them outside
+any Pallas kernel, so there is no kernel to port here.
+
+Parallel modes:
+
+- data parallelism (``parallel.mesh.batch_shard``): N, the capacity and
+  each slot come from the global batch. The per-rank [K, E] choice counts
+  are gathered over the data group and a rank's slots start after every
+  earlier choice rank and every earlier rank of its own choice rank. The
+  aux loss takes the global first-choice share, so its mean over the data
+  group is the global loss;
+- expert parallelism (``shard_experts``): ``expert_group`` holds ranks with
+  the same tokens; each keeps E / m experts, computes their share of every
+  token's output and the shares are summed over the group (a sum forward,
+  the identity backward), while the tokens and gates enter through
+  ``copy_to_group`` so their gradients sum the experts of every rank.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+from torch import nn
+
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
+
+
+def stable_topk(probs: torch.Tensor, k: int):
+    """(values, indices) of the k largest entries of the last axis, in
+    descending order, ties to the lower index (``jax.lax.top_k``)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _slot_positions(assign: torch.Tensor) -> torch.Tensor:
+    """assign [N, K, E] one-hot choices -> pos [N, K]: each choice's slot in
+    its expert's queue, first choices of every token before any second
+    choice, then token order, over the global batch under
+    ``mesh.batch_shard``."""
+    n, k, e = assign.shape
+    # exclusive prefix over the tokens within each choice rank
+    within = torch.cumsum(assign, dim=0) - assign                 # [N, K, E]
+    counts = assign.sum(0)                                         # [K, E]
+    shard = mesh_lib.current_batch_shard()
+    if shard is None:
+        every = counts[None]                                       # [1, K, E]
+        rank = 0
+    else:
+        parts = [torch.empty_like(counts) for _ in range(shard.size)]
+        dist.all_gather(parts, counts.contiguous(), group=shard.group)
+        every = torch.stack(parts)                                 # [W, K, E]
+        rank = shard.rank
+    total = every.sum(0)                                           # [K, E]
+    base = (torch.cumsum(total, 0) - total) + every[:rank].sum(0)  # [K, E]
+    return ((within + base[None]) * assign).sum(-1)                # [N, K]
+
+
+class MoESwiGLU(nn.Module):
+    """Sparse SwiGLU MLP over [B, T, dim]: returns (y [B, T, dim] in the
+    compute dtype, aux f32 scalar). ``dtype`` is the compute dtype (None:
+    the parameters')."""
+
+    def __init__(self, dim: int, hidden_dim: int, n_experts: int, k: int = 2,
+                 capacity_factor: float = 1.25, device=None, dtype=None):
+        super().__init__()
+        self.dim, self.hidden_dim = dim, hidden_dim
+        self.n_experts, self.k = n_experts, k
+        self.capacity_factor = capacity_factor
+        self.compute_dtype = dtype
+        self.wg = nn.Parameter(torch.zeros(dim, n_experts, device=device))
+        self.w1 = nn.Parameter(torch.zeros(n_experts, dim, hidden_dim,
+                                           device=device))
+        self.w3 = nn.Parameter(torch.zeros(n_experts, dim, hidden_dim,
+                                           device=device))
+        self.w2 = nn.Parameter(torch.zeros(n_experts, hidden_dim, dim,
+                                           device=device))
+        self.expert_group = None     # set by shard_experts
+        self.expert_offset = 0       # first expert this rank holds
+
+    def capacity(self, n_tok: int, t: int) -> int:
+        if t == 1:
+            return n_tok
+        return max(1, int(self.capacity_factor * n_tok * self.k
+                          / self.n_experts))
+
+    def forward(self, x: torch.Tensor):
+        b, t, d = x.shape
+        e, k = self.n_experts, self.k
+        shard = mesh_lib.current_batch_shard()
+        n_tok = b * t
+        n_global = n_tok * (shard.size if shard else 1)
+        cap = self.capacity(n_global, t)
+        cdt = self.compute_dtype or self.w1.dtype
+        xt = x.reshape(n_tok, d).to(cdt)
+
+        # router, f32
+        probs = torch.softmax(xt.float() @ self.wg.float(), dim=-1)   # [N, E]
+        gate_vals, gate_idx = stable_topk(probs, k)                   # [N, K]
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+        # capacity assignment
+        assign = F.one_hot(gate_idx, e)                               # [N,K,E]
+        pos = _slot_positions(assign)
+        keep = pos < cap
+        gate_vals = gate_vals * keep
+
+        # experts: this rank's slice of the stack
+        group = self.expert_group
+        xt_in = mesh_lib.copy_to_group(xt, group)
+        gates_in = mesh_lib.copy_to_group(gate_vals, group)
+        lo, n_loc = self.expert_offset, self.w1.shape[0]
+        slot = F.one_hot(torch.where(keep, pos, cap),
+                         cap + 1)[..., :cap].to(cdt)                  # [N,K,C]
+        disp_k = (assign[..., lo:lo + n_loc, None].to(cdt)
+                  * slot[:, :, None, :])                              # [N,K,e,C]
+        dispatch = disp_k.sum(1)                                      # [N,e,C]
+        combine = (gates_in.to(cdt)[..., None, None] * disp_k).sum(1)
+        xe = torch.einsum("nec,nd->ecd", dispatch, xt_in)             # [e,C,D]
+        h = (F.silu(torch.einsum("ecd,edf->ecf", xe, self.w1.to(cdt)))
+             * torch.einsum("ecd,edf->ecf", xe, self.w3.to(cdt)))
+        ye = torch.einsum("ecf,efd->ecd", h, self.w2.to(cdt))
+        y = torch.einsum("nec,ecd->nd", combine, ye.to(cdt))
+        y = mesh_lib.reduce_from_group(y, group)
+
+        # Switch load-balancing loss, the first-choice share global
+        first = F.one_hot(gate_idx[:, 0], e).float().sum(0)
+        share = mesh_lib.global_sum(first) / n_global
+        aux = e * torch.sum(share * probs.mean(0))
+        return y.reshape(b, t, d), aux
+
+
+def shard_experts(model: nn.Module, group) -> int:
+    """Expert parallelism: every ``MoESwiGLU`` in ``model`` keeps experts
+    [r * E/m, (r+1) * E/m) of its stack (r, m: this rank's index and the
+    size of ``group``) and sums its share of the output over ``group``.
+    Returns the number of layers sharded. E must divide by m."""
+    m, r = mesh_lib.group_size(group), mesh_lib.group_rank(group)
+    count = 0
+    for mod in model.modules():
+        if not isinstance(mod, MoESwiGLU) or m == 1:
+            continue
+        if mod.n_experts % m:
+            raise ValueError(f"{mod.n_experts} experts do not split over "
+                             f"{m} ranks")
+        n_loc = mod.n_experts // m
+        for name in ("w1", "w2", "w3"):
+            full = getattr(mod, name)
+            part = full.detach()[r * n_loc:(r + 1) * n_loc].clone()
+            setattr(mod, name, nn.Parameter(part))
+            getattr(mod, name).shard_spec = (0, group)
+        mod.expert_group, mod.expert_offset = group, r * n_loc
+        count += 1
+    return count
+

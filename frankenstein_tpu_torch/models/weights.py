@@ -8,7 +8,11 @@ for the MAE it is ``export_mae``'s; for SimpleMAE ``export_simple_mae``'s;
 for BrainFormer ``export_brain_encoder(params["brain"], head="to_motion",
 prefix="brain.")``; for FrankyLlama it is the brain's
 ``export_brain_encoder(..., prefix="brain_model.")`` merged with the
-LLaMA's ``llama_state_from_flax(..., prefix="llm_model.")``.
+LLaMA's ``llama_state_from_flax(..., prefix="llm_model.")``. For a GPT,
+dense or MoE, it is ``gpt_state_from_flax`` (the JAX ``export_gpt`` reads
+``c_fc`` and so cannot export an MoE GPT); a Franky with an MoE GPT is the
+brain's ``export_brain_encoder(..., prefix="brain_model.")`` merged with
+``gpt_state_from_flax(params["llm_model"], prefix="llm_model.")``.
 
 For SoundStream it is ``export_soundstream(variables)``: the flax
 parameters and the ``"vq"`` collection under the reference's names, the
@@ -29,7 +33,8 @@ parameters, ``encoder.date_embedding`` [n_sessions, dim] to
 ``init_franky_llama_``, ``init_whisper_`` and ``init_soundstream_`` draw
 random weights from a
 seed at the JAX initialisers' scales (not the same draws: the two
-frameworks' generators differ).
+frameworks' generators differ); ``init_franky_`` covers an MoE GPT (router
+and experts at normal(0.02)), ``init_franky_llama_`` an MoE LLaMA.
 """
 
 from __future__ import annotations
@@ -69,7 +74,8 @@ def llama_state_from_flax(tree: Mapping, prefix: str = "") -> dict:
     """The JAX package's flax ``Llama`` params as the port's state dict.
 
     ``tree``: ``embed`` [V, E], ``layers`` (``input_norm``, ``q_proj``, ...,
-    ``post_attn_norm``, ..., ``down_proj``, each stacked [L, ...]),
+    ``post_attn_norm``, ..., ``down_proj`` or an MoE's ``moe``, each
+    stacked [L, ...]),
     ``norm_f`` and, untied, ``lm_head`` [V, E], as numpy arrays. Dense
     kernels [in, out] become ``weight`` [out, in]; no RoPE permutation (the
     port rotates adjacent pairs, as the JAX package does). A tied head is
@@ -86,13 +92,59 @@ def llama_state_from_flax(tree: Mapping, prefix: str = "") -> dict:
     for i in range(n_layers):
         bp = f"{prefix}model.layers.{i}."
         for name, flax in dense.items():
+            if flax not in layers and "moe" in layers:
+                continue
             out[f"{bp}{name}.weight"] = np.asarray(
                 layers[flax]["kernel"])[i].T
+        if "moe" in layers:
+            _moe_state(out, bp, layers["moe"], i)
         for name, flax in norms.items():
             out[f"{bp}{name}.weight"] = np.asarray(layers[flax]["weight"])[i]
     out[f"{prefix}model.norm.weight"] = np.asarray(tree["norm_f"]["weight"])
     out[f"{prefix}lm_head.weight"] = np.asarray(tree.get("lm_head",
                                                          tree["embed"]))
+    return out
+
+
+def _moe_state(out: dict, bp: str, moe: Mapping, i: int) -> None:
+    """A scanned MoESwiGLU's layer ``i`` (``wg`` [L, d, E], ``w1`` / ``w3``
+    [L, E, d, f], ``w2`` [L, E, f, d]) as ``<bp>moe.*``, no transpose."""
+    for name in ("wg", "w1", "w2", "w3"):
+        out[f"{bp}moe.{name}"] = np.asarray(moe[name])[i]
+
+
+def gpt_state_from_flax(tree: Mapping, prefix: str = "") -> dict:
+    """The JAX package's flax ``GPT`` params (``{"params": ...}`` or the
+    inner tree, as numpy) as the port's state dict, dense or MoE: the
+    scanned [L, ...] blocks unstacked into ``transformer.h.{i}``, dense
+    kernels [in, out] as ``weight`` [out, in], the MoE's router and
+    expert stacks as they are, ``lm_head.weight`` the tied ``wte``."""
+    p = tree.get("params", tree)
+    h = p["h"]
+    n_layer = int(np.asarray(h["ln_1"]["weight"]).shape[0])
+    out = {f"{prefix}transformer.wte.weight": np.asarray(p["wte"]),
+           f"{prefix}transformer.wpe.weight": np.asarray(p["wpe"])}
+
+    def put(name, src, i):
+        for key, value in src.items():
+            arr = np.asarray(value)[i]
+            tgt = "weight" if key == "kernel" else key
+            out[f"{name}.{tgt}"] = arr.T if key == "kernel" else arr
+
+    for i in range(n_layer):
+        bp = f"{prefix}transformer.h.{i}."
+        put(bp + "ln_1", h["ln_1"], i)
+        put(bp + "attn.c_attn", h["c_attn"], i)
+        put(bp + "attn.c_proj", h["c_proj"], i)
+        put(bp + "ln_2", h["ln_2"], i)
+        if "moe" in h:
+            _moe_state(out, bp, h["moe"], i)
+        else:
+            put(bp + "mlp.c_fc", h["c_fc"], i)
+            put(bp + "mlp.c_proj", h["mlp_c_proj"], i)
+    for key, value in p["ln_f"].items():
+        out[f"{prefix}transformer.ln_f.{key}"] = np.asarray(value)
+    out[f"{prefix}lm_head.weight"] = np.asarray(p["wte"])
     return out
 
 
@@ -128,7 +180,7 @@ def _init_brain_(brain: nn.Module, gen: torch.Generator) -> None:
 
 def init_franky_(model: Franky, seed: int) -> Franky:
     """Random weights from ``seed``: the brain as ``_init_brain_``, GPT-2
-    at normal(0.02)."""
+    at normal(0.02) (an MoE GPT's router and experts too)."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
     _init_brain_(model.brain_model, gen)
     init_gpt_(model.llm_model, gen)
@@ -162,7 +214,8 @@ def init_brainformer_(model: BrainFormer, seed: int) -> BrainFormer:
 
 def init_franky_llama_(model: FrankyLlama, seed: int) -> FrankyLlama:
     """Random weights from ``seed``: the brain as ``_init_brain_``; the
-    LLaMA's embedding, projections and head at normal(0.02), unit norms."""
+    LLaMA's embedding, projections and head (and an MoE's router and
+    experts) at normal(0.02), unit norms."""
     gen = torch.Generator(device=model.device).manual_seed(seed)
     _init_brain_(model.brain_model, gen)
     with torch.no_grad():

@@ -32,6 +32,7 @@ import torch
 
 from frankenstein_tpu_torch.ops import masks as mask_lib
 from frankenstein_tpu_torch.ops.cuda import flash_attention as flash
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 # dense attention this long or longer runs K7: below it the scores are
@@ -51,10 +52,13 @@ def _softmax_av(logits, v, out_dtype, rate: float = 0.0, generator=None):
 def dropout(x, rate: float, generator: Optional[torch.Generator]):
     """Inverted dropout (flax ``nn.Dropout``): keep with probability
     1 - rate, scale the kept values by 1 / (1 - rate). The mask is drawn
-    from ``generator``, on x's device; rate 0 returns x."""
+    from ``generator``, on x's device, for the global batch under
+    ``mesh.batch_shard`` (``mesh.global_rows``); rate 0 returns x."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = mesh_lib.global_rows(
+        lambda n: torch.rand((n,) + x.shape[1:], generator=generator,
+                             device=x.device), x.shape[0]) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 

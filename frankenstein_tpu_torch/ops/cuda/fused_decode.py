@@ -78,9 +78,11 @@ def _codes(values, scales):
 def quantize_cache_side(cache):
     """[L, B, S, E] float -> (int8 codes, f32 scales [L, 1, E]): symmetric
     per-(layer, lane) scales ``max(absmax over (batch, position), 1e-6) /
-    127``, fixed from then on (decode steps reuse them and clip)."""
+    127``, fixed from then on (decode steps reuse them and clip). Under
+    ``parallel.mesh.batch_shard`` the absmax is the global batch's."""
+    from frankenstein_tpu_torch.parallel import mesh as mesh_lib
     c = cache.float()
-    absmax = c.abs().amax(dim=(1, 2))
+    absmax = mesh_lib.global_max(c.abs().amax(dim=(1, 2)))
     scales = (torch.clamp(absmax, min=1e-6) / 127.0)[:, None, :]
     return _codes(c, scales[:, :, None, :]), scales
 

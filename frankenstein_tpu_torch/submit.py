@@ -1,6 +1,6 @@
 """eval.ai submission (the port of ``examples/submit_data.py``): decode every
-held-out trial with a trained Franky or FrankyLlama and write one
-normalized line per trial to sub.txt.
+held-out trial with a trained Franky (dense or MoE GPT) or FrankyLlama and
+write one normalized line per trial to sub.txt.
 
   python -m frankenstein_tpu_torch.submit --run-dir logs/<exp> \\
       --data /data/competitionData
@@ -16,7 +16,9 @@ Two ways to point at a model:
 instead of a competitionData split. The model serves in bf16 through
 ``decode/pipeline.py:make_franky_predictor`` (beams of ``--beam-width``) on
 the GPU (``--device cuda``, the default; without a usable GPU the CLI
-exits) or, when asked, on the CPU (``--device cpu``).
+exits) or, when asked, on the CPU (``--device cpu``). Under torchrun the
+ranks split each batch (data-parallel serving,
+``eval/submission.make_predictions``) and rank 0 writes the file.
 """
 
 from __future__ import annotations
@@ -28,17 +30,19 @@ from pathlib import Path
 
 def build_from_run_dir(run_dir: Path):
     """(model class, its config, best checkpoint path) from a training run
-    directory of a composite: Franky or FrankyLlama."""
+    directory of a composite: Franky (franky, moe-gpt) or FrankyLlama."""
     from frankenstein_tpu_torch.config import FrankyConfig, FrankyLlamaConfig
     from frankenstein_tpu_torch.models.franky import Franky, FrankyLlama
     from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
 
     doc = json.loads((Path(run_dir) / "model_config.json").read_text())
     composites = {"franky": (Franky, FrankyConfig),
+                  "moe-gpt": (Franky, FrankyConfig),
                   "franky-llama": (FrankyLlama, FrankyLlamaConfig)}
     if doc["model"] not in composites:
         raise SystemExit(f"--run-dir decoding serves the composite models "
-                         f"(franky, franky-llama), not {doc['model']}")
+                         f"(franky, franky-llama and moe-gpt), not "
+                         f"{doc['model']}")
     cls, cfg_cls = composites[doc["model"]]
     best = ckpt_lib.best_checkpoint(run_dir)
     if best is None:
@@ -66,6 +70,28 @@ def main(argv=None) -> Path:
                     help="cuda (default; exits without a usable GPU) or cpu")
     args = ap.parse_args(argv)
 
+    import torch
+    import torch.distributed as dist
+
+    from frankenstein_tpu_torch.parallel import mesh as mesh_lib
+    from frankenstein_tpu_torch.utils.device import cli_device
+
+    device = cli_device(args.device)
+    joined = not dist.is_initialized()
+    mesh_lib.maybe_initialize_distributed(device.type)
+    joined = joined and dist.is_initialized()
+    try:
+        if device.type == "cuda" and dist.is_initialized():
+            device = torch.device("cuda", torch.cuda.current_device())
+        return _serve(args, device)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _serve(args, device) -> Path:
+    import torch.distributed as dist
+
     from frankenstein_tpu_torch.config import FrankyConfig
     from frankenstein_tpu_torch.data import datasets, tokenizers
     from frankenstein_tpu_torch.decode.pipeline import (
@@ -74,9 +100,7 @@ def main(argv=None) -> Path:
                                                         make_predictions)
     from frankenstein_tpu_torch.models.franky import Franky
     from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
-    from frankenstein_tpu_torch.utils.device import cli_device
 
-    device = cli_device(args.device)
     ckpt = Path(args.checkpoint) if args.checkpoint else None
     if args.run_dir:
         cls, cfg, best = build_from_run_dir(Path(args.run_dir))
@@ -103,9 +127,13 @@ def main(argv=None) -> Path:
             max_input_len=enc.window_size)
     predict = make_franky_predictor(model, tok, max_new_tokens=cfg.max_tokens,
                                     beam_width=args.beam_width)
-    sentences = make_predictions(ds, predict, batch_size=args.batch_size)
-    out = create_string_file(args.out, sentences)
-    print(f"wrote {len(sentences)} predictions to {out}")
+    group = dist.group.WORLD if dist.is_initialized() else None
+    sentences = make_predictions(ds, predict, batch_size=args.batch_size,
+                                 group=group)
+    out = Path(args.out)
+    if group is None or dist.get_rank() == 0:
+        out = create_string_file(args.out, sentences)
+        print(f"wrote {len(sentences)} predictions to {out}")
     return out
 
 

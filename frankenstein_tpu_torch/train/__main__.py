@@ -1,6 +1,7 @@
-"""Train the flagship Franky or FrankyLlama, pretrain an encoder as an MAE
-or a SimpleMAE, or train the VQ-VAE tokenizer (the port of ``train.py
---model franky``, ``franky-llama``, ``mae``, ``simple_mae`` and ``vqvae``).
+"""Train the flagship Franky (with a dense or an MoE GPT) or FrankyLlama,
+pretrain an encoder as an MAE or a SimpleMAE, or train the VQ-VAE
+tokenizer (the port of ``train.py --model franky``, ``moe-gpt``,
+``franky-llama``, ``mae``, ``simple_mae`` and ``vqvae``).
 
 Examples:
   # end-to-end Franky on synthetic data (no dataset needed)
@@ -29,6 +30,15 @@ Examples:
   python -m frankenstein_tpu_torch.train --model vqvae --channels 512 \\
       --window 768 --data synthetic
 
+  # the flagship with a top-2 MoE of 8 experts in every GPT block (its
+  # YAML, or --model moe-gpt with --moe-experts / --moe-k / --moe-capacity);
+  # the YAML's mesh (2, 4) needs 8 ranks, so one card runs it with --mesh 1,1
+  python -m frankenstein_tpu_torch.train --config configs/moe_gpt.yaml \\
+      --mesh 1,1 --data synthetic --steps 50 --batch-size 32
+  # over 8 cards: data 2 x experts 4
+  torchrun --nproc_per_node 8 -m frankenstein_tpu_torch.train \\
+      --config configs/moe_gpt.yaml --data synthetic
+
   # on the competition data; then serve the run
   python -m frankenstein_tpu_torch.train --config configs/franky.yaml \\
       --data /data/competitionData --exp-name franky
@@ -44,6 +54,14 @@ and commit_loss) and ``step_*_loss_*`` checkpoints.
 The model trains on the GPU (``--device cuda``, the default; without a
 usable GPU the CLI exits) or, when asked, on the CPU (``--device cpu``):
 f32 parameters, bf16 compute unless ``--no-bf16``.
+
+Under torchrun (or any ``MASTER_ADDR`` / ``WORLD_SIZE`` environment) the
+ranks join one process group, NCCL on the cards (each rank on the card
+``LOCAL_RANK`` names) or gloo with ``--device cpu``, and train over the
+``--mesh d,m`` (data, model) mesh, all ranks on "data" by default, with
+FSDP when the YAML's ``fsdp`` is set (``train/trainer.py``). A mesh whose
+size is not the number of ranks exits with the cause. Rank 0 writes the
+run directory.
 """
 
 from __future__ import annotations
@@ -52,12 +70,6 @@ import argparse
 import json
 import sys
 from pathlib import Path
-
-# models of the JAX package's train.py that the port does not train yet,
-# and the title of the ROADMAP.md item ("modules to port") that brings each
-NOT_PORTED = {
-    "moe-gpt": "parallel modes and MoE",
-}
 
 # models the JAX package's train.py accepts but cannot train: the port
 # refuses them with the fault (ROADMAP.md, "Findings in the JAX package")
@@ -89,6 +101,8 @@ FLAG_TO_FIELD = {
     "eval_interval": "eval_interval", "warmup": "warmup_iters",
     "decay_iters": "lr_decay_iters", "bf16": "mixed_precision",
     "no_bf16": "mixed_precision", "mesh": "mesh_shape"}
+TRAINED = ("franky", "moe-gpt", "franky-llama", "mae", "simple_mae", "vqvae")
+COMPOSITES = ("franky", "moe-gpt", "franky-llama")
 
 
 def parse_args(argv=None):
@@ -98,8 +112,15 @@ def parse_args(argv=None):
                    help="YAML config (see configs/); explicitly passed CLI "
                         "flags override its train section")
     p.add_argument("--model", default="franky",
-                   choices=["franky", "franky-llama", "mae", "simple_mae",
-                            "vqvae", *NOT_PORTED, *JAX_FINDINGS])
+                   choices=[*TRAINED, *JAX_FINDINGS])
+    p.add_argument("--moe-experts", type=int, default=8,
+                   help="expert count for --model moe-gpt")
+    p.add_argument("--moe-k", type=int, default=2,
+                   help="experts routed per token for --model moe-gpt")
+    p.add_argument("--moe-capacity", type=float, default=1.25,
+                   help="expert capacity factor for --model moe-gpt "
+                        "(tokens over cap are dropped; the residual "
+                        "carries them)")
     p.add_argument("--data", default="synthetic",
                    help="'synthetic' or path to competitionData/")
     p.add_argument("--exp-name", default=None)
@@ -139,16 +160,13 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; exits without a usable GPU) or cpu")
     p.add_argument("--mesh", default=None,
-                   help="data,model mesh shape; the port trains on one "
-                        "device")
+                   help="data,model mesh shape; its size must be the number "
+                        "of ranks (one without torchrun)")
     return p.parse_args(argv)
 
 
 def _refuse(name: str):
-    if name in JAX_FINDINGS:
-        raise SystemExit(f"--model {name} is refused: {JAX_FINDINGS[name]}")
-    raise SystemExit(f"--model {name} is not ported to PyTorch yet: "
-                     f"ROADMAP.md, modules to port, \"{NOT_PORTED[name]}\"")
+    raise SystemExit(f"--model {name} is refused: {JAX_FINDINGS[name]}")
 
 
 def _config_from_yaml(name: str, mc: dict):
@@ -157,6 +175,7 @@ def _config_from_yaml(name: str, mc: dict):
         return (cfg_lib.SimpleEncoderConfig.from_dict(mc.get("encoder", {})),
                 cfg_lib.SimpleMAEConfig.from_dict(mc.get("decoder", {})))
     return {"franky": cfg_lib.FrankyConfig, "mae": cfg_lib.MAEConfig,
+            "moe-gpt": cfg_lib.FrankyConfig,
             "franky-llama": cfg_lib.FrankyLlamaConfig,
             "vqvae": cfg_lib.VQVAEConfig}[name].from_dict(mc)
 
@@ -176,26 +195,29 @@ def _config_from_flags(args):
     if args.model == "franky-llama":
         return cfg_lib.FrankyLlamaConfig(brain=cfg_lib.PerceiverConfig(
             encoder=enc, n_output_tokens=32, output_dim=1024))
+    moe = args.moe_experts if args.model == "moe-gpt" else 0
     return cfg_lib.FrankyConfig(
         brain=cfg_lib.PerceiverConfig(encoder=enc, n_output_tokens=32,
                                       output_dim=768),
-        gpt=cfg_lib.GPTConfig(dropout=args.dropout))
+        gpt=cfg_lib.GPTConfig(dropout=args.dropout, moe_experts=moe,
+                              moe_k=args.moe_k,
+                              moe_capacity=args.moe_capacity))
 
 
 def model_config(args):
     """(model config, YAML train section or None) from --config or the
-    flags: a FrankyConfig, FrankyLlamaConfig, MAEConfig or VQVAEConfig, or
-    SimpleMAE's (SimpleEncoderConfig, SimpleMAEConfig)."""
-    trained = ("franky", "franky-llama", "mae", "simple_mae", "vqvae")
+    flags: a FrankyConfig (franky, moe-gpt), FrankyLlamaConfig, MAEConfig
+    or VQVAEConfig, or SimpleMAE's (SimpleEncoderConfig,
+    SimpleMAEConfig)."""
     if args.config:
         import yaml
         doc = yaml.safe_load(Path(args.config).read_text())
         args.model = doc["model"]
-        if args.model not in trained:
+        if args.model not in TRAINED:
             _refuse(args.model)
         return (_config_from_yaml(args.model, doc.get("model_config", {})),
                 doc.get("train", {}))
-    if args.model not in trained:
+    if args.model not in TRAINED:
         _refuse(args.model)
     return _config_from_flags(args), None
 
@@ -307,9 +329,10 @@ def build_model(args, cfg, tcfg, device):
 def flops_per_sample(name: str, cfg, window: int) -> float:
     """A sample's forward FLOPs (``utils/profiling.py``) for the trainer's
     MFU, for the models the JAX train.py gives one: franky, franky-llama,
-    mae and vqvae; 0 (no MFU) for simple_mae."""
+    mae and vqvae (moe-gpt: Franky's formula, as the JAX train.py gives
+    it); 0 (no MFU) for simple_mae."""
     from frankenstein_tpu_torch.utils import profiling
-    if name == "franky":
+    if name in ("franky", "moe-gpt"):
         return profiling.franky_fwd_flops_per_sample(cfg)
     if name == "franky-llama":
         return profiling.franky_llama_fwd_flops_per_sample(cfg)
@@ -322,37 +345,58 @@ def flops_per_sample(name: str, cfg, window: int) -> float:
 
 def main(argv=None):
     """Run the CLI; returns the final ``trainer.TrainState``."""
+    import torch
+    import torch.distributed as dist
+
+    from frankenstein_tpu_torch.parallel import mesh as mesh_lib
     from frankenstein_tpu_torch.train.trainer import run_train_model
     from frankenstein_tpu_torch.utils.device import cli_device
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
     cfg, yaml_train = model_config(args)
-    if args.init_encoder_from and args.model not in ("franky",
-                                                     "franky-llama"):
+    if args.init_encoder_from and args.model not in COMPOSITES:
         raise SystemExit(
             f"--init-encoder-from grafts an MAE encoder into a composite: "
-            f"--model franky or franky-llama, not {args.model}")
+            f"--model franky, moe-gpt or franky-llama, not {args.model}")
     window, channels = data_geometry(args, cfg)
     tcfg = train_config(args, yaml_train, argv)
     device = cli_device(args.device)
-    data = build_datasets(args.data, window, channels, args.synthetic_trials)
-    model = build_model(args, cfg, tcfg, device)
+    joined = not dist.is_initialized()
+    world = mesh_lib.maybe_initialize_distributed(device.type)
+    joined = joined and dist.is_initialized()
+    try:
+        shape = tcfg.mesh_shape or (world, 1)
+        if shape[0] * shape[1] != world:
+            raise SystemExit(
+                f"--mesh {shape[0]},{shape[1]} needs {shape[0] * shape[1]} "
+                f"ranks, this run has {world} (torchrun --nproc_per_node "
+                f"{shape[0] * shape[1]}, or --mesh 1,1 on one device)")
+        if device.type == "cuda" and dist.is_initialized():
+            device = torch.device("cuda", torch.cuda.current_device())
+        data = build_datasets(args.data, window, channels,
+                              args.synthetic_trials)
+        model = build_model(args, cfg, tcfg, device)
 
-    save = Path(args.save_folder)
-    run_dir = save / tcfg.exp_name
-    run_dir.mkdir(parents=True, exist_ok=True)
-    # the model config beside the run, so the submission CLI rebuilds it
-    # (SimpleMAE's two sections as a list, as the JAX train.py writes them)
-    mc = ([c.to_dict() for c in cfg] if isinstance(cfg, tuple)
-          else cfg.to_dict())
-    (run_dir / "model_config.json").write_text(json.dumps(
-        {"model": args.model, "model_config": mc}, indent=1))
-    state = run_train_model(
-        model, data, tcfg, save_folder=save,
-        flops_per_sample=flops_per_sample(args.model, cfg, window))
-    print(f"done at step {state.step}; logs in {run_dir}")
-    return state
+        save = Path(args.save_folder)
+        run_dir = save / tcfg.exp_name
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            run_dir.mkdir(parents=True, exist_ok=True)
+            # the model config beside the run, so the submission CLI
+            # rebuilds it (SimpleMAE's two sections as a list, as the JAX
+            # train.py writes them)
+            mc = ([c.to_dict() for c in cfg] if isinstance(cfg, tuple)
+                  else cfg.to_dict())
+            (run_dir / "model_config.json").write_text(json.dumps(
+                {"model": args.model, "model_config": mc}, indent=1))
+        state = run_train_model(
+            model, data, tcfg, save_folder=save,
+            flops_per_sample=flops_per_sample(args.model, cfg, window))
+        print(f"done at step {state.step}; logs in {run_dir}")
+        return state
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -36,14 +36,21 @@ def _scored(save_dir: Path):
 
 
 def save_checkpoint(save_dir: Path, state, step: int, val_loss: float,
-                    keep: int = 3) -> Path:
-    """Write ``state`` (a ``trainer.TrainState``), then drop all but the
-    ``keep`` best checkpoints. META.json is written last, so a directory
-    without it is an unfinished checkpoint and is never picked."""
+                    keep: int = 3, payload: Optional[dict] = None,
+                    write: bool = True) -> Optional[Path]:
+    """Write ``state`` (a ``trainer.TrainState``), or ``payload`` (its
+    gathered ``{"model", "optimizer"}`` full state dicts on a sharded run),
+    then drop all but the ``keep`` best checkpoints; ``write`` False (a
+    rank other than the first) writes nothing and returns None. META.json
+    is written last, so a directory without it is an unfinished checkpoint
+    and is never picked."""
+    if not write:
+        return None
     save_dir = Path(save_dir)
-    path = _write(save_dir, {"model": state.model.state_dict(),
-                             "optimizer": state.optimizer.state_dict()},
-                  step, val_loss)
+    if payload is None:
+        payload = {"model": state.model.state_dict(),
+                   "optimizer": state.optimizer.state_dict()}
+    path = _write(save_dir, payload, step, val_loss)
     for _, d in sorted(_scored(save_dir), key=lambda t: t[0])[keep:]:
         shutil.rmtree(d, ignore_errors=True)
     return path

@@ -33,26 +33,53 @@ On one device, in eager PyTorch:
 - with ``flops_per_sample`` (forward FLOPs, ``utils/profiling.py``) and a
   card whose peak is known, each log line has ``mfu``: 3 x forward FLOPs a
   step over the step time and the peak, as the JAX package logs it.
-Not ported: ``fsdp`` and meshes wider than one device (ROADMAP item
-"parallel modes and MoE").
+
+Over a process group (torchrun, or a test's own group), ``mesh_shape``
+(data, model) and ``fsdp`` take the JAX trainer's parallel layouts
+(``setup_parallel``): every rank reads the same global batch and keeps its
+rows of the data dimension (``parallel/mesh.py:shard_batch``, each
+microbatch split over the group as the JAX global microbatch is); the
+forward runs under ``mesh.batch_shard``, so the loss, the MoE routing and
+the random draws are the global batch's, and the gradients are averaged
+over the data group by DDP, or reduce-scattered by FSDP2 (``fully_shard``
+over the data dimension, each parameter on ``sharding.fsdp_spec``'s
+dimension). The model dimension shards the experts of an MoE model
+(``models/moe.py:shard_experts``) and is a replica axis otherwise, as the
+JAX trainer's is. Checkpoints hold full state dicts, written by rank 0
+(``sharding.full_state``), so serving and resume read them as they read a
+one-device run's. Without a process group a run is one device, and a
+``mesh_shape`` of more than one device raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 import time
 from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from frankenstein_tpu_torch.config import TrainConfig
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
+from frankenstein_tpu_torch.parallel import sharding as shard_lib
 from frankenstein_tpu_torch.train.schedule import make_lr_schedule
 from frankenstein_tpu_torch.utils import profiling
 from frankenstein_tpu_torch.utils.metrics import MetricLogger
+
+
+@dataclasses.dataclass
+class Parallel:
+    """A run's layout over a process group: the (data, model) mesh, its
+    data group, and the module the forward calls (DDP, or the model itself
+    under FSDP2, whose hooks are on it)."""
+    mesh: object
+    data_group: object
+    runner: nn.Module
+    fsdp: bool = False
 
 
 @dataclasses.dataclass
@@ -60,10 +87,20 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0          # optimizer updates made so far
+    parallel: Optional[Parallel] = None
 
     @property
     def device(self) -> torch.device:
-        return next(self.model.parameters()).device
+        p = next(self.model.parameters())
+        return getattr(p, "to_local", lambda: p)().device
+
+    @property
+    def runner(self) -> nn.Module:
+        return self.model if self.parallel is None else self.parallel.runner
+
+    @property
+    def data_group(self):
+        return None if self.parallel is None else self.parallel.data_group
 
 
 def make_optimizer(config: TrainConfig, model: nn.Module):
@@ -106,14 +143,24 @@ def augment_batch(batch, generator: torch.Generator, p_augs: float,
     return (x * shaped.to(x.dtype),) + tuple(batch[1:])
 
 
-def _loss(model, batch, *, train: bool, generator=None):
+def _loss(state: TrainState, batch, *, train: bool, generator=None):
     """(the model's loss on ``batch`` = (x, targets[, date_info]), the
     ``aux`` scalars its forward left, or {})."""
+    model = state.model
     targets = batch[1] if getattr(model, "needs_labels", True) else None
     date_info = batch[2] if len(batch) > 2 else None
-    loss, _ = model(batch[0], targets, train=train, generator=generator,
-                    date_info=date_info)
+    loss, _ = state.runner(batch[0], targets, train=train,
+                           generator=generator, date_info=date_info)
     return loss, dict(getattr(model, "aux", {}))
+
+
+def _group_mean(t: torch.Tensor, group) -> torch.Tensor:
+    """The mean of a detached scalar over ``group``."""
+    if mesh_lib.group_size(group) == 1:
+        return t
+    t = t.detach().clone()
+    dist.all_reduce(t, group=group)
+    return t / mesh_lib.group_size(group)
 
 
 def loss_and_grads(state: TrainState, batch, config: TrainConfig,
@@ -123,34 +170,45 @@ def loss_and_grads(state: TrainState, batch, config: TrainConfig,
     the mean gradients left in the parameters' ``.grad`` and, when ``aux``
     is given, the model's mean aux scalars written into it. Applies the
     step's augmentation and bf16 input cast first. The microbatches run in
-    order, each on the buffers the last one wrote."""
+    order, each on the buffers the last one wrote. Over a data group
+    ``batch`` is the global batch: it is augmented whole, each rank keeps
+    its rows, and the loss returned is the global one."""
     if config.p_augs > 0.0:
         batch = augment_batch(batch, generator, config.p_augs)
     if config.mixed_precision:
         batch = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a
                       for a in batch)
     accum = max(config.grad_accum, 1)
+    group = state.data_group
+    batch = mesh_lib.shard_batch(batch, group, accum)
     n = batch[0].shape[0] // accum
     state.optimizer.zero_grad(set_to_none=True)
     total, aux_sum = None, {}
-    for i in range(accum):
-        micro = tuple(a[i * n:(i + 1) * n] for a in batch)
-        loss, micro_aux = _loss(state.model, micro, train=True,
-                                generator=generator)
-        (loss / accum).backward()
-        total = loss.detach() if total is None else total + loss.detach()
-        for key, value in micro_aux.items():
-            aux_sum[key] = aux_sum.get(key, 0.0) + value.detach()
+    with mesh_lib.batch_shard(group):
+        for i in range(accum):
+            micro = tuple(a[i * n:(i + 1) * n] for a in batch)
+            loss, micro_aux = _loss(state, micro, train=True,
+                                    generator=generator)
+            (loss / accum).backward()
+            total = loss.detach() if total is None else total + loss.detach()
+            for key, value in micro_aux.items():
+                aux_sum[key] = aux_sum.get(key, 0.0) + value.detach()
     if aux is not None:
-        aux.update({k: v / accum for k, v in aux_sum.items()})
-    return total / accum
+        aux.update({k: _group_mean(v / accum, group)
+                    for k, v in aux_sum.items()})
+    return _group_mean(total / accum, group)
 
 
 def apply_update(state: TrainState, config: TrainConfig, sched) -> None:
     """The update from the gradients in ``.grad``: clip by value, set the lr
     from the schedule at this update's index, AdamW, count the step."""
-    torch.nn.utils.clip_grad_value_(state.model.parameters(),
-                                    config.grad_clip)
+    if state.parallel is not None and state.parallel.fsdp:
+        for p in state.model.parameters():      # DTensor gradients
+            if p.grad is not None:
+                p.grad.clamp_(-config.grad_clip, config.grad_clip)
+    else:
+        torch.nn.utils.clip_grad_value_(state.model.parameters(),
+                                        config.grad_clip)
     for group in state.optimizer.param_groups:
         group["lr"] = sched(state.step)
     state.optimizer.step()
@@ -169,9 +227,13 @@ def train_step(state: TrainState, batch, config: TrainConfig, sched,
     generator.manual_seed(_step_seed(config.seed, state.step))
     aux = {}
     loss = loss_and_grads(state, batch, config, generator, aux)
-    grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-    gnorm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g) for g in grads]))
+    if state.parallel is None:
+        grads = [p.grad for p in state.model.parameters()
+                 if p.grad is not None]
+        gnorm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+    else:
+        gnorm = shard_lib.grad_norm(state.model, state.parallel.mesh)
     apply_update(state, config, sched)
     return loss, {"grad_norm": gnorm, **aux}
 
@@ -179,21 +241,56 @@ def train_step(state: TrainState, batch, config: TrainConfig, sched,
 @torch.no_grad()
 def eval_step(state: TrainState, batch,
               generator: Optional[torch.Generator] = None):
-    """The loss of one eval batch; ``generator`` draws what the model
-    draws in eval (the MAE's mask), Franky ignores it."""
-    return _loss(state.model, batch, train=False, generator=generator)[0]
+    """The loss of one (global) eval batch; ``generator`` draws what the
+    model draws in eval (the MAE's mask), Franky ignores it."""
+    group = state.data_group
+    with mesh_lib.batch_shard(group):
+        loss = _loss(state, mesh_lib.shard_batch(batch, group), train=False,
+                     generator=generator)[0]
+    return _group_mean(loss, group)
 
 
-def _check_parallel(config: TrainConfig) -> None:
+def setup_parallel(model: nn.Module, config: TrainConfig,
+                   device: torch.device) -> Optional[Parallel]:
+    """The run's layout over the current process group (None without
+    one): the (data, model) mesh of ``config.mesh_shape`` (all ranks on
+    "data" when None), the experts of an MoE model sharded over "model",
+    every other parameter broadcast from rank 0, then FSDP2 over "data"
+    (``config.fsdp``) or DDP over "data". A shape whose size is not the
+    world size raises ``ValueError``; without a process group so does any
+    shape of more than one device."""
+    from frankenstein_tpu_torch.models.moe import shard_experts
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+
+    mesh = mesh_lib.make_mesh(config.mesh_shape, device.type)
+    if mesh is None:
+        if config.fsdp:
+            raise ValueError("fsdp needs a process group (torchrun)")
+        return None
+    data = mesh_lib.group_of(mesh, mesh_lib.DATA_AXIS)
+    model_group = mesh_lib.group_of(mesh, mesh_lib.MODEL_AXIS)
+    if isinstance(model, SoundStream) and mesh_lib.group_size(data) > 1:
+        raise NotImplementedError(
+            "data parallelism over a SoundStream: its EMA codebook is "
+            "updated from the batch inside the forward, and summing those "
+            "statistics over the data group is not written")
+    shard_experts(model, model_group)
+    mesh_lib.replicate([p for p in model.parameters()
+                        if not hasattr(p, "shard_spec")])
+    mesh_lib.replicate([p for p in model.parameters()
+                        if hasattr(p, "shard_spec")], data)
+    mesh_lib.replicate(model.buffers())
     if config.fsdp:
-        raise NotImplementedError(
-            "fsdp: parameter sharding is not ported yet (ROADMAP.md, "
-            "modules to port, \"parallel modes and MoE\")")
-    if config.mesh_shape and math.prod(config.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape {config.mesh_shape}: the port trains on one device; "
-            "the parallel modes are ROADMAP.md, modules to port, "
-            "\"parallel modes and MoE\"")
+        shard_lib.shard_params_fsdp(model, mesh)
+        return Parallel(mesh, data, model, fsdp=True)
+    from torch.nn.parallel import DistributedDataParallel
+    ids = None
+    if device.type == "cuda":
+        ids = [torch.cuda.current_device() if device.index is None
+               else device.index]
+    runner = DistributedDataParallel(model, process_group=data,
+                                     device_ids=ids)
+    return Parallel(mesh, data, runner)
 
 
 def run_train_model(model: nn.Module, datasets, config: TrainConfig,
@@ -216,21 +313,28 @@ def run_train_model(model: nn.Module, datasets, config: TrainConfig,
                                                     to_device)
     from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
 
-    _check_parallel(config)
     train_ds, val_ds = datasets
     save_dir = Path(save_folder) / config.exp_name
-    save_dir.mkdir(parents=True, exist_ok=True)
-    (save_dir / "train_config.json").write_text(config.to_json())
-    logger = MetricLogger(save_dir / "metrics.jsonl")
+    main = not dist.is_initialized() or dist.get_rank() == 0
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+        (save_dir / "train_config.json").write_text(config.to_json())
+    logger = MetricLogger(save_dir / "metrics.jsonl" if main else None)
 
     model.remat = config.remat
+    device = next(model.parameters()).device
+    prior = ckpt_lib.best_checkpoint(save_dir) if resume else None
+    raw = ckpt_lib.load_raw_checkpoint(prior) if prior is not None else None
+    if raw is not None:        # full weights, before any sharding
+        model.load_state_dict(raw["model"])
+    par = setup_parallel(model, config, device)
     optimizer, sched = make_optimizer(config, model)
-    state = TrainState(model, optimizer)
-    device = state.device
-    if resume:
-        prior = ckpt_lib.best_checkpoint(save_dir)
-        if prior is not None:
-            ckpt_lib.restore_checkpoint(prior, state)
+    state = TrainState(model, optimizer, parallel=par)
+    if raw is not None:
+        optimizer.load_state_dict(shard_lib.local_optimizer_state(
+            raw["optimizer"], optimizer))
+        state.step = int(raw["step"])
+        if main:
             print(f"resumed from {prior.name} at step {state.step}")
 
     k_steps = max(config.steps_per_dispatch, 1)
@@ -286,10 +390,12 @@ def run_train_model(model: nn.Module, datasets, config: TrainConfig,
                 if steps_timed:
                     metrics["samples_per_sec"] = samples_seen / max(dt, 1e-9)
                 if steps_timed and flops_per_sample:
-                    # forward + backward ~ 3x forward (PaLM App. B)
+                    # forward + backward ~ 3x forward (PaLM App. B), a
+                    # card's share of the global batch
+                    world = dist.get_world_size() if par else 1
                     mfu = profiling.estimate_mfu(
-                        3 * flops_per_sample * samples_seen / steps_timed,
-                        dt / steps_timed)
+                        3 * flops_per_sample * samples_seen
+                        / (steps_timed * world), dt / steps_timed)
                     if mfu is not None:      # None: no known peak
                         metrics["mfu"] = mfu
                 logger.log(state.step, metrics)
@@ -307,8 +413,9 @@ def run_train_model(model: nn.Module, datasets, config: TrainConfig,
                 mean_val = (float(np.mean(val_losses)) if val_losses
                             else float("nan"))
                 logger.log(state.step, {"val/loss": mean_val})
-                print(f"step {state.step}: train {float(loss):.4f} val "
-                      f"{mean_val:.4f}")
+                if main:
+                    print(f"step {state.step}: train {float(loss):.4f} val "
+                          f"{mean_val:.4f}")
                 select = mean_val
                 if eval_metric is not None:
                     select = float(eval_metric(state, state.step))
@@ -317,7 +424,11 @@ def run_train_model(model: nn.Module, datasets, config: TrainConfig,
                     best_val = select
                     ckpt_lib.save_checkpoint(save_dir, state, state.step,
                                              select,
-                                             keep=config.keep_checkpoints)
+                                             keep=config.keep_checkpoints,
+                                             payload=shard_lib.full_state(
+                                                 model, optimizer)
+                                             if par else None,
+                                             write=main)
                 # eval and checkpointing are not training throughput
                 t0 += time.perf_counter() - eval_t0
         if loss is not None:

@@ -10,14 +10,21 @@ from pathlib import Path
 
 
 class MetricLogger:
+    """``jsonl_path`` None logs nothing (a rank other than the first)."""
+
     def __init__(self, jsonl_path):
-        self.path = Path(jsonl_path)
-        self.path.parent.mkdir(parents=True, exist_ok=True)
-        self._fh = open(self.path, "a", buffering=1)
+        self.path = None if jsonl_path is None else Path(jsonl_path)
+        self._fh = None
+        if self.path is not None:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self.path, "a", buffering=1)
 
     def log(self, step: int, metrics: dict):
+        if self._fh is None:
+            return
         rec = {"step": int(step), "time": time.time(), **metrics}
         self._fh.write(json.dumps(rec) + "\n")
 
     def close(self):
-        self._fh.close()
+        if self._fh is not None:
+            self._fh.close()

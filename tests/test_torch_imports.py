@@ -82,11 +82,27 @@ print(",".join(n for n in sys.argv[2:] if hasattr(mod, n)))
                   "crop_gpt_layers", "crop_block_size"]),
     ("utils.profiling", ["detect_peak_flops", "estimate_mfu", "trace"]),
     ("utils.debugging", ["assert_finite_tree", "jit_eager_parity",
-                         "enable_nan_debugging"])])
+                         "enable_nan_debugging"]),
+    ("models.moe", ["MoESwiGLU", "stable_topk", "shard_experts"]),
+    ("parallel.mesh", ["maybe_initialize_distributed", "make_mesh",
+                       "shard_batch", "replicate", "batch_shard",
+                       "copy_to_group", "reduce_from_group",
+                       "gather_from_group", "sum_grads"]),
+    ("parallel.sharding", ["LLAMA_TP_RULES", "GPT2_TP_RULES",
+                           "MOE_EP_RULES", "spec_for", "fsdp_spec",
+                           "shard_params", "shard_params_fsdp",
+                           "full_state", "local_optimizer_state"]),
+    ("parallel.ring_attention", ["RingAttention", "ring_attention",
+                                 "ring_attention_sharded", "seq_group"]),
+    ("parallel.pipeline", ["gpipe", "pipelined_apply", "stage_scan",
+                           "stage_params"]),
+    ("dryrun", ["dryrun", "main"]),
+    ("train.trainer", ["setup_parallel", "Parallel"]),
+    ("models.weights", ["gpt_state_from_flax"])])
 def test_new_modules_import_alone_without_jax(name, attrs):
     """Each module of the encoder-family training paths, of the whisper
-    path and of the VQ-VAE slice imports by itself in a process where jax
-    and the JAX package cannot load."""
+    path, of the VQ-VAE slice and of the parallel modes and MoE imports by
+    itself in a process where jax and the JAX package cannot load."""
     proc = subprocess.run(
         [sys.executable, "-c", _ALONE, f"frankenstein_tpu_torch.{name}",
          *attrs], cwd=ROOT, capture_output=True, text=True, timeout=300)

@@ -184,11 +184,6 @@ def test_decode_weights_route_by_family(pair):
         assert (lw["wq"].dtype == torch.int8) == w8
 
 
-def test_moe_refused():
-    with pytest.raises(NotImplementedError, match="parallel modes and MoE"):
-        llama.Llama(tconfig.tiny_llama_config(moe_experts=2))
-
-
 @pytest.mark.parametrize("permute", [True, False])
 def test_hf_import_reproduces_hf_logits(permute):
     """An HF checkpoint whose q/k projections are scaled by 25 (so the

@@ -25,7 +25,6 @@ from frankenstein_tpu_torch.models.weights import (init_franky_, init_mae_,
                                                    load_strict)
 from frankenstein_tpu_torch.train import checkpoints as ckpt_lib
 from frankenstein_tpu_torch.train import trainer
-from frankenstein_tpu_torch.train.__main__ import NOT_PORTED
 from frankenstein_tpu_torch.train.__main__ import main as train_main
 from frankenstein_tpu_torch.train.schedule import make_lr_schedule
 from tests.test_trainer import reference_get_lr
@@ -325,21 +324,6 @@ def test_non_finite_loss_raises(tmp_path):
     assert json.loads(last)["fatal"] == 1.0
 
 
-@pytest.mark.parametrize("kw", [{"fsdp": True}, {"mesh_shape": (2, 1)}])
-def test_parallel_modes_are_refused(tmp_path, kw):
-    data = (tiny_data(), tiny_data(8, seed=1))
-    with pytest.raises(NotImplementedError, match="parallel modes and MoE"):
-        trainer.run_train_model(tiny_model(), data, train_cfg(**kw),
-                                save_folder=tmp_path)
-
-
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_cli_refuses_unported_models(name):
-    item = NOT_PORTED[name]                 # e.g. "SimpleMAE", a ROADMAP title
-    with pytest.raises(SystemExit, match=f'"{item}"'):
-        train_main(["--model", name, "--data", "synthetic"])
-
-
 def tiny_mae(seed=0, **geometry):
     """An MAE over tiny_cfg's encoder geometry (32 tokens)."""
     enc = tiny_cfg(tconfig).brain.encoder.replace(**geometry)
@@ -406,8 +390,8 @@ def test_graft_refuses_another_geometry(tmp_path, geometry, match):
 
 
 def test_cli_grafts_only_into_franky():
-    with pytest.raises(SystemExit, match="--model franky or franky-llama, "
-                       "not mae"):
+    with pytest.raises(SystemExit, match="--model franky, moe-gpt or "
+                       "franky-llama, not mae"):
         train_main(["--model", "mae", "--data", "synthetic",
                     "--init-encoder-from", "logs/none"])
 

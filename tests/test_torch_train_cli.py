@@ -118,4 +118,4 @@ def test_mae_pretrains_then_grafts_into_franky(tmp_path):
     assert "done at step 3" in out.stdout
     bad = _run(["frankenstein_tpu_torch.train", "--config", str(mae_cfg),
                 "--init-encoder-from", str(logs / "mae"), *common], rc=1)
-    assert "--model franky or franky-llama, not mae" in bad.stderr
+    assert "--model franky, moe-gpt or franky-llama, not mae" in bad.stderr
