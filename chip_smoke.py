@@ -74,6 +74,13 @@ nvcc (sm_90a) and then, one line per phase:
     layer 0, at most one apart deeper), the exact rounding rule, a 3-step
     chain across row 8, two launches bitwise equal, both times and phase
     3's launch numbers (the phase split for w8a16 at B*W=160 and B=8);
+    and, after phase 23, ``python -m frankenstein_tpu_torch.tools.
+    decode_sweep profile`` in a child process of its own (K2 and K5 at the
+    decode paths' five shapes): exactly one device operation a call, the
+    kernel's own (in this long process torch.profiler may drop a record,
+    so phases 3, 6 and 10 hold the operations only to the kernel's name;
+    the child runs last because, started while this process's profiler
+    is initialised, it makes this process's later profiles drop records);
 11. FrankyLlama (``configs/franky_llama.yaml``'s model: the flagship encoder,
     a 2-layer Perceiver into a ~110M LLaMA) served end to end through
     ``make_franky_predictor(beam_width=5, int8_kv=True, int8_weights=True,
@@ -92,7 +99,10 @@ nvcc (sm_90a) and then, one line per phase:
     probability rows the backward recomputes (each sums to 1 against the
     forward's lse), two launches bitwise equal, kernel, twin and SDPA times,
     and the kernels and SDPA (K6 with its bool mask, K7 dense unmasked) at
-    B=32; then K7 slab (the slab mode of the same wgmma passes) at P=256,
+    B=32 (the ``kernels`` line's ``ms`` and ``library_ms`` are the B=2
+    times back to back, as every entry's, with the medians in turns
+    beside them as ``ms_in_turns`` and ``library_ms_in_turns``); then K7
+    slab (the slab mode of the same wgmma passes) at P=256,
     96 and 8 and head_dim 32 and 64, forward and backward against the
     twins, two backward launches bitwise equal, and each slab pass's
     registers and CTAs an SM, unmasked and masked instance;
@@ -253,10 +263,16 @@ nvcc (sm_90a) and then, one line per phase:
     (within the larger of SLICE_TOL and WITNESS_FACTOR times bf16 on the
     CPU's: bf16 activations flip near-tied routes, on either device) and
     the share of (token, layer) routes whose expert sets are the twin's
-    (at most MOE_ROUTE_SLACK under bf16 on the CPU's);
+    (at most MOE_ROUTE_SLACK under bf16 on the CPU's); then with every
+    route pinned to the twin's choice (``models.moe.stable_topk`` patched
+    for the call), the card's logits within WITNESS_FACTOR times bf16 on
+    the CPU's with the same routes;
     (d) a one-rank NCCL group through the trainer's DDP and FSDP paths: 3
     f32 steps of the MoE Franky (encoder cut to a 96 x 256 window), each
-    loss within 1e-5 rel of the unwrapped step's; (e) the dryrun
+    loss within 1e-5 rel of the unwrapped step's; 3 f32 steps at B=64 of a
+    fresh SoundStream at phase 22's geometry through DDP (k-means on the
+    first, cuDNN deterministic), each loss and the four codebook buffers
+    within 1e-5 rel of an unwrapped copy's; (e) the dryrun
     (``python -m frankenstein_tpu_torch.dryrun --ranks 4 --device cpu``)
     on this machine's torch: its seven ``ok`` lines.
 
@@ -662,13 +678,54 @@ def _decode_report(fn, ms: float, bound: dict, info: dict, kernel: str,
     if parts is not None:
         note += ", a token's ms: " + ", ".join(
             f"{k} {v:.4f}" for k, v in parts.items())
-    # at most one operation a call, and only the kernel's own (late in a
-    # long process the profiler may drop a kernel's record: fewer than one
-    # is reported as read; tools/decode_sweep.py profile reads a fresh one)
-    _check(ops <= 1 and all(kernel in k for k in by_kernel),
+    # only the kernel's own operations (late in a long process the profiler
+    # may drop a kernel's record, so the count is printed as read here and
+    # held to exactly one a call in a fresh process: _decode_profile)
+    _check(all(kernel in k for k in by_kernel),
            f"{kernel}: {ops} device operations a call ({by_kernel})")
     return note, {"gbs": gbs, "device_ops": ops, "split_ms": parts,
                   "spills": spills, **info}
+
+
+DECODE_PROFILE_S = 600   # the child process of _decode_profile
+DECODE_KERNELS = {"K2": "gpt2_decode_step", "K5": "llama_decode_step"}
+
+
+def _decode_profile(card: str) -> list:
+    """``python -m frankenstein_tpu_torch.tools.decode_sweep profile`` in a
+    child process of its own (K2 at GPT-2 124M width, K5 at FrankyLlama
+    width, its five decode shapes): each JSON line must show exactly one
+    device operation a call, the kernel's own. A failing or timed-out child
+    fails the smoke. ``main`` runs it after every other phase: once this
+    process has used torch.profiler, such a child makes its later profiles
+    drop records (phase 17 found three of K10's four kernels)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "frankenstein_tpu_torch.tools.decode_sweep",
+         "profile"], cwd=repo, capture_output=True, text=True, check=True,
+        timeout=DECODE_PROFILE_S)
+    took = time.perf_counter() - t0
+    rows = [json.loads(line) for line in run.stdout.splitlines()
+            if line.startswith("{")]
+    _check(len(rows) == 5, f"decode_sweep profile printed {len(rows)} "
+           f"lines:\n{run.stdout}\n{run.stderr[-2000:]}")
+    for r in rows:
+        name = DECODE_KERNELS[r["kernel"]]
+        _check(r["device_ops_per_call"] == 1
+               and list(r["kernels_ms"]) and all(
+                   name in k for k in r["kernels_ms"]),
+               f"{r['kernel']} B={r['batch']}: "
+               f"{r['device_ops_per_call']} device operations a call "
+               f"({r['kernels_ms']}), want exactly one, {name}'s")
+    print(f"phase 10 decode profile (python -m frankenstein_tpu_torch.tools."
+          f"decode_sweep profile, a child process, {took:.1f} s): " +
+          ", ".join(f"{r['kernel']} B={r['batch']} {r['weights']} weights "
+                    f"{r['cache']} cache {r['device_ops_per_call']:g} device "
+                    f"operation a call ({', '.join(r['kernels_ms'])}), "
+                    f"{r['ms_per_token']:.4f} ms a token"
+                    for r in rows) + f" | {card}", flush=True)
+    return rows
 
 
 def _k2_inputs(b: int, gen, w8: bool):
@@ -2070,6 +2127,8 @@ def phase_flash(card: str) -> dict:
                              and key not in ("SDPA fwd", "SDPA bwd"))
         fwd_b2b = _time_ms(thunks["fwd"])   # back to back: no host gaps
         bwd_b2b = _time_ms(thunks["bwd"])
+        fwd_lib_b2b = _time_ms(thunks["SDPA fwd"])
+        bwd_lib_b2b = _time_ms(thunks["SDPA bwd"])
         fwd_plain = _time_ms(lambda: k67.flash_attention_ref(q, k, v, **kw),
                              iters=3)
         bwd_plain = _time_ms(lambda: k67.flash_attention_bwd_ref(
@@ -2111,8 +2170,9 @@ def phase_flash(card: str) -> dict:
               f"{_ms_note(timed, 'bwd')} ms, SDPA "
               f"{_ms_note(timed, 'SDPA bwd')}"
               f"{' (' + backends + ')' if backends else ''}; back to back "
-              f"(10 calls) forward {fwd_b2b:.3f} ms, backward {bwd_b2b:.3f} "
-              f"ms | forward: plain "
+              f"(10 calls) forward {fwd_b2b:.3f} ms (SDPA {fwd_lib_b2b:.3f}),"
+              f" backward {bwd_b2b:.3f} ms (SDPA {bwd_lib_b2b:.3f}) | "
+              f"forward: plain "
               f"{fwd_plain:.3f} ms, bound {fwd_bound['bound_ms']:.4f} ms "
               f"({fwd_bound['bound_by']}), exp floor {exp_fwd:.4f} ms, issued "
               f"{4 * d * h * pairs / fwd_ms / 1e9:.1f} TFLOP/s | backward: "
@@ -2131,12 +2191,16 @@ def phase_flash(card: str) -> dict:
         _check(rowsum <= ROWSUM_TOL, f"{name} probability rows off by "
                f"{rowsum}")
         _check(bitwise, f"{name} backward is not deterministic")
+        # the kernels line's ms back to back, as every other entry's; the
+        # medians in turns beside them
         results[mode] = (
             {"max_abs_err": max(_max_err(out, ref), _max_err(lse, ref_lse)),
-             "ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
+             "ms": fwd_b2b, "plain_ms": fwd_plain, "library_ms": fwd_lib_b2b,
+             "ms_in_turns": fwd_ms, "library_ms_in_turns": fwd_lib,
              "ms_b32": fwd_b32, **fwd_bound},
             {"max_abs_err": max(_max_err(g, w) for g, w in zip(got, want)),
-             "ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+             "ms": bwd_b2b, "plain_ms": bwd_plain, "library_ms": bwd_lib_b2b,
+             "ms_in_turns": bwd_ms, "library_ms_in_turns": bwd_lib,
              "ms_b32": bwd_b32, **bwd_bound})
         del q, k, v, dout, out, lse, got, again, ref, want, onehot, thunks
     _slab_instances(gen, card)
@@ -4752,6 +4816,7 @@ MOE_DDP_STEPS = 3     # phase 23 (d)
 MOE_DDP_TOL = 1e-5    # a one-rank DDP / FSDP step's loss vs the unwrapped
 MOE_ROUTE_SLACK = 5e-2  # the card's route agreement may fall this far
                         # under bf16 on the CPU's
+VQ_DDP_BUFFERS = ("embed", "cluster_size", "embed_avg", "initted")
 
 
 def _moe_routes(model, run) -> tuple:
@@ -4776,13 +4841,36 @@ def _moe_routes(model, run) -> tuple:
             h.remove()
 
 
+def _pinned(run, routes):
+    """``run()`` with every MoE layer call taking the next of ``routes``
+    (the twin's expert choices [N, K], in call order) instead of its own
+    top-k, its gates the probabilities of those experts:
+    ``models.moe.stable_topk`` patched for the call only."""
+    from frankenstein_tpu_torch.models import moe
+    todo = list(routes)
+    real = moe.stable_topk
+
+    def take(probs, k):
+        idx = todo.pop(0).to(probs.device)
+        return probs.gather(-1, idx), idx
+
+    moe.stable_topk = take
+    try:
+        out = run()
+    finally:
+        moe.stable_topk = real
+    _check(not todo, f"{len(todo)} pinned routes left over")
+    return out
+
+
 def _moe_card_vs_cpu(model, prefixes, texts) -> dict:
     """The trained MoE GPT (``model.llm_model``, bf16 compute on the card)
     on each window's prefix and text (its pad ids) at B=1, teacher-forced,
     against its f32 CPU twin, and
     bf16 on the CPU as the witness: the worst logits error relative to max
     |twin| and the share of routes (token, layer) whose set of top-k
-    experts equals the twin's."""
+    experts equals the twin's; then the same errors with every route
+    pinned to the twin's (``_pinned``), where bf16 flips none."""
     import copy
 
     import torch
@@ -4796,6 +4884,7 @@ def _moe_card_vs_cpu(model, prefixes, texts) -> dict:
         if hasattr(mod, "compute_dtype"):
             mod.compute_dtype = torch.bfloat16
     errs = {"card": 0.0, "witness": 0.0}
+    pinned = {"card": 0.0, "witness": 0.0}
     agree = {"card": [0, 0], "witness": [0, 0]}
     with torch.no_grad():
         for prefix, idx in zip(prefixes, texts):
@@ -4811,7 +4900,11 @@ def _moe_card_vs_cpu(model, prefixes, texts) -> dict:
                     same = a.sort(-1).values == b.sort(-1).values
                     agree[name][0] += int(same.all(-1).sum())
                     agree[name][1] += a.shape[0]
-    return {"errs": errs,
+                got = _pinned(lambda: m(i.to(dev), p.to(dev), i.to(dev))[1],
+                              r_want)
+                pinned[name] = max(pinned[name], _max_err(got.cpu(), want)
+                                   / float(want.abs().max()))
+    return {"errs": errs, "pinned": pinned,
             "agree": {k: v[0] / max(v[1], 1) for k, v in agree.items()}}
 
 
@@ -4872,8 +4965,76 @@ def _moe_one_rank(card: str) -> dict:
                                             for q in model.parameters())}
                 del model, ref, state, opt
                 _free_card()
+            out["vq"] = _vq_one_rank(dev)
         finally:
             dist.destroy_process_group()
+    return out
+
+
+def _vq_one_rank(dev) -> dict:
+    """Phase 23 (d), the VQ-VAE: MOE_DDP_STEPS f32 steps at B=64 of a fresh
+    SoundStream at phase 22's geometry (``configs/vqvae.yaml``: k-means on
+    the first step, then the EMA and the refresh) through the trainer's DDP
+    path against an unwrapped copy: each loss, and the four codebook
+    buffers after the steps, relative to max |unwrapped|. cuDNN runs its
+    deterministic algorithms here, so the two runs differ only where DDP
+    makes them differ."""
+    import copy
+    from pathlib import Path
+
+    import torch
+    import yaml
+    from frankenstein_tpu_torch.config import TrainConfig, VQVAEConfig
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+    from frankenstein_tpu_torch.models.weights import init_soundstream_
+    from frankenstein_tpu_torch.train import __main__ as train_cli
+    from frankenstein_tpu_torch.train import trainer
+
+    repo = Path(__file__).resolve().parent
+    doc = yaml.safe_load((repo / "configs" / "vqvae.yaml").read_text())
+    cfg = VQVAEConfig.from_dict(doc["model_config"])
+    ds = train_cli.build_datasets("synthetic", 768, cfg.n_electrodes,
+                                  MOE_DDP_STEPS * VQ_BATCH)[0]
+    batches = _batches(ds, VQ_BATCH, MOE_DDP_STEPS)
+    tcfg = TrainConfig(batch_size=VQ_BATCH, learning_rate=1e-3,
+                       warmup_iters=0, use_scheduler=False,
+                       mixed_precision=False, mesh_shape=(1, 1))
+    deterministic = torch.backends.cudnn.deterministic
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        model = init_soundstream_(SoundStream(cfg, device=dev), seed=SEED)
+        ref = copy.deepcopy(model)
+        runs = {}
+        for name, m, par in (("wrapped", model, True), ("plain", ref, False)):
+            p = trainer.setup_parallel(m, tcfg, dev) if par else None
+            opt, sched = trainer.make_optimizer(tcfg, m)
+            state = trainer.TrainState(m, opt, parallel=p)
+            gen = torch.Generator(device=dev)
+            before = float(m.quantizer._codebook.initted)
+            runs[name] = [float(trainer.train_step(
+                state, b, tcfg, sched, gen)[0]) for b in batches]
+            runs[name + "_kind"] = type(p.runner).__name__ if p else "none"
+            runs[name + "_initted"] = (before, float(
+                m.quantizer._codebook.initted))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.benchmark = benchmark
+    books = [m.quantizer._codebook for m in (model, ref)]
+    buffers = {n: _max_err(getattr(books[0], n), getattr(books[1], n))
+               / max(float(getattr(books[1], n).abs().max()), 1e-12)
+               for n in VQ_DDP_BUFFERS}
+    out = {"rel": max(abs(a - b) / abs(b) for a, b in
+                      zip(runs["wrapped"], runs["plain"])),
+           "losses": runs["wrapped"], "plain": runs["plain"],
+           "runner": runs["wrapped_kind"], "buffers": buffers,
+           "initted": runs["wrapped_initted"],
+           "refreshed": int((books[1].cluster_size == 1.0).sum()),
+           "geometry": f"768 x {cfg.n_electrodes}, C={cfg.C}, D={cfg.D}, "
+                       f"K={cfg.codebook_size}"}
+    del model, ref, state, opt, batches
+    _free_card()
     return out
 
 
@@ -5010,13 +5171,19 @@ def phase_moe(card: str) -> dict:
           f"{_k9_blocks(mcfg)}), {_note(request['ms'])} ms (median, range of"
           f" {TIMING_REPEATS}), peak {request['gib']:.2f} GiB; "
           f"int8_weights=True refused | {card}", flush=True)
+    pin = check["pinned"]
+    pin_limit = WITNESS_FACTOR * pin["witness"]
     print(f"phase 23 moe-gpt card vs CPU: the trained MoE GPT on "
           f"{MOE_WINDOWS} windows' prefixes at B=1: logits max err "
           f"{check['errs']['card']:.3e} of max |f32 CPU twin| (bf16 on the "
           f"CPU {check['errs']['witness']:.3e}; limit the larger of "
-          f"{SLICE_TOL} and {WITNESS_FACTOR}x that); routes whose {cfg.gpt.moe_k} experts are the twin's: card "
+          f"{SLICE_TOL} and {WITNESS_FACTOR}x that); routes whose "
+          f"{cfg.gpt.moe_k} experts are the twin's: card "
           f"{100 * agree['card']:.2f}%, bf16 on the CPU "
-          f"{100 * agree['witness']:.2f}% | {card}", flush=True)
+          f"{100 * agree['witness']:.2f}% | every route pinned to the "
+          f"twin's: logits max err card {pin['card']:.3e}, bf16 on the CPU "
+          f"{pin['witness']:.3e}, limit {pin_limit:.3e} ({WITNESS_FACTOR}x "
+          f"bf16 on the CPU) | {card}", flush=True)
     print(f"phase 23 one-rank NCCL: {MOE_DDP_STEPS} f32 steps of the MoE "
           f"Franky (96 x 256 window) at B=4: DDP "
           f"({one_rank['ddp']['runner']}) losses "
@@ -5026,26 +5193,47 @@ def phase_moe(card: str) -> dict:
           f"{' '.join(f'{v:.6f}' for v in one_rank['fsdp']['losses'])}, max "
           f"rel err {one_rank['fsdp']['rel']:.2e} (tol {MOE_DDP_TOL}) | "
           f"{card}", flush=True)
+    vq = one_rank["vq"]
+    print(f"phase 23 one-rank NCCL VQ-VAE: {MOE_DDP_STEPS} f32 steps of a "
+          f"fresh SoundStream ({vq['geometry']}) at B={VQ_BATCH}, cuDNN "
+          f"deterministic, initted {vq['initted'][0]:g} -> "
+          f"{vq['initted'][1]:g} (k-means on step 1), {vq['refreshed']} "
+          f"codes refreshed on the last: DDP ({vq['runner']}) losses "
+          f"{' '.join(f'{v:.6f}' for v in vq['losses'])}, unwrapped "
+          f"{' '.join(f'{v:.6f}' for v in vq['plain'])}, max rel err "
+          f"{vq['rel']:.2e}; codebook buffers' rel err " + ", ".join(
+              f"{n} {e:.2e}" for n, e in vq["buffers"].items()) +
+          f" (tol {MOE_DDP_TOL}) | {card}", flush=True)
     print(f"phase 23 dryrun (4 gloo ranks on the CPU, {dry_s:.1f} s): "
           + " | ".join(line.split(": ", 1)[1] for line in oks), flush=True)
     _check(check["errs"]["card"] <= max(
                SLICE_TOL, WITNESS_FACTOR * check["errs"]["witness"])
            and agree["card"] >= agree["witness"] - MOE_ROUTE_SLACK,
            f"moe-gpt card vs CPU: {check}")
+    _check(pin["card"] <= pin_limit,
+           f"moe-gpt card vs CPU with pinned routes: {pin}")
     _check(one_rank["ddp"]["rel"] <= MOE_DDP_TOL
            and one_rank["fsdp"]["rel"] <= MOE_DDP_TOL
            and one_rank["ddp"]["runner"] == "DistributedDataParallel"
            and one_rank["fsdp"]["sharded"] > 0,
            f"one-rank NCCL steps: {one_rank}")
+    _check(vq["rel"] <= MOE_DDP_TOL
+           and max(vq["buffers"].values()) <= MOE_DDP_TOL
+           and vq["runner"] == "DistributedDataParallel"
+           and vq["initted"] == (0.0, 1.0),
+           f"one-rank NCCL VQ-VAE steps: {vq}")
     return {"launches": launches, "request": req_launches, "step": step}
 
 
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
-    null where no one PyTorch call computes the same function."""
-    return {key: r.get(key) for key in ("max_abs_err", "ms", "plain_ms",
-                                        "bound_ms", "bound_by",
-                                        "library_ms")}
+    null where no one PyTorch call computes the same function. ``ms`` and
+    ``library_ms`` are back to back; K6 / K7 add their medians in turns."""
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return {**{key: r.get(key) for key in keys},
+            **{key: r[key] for key in ("ms_in_turns", "library_ms_in_turns")
+               if key in r}}
 
 
 def main() -> int:
@@ -5085,6 +5273,9 @@ def main() -> int:
     phase_whisper(card)
     phase_vq(card)
     phase_moe(card)
+    # last: a profiling child started while this process's profiler is
+    # initialised drops records from this process's later profiles
+    _decode_profile(card)
     k5_topk = k5[("FrankyLlama", 32, True, False)]
     k5_beam = k5[("FrankyLlama", 160, True, True)]
     kernels = [

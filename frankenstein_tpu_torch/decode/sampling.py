@@ -58,6 +58,7 @@ def decode_weights(model, int8_weights: bool) -> dict:
     from frankenstein_tpu_torch.models import gpt2, llama
     lm = model.llm_model if hasattr(model, "llm_model") else model
     family = llama if isinstance(lm, llama.Llama) else gpt2
+    lm.refuse_tp("decode_weights")
     if lm.cfg.moe_experts > 0 and not int8_weights:
         return None
     if int8_weights:

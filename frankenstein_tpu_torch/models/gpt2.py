@@ -24,6 +24,13 @@
   ``moe_aux_weight`` x the blocks' summed balancing losses, and decode runs
   the module blocks (K2 takes the dense MLP only, as the JAX package's
   fused path does).
+- Tensor parallelism (``parallel/sharding.py:shard_params`` with
+  ``GPT2_TP_RULES``): each block computes its heads' share (c_attn's q, k
+  and v blocks, the local width, the attention-probability dropout masks
+  its heads' slice of the masks one device draws), ``wte`` is looked up
+  and the tied head computed by vocab part (the logits gathered over the
+  model group). Training only: prefill, the decode steps and the stacked
+  decode weights refuse a split model (``layers.refuse_tp``).
 """
 
 from __future__ import annotations
@@ -36,7 +43,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from frankenstein_tpu_torch.config import GPTConfig, IGNORE_INDEX
-from frankenstein_tpu_torch.models.layers import LayerNorm, linear, run_block
+from frankenstein_tpu_torch.models.layers import (LayerNorm, embedding,
+                                                  linear, refuse_tp,
+                                                  run_block)
 from frankenstein_tpu_torch.models.moe import MoESwiGLU
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops.cuda import (beam_reorder, fused_decode,
@@ -146,18 +155,22 @@ class GPTBlock(nn.Module):
         """Causal attention of x [B, T, E] over itself: the cache forward
         with S = T from row 0, without a cache. Dropout at ``rate`` draws
         from a generator made from ``seed`` here, so a recomputation
-        (``remat``) draws the same masks. Returns (x, the MoE balancing
-        loss or None)."""
+        (``remat``) draws the same masks. A tensor-parallel block
+        (``attn.c_attn.tp``) computes its heads from its local width.
+        Returns (x, the MoE balancing loss or None)."""
         c = self.cfg
-        b, t, e = x.shape
+        b, t, _ = x.shape
         gen = _generator(seed, x.device)
-        heads = lambda y: y.reshape(b, t, c.n_head, c.head_dim)
+        heads = lambda y: y.reshape(b, t, -1, c.head_dim)
         q, k, v = linear(self.ln_1(x), self.attn.c_attn,
-                         self.compute_dtype).split(e, dim=-1)
+                         self.compute_dtype).chunk(3, dim=-1)
+        tp = getattr(self.attn.c_attn, "tp", None)
+        part = None if tp is None else (1, mesh_lib.group_rank(tp[1]),
+                                        mesh_lib.group_size(tp[1]))
         y = attn_ops.cached_attention(heads(q), heads(k), heads(v), 1,
                                       probs_dropout_rate=rate,
-                                      generator=gen)
-        y = linear(y.reshape(b, t, e), self.attn.c_proj, self.compute_dtype)
+                                      generator=gen, dropout_part=part)
+        y = linear(y.reshape(b, t, -1), self.attn.c_proj, self.compute_dtype)
         x = x + attn_ops.dropout(y, rate, gen)
         h, aux = self._mlp(x)
         return x + attn_ops.dropout(h, rate, gen), aux
@@ -179,6 +192,7 @@ def stack_decode_weights(gpt: "GPT", cdt=None) -> dict:
     the tied head [E, V] in the model's dtype widened to f32, so decode
     steps do not re-widen it. Build it once per predictor, not per step.
     An MoE model has none: its decode runs the module blocks."""
+    gpt.refuse_tp("stack_decode_weights")
     if gpt.cfg.moe_experts > 0:
         raise NotImplementedError(
             "stacked decode weights (K2, w8a16) take the dense MLP; an MoE "
@@ -275,16 +289,30 @@ class GPT(nn.Module):
             table = self.lm_head_table()
         return x.float() @ table
 
+    def refuse_tp(self, what: str) -> None:
+        """Raise for ``what`` (a serving path) when the model is split for
+        tensor parallelism."""
+        block = self.transformer["h"][0]
+        refuse_tp(what, [self.transformer["wte"], block.attn.c_attn,
+                         *([block.mlp.c_fc] if hasattr(block, "mlp")
+                           else [])])
+
     def _lm_head_live(self, x):
         """The training head: x @ wte^T on the live tied weight (cast to x's
         dtype, as the JAX package does), f32 logits, so ``wte`` gets the
-        head's share of the gradient."""
-        w = self.transformer["wte"].weight
-        return (x @ w.to(x.dtype).t()).float()
+        head's share of the gradient. A vocab-split ``wte`` computes its
+        rows' logits and gathers the vocabulary over the model group."""
+        wte = self.transformer["wte"]
+        tp = getattr(wte, "tp", None)
+        if tp is not None:
+            x = mesh_lib.copy_to_group(x, tp[1])
+            part = (x @ wte.weight.to(x.dtype).t()).float()
+            return mesh_lib.gather_from_group(part, tp[1], -1)
+        return (x @ wte.weight.to(x.dtype).t()).float()
 
     def _embed(self, idx, prefix):
         cdt = self.compute_dtype or self.dtype
-        tok = self.transformer["wte"](idx).to(cdt)
+        tok = embedding(idx, self.transformer["wte"]).to(cdt)
         if prefix is not None:
             tok = torch.cat([prefix.to(cdt), tok], dim=1)
         pos = self.transformer["wpe"].weight[:tok.shape[1]]
@@ -339,6 +367,7 @@ class GPT(nn.Module):
         """Run the prefix + initial tokens once, filling rows [0, t) of
         ``cache`` IN PLACE (the rest stays as given, zeros from
         ``init_cache``). Returns (logits_last [B, vocab] f32, cache, t)."""
+        self.refuse_tp("prefill")
         x = self._embed(idx, prefix)
         t = x.shape[1]
         x = self._run_blocks(x, cache, 0)
@@ -358,6 +387,7 @@ class GPT(nn.Module):
         (``stack_decode_weights`` or ``quantize_decode_weights``), built
         once by the caller; None stacks them for this call.
         Returns (logits [B, vocab] f32, cache, length + 1)."""
+        self.refuse_tp("decode_step")
         x, cache, qweights = self._decode_blocks(token, cache, length,
                                                  qweights)
         table = None if qweights is None else qweights.get("lm_head_t")
@@ -378,6 +408,7 @@ class GPT(nn.Module):
         Returns (vals [B, k] f32 descending, idx [B, k] int64 with ties to
         the lowest index, logz [B] f32, cache, length + 1); ``vals - logz``
         are exact log-probabilities."""
+        self.refuse_tp("decode_step_topk")
         if qweights is not None and qweights["qkv_w"].dtype == torch.int8:
             raise NotImplementedError(
                 "decode_step_topk takes no int8 decode weights (the JAX "

@@ -68,6 +68,19 @@ def embedding(idx: torch.Tensor, table: nn.Embedding) -> torch.Tensor:
     return mesh_lib.reduce_from_group(part, group)
 
 
+def refuse_tp(what: str, modules) -> None:
+    """Raise ``NotImplementedError`` when any of ``modules`` carries a
+    tensor-parallel split (``tp``): serving (prefill, the decode steps, the
+    stacked decode weights) takes whole layers, as the JAX package never
+    wired tensor-parallel serving."""
+    if any(getattr(m, "tp", None) is not None for m in modules):
+        raise NotImplementedError(
+            f"{what} on a tensor-parallel split model: parallel/sharding.py:"
+            "shard_params split its layers and serving takes whole ones "
+            "(the JAX package never wired tensor-parallel serving); serve "
+            "the full weights (sharding.full_state)")
+
+
 def run_block(block, *args, remat: bool = False, **kwargs):
     """``block(*args, **kwargs)``; with ``remat`` (and autograd on) its
     activations are recomputed in the backward instead of kept

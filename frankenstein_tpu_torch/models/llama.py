@@ -22,6 +22,9 @@ rescoring (``frankenstein_tpu/models/llama.py``).
   ``moe``; the training loss adds ``moe_aux_weight`` x the blocks' summed
   balancing losses, and decode runs the module blocks (K5 takes the dense
   MLP only, as the JAX package's fused path does).
+- Tensor parallelism (``parallel/sharding.py:shard_params``) splits the
+  training forward; prefill, ``decode_step`` and the stacked decode
+  weights refuse a split model (``layers.refuse_tp``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ from frankenstein_tpu_torch.models.gpt2 import (GPT, QuantCache,
                                                 cross_entropy_ignore,
                                                 on_float_cache)
 from frankenstein_tpu_torch.models.layers import (RMSNorm, embedding,
-                                                  linear, run_block)
+                                                  linear, refuse_tp,
+                                                  run_block)
 from frankenstein_tpu_torch.models.moe import MoESwiGLU
 from frankenstein_tpu_torch.ops import attention as attn_ops
 from frankenstein_tpu_torch.ops import rope as rope_ops
@@ -181,6 +185,15 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.model.embed_tokens.weight.device
 
+    def refuse_tp(self, what: str) -> None:
+        """Raise for ``what`` (a serving path) when the model is split for
+        tensor parallelism."""
+        block = self.model.layers[0]
+        refuse_tp(what, [self.model.embed_tokens, self.lm_head,
+                         block.self_attn.q_proj,
+                         *([block.mlp.gate_proj] if hasattr(block, "mlp")
+                           else [])])
+
     def _cdt(self) -> torch.dtype:
         return self.compute_dtype or self.dtype
 
@@ -262,6 +275,7 @@ class Llama(nn.Module):
         ``cache`` IN PLACE (the rest stays as given, zeros from
         ``init_llama_cache``). Returns (logits_last [B, vocab] f32, cache,
         t)."""
+        self.refuse_tp("prefill")
         x = self._embed_in(idx, prefix)
         t = x.shape[1]
         x = self._run_blocks(x, cache, 0)
@@ -298,6 +312,7 @@ class Llama(nn.Module):
         ``quantize_decode_weights``), built once by the caller; None stacks
         them for this call.
         Returns (logits [B, vocab] f32, cache, length + 1)."""
+        self.refuse_tp("decode_step")
         c = self.cfg
         quant = isinstance(cache, QuantCache)
         x = self.model.embed_tokens(token).to(self._cdt())
@@ -358,6 +373,7 @@ def stack_decode_weights(llama: Llama, cdt=None) -> dict:
     ``lm_head_t``, the head table of ``Llama.lm_head_table``. Build it once
     per predictor, not per step. An MoE model has none: its decode runs
     the module blocks."""
+    llama.refuse_tp("stack_decode_weights")
     if llama.cfg.moe_experts > 0:
         raise NotImplementedError(
             "stacked decode weights (K5, w8a16) take the dense MLP; an MoE "

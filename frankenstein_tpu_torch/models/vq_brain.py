@@ -22,7 +22,9 @@ bridge is ``load_strict``):
 quantizer and the losses run in f32. ``remat``, read at each forward,
 recomputes the encoder's and the decoder's activations in the backward;
 the quantizer runs outside the recompute, so its EMA update, k-means and
-draws happen once a step.
+draws happen once a step. Under data parallelism (``mesh.batch_shard``)
+the quantizer's statistics, the perplexity and the loss's count of real
+timesteps are the global batch's (``ops/vq.py``).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from frankenstein_tpu_torch.config import VQVAEConfig
 from frankenstein_tpu_torch.models.layers import run_block
 from frankenstein_tpu_torch.ops.conv import CausalConv1d, CausalConvTranspose1d
 from frankenstein_tpu_torch.ops.vq import VectorQuantize, codebook_perplexity
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 
 
 class ResidualUnit(nn.Module):
@@ -125,11 +128,15 @@ class ConvDecoder(nn.Module):
 def masked_l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """L1 averaged over the timesteps that are not padding (a row of ``gt``
     that is all zero is padding, found on ``gt`` as given: bf16 under mixed
-    precision)."""
+    precision). Under ``mesh.batch_shard`` the count of real timesteps is
+    the global batch's and the loss is scaled by the group size (this
+    rank's share of the global loss, as ``gpt2.cross_entropy_ignore``
+    takes it)."""
     real = ~torch.all(gt == 0, dim=-1)                      # [B, T]
     per_row = torch.mean(torch.abs(pred.float() - gt.float()), dim=-1)
-    denom = torch.clamp_min(real.sum(), 1)
-    return torch.sum(per_row * real) / denom
+    shard = mesh_lib.current_batch_shard()
+    denom = torch.clamp_min(mesh_lib.global_sum(real.sum()), 1)
+    return torch.sum(per_row * real) * (shard.size if shard else 1) / denom
 
 
 class SoundStream(nn.Module):

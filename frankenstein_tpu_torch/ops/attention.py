@@ -40,25 +40,38 @@ NEG_INF = float(torch.finfo(torch.float32).min)
 DENSE_FLASH_MIN = 2048
 
 
-def _softmax_av(logits, v, out_dtype, rate: float = 0.0, generator=None):
-    """float32 softmax over the last axis (dropout at ``rate``), then probs
-    (in v's dtype) @ v."""
-    weights = dropout(torch.softmax(logits, dim=-1), rate, generator)
+def _softmax_av(logits, v, out_dtype, rate: float = 0.0, generator=None,
+                dropout_part=None):
+    """float32 softmax over the last axis (dropout at ``rate``, its mask
+    cut by ``dropout_part``), then probs (in v's dtype) @ v."""
+    weights = dropout(torch.softmax(logits, dim=-1), rate, generator,
+                      dropout_part)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(v.dtype).float(),
                        v.float())
     return out.to(out_dtype)
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator]):
+def dropout(x, rate: float, generator: Optional[torch.Generator],
+            part: Optional[tuple] = None):
     """Inverted dropout (flax ``nn.Dropout``): keep with probability
     1 - rate, scale the kept values by 1 / (1 - rate). The mask is drawn
     from ``generator``, on x's device, for the global batch under
-    ``mesh.batch_shard`` (``mesh.global_rows``); rate 0 returns x."""
+    ``mesh.batch_shard`` (``mesh.global_rows``); ``part`` = (dim, rank,
+    size) draws it ``size`` times x's extent on ``dim`` (> 0) and keeps
+    part ``rank`` (a tensor-parallel rank's heads of every head's mask);
+    rate 0 returns x."""
     if rate <= 0.0:
         return x
+    shape = list(x.shape[1:])
+    cut = lambda mask: mask
+    if part is not None:
+        dim, rank, size = part
+        width = x.shape[dim]
+        shape[dim - 1] *= size
+        cut = lambda mask: mask.narrow(dim, rank * width, width)
     keep = mesh_lib.global_rows(
-        lambda n: torch.rand((n,) + x.shape[1:], generator=generator,
-                             device=x.device), x.shape[0]) >= rate
+        lambda n: cut(torch.rand([n] + shape, generator=generator,
+                                 device=x.device)), x.shape[0]) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -134,7 +147,8 @@ def dot_product_attention(q, k, v, *, mask: Optional[torch.Tensor] = None,
 
 def cached_attention(q, k_cache, v_cache, length: int, *,
                      probs_dropout_rate: float = 0.0,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None,
+                     dropout_part: Optional[tuple] = None
                      ) -> torch.Tensor:
     """Attention against a fixed-shape KV cache.
 
@@ -142,7 +156,8 @@ def cached_attention(q, k_cache, v_cache, length: int, *,
     cache entries visible to query row 0 (prior context + 1 for its own
     key). Row i sees positions j < length + i. ``probs_dropout_rate``
     applies inverted dropout to the f32 probabilities, drawn from
-    ``generator`` (training only).
+    ``generator`` (training only), cut by ``dropout_part`` (``dropout``'s
+    ``part``).
     """
     b, t, _, d = q.shape
     s = k_cache.shape[1]
@@ -152,7 +167,7 @@ def cached_attention(q, k_cache, v_cache, length: int, *,
     qi = torch.arange(t, device=q.device)[:, None]
     logits = logits.masked_fill(~(kj < qi + length), NEG_INF)
     return _softmax_av(logits, v_cache, q.dtype, probs_dropout_rate,
-                       generator)
+                       generator, dropout_part)
 
 
 def qk_int8_fallback(reason: str) -> None:

@@ -28,6 +28,19 @@ stream, so the two frameworks draw different rows; ``_kmeans`` and
 ``_refresh`` take their indices as arguments so a test can give both the
 same. With ``threshold_ema_dead_code <= 0`` no code can be dead and the
 refresh draws nothing.
+
+Under ``parallel/mesh.py:batch_shard`` (data parallelism) a rank holds its
+share of the global batch and the quantizer computes what one device
+computes on the whole of it, as the JAX package's global batch does under
+``jit``: the EMA's counts and sums are summed over the data group
+(``mesh.global_sum``), k-means runs on the gathered global rows
+(``mesh.global_cat``) and the refresh takes its rows from them, both with
+k indices in [0, N_global) drawn alike on every rank (the trainer seeds
+every rank's generator the same), and the perplexity counts the global
+batch's codes. The new buffers are broadcast from the group's first rank,
+so every rank ends a step with the same codebook bitwise. The commitment
+loss stays this rank's mean, whose mean over the group (DDP's and FSDP's
+gradient average, the trainer's logged mean) is the global one.
 """
 
 from __future__ import annotations
@@ -39,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from frankenstein_tpu_torch.config import VQVAEConfig
+from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 
 KMEANS_ITERS = 10     # Lloyd steps of the k-means initialisation
 
@@ -82,8 +96,10 @@ def _kmeans(samples: torch.Tensor, k: int, iters: int, cosine: bool,
 def _ema_update(cb: torch.Tensor, cs: torch.Tensor, samples: torch.Tensor,
                 assign: torch.Tensor, decay: float, cosine: bool):
     """One EMA step of codebook ``cb`` [K, D] and cluster sizes ``cs`` [K]
-    towards the mean (normalised, cosine) of the rows each code took."""
+    towards the mean (normalised, cosine) of the rows each code took, the
+    counts and sums the global batch's under ``mesh.batch_shard``."""
     counts, sums = _counts_sums(assign, samples, cb.shape[0])
+    counts, sums = mesh_lib.global_sum(counts), mesh_lib.global_sum(sums)
     new_cs = cs * decay + counts * (1 - decay)
     mean = sums / torch.clamp_min(counts[:, None], 1.0)
     upd = torch.where(counts[:, None] > 0, l2norm(mean) if cosine else mean,
@@ -105,9 +121,13 @@ def _refresh(cb: torch.Tensor, cs: torch.Tensor, samples: torch.Tensor,
 
 def codebook_perplexity(indices: torch.Tensor,
                         codebook_size: int) -> torch.Tensor:
-    """exp(entropy) of the codes' empirical use."""
-    avg = torch.bincount(indices.reshape(-1), minlength=codebook_size).to(
-        torch.float32) / indices.numel()
+    """exp(entropy) of the codes' empirical use (the global batch's under
+    ``mesh.batch_shard``)."""
+    shard = mesh_lib.current_batch_shard()
+    counts = mesh_lib.global_sum(torch.bincount(indices.reshape(-1),
+                                                minlength=codebook_size))
+    avg = counts.to(torch.float32) / (indices.numel()
+                                      * (shard.size if shard else 1))
     return torch.exp(-torch.sum(avg * torch.log(avg + 1e-10)))
 
 
@@ -143,7 +163,8 @@ class VectorQuantize(nn.Module):
         k, cosine = c.codebook_size, c.use_cosine_sim
         book = self._codebook
         flat = x.reshape(-1, c.D).to(torch.float32)
-        n = flat.shape[0]
+        shard = mesh_lib.current_batch_shard()
+        n = flat.shape[0] * (shard.size if shard else 1)   # global rows
 
         def draw():
             return torch.randint(0, n, (k,), generator=generator,
@@ -152,7 +173,8 @@ class VectorQuantize(nn.Module):
         with torch.no_grad():
             data = flat.detach()
             if train and not self.initted():
-                cb, cs = _kmeans(data, k, KMEANS_ITERS, cosine, draw())
+                cb, cs = _kmeans(mesh_lib.global_cat(data), k, KMEANS_ITERS,
+                                 cosine, draw())
             else:
                 cb, cs = book.embed.float(), book.cluster_size.float()
             indices = _assign(data, cb, cosine)
@@ -168,9 +190,11 @@ class VectorQuantize(nn.Module):
                 new_cb, new_cs = _ema_update(cb, cs, data, indices,
                                              c.ema_decay, cosine)
                 if c.threshold_ema_dead_code > 0:
-                    new_cb, new_cs = _refresh(new_cb, new_cs, data, draw(),
-                                              c.threshold_ema_dead_code,
-                                              cosine)
+                    new_cb, new_cs = _refresh(
+                        new_cb, new_cs, mesh_lib.global_cat(data), draw(),
+                        c.threshold_ema_dead_code, cosine)
+                if shard is not None:
+                    mesh_lib.replicate([new_cb, new_cs], shard.group)
                 book.embed.copy_(new_cb)
                 book.cluster_size.copy_(new_cs)
                 book.embed_avg.copy_(new_cb * new_cs[:, None])

@@ -19,7 +19,9 @@ XLA place the collectives. Here every rank is a process
   count (the CE over kept targets) divides by the global count, the MoE
   router takes its capacity and slots from the global token order, and a
   random draw (dropout, the MAE's mask) is made for the global batch and
-  sliced (``global_rows``). A rank's loss is then ``size`` times its share
+  sliced (``global_rows``); the VQ codebook's statistics are summed
+  (``global_sum``) and its draws index the gathered rows (``global_cat``).
+  A rank's loss is then ``size`` times its share
   of the global loss, so the mean over the data group that DDP and FSDP
   take of the gradients is the gradient of the global loss.
 - ``copy_to_group``, ``reduce_from_group`` and ``gather_from_group`` are
@@ -198,6 +200,20 @@ def global_max(t: torch.Tensor) -> torch.Tensor:
     t = t.clone()
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=shard.group)
     return t
+
+
+def global_cat(t: torch.Tensor) -> torch.Tensor:
+    """The rows of ``t`` from every rank of the current batch shard's group,
+    concatenated in rank order on axis 0 and detached (``t`` itself outside
+    ``batch_shard``): the global batch's rows, where each rank holds an
+    equal share."""
+    shard = _SHARD
+    t = t.detach()
+    if shard is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(shard.size)]
+    dist.all_gather(parts, t.contiguous(), group=shard.group)
+    return torch.cat(parts)
 
 
 def global_rows(draw, rows: int):

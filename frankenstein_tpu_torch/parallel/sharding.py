@@ -26,17 +26,28 @@ Execution is by hand, not by DTensor (the port's ``models/layers.py:
 linear`` reads ``layer.weight`` itself, which DTensor's module hooks would
 not see): ``shard_params`` slices each matched weight to this rank's part
 in place and tags its module with ``tp = (kind, group)``; ``linear``,
-``embedding`` and the LLaMA's head read the tag and add Megatron's
-collectives (``parallel/mesh.py``), and the LLaMA's blocks reshape heads
-from the local width. The GPT's fused c_attn [3E, E] would need its q, k
-and v split apart, so ``shard_params`` takes the LLaMA rules only, as the
-JAX package exercises TP on the LLaMA and FrankyLlama only.
+``embedding`` and the LMs' heads read the tag and add Megatron's
+collectives (``parallel/mesh.py``), and the blocks reshape heads from the
+local width. The GPT's fused c_attn [3E, E] is split as three column
+blocks: rank r keeps rows [r E/m, (r+1) E/m) of each of q, k and v (its
+bias likewise), so its output is [q_r | k_r | v_r]; JAX shards the fused
+kernel's columns contiguously, which computes the same math.
+
+The split goes by pairs, a column split feeding the row split after it
+(c_attn / attn c_proj, c_fc / mlp c_proj, q/k/v / o_proj, gate/up /
+down_proj): where the model group does not divide a member's dimension,
+or an attention's heads, the whole pair stays on every rank, as does an
+embedding or head table whose vocabulary does not divide. JAX's
+``shard_params`` replicates a parameter whose split dimension the model
+axis does not divide; a replicated pair computes the one-rank result,
+which is what JAX's placement computes.
 ``shard_params_fsdp`` is FSDP2's ``fully_shard`` over the data dimension,
 each parameter on ``fsdp_spec``'s dimension (``Shard(0)`` where the spec
 replicates: FSDP2 shards every parameter).
 
-Every sliced parameter carries ``shard_spec = (dim, group)``, read by
-``grad_norm``, ``full_state`` (full state dicts for checkpoints) and
+Every sliced parameter carries ``shard_spec = (dim, group)``, or ``(dim,
+group, blocks)`` for c_attn's three blocks, read by ``grad_norm``,
+``full_state`` (full state dicts for checkpoints) and
 ``local_optimizer_state`` (a full optimizer state back to this rank's).
 """
 
@@ -135,44 +146,101 @@ def shard_params_fsdp(model: nn.Module, mesh, min_size: int = 2 ** 16):
     return model
 
 
+def _head_dim(model: nn.Module, unit: str):
+    """The head width of an attention unit (a block's ``attn`` or
+    ``self_attn``, read from the block's config), or None for any other
+    unit."""
+    if not unit.endswith("attn") or "." not in unit:
+        return None
+    cfg = getattr(model.get_submodule(unit.rsplit(".", 1)[0]), "cfg", None)
+    return getattr(cfg, "head_dim", None)
+
+
+def split_plan(model: nn.Module, size: int, rules=LLAMA_TP_RULES) -> dict:
+    """{parameter name: (kind, dim, blocks)} of the parameters
+    ``shard_params`` splits over a model group of ``size`` ranks. A layer
+    matched by a column or row rule splits with the other matched layers
+    of its parent (a block's attention or MLP) or not at all: all of them
+    must divide by ``size`` on their split dimension, a fused c_attn in
+    each of its three blocks, an attention projection in whole heads. A
+    vocab-split table stands alone."""
+    matched = {}
+    for mod_name, mod in model.named_modules():
+        for pname, p in mod._parameters.items():
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            kind = rule_for(name, rules)
+            if p is not None and kind is not None:
+                matched[name] = (mod_name, kind, p)
+    units = {}
+    for name, (mod_name, kind, _) in matched.items():
+        unit = (mod_name.rsplit(".", 1)[0] if kind in (COL, ROW)
+                and "." in mod_name else name)
+        units.setdefault(unit, []).append(name)
+    plan = {}
+    for unit, names in units.items():
+        head = _head_dim(model, unit) or 1
+        parts = {}
+        for name in names:
+            mod_name, kind, p = matched[name]
+            blocks = 3 if mod_name.endswith("c_attn") else 1
+            parts[name] = (kind, _SPLIT_DIM[kind], blocks)
+            if p.shape[_SPLIT_DIM[kind]] % (size * blocks * head):
+                break
+        else:
+            plan.update(parts)
+    return plan
+
+
 def shard_params(model: nn.Module, group, rules=LLAMA_TP_RULES) -> int:
-    """Tensor (or expert) parallelism over ``group``: every parameter a
-    rule matches keeps this rank's part in place, and its module is tagged
-    ``tp = (kind, group)``; a tied weight stays tied. ``MOE_EP_RULES`` shard the experts
-    (``models/moe.py:shard_experts``). A dimension the group does not
-    divide raises, as does a GPT's fused c_attn. Returns the number of
-    parameters split."""
+    """Tensor (or expert) parallelism over ``group``: every parameter of
+    ``split_plan`` keeps this rank's part in place (a column split's bias
+    likewise), and its module is tagged ``tp = (kind, group)``; the rest,
+    an indivisible pair included, stay whole on every rank. A tied weight
+    stays tied. ``MOE_EP_RULES`` shard the experts
+    (``models/moe.py:shard_experts``). Returns the number of parameters
+    split."""
     from frankenstein_tpu_torch.models.moe import shard_experts
     m, r = mesh_lib.group_size(group), mesh_lib.group_rank(group)
     if rules is MOE_EP_RULES:
         return shard_experts(model, group)
-    if rules is not LLAMA_TP_RULES:
-        raise NotImplementedError(
-            "shard_params runs the LLaMA's rules (the GPT's fused c_attn "
-            "would need its q, k and v split apart)")
     if m == 1:
         return 0
-    done = {}
-    for mod_name, mod in model.named_modules():
+    done, weights = {}, set()
+    for name, (kind, dim, blocks) in split_plan(model, m, rules).items():
+        mod_name, pname = name.rsplit(".", 1) if "." in name else ("", name)
+        mod = model.get_submodule(mod_name)
+        p = mod._parameters[pname]
+        weights.add(id(p))
+        if id(p) not in done:
+            done[id(p)] = _part(p, dim, m, r, group, blocks)
+        if kind == COL and getattr(mod, "bias", None) is not None:
+            done[id(mod.bias)] = _part(mod.bias, 0, m, r, group, blocks)
+        mod.tp = (kind, group)
+    for mod in model.modules():       # every holder of a split tensor
         for pname, p in list(mod._parameters.items()):
-            name = f"{mod_name}.{pname}" if mod_name else pname
-            kind = rule_for(name, rules)
-            if p is None or kind is None:
-                continue
-            dim = _SPLIT_DIM[kind]
-            if id(p) not in done:
-                if p.shape[dim] % m:
-                    raise ValueError(f"{name} {tuple(p.shape)}: dimension "
-                                     f"{dim} does not split over {m} ranks")
-                done[id(p)] = _part(p, dim, m, r, group)
-            mod._parameters[pname] = done[id(p)]
-            mod.tp = (kind, group)
-    return len(done)
+            if p is not None and id(p) in done:
+                mod._parameters[pname] = done[id(p)]
+    return len(weights)
 
 
-def _part(p: torch.Tensor, dim: int, m: int, r: int, group) -> nn.Parameter:
-    part = nn.Parameter(p.detach().chunk(m, dim=dim)[r].clone())
-    part.shard_spec = (dim, group)
+def _cut(t: torch.Tensor, dim: int, m: int, r: int,
+         blocks: int = 1) -> torch.Tensor:
+    """Rank r's part of ``t``: its m-th of each of ``blocks`` equal blocks
+    along ``dim``."""
+    return torch.cat([b.chunk(m, dim=dim)[r]
+                      for b in t.chunk(blocks, dim=dim)], dim=dim)
+
+
+def _join(parts: list, dim: int, blocks: int = 1) -> torch.Tensor:
+    """The whole tensor from every rank's ``_cut`` part, in rank order."""
+    return torch.cat([torch.cat([p.chunk(blocks, dim=dim)[b] for p in parts],
+                                dim=dim) for b in range(blocks)], dim=dim)
+
+
+def _part(p: torch.Tensor, dim: int, m: int, r: int, group,
+          blocks: int = 1) -> nn.Parameter:
+    part = nn.Parameter(_cut(p.detach(), dim, m, r, blocks).clone())
+    part.shard_spec = (dim, group) if blocks == 1 else (dim, group, blocks)
     return part
 
 
@@ -217,11 +285,11 @@ def _full(t: torch.Tensor, spec) -> torch.Tensor:
     if hasattr(t, "full_tensor"):
         t = t.full_tensor()
     if spec is not None and mesh_lib.group_size(spec[1]) > 1:
-        dim, group = spec
+        dim, group = spec[:2]
         parts = [torch.empty_like(t) for _ in range(
             mesh_lib.group_size(group))]
         dist.all_gather(parts, t.contiguous(), group=group)
-        t = torch.cat(parts, dim=dim)
+        t = _join(parts, dim, *spec[2:])
     return t
 
 
@@ -263,8 +331,8 @@ def local_optimizer_state(full: dict, optimizer) -> dict:
         for k, v in entry.items():
             if torch.is_tensor(v) and v.ndim > 0:
                 if spec is not None:
-                    m = mesh_lib.group_size(spec[1])
-                    v = v.chunk(m, dim=spec[0])[mesh_lib.group_rank(spec[1])]
+                    v = _cut(v, spec[0], mesh_lib.group_size(spec[1]),
+                             mesh_lib.group_rank(spec[1]), *spec[2:])
                 if hasattr(p, "device_mesh"):
                     from torch.distributed.tensor import distribute_tensor
                     v = distribute_tensor(v.to(_local(p).device),

@@ -39,8 +39,9 @@ Over a process group (torchrun, or a test's own group), ``mesh_shape``
 (``setup_parallel``): every rank reads the same global batch and keeps its
 rows of the data dimension (``parallel/mesh.py:shard_batch``, each
 microbatch split over the group as the JAX global microbatch is); the
-forward runs under ``mesh.batch_shard``, so the loss, the MoE routing and
-the random draws are the global batch's, and the gradients are averaged
+forward runs under ``mesh.batch_shard``, so the loss, the MoE routing,
+SoundStream's codebook statistics and the random draws are the global
+batch's, and the gradients are averaged
 over the data group by DDP, or reduce-scattered by FSDP2 (``fully_shard``
 over the data dimension, each parameter on ``sharding.fsdp_spec``'s
 dimension). The model dimension shards the experts of an MoE model
@@ -260,7 +261,6 @@ def setup_parallel(model: nn.Module, config: TrainConfig,
     world size raises ``ValueError``; without a process group so does any
     shape of more than one device."""
     from frankenstein_tpu_torch.models.moe import shard_experts
-    from frankenstein_tpu_torch.models.vq_brain import SoundStream
 
     mesh = mesh_lib.make_mesh(config.mesh_shape, device.type)
     if mesh is None:
@@ -269,11 +269,6 @@ def setup_parallel(model: nn.Module, config: TrainConfig,
         return None
     data = mesh_lib.group_of(mesh, mesh_lib.DATA_AXIS)
     model_group = mesh_lib.group_of(mesh, mesh_lib.MODEL_AXIS)
-    if isinstance(model, SoundStream) and mesh_lib.group_size(data) > 1:
-        raise NotImplementedError(
-            "data parallelism over a SoundStream: its EMA codebook is "
-            "updated from the batch inside the forward, and summing those "
-            "statistics over the data group is not written")
     shard_experts(model, model_group)
     mesh_lib.replicate([p for p in model.parameters()
                         if not hasattr(p, "shard_spec")])

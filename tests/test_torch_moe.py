@@ -123,3 +123,100 @@ def test_bf16_compute_keeps_the_stream_bf16():
     y, aux = tm(torch.randn(2, 5, D))
     assert y.dtype == torch.bfloat16 and aux.dtype == torch.float32
     assert torch.isfinite(y.float()).all()
+
+
+PINNED_TOL = 3e-2      # bf16 logits vs f32 with every route pinned,
+                       # relative to max |f32|: a dense bf16 GPT's class
+                       # (the smoke reads 1.5e-2 on the flagship's)
+EXPERT_STD = 0.2       # expert weights large enough that the MoE output
+                       # moves the logits and bf16 flips some routes
+UNPINNED_TOL = 1e-1    # the unpinned limit's floor (chip_smoke.SLICE_TOL)
+WITNESS_FACTOR = 2     # a run may reach this times bf16's own error
+FAULT = 1.05           # one expert's output 5% too large
+
+
+def _moe_gpt(dtype=None):
+    from frankenstein_tpu_torch.config import GPTConfig
+    from frankenstein_tpu_torch.models.gpt2 import GPT, init_gpt_
+    gpt = GPT(GPTConfig(block_size=32, vocab_size=96, n_layer=2, n_head=2,
+                        n_embd=32, moe_experts=4, moe_k=2), dtype=dtype)
+    init_gpt_(gpt, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for block in gpt.transformer["h"]:
+            for w in (block.moe.w1, block.moe.w2, block.moe.w3):
+                w.normal_(0.0, EXPERT_STD, generator=gen)
+    return gpt
+
+
+def _routes(model, run):
+    """(run()'s result, each MoE layer call's top-k experts [N, K])."""
+    routes = []
+
+    def grab(mod, args):
+        x = args[0].reshape(-1, mod.dim).to(mod.compute_dtype
+                                            or mod.w1.dtype)
+        probs = (x.float() @ mod.wg.float()).softmax(-1)
+        routes.append(stable_topk(probs, mod.k)[1])
+
+    hooks = [m.register_forward_pre_hook(grab) for m in model.modules()
+             if isinstance(m, MoESwiGLU)]
+    try:
+        return run(), routes
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def _pinned(monkeypatch, routes):
+    """Every MoE call takes the next recorded expert choice (its gates
+    the probabilities of those experts), as the smoke's pinned check
+    does."""
+    from frankenstein_tpu_torch.models import moe
+    todo = list(routes)
+
+    def take(probs, k):
+        idx = todo.pop(0).to(probs.device)
+        return probs.gather(-1, idx), idx
+
+    monkeypatch.setattr(moe, "stable_topk", take)
+    return todo
+
+
+def test_pinned_routes_hold_bf16_logits_to_the_dense_class(monkeypatch):
+    """The MoE GPT in bf16 compute against its f32 twin. Unpinned, bf16
+    flips near-tied routes, so the logits are held only to the larger of
+    0.1 and twice bf16's own error; with every route pinned to the twin's
+    choice the bf16 logits are held to a dense bf16 GPT's class. A fault
+    of 5% in one expert's output passes the unpinned limit and fails the
+    pinned one (twice the correct pinned error), as in the smoke's phase
+    23 (c)."""
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(rng.integers(0, 96, (2, 24)))
+    twin = _moe_gpt()
+    with torch.no_grad():
+        want, routes = _routes(twin, lambda: twin(idx, targets=idx)[1])
+
+    def err(model, pinned: bool):
+        with monkeypatch.context() as m, torch.no_grad():
+            left = _pinned(m, routes) if pinned else None
+            got = model(idx, targets=idx)[1]
+            assert not left
+        return float((got - want).abs().max() / want.abs().max())
+
+    bf16 = _moe_gpt(torch.bfloat16)
+    bf16.load_state_dict(twin.state_dict())
+    faulty = _moe_gpt(torch.bfloat16)
+    faulty.load_state_dict(twin.state_dict())
+    with torch.no_grad():
+        for block in faulty.transformer["h"]:
+            block.moe.w2[0] *= FAULT
+    with torch.no_grad():
+        flipped = _routes(bf16, lambda: bf16(idx, targets=idx))[1]
+    assert any(not torch.equal(a.sort(-1).values, b.sort(-1).values)
+               for a, b in zip(flipped, routes)), "bf16 flipped no route"
+    unpinned, pinned = err(bf16, False), err(bf16, True)
+    assert pinned <= PINNED_TOL and pinned < unpinned, (pinned, unpinned)
+    fault_unpinned, fault_pinned = err(faulty, False), err(faulty, True)
+    assert fault_unpinned <= max(UNPINNED_TOL, WITNESS_FACTOR * unpinned)
+    assert fault_pinned > WITNESS_FACTOR * pinned, (fault_pinned, pinned)

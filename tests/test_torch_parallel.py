@@ -22,6 +22,13 @@ TRAIN = {"loss": 1e-5, "params": 5e-5, "resume": 0.0}
 TRAIN_CHECKS = [f"{run}/{key}" for run in ("dp", "fsdp", "moe_dp",
                                            "moe_dp_ep", "mae")
                 for key in TRAIN]
+# the VQ-VAE over data groups of 4 and 2 ranks and with 2 microbatches:
+# relative errors (f32, only reassociation apart) and flags
+VQ_TOL = {"loss": 1e-5, "perplexity": 1e-5, "commit_loss": 1e-5,
+          "params": 1e-5, "buffers": 1e-5, "same_on_ranks": None,
+          "refreshed": None}
+VQ_CHECKS = [f"{run}/{key}" for run in ("vq_dp4", "vq_dp2", "vq_dp4_accum2")
+             for key in VQ_TOL]
 EXPERT_TOL = {"ep/y": 1e-5, "ep/aux": 1e-6, "ep/grads": 1e-5,
               "ep/gpt_loss": 1e-6, "ep/shard_shape": None}
 LAYOUT_TOL = {
@@ -35,6 +42,14 @@ LAYOUT_TOL = {
     "seq_parallel/out": 2e-5, "seq_parallel/grads": 3e-5,
     "serve/greedy": None, "serve/beam": None, "serve/int8_kv": None,
     "serve/strings": None,
+    **{f"{run}/{k}": t for run in (
+        "gpt_tp/tp2", "gpt_tp/tp2_dp2", "gpt_tp/tp2_dropout",
+        "gpt_tp/tp2_dp2_dropout", "gpt_tp/franky_tp2",
+        "gpt_tp/franky_tp2_dp2_dropout", "gpt_tp/indivisible",
+        "llama_tp/indivisible")
+       for k, t in (("loss", 1e-5), ("logits", 1e-5), ("grads", 1e-5),
+                    ("step", 5e-5), ("split", None))},
+    "gpt_tp/serving_refused": None, "llama_tp/serving_refused": None,
 }
 SLAB = 4
 
@@ -90,6 +105,18 @@ def test_train_step_over_four_ranks_matches_one(train_results, check):
     _hold(train_results, check, TRAIN[check.split("/")[1]])
 
 
+@pytest.mark.parametrize("check", VQ_CHECKS)
+def test_vq_vae_data_parallel_matches_one_rank(train_results, check):
+    """A fresh SoundStream trained 3 steps (k-means on step 1, dead codes
+    refreshed) over a data group of 4 ranks, of 2 (mesh (2, 2)) and of 4
+    with 2 microbatches, against one rank on the same global batch (one
+    window padded): each step's loss, logged perplexity and commit_loss,
+    the parameters and the four codebook buffers within 1e-5 relative on
+    every rank, and every rank's buffers bitwise rank 0's. No assignment
+    near-tie showed at this size, so every code is compared."""
+    _hold(train_results, check, VQ_TOL[check.split("/")[1]])
+
+
 @pytest.mark.parametrize("check", sorted(EXPERT_TOL))
 def test_expert_parallel_matches_unsharded(expert_results, check):
     """MoESwiGLU with its experts over 2 and 4 ranks: y, aux and every
@@ -99,9 +126,13 @@ def test_expert_parallel_matches_unsharded(expert_results, check):
 
 @pytest.mark.parametrize("check", sorted(LAYOUT_TOL))
 def test_layouts_over_four_ranks(layout_results, check):
-    """TP x DP (LLaMA, FrankyLlama), GPipe and DP x PP, ring attention
-    (full, causal, slab) with the seq_parallel encoder, and DP serving
-    (greedy, beams, int8 KV, the submission strings)."""
+    """TP x DP (LLaMA, FrankyLlama), GPT-2 TP (a GPT and a Franky, TP 2
+    and TP 2 x DP 2, dropout 0 and 0.1: loss, logits and gradients within
+    1e-5 rel, one AdamW step's parameters within 5e-5; a GPT and a LLaMA
+    whose heads and vocabulary do not split kept whole where JAX
+    replicates; serving a split GPT or LLaMA refused), GPipe and DP x PP,
+    ring attention (full, causal, slab) with the seq_parallel encoder,
+    and DP serving (greedy, beams, int8 KV, the submission strings)."""
     _hold(layout_results, check, LAYOUT_TOL[check])
 
 
@@ -122,12 +153,31 @@ def test_layouts_over_four_ranks(layout_results, check):
      shard_lib.GPT2_TP_RULES, ("model", None)),
     ("transformer.h.0.mlp.c_proj.weight", (24, 96),
      shard_lib.GPT2_TP_RULES, (None, "model")),
+    # whole models over a model group of ``shape`` ranks that does not
+    # divide some dimensions: ``want`` the weights the port keeps whole
+    ("gpt:n_head=3,n_embd=30,vocab_size=97", 4, shard_lib.GPT2_TP_RULES,
+     {"attn.c_attn", "attn.c_proj", "wte"}),
+    ("gpt:n_head=4,n_embd=32,vocab_size=98", 4, shard_lib.GPT2_TP_RULES,
+     {"wte"}),
+    ("llama:vocab_size=128", 3, shard_lib.LLAMA_TP_RULES,
+     {"q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+      "down_proj", "embed_tokens", "lm_head"}),
+    ("llama:n_kv_heads=4,hidden_dim=62,vocab_size=130", 4,
+     shard_lib.LLAMA_TP_RULES,
+     {"gate_proj", "up_proj", "down_proj", "embed_tokens", "lm_head"}),
 ])
 def test_spec_for_matches_the_jax_rules(name, shape, rules, want):
     """The port's rules place each tensor where the JAX rules place its
     counterpart (the port's [out, in] weight is flax's kernel transposed,
-    and its blocks are a list, not an [L] scan)."""
+    and its blocks are a list, not an [L] scan). For a whole model over a
+    group that does not divide some of its dimensions, every weight the
+    port keeps whole is one JAX's ``shard_params`` places as ``P()`` (its
+    ``spec_for`` and divisibility guard), and every weight it splits JAX
+    splits on the same axis."""
     from frankenstein_tpu.parallel import sharding as jshard
+    if ":" in name:
+        _whole_model_placement(name, shape, rules, want)
+        return
     assert shard_lib.spec_for(name, shape, rules) == want
     jrules = {id(shard_lib.MOE_EP_RULES): jshard.MOE_EP_RULES,
               id(shard_lib.LLAMA_TP_RULES): jshard.LLAMA_TP_RULES,
@@ -156,6 +206,70 @@ def test_spec_for_matches_the_jax_rules(name, shape, rules, want):
         assert jsplit == [1 - split[0]]
     else:
         assert jsplit == split
+
+
+def _jax_name(name: str) -> str:
+    """The JAX package's parameter path of a port weight matched by a TP
+    rule (the JAX blocks are one scanned ``h`` / ``layers`` stack)."""
+    parts = name.split(".")
+    if parts[-2] in ("wte", "embed_tokens", "lm_head"):
+        return {"wte": "wte", "embed_tokens": "embed",
+                "lm_head": "lm_head"}[parts[-2]]
+    layer = parts[-2] if parts[-3] != "mlp" or parts[-2] != "c_proj" \
+        else "mlp_c_proj"
+    return f"{'h' if name.startswith('transformer') else 'layers'}/" \
+           f"{layer}/kernel"
+
+
+def _whole_model_placement(name, size, rules, want):
+    from jax.sharding import Mesh
+
+    from frankenstein_tpu.parallel import sharding as jshard
+    from frankenstein_tpu_torch import config as tconfig
+    from frankenstein_tpu_torch.models.gpt2 import GPT
+    from frankenstein_tpu_torch.models.llama import Llama
+    family, _, spec = name.partition(":")
+    kw = {k: int(v) for k, v in (a.split("=") for a in spec.split(","))}
+    model = (GPT(tconfig.GPTConfig(block_size=16, n_layer=2, **kw))
+             if family == "gpt" else
+             Llama(tconfig.tiny_llama_config(**kw)))
+    plan = shard_lib.split_plan(model, size, rules)
+    n_layer = 2
+    tree = {}
+    matched = {}
+    for n, p in model.named_parameters(remove_duplicate=False):
+        if shard_lib.rule_for(n, rules) is None:
+            continue
+        jname = _jax_name(n)
+        shape = (tuple(p.shape) if "/" not in jname
+                 else (n_layer,) + tuple(reversed(p.shape)))
+        node = tree
+        *path, leaf = jname.split("/")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = np.zeros(shape, np.float32)
+        matched[n] = jname
+    mesh = Mesh(np.asarray(jax.devices()[:size]).reshape(1, size),
+                ("data", "model"))
+    jrules = (jshard.GPT2_TP_RULES if rules is shard_lib.GPT2_TP_RULES
+              else jshard.LLAMA_TP_RULES)
+    placed = jshard.shard_params(mesh, tree, jrules)
+    jspec = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(placed)[0]:
+        jspec["/".join(k.key for k in path)] = tuple(leaf.sharding.spec)
+    whole = {n for n in matched if n not in plan}
+    # a weight by its layer's name, a GPT's with its parent (two c_proj)
+    label = lambda n: ".".join(n.split(".")[-3:-1]) if n.split(".")[-2] in (
+        "c_attn", "c_proj", "c_fc") else n.split(".")[-2]
+    assert {label(n) for n in whole} == want, sorted(whole)
+    for n, jname in matched.items():
+        split = [i for i, a in enumerate(jspec[jname]) if a == "model"]
+        if n in whole:
+            assert not split, (n, jname, jspec[jname])
+        else:
+            dim = plan[n][1]
+            assert split == ([dim] if "/" not in jname
+                             else [1 + (1 - dim)]), (n, jspec[jname])
 
 
 @pytest.mark.parametrize("shape,size,min_size", [

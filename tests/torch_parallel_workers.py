@@ -118,10 +118,94 @@ def _franky(**kw):
     return init_franky_(Franky(tiny_franky_cfg(**kw)), seed=0)
 
 
+VQ_BUFFERS = ("embed", "cluster_size", "embed_avg", "initted")
+VQ_AUX = ("perplexity", "commit_loss")
+
+
+def _vq_model():
+    """A tiny SoundStream (8 windows of 16 x 6 are 32 latent rows for 16
+    codes, so k-means leaves codes under the dead-code threshold)."""
+    from frankenstein_tpu_torch.models.vq_brain import SoundStream
+    from frankenstein_tpu_torch.models.weights import init_soundstream_
+    cfg = tconfig.VQVAEConfig(n_electrodes=6, C=8, D=4, codebook_size=16,
+                              threshold_ema_dead_code=2.0)
+    return init_soundstream_(SoundStream(cfg), seed=0)
+
+
+def _vq_batch(b: int = 8, t: int = 16):
+    """(x [b, t, 6] with one window's last 4 timesteps padding, unused
+    targets, dates)."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((b, t, 6)).astype(np.float32)
+    x[1, t - 4:] = 0.0
+    return (torch.from_numpy(x), torch.zeros(b, 8, dtype=torch.long),
+            torch.zeros(b, dtype=torch.long))
+
+
+def _vq_run(model, tcfg, batch, parallel: bool, steps: int = 3) -> list:
+    """Each step's loss, logged aux, parameters and codebook buffers."""
+    from frankenstein_tpu_torch.train import trainer
+    par = trainer.setup_parallel(model, tcfg, CPU) if parallel else None
+    opt, sched = trainer.make_optimizer(tcfg, model)
+    state = trainer.TrainState(model, opt, parallel=par)
+    gen = torch.Generator(device=CPU)
+    book = model.quantizer._codebook
+    out = []
+    for _ in range(steps):
+        loss, aux = trainer.train_step(state, batch, tcfg, sched, gen)
+        out.append({"loss": float(loss),
+                    **{k: float(aux[k]) for k in VQ_AUX},
+                    "params": {n: p.detach().clone()
+                               for n, p in model.named_parameters()},
+                    "buffers": {n: getattr(book, n).clone()
+                                for n in VQ_BUFFERS}})
+    return out
+
+
+def _vq_parity(name: str, **kw) -> dict:
+    """Three steps of a fresh SoundStream over the mesh against one rank
+    on the same global batch (k-means on step 1, then the EMA and the
+    refresh): the worst relative error of each step's loss, logged aux,
+    parameters and four codebook buffers over every rank; whether every
+    rank holds rank 0's buffers bitwise; whether the reference refreshed a
+    dead code (size exactly 1)."""
+    tcfg = _train_cfg(**kw)
+    batch = _vq_batch()
+    model = _vq_model()
+    ref = copy.deepcopy(model)
+    want = _vq_run(ref, tcfg.replace(mesh_shape=None), batch,
+                   parallel=False)
+    got = _vq_run(model, tcfg, batch, parallel=True)
+    errs = {key: 0.0 for key in ("loss", *VQ_AUX, "params", "buffers")}
+    for g, w in zip(got, want):
+        for key in ("loss", *VQ_AUX):
+            errs[key] = max(errs[key], abs(g[key] - w[key]) / abs(w[key]))
+        for key in ("params", "buffers"):
+            errs[key] = max([errs[key]] + [_rel(g[key][n], w[key][n])
+                                           for n in w[key]])
+    worst = torch.tensor([errs[k] for k in sorted(errs)], dtype=torch.float64)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    same = torch.ones(())
+    for n in VQ_BUFFERS:
+        mine = getattr(model.quantizer._codebook, n)
+        first = mine.clone()
+        dist.broadcast(first, src=0)
+        same *= float(torch.equal(mine, first))
+    dist.all_reduce(same, op=dist.ReduceOp.MIN)
+    refreshed = sum(int((w["buffers"]["cluster_size"] == 1.0).sum())
+                    for w in want)
+    out = {f"{name}/{k}": float(v) for k, v in zip(sorted(errs), worst)}
+    out[f"{name}/same_on_ranks"] = float(same)
+    out[f"{name}/refreshed"] = float(refreshed > 0 and all(
+        float(w["buffers"]["initted"]) == 1.0 for w in want))
+    return out
+
+
 def check_train_steps(world: int) -> dict:
     """DP (dropout on, 2 microbatches), FSDP, an MoE GPT whose capacity
-    drops tokens (its experts over "model" where the mesh has one), and the
-    MAE (its mask drawn for the global batch)."""
+    drops tokens (its experts over "model" where the mesh has one), the
+    MAE (its mask drawn for the global batch), and the VQ-VAE over a data
+    group of every rank and of half of them, and with 2 microbatches."""
     from frankenstein_tpu_torch.models.brainformer import MAE
     from frankenstein_tpu_torch.models.weights import init_mae_
     batch = tiny_batch(8)
@@ -141,6 +225,10 @@ def check_train_steps(world: int) -> dict:
     enc = tiny_franky_cfg().brain.encoder
     out.update(_step_parity("mae", lambda: init_mae_(MAE(enc), seed=0),
                             batch, mesh_shape=(world, 1)))
+    out.update(_vq_parity(f"vq_dp{world}", mesh_shape=(world, 1)))
+    out.update(_vq_parity(f"vq_dp{world // 2}", mesh_shape=(world // 2, 2)))
+    out.update(_vq_parity(f"vq_dp{world}_accum2", mesh_shape=(world, 1),
+                          grad_accum=2))
     return out
 
 
@@ -190,7 +278,8 @@ def _tp_grads(model, batch_fn, mesh) -> tuple:
     """(loss, {name: full gradient}) of ``model`` with its LLaMA split over
     the mesh's "model" dimension and the batch over "data"."""
     data = mesh_lib.group_of(mesh, "data")
-    shard_lib.shard_params(model, mesh_lib.group_of(mesh, "model"))
+    shard_lib.shard_params(model, mesh_lib.group_of(mesh, "model"),
+                           shard_lib.LLAMA_TP_RULES)
     with mesh_lib.batch_shard(data):
         loss = batch_fn(model, mesh_lib.shard_batch)
     loss.backward()
@@ -205,6 +294,195 @@ def _tp_grads(model, batch_fn, mesh) -> tuple:
     loss_t = loss.detach().clone()
     dist.all_reduce(loss_t, group=data)
     return float(loss_t) / d, grads
+
+
+# the AdamW step after the TP forward and backward: its eps at 1e-3, so
+# an element whose gradient is rounding noise (c_attn's key bias, zero in
+# exact arithmetic) moves by noise, where eps 1e-8 would move it by
+# +-lr on either side
+TP_ADAMW = dict(lr=1e-3, eps=1e-3)
+
+
+def _tp_step(name: str, make, run, mesh, rules, split_data: bool,
+             want_split: int) -> dict:
+    """One rank's loss, logits, gradients and one AdamW step against the
+    same with ``make()``'s model split over the mesh's "model" dimension
+    by ``rules`` (and with ``split_data`` the batch over "data", the
+    gradients averaged over it): the worst relative error of the loss,
+    the logits and the gradients put back together (a tied ``wte``'s
+    from both its uses), the largest difference of the stepped
+    parameters (as ``_step_parity`` measures them), and whether
+    ``want_split`` weights were split. ``run(model, shard)`` -> (loss,
+    logits), ``shard`` cutting a tuple of batch tensors to this rank's
+    rows."""
+    model = make()
+    ref = copy.deepcopy(model)
+    want, want_logits = run(ref, lambda batch: batch)
+    want.backward()
+    ref_grads = {n: p.grad.clone() for n, p in ref.named_parameters()}
+    torch.optim.AdamW(ref.parameters(), **TP_ADAMW).step()
+    data = mesh_lib.group_of(mesh, "data") if split_data else None
+    split = shard_lib.shard_params(model, mesh_lib.group_of(mesh, "model"),
+                                   rules)
+    with mesh_lib.batch_shard(data):
+        loss, logits = run(model,
+                           lambda batch: mesh_lib.shard_batch(batch, data))
+    loss.backward()
+    d = mesh_lib.group_size(data)
+    specs = {n: getattr(p, "shard_spec", None)
+             for n, p in model.named_parameters()}
+    for p in model.parameters():
+        if d > 1:
+            dist.all_reduce(p.grad, group=data)
+            p.grad /= d
+    grads = {n: shard_lib._full(p.grad, specs[n])
+             for n, p in model.named_parameters()}
+    torch.optim.AdamW(model.parameters(), **TP_ADAMW).step()
+    params = {n: shard_lib._full(p, specs[n])
+              for n, p in model.named_parameters()}
+    loss_t = loss.detach().clone()
+    if d > 1:
+        dist.all_reduce(loss_t, group=data)
+        parts = [torch.empty_like(logits) for _ in range(d)]
+        dist.all_gather(parts, logits.detach().contiguous(), group=data)
+        logits = torch.cat(parts)
+    return {f"{name}/loss": abs(float(loss_t) / d - float(want))
+            / abs(float(want)),
+            f"{name}/logits": _rel(logits, want_logits),
+            f"{name}/grads": max(_rel(grads[n], g)
+                                 for n, g in ref_grads.items()),
+            f"{name}/step": max(_err(params[n], p)
+                                for n, p in ref.named_parameters()),
+            f"{name}/split": float(split == want_split)}
+
+
+def _refused(calls) -> float:
+    """1.0 when every call raises NotImplementedError naming tensor
+    parallelism."""
+    for call in calls:
+        try:
+            call()
+        except NotImplementedError as e:
+            if "tensor-parallel" not in str(e):
+                return 0.0
+        else:
+            return 0.0
+    return 1.0
+
+
+def check_gpt_tensor_parallel(world: int) -> dict:
+    """A GPT and a Franky split by ``GPT2_TP_RULES``: TP 2 (each model
+    group of 2 ranks on the whole batch) and TP 2 x DP 2, dropout 0 and
+    0.1, against one rank; a GPT whose heads and vocabulary do not split
+    over 2 and a LLaMA whose KV heads and vocabulary do not (their pairs
+    and tables whole, matching one rank); the serving paths of a split GPT
+    and LLaMA refused."""
+    from frankenstein_tpu_torch.decode import sampling
+    from frankenstein_tpu_torch.models.gpt2 import GPT, init_gpt_
+    from frankenstein_tpu_torch.models.llama import Llama
+    mesh = mesh_lib.make_mesh((world // 2, 2), "cpu")
+    rng = np.random.default_rng(6)
+    out = {}
+
+    def gpt(**kw):
+        cfg = tconfig.GPTConfig(**{**dict(block_size=32, vocab_size=96,
+                                          n_layer=2, n_head=4, n_embd=32),
+                                   **kw})
+        model = GPT(cfg)
+        init_gpt_(model, torch.Generator().manual_seed(0))
+        with torch.no_grad():      # nonzero biases and norms
+            for n, p in model.named_parameters():
+                if p.ndim == 1:
+                    p.normal_(1.0 if n.endswith("weight") else 0.0, 0.1)
+        return model
+
+    def gpt_run(vocab):
+        idx = torch.from_numpy(rng.integers(0, vocab, (4, 8)))
+        tgt = idx.clone()
+        tgt[::2, -3:] = tconfig.IGNORE_INDEX
+
+        def run(m, shard):
+            i, t = shard((idx, tgt))
+            gen = torch.Generator().manual_seed(3)
+            return m(i, targets=t, train=True, generator=gen)
+        return run
+
+    rules = shard_lib.GPT2_TP_RULES
+    for rate in (0.0, 0.1):
+        tag = "_dropout" if rate else ""
+        run = gpt_run(96)
+        # per layer c_attn, attn c_proj, c_fc, mlp c_proj; and wte
+        out.update(_tp_step(f"gpt_tp/tp2{tag}", lambda: gpt(dropout=rate),
+                            run, mesh, rules, split_data=False,
+                            want_split=9))
+        out.update(_tp_step(f"gpt_tp/tp2_dp2{tag}",
+                            lambda: gpt(dropout=rate), run, mesh, rules,
+                            split_data=True, want_split=9))
+    x, y, _ = tiny_batch(4, seed=8)
+
+    def franky_run(m, shard):
+        xs, ys = shard((x, y))
+        gen = torch.Generator().manual_seed(4)
+        return m(xs, ys, train=True, generator=gen)
+
+    def franky(**kw):
+        model = _franky(**kw)
+        with torch.no_grad():      # zero queries make the Perceiver's
+            model.brain_model.learnable_queries.normal_(   # q/k grads noise
+                generator=torch.Generator().manual_seed(5))
+        return model
+
+    out.update(_tp_step("gpt_tp/franky_tp2", franky, franky_run, mesh,
+                        rules, split_data=False, want_split=9))
+    out.update(_tp_step("gpt_tp/franky_tp2_dp2_dropout",
+                        lambda: franky(dropout=0.1), franky_run, mesh,
+                        rules, split_data=True, want_split=9))
+    # 3 heads and 97 tokens do not split over 2: c_attn / c_proj and wte
+    # stay whole, c_fc / mlp c_proj split (4 weights)
+    out.update(_tp_step("gpt_tp/indivisible",
+                        lambda: gpt(n_head=3, n_embd=24, vocab_size=97),
+                        gpt_run(97), mesh, rules, split_data=True,
+                        want_split=4))
+
+    def llama():
+        torch.manual_seed(2)
+        lm = Llama(tconfig.tiny_llama_config(n_kv_heads=1, vocab_size=129))
+        with torch.no_grad():
+            for p in lm.parameters():
+                p.normal_(0, 0.1)
+        return lm
+
+    idx = torch.from_numpy(rng.integers(0, 129, (4, 8)))
+
+    def llama_run(m, shard):
+        i, t = shard((idx, idx))
+        return m(i, targets=t)
+
+    # one KV head and 129 tokens: q/k/v/o and both tables whole, the
+    # SwiGLU split (3 weights a layer)
+    out.update(_tp_step("llama_tp/indivisible", llama, llama_run, mesh,
+                        shard_lib.LLAMA_TP_RULES, split_data=True,
+                        want_split=6))
+
+    split = gpt()
+    shard_lib.shard_params(split, mesh_lib.group_of(mesh, "model"), rules)
+    cache = split.init_decode_cache(1, 16)
+    ids = torch.zeros(1, 1, dtype=torch.long)
+    out["gpt_tp/serving_refused"] = _refused([
+        lambda: split.prefill(ids, None, cache),
+        lambda: split.decode_step(ids[:, 0], cache, 1),
+        lambda: split.decode_step_topk(ids[:, 0], cache, 1, k=2),
+        lambda: sampling.decode_weights(split, int8_weights=False),
+        lambda: sampling.generate(split, ids, None, max_new_tokens=2,
+                                  greedy=True)])
+    lm = llama()
+    shard_lib.shard_params(lm, mesh_lib.group_of(mesh, "model"))
+    lm_cache = lm.init_decode_cache(1, 16)
+    out["llama_tp/serving_refused"] = _refused([
+        lambda: lm.prefill(ids, None, lm_cache),
+        lambda: lm.decode_step(ids[:, 0], lm_cache, 1),
+        lambda: sampling.decode_weights(lm, int8_weights=False)])
+    return out
 
 
 def check_tensor_parallel(world: int) -> dict:
@@ -417,8 +695,8 @@ def check_serving(world: int) -> dict:
 SUITES = {
     "train": [check_train_steps],
     "experts": [check_expert_parallel],
-    "layouts": [check_tensor_parallel, check_pipeline, check_ring,
-                check_serving],
+    "layouts": [check_tensor_parallel, check_gpt_tensor_parallel,
+                check_pipeline, check_ring, check_serving],
 }
 
 
