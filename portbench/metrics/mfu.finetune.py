@@ -1,0 +1,8 @@
+"""The whole step's share of the card's bf16 peak: 3 x the forward FLOPs
+(visible attention pairs; ``counts.franky_train_fwd_flops`` or
+``counts.mae_fwd_flops``) of every sample of the window's steps over
+the window's seconds times 989e12, in %.
+
+Reported in Franky's training cell."""
+
+from portbench.metrics._common import mfu_train as read  # noqa: F401
