@@ -16,12 +16,16 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from frankenstein_tpu_torch.utils.profiling import span
+
 
 def prefetch(iterator: Iterator, buffer_size: int = 2) -> Iterator:
     """Run ``iterator`` in a daemon thread, keeping ``buffer_size`` batches
     ready. Exceptions propagate to the consumer; closing the returned
     generator stops the thread (an infinite iterator would otherwise keep
-    it, and its staged batches, alive)."""
+    it, and its staged batches, alive). Under a profiler the consumer's wait
+    for a batch is a ``loader.wait`` span, on the consumer's thread only:
+    the worker thread opens none."""
     q: queue.Queue = queue.Queue(maxsize=buffer_size)
     stop = threading.Event()
     _END = object()
@@ -49,7 +53,8 @@ def prefetch(iterator: Iterator, buffer_size: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("loader.wait"):
+                item = q.get()
             if item is _END:
                 return
             if isinstance(item, BaseException):

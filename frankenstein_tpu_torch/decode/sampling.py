@@ -15,6 +15,12 @@ hands its state to ``greedy_decode_scan`` or ``beam_from_prefill``, which
 take a model with ``decode_step`` and, for beams, its own
 ``expand_cache`` / ``reorder_cache``.
 
+Under a profiler the prefill is a ``decode.prefill`` span and every token
+a ``decode.step`` span holding ``decode.select`` (the pick, or the beams'
+scores and top-k), ``decode.reorder`` (beams: K3 and the histories) and
+``decode.forward`` (the model's step); beams end in ``decode.rank``
+(``utils/profiling.py:span``).
+
 Randomness comes from a ``torch.Generator``; top-k is exact (the JAX
 package draws its candidates with ``approx_max_k``, which is exact off the
 TPU), so deterministic beams match the JAX package token for token, and
@@ -27,6 +33,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from frankenstein_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e30
 
@@ -109,11 +117,14 @@ def _sample_scan(model, logits, cache, length: int, generator, *,
                                  temperature=temperature, top_k=top_k)
     toks = []
     for _ in range(max_new_tokens):
-        tok = _pick(logits, generator, temperature=temperature, top_k=top_k,
-                    greedy=greedy)
-        toks.append(tok)
-        logits, cache, length = model.decode_step(tok, cache, length,
-                                                  qweights)
+        with span("decode.step"):
+            with span("decode.select"):
+                tok = _pick(logits, generator, temperature=temperature,
+                            top_k=top_k, greedy=greedy)
+            toks.append(tok)
+            with span("decode.forward"):
+                logits, cache, length = model.decode_step(tok, cache,
+                                                          length, qweights)
     return torch.stack(toks, dim=1)
 
 
@@ -129,12 +140,16 @@ def _sample_scan_topk(model, logits, cache, length: int, generator, *,
     vals, idx = lm_head_topk.exact_topk(logits.float(), top_k)
     toks = []
     for _ in range(max_new_tokens):
-        choice = torch.multinomial(torch.softmax(vals / temperature, dim=-1),
-                                   1, generator=generator)
-        tok = torch.gather(idx, -1, choice)[:, 0]
-        toks.append(tok)
-        vals, idx, _, cache, length = model.decode_step_topk(
-            tok, cache, length, qweights, k=top_k)
+        with span("decode.step"):
+            with span("decode.select"):
+                choice = torch.multinomial(
+                    torch.softmax(vals / temperature, dim=-1), 1,
+                    generator=generator)
+                tok = torch.gather(idx, -1, choice)[:, 0]
+            toks.append(tok)
+            with span("decode.forward"):
+                vals, idx, _, cache, length = model.decode_step_topk(
+                    tok, cache, length, qweights, k=top_k)
     return torch.stack(toks, dim=1)
 
 
@@ -146,10 +161,11 @@ def _prefill(model, idx0, prefix, max_new_tokens: int, int8_kv: bool):
     max_len = _round_cache_len(
         idx0.shape[1] + (prefix.shape[1] if prefix is not None else 0)
         + max_new_tokens + 1)
-    cache = model.init_decode_cache(idx0.shape[0], max_len)
-    logits, cache, length = model.prefill(idx0, prefix, cache)
-    if int8_kv:
-        cache = gpt2.quantize_cache(cache)
+    with span("decode.prefill"):
+        cache = model.init_decode_cache(idx0.shape[0], max_len)
+        logits, cache, length = model.prefill(idx0, prefix, cache)
+        if int8_kv:
+            cache = gpt2.quantize_cache(cache)
     return logits, cache, length
 
 
@@ -330,21 +346,26 @@ def _beam_scan(model, logits, cache, length: int, b: int, *,
                                                   logits.device)
     group = torch.arange(b, device=logits.device)[:, None] * w
     for i in range(max_new_tokens):
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        if eos_id is not None:
-            logp = _freeze_finished(logp, finished, pad_id)
-        total = (scores[:, None] + logp).reshape(b, w * vocab)
-        top_scores, top_idx = torch.topk(total, w, dim=-1)       # [B, W]
-        flat_parent = (group + top_idx // vocab).reshape(-1)
-        token_flat = (top_idx % vocab).reshape(-1)
-        cache, toks, finished, gen_len = _beam_advance(
-            model, cache, flat_parent, token_flat, i, toks, finished,
-            gen_len, w, eos_id)
-        logits, cache, length = model.decode_step(token_flat, cache, length,
-                                                  qweights)
-        scores = top_scores.reshape(-1)
-    return _rank(toks, scores, finished, gen_len, b, w, max_new_tokens,
-                 eos_id, length_penalty, n_best)
+        with span("decode.step"):
+            with span("decode.select"):
+                logp = torch.log_softmax(logits.float(), dim=-1)
+                if eos_id is not None:
+                    logp = _freeze_finished(logp, finished, pad_id)
+                total = (scores[:, None] + logp).reshape(b, w * vocab)
+                top_scores, top_idx = torch.topk(total, w, dim=-1)  # [B, W]
+                flat_parent = (group + top_idx // vocab).reshape(-1)
+                token_flat = (top_idx % vocab).reshape(-1)
+            with span("decode.reorder"):
+                cache, toks, finished, gen_len = _beam_advance(
+                    model, cache, flat_parent, token_flat, i, toks,
+                    finished, gen_len, w, eos_id)
+            with span("decode.forward"):
+                logits, cache, length = model.decode_step(
+                    token_flat, cache, length, qweights)
+            scores = top_scores.reshape(-1)
+    with span("decode.rank"):
+        return _rank(toks, scores, finished, gen_len, b, w, max_new_tokens,
+                     eos_id, length_penalty, n_best)
 
 
 @torch.no_grad()
@@ -387,28 +408,35 @@ def _sampled_beam_scan(model, logits, cache, length: int, generator, b: int,
                                                   logits.device)
     group = torch.arange(b, device=logits.device)[:, None] * w
     for i in range(max_new_tokens):
-        logp = torch.log_softmax(logits.float() / temperature, dim=-1)
-        if eos_id is not None:
-            logp = _freeze_finished(logp, finished, pad_id)
-        top_logp, top_tok = torch.topk(logp, topk, dim=-1)     # [B*W, K]
-        gumbel = -torch.empty_like(top_logp).exponential_(
-            generator=generator).log()
-        pick = torch.topk(top_logp + gumbel, w, dim=-1).indices  # [B*W, W]
-        cand_logp = torch.gather(top_logp, -1, pick)
-        cand_tok = torch.gather(top_tok, -1, pick)
-        total = (scores[:, None] + cand_logp).reshape(b, w * w)
-        top_scores, top_idx = torch.topk(total, w, dim=-1)       # [B, W]
-        flat_parent = (group + top_idx // w).reshape(-1)
-        token_flat = torch.gather(cand_tok.reshape(b, w * w), -1,
-                                  top_idx).reshape(-1)
-        cache, toks, finished, gen_len = _beam_advance(
-            model, cache, flat_parent, token_flat, i, toks, finished,
-            gen_len, w, eos_id)
-        logits, cache, length = model.decode_step(token_flat, cache, length,
-                                                  qweights)
-        scores = top_scores.reshape(-1)
-    return _rank(toks, scores, finished, gen_len, b, w, max_new_tokens,
-                 eos_id, length_penalty, n_best)
+        with span("decode.step"):
+            with span("decode.select"):
+                logp = torch.log_softmax(logits.float() / temperature,
+                                         dim=-1)
+                if eos_id is not None:
+                    logp = _freeze_finished(logp, finished, pad_id)
+                top_logp, top_tok = torch.topk(logp, topk, dim=-1)  # [B*W, K]
+                gumbel = -torch.empty_like(top_logp).exponential_(
+                    generator=generator).log()
+                pick = torch.topk(top_logp + gumbel, w,
+                                  dim=-1).indices                 # [B*W, W]
+                cand_logp = torch.gather(top_logp, -1, pick)
+                cand_tok = torch.gather(top_tok, -1, pick)
+                total = (scores[:, None] + cand_logp).reshape(b, w * w)
+                top_scores, top_idx = torch.topk(total, w, dim=-1)  # [B, W]
+                flat_parent = (group + top_idx // w).reshape(-1)
+                token_flat = torch.gather(cand_tok.reshape(b, w * w), -1,
+                                          top_idx).reshape(-1)
+            with span("decode.reorder"):
+                cache, toks, finished, gen_len = _beam_advance(
+                    model, cache, flat_parent, token_flat, i, toks,
+                    finished, gen_len, w, eos_id)
+            with span("decode.forward"):
+                logits, cache, length = model.decode_step(
+                    token_flat, cache, length, qweights)
+            scores = top_scores.reshape(-1)
+    with span("decode.rank"):
+        return _rank(toks, scores, finished, gen_len, b, w, max_new_tokens,
+                     eos_id, length_penalty, n_best)
 
 
 @torch.no_grad()
@@ -420,8 +448,12 @@ def greedy_decode_scan(model, logits, cache, length: int, *,
     cached steps. Returns [B, max_new_tokens] ids."""
     toks = [torch.argmax(logits.float(), dim=-1)]
     for _ in range(max_new_tokens - 1):
-        logits, cache, length = model.decode_step(toks[-1], cache, length)
-        toks.append(torch.argmax(logits.float(), dim=-1))
+        with span("decode.step"):
+            with span("decode.forward"):
+                logits, cache, length = model.decode_step(toks[-1], cache,
+                                                          length)
+            with span("decode.select"):
+                toks.append(torch.argmax(logits.float(), dim=-1))
     return torch.stack(toks, dim=1)
 
 

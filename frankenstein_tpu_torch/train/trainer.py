@@ -30,9 +30,14 @@ On one device, in eager PyTorch:
   trainer does, from a key that does not change within the round;
 - the loss is read to the host only at warm-up, log and eval boundaries and
   at the end, where a non-finite value raises ``FloatingPointError``;
-- with ``flops_per_sample`` (forward FLOPs, ``utils/profiling.py``) and a
-  card whose peak is known, each log line has ``mfu``: 3 x forward FLOPs a
-  step over the step time and the peak, as the JAX package logs it.
+- with ``flops_per_sample`` (forward FLOPs over the attention pairs the
+  masks leave visible, ``utils/profiling.py``) and a card whose peak is
+  known, each log line has ``mfu``: 3 x forward FLOPs a step over the step
+  time and the peak, the rule the benchmark's ``mfu.train`` and
+  ``mfu.finetune`` use (the JAX package counts every attention pair);
+- under a profiler a step is a ``train.step`` span holding
+  ``train.prepare``, a ``train.forward`` and a ``train.backward`` per
+  microbatch, and ``train.update`` (``utils/profiling.py:span``).
 
 Over a process group (torchrun, or a test's own group), ``mesh_shape``
 (data, model) and ``fsdp`` take the JAX trainer's parallel layouts
@@ -174,23 +179,26 @@ def loss_and_grads(state: TrainState, batch, config: TrainConfig,
     order, each on the buffers the last one wrote. Over a data group
     ``batch`` is the global batch: it is augmented whole, each rank keeps
     its rows, and the loss returned is the global one."""
-    if config.p_augs > 0.0:
-        batch = augment_batch(batch, generator, config.p_augs)
-    if config.mixed_precision:
-        batch = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a
-                      for a in batch)
     accum = max(config.grad_accum, 1)
     group = state.data_group
-    batch = mesh_lib.shard_batch(batch, group, accum)
+    with profiling.span("train.prepare"):
+        if config.p_augs > 0.0:
+            batch = augment_batch(batch, generator, config.p_augs)
+        if config.mixed_precision:
+            batch = tuple(a.to(torch.bfloat16) if a.is_floating_point()
+                          else a for a in batch)
+        batch = mesh_lib.shard_batch(batch, group, accum)
+        state.optimizer.zero_grad(set_to_none=True)
     n = batch[0].shape[0] // accum
-    state.optimizer.zero_grad(set_to_none=True)
     total, aux_sum = None, {}
     with mesh_lib.batch_shard(group):
         for i in range(accum):
             micro = tuple(a[i * n:(i + 1) * n] for a in batch)
-            loss, micro_aux = _loss(state, micro, train=True,
-                                    generator=generator)
-            (loss / accum).backward()
+            with profiling.span("train.forward"):
+                loss, micro_aux = _loss(state, micro, train=True,
+                                        generator=generator)
+            with profiling.span("train.backward"):
+                (loss / accum).backward()
             total = loss.detach() if total is None else total + loss.detach()
             for key, value in micro_aux.items():
                 aux_sum[key] = aux_sum.get(key, 0.0) + value.detach()
@@ -225,17 +233,20 @@ def train_step(state: TrainState, batch, config: TrainConfig, sched,
     """One optimizer update in place. Returns (loss, {"grad_norm", and the
     model's aux}) as device tensors; the norm is of the gradients before
     the clip."""
-    generator.manual_seed(_step_seed(config.seed, state.step))
-    aux = {}
-    loss = loss_and_grads(state, batch, config, generator, aux)
-    if state.parallel is None:
-        grads = [p.grad for p in state.model.parameters()
-                 if p.grad is not None]
-        gnorm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads]))
-    else:
-        gnorm = shard_lib.grad_norm(state.model, state.parallel.mesh)
-    apply_update(state, config, sched)
+    with profiling.span("train.step"):
+        generator.manual_seed(_step_seed(config.seed, state.step))
+        aux = {}
+        loss = loss_and_grads(state, batch, config, generator, aux)
+        with profiling.span("train.update"):
+            if state.parallel is None:
+                grads = [p.grad for p in state.model.parameters()
+                         if p.grad is not None]
+                gnorm = torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(g) for g in grads]))
+            else:
+                gnorm = shard_lib.grad_norm(state.model,
+                                            state.parallel.mesh)
+            apply_update(state, config, sched)
     return loss, {"grad_norm": gnorm, **aux}
 
 

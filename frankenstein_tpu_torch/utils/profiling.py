@@ -1,14 +1,22 @@
-"""FLOP and byte counts, MFU and profiler capture
+"""FLOP counts, MFU, profiler capture and the port's trace spans
 (``frankenstein_tpu/utils/profiling.py``).
 
-The analytic counts are the JAX package's, copied as they are (the PaLM
-Appendix B convention the reference uses: forward matmul FLOPs, x3 for a
-training step). The peaks are the card's: ``detect_peak_flops()`` and
+The analytic counts follow the PaLM Appendix B convention the JAX package
+uses (forward matmul FLOPs, x3 for a training step), with attention over
+the (query, key) pairs its mask leaves visible, as the benchmark counts
+them (``portbench/counts.py``): slab-causal in the encoder, causal in the
+LM, the expected gathered pairs of the MAE's kept tokens. The JAX package
+counts every pair. The peaks are the card's: ``detect_peak_flops()`` and
 ``detect_hbm_bw()`` read ``torch.cuda.get_device_name()`` and know the
 NVIDIA H100 80GB HBM3 (SXM) from NVIDIA's data sheet, 989e12 dense bf16
 tensor-core FLOP/s and 3.35e12 B/s of HBM. An unknown card, or no card,
 gives None: the port states no figure it was not given.
 ``chip_smoke.py`` takes its roofline constants from here.
+
+``span(name)`` marks a layer of the port (the predictor's phases, the
+decode loop, the trainer's phases, the loader's wait) in a torch.profiler
+trace, on the profiler's own clock; ``trace()`` records one. With no
+profiler recording a span costs one check.
 """
 
 from __future__ import annotations
@@ -16,6 +24,9 @@ from __future__ import annotations
 import contextlib
 from pathlib import Path
 from typing import Optional
+
+from torch.autograd import _profiler_enabled
+from torch.profiler import record_function
 
 # NVIDIA's data sheet for the H100 SXM5 80 GB (dense, no sparsity)
 H100_SXM = "NVIDIA H100 80GB HBM3"
@@ -49,37 +60,64 @@ def transformer_flops_per_token(n_params: int, n_layer: int, n_head: int,
     return 6 * n_params + 12 * n_layer * n_head * head_dim * seq_len
 
 
+def _slab_pairs(t: int, p: int) -> int:
+    """(query, key) pairs the slab-causal mask allows over ``t`` tokens in
+    slabs of ``p``."""
+    return sum(min(t, (i // p + 1) * p) for i in range(t))
+
+
+def _causal_pairs(t: int) -> int:
+    """(query, key) pairs a causal mask allows over ``t`` tokens."""
+    return t * (t + 1) // 2
+
+
+def _gathered_pairs(t: int, kept: int, p: int) -> float:
+    """Expected visible pairs of the MAE's kept-token encoder, ``kept`` of
+    ``t`` tokens drawn uniformly without replacement under the slab mask:
+    each kept token sees itself, and each other visible pair survives with
+    probability k(k-1) / (t(t-1))."""
+    keep_both = kept * (kept - 1) / (t * (t - 1))
+    return kept + (_slab_pairs(t, p) - t) * keep_both
+
+
 def block_stack_fwd_flops(seq: int, dim: int, hidden: int, n_heads: int,
                           head_dim: int, n_layers: int, *,
                           kv_seq: Optional[int] = None,
-                          n_mlp_mats: int = 3) -> float:
+                          n_mlp_mats: int = 3,
+                          pairs: Optional[float] = None) -> float:
     """Forward matmul FLOPs of a stack of attention blocks: per token and
-    layer the qkv and output projections, the MLP's matmuls (3 SwiGLU, 2
-    GELU) and the two attention products over ``kv_seq`` keys."""
+    layer the qkv and output projections and the MLP's matmuls (3 SwiGLU,
+    2 GELU); per (query, key) pair of one head and layer the two attention
+    products, over ``pairs`` (every pair of ``seq`` queries and ``kv_seq``
+    keys by default)."""
     kv = kv_seq if kv_seq is not None else seq
+    if pairs is None:
+        pairs = seq * kv
     inner = n_heads * head_dim
     qkv = 2 * dim * 3 * inner
     proj = 2 * inner * dim
     mlp = 2 * dim * hidden * n_mlp_mats
-    attn = 4 * kv * inner
-    return float(n_layers) * seq * (qkv + proj + mlp + attn)
+    return float(n_layers) * (seq * (qkv + proj + mlp) + 4 * inner * pairs)
 
 
 def franky_encode_flops_per_sample(cfg) -> float:
-    """Forward FLOPs of Franky's BrainEncoder (the MAE encoder, the
-    Perceiver's cross and self blocks, the output projection): the encode
-    of a served request, everything before the LM."""
+    """Forward FLOPs of Franky's BrainEncoder: the MAE encoder over its
+    slab-causal pairs, the Perceiver's cross blocks (with their MLP) and
+    self blocks, the output projection: the encode of a served request,
+    everything before the LM."""
     e, p = cfg.brain.encoder, cfg.brain
     n_tok = e.block_size
     enc = (2 * e.patch_size * e.dim * n_tok
            + block_stack_fwd_flops(n_tok, e.dim, e.hidden_dim, e.n_heads,
-                                   e.head_dim, e.n_layers))
+                                   e.head_dim, e.n_layers,
+                                   pairs=_slab_pairs(n_tok, e.n_electrodes)))
     nq = p.n_output_tokens
     inner = p.n_heads * p.head_dim
     cross = p.n_layers * (2 * p.dim * inner * nq            # q proj
                           + 2 * p.dim * 2 * inner * n_tok   # kv proj
                           + 4 * n_tok * inner * nq          # attention dots
-                          + 2 * inner * p.dim * nq)
+                          + 2 * inner * p.dim * nq          # out proj
+                          + 2 * p.dim * p.hidden_dim * 3 * nq)   # SwiGLU
     perceiver = cross + block_stack_fwd_flops(nq, p.dim, p.hidden_dim,
                                               p.n_heads, p.head_dim,
                                               p.n_layers)
@@ -88,68 +126,48 @@ def franky_encode_flops_per_sample(cfg) -> float:
 
 
 def franky_fwd_flops_per_sample(cfg) -> float:
-    """Forward FLOPs of one Franky sample (encoder, Perceiver, GPT-2)."""
+    """Forward FLOPs of one Franky sample (encoder, Perceiver, GPT-2 over
+    its causal pairs, the tied head on the text positions)."""
     g = cfg.gpt
     t_full = cfg.brain.n_output_tokens + cfg.max_tokens
     gpt = (block_stack_fwd_flops(t_full, g.n_embd, 4 * g.n_embd, g.n_head,
-                                 g.head_dim, g.n_layer, n_mlp_mats=2)
+                                 g.head_dim, g.n_layer, n_mlp_mats=2,
+                                 pairs=_causal_pairs(t_full))
            + 2 * g.n_embd * g.vocab_size * cfg.max_tokens)  # tied head
     return franky_encode_flops_per_sample(cfg) + gpt
 
 
 def franky_llama_fwd_flops_per_sample(cfg) -> float:
     """Forward FLOPs of one FrankyLlama sample (encoder, Perceiver, and the
-    LLaMA with its GQA-sized k/v projections)."""
+    LLaMA over its causal pairs with its GQA-sized k/v projections)."""
     lm = cfg.lm
     t_full = cfg.brain.n_output_tokens + cfg.max_tokens
     hd = lm.head_dim
     # the stack prices k/v at n_heads * head_dim; LLaMA's use n_kv_heads
     stack = block_stack_fwd_flops(t_full, lm.dim, lm.hidden_dim, lm.n_heads,
-                                  hd, lm.n_layers, n_mlp_mats=3)
+                                  hd, lm.n_layers, n_mlp_mats=3,
+                                  pairs=_causal_pairs(t_full))
     gqa_save = (lm.n_layers * t_full
                 * 2 * lm.dim * 2 * (lm.n_heads - lm.n_kv_heads) * hd)
     head = 2 * lm.dim * lm.vocab_size * cfg.max_tokens
     return franky_encode_flops_per_sample(cfg) + stack - gqa_save + head
 
 
-def gpt_decode_hbm_bytes(gcfg, batch: int, cache_len: int, n_tokens: int,
-                         *, weight_bytes: int = 2, cache_bytes: int = 2,
-                         lm_head_bytes: int = None,
-                         lm_head_every_step: bool = True) -> float:
-    """The least device-memory traffic (bytes) of ``n_tokens`` KV-cached
-    GPT decode steps at batch ``batch``: the byte side of a decode step's
-    roofline.
-
-    A step reads every block weight once (qkv E*3E, projection E*E, MLP
-    2*E*4E: 12E^2 a layer), the tied head (E*vocab) once, the whole
-    allocated K/V cache (2 * L * B * cache_len * E), and writes one row a
-    layer. Activations do not count: kernel K2 (``csrc/fused_decode.cu``)
-    runs all layers of a step in one launch and keeps them in shared memory
-    and registers. ``weight_bytes`` sizes the block weights and
-    ``lm_head_bytes`` the head (``weight_bytes`` by default); they differ
-    under w8a16, which quantizes only the blocks' matmuls."""
-    e = gcfg.n_embd
-    if lm_head_bytes is None:
-        lm_head_bytes = weight_bytes
-    block_w = gcfg.n_layer * 12 * e * e * weight_bytes
-    lm_head = (e * gcfg.vocab_size * lm_head_bytes
-               if lm_head_every_step else 0.0)
-    cache_read = 2 * gcfg.n_layer * batch * cache_len * e * cache_bytes
-    cache_write = 2 * gcfg.n_layer * batch * e * cache_bytes
-    return float(n_tokens) * (block_w + lm_head + cache_read + cache_write)
-
-
 def mae_fwd_flops_per_sample(cfg) -> float:
-    """MAE pretraining forward: the encoder on the kept tokens, the dense
-    decoder on all of them."""
+    """MAE pretraining forward: the encoder on the kept tokens (their
+    expected visible pairs), the dense decoder on all of them, the head on
+    the masked ones."""
     n_tok = cfg.block_size
-    kept = n_tok - int(cfg.masking_ratio * n_tok)
+    n_masked = int(cfg.masking_ratio * n_tok)
+    kept = n_tok - n_masked
     enc = (2 * cfg.patch_size * cfg.dim * kept
            + block_stack_fwd_flops(kept, cfg.dim, cfg.hidden_dim, cfg.n_heads,
-                                   cfg.head_dim, cfg.n_layers))
+                                   cfg.head_dim, cfg.n_layers,
+                                   pairs=_gathered_pairs(n_tok, kept,
+                                                         cfg.n_electrodes)))
     dec = block_stack_fwd_flops(n_tok, cfg.decoder_dim, cfg.hidden_dim,
                                 cfg.n_heads, cfg.head_dim, cfg.n_dec_layers)
-    head = 2 * cfg.decoder_dim * cfg.patch_size * n_tok
+    head = 2 * cfg.decoder_dim * cfg.patch_size * n_masked
     return enc + dec + head
 
 
@@ -215,3 +233,19 @@ def trace(logdir: str = "trace"):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(out / "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` in the trace of the torch.profiler
+    recording on this thread (``trace()``, or the benchmark's): a
+    ``record_function``, so the span shares the profiler's clock and the
+    device operations launched inside it are tied to it by their launches.
+    With no profiler recording it is one shared no-op context, and no
+    ``RecordFunction`` is built. A span adds no synchronisation and no
+    device work."""
+    if _profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN

@@ -1,0 +1,12 @@
+"""Device idle time an optimizer step inside the trainer's
+``train.backward`` spans (``train/trainer.py``, one a microbatch; autograd
+launches from its own thread while the caller waits in the span): the
+spans less the time any device operation ran, in ms.
+
+Reported in Franky's training cell."""
+
+from portbench.metrics import _spans
+
+
+def read(ctx):
+    return _spans.idle_ms(ctx, "train.backward")
