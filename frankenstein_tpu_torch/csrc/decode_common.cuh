@@ -41,6 +41,12 @@
 // in groups of WARPS; an item's cache tiles share ring slots with the rest
 // of its group's (tiles_per_slot).
 //
+// The model is a template parameter of the device code (LLAMA: RMSNorm,
+// RoPE, rounded q.k products, SwiGLU, gate|up; else GPT-2's LayerNorm,
+// biases and GELU), so that each kernel holds only its own paths: a
+// consumer thread has at most 168 registers, and the other model's paths
+// cost spills in every phase.
+//
 // The grid barrier is an arrival count that the last CTA to finish resets,
 // so it needs no reset between calls; a wait that outlives any real one
 // traps. The launch is cooperative, so a grid the card cannot hold is
@@ -238,7 +244,8 @@ struct Params {
   int fold_act;          // ACT's epilogue applies GELU / SwiGLU (plan)
   int cache_bytes;       // 1 (int8 codes) or 2 (bf16)
   float eps, att_scale;
-  int llama;            // RMSNorm, RoPE, rounded q.k products, SwiGLU
+  int llama;            // RMSNorm, RoPE, rounded q.k products, SwiGLU (for
+                        // plan: the device code takes it as LLAMA)
 };
 
 // Cache tiles of an attention group that share one ring slot (warp w's
@@ -334,18 +341,21 @@ __device__ __forceinline__ int chunks_of(const Params& p) {
 // with its act, whose tile t is gate lanes and up lanes [64 t, 64 t + 64)
 // together (two passes of one item, so its epilogue has both for silu(g) *
 // u).
+template <bool LLAMA>
 __device__ __forceinline__ int tiles_of(const Params& p, int q) {
-  return p.N[q] / TILE_M / (p.llama && q == ACT && p.fold_act ? 2 : 1);
+  return p.N[q] / TILE_M / (LLAMA && q == ACT && p.fold_act ? 2 : 1);
 }
 
+template <bool LLAMA>
 __device__ __forceinline__ int product_items(const Params& p, int q) {
-  return chunks_of(p) * tiles_of(p, q) * p.splits[q];
+  return chunks_of(p) * tiles_of<LLAMA>(p, q) * p.splits[q];
 }
 
 // Item i of product q -> chunk c, tile t, split z (z fastest).
+template <bool LLAMA>
 __device__ __forceinline__ void product_item(const Params& p, int q, int i,
                                              int& c, int& t, int& z) {
-  const int tiles = tiles_of(p, q);
+  const int tiles = tiles_of<LLAMA>(p, q);
   z = i % p.splits[q];
   t = (i / p.splits[q]) % tiles;
   c = i / (p.splits[q] * tiles);
@@ -370,18 +380,18 @@ __device__ __forceinline__ int attention_items(const Params& p) {
   return cta < items ? (items - cta + G - 1) / G : 0;
 }
 
-template <typename WT, typename CT>
+template <typename WT, typename CT, bool LLAMA>
 __device__ void producer(const Params& p, const Maps& m, Ring& ring) {
   const int G = gridDim.x, cta = blockIdx.x;
   const uint32_t wbytes = KT * TILE_M * sizeof(WT);
   const uint32_t cbytes = ATT_ROWS * p.D * sizeof(CT);
   auto weights = [&](int q, int l) {
-    const int items = product_items(p, q);
+    const int items = product_items<LLAMA>(p, q);
     const int stages = p.K[q] / p.splits[q] / KT;
-    const int passes = p.llama && q == ACT && p.fold_act ? 2 : 1;
+    const int passes = LLAMA && q == ACT && p.fold_act ? 2 : 1;
     for (int i = cta; i < items; i += G) {
       int c, t, z, lane0;
-      product_item(p, q, i, c, t, z);
+      product_item<LLAMA>(p, q, i, c, t, z);
       for (int pass = 0; pass < passes; ++pass) {
         // gate|up: segment ``pass`` at the same lanes
         const int s = passes == 2 ? pass : segment(p, q, t, lane0);
@@ -581,7 +591,7 @@ __device__ __forceinline__ float gelu_erf(float z) {
 // ACT write their f32 partial part[z, row, lane]; a folded ACT writes act =
 // bf16(gelu(y * scale + bias)) (GPT-2), or with the up tile's pass after
 // the gate's bf16(silu(g) * u), g and u each times its w8 scale (LLaMA).
-template <int NC, typename WT>
+template <int NC, typename WT, bool LLAMA>
 __device__ void product_tile(const Params& p, int q, int l, const bf16* a,
                              int c, int t, int z, Ring& ring, uint8_t* smem) {
   const int stages = p.K[q] / p.splits[q] / KT;
@@ -608,7 +618,7 @@ __device__ void product_tile(const Params& p, int q, int l, const bf16* a,
   const int F = p.F;
   const size_t lf = size_t(l) * F;
   float gate[NC / 2], sg[2], su[2], bv[2];
-  if (p.llama) {
+  if (LLAMA) {
 #pragma unroll
     for (int i = 0; i < NC / 2; ++i) gate[i] = acc[i];
     accumulate<NC, WT>(p, q, a, n0, 0, stages, ring, smem, acc);
@@ -617,10 +627,10 @@ __device__ void product_tile(const Params& p, int q, int l, const bf16* a,
   for (int h = 0; h < 2; ++h) {
     const int m = m0 + 8 * h;
     const float* s0 = p.scale[q][0];
-    const float* s1 = p.llama ? p.scale[q][1] : nullptr;
+    const float* s1 = LLAMA ? p.scale[q][1] : nullptr;
     sg[h] = s0 == nullptr ? 1.f : __ldg(s0 + lf + m);
     su[h] = s1 == nullptr ? 1.f : __ldg(s1 + lf + m);
-    bv[h] = p.llama ? 0.f : __ldg(p.bias[q] + lf + m);
+    bv[h] = LLAMA ? 0.f : __ldg(p.bias[q] + lf + m);
   }
 #pragma unroll
   for (int j = 0; j < NC / 8; ++j)
@@ -632,7 +642,7 @@ __device__ void product_tile(const Params& p, int q, int l, const bf16* a,
       for (int h = 0; h < 2; ++h) {
         const int i = 4 * j + 2 * h + e;
         float y;
-        if (p.llama) {
+        if (LLAMA) {
           const float gt = gate[i] * sg[h], up = acc[i] * su[h];
           y = gt * (1.f / (1.f + expf(-gt))) * up;
         } else {
@@ -643,18 +653,24 @@ __device__ void product_tile(const Params& p, int q, int l, const bf16* a,
     }
 }
 
-template <typename WT>
+template <typename WT, bool LLAMA>
 __device__ void product(const Params& p, int q, int l, const bf16* a,
                         Ring& ring, uint8_t* smem) {
-  const int items = product_items(p, q);
+  const int items = product_items<LLAMA>(p, q);
   for (int i = blockIdx.x; i < items; i += gridDim.x) {
     int c, t, z;
-    product_item(p, q, i, c, t, z);
+    product_item<LLAMA>(p, q, i, c, t, z);
     const int rows = min(p.n_chunk, p.B - c * p.n_chunk);
     switch (chunk_width(rows)) {
-      case 8: product_tile<8, WT>(p, q, l, a, c, t, z, ring, smem); break;
-      case 16: product_tile<16, WT>(p, q, l, a, c, t, z, ring, smem); break;
-      default: product_tile<32, WT>(p, q, l, a, c, t, z, ring, smem); break;
+      case 8:
+        product_tile<8, WT, LLAMA>(p, q, l, a, c, t, z, ring, smem);
+        break;
+      case 16:
+        product_tile<16, WT, LLAMA>(p, q, l, a, c, t, z, ring, smem);
+        break;
+      default:
+        product_tile<32, WT, LLAMA>(p, q, l, a, c, t, z, ring, smem);
+        break;
     }
   }
 }
@@ -709,7 +725,7 @@ __device__ __forceinline__ int widen16(const int8_t* src, float* out) {
 // score and own-value term stay f32; the probabilities round to bf16
 // before the f32 AV sum (JAX's rounding points, which forbid an online
 // rescale: all S scores are kept).
-template <typename CT>
+template <typename CT, bool LLAMA>
 __device__ void attention_phase(const Params& p, int l, Ring& ring,
                                 float* sm, float* scores_g, Timer& clock) {
   constexpr int VEC = 16 / sizeof(CT);
@@ -743,7 +759,7 @@ __device__ void attention_phase(const Params& p, int l, Ring& ring,
       // q, k, v of the item (raw: q into so, k into sqc, then rotated into
       // sq and sk where there is RoPE), 8 entries a lane at once; the
       // tables and scales the item needs load in the same wave
-      const bool rope = p.cos != nullptr;
+      const bool rope = LLAMA;
       float* qdst = rope ? so : sq;
       float* kdst = rope ? sqc : sk;
       const float* brow = bq == nullptr ? nullptr : bq + size_t(l) * p.N[0];
@@ -823,7 +839,7 @@ __device__ void attention_phase(const Params& p, int l, Ring& ring,
               const int piece = (c + j) % chunks;
               float v[VEC];
               widen16(rows + j * D + piece * VEC, v);
-              if (p.llama) {
+              if (LLAMA) {
 #pragma unroll
                 for (int e = 0; e < VEC; ++e)
                   acc += round_bf16(qr[piece * VEC + e] * v[e]);
@@ -996,7 +1012,8 @@ __device__ inline void rows_phase(const Params& p, int q, int l,
 // act = bf16(gelu(fc + bias)) (GPT-2) or bf16(silu(g) * u) (LLaMA: g and u
 // the columns [0, F) and [F, 2F) of the gate|up product), from ACT's split
 // partials (an ACT that is not folded into its epilogue).
-__device__ inline void act_phase(const Params& p, int l) {
+template <bool LLAMA>
+__device__ void act_phase(const Params& p, int l) {
   constexpr int AF = 4;   // outputs a thread takes at once
   const int F = p.F;
   const size_t n = size_t(p.B) * F;
@@ -1011,23 +1028,23 @@ __device__ inline void act_phase(const Params& p, int l) {
       const size_t i = i0 + u * step;
       row[u] = i < n ? int(i / F) : -1;
       col[u] = i < n ? int(i % F) : 0;
-      row[AF + u] = p.llama ? row[u] : -1;
+      row[AF + u] = LLAMA ? row[u] : -1;
       col[AF + u] = col[u] + F;
     }
     finalize<2 * AF>(p, ACT, l, row, col,
-                     p.llama ? nullptr : p.bias[ACT] + size_t(l) * F, y);
+                     LLAMA ? nullptr : p.bias[ACT] + size_t(l) * F, y);
 #pragma unroll
     for (int u = 0; u < AF; ++u) {
       if (row[u] < 0) continue;
       const float g = y[u];
       p.act[i0 + u * step] = __float2bfloat16(
-          p.llama ? g * (1.f / (1.f + expf(-g))) * y[AF + u] : gelu_erf(g));
+          LLAMA ? g * (1.f / (1.f + expf(-g))) * y[AF + u] : gelu_erf(g));
     }
   }
 }
 
 // The whole launch: every layer's phases, the producer warp streaming.
-template <typename WT, typename CT>
+template <typename WT, typename CT, bool LLAMA>
 __device__ void decode_body(const Params& p, const Maps& m) {
   extern __shared__ uint8_t raw_smem[];
   __shared__ uint64_t full[MAX_STAGES], empty[MAX_STAGES];
@@ -1042,7 +1059,7 @@ __device__ void decode_body(const Params& p, const Maps& m) {
   __syncthreads();
   Ring ring{full, empty, smem, p.ring};
   if (threadIdx.x >= CONSUMERS) {   // the producer warp
-    if (threadIdx.x == CONSUMERS) producer<WT, CT>(p, m, ring);
+    if (threadIdx.x == CONSUMERS) producer<WT, CT, LLAMA>(p, m, ring);
     return;
   }
   uint8_t* work = smem + p.ring * SLOT;
@@ -1064,27 +1081,27 @@ __device__ void decode_body(const Params& p, const Maps& m) {
   mark(2);
   for (int l = 0; l < p.L; ++l) {
     sync();
-    product<WT>(p, 0, l, p.h, ring, work);
+    product<WT, LLAMA>(p, 0, l, p.h, ring, work);
     mark(0);
     sync();
-    attention_phase<CT>(p, l, ring, sm, scores_g, clock);
+    attention_phase<CT, LLAMA>(p, l, ring, sm, scores_g, clock);
     mark(1);
     sync();
-    product<WT>(p, 1, l, p.h, ring, work);
+    product<WT, LLAMA>(p, 1, l, p.h, ring, work);
     mark(0);
     sync();
     rows_phase(p, 1, l, layer(p.norm2_w, l, E), layer(p.norm2_b, l, E), sm);
     mark(2);
     sync();
-    product<WT>(p, ACT, l, p.h, ring, work);
+    product<WT, LLAMA>(p, ACT, l, p.h, ring, work);
     mark(0);
     sync();
     if (!p.fold_act) {
-      act_phase(p, l);
+      act_phase<LLAMA>(p, l);
       mark(2);
       sync();
     }
-    product<WT>(p, 3, l, p.act, ring, work);
+    product<WT, LLAMA>(p, 3, l, p.act, ring, work);
     mark(0);
     sync();
     const bool last = l == p.L - 1;

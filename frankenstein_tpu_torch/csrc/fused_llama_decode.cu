@@ -42,7 +42,7 @@ template <typename WT, typename CT>
 __global__ void __launch_bounds__(fk::decode::THREADS, 2)
     llama_decode_step(const __grid_constant__ fk::decode::Params p,
                       const __grid_constant__ fk::decode::Maps m) {
-  fk::decode::decode_body<WT, CT>(p, m);
+  fk::decode::decode_body<WT, CT, true>(p, m);
 }
 
 namespace {

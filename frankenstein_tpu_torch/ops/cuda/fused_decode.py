@@ -36,9 +36,12 @@ from frankenstein_tpu_torch.ops.cuda import build
 launches = 0          # wrapper calls that ran the CUDA kernels (one per
                       # token step), in either cache mode
 launches_int8_kv = 0  # the same, counting only the int8-KV mode
+launches_multi_chunk = 0  # the same, counting only batches of more than
+                          # one N chunk (TUNING's n_chunk rows), whose
+                          # products run in several chunks of items
 
 # the production setting, from tools/decode_sweep.py on an H100 (PERF.md)
-TUNING = {"ctas_per_sm": 2, "ring": 3, "items": 264, "n_chunk": 32}
+TUNING = {"ctas_per_sm": 2, "ring": 4, "items": 264, "n_chunk": 32}
 STAMPS = None   # None, or a CUDA int64 tensor of at least [grid,
                 # STAMP_SLOTS] that each call fills with every CTA's ns in
                 # STAMP_NAMES (chip_smoke.py's phase split)
@@ -333,7 +336,7 @@ def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
     Returns (x_out [B, E], k_cache, v_cache). The caches are updated IN
     PLACE: the new K/V rows are written at row ``length`` and the returned
     caches are the same tensors."""
-    global launches, launches_int8_kv
+    global launches, launches_int8_kv, launches_multi_chunk
     quant = k_cache.dtype == torch.int8
     if quant != (k_scale is not None) or quant != (v_scale is not None):
         raise ValueError("k_scale and v_scale go with an int8 cache, and "
@@ -368,4 +371,5 @@ def fused_decode_blocks(x, stacked, k_cache, v_cache, length: int,
     build.check(rc, "fused_decode_blocks")
     launches += 1
     launches_int8_kv += int(quant)
+    launches_multi_chunk += int(b > knobs[3])
     return x_out, k_cache, v_cache

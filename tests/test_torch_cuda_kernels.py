@@ -410,6 +410,60 @@ def test_k2_full_width_matches_twin(dev, w8, b, int8):
     assert torch.equal(vc_k[:, :, others], vc[:, :, others])
 
 
+@pytest.mark.parametrize("length", [0, 33, 56])
+@pytest.mark.parametrize("b,int8", [(128, False), (160, True)])
+def test_k2_serving_batches_match_twin(dev, b, int8, length):
+    """The serving cells' steps at GPT-2 124M's width, two layers: w8a16 at
+    B=128 with a bf16 cache (top-k) and at B*W=160 with an int8 cache
+    (beams), whose products run 4 or 5 N chunks of items: x within K2's
+    tolerance, new rows within it (bf16) or one code (int8), other rows
+    untouched, two launches bitwise equal, each counted as a multi-chunk
+    launch."""
+    n_layer, h, e, s = 2, 12, 768, 64
+    gen = torch.Generator(device=dev).manual_seed(300 + b + length)
+    st = _k2_weights(gen, dev, n_layer, e, True)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    if int8:
+        kc, ks = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+        vc, vs = k2.quantize_cache_side(rnd(n_layer, b, s, e))
+    else:
+        kc, vc = (rnd(n_layer, b, s, e).to(torch.bfloat16) for _ in range(2))
+        ks = vs = None
+    x = rnd(b, e).to(torch.bfloat16)
+    kc_r, vc_r = kc.clone(), vc.clone()
+    before = k2.launches_multi_chunk
+    xo, kc_k, vc_k = _k2_twice(x, st, kc, vc, length, ks, vs, n_head=h)
+    assert k2.launches_multi_chunk == before + 2
+    xr, _, _ = k2.fused_decode_blocks_ref(x, st, kc_r, vc_r, length, ks, vs,
+                                          n_head=h)
+    assert _err(xo, xr) <= 2e-2 * float(xr.float().abs().max())
+    for got, want in ((kc_k, kc_r), (vc_k, vc_r)):
+        row = want[:, :, length]
+        tol = 1 if int8 else 2e-2 * float(row.float().abs().max())
+        assert _err(got[:, :, length], row) <= tol
+    others = [r for r in range(s) if r != length]
+    assert torch.equal(kc_k[:, :, others], kc[:, :, others])
+    assert torch.equal(vc_k[:, :, others], vc[:, :, others])
+
+
+def test_k2_counts_multi_chunk_launches(dev):
+    """``launches_multi_chunk`` counts the calls whose batch spans more than
+    one N chunk (B=33 at 32-row chunks), not a B=8 or a B=32 call."""
+    n_layer, h, e, s = 1, 2, 128, 8
+    gen = torch.Generator(device=dev).manual_seed(33)
+    st = _k2_weights(gen, dev, n_layer, e, True)
+    counts = []
+    for b in (8, 32, 33):
+        kc = torch.zeros(n_layer, b, s, e, dtype=torch.bfloat16, device=dev)
+        x = torch.randn(b, e, generator=gen, device=dev).to(torch.bfloat16)
+        before = (k2.launches, k2.launches_multi_chunk)
+        k2.fused_decode_blocks(x, st, kc, kc.clone(), 3, n_head=h)
+        counts.append((k2.launches - before[0],
+                       k2.launches_multi_chunk - before[1]))
+    torch.cuda.synchronize()
+    assert counts == [(1, 0), (1, 0), (1, 1)]
+
+
 @pytest.mark.parametrize("knobs", [dict(n_chunk=16), dict(n_chunk=8),
                                    dict(ring=1), dict(items=528),
                                    dict(items=1), dict(ctas_per_sm=1)])

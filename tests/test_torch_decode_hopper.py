@@ -7,7 +7,7 @@ the CPU.
   output tile, depth split) and every attention item (batch row, KV head)
   is owned by exactly one CTA; the depth splits partition each product's
   depth in order (the fixed split-K order); the N chunks cover the batch
-  rows once for B in {1, 8, 160, 300}; and the ring positions the producer
+  rows once for B in {1, 8, 128, 160, 300}; the ring positions the producer
   warp fills are, in order, the ones the consumers wait for.
 - A float64 mirror of the swapped product (out^T = W^T . h^T tile by tile,
   chunk by chunk, each depth split's partial summed in split order, then
@@ -18,7 +18,8 @@ the CPU.
 - The kernels are named ``gpt2_decode_step`` / ``llama_decode_step`` and
   fall in ``chip_smoke.py``'s "K2" / "K5" profile families, ahead of
   cuBLAS's ``gemm`` and the reductions' ``norm``; the split-K launches and
-  their finalize kernels are gone from the sources.
+  their finalize kernels are gone from the sources; each kernel compiles
+  only its own model's paths (the model is a template parameter).
 
 Inputs from numpy seeds."""
 
@@ -130,7 +131,7 @@ MODELS = {"gpt2": dict(e=768, f=3072, e_kv=768, kv=12, s=64, d=64),
 
 
 @pytest.mark.parametrize("g", [132, 264, 396])
-@pytest.mark.parametrize("b", [1, 8, 160, 300])
+@pytest.mark.parametrize("b", [1, 8, 128, 160, 300])
 @pytest.mark.parametrize("name", list(MODELS))
 def test_every_item_has_one_owner(name, b, g):
     m = MODELS[name]
@@ -169,7 +170,7 @@ def test_act_folds_at_beam_width_and_splits_at_small_batch():
 
 
 @pytest.mark.parametrize("name", list(MODELS))
-@pytest.mark.parametrize("b", [1, 8, 160, 300])
+@pytest.mark.parametrize("b", [1, 8, 128, 160, 300])
 def test_depth_splits_partition_each_product_in_order(name, b):
     m = MODELS[name]
     model = "gpt2" if name == "gpt2" else "llama"
@@ -184,7 +185,7 @@ def test_depth_splits_partition_each_product_in_order(name, b):
             assert order == list(range(0, k, KT))
 
 
-@pytest.mark.parametrize("b", [1, 8, 160, 300])
+@pytest.mark.parametrize("b", [1, 8, 128, 160, 300])
 def test_n_chunks_cover_the_batch_once(b):
     for n_chunk in WIDTHS:
         rows = []
@@ -242,7 +243,9 @@ def _walk(model, b, g, cta, length, ring, cache_bytes, n_chunk=N_CHUNK_MAX,
     return fills, waits
 
 
-@pytest.mark.parametrize("model,b,length", [("gpt2", 8, 33),
+@pytest.mark.parametrize("model,b,length", [("gpt2", 1, 0),
+                                            ("gpt2", 8, 33),
+                                            ("gpt2", 128, 56),
                                             ("gpt2", 160, 33),
                                             ("gpt2", 300, 70),
                                             ("llama", 160, 46),
@@ -287,7 +290,8 @@ def _swapped_product(a, w, scale, b, n_chunk, items):
 
 
 @pytest.mark.parametrize("b,k,n", [(1, 256, 192), (8, 768, 2304),
-                                   (160, 384, 128), (300, 256, 64)])
+                                   (128, 512, 64), (160, 384, 128),
+                                   (300, 256, 64)])
 @pytest.mark.parametrize("w8", [False, True])
 def test_swapped_product_mirror_is_the_product(b, k, n, w8):
     rng = np.random.default_rng(b + k + n)
@@ -537,3 +541,17 @@ def test_the_split_k_launches_are_gone():
                      "residual_rows", "gelu_rows", "start_rows",
                      "swiglu_rows"):
             assert gone not in text, (path.name, gone)
+
+
+@pytest.mark.parametrize("src,llama", [("fused_decode.cu", "false"),
+                                       ("fused_llama_decode.cu", "true")])
+def test_each_kernel_compiles_only_its_model(src, llama):
+    """The step's device code takes the model as the template parameter
+    LLAMA, fixed by each kernel, so GPT-2's kernel holds none of LLaMA's
+    paths (RoPE, SwiGLU, gate|up passes) and K5 none of GPT-2's: only the
+    host's ``plan`` reads ``Params::llama``."""
+    text = (CSRC / src).read_text()
+    assert re.findall(r"decode_body<WT, CT, (\w+)>", text) == [llama]
+    uses = [line for line in COMMON.splitlines()
+            if re.search(r"\bp\.llama\b|p\.cos != nullptr", line)]
+    assert len(uses) == 1 and "folded" in uses[0], uses
