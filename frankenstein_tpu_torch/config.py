@@ -9,6 +9,8 @@ of ``LlamaConfig``, ``tiny_llama_config`` (``models/llama.py``) and
 ``FrankyLlamaConfig`` (``models/franky.py``). The port cannot import those modules, because the
 JAX package's ``__init__`` pulls in jax; ``tests/test_torch_config.py``
 holds the copies to the originals' fields, defaults and serialization.
+``Lfm2MoeConfig`` and ``FrankyLfm2Config`` are the port's own (the JAX
+package has no LFM2).
 """
 
 from __future__ import annotations
@@ -261,6 +263,66 @@ class FrankyLlamaConfig(_SerializableMixin):
             max_seq_len=128, tie_embeddings=True))
     max_tokens: int = MAX_TOKENS
     pad_token_id: int = GPT2_EOT
+
+
+LFM2_8B_A1B_LAYERS = (
+    "conv", "conv", "full_attention", "conv", "conv", "conv",
+    "full_attention", "conv", "conv", "conv", "full_attention", "conv",
+    "conv", "conv", "full_attention", "conv", "conv", "conv",
+    "full_attention", "conv", "conv", "full_attention", "conv", "conv")
+
+
+@dataclass(frozen=True)
+class Lfm2MoeConfig(_SerializableMixin):
+    """LFM2-MoE decoder (HF ``lfm2_moe``; ``models/lfm2.py``), LiquidAI's
+    LFM2-8B-A1B by default. The fields are HF's ``config.json`` keys, so
+    ``from_dict`` reads that file as it is (keys the port does not use are
+    ignored)."""
+
+    vocab_size: int = 65536
+    hidden_size: int = 2048
+    intermediate_size: int = 7168         # the leading dense layers' SwiGLU
+    moe_intermediate_size: int = 1792     # each routed expert's SwiGLU
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    layer_types: tuple = LFM2_8B_A1B_LAYERS   # "conv" or "full_attention"
+    conv_L_cache: int = 3                 # the short convolution's kernel
+    conv_bias: bool = False
+    num_dense_layers: int = 2             # leading layers with a dense MLP
+    num_experts: int = 32
+    num_experts_per_tok: int = 4
+    use_expert_bias: bool = True          # a bias that only picks experts
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    rope_theta: float = 1000000.0
+    norm_eps: float = 1e-5
+    tie_word_embeddings: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def attention_layers(self) -> tuple:
+        """Indices of the GQA attention layers; every other is a conv."""
+        return tuple(i for i, t in enumerate(self.layer_types)
+                     if t == "full_attention")
+
+
+@dataclass(frozen=True)
+class FrankyLfm2Config(_SerializableMixin):
+    """Brain prefix -> LFM2-MoE composite (``models/franky.py:FrankyLfm2``):
+    the Perceiver's 32 vectors at the LM's width."""
+
+    brain: PerceiverConfig = field(
+        default_factory=lambda: PerceiverConfig(
+            encoder=MAEConfig(window_size=768, patch_size=32),
+            n_output_tokens=32,
+            output_dim=2048,
+        )
+    )
+    lm: Lfm2MoeConfig = field(default_factory=Lfm2MoeConfig)
 
 
 @dataclass(frozen=True)

@@ -62,9 +62,17 @@ def decode_weights(model, int8_weights: bool) -> dict:
     ``llm_model``): in the model's dtype, or w8a16 int8 codes with
     per-(layer, out-lane) scales. An MoE LM has none (None: its decode
     steps run the module blocks), and int8 weights raise for it, as the JAX
-    package's do off its fused path."""
+    package's do off its fused path. Any other LM answers for itself
+    (``decode_weights(int8_weights)``, LFM2's None), and one without that
+    method raises."""
     from frankenstein_tpu_torch.models import gpt2, llama
     lm = model.llm_model if hasattr(model, "llm_model") else model
+    if not isinstance(lm, (gpt2.GPT, llama.Llama)):
+        if not hasattr(lm, "decode_weights"):
+            raise TypeError(f"no stacked decode weights for a "
+                            f"{type(lm).__name__}: a GPT, a Llama or an LM "
+                            "with its own decode_weights(int8_weights)")
+        return lm.decode_weights(int8_weights)
     family = llama if isinstance(lm, llama.Llama) else gpt2
     lm.refuse_tp("decode_weights")
     if lm.cfg.moe_experts > 0 and not int8_weights:

@@ -1,5 +1,6 @@
 """Franky: BrainEncoder prefix -> GPT-2, and FrankyLlama: the same brain
-prefix -> a LLaMA (``frankenstein_tpu/models/franky.py``).
+prefix -> a LLaMA (``frankenstein_tpu/models/franky.py``); FrankyLfm2: the
+same prefix -> LFM2-MoE (the port's own, ``models/lfm2.py``).
 
 The 32 Perceiver output vectors are a soft prompt for the LM. Module names
 (``brain_model``, ``llm_model``) follow the reference's state dict.
@@ -16,18 +17,20 @@ from typing import Optional
 import torch
 from torch import nn
 
-from frankenstein_tpu_torch.config import (FrankyConfig, FrankyLlamaConfig,
-                                           IGNORE_INDEX)
+from frankenstein_tpu_torch.config import (FrankyConfig, FrankyLfm2Config,
+                                           FrankyLlamaConfig, IGNORE_INDEX)
 from frankenstein_tpu_torch.models.brainformer import BrainEncoder
 from frankenstein_tpu_torch.models.gpt2 import GPT
+from frankenstein_tpu_torch.models.lfm2 import Lfm2
 from frankenstein_tpu_torch.models.llama import Llama
 
 
 class _BrainPrefixLM(nn.Module):
     """A BrainEncoder whose Perceiver output is an LM's soft prompt: the
     decode surface that the generic loops in ``decode/`` call, written once
-    for both composites. Both LMs keep an [L, B, S, E] cache with batch at
-    axis 1, so GPT's beam reorder (kernel K3) serves both."""
+    for every composite. GPT-2 and the LLaMA keep an [L, B, S, E] cache
+    with batch at axis 1, so GPT's beam reorder (kernel K3) serves both; an
+    LM with another cache overrides ``reorder_cache``."""
 
     def __init__(self, cfg, lm: nn.Module, lm_width: int, device, dtype):
         super().__init__()
@@ -126,3 +129,16 @@ class FrankyLlama(_BrainPrefixLM):
                                                ignore_index=ignore_index)
 
     expand_cache = staticmethod(Llama.expand_cache)
+
+
+class FrankyLfm2(_BrainPrefixLM):
+    """BrainEncoder prefix -> LFM2-MoE, served (it has no training
+    forward): its hybrid cache (KV rows and short-conv state) moves by the
+    LM's own ``reorder_cache`` and ``expand_cache``."""
+
+    def __init__(self, cfg: FrankyLfm2Config, device=None, dtype=None):
+        super().__init__(cfg, Lfm2(cfg.lm, device, dtype),
+                         cfg.lm.hidden_size, device, dtype)
+
+    reorder_cache = staticmethod(Lfm2.reorder_cache)
+    expand_cache = staticmethod(Lfm2.expand_cache)

@@ -64,7 +64,15 @@ class QuantCache(NamedTuple):
 
 
 def quantize_cache(cache) -> QuantCache:
-    """(k, v) float caches -> QuantCache (symmetric absmax int8)."""
+    """(k, v) float caches -> QuantCache (symmetric absmax int8). A cache
+    with more parts (LFM2's short-conv state beside its KV rows) raises:
+    the int8 cache carries KV rows alone."""
+    if len(cache) != 2:
+        raise NotImplementedError(
+            f"int8_kv quantizes a (k, v) cache; this one has {len(cache)} "
+            "parts (a hybrid cache: the short-conv state beside the KV "
+            "rows), which QuantCache and the int8-KV kernels cannot carry; "
+            "serve with int8_kv=False")
     k8, ks = fused_decode.quantize_cache_side(cache[0])
     v8, vs = fused_decode.quantize_cache_side(cache[1])
     return QuantCache(k8, v8, ks, vs)

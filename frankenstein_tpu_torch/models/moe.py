@@ -1,5 +1,7 @@
-"""Mixture-of-Experts SwiGLU with expert parallelism
-(``frankenstein_tpu/models/moe.py:MoESwiGLU``).
+"""Mixture-of-Experts SwiGLU layers: the JAX package's capacity-bound
+``MoESwiGLU`` with expert parallelism (``frankenstein_tpu/models/moe.py``),
+and the port's dropless ``RoutedExperts`` (LFM2-MoE's router, sorted
+rows and grouped products).
 
 The JAX package's GShard / Switch layer with static shapes:
 
@@ -43,6 +45,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from frankenstein_tpu_torch.parallel import mesh as mesh_lib
+from frankenstein_tpu_torch.utils.profiling import span
+
+grouped_calls = 0   # grouped products launched (two a RoutedExperts call)
+# RoutedExperts.layer -> [E] int64 on the layer's device: the running sum of
+# each call's end offsets (rows routed to experts 0..e), accumulated on the
+# device with no host sync; ``rows_per_expert`` turns it into counts
+expert_ends: dict = {}
 
 
 def stable_topk(probs: torch.Tensor, k: int):
@@ -173,3 +182,110 @@ def shard_experts(model: nn.Module, group) -> int:
         count += 1
     return count
 
+
+def _count_rows(layer: int, ends: torch.Tensor) -> None:
+    """Add one call's end offsets [E] to ``expert_ends[layer]``."""
+    have = expert_ends.get(layer)
+    if (have is None or have.device != ends.device
+            or have.shape != ends.shape):
+        expert_ends[layer] = ends.long()
+    else:
+        have += ends
+
+
+def rows_per_expert() -> torch.Tensor:
+    """[layers, E] int64 on the host: the rows routed to each expert of
+    each ``RoutedExperts`` layer (sorted by ``layer``) since the process
+    started, or an empty tensor."""
+    if not expert_ends:
+        return torch.zeros(0, 0, dtype=torch.long)
+    ends = torch.stack([expert_ends[k].cpu() for k in sorted(expert_ends)])
+    return torch.diff(ends, dim=1, prepend=torch.zeros_like(ends[:, :1]))
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor,
+               ends: torch.Tensor) -> torch.Tensor:
+    """Rows [ends[e-1], ends[e]) of x [N, K] times w[e] [K, M], for every
+    expert e of w [E, K, M] at once (``torch._grouped_mm``; ``ends`` int32
+    [E], the rows sorted by expert). Returns [N, M] in x's dtype."""
+    global grouped_calls
+    grouped_calls += 1
+    return torch._grouped_mm(x, w, offs=ends)
+
+
+class RoutedExperts(nn.Module):
+    """Dropless routed SwiGLU experts over [..., dim] with LFM2-MoE's router
+    (HF ``lfm2_moe``'s sparse block); returns the same shape in the compute
+    dtype ``dtype`` (None: the parameters'). The router reads x as given
+    (an f32 x in f32), the products in the compute dtype.
+
+    - the router runs in f32: ``s = sigmoid(h @ gate)``; the chosen experts
+      are ``topk(s + expert_bias, k)`` (the bias picks experts and weighs
+      nothing); their weights are ``s`` at the chosen, over their sum plus
+      1e-6 (``norm_topk_prob``), times ``routed_scaling``;
+    - no capacity: the (row, choice) pairs are sorted by expert on the
+      device (a stable sort, so each expert's rows keep their order) and
+      every pair goes through two grouped products over the sorted rows,
+      gate | up stacked as ``gate_up_proj`` [E, dim, 2 hidden], then
+      ``down_proj`` [E, hidden, dim]; nothing waits on the host;
+    - the products are unsorted and each row sums its k weighted outputs
+      in one batched product (f32 accumulation, the compute dtype out).
+
+    Under a profiler the three phases are the spans ``moe.route`` (scores,
+    selection, sort, offsets), ``moe.experts`` (the rows' gather, both
+    products and the SwiGLU between them) and ``moe.combine``. Each call
+    adds its end offsets to ``expert_ends[layer]`` (``rows_per_expert``)
+    and its two products to ``grouped_calls``."""
+
+    def __init__(self, dim: int, hidden_dim: int, n_experts: int, k: int, *,
+                 use_expert_bias: bool = True, norm_topk_prob: bool = True,
+                 routed_scaling: float = 1.0, layer: int = 0, device=None,
+                 dtype=None):
+        super().__init__()
+        self.hidden_dim, self.n_experts, self.k = hidden_dim, n_experts, k
+        self.norm_topk_prob = norm_topk_prob
+        self.routed_scaling = routed_scaling
+        self.layer = layer
+        self.compute_dtype = dtype
+        self.gate = nn.Linear(dim, n_experts, bias=False, device=device)
+        self.expert_bias = (nn.Parameter(torch.zeros(n_experts,
+                                                     device=device))
+                            if use_expert_bias else None)
+        self.gate_up_proj = nn.Parameter(torch.zeros(
+            n_experts, dim, 2 * hidden_dim, device=device))
+        self.down_proj = nn.Parameter(torch.zeros(n_experts, hidden_dim, dim,
+                                                  device=device))
+
+    def route(self, h: torch.Tensor):
+        """h [N, dim] -> (chosen experts [N, k], their weights [N, k] f32)."""
+        scores = torch.sigmoid(h.float() @ self.gate.weight.float().t())
+        pick = (scores if self.expert_bias is None
+                else scores + self.expert_bias.float())
+        chosen = torch.topk(pick, self.k, dim=-1).indices
+        weights = torch.gather(scores, -1, chosen)
+        if self.norm_topk_prob:
+            weights = weights / (weights.sum(-1, keepdim=True) + 1e-6)
+        if self.routed_scaling != 1:
+            weights = weights * self.routed_scaling
+        return chosen, weights
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype or self.gate_up_proj.dtype
+        h = x.reshape(-1, x.shape[-1])
+        n, k, f = h.shape[0], self.k, self.hidden_dim
+        with span("moe.route"):
+            chosen, weights = self.route(h)
+            experts, order = torch.sort(chosen.reshape(-1), stable=True)
+            ends = torch.searchsorted(
+                experts, torch.arange(self.n_experts, device=h.device),
+                right=True, out_int32=True)
+            _count_rows(self.layer, ends)
+        with span("moe.experts"):
+            gu = grouped_mm(h[order // k].to(cdt), self.gate_up_proj.to(cdt),
+                            ends)
+            act = F.silu(gu[:, :f]) * gu[:, f:]
+            y = grouped_mm(act, self.down_proj.to(cdt), ends)
+        with span("moe.combine"):
+            y = torch.empty_like(y).index_copy_(0, order, y).view(n, k, -1)
+            out = torch.bmm(weights.to(cdt)[:, None], y)
+        return out.reshape(x.shape)

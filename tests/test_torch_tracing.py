@@ -1,9 +1,9 @@
 """The port's trace spans (``utils/profiling.py:span``) on the CPU: a shared
 no-op with no profiler recording; under one, the span tree of a Franky
 predictor call, of each decode loop, of a training step at
-``grad_accum=2`` (the MAE and Franky) and of the loader's consumer, read
-from the exported Chrome trace as the benchmark reads it. Spans change no
-result."""
+``grad_accum=2`` (the MAE and Franky), of the loader's consumer and of
+LFM2's operators and routed experts, read from the exported Chrome trace
+as the benchmark reads it. Spans change no result."""
 
 import json
 from collections import Counter
@@ -54,7 +54,7 @@ def windows(seed=0):
 
 
 OURS = ("predict", "decode", "train", "loader", "outer", "inner",
-        "consumer")
+        "consumer", "moe", "lfm2")
 
 
 def traced(fn, tmp_path):
@@ -253,3 +253,56 @@ def test_loader_wait_is_on_the_consumer_thread_only(tmp_path):
     assert len(waits) == 5          # four batches, then the end
     assert {s[0] for s in spans} == {"consumer", "loader.wait"}
     assert all(inside(s, consumer) and s[3] == consumer[3] for s in waits)
+
+
+LFM2_SPANS = {"lfm2.conv": 3, "lfm2.attn": 1, "moe.route": 3,
+              "moe.experts": 3, "moe.combine": 3}
+
+
+@pytest.fixture(scope="module")
+def lfm2():
+    """A 4-layer LFM2-MoE (conv, conv, attention, conv; one dense and three
+    routed layers) with small random weights."""
+    from frankenstein_tpu_torch.models.lfm2 import Lfm2
+    cfg = tconfig.Lfm2MoeConfig(
+        vocab_size=64, hidden_size=32, intermediate_size=48,
+        moe_intermediate_size=16, num_hidden_layers=4,
+        num_attention_heads=4, num_key_value_heads=2,
+        layer_types=("conv", "conv", "full_attention", "conv"),
+        num_dense_layers=1, num_experts=4, num_experts_per_tok=2)
+    model = Lfm2(cfg).eval()
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    return model
+
+
+def test_lfm2_spans_open_under_a_profiler(lfm2, tmp_path):
+    """One span per operator (``lfm2.conv``, ``lfm2.attn``) and per routed
+    layer's phase (``moe.route``, ``.experts``, ``.combine``), in order."""
+    idx = torch.arange(6)[None] % 64
+    with torch.no_grad():
+        want = lfm2.logits(idx)
+        got, spans = traced(lambda: lfm2.logits(idx), tmp_path)
+    assert torch.equal(got, want)
+    assert count(spans) == Counter(LFM2_SPANS)
+    moe_names = [s[0] for s in spans if s[0].startswith("moe.")]
+    assert moe_names == ["moe.route", "moe.experts", "moe.combine"] * 3
+
+
+def test_lfm2_spans_cost_one_check_each_without_a_profiler(lfm2,
+                                                          monkeypatch):
+    """With no profiler recording each span is one ``_profiler_enabled``
+    check and no ``record_function``."""
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) built")
+
+    checks = []
+    enabled = profiling._profiler_enabled
+    monkeypatch.setattr(profiling, "record_function", refuse)
+    monkeypatch.setattr(profiling, "_profiler_enabled",
+                        lambda: checks.append(1) or enabled())
+    with torch.no_grad():
+        lfm2.logits(torch.arange(5)[None])
+    assert len(checks) == sum(LFM2_SPANS.values())
