@@ -274,7 +274,26 @@ nvcc (sm_90a) and then, one line per phase:
     first, cuDNN deterministic), each loss and the four codebook buffers
     within 1e-5 rel of an unwrapped copy's; (e) the dryrun
     (``python -m frankenstein_tpu_torch.dryrun --ranks 4 --device cpu``)
-    on this machine's torch: its seven ``ok`` lines.
+    on this machine's torch: its seven ``ok`` lines;
+24. the routed experts' route and combine kernels (``ops/cuda/
+    moe_route.py``) at the LFM2 cell's shapes (dim 2048, 32 experts, top
+    4, a bf16 gate and bias): N = 160 rows (a decode step) and 160 x 33
+    (the prefill). The route kernel's offsets, rows and positions against
+    the twin's stable sort of its own choices, its choices and weights
+    against the twin's on cuBLAS's f32 scores (on the rows whose top 5
+    picks lie more than 1e-5 apart, at least 90% of them), the combine
+    kernel within one bf16 rounding of its twin; then, back to
+    back, each kernel, its twin and the PyTorch chain it replaces (f32
+    GEMM, sigmoid, topk, gather, normalisation, stable sort, searchsorted,
+    the running count's add; index_copy_, the weights' cast, bmm) as
+    ``ms``, ``plain_ms`` and ``library_ms``, and each kernel and the chain
+    as one call of a CUDA graph of 20 (``graph_ms``, as the cell's step
+    graphs run them), beside the byte bound. Last, the launches on the
+    cell's own path: an LFM2 at full width cut to 4 layers (2 routed),
+    bf16, its prefill of 160 x 33 rows and a decode step of 160 rows
+    replayed from its CUDA graph, each counted from zero: one route and
+    one combine launch a routed layer (the ``kernels`` line's
+    ``launches``, of the replayed step).
 
 Every on / off comparison (phases 4, 9, 13, 17, 18 and 20) is timed by
 ``_in_turns``: one warm-up each, then single calls alternating in turns,
@@ -5225,6 +5244,188 @@ def phase_moe(card: str) -> dict:
     return {"launches": launches, "request": req_launches, "step": step}
 
 
+def _route_chain(h, gate, bias, k, ends_sum):
+    """The PyTorch chain the route kernel replaces (the layer's route
+    before it): scores, top k, weights, sort by expert, offsets, count."""
+    import torch
+    scores = torch.sigmoid(h.float() @ gate.float().t())
+    chosen = torch.topk(scores + bias.float(), k, dim=-1).indices
+    weights = torch.gather(scores, -1, chosen)
+    weights = weights / (weights.sum(-1, keepdim=True) + 1e-6)
+    experts, order = torch.sort(chosen.reshape(-1), stable=True)
+    ends = torch.searchsorted(
+        experts, torch.arange(gate.shape[0], device=h.device), right=True,
+        out_int32=True)
+    ends_sum += ends
+    return order, weights
+
+
+def _combine_chain(y, order, weights):
+    """The PyTorch chain the combine kernel replaces: the unsort by
+    ``index_copy_``, the weights' cast and ``bmm``."""
+    import torch
+    n, k = weights.shape
+    y = torch.empty_like(y).index_copy_(0, order, y).view(n, k, -1)
+    return torch.bmm(weights.to(y.dtype)[:, None], y)
+
+
+def _graph_ms(fn, calls: int = 20) -> float:
+    """Device ms of one call of ``fn`` inside a CUDA graph of ``calls``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _time_ms(graph.replay) / calls
+
+
+def _routed_launches(card: str) -> dict:
+    """The route and combine kernels' launches on the cell's own path: an
+    LFM2 of full width (dim 2048, 32 experts, top 4, bf16) cut to its
+    first 4 layers (2 routed), random weights from SEED. The prefill of
+    160 rows x 33 positions and a decode step of 160 rows replayed from
+    its CUDA graph (``StepGraphs``), each counted from zero: one route and
+    one combine launch a routed layer."""
+    import dataclasses
+    import torch
+    from frankenstein_tpu_torch.config import Lfm2MoeConfig
+    from frankenstein_tpu_torch.models.lfm2 import Lfm2
+    from frankenstein_tpu_torch.ops.cuda import moe_route as mr
+    dev = torch.device("cuda")
+    full = Lfm2MoeConfig()
+    cfg = dataclasses.replace(full, num_hidden_layers=4,
+                              layer_types=full.layer_types[:4])
+    routed = cfg.num_hidden_layers - cfg.num_dense_layers
+    model = Lfm2(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=dev) * 0.02)
+    model = model.to(torch.bfloat16).eval()
+    b, t = 160, 33
+    hist = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                         device=dev)
+    prefix = torch.randn(b, t - 1, cfg.hidden_size, generator=gen,
+                         device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen, device=dev)
+    counts = {}
+    mr.launches = mr.combine_launches = 0
+    _, cache, length = model.prefill(hist, prefix,
+                                     model.init_decode_cache(b, t + 1))
+    counts["prefill"] = (mr.launches, mr.combine_launches)
+    _, cache, _ = model.decode_step(tok, cache, length)   # the capture
+    mr.launches = mr.combine_launches = 0
+    model.decode_step(tok, cache, length)
+    torch.cuda.synchronize()
+    counts["step"] = (mr.launches, mr.combine_launches)
+    print(f"phase 24 moe_route launches on the path: LFM2 at full width cut "
+          f"to {cfg.num_hidden_layers} layers ({routed} routed), bf16 | "
+          f"prefill of {b} x {t} rows: route {counts['prefill'][0]}, "
+          f"combine {counts['prefill'][1]} | a decode step of {b} rows "
+          f"replayed from its CUDA graph: route {counts['step'][0]}, "
+          f"combine {counts['step'][1]} | {card}", flush=True)
+    _check(counts["prefill"] == counts["step"] == (routed, routed),
+           f"moe_route launches, {routed} routed layers: {counts}")
+    del model, cache
+    _free_card()
+    return {"routed": routed, "layers": cfg.num_hidden_layers, **counts}
+
+
+def phase_moe_route(card: str) -> dict:
+    """Phase 24: the route and combine kernels at the LFM2 cell's shapes,
+    against their twins and the PyTorch chain they replace, and their
+    launches on the cell's own path (``_routed_launches``)."""
+    import torch
+    from frankenstein_tpu_torch.ops.cuda import moe_route as mr
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d, e, k = 2048, 32, 4
+    out = {}
+    arrived = mr.arrival_count(dev)
+    for n in (160, 160 * 33):
+        h = torch.randn(n, d, generator=gen, device=dev)
+        gate = (torch.randn(e, d, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        bias = (torch.randn(e, generator=gen, device=dev) * 0.02).to(
+            torch.bfloat16)
+        y = torch.randn(n * k, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        total = torch.zeros(e, dtype=torch.int64, device=dev)
+        r = mr.route(h, gate, bias, k, arrived=arrived, ends_sum=total)
+        got = mr.combine(y, r.weights, r.pos)
+        torch.cuda.synchronize()
+        # the twin on cuBLAS's scores: the kernel sums in another order,
+        # so its choices are held to the rows whose top k + 1 picks lie
+        # apart by more than that can move them
+        want = mr.route_ref(h, gate, bias, k)
+        top = (mr.scores_ref(h, gate) + bias.float()).sort(
+            -1, descending=True).values[:, :k + 1]
+        clear = (top[:, :-1] - top[:, 1:]).min(-1).values > 1e-5
+        share = float(clear.float().mean())
+        ends, rows, pos = mr.sort_ref(r.chosen, e)
+        sort_exact = (torch.equal(r.ends, ends) and torch.equal(r.rows, rows)
+                      and torch.equal(r.pos, pos)
+                      and torch.equal(total, ends.long()))
+        chosen_exact = torch.equal(r.chosen[clear], want.chosen[clear])
+        w_err = float(((r.weights[clear] - want.weights[clear]).abs()
+                       / want.weights[clear].abs()).max())
+        comb = mr.combine_ref(y, r.weights, r.pos)
+        room = torch.maximum(got.float().abs(), comb.float().abs()) / 128
+        within = bool(((got.float() - comb.float()).abs() <= room).all())
+        order = torch.sort(r.chosen.reshape(-1).long(), stable=True).indices
+        fns = {
+            "route": lambda: mr.route(h, gate, bias, k, arrived=arrived,
+                                      ends_sum=total),
+            "route twin": lambda: mr.route_ref(h, gate, bias, k),
+            "route chain": lambda: _route_chain(h, gate, bias, k, total),
+            "combine": lambda: mr.combine(y, r.weights, r.pos),
+            "combine twin": lambda: mr.combine_ref(y, r.weights, r.pos),
+            "combine chain": lambda: _combine_chain(y, order, r.weights)}
+        ms = {name: _time_ms(fn) for name, fn in fns.items()}
+        graph = {name: _graph_ms(fns[name]) for name in (
+            "route", "route chain", "combine", "combine chain")}
+        bounds = {"route": _bound(_nbytes(h, gate, bias) + 16 * n * k
+                                  + 12 * e, 0),
+                  "combine": _bound(_nbytes(y, got) + 8 * n * k, 0)}
+        f32_ms = 2 * n * d * e / 67e12 * 1e3   # f32 FMA peak, 67 TFLOP/s
+        print(f"phase 24 moe_route N={n} (dim {d}, {e} experts, top {k}): "
+              f"offsets, rows, positions and the running count the twin's "
+              f"sort of its choices {sort_exact}; choices the twin's on "
+              f"cuBLAS's scores {chosen_exact} on the {100 * share:.2f}% of "
+              f"rows whose top {k + 1} picks lie > 1e-5 apart, weights max "
+              f"rel err {w_err:.2e} there; combine within one bf16 rounding "
+              f"of its twin {within} | route {ms['route']:.4f} ms (in a "
+              f"graph {graph['route']:.4f}), twin {ms['route twin']:.4f}, "
+              f"chain {ms['route chain']:.4f} (in a graph "
+              f"{graph['route chain']:.4f}), bound "
+              f"{bounds['route']['bound_ms']:.4f} (bytes; f32 FMA "
+              f"{f32_ms:.4f}) | combine {ms['combine']:.4f} ms (in a graph "
+              f"{graph['combine']:.4f}), twin {ms['combine twin']:.4f}, "
+              f"chain {ms['combine chain']:.4f} (in a graph "
+              f"{graph['combine chain']:.4f}), bound "
+              f"{bounds['combine']['bound_ms']:.4f} | {card}", flush=True)
+        _check(sort_exact and chosen_exact and share > 0.9 and w_err < 1e-5
+               and within and int(arrived) == 0,
+               f"moe_route N={n}: sort {sort_exact}, choices {chosen_exact}"
+               f" on {share}, weights {w_err}, combine {within}")
+        for name in ("route", "combine"):
+            out[name, n] = {
+                "max_abs_err": _max_err(r.weights[clear],
+                                        want.weights[clear])
+                if name == "route" else _max_err(got, comb),
+                "ms": ms[name], "plain_ms": ms[f"{name} twin"],
+                "library_ms": ms[f"{name} chain"],
+                "graph_ms": graph[name],
+                "library_graph_ms": graph[f"{name} chain"], **bounds[name]}
+    out["launches"] = _routed_launches(card)
+    return out
+
+
 def _entry(r: dict) -> dict:
     """A kernel's measured numbers for the ``kernels`` line; library_ms is
     null where no one PyTorch call computes the same function. ``ms`` and
@@ -5273,6 +5474,7 @@ def main() -> int:
     phase_whisper(card)
     phase_vq(card)
     phase_moe(card)
+    routing = phase_moe_route(card)
     # last: a profiling child started while this process's profiler is
     # initialised drops records from this process's later profiles
     _decode_profile(card)
@@ -5368,6 +5570,24 @@ def main() -> int:
          "source": "frankenstein_tpu_torch/csrc/slab_rope_attention_int8.cu",
          "replaces": "tools/int8_attr_probe.py:165 (_call, call :197)",
          "launches": probes["launches"][1], **_entry(probes["int8_full"])}]
+    # the routed experts' kernels (port-only, no Pallas site), at the
+    # decode step's 160 rows; the prefill's 5280 beside them
+    routed = routing["launches"]
+    for i, name in enumerate(("route", "combine")):
+        kernels.append(
+            {"name": f"moe_{name}", "route": "cuda",
+             "source": "frankenstein_tpu_torch/csrc/moe_route.cu",
+             "replaces": "none (port-only: models/moe.py:RoutedExperts' "
+                         "routing chain)",
+             "launches": routed["step"][i],
+             "launches_of": f"a replayed decode step of 160 rows, LFM2 at "
+                            f"full width cut to {routed['layers']} layers "
+                            f"({routed['routed']} routed)",
+             "prefill_launches": routed["prefill"][i],
+             **_entry(routing[name, 160]),
+             "graph_ms": routing[name, 160]["graph_ms"],
+             "library_graph_ms": routing[name, 160]["library_graph_ms"],
+             "at_5280": _entry(routing[name, 5280])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

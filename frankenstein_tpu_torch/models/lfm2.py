@@ -60,6 +60,7 @@ from frankenstein_tpu_torch.models import moe
 from frankenstein_tpu_torch.models.gpt2 import GPT
 from frankenstein_tpu_torch.models.layers import RMSNorm, SwiGLU, linear
 from frankenstein_tpu_torch.models.moe import RoutedExperts
+from frankenstein_tpu_torch.ops.cuda import moe_route
 from frankenstein_tpu_torch.utils.profiling import span
 
 
@@ -208,12 +209,15 @@ class StepGraphs:
     held buffer, valid until the next step. Each position is captured the
     first time it comes (after one step on a side stream, with the conv
     state put back, to warm the libraries up), into one memory pool. A
-    replay adds the grouped products its capture recorded to
-    ``moe.grouped_calls``."""
+    replay adds the launches its capture recorded to the counters of
+    ``COUNTERS`` (the grouped products, the route and combine kernels)."""
+
+    COUNTERS = ((moe, "grouped_calls"), (moe_route, "launches"),
+                (moe_route, "combine_launches"))
 
     def __init__(self):
         self.held = {}        # shape -> (token, HybridCache, logits)
-        self.graphs = {}      # (shape, position) -> (graph, grouped calls)
+        self.graphs = {}      # (shape, position) -> (graph, launches)
         self.pool = None
 
     def step(self, model, token, cache: HybridCache, length: int):
@@ -235,7 +239,8 @@ class StepGraphs:
                                                        logits, length)
         graph, calls = self.graphs[shape, length]
         graph.replay()
-        moe.grouped_calls += calls
+        for (mod, name), n in zip(self.COUNTERS, calls):
+            setattr(mod, name, getattr(mod, name) + n)
         return logits, held
 
     def _capture(self, model, tok, held, logits, length):
@@ -248,10 +253,14 @@ class StepGraphs:
         held.conv.copy_(conv)
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
-        graph, before = torch.cuda.CUDAGraph(), moe.grouped_calls
+        graph = torch.cuda.CUDAGraph()
+        before = [getattr(mod, name) for mod, name in self.COUNTERS]
         with torch.cuda.graph(graph, pool=self.pool):
             logits.copy_(model._step(tok, held, length))
-        calls, moe.grouped_calls = moe.grouped_calls - before, before
+        calls = []
+        for (mod, name), was in zip(self.COUNTERS, before):
+            calls.append(getattr(mod, name) - was)
+            setattr(mod, name, was)
         return graph, calls
 
 

@@ -1,7 +1,9 @@
 """Mixture-of-Experts SwiGLU layers: the JAX package's capacity-bound
 ``MoESwiGLU`` with expert parallelism (``frankenstein_tpu/models/moe.py``),
 and the port's dropless ``RoutedExperts`` (LFM2-MoE's router, sorted
-rows and grouped products).
+rows and grouped products; on the card the routing is two hand-written
+kernels, ``ops/cuda/moe_route.py``: one launch scores, picks, counting-
+sorts and offsets the rows, one unsorts and sums each row's outputs).
 
 The JAX package's GShard / Switch layer with static shapes:
 
@@ -44,6 +46,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from frankenstein_tpu_torch.ops.cuda import moe_route
 from frankenstein_tpu_torch.parallel import mesh as mesh_lib
 from frankenstein_tpu_torch.utils.profiling import span
 
@@ -183,14 +186,15 @@ def shard_experts(model: nn.Module, group) -> int:
     return count
 
 
-def _count_rows(layer: int, ends: torch.Tensor) -> None:
-    """Add one call's end offsets [E] to ``expert_ends[layer]``."""
+def _ends_sum(layer: int, n_experts: int, device) -> torch.Tensor:
+    """``expert_ends[layer]``, the running sum the route adds each call's
+    end offsets [E] to (zeros the first time on ``device``)."""
     have = expert_ends.get(layer)
-    if (have is None or have.device != ends.device
-            or have.shape != ends.shape):
-        expert_ends[layer] = ends.long()
-    else:
-        have += ends
+    if (have is None or have.device != torch.device(device)
+            or have.shape != (n_experts,)):
+        have = expert_ends[layer] = torch.zeros(n_experts, dtype=torch.long,
+                                                device=device)
+    return have
 
 
 def rows_per_expert() -> torch.Tensor:
@@ -223,19 +227,30 @@ class RoutedExperts(nn.Module):
       are ``topk(s + expert_bias, k)`` (the bias picks experts and weighs
       nothing); their weights are ``s`` at the chosen, over their sum plus
       1e-6 (``norm_topk_prob``), times ``routed_scaling``;
-    - no capacity: the (row, choice) pairs are sorted by expert on the
-      device (a stable sort, so each expert's rows keep their order) and
+    - no capacity: the (row, choice) pairs are counting-sorted by expert
+      on the device (stable, so each expert's rows keep their order) and
       every pair goes through two grouped products over the sorted rows,
       gate | up stacked as ``gate_up_proj`` [E, dim, 2 hidden], then
       ``down_proj`` [E, hidden, dim]; nothing waits on the host;
-    - the products are unsorted and each row sums its k weighted outputs
-      in one batched product (f32 accumulation, the compute dtype out).
+    - each row sums its k outputs, gathered at their sorted positions and
+      weighed by its weights in the compute dtype, in f32, rounded once.
 
-    Under a profiler the three phases are the spans ``moe.route`` (scores,
-    selection, sort, offsets), ``moe.experts`` (the rows' gather, both
-    products and the SwiGLU between them) and ``moe.combine``. Each call
-    adds its end offsets to ``expert_ends[layer]`` (``rows_per_expert``)
-    and its two products to ``grouped_calls``."""
+    On the card the router, the top k, the sort and the offsets are ONE
+    launch of ``ops/cuda/moe_route.py:route`` (``csrc/moe_route.cu``),
+    which also adds the offsets to the running count, and the unsort and
+    the weighted sum one of ``combine``; on the CPU their plain twins run.
+    Top-k ties go to the lower expert index, NaN before any number. The
+    layer owns the route kernel's arrival count (``moe_route.
+    arrival_count``), made at its first call on a device (before any
+    capture: the step graphs warm up eagerly first), so one layer's calls
+    must not run at the same time on two streams, as its running count
+    ``expert_ends[layer]`` forbids anyway. Under a profiler the three
+    phases are the spans ``moe.route`` (the route kernel), ``moe.experts``
+    (the rows' gather, both products and the SwiGLU between them) and
+    ``moe.combine`` (the combine kernel). Each call adds its end offsets
+    to ``expert_ends[layer]`` (``rows_per_expert``), its two products to
+    ``grouped_calls`` and its launches to ``moe_route.launches`` and
+    ``moe_route.combine_launches``."""
 
     def __init__(self, dim: int, hidden_dim: int, n_experts: int, k: int, *,
                  use_expert_bias: bool = True, norm_topk_prob: bool = True,
@@ -255,37 +270,33 @@ class RoutedExperts(nn.Module):
             n_experts, dim, 2 * hidden_dim, device=device))
         self.down_proj = nn.Parameter(torch.zeros(n_experts, hidden_dim, dim,
                                                   device=device))
+        self.arrived = None   # the route kernel's arrival count
 
     def route(self, h: torch.Tensor):
-        """h [N, dim] -> (chosen experts [N, k], their weights [N, k] f32)."""
-        scores = torch.sigmoid(h.float() @ self.gate.weight.float().t())
-        pick = (scores if self.expert_bias is None
-                else scores + self.expert_bias.float())
-        chosen = torch.topk(pick, self.k, dim=-1).indices
-        weights = torch.gather(scores, -1, chosen)
-        if self.norm_topk_prob:
-            weights = weights / (weights.sum(-1, keepdim=True) + 1e-6)
-        if self.routed_scaling != 1:
-            weights = weights * self.routed_scaling
-        return chosen, weights
+        """h [N, dim] -> (chosen experts [N, k] int32, their weights [N, k]
+        f32), by the plain twin."""
+        return moe_route.select_ref(
+            moe_route.scores_ref(h, self.gate.weight), self.expert_bias,
+            self.k, self.norm_topk_prob, self.routed_scaling)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype or self.gate_up_proj.dtype
         h = x.reshape(-1, x.shape[-1])
-        n, k, f = h.shape[0], self.k, self.hidden_dim
+        f = self.hidden_dim
+        if h.is_cuda and (self.arrived is None
+                          or self.arrived.device != h.device):
+            self.arrived = moe_route.arrival_count(h.device)
         with span("moe.route"):
-            chosen, weights = self.route(h)
-            experts, order = torch.sort(chosen.reshape(-1), stable=True)
-            ends = torch.searchsorted(
-                experts, torch.arange(self.n_experts, device=h.device),
-                right=True, out_int32=True)
-            _count_rows(self.layer, ends)
+            r = moe_route.route(
+                h, self.gate.weight, self.expert_bias, self.k,
+                arrived=self.arrived, norm_topk_prob=self.norm_topk_prob,
+                routed_scaling=self.routed_scaling,
+                ends_sum=_ends_sum(self.layer, self.n_experts, h.device))
         with span("moe.experts"):
-            gu = grouped_mm(h[order // k].to(cdt), self.gate_up_proj.to(cdt),
-                            ends)
+            gu = grouped_mm(h.index_select(0, r.rows).to(cdt),
+                            self.gate_up_proj.to(cdt), r.ends)
             act = F.silu(gu[:, :f]) * gu[:, f:]
-            y = grouped_mm(act, self.down_proj.to(cdt), ends)
+            y = grouped_mm(act, self.down_proj.to(cdt), r.ends)
         with span("moe.combine"):
-            y = torch.empty_like(y).index_copy_(0, order, y).view(n, k, -1)
-            out = torch.bmm(weights.to(cdt)[:, None], y)
+            out = moe_route.combine(y, r.weights, r.pos)
         return out.reshape(x.shape)

@@ -170,6 +170,18 @@ def _declare(lib) -> None:
     lib.fk_fused_norm_swiglu_occupancy.argtypes = (
         [i] * 4 + [ctypes.POINTER(i)] * 2)   # E kind nwg R, regs ctas
     lib.fk_fused_norm_swiglu_occupancy.restype = i
+    lib.fk_moe_route.argtypes = (
+        [p] * 11                    # h gate bias chosen weights pos rows
+                                    # ends ends_sum counts arrived
+        + [i] * 6                   # n d e k norm sms
+        + [f, p])                   # scaling, stream
+    lib.fk_moe_route.restype = i
+    lib.fk_moe_route_groups.argtypes = [i] * 4    # n d e sms
+    lib.fk_moe_route_groups.restype = i
+    lib.fk_moe_combine.argtypes = (
+        [p] * 4                     # y w pos out
+        + [i] * 3 + [p])            # n d k, stream
+    lib.fk_moe_combine.restype = i
     lib.fk_error_string.argtypes = [i]
     lib.fk_error_string.restype = ctypes.c_char_p
 

@@ -5,8 +5,9 @@ modes of flash attention, forward and backward: K7 slab's unmasked and
 masked instances at P = 256, 96, 64, 8 and 1), K8 (the fused head and
 top-k: B from 1 to 300, k = 1, 10 and 32, a ragged vocab with its top-k in
 the tail, a table of width 1024 and 1600, ties, its launch and kept
-scratch), K9 (the fused pre-norm SwiGLU MLP, both norms)
-and K10 (int8 QK scores: K and Q codes, scales, out and lse), and the probe
+scratch), K9 (the fused pre-norm SwiGLU MLP, both norms),
+K10 (int8 QK scores: K and Q codes, scales, out and lse) and the routed
+experts' route and combine kernels (ops/cuda/moe_route.py), and the probe
 modes of K1's and K10's forwards (ops/cuda/slab_probe.py), on the card against
 their plain PyTorch twins, at
 small shapes that reach the kernels' edge cases (slabs that do not divide
@@ -33,6 +34,7 @@ from frankenstein_tpu_torch.ops.cuda import flash_attention as k67
 from frankenstein_tpu_torch.ops.cuda import fused_decode as k2
 from frankenstein_tpu_torch.ops.cuda import fused_llama_decode as k5
 from frankenstein_tpu_torch.ops.cuda import fused_mlp as k9
+from frankenstein_tpu_torch.ops.cuda import moe_route as mr
 from frankenstein_tpu_torch.ops.cuda import slab_attention as k1
 
 pytestmark = pytest.mark.cuda
@@ -595,6 +597,136 @@ def test_k3_refuses_what_it_does_not_take(dev):
         k3.beam_reorder(k, k.clone(), torch.zeros(34, device=dev), w=17)
     with pytest.raises(ValueError, match="w <= 16"):
         k3.beam_reorder(k, k.clone(), torch.zeros(34, device=dev), w=5)
+
+
+def _route_case(dev, n, d, e, k, quantized, seed=0):
+    """h [n, d] f32, a bf16 gate [e, d] and bias [e] as the served LFM2
+    holds them. ``quantized``: every value a small multiple of a power of
+    two, so each score is exact in f32 in any summation order (the kernel
+    and cuBLAS then agree bitwise), and experts 1 and e - 1 given the gate
+    rows and biases of 0 and e / 2, so s + bias ties on every row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if quantized:
+        ints = lambda shape, hi: torch.randint(-hi, hi + 1, shape,
+                                               generator=g, device=dev)
+        h = ints((n, d), 4).float() / 4
+        gate = (ints((e, d), 4).float() / 256).to(torch.bfloat16)
+        bias = (ints((e,), 2).float() / 64).to(torch.bfloat16)
+        for lo, hi in ((0, 1), (e // 2, e - 1)):
+            gate[hi], bias[hi] = gate[lo], bias[lo]
+    else:
+        h = torch.randn(n, d, generator=g, device=dev)
+        gate = (torch.randn(e, d, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        bias = (torch.randn(e, generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+    return h, gate, bias
+
+
+@pytest.mark.parametrize("case", ["random", "quantized", "nonfinite"])
+@pytest.mark.parametrize("n,d,e,k", [(160, 2048, 32, 4),
+                                     (5280, 2048, 32, 4),
+                                     (1, 64, 8, 2), (163, 64, 8, 2),
+                                     (500, 256, 64, 8), (1000, 256, 64, 8),
+                                     (202, 128, 20, 3)])
+def test_moe_route_matches_twin(dev, n, d, e, k, case):
+    """The route kernel against its twin at the LFM2 cell's decode (160
+    rows, scored by clusters of 4 CTAs) and prefill (160 x 33, CTAs over
+    runs of rows) shapes and at edge shapes (one CTA for 8 experts,
+    clusters of 8 and 4 with 64 and 20 experts, runs of rows for 64
+    experts, a ragged last tile). Its offsets, sorted rows and positions
+    are the twin's stable sort of its own choices, added to the running
+    count, with the arrival count left at 0. Its choices and weights:
+    random inputs, the twin's on every row whose top k + 1 picks lie
+    apart by more than f32 sums in another order than cuBLAS's can move
+    them; quantized inputs (every score exact), the whole twin's, planted
+    ties included; ``nonfinite``, quantized with a row of NaN (every pick
+    NaN: the first k experts) and a row with an infinite dim (picks of 1,
+    0 and NaN), the whole twin's: NaN first, ties to the lower index."""
+    h, gate, bias = _route_case(dev, n, d, e, k, case != "random")
+    if case == "nonfinite":
+        h[0] = float("nan")
+        h[-1, 0] = float("inf")
+    ends_sum = torch.full((e,), 7, dtype=torch.int64, device=dev)
+    arrived = mr.arrival_count(dev)
+    before = mr.launches
+    r = mr.route(h, gate, bias, k, arrived=arrived, ends_sum=ends_sum)
+    torch.cuda.synchronize()
+    assert mr.launches == before + 1 and int(arrived) == 0
+    ends, rows, pos = mr.sort_ref(r.chosen, e)
+    assert torch.equal(r.ends, ends)
+    assert torch.equal(r.rows, rows) and torch.equal(r.pos, pos)
+    assert torch.equal(ends_sum, ends.long() + 7)
+    want = mr.route_ref(h, gate, bias, k)
+    pick = mr.scores_ref(h, gate) + bias.float()
+    top = pick.sort(-1, descending=True).values[:, :k + 1]
+    if case == "random":
+        clear = (top[:, :-1] - top[:, 1:]).min(-1).values > 1e-5
+        assert float(clear.float().mean()) > 0.9
+        assert torch.equal(r.chosen[clear], want.chosen[clear])
+        torch.testing.assert_close(r.weights[clear], want.weights[clear],
+                                   rtol=1e-5, atol=0)
+        return
+    assert torch.equal(r.chosen, want.chosen)
+    torch.testing.assert_close(r.weights, want.weights, rtol=1e-6, atol=0,
+                               equal_nan=True)
+    assert torch.equal(r.rows, want.rows) and torch.equal(r.pos, want.pos)
+    assert n < 100 or bool((top[:, k - 1] == top[:, k]).any())
+    if case == "nonfinite":
+        assert r.chosen[0].tolist() == list(range(k))
+        assert bool(r.weights[0].isnan().all())
+
+
+@pytest.mark.parametrize("n", [160, 5280])
+def test_moe_combine_matches_twin(dev, n):
+    """The combine kernel against its twin (the unsort and a batched
+    product) on the route kernel's positions and weights: within one bf16
+    rounding (both sum the k products in f32; cuBLAS may order them
+    otherwise), and against the sum taken in f64."""
+    d, e, k = 2048, 32, 4
+    h, gate, bias = _route_case(dev, n, d, e, k, False, seed=1)
+    r = mr.route(h, gate, bias, k, arrived=mr.arrival_count(dev))
+    g = torch.Generator(device=dev).manual_seed(2)
+    y = torch.randn(n * k, d, generator=g, device=dev).to(torch.bfloat16)
+    before = mr.combine_launches
+    got = mr.combine(y, r.weights, r.pos)
+    torch.cuda.synchronize()
+    assert mr.combine_launches == before + 1 and got.dtype == torch.bfloat16
+    want = mr.combine_ref(y, r.weights, r.pos)
+    terms = (r.weights.to(torch.bfloat16).double()[:, :, None]
+             * y.double()[r.pos.long()])
+    exact, size = terms.sum(1), terms.abs().sum(1)
+    # one rounding to bf16, beside f32 sums of k terms taken in any order
+    room = (torch.maximum(got.double().abs(), want.double().abs()) * 2 ** -7
+            + size * 2.0 ** -21)
+    assert bool(((got.double() - want.double()).abs() <= room).all())
+    assert bool(((got.double() - exact).abs() <= room).all())
+
+
+def test_moe_route_refuses_what_it_does_not_take(dev):
+    h, gate, bias = _route_case(dev, 16, 64, 8, 2, False)
+    arrived = mr.arrival_count(dev)
+    with pytest.raises(ValueError, match="h: need"):
+        mr.route(h.to(torch.bfloat16), gate, bias, 2, arrived=arrived)
+    with pytest.raises(ValueError, match="gate: need"):
+        mr.route(h, gate.float(), bias, 2, arrived=arrived)
+    with pytest.raises(ValueError, match="bias: need"):
+        mr.route(h, gate, bias.float(), 2, arrived=arrived)
+    with pytest.raises(ValueError, match="arrived: need"):
+        mr.route(h, gate, bias, 2)
+    with pytest.raises(ValueError, match="E <= 64"):
+        mr.route(h, gate.repeat(9, 1), None, 2, arrived=arrived)
+    with pytest.raises(ValueError, match="D % 8"):
+        mr.route(h[:, :60].contiguous(), gate[:, :60].contiguous(), bias, 2,
+                 arrived=arrived)
+    with pytest.raises(ValueError, match="k <= min"):
+        mr.route(h, gate, bias, 9, arrived=arrived)
+    r = mr.route(h, gate, bias, 2, arrived=arrived)
+    y = torch.zeros(32, 64, dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        mr.combine(y, r.weights, r.pos)
+    with pytest.raises(ValueError, match="pos: need"):
+        mr.combine(y.bfloat16(), r.weights, r.pos.long())
 
 
 K5_TOL = 2e-2   # relative to max |twin|: bf16 roundings, other f32 order

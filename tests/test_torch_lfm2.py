@@ -18,6 +18,7 @@ from frankenstein_tpu_torch.decode import pipeline, sampling
 from frankenstein_tpu_torch.models import moe
 from frankenstein_tpu_torch.models.franky import FrankyLfm2
 from frankenstein_tpu_torch.models.lfm2 import HybridCache, Lfm2
+from frankenstein_tpu_torch.ops.cuda import moe_route
 from portbench import weights
 from portbench.reference import franky_lfm2 as ref
 
@@ -283,6 +284,116 @@ def test_bias_changes_the_selection_not_the_weights():
     assert torch.allclose(w.sum(-1), torch.ones(200), atol=1e-5)
 
 
+def _routed(case: str, n: int, seed: int = 11):
+    """(a layer of LFM2's routing width, 32 experts, top 4, and h [n, 64]):
+    ``skewed`` sends every row to expert 7, ``idle`` no row to expert 3,
+    ``ties`` quantizes h and the gate so every score is exact in f32 and
+    gives experts 1, 9 and 31 the gate rows and biases of 0, 5 and 20."""
+    layer = moe.RoutedExperts(64, 16, 32, 4, layer=-100 - seed)
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(n, 64, generator=g)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+        bias, gate = layer.expert_bias, layer.gate.weight
+        if case == "skewed":
+            bias[7] = 10.0
+        elif case == "idle":
+            bias[3] = -10.0
+        elif case == "ties":
+            h = torch.randint(-4, 5, h.shape, generator=g) / 4
+            gate.copy_(torch.randint(-4, 5, gate.shape, generator=g) / 64)
+            bias.copy_(torch.randint(-2, 3, bias.shape, generator=g) / 64)
+            for lo, hi in ((0, 1), (5, 9), (20, 31)):
+                gate[hi], bias[hi] = gate[lo], bias[lo]
+    return layer, h
+
+
+def _todays_chain(layer, h, stable: bool):
+    """The layer as it ran before its routing became two kernels: f32
+    scores, ``torch.topk`` (``moe.stable_topk`` if ``stable``), the
+    weights, a stable ``torch.sort`` by expert, ``searchsorted``, the
+    grouped products, ``index_copy_`` and ``bmm``."""
+    n, k, f = h.shape[0], layer.k, layer.hidden_dim
+    scores = torch.sigmoid(h.float() @ layer.gate.weight.float().t())
+    pick = scores + layer.expert_bias.float()
+    chosen = (moe.stable_topk(pick, k)[1] if stable
+              else torch.topk(pick, k, dim=-1).indices)
+    weights = torch.gather(scores, -1, chosen)
+    weights = weights / (weights.sum(-1, keepdim=True) + 1e-6)
+    experts, order = torch.sort(chosen.reshape(-1), stable=True)
+    ends = torch.searchsorted(experts, torch.arange(layer.n_experts),
+                              right=True, out_int32=True)
+    gu = torch._grouped_mm(h[order // k], layer.gate_up_proj, offs=ends)
+    y = torch._grouped_mm(F.silu(gu[:, :f]) * gu[:, f:], layer.down_proj,
+                          offs=ends)
+    y = torch.empty_like(y).index_copy_(0, order, y).view(n, k, -1)
+    out = torch.bmm(weights[:, None], y)[:, 0]
+    return {"chosen": chosen, "weights": weights, "ends": ends,
+            "rows": order // k, "order": order, "pick": pick, "out": out}
+
+
+@pytest.mark.parametrize("case", ["random", "skewed", "idle", "ties"])
+@pytest.mark.parametrize("n", [160, 5280])
+def test_routing_twins_equal_the_chain_they_replace(n, case, monkeypatch):
+    """The route and combine kernels' twins (``ops/cuda/moe_route.py``), as
+    the layer runs them on the CPU, give exactly what the sort, offsets,
+    unsort and ``bmm`` they replace gave: the choices, weights, offsets,
+    sorted source rows, running counts and the layer's output. Ties in s
+    + bias go to the lower expert index, where ``torch.topk`` promises no
+    order, so the tied case holds the old chain to that rule."""
+    layer, h = _routed(case, n)
+    k = layer.k
+    monkeypatch.setattr(moe, "expert_ends", {})   # 32 experts, not the LM's
+    with torch.no_grad():
+        want = _todays_chain(layer, h, stable=case == "ties")
+        r = moe_route.route(h, layer.gate.weight, layer.expert_bias, k)
+        got = layer(h)
+        layer(h)
+    assert torch.equal(r.chosen.long(), want["chosen"])
+    assert torch.equal(r.weights, want["weights"])
+    assert torch.equal(r.ends, want["ends"])
+    assert torch.equal(r.rows.long(), want["rows"])
+    assert torch.equal(r.pos.reshape(-1)[want["order"]],
+                       torch.arange(n * k, dtype=torch.int32))
+    assert torch.equal(got, want["out"])
+    assert torch.equal(moe.expert_ends[layer.layer], 2 * want["ends"].long())
+    rows = torch.diff(r.ends, prepend=r.ends.new_zeros(1))
+    assert int(rows.sum()) == n * k
+    if case == "skewed":
+        assert rows[7] == n
+    if case == "idle":
+        assert rows[3] == 0
+    if case == "ties":
+        # the pick's k-th and (k+1)-th values tie on many rows, and each
+        # row's choices are its top k by (value down, expert up)
+        ranked = want["pick"].sort(-1, descending=True).values
+        assert int((ranked[:, k - 1] == ranked[:, k]).sum()) > n // 20
+        for i in range(0, n, max(1, n // 40)):
+            order = sorted(range(32), key=lambda e: (
+                -float(want["pick"][i, e]), e))
+            assert r.chosen[i].tolist() == order[:k]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_combine_twin_equals_index_copy_and_bmm(dtype):
+    """Each row's k outputs gathered at their sorted positions and summed
+    with its weights in the compute dtype: the unsort by ``index_copy_``
+    and the ``bmm`` it replaces, bitwise."""
+    n, k, d = 96, 4, 48
+    g = torch.Generator().manual_seed(3)
+    chosen = torch.randint(0, 16, (n, k), generator=g)
+    order = torch.sort(chosen.reshape(-1), stable=True).indices
+    pos = torch.empty_like(order).index_copy_(0, order,
+                                              torch.arange(n * k)).view(n, k)
+    y = torch.randn(n * k, d, generator=g).to(dtype)
+    w = torch.rand(n, k, generator=g)
+    want = torch.bmm(w.to(dtype)[:, None], torch.empty_like(y).index_copy_(
+        0, order, y).view(n, k, -1))[:, 0]
+    got = moe_route.combine(y, w, pos.int())
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
 def test_franky_lfm2_beams_through_the_predictor(franky):
     """``make_franky_predictor`` -> ``beam_search`` serves the reference's
     beams: the same tokens and scores."""
@@ -352,7 +463,8 @@ def _card_model():
 def test_step_graphs_replay_the_layers_on_the_card():
     """On the card ``decode_step`` replays one CUDA graph a position: the
     same logits and state as the layers run one by one, through a beam
-    reorder between steps, with the replays' grouped products counted.
+    reorder between steps, with the replays' grouped products and route
+    and combine kernels counted (one of each kernel a routed layer).
     The graphs take the caller's cache in once and hand back the state
     they hold, which the in-place reorder keeps theirs."""
     model, g = _card_model()
@@ -369,8 +481,12 @@ def test_step_graphs_replay_the_layers_on_the_card():
     for i in range(4):
         tok = torch.randint(0, V, (b,), generator=g, device=dev)
         calls = moe.grouped_calls
+        routes, combines = moe_route.launches, moe_route.combine_launches
         got, caches[0], _ = model.decode_step(tok, caches[0], length + i)
         assert moe.grouped_calls - calls in (2 * routed, 4 * routed)
+        assert moe_route.launches - routes in (routed, 2 * routed)
+        assert moe_route.combine_launches - combines == (
+            moe_route.launches - routes)
         with torch.no_grad():
             want = model._step(tok, caches[1], length + i)
         assert _rel(got, want) < 1e-3
@@ -380,6 +496,14 @@ def test_step_graphs_replay_the_layers_on_the_card():
     assert len(model._graphs.graphs) == 4
     (_, held, _), = model._graphs.held.values()
     assert all(a is b for a, b in zip(caches[0], held))
+    # a captured position again: its replay alone, one route and one
+    # combine launch a routed layer
+    counts = (moe.grouped_calls, moe_route.launches,
+              moe_route.combine_launches)
+    model.decode_step(tok, caches[0], length)
+    assert (moe.grouped_calls - counts[0], moe_route.launches - counts[1],
+            moe_route.combine_launches - counts[2]) == (2 * routed, routed,
+                                                         routed)
 
 
 @pytest.mark.cuda
